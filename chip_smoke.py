@@ -9,7 +9,8 @@ print one JSON line with their wall time:
   0 environment: torch, nvcc and the card's name and power limit
   1 build: the CUDA kernel from the sources in the checkout (nvcc -> .so)
   2 kernel vs plain: the fused-rounds kernel against rounds_plain on the card
-    at d=11, H=128, B=256 (R=8 bf16 and R=14 f32), with stated tolerances
+    at the main path's shapes, d=11, H=128, B=4096 (R=8 bf16 and R=14 f32),
+    with stated tolerances
   3 serve: a DecodeEngine on the trained d=11 weights answers requests of
     1, 1000 and 5000 syndromes; outputs equal the model's direct decode
   4 LER: ler_monte_carlo of the trained weights at p=0.05 on 65,536 shots,
@@ -41,6 +42,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASE_LIMIT_S = 180       # a phase that runs longer is taken for a hang
 D = 11                    # surface-code distance of the main path
+B = 4096                  # the main path's batch (serve microbatch, LER chunk)
 
 # benchmarks/LER_TABLE.md:30, v3_surface_d11/ema@40000, p=0.05, 1e6 shots,
 # measured on a TPU.  The per-qubit head's rate depends on the GEMM
@@ -246,7 +248,7 @@ def main() -> int:
             model.init_random(torch.Generator().manual_seed(11), bias_std=0.1)
             model = model.to(dev).eval()
             w = model.rounds.round_weights()
-            xc, xq, s = random_states(dg, 256, h, gen)
+            xc, xq, s = random_states(dg, B, h, gen)
             with torch.inference_mode():
                 kc, kq = fd.decoder_rounds(xc, xq, s, ops, w, rounds, dtype)
                 pc, pq = fd.rounds_plain(xc, xq, s, ops, w, rounds=rounds, state_dtype=dtype)
@@ -275,12 +277,15 @@ def main() -> int:
     launches = {}
     with Phase("serve") as info:
         fd.reset_launch_counts()
-        eng = DecodeEngine.from_npz(device="cuda", max_batch=4096)
+        eng = DecodeEngine.from_npz(device="cuda", max_batch=B)
         gen = torch.Generator(device=dev).manual_seed(2024)
         syn = sample_batch(gen, dg, 0.05, 6001).syndrome.cpu().numpy().astype("uint8")
         reqs = [syn[:1], syn[1:1001, :graph.n_checks], syn[1001:6001]]
-        outs = [eng.decode(r) for r in reqs]
-        torch.cuda.synchronize()
+        outs, request_ms = [], []
+        for r in reqs:            # decode() returns host arrays: it has synced
+            t0 = time.perf_counter()
+            outs.append(eng.decode(r))
+            request_ms.append((time.perf_counter() - t0) * 1e3)
         launches["serve"] = fd.launch_counts()["fused_rounds"]
         # the same requests through the model directly, chunk for chunk
         with torch.inference_mode():
@@ -290,9 +295,9 @@ def main() -> int:
                 full = np.zeros((r.shape[0], graph.n_checks_pad), np.float32)
                 full[:, :r.shape[1]] = r
                 want = []
-                for lo in range(0, r.shape[0], 4096):
-                    chunk = np.zeros((4096, graph.n_checks_pad), np.float32)
-                    part = full[lo:lo + 4096]
+                for lo in range(0, r.shape[0], B):
+                    chunk = np.zeros((B, graph.n_checks_pad), np.float32)
+                    part = full[lo:lo + B]
                     chunk[:len(part)] = part
                     out = eng.model(dg, torch.from_numpy(chunk).to(dev))
                     ex, ez = decode_corrections(out.qubit_logits)
@@ -303,12 +308,13 @@ def main() -> int:
         if launches["serve"] < 1:
             raise RuntimeError("the serve path did not launch the kernel")
         info.update(requests=[int(r.shape[0]) for r in reqs],
-                    widths=[int(r.shape[1]) for r in reqs], launches=launches["serve"])
+                    widths=[int(r.shape[1]) for r in reqs], request_ms=request_ms,
+                    launches=launches["serve"])
 
     with Phase("ler") as info:
         fd.reset_launch_counts()
         gen = torch.Generator(device=dev).manual_seed(2025)
-        ev = ler_monte_carlo(eng.model, graph, p=0.05, shots=65536, batch=4096,
+        ev = ler_monte_carlo(eng.model, graph, p=0.05, shots=65536, batch=B,
                              generator=gen, device="cuda")
         launches["ler"] = fd.launch_counts()["fused_rounds"]
         n = int(ev["shots"])
@@ -333,10 +339,11 @@ def main() -> int:
         gated = ("logical_vs_jax_f32", "qubit_vs_jax_f32", "logical_vs_table")
         if any(abs(z[k]) > 4 for k in gated):
             raise RuntimeError(f"LER off the reference: {info}")
+    trained = eng.model
     del eng
 
     with Phase("timing") as info:
-        b, rounds = 4096, 8
+        b, rounds = B, 8
         gen = torch.Generator(device=dev).manual_seed(5)
         model = GNNDecoder(ModelConfig(hidden=h, msg_hidden=h, rounds=rounds,
                                        qubit_head="pauli4", dtype="bfloat16"), k=1)
@@ -362,6 +369,19 @@ def main() -> int:
                     edges_per_s_kernel=edges / (k_ms / 1e3),
                     edges_per_s_plain=edges / (p_ms / 1e3),
                     edges_per_s_yardstick=edges / (y_ms / 1e3))
+        # the trained config's decode step (B=4096, R=14, f32): the whole
+        # forward beside its rounds kernel alone on same-shaped states
+        gen = torch.Generator(device=dev).manual_seed(6)
+        syn = sample_batch(gen, dg, 0.05, b).syndrome
+        wt = fd.RoundWeights(*[t.detach() for t in trained.rounds.round_weights()])
+        xc, xq, s = random_states(dg, b, h, gen)
+        r_t = trained.cfg.rounds
+        with torch.inference_mode():
+            fwd_ms = time_ms(lambda: trained(dg, syn))
+            rk_ms = time_ms(lambda: fd.decoder_rounds(xc, xq, s, ops, wt, r_t, "float32"))
+        info.update(trained_forward_ms=fwd_ms, trained_kernel_ms=rk_ms,
+                    trained_kernel_share=rk_ms / fwd_ms,
+                    trained_edges_per_s=b * graph.n_edges * r_t / (fwd_ms / 1e3))
         timing = dict(info)
 
     emit({"kernels": [{

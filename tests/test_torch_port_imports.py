@@ -57,7 +57,8 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(no_cuda):
         DecodeEngine.from_npz()
     cfg, model, graph = load_decoder(device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        ler_monte_carlo(model, build_code("surface", 3), p=0.1, shots=1, batch=1)
+        ler_monte_carlo(model, build_code("surface", 3), p=0.1, shots=1, batch=1,
+                        generator=torch.Generator())
     assert resolve_device("cpu").type == "cpu"
 
 

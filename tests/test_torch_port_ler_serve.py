@@ -104,8 +104,10 @@ def test_engine_padding_and_microbatches():
 def test_ler_monte_carlo_on_cpu_is_seeded():
     _, _, jg, eng = _small_pair()
     g = build_code("surface", 3)
-    a = ler_monte_carlo(eng.model, g, p=0.05, shots=40, batch=16, seed=3, device="cpu")
-    b = ler_monte_carlo(eng.model, g, p=0.05, shots=40, batch=16, seed=3, device="cpu")
+    run = lambda: ler_monte_carlo(eng.model, g, p=0.05, shots=40, batch=16,
+                                  generator=torch.Generator().manual_seed(3),
+                                  device="cpu")
+    a, b = run(), run()
     assert a == b
     assert a["shots"] == 48.0
     for k in ("ler", "ler_stderr", "ler_logical", "ler_hybrid", "syn_mismatch_rate"):

@@ -17,11 +17,13 @@ import pytest
 import torch
 
 from tpugnn.configs import CodeConfig, ExperimentConfig, ModelConfig
+from tpugnn.eval.ler import count_failures as jax_count_failures
 from tpugnn.eval.ler import decode_corrections as jax_decode_corrections
+from tpugnn.sampling import sample_batch as jax_sample_batch
 from tpugnn.tanner import build_code as jax_build_code
 from tpugnn.train.checkpoint import CheckpointManager
 from tpugnn.train.loop import init_state
-from tpugnn_torch.eval import decode_corrections
+from tpugnn_torch.eval import count_failures, decode_corrections
 from tpugnn_torch.models.convert import (
     DEFAULT_WEIGHTS,
     flatten_tree,
@@ -29,6 +31,7 @@ from tpugnn_torch.models.convert import (
     load_npz,
     read_meta,
 )
+from tpugnn_torch.sampling import SyndromeBatch
 
 torch.set_num_threads(1)
 
@@ -106,3 +109,23 @@ def test_d11_forward_matches_jax(restored):
     for a, b in zip(decode_corrections(got.qubit_logits),
                     jax_decode_corrections(ref.qubit_logits)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_d11_failures_equal_jax_on_shared_shots(restored):
+    """Shot for shot, the port's decode of the trained weights fails where
+    the JAX package's does (both heads, p=0.05, JAX-sampled shots)."""
+    _, jg, jmodel, r = restored
+    b = jax_sample_batch(jax.random.PRNGKey(777), jg, 0.05, 64)
+    ref_out = jmodel.apply(r.params, jg, b.syndrome)
+    ex, ez = jax_decode_corrections(ref_out.qubit_logits)
+    ref = jax_count_failures(jg, b, ex, ez, ref_out.logical_logits)
+    _, model, graph = load_decoder(device="cpu")
+    dg = graph.to("cpu")
+    tb = SyndromeBatch(*(torch.from_numpy(np.array(x)) for x in b))
+    with torch.no_grad():
+        out = model(dg, tb.syndrome)
+    got = count_failures(dg, tb, *decode_corrections(out.qubit_logits),
+                         out.logical_logits)
+    assert 0 < float(np.sum(ref["fail_qubit"])) < 64
+    for k in ("fail_qubit", "fail_logical", "fail_hybrid"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]), err_msg=k)

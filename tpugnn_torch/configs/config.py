@@ -7,7 +7,6 @@ and mesh configs are left out until the port trains.
 
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass
 
 __all__ = ["CodeConfig", "ModelConfig", "ExperimentConfig"]
@@ -44,6 +43,3 @@ class ModelConfig:
 class ExperimentConfig:
     code: CodeConfig = CodeConfig()
     model: ModelConfig = ModelConfig()
-
-    def replace(self, **kw) -> "ExperimentConfig":
-        return dataclasses.replace(self, **kw)

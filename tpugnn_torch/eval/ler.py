@@ -61,21 +61,17 @@ def count_failures(graph: TannerGraph, batch: SyndromeBatch, ex_hat: torch.Tenso
 
 @torch.inference_mode()
 def ler_monte_carlo(model, graph: TannerGraph, *, p: float, shots: int, batch: int,
-                    generator: torch.Generator | None = None, seed: int = 0,
-                    device="cuda") -> dict[str, float]:
+                    generator: torch.Generator, device="cuda") -> dict[str, float]:
     """Monte-Carlo LER of ``model`` (a ``GNNDecoder``) over ``shots`` episodes.
 
     ``graph`` is the NumPy graph; it and the model are moved to ``device``.
-    Shots come from ``generator`` (a ``torch.Generator`` on ``device``), or
-    from a new one seeded with ``seed``.  Returns the JAX version's keys:
+    Shots come from ``generator``, a ``torch.Generator`` on ``device``.  Returns the JAX version's keys:
     ``*_rate`` per failure kind, ``ler`` (per-qubit head) and its binomial
     ``ler_stderr``, ``shots``, ``ler_logical``, ``ler_hybrid``.
     """
     dev = resolve_device(device)
     dg = graph.to(dev)
     model = model.to(dev)
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(seed)
     n_chunks = max(1, (shots + batch - 1) // batch)
     total: dict[str, torch.Tensor] = {}
     for _ in range(n_chunks):

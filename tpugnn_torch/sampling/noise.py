@@ -44,9 +44,6 @@ def sample_depolarizing(generator: torch.Generator, graph: TannerGraph,
     qm = graph.qubit_mask
     u = torch.rand((batch, graph.n_qubits_pad), generator=generator,
                    device=qm.device, dtype=torch.float32)
-    if graph.rate_scale is not None:
-        ex = (u < p * graph.rate_scale).float()
-        return ex * qm, torch.zeros_like(ex)
     ex = (u < 2.0 * p / 3.0).float()
     ez = ((u >= p / 3.0) & (u < p)).float()
     return ex * qm, ez * qm

@@ -79,15 +79,14 @@ class TannerGraph:
     logicals_z: object      # f32[k, n_pad]
     pure_ex: object         # f32[n_pad, m_pad]
     pure_ez: object         # f32[n_pad, m_pad]
-    rate_scale: object = None  # None, or f32[n_pad] per-qubit rate multiplier
+    # per-qubit noise-rate multiplier of spacetime graphs, which are not
+    # ported yet: always None here
+    rate_scale: object = None
 
     @property
     def h_inc(self):
         """f32[m_pad, n_pad] 0/1 incidence."""
         return self.h_syn_ez + self.h_syn_ex
-
-    def edges_per_sample(self) -> int:
-        return self.n_edges
 
     @classmethod
     def array_fields(cls) -> tuple[str, ...]:
@@ -114,8 +113,6 @@ def build_tanner_graph(
     name: str,
     pad_nodes: int = 8,
     pad_edges: int = 128,
-    logicals: tuple[np.ndarray, np.ndarray] | None = None,
-    rate_scale: np.ndarray | None = None,
 ) -> TannerGraph:
     """Build the padded graph from a CSS pair ``hx`` [mx, n], ``hz`` [mz, n]."""
     hx = np.asarray(hx, dtype=np.uint8).reshape(-1, hx.shape[-1]) if hx.size else np.zeros((0, hz.shape[-1]), np.uint8)
@@ -128,12 +125,7 @@ def build_tanner_graph(
     if mx and mz and ((hx @ hz.T) % 2).any():
         raise ValueError(f"{name}: Hx Hz^T != 0, not CSS")
 
-    if logicals is not None:
-        lx, lz = (np.asarray(v, np.uint8) for v in logicals)
-        if lx.shape != lz.shape or lx.shape[1] != n:
-            raise ValueError(f"{name}: logicals must both be [k, {n}]")
-    else:
-        lx, lz = f2.css_logicals(hx, hz)
+    lx, lz = f2.css_logicals(hx, hz)
     k = lx.shape[0]
     t_ez = f2.solve_right_inverse(hx)
     t_ex = f2.solve_right_inverse(hz)
@@ -225,6 +217,4 @@ def build_tanner_graph(
         logicals_z=lz_pad,
         pure_ex=pure_ex,
         pure_ez=pure_ez,
-        rate_scale=(None if rate_scale is None
-                    else np.pad(np.asarray(rate_scale, np.float32), (0, n_pad - n))),
     )
