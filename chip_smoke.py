@@ -46,8 +46,10 @@ B = 4096                  # the main path's batch (serve microbatch, LER chunk)
 
 # benchmarks/LER_TABLE.md:30, v3_surface_d11/ema@40000, p=0.05, 1e6 shots,
 # measured on a TPU.  The per-qubit head's rate depends on the GEMM
-# precision (a TPU rounds f32 GEMM operands to bf16 by default; the port and
-# the JAX package on the CPU run them in f32 and agree shot for shot), so the
+# precision: a TPU runs f32 GEMMs in one bf16 pass by default, and
+# scripts/jax_ler_precision.py shows that the JAX package at that precision
+# lands on the table's per-qubit rate while at f32 it does not.  The port and
+# the JAX package on the CPU run f32 and agree shot for shot, so the
 # per-qubit head is gated against the JAX package's f32 LER that
 # scripts/export_torch_weights.py records in the weights file, and its z
 # against this table is reported.  The logical head is gated against both.
@@ -130,9 +132,19 @@ def time_ms(fn, warmup: int = 3, iters: int = 15) -> float:
 def rounds_flops(graph, h: int) -> float:
     """Operations one sample's round needs with folded weights: ten [rows, H]
     x [H, H] GEMMs per side pair (5 over check rows, 5 over qubit rows) and an
-    add and a max per real slot and column in each direction."""
-    m, n = graph.n_checks_pad, graph.n_qubits_pad
-    return 2.0 * h * h * 5 * (m + n) + 2.0 * 2 * graph.n_edges * h
+    add and a max per real slot and column in each direction.  Only real
+    rows count: nothing reads a padded row's state."""
+    rows = graph.n_checks + graph.n_qubits
+    return 2.0 * h * h * 5 * rows + 2.0 * 2 * graph.n_edges * h
+
+
+def rounds_bytes(graph, batch: int, h: int, itemsize: int) -> float:
+    """Bytes the rounds must move: the real rows' states read once and
+    written once, the syndrome, the folded weights and one int32 source index
+    per real slot in each direction."""
+    rows = graph.n_checks + graph.n_qubits
+    return (2 * batch * rows * h * itemsize + batch * graph.n_checks * 4
+            + 10 * h * h * itemsize + 14 * h * 4 + 2 * graph.n_edges * 4)
 
 
 def yardstick_rounds(xc, xq, syn, dg, w, rounds: int, dtype):
@@ -357,9 +369,7 @@ def main() -> int:
                                                    state_dtype="bfloat16"))
             y_ms = time_ms(lambda: yardstick_rounds(xc, xq, s, dg, w, rounds, torch.bfloat16))
         flops = rounds_flops(graph, h) * b * rounds
-        nbytes = (2 * b * (graph.n_checks_pad + graph.n_qubits_pad) * h * 2  # states in + out
-                  + b * graph.n_checks_pad * 4 + 10 * h * h * 2 + 14 * h * 4
-                  + 4 * (ops[0].numel() + ops[3].numel()))
+        nbytes = rounds_bytes(graph, b, h, 2)
         t_ops, t_bytes = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_HBM_BPS * 1e3
         edges = b * graph.n_edges * rounds
         info.update(batch=b, rounds=rounds, kernel_ms=k_ms, plain_ms=p_ms,
@@ -379,7 +389,11 @@ def main() -> int:
         with torch.inference_mode():
             fwd_ms = time_ms(lambda: trained(dg, syn))
             rk_ms = time_ms(lambda: fd.decoder_rounds(xc, xq, s, ops, wt, r_t, "float32"))
+        flops_t = rounds_flops(graph, h) * b * r_t
         info.update(trained_forward_ms=fwd_ms, trained_kernel_ms=rk_ms,
+                    trained_gflop=flops_t / 1e9,
+                    trained_bound_ms=max(flops_t / H100_F32_FLOPS,
+                                         rounds_bytes(graph, b, h, 4) / H100_HBM_BPS) * 1e3,
                     trained_kernel_share=rk_ms / fwd_ms,
                     trained_edges_per_s=b * graph.n_edges * r_t / (fwd_ms / 1e3))
         timing = dict(info)

@@ -181,3 +181,35 @@ def test_kernel_path_refuses_other_devices():
                                                       16, 1, seed=2)))
     with pytest.raises(ValueError, match="cpu or cuda"):
         fd.decoder_rounds(xc, xq, syn, fd.make_operators(tg), tw, 1)
+
+
+class _Built(Exception):
+    """Raised by the stubbed library loader: the call got past its checks."""
+
+
+@pytest.mark.parametrize("case", ["state_grad", "weight_grad", "no_grad"])
+def test_kernel_path_refuses_autograd(case, monkeypatch):
+    """The CUDA kernel has no backward: with grad enabled and an operand that
+    requires grad, the kernel path raises before it builds or launches
+    anything; under no_grad it goes on to the build (stubbed here)."""
+    from tpugnn_torch.kernels import _build
+
+    def stub():
+        raise _Built
+
+    monkeypatch.setattr(_build, "load_library", stub)
+    tg = build_code("surface", 3).to("cpu")
+    _, tw = _both(_weights(128, seed=1))
+    xc, xq, syn = _t(*_states(tg.n_checks_pad, tg.n_qubits_pad, 128, 1, seed=2))
+    ops = fd.make_operators(tg)
+    if case == "state_grad":
+        xc.requires_grad_(True)
+    elif case == "weight_grad":
+        tw.uc_w1.requires_grad_(True)
+    if case == "no_grad":
+        tw.uc_w1.requires_grad_(True)
+        with torch.no_grad(), pytest.raises(_Built):
+            fd._rounds_cuda(xc, xq, syn, ops, tw, 1, "float32")
+    else:
+        with pytest.raises(RuntimeError, match="no backward"):
+            fd._rounds_cuda(xc, xq, syn, ops, tw, 1, "float32")

@@ -57,10 +57,9 @@ def restored(tmp_path_factory):
 
 def test_npz_equals_fresh_restore(restored):
     _, _, _, r = restored
-    cfg, tree, step = load_npz(DEFAULT_WEIGHTS)
+    cfg, got, step = load_npz(DEFAULT_WEIGHTS)
     assert step == int(r.step) == 40000
     want = flatten_tree(jax.tree.map(np.asarray, r.params))
-    got = flatten_tree(tree)
     assert set(got) == set(want)
     for k in want:
         assert got[k].dtype == np.float32
@@ -68,13 +67,13 @@ def test_npz_equals_fresh_restore(restored):
 
 
 def test_npz_config_and_size():
-    cfg, tree, _ = load_npz(DEFAULT_WEIGHTS)
+    cfg, flat, _ = load_npz(DEFAULT_WEIGHTS)
     m = cfg.model
     assert (cfg.code.family, cfg.code.distance) == ("surface", 11)
     assert (m.hidden, m.msg_hidden, m.rounds, m.qubit_head, m.dtype, m.backend) == \
         (128, 128, 14, "pauli4", "float32", "fused")
     assert os.path.getsize(DEFAULT_WEIGHTS) <= 2 * 1024 * 1024
-    assert sum(v.size for v in flatten_tree(tree).values()) == 267654
+    assert sum(v.size for v in flat.values()) == 267654
 
 
 def test_npz_records_the_jax_f32_reference_ler():

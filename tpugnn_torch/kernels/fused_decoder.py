@@ -192,7 +192,9 @@ def decoder_rounds(xc, xq, syn, operators, weights: RoundWeights, rounds: int,
                    state_dtype: str = "float32"):
     """R fused rounds; returns ``(xc, xq)`` in f32, batch layout.
 
-    CPU tensors take :func:`rounds_plain`; CUDA tensors take the kernel.
+    CPU tensors take :func:`rounds_plain`; CUDA tensors take the kernel,
+    which has no backward: with grad enabled and an operand that requires
+    grad, it raises rather than return states cut off from the graph.
     """
     if xc.device.type == "cpu":
         return rounds_plain(xc, xq, syn, operators, weights, rounds=rounds,
@@ -205,6 +207,13 @@ def decoder_rounds(xc, xq, syn, operators, weights: RoundWeights, rounds: int,
 def _rounds_cuda(xc, xq, syn, operators, weights, rounds, state_dtype):
     from tpugnn_torch.kernels._build import load_library
 
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in (xc, xq, syn, *weights)):
+        raise RuntimeError(
+            "the fused-rounds CUDA kernel has no backward: call it under "
+            "torch.no_grad() or torch.inference_mode(), or train on the CPU "
+            "(rounds_plain)")
     dt = STATE_DTYPES[state_dtype]
     src_c, mask_c, _, src_q, mask_q, _ = operators
     b, m, h = xc.shape

@@ -6,8 +6,9 @@ nested dicts of NumPy arrays, onto the state dict of
 :class:`tpugnn_torch.models.decoder.GNNDecoder`, whose parameters keep the
 flax names and layouts (Dense kernels are [in, out]).  ``load_npz`` reads a
 weights file written by ``scripts/export_torch_weights.py``: the tree
-flattened to ``'/'``-joined keys plus a ``__meta__`` JSON record of the
-checkpoint step and config.  Reading needs NumPy only.
+flattened to ``'/'``-joined keys, which ``state_dict_from_flat`` maps onto
+the module, plus a ``__meta__`` JSON record of the checkpoint step and
+config.  Reading needs NumPy only.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 
 from tpugnn_torch.configs import CodeConfig, ExperimentConfig, ModelConfig
 
-__all__ = ["flatten_tree", "unflatten_tree", "params_from_flax", "load_npz",
+__all__ = ["flatten_tree", "state_dict_from_flat", "params_from_flax", "load_npz",
            "read_meta", "load_decoder", "DEFAULT_WEIGHTS"]
 
 DEFAULT_WEIGHTS = os.path.join(
@@ -40,24 +41,17 @@ def flatten_tree(tree: dict, prefix: str = "") -> dict:
     return out
 
 
-def unflatten_tree(flat: dict) -> dict:
-    tree: dict = {}
-    for key, v in flat.items():
-        node = tree
-        parts = key.split("/")
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = v
-    return tree
+def state_dict_from_flat(flat: dict) -> dict:
+    """``{'params/a/b': array}`` (the flattened flax tree, with or without
+    the top-level ``'params'``) -> a state dict of ``GNNDecoder``."""
+    return {k.removeprefix("params/").replace("/", "."):
+            torch.tensor(np.asarray(v, np.float32)) for k, v in flat.items()}
 
 
 def params_from_flax(tree: dict) -> dict:
     """Flax ``'fused'`` parameter tree (nested dicts of arrays, with or
     without the top-level ``'params'``) -> a state dict of ``GNNDecoder``."""
-    if set(tree) == {"params"}:
-        tree = tree["params"]
-    return {k.replace("/", "."): torch.tensor(np.asarray(v, np.float32))
-            for k, v in flatten_tree(tree).items()}
+    return state_dict_from_flat(flatten_tree(tree))
 
 
 def read_meta(path: str = DEFAULT_WEIGHTS) -> dict:
@@ -68,13 +62,13 @@ def read_meta(path: str = DEFAULT_WEIGHTS) -> dict:
 
 
 def load_npz(path: str = DEFAULT_WEIGHTS) -> tuple[ExperimentConfig, dict, int]:
-    """Read a weights file: ``(config, flax tree of NumPy arrays, step)``."""
+    """Read a weights file: ``(config, {'params/a/b': NumPy array}, step)``."""
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(str(z["__meta__"]))
         flat = {k: z[k] for k in z.files if k != "__meta__"}
     cfg = ExperimentConfig(code=CodeConfig(**meta["code"]),
                            model=ModelConfig(**meta["model"]))
-    return cfg, unflatten_tree(flat), int(meta["step"])
+    return cfg, flat, int(meta["step"])
 
 
 def load_decoder(path: str = DEFAULT_WEIGHTS, device="cuda"):
@@ -85,9 +79,9 @@ def load_decoder(path: str = DEFAULT_WEIGHTS, device="cuda"):
     from tpugnn_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
-    cfg, tree, _ = load_npz(path)
+    cfg, flat, _ = load_npz(path)
     graph = build_code(cfg.code.family, cfg.code.distance,
                        pad_nodes=cfg.code.pad_nodes, pad_edges=cfg.code.pad_edges)
     model = GNNDecoder(cfg.model, k=graph.k)
-    model.load_state_dict(params_from_flax(tree))
+    model.load_state_dict(state_dict_from_flat(flat))
     return cfg, model.to(dev).eval(), graph
