@@ -7,6 +7,7 @@ tests/kernels/test_fused_decoder.py: f32 throughout, summed in another order
 (the port folds wo @ ua; the TPU kernel reassociates its slot sums).
 """
 
+import contextlib
 from types import SimpleNamespace
 
 import jax
@@ -76,6 +77,37 @@ def test_plain_matches_rounds_xla_and_pallas_interpret(d, rounds):
     for g, r, p in zip(got, ref, pal):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=ATOL, rtol=RTOL)
         np.testing.assert_allclose(g.numpy(), np.asarray(p), atol=ATOL, rtol=RTOL)
+
+
+# bf16 states against the Pallas kernel in interpret mode.  Both round the
+# states, slot sums, update hiddens and the syndrome term to bf16 at the same
+# points; they differ only in f32 summation order, which flips a bf16
+# rounding now and then (1 ulp = 2^-8 relative).  A flip travels through
+# later rounds, so the bounds are on the mean and on the share of states that
+# differ at all, not on the max.
+BF16_MEAN_ABS = 1e-4
+BF16_SHARE_DIFFERENT = 0.01
+
+
+@pytest.mark.parametrize("d", [3, 5])
+def test_bf16_plain_matches_pallas_interpret(d):
+    jg = jax_build_code("surface", d)
+    tg = build_code("surface", d).to("cpu")
+    h, rounds = 32, 4
+    w = _weights(h, seed=20 + d)
+    w["uc_s"] = (0.7 * np.random.default_rng(d).standard_normal((1, h))).astype(np.float32)
+    jw, tw = _both(w)
+    xc, xq, syn = _states(jg.n_checks_pad, jg.n_qubits_pad, h, 8, seed=30 + d,
+                          check_mask=np.asarray(jg.check_mask))
+    got = fd.rounds_plain(*_t(xc, xq, syn), fd.make_operators(tg), tw, rounds=rounds,
+                          state_dtype="bfloat16")
+    pal = jfd.decoder_rounds(jnp.asarray(xc), jnp.asarray(xq), jnp.asarray(syn),
+                             jfd.make_operators(jg), jw, rounds=rounds, interpret=True,
+                             compute_dtype="bfloat16")
+    for g, p in zip(got, pal):
+        diff = np.abs(g.numpy() - np.asarray(p, np.float32))
+        assert diff.mean() <= BF16_MEAN_ABS, diff.mean()
+        assert (diff > 0).mean() <= BF16_SHARE_DIFFERENT, (diff > 0).mean()
 
 
 def test_plain_matches_rounds_xla_on_lopsided_graph():
@@ -183,33 +215,48 @@ def test_kernel_path_refuses_other_devices():
         fd.decoder_rounds(xc, xq, syn, fd.make_operators(tg), tw, 1)
 
 
-class _Built(Exception):
-    """Raised by the stubbed library loader: the call got past its checks."""
+class _Launched(Exception):
+    """Raised by the stubbed library: which C entry point the call reached."""
 
 
-@pytest.mark.parametrize("case", ["state_grad", "weight_grad", "no_grad"])
-def test_kernel_path_refuses_autograd(case, monkeypatch):
-    """The CUDA kernel has no backward: with grad enabled and an operand that
-    requires grad, the kernel path raises before it builds or launches
-    anything; under no_grad it goes on to the build (stubbed here)."""
+class _StubLibrary:
+    def __init__(self, name):
+        self.name = name
+
+    def fused_rounds_smem_bytes(self, *args):
+        return 0
+
+    def __getattr__(self, entry):
+        def launch(*args):
+            raise _Launched(entry)
+        return launch
+
+
+@pytest.mark.parametrize("case,entry", [
+    ("state_grad", "fused_rounds_stash_launch"),     # K2a, in FusedRoundsFn
+    ("weight_grad", "fused_rounds_stash_launch"),
+    ("no_grad", "fused_rounds_launch"),              # K1
+    ("inference_mode", "fused_rounds_launch"),
+])
+def test_kernel_path_routes_autograd(case, entry, monkeypatch):
+    """With grad enabled and an operand that requires grad, the CUDA path
+    goes through the autograd Function, whose forward is K2a; under no_grad
+    or inference_mode it launches K1.  The library loader is stubbed, so the
+    call stops at the C entry point it reaches (with CPU tensors standing in
+    for the card's, and no stream)."""
     from tpugnn_torch.kernels import _build
 
-    def stub():
-        raise _Built
-
-    monkeypatch.setattr(_build, "load_library", stub)
+    monkeypatch.setattr(_build, "load_library", _StubLibrary)
+    monkeypatch.setattr(fd, "_cuda_stream", lambda dev: contextlib.nullcontext(0))
     tg = build_code("surface", 3).to("cpu")
     _, tw = _both(_weights(128, seed=1))
     xc, xq, syn = _t(*_states(tg.n_checks_pad, tg.n_qubits_pad, 128, 1, seed=2))
     ops = fd.make_operators(tg)
     if case == "state_grad":
         xc.requires_grad_(True)
-    elif case == "weight_grad":
-        tw.uc_w1.requires_grad_(True)
-    if case == "no_grad":
-        tw.uc_w1.requires_grad_(True)
-        with torch.no_grad(), pytest.raises(_Built):
-            fd._rounds_cuda(xc, xq, syn, ops, tw, 1, "float32")
     else:
-        with pytest.raises(RuntimeError, match="no backward"):
-            fd._rounds_cuda(xc, xq, syn, ops, tw, 1, "float32")
+        tw.uc_w1.requires_grad_(True)
+    ctx = {"no_grad": torch.no_grad, "inference_mode": torch.inference_mode}.get(
+        case, torch.enable_grad)
+    with ctx(), pytest.raises(_Launched, match=entry):
+        fd._rounds_cuda(xc, xq, syn, ops, tw, 1, "float32")

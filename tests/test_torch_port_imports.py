@@ -62,6 +62,18 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(no_cuda):
     assert resolve_device("cpu").type == "cpu"
 
 
+def test_train_needs_cuda_unless_asked_for_cpu(no_cuda, tmp_path):
+    """train() defaults to the card and raises without one, before it
+    builds, samples or writes anything."""
+    from tpugnn_torch.configs import ExperimentConfig, TrainConfig
+    from tpugnn_torch.train import train
+
+    cfg = ExperimentConfig(train=TrainConfig(steps=1, checkpoint_dir=str(tmp_path / "c")))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(cfg)
+    assert not (tmp_path / "c").exists()
+
+
 def test_smoke_refuses_without_cuda(no_cuda, capsys):
     import importlib.util
 
@@ -74,8 +86,11 @@ def test_smoke_refuses_without_cuda(no_cuda, capsys):
 
 
 def test_build_is_lazy():
-    """Importing the kernel modules builds and loads nothing."""
+    """Importing the kernel and training modules builds and loads nothing."""
+    import tpugnn_torch.kernels.fused_backward  # noqa: F401
+    import tpugnn_torch.train  # noqa: F401
     from tpugnn_torch.kernels import _build
 
     assert _build.load_library.cache_info().currsize == 0
+    assert set(_build.SOURCES) == {"fused_rounds", "fused_backward"}
     assert "-gencode" in _build.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

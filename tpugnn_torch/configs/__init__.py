@@ -1,3 +1,3 @@
-from tpugnn_torch.configs.config import CodeConfig, ExperimentConfig, ModelConfig
+from tpugnn_torch.configs.config import CodeConfig, ExperimentConfig, ModelConfig, TrainConfig
 
-__all__ = ["CodeConfig", "ExperimentConfig", "ModelConfig"]
+__all__ = ["CodeConfig", "ExperimentConfig", "ModelConfig", "TrainConfig"]

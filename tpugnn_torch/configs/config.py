@@ -1,15 +1,17 @@
-"""Config dataclasses of the decoder (the JAX package's, minus training).
+"""Config dataclasses of the decoder and its training (the JAX package's).
 
 Plain frozen dataclasses with the same names, fields and defaults as
-``tpugnn.configs.config`` for everything the decode path reads; the training
-and mesh configs are left out until the port trains.
+``tpugnn.configs.config`` for everything the decode and training paths read;
+the mesh config is left out until the port runs on several cards.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from typing import Optional, Tuple
 
-__all__ = ["CodeConfig", "ModelConfig", "ExperimentConfig"]
+__all__ = ["CodeConfig", "ModelConfig", "TrainConfig", "ExperimentConfig"]
 
 
 @dataclass(frozen=True)
@@ -40,6 +42,40 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class TrainConfig:
+    """Training run (``tpugnn.configs.config.TrainConfig``)."""
+
+    batch: int = 256
+    steps: int = 2000
+    lr: float = 1e-3
+    warmup_steps: int = 100
+    weight_decay: float = 1e-4
+    seed: int = 0
+    loss_qubit_weight: float = 1.0
+    loss_logical_weight: float = 1.0
+    eval_every: int = 500
+    eval_shots: int = 4096
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 1000
+    metrics_jsonl: Optional[str] = None   # one JSON line per evaluation
+    profile_dir: Optional[str] = None     # torch.profiler trace of steps 10..14
+    # linear noise curriculum (p_from, p_to, over_steps); None = fixed code.p
+    p_curriculum: Optional[Tuple[float, float, int]] = None
+    # per-shot rate p ~ Uniform[lo, hi]; exclusive with p_curriculum
+    p_mix: Optional[Tuple[float, float]] = None
+    # EMA of the parameters for evaluation and serving (e.g. 0.999)
+    ema_decay: Optional[float] = None
+    # warm start: parameters only (step 0, fresh optimizer) from a port
+    # checkpoint directory or an exported weights file (.npz), when
+    # checkpoint_dir holds no checkpoint of its own
+    init_from: Optional[str] = None
+
+
+@dataclass(frozen=True)
 class ExperimentConfig:
     code: CodeConfig = CodeConfig()
     model: ModelConfig = ModelConfig()
+    train: TrainConfig = TrainConfig()
+
+    def replace(self, **kw) -> "ExperimentConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels: ``nvcc`` -> shared library -> ctypes.
 
 The sources in ``csrc/`` have a plain C interface (no PyTorch headers), so a
-cold build takes seconds.  The library goes to ``tpugnn_torch/_build/``
-(ignored by git), named by a hash of the sources, the flags and the
-compiler's version line, under a file lock so that concurrent processes build
-it once.  Nothing here runs at import time.
+cold build takes seconds.  Each source becomes its own library in
+``tpugnn_torch/_build/`` (ignored by git), named by a hash of the source, the
+shared header, the flags and the compiler's version line.  The ``nvcc``
+processes of a build all start together, under a file lock so that
+concurrent processes build a library once.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -18,14 +19,31 @@ import shutil
 import subprocess
 import time
 
-__all__ = ["NVCC_FLAGS", "build_library", "load_library", "nvcc_path"]
+__all__ = ["NVCC_FLAGS", "SOURCES", "build_libraries", "load_library", "nvcc_path"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-SOURCES = ("fused_rounds.cu",)
+# library name -> source; every source includes the header
+SOURCES = {"fused_rounds": "fused_rounds.cu", "fused_backward": "fused_backward.cu"}
+HEADER = "rounds_common.cuh"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-lineinfo", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry points per library: name -> (argument types, result type)
+_SIGNATURES = {
+    "fused_rounds": {
+        "fused_rounds_smem_bytes": ([_I] * 5, ctypes.c_longlong),
+        "fused_rounds_launch": ([_I] + [_P] * 9 + [_I] * 6 + [_P], _I),
+        "fused_rounds_stash_launch": ([_I] + [_P] * 11 + [_I] * 6 + [_P], _I),
+    },
+    "fused_backward": {
+        "fused_rounds_bwd_smem_bytes": ([_I] * 5, ctypes.c_longlong),
+        "fused_rounds_bwd_scratch_floats": ([_I] * 2, ctypes.c_longlong),
+        "fused_rounds_bwd_launch": ([_I] + [_P] * 17 + [_I] * 7 + [_P], _I),
+    },
+}
 
 
 def nvcc_path() -> str:
@@ -36,53 +54,66 @@ def nvcc_path() -> str:
     return path
 
 
-def build_library() -> tuple[str, float, str]:
-    """Build the kernels' library if it is not built yet.
+def _library_path(name: str, version: str) -> str:
+    h = hashlib.sha256()
+    for f in (SOURCES[name], HEADER):
+        with open(os.path.join(_CSRC, f), "rb") as fh:
+            h.update(fh.read())
+    h.update(" ".join(NVCC_FLAGS + (version,)).encode())
+    return os.path.join(_BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
-    Returns ``(path, seconds spent building, compiler log)``; seconds is 0
-    and the log empty when the library was already there.
+
+def build_libraries(names=None) -> dict:
+    """Build the named libraries (all by default) that are not built yet,
+    one ``nvcc`` each, all started together.
+
+    Returns ``{name: (path, seconds spent building, compiler log)}``;
+    seconds is 0 and the log empty for a library that was already there.
     """
+    names = list(SOURCES) if names is None else list(names)
     nvcc = nvcc_path()
     version = subprocess.run([nvcc, "--version"], check=True, capture_output=True,
                              text=True).stdout.strip().splitlines()[-1]
-    h = hashlib.sha256()
-    for name in SOURCES:
-        with open(os.path.join(_CSRC, name), "rb") as f:
-            h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS + (version,)).encode())
-    lib = os.path.join(_BUILD_DIR, f"libtpugnn_torch_{h.hexdigest()[:16]}.so")
-    if os.path.exists(lib):
-        return lib, 0.0, ""
+    out = {n: (_library_path(n, version), 0.0, "") for n in names}
+    if all(os.path.exists(p) for p, _, _ in out.values()):
+        return out
     os.makedirs(_BUILD_DIR, exist_ok=True)
     with open(os.path.join(_BUILD_DIR, ".lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
-            if os.path.exists(lib):
-                return lib, 0.0, ""
-            tmp = f"{lib}.{os.getpid()}.tmp"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-                   *(os.path.join(_CSRC, s) for s in SOURCES)]
+            procs = {}
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-            os.replace(tmp, lib)
-            return lib, seconds, proc.stdout + proc.stderr
+            for n in names:
+                lib = out[n][0]
+                if os.path.exists(lib):
+                    continue
+                tmp = f"{lib}.{os.getpid()}.tmp"
+                cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, SOURCES[n])]
+                procs[n] = (cmd, tmp, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            failed = []
+            for n, (cmd, tmp, proc) in procs.items():
+                log = proc.communicate()[0]
+                seconds = time.perf_counter() - t0
+                if proc.returncode != 0:
+                    failed.append(f"{' '.join(cmd)} ({proc.returncode}):\n{log}")
+                    continue
+                os.replace(tmp, out[n][0])
+                out[n] = (out[n][0], seconds, log)
+            if failed:
+                raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+            return out
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """The built library with its C entry points' signatures set."""
-    path, _, _ = build_library()
+def load_library(name: str) -> ctypes.CDLL:
+    """The built library ``name`` with its C entry points' signatures set."""
+    path, _, _ = build_libraries([name])[name]
     lib = ctypes.CDLL(path)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_rounds_smem_bytes.argtypes = [i, i, i, i, i]
-    lib.fused_rounds_smem_bytes.restype = ctypes.c_longlong
-    lib.fused_rounds_launch.argtypes = [i, p, p, p, p, p, p, p, p, p,
-                                        i, i, i, i, i, i, p]
-    lib.fused_rounds_launch.restype = i
+    for fn, (args, res) in _SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = args
+        f.restype = res
     return lib

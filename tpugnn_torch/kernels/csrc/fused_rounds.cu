@@ -1,7 +1,12 @@
 // R weight-tied message rounds of the GNN decoder in one launch (Hopper).
 //
-// Replaces the TPU kernel tpugnn/kernels/fused_decoder.py::decoder_rounds_tiled
-// (pl.pallas_call at :637, body _make_kernel at :187).  The function is the
+// K1 replaces the TPU kernel tpugnn/kernels/fused_decoder.py::decoder_rounds_tiled
+// (pl.pallas_call at :637, body _make_kernel at :187).  K2a, the same kernel
+// with its STASH flag, replaces the forward-with-stash kernel of training,
+// tpugnn/kernels/fused_backward.py::make_kernel_vjp_rounds._fwd (pl.pallas_call
+// at :575, body _make_fwd_kernel at :233): at the start of every round it
+// also copies the round's input states to the stash [R, B, rows, H], the
+// only residuals the backward (fused_backward.cu) reads.  The function is the
 // one tpugnn_torch/kernels/fused_decoder.py::rounds_plain computes; read that
 // docstring for the math.  The TPU schedule is not copied: the slot gather
 // reads source rows by index from shared memory instead of the one-hot
@@ -28,54 +33,11 @@
 // loops can reach.  It runs on CUDA cores (no mma/wgmma), one block per SM by
 // shared memory: a first version that is right, not yet a fast one.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "rounds_common.cuh"
 
 namespace {
 
-constexpr int H = 128;          // node state width = message width
-constexpr int THREADS = 256;    // 8 warps
-constexpr int CH = 32;          // rows per chunk: 8 warps x 4 rows
-constexpr int KS = 16;          // weight rows staged per slab
-constexpr int XLD = H + 4;      // padded row stride (floats) of chunk buffers
-constexpr int NMAT = 5;         // matrices per direction in the weight pack
-constexpr int NVEC = 7;         // vectors per direction in the vector pack
-enum { M_WD = 0, M_UX = 1, M_WS = 2, M_WF = 3, M_W1 = 4 };
-enum { V_B0 = 0, V_BOA = 1, V_UCS = 2, V_UB0 = 3, V_UB1 = 4, V_LNS = 5, V_LNB = 6 };
-
-__device__ __forceinline__ void load4(const float* p, float v[4]) {
-  float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
-  uint2 q = *reinterpret_cast<const uint2*>(p);
-  float2 a = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&q.x));
-  float2 b = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&q.y));
-  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-}
-__device__ __forceinline__ void store4(float* p, const float v[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 q;
-  q.x = *reinterpret_cast<uint32_t*>(&a);
-  q.y = *reinterpret_cast<uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = q;
-}
-// round an f32 value to the storage type and back
-__device__ __forceinline__ float rnd(float x, float) { return x; }
-__device__ __forceinline__ float rnd(float x, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+using namespace rounds;
 
 template <typename T>
 struct Smem {
@@ -87,8 +49,6 @@ struct Smem {
   int* idx_c;   // [M][Dc] source qubit per slot, -1 for a masked slot
   int* idx_q;   // [N][Dq]
 };
-
-__host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~size_t(15); }
 
 template <typename T>
 __host__ __device__ inline size_t smem_bytes(int M, int N, int Dc, int Dq) {
@@ -114,83 +74,6 @@ __device__ Smem<T> carve(unsigned char* base, int M, int N, int Dc, int Dq) {
   s.idx_c = reinterpret_cast<int*>(base + o);  o += align16(size_t(M) * Dc * sizeof(int));
   s.idx_q = reinterpret_cast<int*>(base + o);
   return s;
-}
-
-// acc[m][i][j] = sum_k A[4*warp + i][k] * W_m[k][4*lane + j] for the NW
-// consecutive [H][H] matrices starting at W.  A is a [CH][XLD] f32 chunk in
-// shared memory; the weights pass through the shared slab.  Every thread of
-// the block calls this (it synchronises).
-template <typename T, int NW>
-__device__ __forceinline__ void gemm_chunk(const float* A, const T* __restrict__ W,
-                                           T* wsl, float (&acc)[NW][4][4]) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-#pragma unroll
-  for (int m = 0; m < NW; ++m)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[m][i][j] = 0.f;
-
-  constexpr int VEC = 16 / sizeof(T);             // elements per 16-byte copy
-  constexpr int UNITS = KS * NW * H / VEC;
-  for (int k0 = 0; k0 < H; k0 += KS) {
-    __syncthreads();  // the previous slab's readers are done; A is written
-    for (int u = tid; u < UNITS; u += THREADS) {
-      const int e = u * VEC;
-      const int kk = e / (NW * H);
-      const int rem = e - kk * NW * H;
-      const int m = rem / H;
-      const int c = rem - m * H;
-      *reinterpret_cast<uint4*>(wsl + kk * NW * H + m * H + c) =
-          __ldg(reinterpret_cast<const uint4*>(W + size_t(m) * H * H + size_t(k0 + kk) * H + c));
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < KS; ++kk) {
-      float a[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = A[(warp * 4 + i) * XLD + k0 + kk];
-#pragma unroll
-      for (int m = 0; m < NW; ++m) {
-        float w[4];
-        load4(wsl + kk * NW * H + m * H + lane * 4, w);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[m][i][j] = fmaf(a[i], w[j], acc[m][i][j]);
-      }
-    }
-  }
-}
-
-// Load rows [row0, row0 + CH) of a [rows][H] state into the f32 chunk buffer
-// (zeros past the last row).  No __ldg: the state is rewritten in the launch.
-template <typename T>
-__device__ __forceinline__ void load_chunk(const T* x, int row0, int rows, float* xs) {
-  for (int e = threadIdx.x * 4; e < CH * H; e += THREADS * 4) {
-    const int r = e / H, c = e - r * H;
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (row0 + r < rows) load4(x + size_t(row0 + r) * H + c, v);
-    store4(xs + r * XLD + c, v);
-  }
-}
-
-// Phase A: panel[r] = rnd(x[r] @ W) for all rows.
-template <typename T>
-__device__ void project_rows(const T* x, int rows, const T* __restrict__ W,
-                             T* panel, const Smem<T>& s) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int row0 = 0; row0 < rows; row0 += CH) {
-    __syncthreads();  // the previous chunk's readers of xs are done
-    load_chunk(x, row0, rows, s.xs);
-    float acc[1][4][4];
-    gemm_chunk<T, 1>(s.xs, W, s.wsl, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = row0 + warp * 4 + i;
-      if (r < rows) store4(panel + size_t(r) * H + lane * 4, acc[0][i]);
-    }
-  }
 }
 
 // Phases B and C: update rows [0, rows) of state x in place (reading the
@@ -297,12 +180,13 @@ __device__ void update_rows(const T* x_src, T* x_dst, int rows,
   }
 }
 
-template <typename T>
+template <typename T, bool STASH>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_rounds_kernel(const T* xc_in, const T* xq_in, const float* __restrict__ syn,
                     const int* __restrict__ idx_c, const int* __restrict__ idx_q,
                     const T* __restrict__ mats, const float* __restrict__ vecs,
-                    T* xc_out, T* xq_out, int M, int N, int Dc, int Dq, int R) {
+                    T* xc_out, T* xq_out, T* stash_c, T* stash_q,
+                    int M, int N, int Dc, int Dq, int R) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Smem<T> s = carve<T>(smem_raw, M, N, Dc, Dq);
   const size_t b = blockIdx.x;
@@ -318,7 +202,12 @@ fused_rounds_kernel(const T* xc_in, const T* xq_in, const float* __restrict__ sy
     // round 0 reads the inputs; later rounds the states rewritten in place
     const T* xc_src = round == 0 ? xc_in + b * size_t(M) * H : xc;
     const T* xq_src = round == 0 ? xq_in + b * size_t(N) * H : xq;
-    project_rows<T>(xq_src, N, wq + size_t(M_WS) * H * H, s.ys_c, s);
+    if (STASH) {  // read before project_rows' first barrier, rewritten after it
+      const size_t sb = size_t(round) * gridDim.x + b;
+      block_copy16(stash_c + sb * M * H, xc_src, size_t(M) * H * sizeof(T) / 16);
+      block_copy16(stash_q + sb * N * H, xq_src, size_t(N) * H * sizeof(T) / 16);
+    }
+    project_rows<T>(xq_src, N, wq + size_t(M_WS) * H * H, s.ys_c, s.xs, s.wsl);
     __syncthreads();
     update_rows<T, 3, true>(xc_src, xc, M, s.ys_c, s.ys_q, s.idx_c, Dc, syn_b,
                             wc, vecs, s);
@@ -329,21 +218,47 @@ fused_rounds_kernel(const T* xc_in, const T* xq_in, const float* __restrict__ sy
   }
 }
 
-template <typename T>
+template <typename T, bool STASH>
 int launch(const void* xc_in, const void* xq_in, const float* syn, const int* idx_c,
            const int* idx_q, const void* mats, const float* vecs, void* xc_out,
-           void* xq_out, int B, int M, int N, int Dc, int Dq, int R,
-           cudaStream_t stream) {
+           void* xq_out, void* stash_c, void* stash_q, int B, int M, int N, int Dc,
+           int Dq, int R, cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(M, N, Dc, Dq);
-  cudaError_t err = cudaFuncSetAttribute(fused_rounds_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(fused_rounds_kernel<T, STASH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(smem));
   if (err != cudaSuccess) return int(err);
-  fused_rounds_kernel<T><<<B, THREADS, smem, stream>>>(
+  fused_rounds_kernel<T, STASH><<<B, THREADS, smem, stream>>>(
       static_cast<const T*>(xc_in), static_cast<const T*>(xq_in), syn, idx_c, idx_q,
       static_cast<const T*>(mats), vecs, static_cast<T*>(xc_out),
-      static_cast<T*>(xq_out), M, N, Dc, Dq, R);
+      static_cast<T*>(xq_out), static_cast<T*>(stash_c), static_cast<T*>(stash_q),
+      M, N, Dc, Dq, R);
   return int(cudaGetLastError());
+}
+
+template <bool STASH>
+int launch_dtype(int dtype, const void* xc_in, const void* xq_in, const void* syn,
+                 const void* idx_c, const void* idx_q, const void* mats,
+                 const void* vecs, void* xc_out, void* xq_out, void* stash_c,
+                 void* stash_q, int B, int M, int N, int Dc, int Dq, int R,
+                 void* stream) {
+  if (B <= 0 || M <= 0 || N <= 0 || Dc <= 0 || Dq <= 0 || R <= 0)
+    return int(cudaErrorInvalidValue);
+  if (STASH && (stash_c == nullptr || stash_q == nullptr))
+    return int(cudaErrorInvalidValue);
+  const float* s = static_cast<const float*>(syn);
+  const int* ic = static_cast<const int*>(idx_c);
+  const int* iq = static_cast<const int*>(idx_q);
+  const float* v = static_cast<const float*>(vecs);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float, STASH>(xc_in, xq_in, s, ic, iq, mats, v, xc_out, xq_out,
+                                stash_c, stash_q, B, M, N, Dc, Dq, R, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, STASH>(xc_in, xq_in, s, ic, iq, mats, v, xc_out,
+                                        xq_out, stash_c, stash_q, B, M, N, Dc, Dq, R,
+                                        st);
+  return int(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -365,20 +280,21 @@ int fused_rounds_launch(int dtype, const void* xc_in, const void* xq_in,
                         const void* mats, const void* vecs, void* xc_out,
                         void* xq_out, int B, int M, int N, int Dc, int Dq, int R,
                         void* stream) {
-  if (B <= 0 || M <= 0 || N <= 0 || Dc <= 0 || Dq <= 0 || R <= 0)
-    return int(cudaErrorInvalidValue);
-  const float* s = static_cast<const float*>(syn);
-  const int* ic = static_cast<const int*>(idx_c);
-  const int* iq = static_cast<const int*>(idx_q);
-  const float* v = static_cast<const float*>(vecs);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(xc_in, xq_in, s, ic, iq, mats, v, xc_out, xq_out, B, M, N,
-                         Dc, Dq, R, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(xc_in, xq_in, s, ic, iq, mats, v, xc_out, xq_out, B,
-                                 M, N, Dc, Dq, R, st);
-  return int(cudaErrorInvalidValue);
+  return launch_dtype<false>(dtype, xc_in, xq_in, syn, idx_c, idx_q, mats, vecs,
+                             xc_out, xq_out, nullptr, nullptr, B, M, N, Dc, Dq, R,
+                             stream);
+}
+
+// K2a: as fused_rounds_launch, and every round's input states go to
+// stash_c [R, B, M, 128] and stash_q [R, B, N, 128] in the state type.
+int fused_rounds_stash_launch(int dtype, const void* xc_in, const void* xq_in,
+                              const void* syn, const void* idx_c, const void* idx_q,
+                              const void* mats, const void* vecs, void* xc_out,
+                              void* xq_out, void* stash_c, void* stash_q, int B,
+                              int M, int N, int Dc, int Dq, int R, void* stream) {
+  return launch_dtype<true>(dtype, xc_in, xq_in, syn, idx_c, idx_q, mats, vecs,
+                            xc_out, xq_out, stash_c, stash_q, B, M, N, Dc, Dq, R,
+                            stream);
 }
 
 }  // extern "C"

@@ -5,6 +5,9 @@ as ``tpugnn.models.pallas_decoder.PallasDecoder`` runs it: embed and readout
 are plain PyTorch GEMMs in f32, and the round loop is one call of
 :func:`tpugnn_torch.kernels.fused_decoder.decoder_rounds` (the CUDA kernel on
 a card, the plain version on the CPU) with states stored in ``cfg.dtype``.
+Under autograd the same call trains, as the JAX package's trainable
+PallasDecoder does: the rounds' forward and backward are the kernels K2a and
+K2b (``tpugnn_torch/kernels/fused_backward.py``).
 
 Parameters keep the flax names and layouts (``embed_check_d0.kernel`` is
 [in, out], ``rounds.msg_to_check.w_dst`` ...), so a flax ``'fused'`` tree

@@ -4,7 +4,8 @@ from tpugnn_torch.sampling.noise import (
     sample_batch,
     sample_depolarizing,
     syndrome,
+    training_rate,
 )
 
 __all__ = ["SyndromeBatch", "sample_batch", "sample_depolarizing", "syndrome",
-           "logical_class_bits"]
+           "logical_class_bits", "training_rate"]

@@ -16,7 +16,7 @@ import torch
 from tpugnn_torch.tanner.graph import TannerGraph
 
 __all__ = ["SyndromeBatch", "sample_depolarizing", "sample_batch", "syndrome",
-           "logical_class_bits"]
+           "logical_class_bits", "training_rate"]
 
 
 class SyndromeBatch(NamedTuple):
@@ -34,12 +34,13 @@ class SyndromeBatch(NamedTuple):
 
 
 def sample_depolarizing(generator: torch.Generator, graph: TannerGraph,
-                        p: float, batch: int) -> tuple[torch.Tensor, torch.Tensor]:
+                        p, batch: int) -> tuple[torch.Tensor, torch.Tensor]:
     """i.i.d. depolarizing noise at rate p on the real data qubits.
 
     One uniform draw u per qubit: u < p/3 -> X, p/3 <= u < 2p/3 -> Y,
-    2p/3 <= u < p -> Z.  ``graph`` holds tensors (``TannerGraph.to``) on the
-    generator's device.
+    2p/3 <= u < p -> Z.  ``p`` is a float, or a [B, 1] tensor of per-shot
+    rates.  ``graph`` holds tensors (``TannerGraph.to``) on the generator's
+    device.
     """
     qm = graph.qubit_mask
     u = torch.rand((batch, graph.n_qubits_pad), generator=generator,
@@ -68,7 +69,26 @@ def logical_class_bits(graph: TannerGraph, ex: torch.Tensor, ez: torch.Tensor,
     return torch.cat([bx, bz], dim=-1)
 
 
-def sample_batch(generator: torch.Generator, graph: TannerGraph, p: float,
+def training_rate(generator: torch.Generator, code_p: float, batch: int, step: int,
+                  p_curriculum=None, p_mix=None):
+    """The noise rate of one training batch (``tpugnn/train/loop.py:152-166``).
+
+    ``p_curriculum=(p0, p1, over)``: the float p0 + (p1 - p0) min(step /
+    over, 1).  ``p_mix=(lo, hi)``: a per-shot rate, a [batch, 1] tensor
+    uniform in [lo, hi) on the generator's device.  Neither: ``code_p``."""
+    if p_curriculum is not None and p_mix is not None:
+        raise ValueError("p_curriculum and p_mix are mutually exclusive")
+    if p_curriculum is not None:
+        p0, p1, over = p_curriculum
+        return p0 + (p1 - p0) * min(step / max(over, 1), 1.0)
+    if p_mix is not None:
+        lo, hi = p_mix
+        u = torch.rand((batch, 1), generator=generator, device=generator.device)
+        return lo + (hi - lo) * u
+    return code_p
+
+
+def sample_batch(generator: torch.Generator, graph: TannerGraph, p,
                  batch: int) -> SyndromeBatch:
     """Sample a batch of decoding episodes on the graph's device."""
     ex, ez = sample_depolarizing(generator, graph, p, batch)
