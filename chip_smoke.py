@@ -7,7 +7,8 @@ Drives the port's decode path on the card and checks it, in phases that each
 print one JSON line with their wall time:
 
   0 environment: torch, nvcc and the card's name and power limit
-  1 build: the CUDA kernel from the sources in the checkout (nvcc -> .so)
+  1 build: the CUDA kernels from the sources in the checkout (one nvcc per
+    source, all started together -> .so)
   2 kernel vs plain: the fused-rounds kernel against rounds_plain on the card
     at the main path's shapes, d=11, H=128, B=4096 (R=8 bf16 and R=14 f32),
     with stated tolerances
@@ -29,10 +30,28 @@ print one JSON line with their wall time:
     them; gates a finite, falling loss, one K2a and one K2b launch and no K1
     launch per step, the EMA, and a bit-equal restore; times the step, K2a
     and K2b alone, their plain versions and the autograd yardstick
+  8 spmm/sddmm kernels vs plain: K3a (sum, mean), K3b (max) and K4 at d=11,
+    B=4096, F = H = MH = 128 against their plain versions on the card, in f32
+    and bf16, with stated tolerances; their times beside their plain
+    versions', their bounds and the PyTorch call that computes the same
+    function (index_add_, scatter_reduce amax)
+  9 generic flagship: the trained d=11 weights on the generic engine
+    (load_decoder(backend='pallas'), f32, R=14): LER at p=0.05 on phase 4's
+    65,536 shots, both heads gated at |z| <= 4 against the JAX f32 rate;
+    per-shot decisions against phase 4's fused decode (>= 99.9% equal);
+    2 R K3a launches per chunk and no K1; the forward's time and K3a's share
+ 10 toric d=7: the trained toric weights through the fused path (K1) and
+    the generic path (K3a), LER at p=0.05 on 65,536 shots, both heads gated
+    at |z| <= 4 against the JAX f32 rate and the logical head against
+    benchmarks/LER_TORIC.md:18; then random-weight full-width generic
+    forwards (d=11, H=128, B=4096, R=8) with aggr max (K3b) and mean (K3a)
+    against the same model on the plain versions, and the bench config's
+    generic forward (bf16, sum) for its edges/s
 
-Phases 3, 4 and 7 are the main paths; the launch counts are reset before
-and read after each.  Then it prints the kernel table as one JSON line, the
-card's name and power limit, and last {"ok": true, "device": {...}}.  Any
+Phases 3, 4, 7, 9 and 10 are the main paths; the launch counts of every
+kernel are reset before and read after each.  Then it prints the kernel
+table as one JSON line, the card's name and power limit, and last
+{"ok": true, "device": {...}}.  Any
 failure raises and exits nonzero.  It exits nonzero without printing a result
 when there is no CUDA device or when run outside the repository.  Imports
 nothing of JAX or of the JAX package.
@@ -54,6 +73,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PHASE_LIMIT_S = 180       # a phase that runs longer is taken for a hang
 D = 11                    # surface-code distance of the main path
 B = 4096                  # the main path's batch (serve microbatch, LER chunk)
+LER_SHOTS = 65536         # Monte-Carlo shots of each LER phase
 
 # benchmarks/LER_TABLE.md:30, v3_surface_d11/ema@40000, p=0.05, 1e6 shots,
 # measured on a TPU.  The per-qubit head's rate depends on the GEMM
@@ -106,6 +126,29 @@ TOL_GRAD_REL_BF16 = 1e-2
 TRAIN_STEPS = 30
 TRAIN_RESUME = 15
 LOSS_FALL = 0.25
+
+# K3a against ell_aggregate_plain on the card: the same f32 adds of at most
+# 4 messages per row in another order; relative to the largest output.
+TOL_ELL_SUM_REL = 1e-5
+# K4 in f32 against sddmm_edge_hidden_plain: the projections summed in
+# another order (FMA loops vs the library GEMM); values O(1).
+TOL_SDDMM_F32 = 1e-4
+# K4 in bf16: both round each projection, each add and the bias to bf16 in
+# the same order, but the f32 sums inside a projection run in another order,
+# so a projection now and then rounds one bf16 step apart (2^-5 = 0.031 at
+# |y| in [4, 8)); with both projections and the final rounding that is at
+# most 0.0625 on an output, and it happens on few of them (<= 1%).
+TOL_SDDMM_BF16_MAX = 0.0625
+TOL_SDDMM_BF16_SHARE = 0.01
+# the generic flagship's per-shot decisions (the per-qubit head's failure
+# and the logical head's class bits) against the fused decode's: the same
+# f32 function summed in another order
+MIN_SHOT_AGREE = 0.999
+# benchmarks/LER_TORIC.md:18: r2_toric_d7@8000, p=0.05, 1e6 shots, taken on a
+# TPU; logical head 0.01267 (gated), per-qubit 0.1631 (reported: the TPU's
+# GEMM precision moves it, as for LER_TABLE.md:30)
+TORIC_REF_LER_LOGICAL = 0.01267
+TORIC_REF_LER_QUBIT = 0.1631
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak (NVIDIA data sheet, SXM)
 H100_F32_FLOPS = 67e12    # f32 outside the tensor cores
@@ -214,17 +257,19 @@ def rel_err(a, b) -> float:
 
 
 def flagship_train_config(steps: int, checkpoint_dir: str):
-    """The flagship training config: surface d=11, H = MH = 128, R=14
-    weight-tied, readout both, pauli4, bf16 states, batch 4096, lr 1e-3,
-    warmup 200, per-shot p-mix 0.01..0.05, EMA 0.999
-    (benchmarks/train_quality_v3.py:64-78, scripts/tpu_queue_r2a.sh:108-110),
-    from a seeded random init."""
+    """The flagship training config as benchmarks/train_quality_v3.py:64-78
+    writes it and scripts/tpu_queue_r2a.sh:108-110 runs it: surface d=11,
+    H = MH = 128, R=14 weight-tied, backend 'pallas' (trained in the fused
+    layout), no remat, readout both, pauli4, bf16 states, batch 4096, lr
+    1e-3, warmup 200, per-shot p-mix 0.01..0.05, EMA 0.999; from a seeded
+    random init."""
     from tpugnn_torch.configs import CodeConfig, ExperimentConfig, ModelConfig, TrainConfig
 
     return ExperimentConfig(
         code=CodeConfig(family="surface", distance=D, p=0.05),
-        model=ModelConfig(hidden=128, msg_hidden=128, rounds=14, readout="both",
-                          qubit_head="pauli4", dtype="bfloat16"),
+        model=ModelConfig(hidden=128, msg_hidden=128, rounds=14, backend="pallas",
+                          readout="both", qubit_head="pauli4", remat=False,
+                          dtype="bfloat16"),
         train=TrainConfig(batch=B, steps=steps, lr=1e-3, warmup_steps=200,
                           eval_every=1000, eval_shots=8192, seed=0,
                           checkpoint_dir=checkpoint_dir, checkpoint_every=1000,
@@ -286,6 +331,412 @@ def z_score(rate: float, n: int, ref: float, ref_n: int) -> float:
     return (rate - ref) / se
 
 
+def reset_counts() -> None:
+    """Sets the launch count of every kernel to 0."""
+    from tpugnn_torch.kernels import fused_decoder as fd
+    from tpugnn_torch.kernels import sddmm, spmm
+
+    for mod in (fd, spmm, sddmm):
+        mod.reset_launch_counts()
+
+
+def counts() -> dict:
+    """Launches of every kernel since the last reset_counts()."""
+    from tpugnn_torch.kernels import fused_decoder as fd
+    from tpugnn_torch.kernels import sddmm, spmm
+
+    return {**fd.launch_counts(), **spmm.launch_counts(), **sddmm.launch_counts()}
+
+
+def bound(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
+    """The least time (ms) for ``nbytes`` at the HBM rate and ``ops`` at
+    ``peak``, and which of the two sets it."""
+    t_b, t_o = nbytes / H100_HBM_BPS * 1e3, ops / peak * 1e3
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def ell_bound(graph, batch: int, f: int, itemsize: int, to: str) -> tuple[float, str]:
+    """K3a/K3b on one direction: each real edge's message read once, each
+    real row written once in f32, the slot table read once; one add (or
+    compare) per real edge and column at the f32 CUDA-core peak."""
+    if to == "check":
+        rows, rows_pad, d = graph.n_checks, graph.n_checks_pad, graph.deg_max_check
+    else:
+        rows, rows_pad, d = graph.n_qubits, graph.n_qubits_pad, graph.deg_max_qubit
+    nbytes = batch * graph.n_edges * f * itemsize + batch * rows * f * 4 + rows_pad * d * 4
+    return bound(nbytes, batch * graph.n_edges * f, H100_F32_FLOPS)
+
+
+def sddmm_bound(graph, batch: int, h: int, mh: int, compute: str) -> tuple[float, str]:
+    """K4 to checks: the real rows of both sides read once, each real slot's
+    f32 output written once, the weights once; both projections over the
+    real rows and an add, add and relu per real slot and column, at the
+    compute type's peak (bf16 tensor cores or f32 CUDA cores)."""
+    itemsize, peak = (2, H100_BF16_FLOPS) if compute == "bfloat16" else (4, H100_F32_FLOPS)
+    rows = graph.n_checks + graph.n_qubits
+    nbytes = (batch * rows * h * itemsize + batch * graph.n_edges * mh * 4 + 2 * h * mh * 4
+              + mh * 4 + graph.n_checks_pad * graph.deg_max_check * 4)
+    ops = 2 * batch * rows * h * mh + 3 * batch * graph.n_edges * mh
+    return bound(nbytes, ops, peak)
+
+
+def phase_spmm_sddmm(graph, dg, dev, info: dict) -> dict:
+    """Phase 8: K3a, K3b and K4 against their plain versions at the main
+    path's shapes (d=11, B=4096, F = H = MH = 128), f32 and bf16; their
+    times, bounds and the library calls.  Returns the kernel-table rows'
+    numbers."""
+    import torch
+
+    from tpugnn_torch import mp
+    from tpugnn_torch.kernels import fused_decoder as fd
+    from tpugnn_torch.kernels import sddmm, spmm
+
+    f = 128
+    gen = torch.Generator(device=dev).manual_seed(31)
+    sides = {"check": (dg.ell_check_edge, dg.ell_check_mask, dg.edge_check,
+                       graph.n_checks_pad, dg.check_deg),
+             "qubit": (dg.ell_qubit_edge, dg.ell_qubit_mask, dg.edge_qubit,
+                       graph.n_qubits_pad, dg.qubit_deg)}
+    # the engine's messages: padded edges are zero (msg * edge_mask)
+    msg32 = torch.randn((B, graph.n_edges_pad, f), generator=gen, device=dev)
+    msg32 *= dg.edge_mask[:, None]
+    checks, worst = {}, {"sum": 0.0, "max": 0.0, "mean": 0.0}
+    with torch.inference_mode():
+        for dname, msg in (("float32", msg32), ("bfloat16", msg32.bfloat16())):
+            for to, (edge, mask, _, _, deg) in sides.items():
+                for agg in ("sum", "max", "mean"):
+                    if agg == "mean":   # K3a, divided by the clamped degree
+                        k = getattr(mp, f"aggregate_to_{to}s")(dg, msg, backend="pallas",
+                                                              agg="mean")
+                        p = spmm.ell_aggregate_plain(msg, edge, mask) / deg[:, None]
+                    else:
+                        k = spmm.ell_aggregate(msg, edge, mask, agg=agg)
+                        p = spmm.PLAIN[agg](msg, edge, mask)
+                    torch.cuda.synchronize()
+                    err = float((k - p).abs().max())
+                    rel = err / max(float(p.abs().max()), 1e-30)
+                    checks[f"{agg}_{to}_{dname}"] = dict(max_abs_err=err, rel_err=rel)
+                    worst[agg] = max(worst[agg], err)
+                    if not bool(torch.isfinite(k).all()):
+                        raise RuntimeError(f"{agg} {to} {dname}: non-finite output")
+                    if agg == "max" and not torch.equal(k, p):
+                        raise RuntimeError(f"K3b {to} {dname} is not bit-equal to "
+                                           f"ell_max_plain: max err {err}")
+                    if agg != "max" and rel > TOL_ELL_SUM_REL:
+                        raise RuntimeError(f"K3a {agg} {to} {dname} disagrees with the "
+                                           f"plain version: rel {rel}")
+        info["ell_checks"] = checks
+
+        # times on f32 messages (the generic f32 path's), both directions
+        times = {}
+        for to, (edge, mask, seg, rows, _) in sides.items():
+            idx = seg.long()
+            ix = idx.view(1, -1, 1).expand(msg32.shape)
+
+            def index_add():
+                return torch.zeros((B, rows, f), device=dev).index_add_(1, idx, msg32)
+
+            def scatter_amax():
+                out = torch.full((B, rows, f), float("-inf"), device=dev).scatter_reduce_(
+                    1, ix, msg32, "amax", include_self=False)
+                return torch.where(torch.isneginf(out), 0.0, out)   # empty rows -> 0
+
+            lib_sum, lib_max = index_add(), scatter_amax()
+            k_sum = spmm.ell_aggregate(msg32, edge, mask, agg="sum")
+            k_max = spmm.ell_aggregate(msg32, edge, mask, agg="max")
+            torch.cuda.synchronize()
+            times[to] = dict(
+                k3a_ms=time_ms(lambda: spmm.ell_aggregate(msg32, edge, mask, agg="sum")),
+                k3b_ms=time_ms(lambda: spmm.ell_aggregate(msg32, edge, mask, agg="max")),
+                plain_sum_ms=time_ms(lambda: spmm.ell_aggregate_plain(msg32, edge, mask)),
+                plain_max_ms=time_ms(lambda: spmm.ell_max_plain(msg32, edge, mask)),
+                index_add_ms=time_ms(index_add),
+                scatter_amax_ms=time_ms(scatter_amax),
+                index_add_vs_k3a=float((lib_sum - k_sum).abs().max()),
+                scatter_amax_equals_k3b=bool(torch.equal(lib_max, k_max)),
+                bound_ms=ell_bound(graph, B, f, 4, to)[0],
+                bound_by=ell_bound(graph, B, f, 4, to)[1],
+                bound_ms_bf16=ell_bound(graph, B, f, 2, to)[0])
+            del lib_sum, lib_max, k_sum, k_max
+        info["ell_times"] = times
+
+        # K4 to checks: x_dst the check states, x_src the qubit states
+        h = mh = 128
+        xd = torch.randn((B, graph.n_checks_pad, h), generator=gen, device=dev)
+        xs = torch.randn((B, graph.n_qubits_pad, h), generator=gen, device=dev)
+        xd *= dg.check_mask[:, None]
+        xs *= dg.qubit_mask[:, None]
+        wd = torch.randn((h, mh), generator=gen, device=dev) / h ** 0.5
+        ws = torch.randn((h, mh), generator=gen, device=dev) / h ** 0.5
+        b = 0.1 * torch.randn(mh, generator=gen, device=dev)
+        src_c, mask_c = fd.make_operators(dg)[:2]
+        args = (xd, xs, src_c, mask_c, wd, ws, b)
+        k4 = {}
+        for cdt in ("float32", "bfloat16"):
+            k = sddmm.sddmm_edge_hidden(*args, compute_dtype=cdt)
+            p = sddmm.sddmm_edge_hidden_plain(*args, compute_dtype=cdt)
+            torch.cuda.synchronize()
+            diff = (k - p).abs()
+            err, share = float(diff.max()), float((diff > 0).float().mean())
+            finite = bool(torch.isfinite(k).all())
+            del k, p, diff
+            t_k = time_ms(lambda: sddmm.sddmm_edge_hidden(*args, compute_dtype=cdt))
+            t_p = time_ms(lambda: sddmm.sddmm_edge_hidden_plain(*args, compute_dtype=cdt))
+            b_ms, b_by = sddmm_bound(graph, B, h, mh, cdt)
+            k4[cdt] = dict(max_abs_err=err, differing_share=share, ms=t_k, plain_ms=t_p,
+                           bound_ms=b_ms, bound_by=b_by)
+            if not finite:
+                raise RuntimeError(f"K4 {cdt}: non-finite output")
+            if cdt == "float32" and err > TOL_SDDMM_F32:
+                raise RuntimeError(f"K4 f32 disagrees with the plain version: {err}")
+            if cdt == "bfloat16" and (err > TOL_SDDMM_BF16_MAX
+                                      or share > TOL_SDDMM_BF16_SHARE):
+                raise RuntimeError(f"K4 bf16 disagrees with the plain version: {k4[cdt]}")
+        info["sddmm"] = k4
+    info.update(tol_ell_sum_rel=TOL_ELL_SUM_REL, tol_sddmm_f32=TOL_SDDMM_F32,
+                tol_sddmm_bf16_max=TOL_SDDMM_BF16_MAX,
+                tol_sddmm_bf16_share=TOL_SDDMM_BF16_SHARE)
+    del msg32
+    torch.cuda.empty_cache()
+    tc = times["check"]
+    return {
+        "ell_sum": dict(max_abs_err=worst["sum"], max_abs_err_mean=worst["mean"],
+                        ms=tc["k3a_ms"], plain_ms=tc["plain_sum_ms"],
+                        bound_ms=tc["bound_ms"], bound_by=tc["bound_by"],
+                        library_ms=tc["index_add_ms"], library="index_add_"),
+        "ell_max": dict(max_abs_err=worst["max"], ms=tc["k3b_ms"],
+                        plain_ms=tc["plain_max_ms"], bound_ms=tc["bound_ms"],
+                        bound_by=tc["bound_by"], library_ms=tc["scatter_amax_ms"],
+                        library="scatter_reduce amax (include_self=False) + "
+                                "where(isneginf, 0) fix-up of empty rows"),
+        "sddmm_edge_hidden": dict(max_abs_err=k4["bfloat16"]["max_abs_err"],
+                                  max_abs_err_f32=k4["float32"]["max_abs_err"],
+                                  ms=k4["bfloat16"]["ms"], plain_ms=k4["bfloat16"]["plain_ms"],
+                                  bound_ms=k4["bfloat16"]["bound_ms"],
+                                  bound_by=k4["bfloat16"]["bound_by"], library_ms=None),
+    }
+
+
+def shot_decisions(model, dg, batch):
+    """Per shot: the per-qubit head's failure and the logical head's class
+    bits (the decisions a user reads)."""
+    from tpugnn_torch.eval import count_failures, decode_corrections
+
+    out = model(dg, batch.syndrome)
+    fails = count_failures(dg, batch, *decode_corrections(out.qubit_logits),
+                           out.logical_logits)
+    return fails, out.logical_logits > 0
+
+
+def profile_forward(model, dg, syn) -> dict:
+    """One forward under torch.profiler: the device time of its kernels by
+    kind, their sum, and the forward's wall time (host clock to a
+    synchronise, profiler on)."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        model(dg, syn)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kinds: dict = {}
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        name = e.key.lower()
+        kind = next((k for k, tags in (
+            ("gemm", ("gemm",)), ("ell_reduce (K3a/K3b)", ("ell_reduce",)),
+            ("concatenate", ("cat",)), ("gather", ("index", "gather")),
+            ("reduce", ("reduce",)), ("elementwise", ("elementwise",)))
+            if any(t in name for t in tags)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
+    total = sum(kinds.values())
+    return dict(kernel_ms=total, wall_ms=wall_ms,
+                by_kind={k: dict(ms=v, share=v / total) for k, v in
+                         sorted(kinds.items(), key=lambda kv: -kv[1])} if total else {})
+
+
+def generic_gemm_flops(graph, batch: int, h: int, mh: int, rounds: int) -> float:
+    """The GEMM operations of a generic forward with update='mlp': per round
+    the two edge MLPs over all E_pad edges ([2H, MH] then [MH, H]) and the
+    two update MLPs over all padded rows; embed and heads left out."""
+    edges = 2 * graph.n_edges_pad * (2 * h * mh + mh * h)
+    nodes = (graph.n_checks_pad * ((2 * h + 1) * h + h * h)
+             + graph.n_qubits_pad * (2 * h * h + h * h))
+    return 2.0 * batch * rounds * (edges + nodes)
+
+
+def k3a_per_round_ms(ell_times: dict) -> float:
+    """K3a's time for one round (both directions, f32 messages), from phase 8."""
+    return ell_times["check"]["k3a_ms"] + ell_times["qubit"]["k3a_ms"]
+
+
+def phase_generic_flagship(graph, dg, dev, trained, info: dict, ell_times: dict) -> dict:
+    """Phase 9: the trained d=11 weights on the generic engine (pallas,
+    f32, R=14).  Returns the launches of its LER run."""
+    import torch
+
+    from tpugnn_torch.eval import ler_monte_carlo
+    from tpugnn_torch.models.convert import load_decoder, read_meta
+    from tpugnn_torch.sampling import sample_batch
+
+    cfg, model, _ = load_decoder(backend="pallas", device="cuda")
+    rounds = cfg.model.rounds
+    shots = LER_SHOTS
+    reset_counts()
+    gen = torch.Generator(device=dev).manual_seed(2025)      # phase 4's shots
+    t0 = time.perf_counter()
+    ev = ler_monte_carlo(model, graph, p=0.05, shots=shots, batch=B, generator=gen,
+                         device="cuda")
+    ler_s = time.perf_counter() - t0
+    launched = counts()
+    chunks = shots // B
+    ref = read_meta()["ler_reference"]
+    n = int(ev["shots"])
+    z = {"logical_vs_jax_f32": z_score(ev["ler_logical"], n, ref["ler_logical"], ref["shots"]),
+         "qubit_vs_jax_f32": z_score(ev["ler"], n, ref["ler"], ref["shots"])}
+    # the same shots through the fused model of phase 4
+    gen = torch.Generator(device=dev).manual_seed(2025)
+    same = torch.zeros((), device=dev)
+    with torch.inference_mode():
+        for _ in range(chunks):
+            b = sample_batch(gen, dg, 0.05, B)
+            fg, lg = shot_decisions(model, dg, b)
+            ff, lf = shot_decisions(trained, dg, b)
+            same += ((fg["fail_qubit"] == ff["fail_qubit"]) & (lg == lf).all(-1)).sum()
+        agree = float(same) / (chunks * B)
+        syn = sample_batch(gen, dg, 0.05, B).syndrome
+        fwd_ms = time_ms(lambda: model(dg, syn), warmup=2, iters=7)
+        fused_ms = time_ms(lambda: trained(dg, syn), warmup=2, iters=7)
+        breakdown = profile_forward(model, dg, syn)
+    info.update(shots=n, ler_logical=ev["ler_logical"], ler_qubit=ev["ler"],
+                ler_hybrid=ev["ler_hybrid"], z=z, ler_seconds=ler_s,
+                jax_f32=dict(shots=ref["shots"], ler_logical=ref["ler_logical"],
+                             ler_qubit=ref["ler"]),
+                launches=launched, shot_agreement_with_fused=agree,
+                min_shot_agreement=MIN_SHOT_AGREE, rounds=rounds,
+                forward_ms=fwd_ms, fused_forward_ms=fused_ms,
+                k3a_share=rounds * k3a_per_round_ms(ell_times) / fwd_ms,
+                gemm_tflop=generic_gemm_flops(graph, B, 128, 128, rounds) / 1e12,
+                edges_per_s=B * graph.n_edges * rounds / (fwd_ms / 1e3),
+                forward_breakdown=breakdown)
+    want = {"ell_sum": 2 * rounds * chunks, "fused_rounds": 0, "ell_max": 0}
+    if any(launched[k] != v for k, v in want.items()):
+        raise RuntimeError(f"generic LER launches {launched}, expected {want}")
+    if any(abs(v) > 4 for v in z.values()):
+        raise RuntimeError(f"generic LER off the JAX f32 reference: {info}")
+    if agree < MIN_SHOT_AGREE:
+        raise RuntimeError(f"generic decisions agree with the fused decode on only "
+                           f"{agree} of the shots")
+    del model
+    torch.cuda.empty_cache()
+    return launched
+
+
+def phase_toric_and_random(graph, dg, dev, info: dict, ell_times: dict) -> dict:
+    """Phase 10: the trained toric d=7 weights through the fused and the
+    generic path; random-weight full-width generic forwards with max and
+    mean against the plain versions; the bench config's generic forward.
+    Returns the launches of each path."""
+    import torch
+
+    from tpugnn_torch.configs import ModelConfig
+    from tpugnn_torch.eval import ler_monte_carlo
+    from tpugnn_torch.kernels import spmm
+    from tpugnn_torch.models import GNNDecoder
+    from tpugnn_torch.models.convert import TORIC_D7_WEIGHTS, load_decoder, read_meta
+    from tpugnn_torch.sampling import sample_batch
+
+    launched = {}
+    shots = LER_SHOTS
+    ref = read_meta(TORIC_D7_WEIGHTS)["ler_reference"]
+    for backend in ("fused", "pallas"):
+        cfg, model, tgraph = load_decoder(TORIC_D7_WEIGHTS, device="cuda", backend=backend)
+        reset_counts()
+        gen = torch.Generator(device=dev).manual_seed(2026)   # the same shots for both
+        ev = ler_monte_carlo(model, tgraph, p=0.05, shots=shots, batch=B, generator=gen,
+                             device="cuda")
+        launched[f"toric_{backend}"] = counts()
+        n = int(ev["shots"])
+        z = {"logical_vs_jax_f32": z_score(ev["ler_logical"], n, ref["ler_logical"],
+                                           ref["shots"]),
+             "qubit_vs_jax_f32": z_score(ev["ler"], n, ref["ler"], ref["shots"]),
+             "logical_vs_table": z_score(ev["ler_logical"], n, TORIC_REF_LER_LOGICAL,
+                                         REF_SHOTS),
+             "qubit_vs_table": z_score(ev["ler"], n, TORIC_REF_LER_QUBIT, REF_SHOTS)}
+        info[backend] = dict(shots=n, ler_logical=ev["ler_logical"], ler_qubit=ev["ler"],
+                             ler_hybrid=ev["ler_hybrid"], z=z,
+                             launches=launched[f"toric_{backend}"])
+        kernel = "fused_rounds" if backend == "fused" else "ell_sum"
+        if launched[f"toric_{backend}"][kernel] < 1:
+            raise RuntimeError(f"toric {backend}: {kernel} was not launched")
+        if any(abs(z[k]) > 4 for k in ("logical_vs_jax_f32", "qubit_vs_jax_f32",
+                                        "logical_vs_table")):
+            raise RuntimeError(f"toric {backend} LER off the reference: {info[backend]}")
+        del model
+    info.update(jax_f32=dict(shots=ref["shots"], ler_logical=ref["ler_logical"],
+                             ler_qubit=ref["ler"]),
+                table=dict(shots=REF_SHOTS, ler_logical=TORIC_REF_LER_LOGICAL,
+                           ler_qubit=TORIC_REF_LER_QUBIT))
+
+    # random weights at full width: K3b (max) and K3a (mean) on the main
+    # path's shapes against the same model on the plain versions
+    rounds = 8
+    gen = torch.Generator(device=dev).manual_seed(41)
+    syn = sample_batch(gen, dg, 0.05, B).syndrome
+    n = graph.n_qubits
+    for aggr, kernel in (("max", "ell_max"), ("mean", "ell_sum")):
+        model = GNNDecoder(ModelConfig(hidden=128, msg_hidden=128, rounds=rounds,
+                                       backend="pallas", aggr=aggr, qubit_head="pauli4"), k=1)
+        model = model.init_random(torch.Generator().manual_seed(17), bias_std=0.1)
+        model = model.to(dev).eval()
+        with torch.inference_mode():
+            reset_counts()
+            out_k = model(dg, syn)
+            torch.cuda.synchronize()
+            launched[f"random_{aggr}"] = counts()
+            cuda_launch = spmm._ell_cuda
+            spmm._ell_cuda = lambda m, e, k, a: spmm.PLAIN[a](m, e, k)
+            try:
+                out_p = model(dg, syn)
+            finally:
+                spmm._ell_cuda = cuda_launch
+            agree = float((out_k.qubit_logits[:, :n].argmax(-1)
+                           == out_p.qubit_logits[:, :n].argmax(-1)).float().mean())
+            err = float((out_k.qubit_logits - out_p.qubit_logits).abs().max())
+            finite = bool(torch.isfinite(out_k.qubit_logits).all()
+                          and torch.isfinite(out_k.logical_logits).all())
+            fwd_ms = time_ms(lambda: model(dg, syn), warmup=1, iters=5)
+        info[f"random_{aggr}"] = dict(rounds=rounds, launches=launched[f"random_{aggr}"],
+                                      agree=agree, min_agree=MIN_AGREE_F32,
+                                      logits_max_abs_err=err, forward_ms=fwd_ms)
+        if launched[f"random_{aggr}"][kernel] != 2 * rounds:
+            raise RuntimeError(f"random {aggr}: {launched[f'random_{aggr}']}")
+        if not finite or agree < MIN_AGREE_F32:
+            raise RuntimeError(f"random {aggr}: kernels vs plain versions {info}")
+        del model, out_k, out_p
+
+    # the bench config (bf16, R=8, sum) on the generic engine: edges/s
+    model = GNNDecoder(ModelConfig(hidden=128, msg_hidden=128, rounds=rounds,
+                                   backend="pallas", qubit_head="pauli4", dtype="bfloat16"),
+                       k=1)
+    model = model.init_random(torch.Generator().manual_seed(13), bias_std=0.1).to(dev).eval()
+    with torch.inference_mode():
+        out = model(dg, syn)
+        if not bool(torch.isfinite(out.qubit_logits).all()):
+            raise RuntimeError("generic bench config: non-finite logits")
+        bench_ms = time_ms(lambda: model(dg, syn), warmup=2, iters=7)
+        breakdown = profile_forward(model, dg, syn)
+    info["generic_bench"] = dict(rounds=rounds, dtype="bfloat16", forward_ms=bench_ms,
+                                 forward_breakdown=breakdown,
+                                 edges_per_s=B * graph.n_edges * rounds / (bench_ms / 1e3),
+                                 k3a_share=rounds * k3a_per_round_ms(ell_times) / bench_ms)
+    del model
+    torch.cuda.empty_cache()
+    return launched
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(REPO, "tpugnn_torch")):
@@ -343,7 +794,8 @@ def main() -> int:
                 ("float32", 14, TOL_F32, TOL_F32, MIN_AGREE_F32)):
             gen = torch.Generator(device=dev).manual_seed(7)
             model = GNNDecoder(ModelConfig(hidden=h, msg_hidden=h, rounds=rounds,
-                                           qubit_head="pauli4", dtype=dtype), k=1)
+                                           backend="fused", qubit_head="pauli4",
+                                           dtype=dtype), k=1)
             model.init_random(torch.Generator().manual_seed(11), bias_std=0.1)
             model = model.to(dev).eval()
             w = model.rounds.round_weights()
@@ -375,7 +827,7 @@ def main() -> int:
 
     launches = {}
     with Phase("serve") as info:
-        fd.reset_launch_counts()
+        reset_counts()
         eng = DecodeEngine.from_npz(device="cuda", max_batch=B)
         gen = torch.Generator(device=dev).manual_seed(2024)
         syn = sample_batch(gen, dg, 0.05, 6001).syndrome.cpu().numpy().astype("uint8")
@@ -385,7 +837,7 @@ def main() -> int:
             t0 = time.perf_counter()
             outs.append(eng.decode(r))
             request_ms.append((time.perf_counter() - t0) * 1e3)
-        launches["serve"] = fd.launch_counts()["fused_rounds"]
+        launches["serve"] = counts()
         # the same requests through the model directly, chunk for chunk
         with torch.inference_mode():
             for r, o in zip(reqs, outs):
@@ -404,18 +856,18 @@ def main() -> int:
                                 .to(torch.uint8).cpu().numpy())
                 if not np.array_equal(o, np.concatenate(want)):
                     raise RuntimeError("serve output differs from the direct decode")
-        if launches["serve"] < 1:
+        if launches["serve"]["fused_rounds"] < 1:
             raise RuntimeError("the serve path did not launch the kernel")
         info.update(requests=[int(r.shape[0]) for r in reqs],
                     widths=[int(r.shape[1]) for r in reqs], request_ms=request_ms,
                     launches=launches["serve"])
 
     with Phase("ler") as info:
-        fd.reset_launch_counts()
+        reset_counts()
         gen = torch.Generator(device=dev).manual_seed(2025)
-        ev = ler_monte_carlo(eng.model, graph, p=0.05, shots=65536, batch=B,
+        ev = ler_monte_carlo(eng.model, graph, p=0.05, shots=LER_SHOTS, batch=B,
                              generator=gen, device="cuda")
-        launches["ler"] = fd.launch_counts()["fused_rounds"]
+        launches["ler"] = counts()
         n = int(ev["shots"])
         ref = read_meta()["ler_reference"]
         if ref["p"] != 0.05:
@@ -433,7 +885,7 @@ def main() -> int:
                     table=dict(shots=REF_SHOTS, ler_logical=REF_LER_LOGICAL,
                                ler_qubit=REF_LER_QUBIT),
                     launches=launches["ler"])
-        if launches["ler"] < 1:
+        if launches["ler"]["fused_rounds"] < 1:
             raise RuntimeError("the LER path did not launch the kernel")
         gated = ("logical_vs_jax_f32", "qubit_vs_jax_f32", "logical_vs_table")
         if any(abs(z[k]) > 4 for k in gated):
@@ -445,7 +897,8 @@ def main() -> int:
         b, rounds = B, 8
         gen = torch.Generator(device=dev).manual_seed(5)
         model = GNNDecoder(ModelConfig(hidden=h, msg_hidden=h, rounds=rounds,
-                                       qubit_head="pauli4", dtype="bfloat16"), k=1)
+                                       backend="fused", qubit_head="pauli4",
+                                       dtype="bfloat16"), k=1)
         model.init_random(torch.Generator().manual_seed(13), bias_std=0.1)
         w = model.to(dev).rounds.round_weights()
         w = fd.RoundWeights(*[t.detach() for t in w])
@@ -495,7 +948,8 @@ def main() -> int:
             rounds = 14
             gen = torch.Generator(device=dev).manual_seed(9)
             model = GNNDecoder(ModelConfig(hidden=h, msg_hidden=h, rounds=rounds,
-                                           qubit_head="pauli4", dtype=dtype), k=1)
+                                           backend="fused", qubit_head="pauli4",
+                                           dtype=dtype), k=1)
             model.init_random(torch.Generator().manual_seed(14), bias_std=0.1)
             w = fd.RoundWeights(*[t.detach() for t in model.to(dev).rounds.round_weights()])
             mats32, vecs32 = fd.pack_weights_f32(w)
@@ -568,7 +1022,7 @@ def main() -> int:
                               ev))
             prev.update(now)
 
-        fd.reset_launch_counts()
+        reset_counts()
         prev.update(fd.launch_counts())
         first, _, _, _ = train(flagship_train_config(TRAIN_RESUME, ckpt_dir), device="cuda",
                                log=log, callback=on_step)
@@ -585,7 +1039,7 @@ def main() -> int:
         state, model, _, history = train(flagship_train_config(TRAIN_STEPS, ckpt_dir),
                                          device="cuda", log=log, callback=on_step)
         torch.cuda.synchronize()
-        launches["train"] = fd.launch_counts()
+        launches["train"] = counts()
         losses = [float(l) for _, l, _, _ in steps_log]
         per_step = [c for _, _, c, _ in steps_log]
         step_ms = [steps_log[i - 1][3].elapsed_time(steps_log[i][3])
@@ -683,39 +1137,64 @@ def main() -> int:
         train_timing = dict(info)
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
-    k1_launches = {k: (v if isinstance(v, int) else v["fused_rounds"])
-                   for k, v in launches.items()}
-    emit({"kernels": [{
-        "name": "fused_rounds", "route": "cuda",
-        "source": "tpugnn_torch/kernels/csrc/fused_rounds.cu",
-        "replaces": "tpugnn/kernels/fused_decoder.py:637",
-        "launches": sum(k1_launches.values()), "launches_by_path": k1_launches,
-        "max_abs_err": errs["bfloat16"], "max_abs_err_f32": errs["float32"],
-        "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": None, "yardstick_ms": timing["yardstick_ms"],
-    }, {
-        "name": "fused_rounds_fwd_stash", "route": "cuda",
-        "source": "tpugnn_torch/kernels/csrc/fused_rounds.cu",
-        "replaces": "tpugnn/kernels/fused_backward.py:575",
-        "launches": launches["train"]["fused_rounds_fwd_stash"],
-        "max_abs_err": train_errs["bfloat16"]["k2a_vs_plain_max"],
-        "max_abs_err_f32": train_errs["float32"]["k2a_vs_plain_max"],
-        "ms": train_timing["k2a_ms"], "plain_ms": train_timing["plain_fwd_stash_ms"],
-        "bound_ms": train_timing["k2a_bound_ms"], "bound_by": train_timing["k2a_bound_by"],
-        "library_ms": None, "yardstick_ms": train_timing["yardstick_fwd_ms"],
-    }, {
-        "name": "fused_rounds_bwd", "route": "cuda",
-        "source": "tpugnn_torch/kernels/csrc/fused_backward.cu",
-        "replaces": "tpugnn/kernels/fused_backward.py:624",
-        "launches": launches["train"]["fused_rounds_bwd"],
-        "max_abs_err": train_errs["bfloat16"]["k2b_max_abs_err"],
-        "max_rel_err": train_errs["bfloat16"]["k2b_worst_rel"],
-        "max_rel_err_f32": train_errs["float32"]["k2b_worst_rel"],
-        "ms": train_timing["k2b_ms"], "plain_ms": train_timing["plain_vjp_ms"],
-        "bound_ms": train_timing["k2b_bound_ms"], "bound_by": train_timing["k2b_bound_by"],
-        "library_ms": None, "yardstick_ms": train_timing["yardstick_bwd_ms"],
-    }]})
+    with Phase("spmm_sddmm_vs_plain") as info:
+        new_kernels = phase_spmm_sddmm(graph, dg, dev, info)
+        ell_times = info["ell_times"]
+
+    with Phase("generic_flagship") as info:
+        launches["generic_ler"] = phase_generic_flagship(graph, dg, dev, trained, info,
+                                                         ell_times)
+    del trained
+
+    with Phase("toric_d7_and_generic_random") as info:
+        launches.update(phase_toric_and_random(graph, dg, dev, info, ell_times))
+
+    def by_path(kernel):
+        return {p: c[kernel] for p, c in launches.items() if c[kernel]}
+
+    def row(name, **kw):
+        paths = by_path(name)
+        return {"name": name, "route": "cuda", "launches": sum(paths.values()),
+                "launches_by_path": paths, **kw}
+
+    emit({"kernels": [row(
+        "fused_rounds",
+        source="tpugnn_torch/kernels/csrc/fused_rounds.cu",
+        replaces="tpugnn/kernels/fused_decoder.py:637",
+        max_abs_err=errs["bfloat16"], max_abs_err_f32=errs["float32"],
+        ms=timing["kernel_ms"], plain_ms=timing["plain_ms"],
+        bound_ms=timing["bound_ms"], bound_by=timing["bound_by"],
+        library_ms=None, yardstick_ms=timing["yardstick_ms"],
+    ), row(
+        "fused_rounds_fwd_stash",
+        source="tpugnn_torch/kernels/csrc/fused_rounds.cu",
+        replaces="tpugnn/kernels/fused_backward.py:575",
+        max_abs_err=train_errs["bfloat16"]["k2a_vs_plain_max"],
+        max_abs_err_f32=train_errs["float32"]["k2a_vs_plain_max"],
+        ms=train_timing["k2a_ms"], plain_ms=train_timing["plain_fwd_stash_ms"],
+        bound_ms=train_timing["k2a_bound_ms"], bound_by=train_timing["k2a_bound_by"],
+        library_ms=None, yardstick_ms=train_timing["yardstick_fwd_ms"],
+    ), row(
+        "fused_rounds_bwd",
+        source="tpugnn_torch/kernels/csrc/fused_backward.cu",
+        replaces="tpugnn/kernels/fused_backward.py:624",
+        max_abs_err=train_errs["bfloat16"]["k2b_max_abs_err"],
+        max_rel_err=train_errs["bfloat16"]["k2b_worst_rel"],
+        max_rel_err_f32=train_errs["float32"]["k2b_worst_rel"],
+        ms=train_timing["k2b_ms"], plain_ms=train_timing["plain_vjp_ms"],
+        bound_ms=train_timing["k2b_bound_ms"], bound_by=train_timing["k2b_bound_by"],
+        library_ms=None, yardstick_ms=train_timing["yardstick_bwd_ms"],
+    ), row(
+        "ell_sum", source="tpugnn_torch/kernels/csrc/spmm.cu",
+        replaces="tpugnn/kernels/spmm.py:79", **new_kernels["ell_sum"],
+    ), row(
+        "ell_max", source="tpugnn_torch/kernels/csrc/spmm.cu",
+        replaces="tpugnn/kernels/spmm.py:129", **new_kernels["ell_max"],
+    ), row(
+        "sddmm_edge_hidden", source="tpugnn_torch/kernels/csrc/sddmm.cu",
+        replaces="tpugnn/kernels/sddmm.py:100", on_main_path=False,
+        **new_kernels["sddmm_edge_hidden"],
+    )]})
     emit({"total_seconds": round(time.perf_counter() - t_start, 3)})
     print(run(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"]).splitlines()[0].strip(), flush=True)

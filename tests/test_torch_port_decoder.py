@@ -39,7 +39,7 @@ def _pair(d, head, readout="both", rounds=3, h=32):
     keys = jax.random.split(jax.random.PRNGKey(2), len(leaves))
     params = jax.tree_util.tree_unflatten(
         tree, [x + 0.1 * jax.random.normal(k, x.shape) for x, k in zip(leaves, keys)])
-    tm = GNNDecoder(ModelConfig(**kw), k=jg.k)
+    tm = GNNDecoder(ModelConfig(backend="fused", **kw), k=jg.k)
     tm.load_state_dict(params_from_flax(jax.tree.map(np.asarray, params)))
     return jg, jm, params, tm, syn
 
@@ -82,8 +82,8 @@ def test_state_dict_keys_are_the_flax_tree():
     assert "rounds.update_check_d0.kernel" in flat
 
 
-@pytest.mark.parametrize("bad", [dict(backend="segment"), dict(update="gru"),
-                                 dict(aggr="max"), dict(qubit_head="x")])
+@pytest.mark.parametrize("bad", [dict(backend="nope"), dict(backend="fused", update="gru"),
+                                 dict(backend="fused", aggr="max"), dict(qubit_head="x")])
 def test_unsupported_config_raises(bad):
     with pytest.raises(ValueError):
         GNNDecoder(ModelConfig(hidden=8, msg_hidden=8, **bad), k=1)

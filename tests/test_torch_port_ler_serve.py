@@ -69,9 +69,9 @@ def _small_pair(max_batch=8):
                                model=JaxModelConfig(backend="fused", **kw))
     params = JaxGNNDecoder(jcfg.model, k=1).init(
         jax.random.PRNGKey(4), jg, jnp.zeros((2, jg.n_checks_pad)))
-    tm = GNNDecoder(ModelConfig(**kw), k=1)
+    tm = GNNDecoder(ModelConfig(backend="fused", **kw), k=1)
     tm.load_state_dict(params_from_flax(jax.tree.map(np.asarray, params)))
-    cfg = ExperimentConfig(code=CodeConfig(distance=3), model=ModelConfig(**kw))
+    cfg = ExperimentConfig(code=CodeConfig(distance=3), model=ModelConfig(backend="fused", **kw))
     return jcfg, params, jg, DecodeEngine(cfg, tm, max_batch=max_batch, device="cpu")
 
 

@@ -13,10 +13,7 @@ _STATIC = ("name", "n_checks", "n_qubits", "n_edges", "n_checks_x", "n_checks_pa
            "n_qubits_pad", "n_edges_pad", "k", "deg_max_check", "deg_max_qubit")
 
 
-@pytest.mark.parametrize("d", [3, 5, 11])
-def test_every_field_equals_tpugnn(d):
-    ref = jax_build_code("surface", d)
-    got = build_code("surface", d)
+def _assert_same_graph(ref, got):
     for f in _STATIC:
         assert getattr(got, f) == getattr(ref, f), f
     for f in TannerGraph.array_fields():
@@ -27,6 +24,18 @@ def test_every_field_equals_tpugnn(d):
         a = np.asarray(a)
         assert b.dtype == a.dtype and b.shape == a.shape, f
         np.testing.assert_array_equal(b, a, err_msg=f)
+
+
+@pytest.mark.parametrize("d", [3, 5, 11])
+def test_every_field_equals_tpugnn(d):
+    _assert_same_graph(jax_build_code("surface", d), build_code("surface", d))
+
+
+@pytest.mark.parametrize("family,d", [("toric", 3), ("toric", 5), ("toric", 7),
+                                      ("repetition", 5), ("steane", 3)])
+def test_other_families_equal_tpugnn(family, d):
+    """The toric, repetition and Steane codes, field by field."""
+    _assert_same_graph(jax_build_code(family, d), build_code(family, d))
 
 
 def test_to_device_gives_tensors():
@@ -42,5 +51,5 @@ def test_to_device_gives_tensors():
 
 
 def test_unported_family_raises_naming_ported():
-    with pytest.raises(ValueError, match="surface"):
-        build_code("toric", 3)
+    with pytest.raises(ValueError, match="toric"):
+        build_code("circuit", 3)

@@ -64,8 +64,8 @@ def _setup(qubit_head="pauli4", dtype="float32", d=3, h=32, rounds=3, batch=8, s
                            readout="both", qubit_head=qubit_head, dtype=dtype))
     tcfg = ExperimentConfig(
         code=CodeConfig(family="surface", distance=d, p=0.08),
-        model=ModelConfig(hidden=h, msg_hidden=h, rounds=rounds, readout="both",
-                          qubit_head=qubit_head, dtype=dtype))
+        model=ModelConfig(hidden=h, msg_hidden=h, rounds=rounds, backend="fused",
+                          readout="both", qubit_head=qubit_head, dtype=dtype))
     jg = jax_build_code("surface", d)
     jb = jax_sample_batch(jax.random.PRNGKey(seed), jg, 0.08, batch)
     params = JGNNDecoder(jcfg.model, k=jg.k).init(jax.random.PRNGKey(seed + 1), jg,
@@ -212,8 +212,8 @@ def test_p_mix_rates_are_per_shot_and_in_range():
 
 
 def test_ema_update():
-    a = GNNDecoder(ModelConfig(hidden=8, msg_hidden=8, rounds=1), k=1)
-    b = GNNDecoder(ModelConfig(hidden=8, msg_hidden=8, rounds=1), k=1)
+    a = GNNDecoder(ModelConfig(hidden=8, msg_hidden=8, rounds=1, backend="fused"), k=1)
+    b = GNNDecoder(ModelConfig(hidden=8, msg_hidden=8, rounds=1, backend="fused"), k=1)
     b.init_random(torch.Generator().manual_seed(5), bias_std=0.3)
     before = [p.detach().clone() for p in a.parameters()]
     ema_update(a, b, 0.9)
@@ -224,8 +224,8 @@ def test_ema_update():
 def _tiny(tmp=None, steps=3, **kw):
     return ExperimentConfig(
         code=CodeConfig(family="surface", distance=3, p=0.05),
-        model=ModelConfig(hidden=16, msg_hidden=16, rounds=2, readout="both",
-                          qubit_head="pauli4", dtype="bfloat16"),
+        model=ModelConfig(hidden=16, msg_hidden=16, rounds=2, backend="fused",
+                          readout="both", qubit_head="pauli4", dtype="bfloat16"),
         train=TrainConfig(batch=8, steps=steps, warmup_steps=2, eval_every=1000,
                           eval_shots=16, ema_decay=0.9, p_mix=(0.01, 0.05),
                           checkpoint_dir=tmp, **kw))

@@ -1,8 +1,8 @@
 """Config dataclasses of the decoder and its training (the JAX package's).
 
 Plain frozen dataclasses with the same names, fields and defaults as
-``tpugnn.configs.config`` for everything the decode and training paths read;
-the mesh config is left out until the port runs on several cards.
+``tpugnn.configs.config``; the mesh config (and ``ExperimentConfig.mesh``)
+is left out until the port runs on several cards.
 """
 
 from __future__ import annotations
@@ -31,11 +31,18 @@ class ModelConfig:
 
     hidden: int = 128               # node state width
     msg_hidden: int = 128           # edge-message MLP hidden width
-    rounds: int = 8                 # weight-tied message-round count
-    weight_tied: bool = True
-    update: str = "mlp"             # residual MLP + LayerNorm
-    aggr: str = "sum"
-    backend: str = "fused"          # parameter layout of the weights
+    rounds: int = 8                 # fixed message-round count
+    weight_tied: bool = True        # one cell reused every round
+    update: str = "mlp"             # mlp (residual MLP + LayerNorm) | gru
+                                    # (generic backends only)
+    aggr: str = "sum"               # sum | mean | max
+    # fused: the fused layout, rounds in the kernels K1/K2; segment | dense |
+    # ell | pallas: the generic message-passing engine (pallas through the
+    # ELL-aggregation kernels K3a/K3b).  train() maps pallas to fused.
+    backend: str = "segment"
+    # jax.checkpoint of each round in the JAX package; changes nothing here,
+    # since the port's training keeps only the stash of round inputs (K2a)
+    remat: bool = False
     readout: str = "both"           # per_qubit | logical | both
     qubit_head: str = "bits"        # bits (ex, ez sigmoids) | pauli4 (I/X/Z/Y)
     dtype: str = "float32"          # node-state storage type in the rounds

@@ -62,7 +62,8 @@ def count_failures(graph: TannerGraph, batch: SyndromeBatch, ex_hat: torch.Tenso
 @torch.inference_mode()
 def ler_monte_carlo(model, graph: TannerGraph, *, p: float, shots: int, batch: int,
                     generator: torch.Generator, device="cuda") -> dict[str, float]:
-    """Monte-Carlo LER of ``model`` (a ``GNNDecoder``) over ``shots`` episodes.
+    """Monte-Carlo LER of ``model`` (a ``GNNDecoder`` of either layout) over
+    ``shots`` episodes.
 
     ``graph`` is the NumPy graph; it and the model are moved to ``device``.
     Shots come from ``generator``, a ``torch.Generator`` on ``device``.  Returns the JAX version's keys:

@@ -3,7 +3,8 @@
 The sources in ``csrc/`` have a plain C interface (no PyTorch headers), so a
 cold build takes seconds.  Each source becomes its own library in
 ``tpugnn_torch/_build/`` (ignored by git), named by a hash of the source, the
-shared header, the flags and the compiler's version line.  The ``nvcc``
+header the fused-rounds sources share, the flags and the compiler's version
+line.  The ``nvcc``
 processes of a build all start together, under a file lock so that
 concurrent processes build a library once.  Nothing here runs at import time.
 """
@@ -24,8 +25,9 @@ __all__ = ["NVCC_FLAGS", "SOURCES", "build_libraries", "load_library", "nvcc_pat
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-# library name -> source; every source includes the header
-SOURCES = {"fused_rounds": "fused_rounds.cu", "fused_backward": "fused_backward.cu"}
+# library name -> source
+SOURCES = {"fused_rounds": "fused_rounds.cu", "fused_backward": "fused_backward.cu",
+           "spmm": "spmm.cu", "sddmm": "sddmm.cu"}
 HEADER = "rounds_common.cuh"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-lineinfo", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,6 +44,13 @@ _SIGNATURES = {
         "fused_rounds_bwd_smem_bytes": ([_I] * 5, ctypes.c_longlong),
         "fused_rounds_bwd_scratch_floats": ([_I] * 2, ctypes.c_longlong),
         "fused_rounds_bwd_launch": ([_I] + [_P] * 17 + [_I] * 7 + [_P], _I),
+    },
+    "spmm": {
+        "ell_aggregate_launch": ([_I, _I] + [_P] * 3 + [_I] * 5 + [_P], _I),
+    },
+    "sddmm": {
+        "sddmm_smem_bytes": ([_I] * 4, ctypes.c_longlong),
+        "sddmm_edge_hidden_launch": ([_I] + [_P] * 7 + [_I] * 6 + [_P], _I),
     },
 }
 

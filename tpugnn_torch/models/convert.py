@@ -1,18 +1,23 @@
-"""Flax parameter trees -> the port's modules, and the shipped weights file.
+"""Flax parameter trees -> the port's modules, and the shipped weights files.
 
-The weights of the JAX decoder are a nested dict of arrays (the flax
-``'fused'``-backend tree).  ``params_from_flax`` maps that tree, given as
-nested dicts of NumPy arrays, onto the state dict of
-:class:`tpugnn_torch.models.decoder.GNNDecoder`, whose parameters keep the
-flax names and layouts (Dense kernels are [in, out]).  ``load_npz`` reads a
-weights file written by ``scripts/export_torch_weights.py``: the tree
-flattened to ``'/'``-joined keys, which ``state_dict_from_flat`` maps onto
-the module, plus a ``__meta__`` JSON record of the checkpoint step and
-config.  Reading needs NumPy only.
+The weights of the JAX decoder are a nested dict of arrays: the flax tree of
+the ``'fused'`` layout or of the generic ``RoundCell`` (with its GRU leaves,
+and per-round leaves stacked [R, ...] when the rounds are not weight-tied).
+``params_from_flax`` maps either tree, given as nested dicts of NumPy
+arrays, onto the state dict of :class:`tpugnn_torch.models.decoder.GNNDecoder`,
+whose parameters keep the flax names and layouts (Dense kernels are
+[in, out]).  ``load_npz`` reads a weights file written by
+``scripts/export_torch_weights.py``: the tree flattened to ``'/'``-joined
+keys, which ``state_dict_from_flat`` maps onto the module, plus a
+``__meta__`` JSON record of the checkpoint step and config.
+``load_decoder(path, backend=...)`` loads such a file into either layout,
+converting the rounds' parameters (``tpugnn_torch.models.fused_cell``).
+Reading needs NumPy only.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 
@@ -22,11 +27,15 @@ import torch
 from tpugnn_torch.configs import CodeConfig, ExperimentConfig, ModelConfig
 
 __all__ = ["flatten_tree", "state_dict_from_flat", "params_from_flax", "load_npz",
-           "read_meta", "load_decoder", "DEFAULT_WEIGHTS"]
+           "read_meta", "convert_flat_layout", "load_decoder", "DEFAULT_WEIGHTS",
+           "TORIC_D7_WEIGHTS"]
 
-DEFAULT_WEIGHTS = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets",
-    "surface_d11_h128_r14_ema40000.npz")
+_ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       "assets")
+# the trained d=11 surface-code flagship (runs/v3_surface_d11/ema, step 40000)
+DEFAULT_WEIGHTS = os.path.join(_ASSETS, "surface_d11_h128_r14_ema40000.npz")
+# the trained d=7 toric code (runs/r2_toric_d7/ema, step 8000)
+TORIC_D7_WEIGHTS = os.path.join(_ASSETS, "toric_d7_h128_r10_ema8000.npz")
 
 
 def flatten_tree(tree: dict, prefix: str = "") -> dict:
@@ -71,15 +80,56 @@ def load_npz(path: str = DEFAULT_WEIGHTS) -> tuple[ExperimentConfig, dict, int]:
     return cfg, flat, int(meta["step"])
 
 
-def load_decoder(path: str = DEFAULT_WEIGHTS, device="cuda"):
+def _layout(backend: str) -> str:
+    return "fused" if backend == "fused" else "generic"
+
+
+def convert_flat_layout(flat: dict, src_backend: str, dst_backend: str) -> dict:
+    """Flat parameters (``'params/rounds/...'`` keys) of a model with
+    ``src_backend`` -> those of one with ``dst_backend``: the rounds'
+    subtree goes through ``convert_fused_round_params`` or
+    ``convert_generic_round_params`` when the two layouts differ."""
+    from tpugnn_torch.models.fused_cell import (
+        convert_fused_round_params,
+        convert_generic_round_params,
+    )
+
+    src, dst = _layout(src_backend), _layout(dst_backend)
+    if src == dst:
+        return dict(flat)
+    prefix = "params/rounds/" if any(k.startswith("params/") for k in flat) else "rounds/"
+    rounds: dict = {}
+    out = {}
+    for k, v in flat.items():
+        if not k.startswith(prefix):
+            out[k] = v
+            continue
+        node = rounds
+        *path, leaf = k[len(prefix):].split("/")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    conv = convert_fused_round_params if src == "fused" else convert_generic_round_params
+    out.update(flatten_tree(conv(rounds), prefix.rstrip("/")))
+    return out
+
+
+def load_decoder(path: str = DEFAULT_WEIGHTS, device="cuda", backend: str | None = None):
     """Entry point: ``(config, GNNDecoder on device, TannerGraph)`` from a
-    weights file.  The model is in eval mode."""
+    weights file.  The model is in eval mode.  ``backend`` (default: the
+    file's) picks the rounds: ``'fused'`` for the fused kernels K1/K2,
+    ``'segment'``, ``'dense'``, ``'ell'`` or ``'pallas'`` for the generic
+    engine (``'pallas'``: the kernels K3a/K3b); the parameters are converted
+    between the layouts."""
     from tpugnn_torch.models.decoder import GNNDecoder
     from tpugnn_torch.tanner import build_code
     from tpugnn_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
     cfg, flat, _ = load_npz(path)
+    if backend is not None:
+        flat = convert_flat_layout(flat, cfg.model.backend, backend)
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, backend=backend))
     graph = build_code(cfg.code.family, cfg.code.distance,
                        pad_nodes=cfg.code.pad_nodes, pad_edges=cfg.code.pad_edges)
     model = GNNDecoder(cfg.model, k=graph.k)

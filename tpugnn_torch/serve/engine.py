@@ -11,6 +11,12 @@ The port of ``tpugnn.serve.engine.DecodeEngine`` without classical cleanup
 * every chunk is padded to ``max_batch`` rows (one shape on the device for
   any request size) and requests above ``max_batch`` are decoded in
   microbatches of ``max_batch``.
+
+The model is any :class:`~tpugnn_torch.models.decoder.GNNDecoder`: a
+``'fused'`` one runs its rounds in K1, a generic one (``load_decoder(...,
+backend='pallas')``) runs the message-passing engine, as
+``tpugnn/serve/engine.py:92-97`` takes the fused fast path only for
+``backend == 'fused'``.
 """
 
 from __future__ import annotations

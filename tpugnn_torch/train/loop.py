@@ -13,6 +13,7 @@ start from ``init_from``.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 from dataclasses import dataclass
@@ -130,14 +131,26 @@ def train(cfg: ExperimentConfig, *, device="cuda", graph=None, log=print,
     Runs on ``device`` (a card unless the caller asks for the CPU).
     ``history`` holds one record per evaluation, as the JAX loop's does.
     ``callback(step, metrics)``, when given, is called after every step with
-    the step's metrics as tensors on the device."""
+    the step's metrics as tensors on the device.
+
+    ``cfg.model.backend`` is ``'fused'`` or ``'pallas'``, which trains the
+    fused layout through the fused kernels, as ``tpugnn/train/loop.py:97-113``
+    maps it; the returned model is then a ``'fused'`` one.  Training through
+    the generic backends is not ported."""
     dev = resolve_device(device)
     t = cfg.train
+    mcfg = cfg.model
+    if mcfg.backend == "pallas":
+        mcfg = dataclasses.replace(mcfg, backend="fused")
+    if mcfg.backend != "fused":
+        raise ValueError(f"train() trains the fused layout (backend 'fused' or "
+                         f"'pallas'), not backend={cfg.model.backend!r}: training "
+                         f"through the generic engine is not ported")
     if graph is None:
         graph = build_code(cfg.code.family, cfg.code.distance,
                            pad_nodes=cfg.code.pad_nodes, pad_edges=cfg.code.pad_edges)
     dg = graph.to(dev)
-    model = GNNDecoder(cfg.model, k=graph.k)
+    model = GNNDecoder(mcfg, k=graph.k)
     model.init_random(torch.Generator().manual_seed(t.seed))
     model = model.to(dev)
     generator = torch.Generator(device=dev).manual_seed(t.seed)
