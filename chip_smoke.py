@@ -47,8 +47,19 @@ print one JSON line with their wall time:
     forwards (d=11, H=128, B=4096, R=8) with aggr max (K3b) and mean (K3a)
     against the same model on the plain versions, and the bench config's
     generic forward (bf16, sum) for its edges/s
+ 11 roll gather: K5 (the rounds on the surface code's raster) at the bench
+    config with f32 slots and with slot16 against roll_rounds_plain on the
+    card (every raster cell) and against K1 on the real rows, with stated
+    tolerances; its time beside its plain version's and K1's on the same
+    inputs, and edges/s of both schedules; then the trained d=11 weights
+    through PallasDecoder(schedule=('rollgather',)) (f32, R=14): K5 against
+    the plain version, LER at p=0.05 on phase 4's 65,536 shots (both heads
+    gated at |z| <= 4 against the JAX f32 rate), per-shot decisions against
+    phase 4's fused decode (>= 99.9% equal), one K5 launch per chunk and no
+    K1, the forward's time; and the wrapper's refusal of d=13 in f32 (its
+    raster does not fit in shared memory)
 
-Phases 3, 4, 7, 9 and 10 are the main paths; the launch counts of every
+Phases 3, 4, 7, 9, 10 and 11 are the main paths; the launch counts of every
 kernel are reset before and read after each.  Then it prints the kernel
 table as one JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.  Any
@@ -144,6 +155,15 @@ TOL_SDDMM_BF16_SHARE = 0.01
 # and the logical head's class bits) against the fused decode's: the same
 # f32 function summed in another order
 MIN_SHOT_AGREE = 0.999
+# K5 against roll_rounds_plain: the same tolerances as K1's (TOL_F32,
+# TOL_BF16_MAX, TOL_BF16_MEAN), for the same reason: both round at the same
+# points (with slot16 after every op of the slot stage) and differ in f32
+# summation order.  K5 against K1 on the real rows: the same function with
+# the slot sum in another order (offs order against ELL order) and
+# (deg * bo) @ ua against deg * (bo @ ua), so bf16 roundings flip more
+# often; the plain versions of both on the CPU (d=11, B=8, R=8, bf16) differ
+# by max 0.023 / mean 3.3e-4 with f32 slots and 0.031 / 3.4e-3 with slot16,
+# inside the same max 0.25 and mean 1e-2.
 # benchmarks/LER_TORIC.md:18: r2_toric_d7@8000, p=0.05, 1e6 shots, taken on a
 # TPU; logical head 0.01267 (gated), per-qubit 0.1631 (reported: the TPU's
 # GEMM precision moves it, as for LER_TABLE.md:30)
@@ -334,18 +354,19 @@ def z_score(rate: float, n: int, ref: float, ref_n: int) -> float:
 def reset_counts() -> None:
     """Sets the launch count of every kernel to 0."""
     from tpugnn_torch.kernels import fused_decoder as fd
-    from tpugnn_torch.kernels import sddmm, spmm
+    from tpugnn_torch.kernels import roll_gather, sddmm, spmm
 
-    for mod in (fd, spmm, sddmm):
+    for mod in (fd, spmm, sddmm, roll_gather):
         mod.reset_launch_counts()
 
 
 def counts() -> dict:
     """Launches of every kernel since the last reset_counts()."""
     from tpugnn_torch.kernels import fused_decoder as fd
-    from tpugnn_torch.kernels import sddmm, spmm
+    from tpugnn_torch.kernels import roll_gather, sddmm, spmm
 
-    return {**fd.launch_counts(), **spmm.launch_counts(), **sddmm.launch_counts()}
+    return {**fd.launch_counts(), **spmm.launch_counts(), **sddmm.launch_counts(),
+            **roll_gather.launch_counts()}
 
 
 def bound(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
@@ -735,6 +756,166 @@ def phase_toric_and_random(graph, dg, dev, info: dict, ell_times: dict) -> dict:
     del model
     torch.cuda.empty_cache()
     return launched
+
+
+def raster_errors(kc, kq, pc, pq) -> tuple[float, float]:
+    """Max and mean abs difference over both sides' states."""
+    import torch
+
+    diff = torch.cat([(kc.float() - pc.float()).abs().flatten(),
+                      (kq.float() - pq.float()).abs().flatten()])
+    return float(diff.max()), float(diff.mean())
+
+
+def phase_roll_gather(graph, dg, dev, trained, info: dict) -> tuple[dict, dict]:
+    """Phase 11: K5 at the bench config against its plain version and K1,
+    their times; the trained d=11 weights on the roll path.  Returns the
+    launches of its LER run and the kernel-table row's numbers."""
+    import torch
+
+    from tpugnn_torch.configs import ModelConfig
+    from tpugnn_torch.eval import ler_monte_carlo
+    from tpugnn_torch.kernels import fused_decoder as fd
+    from tpugnn_torch.kernels import roll_gather as rg
+    from tpugnn_torch.models import GNNDecoder, PallasDecoder
+    from tpugnn_torch.models.convert import read_meta
+    from tpugnn_torch.sampling import sample_batch
+    from tpugnn_torch.tanner import build_code
+
+    h, rounds = 128, 8
+    plan = rg.plan_for_graph(graph)
+    if plan is None:
+        raise RuntimeError("no raster plan for the d=11 surface code")
+    ops = fd.make_operators(dg)
+    real = lambda x, n: x[:, :n]
+
+    # the bench config: phase 5's weights and states
+    gen = torch.Generator(device=dev).manual_seed(5)
+    model = GNNDecoder(ModelConfig(hidden=h, msg_hidden=h, rounds=rounds, backend="fused",
+                                   qubit_head="pauli4", dtype="bfloat16"), k=1)
+    model.init_random(torch.Generator().manual_seed(13), bias_std=0.1)
+    w = fd.RoundWeights(*[t.detach() for t in model.to(dev).rounds.round_weights()])
+    xc, xq, s = random_states(dg, B, h, gen)
+    edges = B * graph.n_edges * rounds
+    bench = {}
+    with torch.inference_mode():
+        r_ops = rg.to_raster(xc, xq, s, plan, w, "bfloat16")
+        k1c, k1q = fd.decoder_rounds(xc, xq, s, ops, w, rounds, "bfloat16")
+        for slot in ("float32", "bfloat16"):
+            kc, kq = rg._roll_rounds_cuda(r_ops, rounds=rounds, slot_dtype=slot)
+            pc, pq = rg.roll_rounds_plain(r_ops, rounds=rounds, slot_dtype=slot)
+            torch.cuda.synchronize()
+            max_err, mean_err = raster_errors(kc, kq, pc, pq)
+            oc, oq = rg.from_raster(kc, kq, plan)
+            k1_max, k1_mean = raster_errors(real(oc, graph.n_checks), real(oq, graph.n_qubits),
+                                            real(k1c, graph.n_checks), real(k1q, graph.n_qubits))
+            finite = bool(torch.isfinite(oc).all() and torch.isfinite(oq).all())
+            del kc, kq, pc, pq, oc, oq
+            k_ms = time_ms(lambda: rg._roll_rounds_cuda(r_ops, rounds=rounds, slot_dtype=slot))
+            call_ms = time_ms(lambda: rg.decoder_rounds_roll(
+                xc, xq, s, plan, w, rounds=rounds, state_dtype="bfloat16", slot_dtype=slot))
+            p_ms = time_ms(lambda: rg.roll_rounds_plain(r_ops, rounds=rounds, slot_dtype=slot),
+                           warmup=1, iters=5)
+            bench[slot] = dict(max_abs_err=max_err, mean_abs_err=mean_err,
+                               vs_k1_real_rows_max=k1_max, vs_k1_real_rows_mean=k1_mean,
+                               kernel_ms=k_ms, call_ms=call_ms, plain_ms=p_ms,
+                               edges_per_s=edges / (call_ms / 1e3),
+                               edges_per_s_kernel=edges / (k_ms / 1e3))
+            if not finite:
+                raise RuntimeError(f"K5 slots {slot}: non-finite states")
+            if max_err > TOL_BF16_MAX or mean_err > TOL_BF16_MEAN:
+                raise RuntimeError(f"K5 slots {slot} disagrees with roll_rounds_plain: "
+                                   f"{bench[slot]}")
+            if k1_max > TOL_BF16_MAX or k1_mean > TOL_BF16_MEAN:
+                raise RuntimeError(f"K5 slots {slot} disagrees with K1 on the real rows: "
+                                   f"{bench[slot]}")
+        k1_ms = time_ms(lambda: fd.decoder_rounds(xc, xq, s, ops, w, rounds, "bfloat16"))
+    del r_ops, k1c, k1q
+    flops = rounds_flops(graph, h) * B * rounds
+    t_ops, t_bytes = flops / H100_BF16_FLOPS * 1e3, rounds_bytes(graph, B, h, 2) / H100_HBM_BPS * 1e3
+    info.update(batch=B, rounds=rounds, l_pad=plan.l_pad, raster_rows=2 * plan.l_pad,
+                real_rows=graph.n_checks + graph.n_qubits, bench=bench, k1_ms=k1_ms,
+                k1_edges_per_s=edges / (k1_ms / 1e3), bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                tol_max=TOL_BF16_MAX, tol_mean=TOL_BF16_MEAN)
+
+    # the trained d=11 weights through PallasDecoder on the roll path
+    pd = PallasDecoder(trained, ("rollgather",))
+    r_t = trained.cfg.rounds
+    wt = fd.RoundWeights(*[t.detach() for t in trained.rounds.round_weights()])
+    gen = torch.Generator(device=dev).manual_seed(6)
+    xc, xq, s = random_states(dg, B, h, gen)
+    with torch.inference_mode():
+        t_ops_r = rg.to_raster(xc, xq, s, plan, wt, "float32")
+        kc, kq = rg._roll_rounds_cuda(t_ops_r, rounds=r_t)
+        pc, pq = rg.roll_rounds_plain(t_ops_r, rounds=r_t)
+        torch.cuda.synchronize()
+        f32_max, f32_mean = raster_errors(kc, kq, pc, pq)
+        del t_ops_r, kc, kq, pc, pq
+    if f32_max > TOL_F32:
+        raise RuntimeError(f"K5 f32 (trained weights, R={r_t}) disagrees with "
+                           f"roll_rounds_plain: max {f32_max}")
+    reset_counts()
+    gen = torch.Generator(device=dev).manual_seed(2025)      # phase 4's shots
+    t0 = time.perf_counter()
+    ev = ler_monte_carlo(pd, graph, p=0.05, shots=LER_SHOTS, batch=B, generator=gen,
+                         device="cuda")
+    ler_s = time.perf_counter() - t0
+    launched = counts()
+    chunks = LER_SHOTS // B
+    ref = read_meta()["ler_reference"]
+    n = int(ev["shots"])
+    z = {"logical_vs_jax_f32": z_score(ev["ler_logical"], n, ref["ler_logical"], ref["shots"]),
+         "qubit_vs_jax_f32": z_score(ev["ler"], n, ref["ler"], ref["shots"])}
+    gen = torch.Generator(device=dev).manual_seed(2025)
+    same = torch.zeros((), device=dev)
+    with torch.inference_mode():
+        for _ in range(chunks):
+            b = sample_batch(gen, dg, 0.05, B)
+            fr, lr = shot_decisions(pd, dg, b)
+            ff, lf = shot_decisions(trained, dg, b)
+            same += ((fr["fail_qubit"] == ff["fail_qubit"]) & (lr == lf).all(-1)).sum()
+        agree = float(same) / (chunks * B)
+        syn = sample_batch(gen, dg, 0.05, B).syndrome
+        fwd_ms = time_ms(lambda: pd(dg, syn), warmup=2, iters=7)
+        fused_ms = time_ms(lambda: trained(dg, syn), warmup=2, iters=7)
+        # d=13's raster in f32 does not fit in shared memory: refused, not launched
+        g13 = build_code("surface", 13)
+        z13 = torch.zeros((1, g13.n_checks_pad, h), device=dev)
+        zq13 = torch.zeros((1, g13.n_qubits_pad, h), device=dev)
+        before = rg.launch_counts()["roll_rounds"]
+        try:
+            rg._roll_rounds_cuda(rg.to_raster(z13, zq13, z13[..., :1], rg.plan_for_graph(g13),
+                                              wt, "float32"), rounds=1)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        if refused is None or rg.launch_counts()["roll_rounds"] != before:
+            raise RuntimeError("K5 took d=13 in f32, whose raster exceeds shared memory")
+    info["trained"] = dict(
+        rounds=r_t, k5_vs_plain_f32_max=f32_max, k5_vs_plain_f32_mean=f32_mean,
+        tol_f32=TOL_F32, shots=n, ler_logical=ev["ler_logical"], ler_qubit=ev["ler"],
+        ler_hybrid=ev["ler_hybrid"], z=z, ler_seconds=ler_s,
+        jax_f32=dict(shots=ref["shots"], ler_logical=ref["ler_logical"], ler_qubit=ref["ler"]),
+        launches=launched, shot_agreement_with_fused=agree, min_shot_agreement=MIN_SHOT_AGREE,
+        forward_ms=fwd_ms, fused_forward_ms=fused_ms,
+        edges_per_s=B * graph.n_edges * r_t / (fwd_ms / 1e3), d13_f32_refused=refused)
+    want = {"roll_rounds": chunks, "fused_rounds": 0, "ell_sum": 0, "ell_max": 0}
+    if any(launched[k] != v for k, v in want.items()):
+        raise RuntimeError(f"roll LER launches {launched}, expected {want}")
+    if any(abs(v) > 4 for v in z.values()):
+        raise RuntimeError(f"roll LER off the JAX f32 reference: {info['trained']}")
+    if agree < MIN_SHOT_AGREE:
+        raise RuntimeError(f"roll decisions agree with the fused decode on only {agree} "
+                           "of the shots")
+    torch.cuda.empty_cache()
+    f32s, s16 = bench["float32"], bench["bfloat16"]
+    row = dict(max_abs_err=f32s["max_abs_err"], max_abs_err_slot16=s16["max_abs_err"],
+               max_abs_err_f32=f32_max, ms=f32s["kernel_ms"], ms_slot16=s16["kernel_ms"],
+               plain_ms=f32s["plain_ms"], plain_ms_slot16=s16["plain_ms"],
+               bound_ms=info["bound_ms"], bound_by=info["bound_by"], library_ms=None,
+               yardstick_ms=k1_ms, yardstick="K1 (fused_rounds) on the same inputs")
+    return launched, row
 
 
 def main() -> int:
@@ -1144,10 +1325,13 @@ def main() -> int:
     with Phase("generic_flagship") as info:
         launches["generic_ler"] = phase_generic_flagship(graph, dg, dev, trained, info,
                                                          ell_times)
-    del trained
 
     with Phase("toric_d7_and_generic_random") as info:
         launches.update(phase_toric_and_random(graph, dg, dev, info, ell_times))
+
+    with Phase("roll_gather") as info:
+        launches["roll_ler"], roll_row = phase_roll_gather(graph, dg, dev, trained, info)
+    del trained
 
     def by_path(kernel):
         return {p: c[kernel] for p, c in launches.items() if c[kernel]}
@@ -1194,6 +1378,9 @@ def main() -> int:
         "sddmm_edge_hidden", source="tpugnn_torch/kernels/csrc/sddmm.cu",
         replaces="tpugnn/kernels/sddmm.py:100", on_main_path=False,
         **new_kernels["sddmm_edge_hidden"],
+    ), row(
+        "roll_rounds", source="tpugnn_torch/kernels/csrc/roll_gather.cu",
+        replaces="tpugnn/kernels/roll_gather.py:364", **roll_row,
     )]})
     emit({"total_seconds": round(time.perf_counter() - t_start, 3)})
     print(run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -88,12 +88,15 @@ def test_smoke_refuses_without_cuda(no_cuda, capsys):
 def test_build_is_lazy():
     """Importing the kernel and training modules builds and loads nothing."""
     import tpugnn_torch.kernels.fused_backward  # noqa: F401
+    import tpugnn_torch.kernels.roll_gather  # noqa: F401
     import tpugnn_torch.kernels.sddmm  # noqa: F401
     import tpugnn_torch.kernels.spmm  # noqa: F401
+    import tpugnn_torch.models.pallas_decoder  # noqa: F401
     import tpugnn_torch.mp  # noqa: F401
     import tpugnn_torch.train  # noqa: F401
     from tpugnn_torch.kernels import _build
 
     assert _build.load_library.cache_info().currsize == 0
-    assert set(_build.SOURCES) == {"fused_rounds", "fused_backward", "spmm", "sddmm"}
+    assert set(_build.SOURCES) == {"fused_rounds", "fused_backward", "spmm", "sddmm",
+                                  "roll_gather"}
     assert "-gencode" in _build.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

@@ -3,7 +3,7 @@
 The sources in ``csrc/`` have a plain C interface (no PyTorch headers), so a
 cold build takes seconds.  Each source becomes its own library in
 ``tpugnn_torch/_build/`` (ignored by git), named by a hash of the source, the
-header the fused-rounds sources share, the flags and the compiler's version
+header the rounds sources share, the flags and the compiler's version
 line.  The ``nvcc``
 processes of a build all start together, under a file lock so that
 concurrent processes build a library once.  Nothing here runs at import time.
@@ -27,7 +27,7 @@ _CSRC = os.path.join(_HERE, "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 # library name -> source
 SOURCES = {"fused_rounds": "fused_rounds.cu", "fused_backward": "fused_backward.cu",
-           "spmm": "spmm.cu", "sddmm": "sddmm.cu"}
+           "spmm": "spmm.cu", "sddmm": "sddmm.cu", "roll_gather": "roll_gather.cu"}
 HEADER = "rounds_common.cuh"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-lineinfo", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -51,6 +51,10 @@ _SIGNATURES = {
     "sddmm": {
         "sddmm_smem_bytes": ([_I] * 4, ctypes.c_longlong),
         "sddmm_edge_hidden_launch": ([_I] + [_P] * 7 + [_I] * 6 + [_P], _I),
+    },
+    "roll_gather": {
+        "roll_rounds_smem_bytes": ([_I] * 2, ctypes.c_longlong),
+        "roll_rounds_launch": ([_I] * 2 + [_P] * 10 + [_I] * 3 + [_P], _I),
     },
 }
 

@@ -1,7 +1,8 @@
-// Device helpers shared by the fused-rounds kernels (fused_rounds.cu: K1 and
-// K2a; fused_backward.cu: K2b).  One block of 256 threads works on one
-// sample at a time; a warp owns 4 rows of a 32-row chunk and each lane 4 of
-// the 128 columns, so a row reduction is one warp reduction.
+// Device helpers shared by the rounds kernels (fused_rounds.cu: K1 and
+// K2a; fused_backward.cu: K2b; roll_gather.cu: K5).  One block of 256
+// threads works on one sample at a time; a warp owns 4 rows of a 32-row
+// chunk and each lane 4 of the 128 columns, so a row reduction is one warp
+// reduction.
 #pragma once
 
 #include <cuda_runtime.h>

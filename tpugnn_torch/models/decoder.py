@@ -309,7 +309,10 @@ class GNNDecoder(nn.Module):
                 p.copy_(base + bias_std * torch.randn(p.shape, generator=generator))
         return self
 
-    def forward(self, graph, syndrome: torch.Tensor) -> DecoderOutput:
+    def embed(self, graph, syndrome: torch.Tensor):
+        """The node states the rounds start from and the +-1 syndrome
+        feature: ``(x_c [B, m_pad, H], x_q [B, n_pad, H], s_pm [B, m_pad])``,
+        padded rows zero."""
         cfg = self.cfg
         batch = syndrome.shape[0]
         m_pad, n_pad = graph.n_checks_pad, graph.n_qubits_pad
@@ -328,16 +331,11 @@ class GNNDecoder(nn.Module):
         x_c = _mlp2(check_in, self.embed_check_d0, self.embed_check_d1, cast) * cm[:, None]
         xq0 = _mlp2(graph.qubit_feat.to(dt), self.embed_qubit_d0, self.embed_qubit_d1, cast)
         x_q = (xq0 * qm[:, None]).expand(batch, n_pad, cfg.hidden)
+        return x_c, x_q, s_pm
 
-        if fused:
-            x_c, x_q = decoder_rounds(x_c, x_q, s_pm[..., None], make_operators(graph),
-                                      self.rounds.round_weights(), cfg.rounds, cfg.dtype)
-        else:
-            state = NodeStates(check=x_c, qubit=x_q)
-            for r in range(cfg.rounds):
-                state = self.rounds(graph, state, s_pm[..., None], r)
-            x_c, x_q = state
-
+    def readout(self, graph, x_c: torch.Tensor, x_q: torch.Tensor) -> DecoderOutput:
+        """The heads on the states after the rounds."""
+        cfg = self.cfg
         qubit_logits = None
         logical_logits = None
         if cfg.readout in ("per_qubit", "both"):
@@ -348,5 +346,19 @@ class GNNDecoder(nn.Module):
             pooled = torch.cat([qsum, csum], dim=-1)
             logical_logits = _mlp2(pooled, self.head_logical_d0, self.head_logical_d1)
         if qubit_logits is None:
-            qubit_logits = torch.zeros((batch, n_pad, 2), device=syndrome.device)
+            qubit_logits = torch.zeros((x_q.shape[0], graph.n_qubits_pad, 2),
+                                       device=x_q.device)
         return DecoderOutput(qubit_logits=qubit_logits, logical_logits=logical_logits)
+
+    def forward(self, graph, syndrome: torch.Tensor) -> DecoderOutput:
+        cfg = self.cfg
+        x_c, x_q, s_pm = self.embed(graph, syndrome)
+        if cfg.backend == "fused":
+            x_c, x_q = decoder_rounds(x_c, x_q, s_pm[..., None], make_operators(graph),
+                                      self.rounds.round_weights(), cfg.rounds, cfg.dtype)
+        else:
+            state = NodeStates(check=x_c, qubit=x_q)
+            for r in range(cfg.rounds):
+                state = self.rounds(graph, state, s_pm[..., None], r)
+            x_c, x_q = state
+        return self.readout(graph, x_c, x_q)
