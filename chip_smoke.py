@@ -11,7 +11,8 @@ print one JSON line with their wall time:
     source, all started together -> .so)
   2 kernel vs plain: the fused-rounds kernel against rounds_plain on the card
     at the main path's shapes, d=11, H=128, B=4096 (R=8 bf16 and R=14 f32),
-    with stated tolerances
+    and at d=13 in bf16 (B=64, R=3: its 176-row sides run a whole 128-row
+    chunk and a ragged one), with stated tolerances
   3 serve: a DecodeEngine on the trained d=11 weights answers requests of
     1, 1000 and 5000 syndromes; outputs equal the model's direct decode
   4 LER: ler_monte_carlo of the trained weights at p=0.05 on 65,536 shots,
@@ -19,17 +20,24 @@ print one JSON line with their wall time:
     file (both heads gated at |z| <= 4) and against benchmarks/LER_TABLE.md:30
     (logical head gated at |z| <= 4; per-qubit head reported, see below)
   5 timing: the bench config (d=11, B=4096, R=8, H=128, bf16) with CUDA
-    events: the kernel's step, rounds_plain, and an index_select + index_add_
-    round loop as the yardstick
+    events: the kernel's step and its TFLOP/s beside its bound and the f32
+    CUDA-core floor, rounds_plain, and an index_select + index_add_ round
+    loop as the yardstick
   6 training kernels vs plain: at the flagship training shapes (d=11, H=128,
     R=14, B=4096) in bf16 and in f32, K2a's outputs against K1's, its stash
     against rounds_fwd_stash_plain, and K2b's gradients (states, syndrome and
-    every weight leaf) against rounds_vjp_plain, with stated tolerances
+    every weight leaf) against rounds_vjp_plain, with stated tolerances; K2b
+    twice on the same inputs, bit-equal; the same checks at d=13 in bf16
+    (B=64, R=3)
   7 train: train() on the flagship training config from a seeded random
     init, TRAIN_STEPS steps in two calls with a checkpoint resume between
     them; gates a finite, falling loss, one K2a and one K2b launch and no K1
-    launch per step, the EMA, and a bit-equal restore; times the step, K2a
-    and K2b alone, their plain versions and the autograd yardstick
+    launch per step, the EMA, and a bit-equal restore; then two train steps
+    from the run's last state through K2a/K2b and through their plain
+    versions on the same CUDA tensors, each parameter leaf's change gated
+    (with K2b's weight gradients zeroed, what the gate catches, reported);
+    times the step, K2a and K2b alone (with their TFLOP/s and f32 CUDA-core
+    floors), their plain versions and the autograd yardstick
   8 spmm/sddmm kernels vs plain: K3a (sum, mean), K3b (max) and K4 at d=11,
     B=4096, F = H = MH = 128 against their plain versions on the card, in f32
     and bf16, with stated tolerances; their times beside their plain
@@ -126,6 +134,10 @@ MIN_AGREE_BF16 = 0.99
 # couple of ulps over a whole leaf.
 TOL_GRAD_REL_F32 = 1e-4
 TOL_GRAD_REL_BF16 = 1e-2
+# d=13 checks of K1, K2a and K2b (phases 2 and 6): its 176-row sides run a
+# whole 128-row chunk and a ragged 48-row one; the tolerances above apply
+D13_BATCH = 64
+D13_ROUNDS = 3
 # train phase: the flagship training config (benchmarks/train_quality_v3.py
 # with scripts/tpu_queue_r2a.sh:108-110) for TRAIN_STEPS steps, resumed from
 # a checkpoint at TRAIN_RESUME.  LOSS_FALL bounds the mean loss of the last 5
@@ -137,6 +149,17 @@ TOL_GRAD_REL_BF16 = 1e-2
 TRAIN_STEPS = 30
 TRAIN_RESUME = 15
 LOSS_FALL = 0.25
+# K2b trains: from the run's last state (parameters and AdamW moments),
+# TRAIN_CHECK_STEPS steps through K2a/K2b and through their plain versions on
+# the same CUDA tensors and batches; each parameter leaf's change from the
+# start, kernels against plain, as a relative L2 error after every step.  K2b's
+# gradients are within about 2e-3 of the plain version's per leaf (phase 6),
+# and a step moves the AdamW first moment by a tenth of the new gradient, so
+# the changes differ by about 1e-3 (on an H100: 7.0e-4 after one step,
+# 1.07e-3 after two); with K2b's weight gradients zeroed the least-moved round
+# leaf differs by 0.33 and 0.45.  Bound 1e-2.
+TRAIN_CHECK_STEPS = 2
+TRAIN_STEP_REL = 1e-2
 
 # K3a against ell_aggregate_plain on the card: the same f32 adds of at most
 # 4 messages per row in another order; relative to the largest output.
@@ -344,6 +367,40 @@ def random_states(dg, batch: int, h: int, gen):
     return xc * dg.check_mask[:, None], xq * dg.qubit_mask[:, None], s_pm
 
 
+def random_round_case(d: int, batch: int, rounds: int, dtype: str, seed: int, dev):
+    """A surface code of distance d on the card, seeded random full-width
+    round weights (H = MH = 128) and random states: ``(graph, dg, ops, w,
+    xc, xq, syn, gen)``."""
+    import torch
+
+    from tpugnn_torch.configs import ModelConfig
+    from tpugnn_torch.kernels import fused_decoder as fd
+    from tpugnn_torch.models import GNNDecoder
+    from tpugnn_torch.tanner import build_code
+
+    graph = build_code("surface", d)
+    dg = graph.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = GNNDecoder(ModelConfig(hidden=128, msg_hidden=128, rounds=rounds, backend="fused",
+                                   qubit_head="pauli4", dtype=dtype), k=1)
+    model.init_random(torch.Generator().manual_seed(seed + 1), bias_std=0.1)
+    w = fd.RoundWeights(*[t.detach() for t in model.to(dev).rounds.round_weights()])
+    xc, xq, syn = random_states(dg, batch, 128, gen)
+    return graph, dg, fd.make_operators(dg), w, xc, xq, syn, gen
+
+
+def grad_errors(w, kg, pg) -> dict:
+    """Relative L2 error of K2b's gradients against the plain version's, per
+    leaf: dxc, dxq, dsyn and the 25 round-weight leaves."""
+    from tpugnn_torch.kernels import fused_decoder as fd
+
+    k_leaves = weight_leaves(w, kg[3], kg[4])
+    p_leaves = weight_leaves(w, pg[3], pg[4])
+    rels = {n: rel_err(a, b) for n, a, b in zip(("dxc", "dxq", "dsyn"), kg, pg)}
+    rels.update({f: rel_err(k_leaves[f], p_leaves[f]) for f in fd.RoundWeights._fields})
+    return rels
+
+
 def z_score(rate: float, n: int, ref: float, ref_n: int) -> float:
     """Two-sample z of a binomial rate against the reference, pooled."""
     pool = (rate * n + ref * ref_n) / (n + ref_n)
@@ -399,6 +456,58 @@ def sddmm_bound(graph, batch: int, h: int, mh: int, compute: str) -> tuple[float
               + mh * 4 + graph.n_checks_pad * graph.deg_max_check * 4)
     ops = 2 * batch * rows * h * mh + 3 * batch * graph.n_edges * mh
     return bound(nbytes, ops, peak)
+
+
+def train_steps_vs_plain(state, cfg, dg, dev) -> dict:
+    """Phase 7's check that K2b trains: TRAIN_CHECK_STEPS train steps from
+    the run's last state, through K2a/K2b (``kernels``), through their plain
+    versions on the same CUDA tensors (``plain``), and through K2a/K2b with
+    K2b's weight gradients replaced by zeros (``zero_wgrads``, what the check
+    must catch), on the same batches.  Returns each variant's relative L2
+    error against ``plain`` of every parameter leaf's change from the start,
+    after every step."""
+    import copy
+
+    import torch
+
+    from tpugnn_torch.kernels import fused_backward as fb
+    from tpugnn_torch.models import decoder as dec
+    from tpugnn_torch.sampling import sample_batch
+    from tpugnn_torch.train.loop import train_step
+    from tpugnn_torch.train.optim import make_optimizer
+
+    gen = torch.Generator(device=dev).manual_seed(77)
+    batches = [sample_batch(gen, dg, 0.05, cfg.train.batch) for _ in range(TRAIN_CHECK_STEPS)]
+    start = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    rounds_fn, bwd_cuda = dec.decoder_rounds, fb._bwd_cuda
+
+    def plain_rounds(xc, xq, syn, ops, weights, rounds, state_dtype):
+        return fb.trained_rounds(xc, xq, syn, ops, weights, rounds, state_dtype, kernels=False)
+
+    def zero_wgrads(*args):
+        g_c, g_q, dsyn, dmats, dvecs = bwd_cuda(*args)
+        return g_c, g_q, dsyn, torch.zeros_like(dmats), torch.zeros_like(dvecs)
+
+    deltas = {}
+    for variant in ("kernels", "plain", "zero_wgrads"):
+        model = copy.deepcopy(state.model)
+        opt = make_optimizer(cfg, model.parameters())
+        opt.load_state_dict(copy.deepcopy(state.optimizer.state_dict()))
+        if variant == "plain":
+            dec.decoder_rounds = plain_rounds
+        elif variant == "zero_wgrads":
+            fb._bwd_cuda = zero_wgrads
+        try:
+            deltas[variant] = []
+            for batch in batches:
+                train_step(model, opt, dg, batch, cfg)
+                deltas[variant].append({n: p.detach() - start[n]
+                                        for n, p in model.named_parameters()})
+        finally:
+            dec.decoder_rounds, fb._bwd_cuda = rounds_fn, bwd_cuda
+        del model, opt
+    return {v: [{n: rel_err(d[n], p[n]) for n in d} for d, p in zip(deltas[v], deltas["plain"])]
+            for v in ("kernels", "zero_wgrads")}
 
 
 def phase_spmm_sddmm(graph, dg, dev, info: dict) -> dict:
@@ -1005,6 +1114,24 @@ def main() -> int:
             yc, yq = yardstick_rounds(xc, xq, s, dg, w, 14, torch.float32)
             info["yardstick_vs_plain_f32"] = float(torch.maximum(
                 (yc - pc).abs().max(), (yq - pq).abs().max()))
+        # d=13 in bf16: 176-row sides, a whole 128-row chunk and a ragged one
+        g13, dg13, ops13, w13, xc, xq, s, _ = random_round_case(
+            13, D13_BATCH, D13_ROUNDS, "bfloat16", 12, dev)
+        with torch.inference_mode():
+            kc, kq = fd.decoder_rounds(xc, xq, s, ops13, w13, D13_ROUNDS, "bfloat16")
+            pc, pq = fd.rounds_plain(xc, xq, s, ops13, w13, rounds=D13_ROUNDS,
+                                     state_dtype="bfloat16")
+            torch.cuda.synchronize()
+            diff = torch.cat([(kc - pc).abs().flatten(), (kq - pq).abs().flatten()])
+            finite = bool(torch.isfinite(kc).all() and torch.isfinite(kq).all())
+        info["d13_bfloat16"] = dict(batch=D13_BATCH, rounds=D13_ROUNDS, rows=g13.n_checks_pad,
+                                    max_abs_err=float(diff.max()),
+                                    mean_abs_err=float(diff.mean()),
+                                    tol_max=TOL_BF16_MAX, tol_mean=TOL_BF16_MEAN)
+        if not finite or float(diff.max()) > TOL_BF16_MAX or float(diff.mean()) > TOL_BF16_MEAN:
+            raise RuntimeError(f"d=13 bf16: kernel disagrees with rounds_plain: "
+                               f"{info['d13_bfloat16']}")
+        del kc, kq, pc, pq, diff
 
     launches = {}
     with Phase("serve") as info:
@@ -1097,6 +1224,7 @@ def main() -> int:
                     yardstick_ms=y_ms, bound_ms=max(t_ops, t_bytes),
                     bound_by="operations" if t_ops >= t_bytes else "bytes",
                     f32_core_ms=flops / H100_F32_FLOPS * 1e3, gflop=flops / 1e9,
+                    kernel_tflops=flops / (k_ms * 1e-3) / 1e12,
                     edges_per_s_kernel=edges / (k_ms / 1e3),
                     edges_per_s_plain=edges / (p_ms / 1e3),
                     edges_per_s_yardstick=edges / (y_ms / 1e3))
@@ -1145,9 +1273,12 @@ def main() -> int:
                     xc, xq, s, ops, mats32, vecs32, rounds=rounds, state_dtype=dtype)
                 # both backward versions read the kernel's stash
                 kg = fb._bwd_cuda(sc, sq, s, ops, mats32, vecs32, cot_c, cot_q, dtype)
+                again = fb._bwd_cuda(sc, sq, s, ops, mats32, vecs32, cot_c, cot_q, dtype)
                 pg = fb.rounds_vjp_plain(sc, sq, s, ops, mats32, vecs32, cot_c, cot_q,
                                          state_dtype=dtype)
                 torch.cuda.synchronize()
+                repeatable = all(torch.equal(a_, b_) for a_, b_ in zip(kg, again))
+                del again
                 same_as_k1 = bool(torch.equal(kc, k1c) and torch.equal(kq, k1q))
                 out_diff = torch.cat([(kc - pc).abs().flatten(), (kq - pq).abs().flatten()])
                 st_max, st_sum, st_n = 0.0, 0.0, 0
@@ -1166,7 +1297,7 @@ def main() -> int:
                 list(kg[:3]) + list(k_leaves.values()), list(pg[:3]) + list(p_leaves.values())))
             worst = max(rels, key=rels.get)
             info[dtype] = dict(
-                rounds=rounds, batch=B, k2a_equals_k1=same_as_k1,
+                rounds=rounds, batch=B, k2a_equals_k1=same_as_k1, k2b_repeatable=repeatable,
                 k2a_vs_plain_max=float(out_diff.max()), k2a_vs_plain_mean=float(out_diff.mean()),
                 stash_vs_plain_max=st_max, stash_vs_plain_mean=st_sum / st_n,
                 k2b_max_abs_err=grad_max, k2b_worst_rel=rels[worst], k2b_worst_leaf=worst,
@@ -1176,6 +1307,9 @@ def main() -> int:
                 raise RuntimeError(f"{dtype}: K2a/K2b produced non-finite values")
             if not same_as_k1:
                 raise RuntimeError(f"{dtype}: K2a's outputs differ from K1's")
+            if not repeatable:
+                raise RuntimeError(f"{dtype}: K2b's gradients differ between two runs on "
+                                   f"the same inputs")
             if (float(out_diff.max()) > tol_max or float(out_diff.mean()) > tol_mean
                     or st_max > tol_max or st_sum / st_n > tol_mean):
                 raise RuntimeError(f"{dtype}: K2a disagrees with rounds_fwd_stash_plain: "
@@ -1185,6 +1319,45 @@ def main() -> int:
                                    f"{worst}: {info[dtype]}")
             del kc, kq, sc, sq, pc, pq, psc, psq, kg, pg, out_diff
             torch.cuda.empty_cache()
+
+        # d=13 in bf16 (a ragged second chunk per side): K2a equal to K1, its
+        # stash and outputs and K2b's gradients against the plain versions
+        _, _, ops13, w13, xc, xq, s, gen = random_round_case(
+            13, D13_BATCH, D13_ROUNDS, "bfloat16", 15, dev)
+        mats32, vecs32 = fd.pack_weights_f32(w13)
+        cot_c = torch.randn(xc.shape, generator=gen, device=dev)
+        cot_q = torch.randn(xq.shape, generator=gen, device=dev)
+        with torch.no_grad():
+            k1c, k1q = fd.decoder_rounds(xc, xq, s, ops13, w13, D13_ROUNDS, "bfloat16")
+            kc, kq, sc, sq = fb._fwd_stash_cuda(xc, xq, s, ops13, mats32, vecs32, D13_ROUNDS,
+                                                "bfloat16")
+            pc, pq, psc, psq = fb.rounds_fwd_stash_plain(
+                xc, xq, s, ops13, mats32, vecs32, rounds=D13_ROUNDS, state_dtype="bfloat16")
+            kg = fb._bwd_cuda(sc, sq, s, ops13, mats32, vecs32, cot_c, cot_q, "bfloat16")
+            pg = fb.rounds_vjp_plain(sc, sq, s, ops13, mats32, vecs32, cot_c, cot_q,
+                                     state_dtype="bfloat16")
+            torch.cuda.synchronize()
+            same_as_k1 = bool(torch.equal(kc, k1c) and torch.equal(kq, k1q))
+            out_diff = torch.cat([(kc - pc).abs().flatten(), (kq - pq).abs().flatten()])
+            st_diff = torch.cat([(sc.float() - psc.float()).abs().flatten(),
+                                 (sq.float() - psq.float()).abs().flatten()])
+            finite = all(bool(torch.isfinite(t).all()) for t in (kc, kq, *kg))
+        rels = grad_errors(w13, kg, pg)
+        worst = max(rels, key=rels.get)
+        info["d13_bfloat16"] = dict(
+            batch=D13_BATCH, rounds=D13_ROUNDS, k2a_equals_k1=same_as_k1,
+            k2a_vs_plain_max=float(out_diff.max()), k2a_vs_plain_mean=float(out_diff.mean()),
+            stash_vs_plain_max=float(st_diff.max()), stash_vs_plain_mean=float(st_diff.mean()),
+            k2b_worst_rel=rels[worst], k2b_worst_leaf=worst, tol_rel=TOL_GRAD_REL_BF16)
+        if not finite or not same_as_k1:
+            raise RuntimeError(f"d=13 bf16: K2a/K2b non-finite or K2a differs from K1: "
+                               f"{info['d13_bfloat16']}")
+        if (float(out_diff.max()) > TOL_BF16_MAX or float(out_diff.mean()) > TOL_BF16_MEAN
+                or float(st_diff.max()) > TOL_BF16_MAX or float(st_diff.mean()) > TOL_BF16_MEAN
+                or rels[worst] > TOL_GRAD_REL_BF16):
+            raise RuntimeError(f"d=13 bf16: K2a or K2b disagrees with its plain version: "
+                               f"{info['d13_bfloat16']}")
+        del kc, kq, sc, sq, pc, pq, psc, psq, kg, pg, out_diff, st_diff
 
     with Phase("train") as info:
         import tempfile
@@ -1249,6 +1422,20 @@ def main() -> int:
             raise RuntimeError(f"train: the restored parameters differ from the live "
                                f"run's at step {TRAIN_RESUME}: {msgs}")
 
+        step_errs = train_steps_vs_plain(state, flagship_train_config(TRAIN_STEPS, ckpt_dir),
+                                         dg, dev)
+        k_worst = [max(e.items(), key=lambda kv: kv[1]) for e in step_errs["kernels"]]
+        z_least = [min(((n, v) for n, v in e.items() if n.startswith("rounds.")),
+                       key=lambda kv: kv[1]) for e in step_errs["zero_wgrads"]]
+        info["steps_vs_plain"] = dict(
+            steps=TRAIN_CHECK_STEPS, bound=TRAIN_STEP_REL,
+            kernels_worst=[dict(leaf=n, rel=v) for n, v in k_worst],
+            zero_wgrads_least=[dict(leaf=n, rel=v) for n, v in z_least],
+            kernels_rel=step_errs["kernels"][-1])
+        if any(v > TRAIN_STEP_REL for _, v in k_worst):
+            raise RuntimeError(f"train: steps through K2a/K2b move the parameters otherwise "
+                               f"than their plain versions: {info['steps_vs_plain']}")
+
         # K2a and K2b alone at the step's shapes, their plain versions, and
         # the autograd yardstick of the same rounds
         rounds = state.model.cfg.rounds
@@ -1311,6 +1498,10 @@ def main() -> int:
             k2b_bound_ms=max(t_ops_b, t_bytes_b),
             k2b_bound_by="operations" if t_ops_b >= t_bytes_b else "bytes",
             k2a_bytes_ms=t_bytes_a, k2b_bytes_ms=t_bytes_b,
+            k2a_tflops=t_ops_a * 1e-3 * H100_BF16_FLOPS / (k2a_ms * 1e-3) / 1e12,
+            k2b_tflops=t_ops_b * 1e-3 * H100_BF16_FLOPS / (k2b_ms * 1e-3) / 1e12,
+            k2a_f32_core_ms=t_ops_a * H100_BF16_FLOPS / H100_F32_FLOPS,
+            k2b_f32_core_ms=t_ops_b * H100_BF16_FLOPS / H100_F32_FLOPS,
             rounds_share_of_step=(k2a_ms + k2b_ms) / statistics.median(step_ms),
             yardstick_rounds=y_rounds, yardstick_step_ms=y_step_ms,
             yardstick_fwd_ms=y_fwd_ms, yardstick_bwd_ms=y_step_ms - y_fwd_ms,

@@ -3,7 +3,7 @@
 The sources in ``csrc/`` have a plain C interface (no PyTorch headers), so a
 cold build takes seconds.  Each source becomes its own library in
 ``tpugnn_torch/_build/`` (ignored by git), named by a hash of the source, the
-header the rounds sources share, the flags and the compiler's version
+headers the rounds sources share, the flags and the compiler's version
 line.  The ``nvcc``
 processes of a build all start together, under a file lock so that
 concurrent processes build a library once.  Nothing here runs at import time.
@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import time
 
-__all__ = ["NVCC_FLAGS", "SOURCES", "build_libraries", "load_library", "nvcc_path"]
+__all__ = ["HEADERS", "NVCC_FLAGS", "SOURCES", "build_libraries", "load_library", "nvcc_path"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
@@ -28,7 +28,7 @@ _BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 # library name -> source
 SOURCES = {"fused_rounds": "fused_rounds.cu", "fused_backward": "fused_backward.cu",
            "spmm": "spmm.cu", "sddmm": "sddmm.cu", "roll_gather": "roll_gather.cu"}
-HEADER = "rounds_common.cuh"
+HEADERS = ("rounds_common.cuh", "rounds_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-lineinfo", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,7 +42,8 @@ _SIGNATURES = {
     },
     "fused_backward": {
         "fused_rounds_bwd_smem_bytes": ([_I] * 5, ctypes.c_longlong),
-        "fused_rounds_bwd_scratch_floats": ([_I] * 2, ctypes.c_longlong),
+        "fused_rounds_bwd_tile": ([_I], _I),
+        "fused_rounds_bwd_scratch_bytes": ([_I] * 5, ctypes.c_longlong),
         "fused_rounds_bwd_launch": ([_I] + [_P] * 17 + [_I] * 7 + [_P], _I),
     },
     "spmm": {
@@ -69,7 +70,7 @@ def nvcc_path() -> str:
 
 def _library_path(name: str, version: str) -> str:
     h = hashlib.sha256()
-    for f in (SOURCES[name], HEADER):
+    for f in (SOURCES[name], *HEADERS):
         with open(os.path.join(_CSRC, f), "rb") as fh:
             h.update(fh.read())
     h.update(" ".join(NVCC_FLAGS + (version,)).encode())

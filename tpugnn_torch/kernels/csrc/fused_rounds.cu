@@ -15,25 +15,38 @@
 // Design: one block of 256 threads per sample; all R rounds loop inside the
 // block.  Per round:
 //   A  ys_c = rnd(x_q @ ws_c) for all qubit rows      -> shared panel [N, H]
-//   B  check rows in chunks of 32: x @ [wd_c|uc_x|ws_q] (ws_q part -> shared
-//      panel ys_q [M, H]), slot gather-sum over ys_c, folded aggregation GEMM,
-//      update MLP, residual, LayerNorm; the new rows overwrite the state
-//   C  qubit rows in chunks of 32, the same against ys_q
+//   B  check rows: x @ [wd_c|uc_x|ws_q] (ws_q part -> shared panel ys_q
+//      [M, H]), slot gather-sum over ys_c, folded aggregation GEMM, update
+//      MLP, residual, LayerNorm; the new rows overwrite the state
+//   C  qubit rows, the same against ys_q
 // The states live in the output tensors (global memory; a block's 2 x 128 x
 // 128 panel pair stays in L2) and are rewritten in place chunk by chunk; the
-// two gather panels and the chunk buffers are in shared memory.  Each warp
-// owns 4 rows of a chunk and each lane 4 columns, so a LayerNorm row is one
-// warp reduction.  GEMMs are FMA loops over a 16-deep slab of the weights
-// staged in shared memory (weights stay L2-resident across blocks).
+// two gather panels and the chunk buffers are in shared memory.
 //
-// Bounds on an H100 at d=11, H=128: 42 MFLOP per sample and round with the
-// folded weights; HBM traffic is only the states in and out.  So the work is
-// bound by operations: at B=4096, R=8 about 1.4 TFLOP, 1.4 ms at the bf16
-// tensor-core peak and 21 ms at the f32 CUDA-core peak this kernel's FMA
-// loops can reach.  It runs on CUDA cores (no mma/wgmma), one block per SM by
-// shared memory: a first version that is right, not yet a fast one.
+// Two instantiations:
+//   bf16 states (the bench config, training): the tensor-core path, tcp::
+//     below.  Every operand of every product is a bf16 value (states, hs and
+//     hc are rounded, the packed matrices stored in bf16), so
+//     mma.sync.m16n8k16 bf16 with f32 accumulation forms the same products
+//     as the plain version; only the f32 summation order differs.  Chunks
+//     are a whole side of 128 rows (8 warps x 16 rows), so each weight
+//     matrix is staged once per side and round (320 KB a sample-round at
+//     d=11 instead of 1.31 MB through 32-row chunks), double-buffered with
+//     cp.async behind 4 barriers per product (rounds_mma.cuh).  A side of
+//     more rows (d=13: 176) runs a second, ragged chunk.
+//   f32 states (the trained decode, serve, LER): 32-row chunks, each warp 4
+//     rows and each lane 4 columns, f32 FMA loops over a 16-deep slab
+//     (gemm_chunk, rounds_common.cuh), unchanged.
+//
+// Bounds on an H100 at d=11, H=128: 39.7 MFLOP per sample and round on the
+// 241 real rows with the folded weights; HBM traffic is only the states in
+// and out.  So the work is bound by operations: at B=4096, R=8 1.30 TFLOP,
+// 1.32 ms at the bf16 tensor-core peak (989 TFLOP/s) and 19.4 ms at the f32
+// CUDA-core peak (67 TFLOP/s), the floor of the f32 path and of any FMA
+// design.  One block per SM by shared memory.
 
 #include "rounds_common.cuh"
+#include "rounds_mma.cuh"
 
 namespace {
 
@@ -218,21 +231,258 @@ fused_rounds_kernel(const T* xc_in, const T* xq_in, const float* __restrict__ sy
   }
 }
 
-template <typename T, bool STASH>
-int launch(const void* xc_in, const void* xq_in, const float* syn, const int* idx_c,
-           const int* idx_q, const void* mats, const float* vecs, void* xc_out,
-           void* xq_out, void* stash_c, void* stash_q, int B, int M, int N, int Dc,
-           int Dq, int R, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(M, N, Dc, Dq);
-  cudaError_t err = cudaFuncSetAttribute(fused_rounds_kernel<T, STASH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+// ---------------------------------------------------------------------------
+// The bf16 path on tensor cores (rounds_mma.cuh).  Per round, with whole-side
+// chunks of 128 rows (a second, ragged chunk for larger sides), one product
+// (one weight matrix) at a time, each accumulator m16 x n128 per warp:
+//   A  ys_c = rnd(x_q @ ws_c)
+//   B  check chunk: ys_q = rnd(x @ ws_q); ydb = x @ wd + b0 and the slot
+//      gather-sum; pre = hs @ wf + x @ ux (the second product accumulates
+//      into the first's registers, so no two accumulators are ever live);
+//      hc @ w1, the residual and LayerNorm (a row is one quad: two shuffles)
+//   C  qubit chunk: the same without ys_q and the syndrome term
+// Each product streams its weights once per chunk: 10 matrices, 320 KB of
+// bf16 per sample-round at d=11, two 64-row slabs each.
+namespace tcp {
+
+using namespace rounds::tc;
+
+template <int SR>
+__host__ __device__ inline size_t smem_bytes(int M, int N, int Dc, int Dq) {
+  size_t s = 0;
+  s += align16(size_t(N) * H * sizeof(bf16));
+  s += align16(size_t(M) * H * sizeof(bf16));
+  s += 2 * CHUNK_BYTES;
+  s += slab_bytes(SR);
+  s += align16(size_t(M) * Dc * sizeof(int));
+  s += align16(size_t(N) * Dq * sizeof(int));
+  return s;
+}
+
+struct Smem {
+  bf16* ys_c;   // [N][H] swizzled, gathered by check rows
+  bf16* ys_q;   // [M][H] swizzled, gathered by qubit rows
+  bf16* xs;     // [CR][LDB] state chunk (A operand, residual, output staging)
+  bf16* hs;     // [CR][LDB] slot sum, then update hidden (A operand)
+  bf16* slab;   // [2][SR][LDB] weight slabs
+  int* idx_c;
+  int* idx_q;
+};
+
+template <int SR>
+__device__ Smem carve(unsigned char* base, int M, int N, int Dc) {
+  Smem s;
+  size_t o = 0;
+  s.ys_c = reinterpret_cast<bf16*>(base + o);  o += align16(size_t(N) * H * sizeof(bf16));
+  s.ys_q = reinterpret_cast<bf16*>(base + o);  o += align16(size_t(M) * H * sizeof(bf16));
+  s.xs = reinterpret_cast<bf16*>(base + o);    o += CHUNK_BYTES;
+  s.hs = reinterpret_cast<bf16*>(base + o);    o += CHUNK_BYTES;
+  s.slab = reinterpret_cast<bf16*>(base + o);  o += slab_bytes(SR);
+  s.idx_c = reinterpret_cast<int*>(base + o);  o += align16(size_t(M) * Dc * sizeof(int));
+  s.idx_q = reinterpret_cast<int*>(base + o);
+  return s;
+}
+
+// Phases B (CHECK) and C: rows [0, rows) of state x_src updated into x_dst
+// (which may alias it); CHECK also writes ys_out = rnd(x @ ws) and adds the
+// syndrome term.  `after` is the product that follows the last chunk.
+template <int SR, bool CHECK>
+__device__ void update_rows_tc(const bf16* x_src, bf16* x_dst, int rows, const bf16* ys_src,
+                               bf16* ys_out, const int* idx, int D, const float* syn,
+                               const bf16* __restrict__ W, const float* __restrict__ vec,
+                               const Smem& s, Slabs<SR>& sl, const bf16* after) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  bf16* xa = s.xs + 16 * warp * LDB;
+  bf16* ha = s.hs + 16 * warp * LDB;
+  const bf16* wd = W + size_t(M_WD) * HH;
+  const bf16* ux = W + size_t(M_UX) * HH;
+  const bf16* ws = W + size_t(M_WS) * HH;
+  const bf16* wf = W + size_t(M_WF) * HH;
+  const bf16* w1 = W + size_t(M_W1) * HH;
+  const bf16* first = CHECK ? ws : wd;
+
+  for (int row0 = 0; row0 < rows; row0 += CR) {
+    const int r0 = row0 + 16 * warp;
+    const int n = max(0, min(16, rows - r0));
+    const bool active = n > 0;
+    load_rows_warp(xa, x_src + size_t(r0) * H, n);
+    float acc[NT][4];
+
+    if (CHECK) {   // the other direction's gather source
+      mma_pass<SR>(xa, ws, sl, wd, acc, active);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + g + 8 * h;
+        if (r < rows) {
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+            st_bf2(ys_out + swz(r, 8 * j + 2 * t), acc[j][2 * h], acc[j][2 * h + 1]);
+        }
+      }
+    }
+
+    // ydb = x @ wd + b0, then the slot gather-sum over the source panel
+    mma_pass<SR>(xa, wd, sl, wf, acc, active);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float2 b0 = ld_vec2(vec, V_B0, 8 * j + 2 * t);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        acc[j][2 * h] += b0.x;
+        acc[j][2 * h + 1] += b0.y;
+      }
+    }
+    float deg[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + g + 8 * h;
+      float hsum[NT][2];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) hsum[j][0] = hsum[j][1] = 0.f;
+      deg[h] = 0.f;
+      if (r < rows) {
+        for (int k = 0; k < D; ++k) {
+          const int src = idx[r * D + k];
+          if (src < 0) continue;
+          deg[h] += 1.f;
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const float2 y = ld_bf2(ys_src + swz(src, 8 * j + 2 * t));
+            hsum[j][0] += fmaxf(y.x + acc[j][2 * h], 0.f);
+            hsum[j][1] += fmaxf(y.y + acc[j][2 * h + 1], 0.f);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        st_bf2(ha + (g + 8 * h) * LDB + 8 * j + 2 * t, hsum[j][0], hsum[j][1]);
+    }
+    __syncwarp();
+
+    // update-MLP pre-activation: hs @ (wo @ ua) + x @ ux + ...
+    mma_pass<SR>(ha, wf, sl, ux, acc, active);
+    mma_pass<SR, true>(xa, ux, sl, w1, acc, active);
+    float sv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + g + 8 * h;
+      sv[h] = (CHECK && r < rows) ? syn[r] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int c = 8 * j + 2 * t;
+      const float2 boa = ld_vec2(vec, V_BOA, c), ub0 = ld_vec2(vec, V_UB0, c);
+      float2 ucs = make_float2(0.f, 0.f);
+      if (CHECK) ucs = ld_vec2(vec, V_UCS, c);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float p0 = acc[j][2 * h] + deg[h] * boa.x + ub0.x;
+        float p1 = acc[j][2 * h + 1] + deg[h] * boa.y + ub0.y;
+        if (CHECK) {
+          p0 += sv[h] * ucs.x;
+          p1 += sv[h] * ucs.y;
+        }
+        st_bf2(ha + (g + 8 * h) * LDB + c, fmaxf(p0, 0.f), fmaxf(p1, 0.f));
+      }
+    }
+    __syncwarp();
+
+    // update output, residual, LayerNorm (two-pass, eps 1e-6)
+    mma_pass<SR>(ha, w1, sl, row0 + CR < rows ? first : after, acc, active);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int c = 8 * j + 2 * t;
+        const float2 x = ld_bf2(xa + (g + 8 * h) * LDB + c);
+        const float2 ub1 = ld_vec2(vec, V_UB1, c);
+        acc[j][2 * h] += x.x + ub1.x;
+        acc[j][2 * h + 1] += x.y + ub1.y;
+        sum += acc[j][2 * h] + acc[j][2 * h + 1];
+      }
+      const float mu = quad_sum(sum) * (1.f / H);
+      float sq = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        acc[j][2 * h] -= mu;
+        acc[j][2 * h + 1] -= mu;
+        sq += acc[j][2 * h] * acc[j][2 * h] + acc[j][2 * h + 1] * acc[j][2 * h + 1];
+      }
+      const float rs = rsqrtf(quad_sum(sq) * (1.f / H) + 1e-6f);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int c = 8 * j + 2 * t;
+        const float2 lns = ld_vec2(vec, V_LNS, c), lnb = ld_vec2(vec, V_LNB, c);
+        st_bf2(xa + (g + 8 * h) * LDB + c, acc[j][2 * h] * rs * lns.x + lnb.x,
+               acc[j][2 * h + 1] * rs * lns.y + lnb.y);
+      }
+    }
+    store_rows_warp(x_dst + size_t(r0) * H, xa, n);
+  }
+}
+
+template <bool STASH, int SR>
+__global__ void __launch_bounds__(THREADS, 1)
+fused_rounds_tc_kernel(const bf16* xc_in, const bf16* xq_in, const float* __restrict__ syn,
+                       const int* __restrict__ idx_c, const int* __restrict__ idx_q,
+                       const bf16* __restrict__ mats, const float* __restrict__ vecs,
+                       bf16* xc_out, bf16* xq_out, bf16* stash_c, bf16* stash_q,
+                       int M, int N, int Dc, int Dq, int R) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Smem s = carve<SR>(smem_raw, M, N, Dc);
+  const size_t b = blockIdx.x;
+  for (int e = threadIdx.x; e < M * Dc; e += THREADS) s.idx_c[e] = idx_c[e];
+  for (int e = threadIdx.x; e < N * Dq; e += THREADS) s.idx_q[e] = idx_q[e];
+  const float* syn_b = syn + b * M;
+  bf16* xc = xc_out + b * size_t(M) * H;
+  bf16* xq = xq_out + b * size_t(N) * H;
+  const bf16* wc = mats;
+  const bf16* wq = mats + size_t(NMAT) * HH;
+  const bf16* proj = wq + size_t(M_WS) * HH;   // ys_c = rnd(x_q @ ws_c)
+  Slabs<SR> sl{s.slab, 0};
+  prime(sl, proj);
+
+  for (int round = 0; round < R; ++round) {
+    const bf16* xc_src = round == 0 ? xc_in + b * size_t(M) * H : xc;
+    const bf16* xq_src = round == 0 ? xq_in + b * size_t(N) * H : xq;
+    if (STASH) {  // read before the first barrier of the round, rewritten after it
+      const size_t sb = size_t(round) * gridDim.x + b;
+      block_copy16(stash_c + sb * M * H, xc_src, size_t(M) * H * sizeof(bf16) / 16);
+      block_copy16(stash_q + sb * N * H, xq_src, size_t(N) * H * sizeof(bf16) / 16);
+    }
+    project_rows_tc<SR>(xq_src, N, proj, s.ys_c, s.xs, sl, wc + size_t(M_WS) * HH);
+    update_rows_tc<SR, true>(xc_src, xc, M, s.ys_c, s.ys_q, s.idx_c, Dc, syn_b, wc, vecs,
+                             s, sl, wq + size_t(M_WD) * HH);
+    update_rows_tc<SR, false>(xq_src, xq, N, s.ys_q, nullptr, s.idx_q, Dq, nullptr, wq,
+                              vecs + NVEC * H, s, sl, round + 1 < R ? proj : nullptr);
+    __syncthreads();   // the round's state writes are visible to the next round
+  }
+}
+
+}  // namespace tcp
+
+// The slab rows of the bf16 kernel for a graph: 64 where that fits in shared
+// memory, else 32; 0 where neither does.
+int tc_slab_rows(int M, int N, int Dc, int Dq) {
+  if (tcp::smem_bytes<64>(M, N, Dc, Dq) <= tc::SMEM_LIMIT) return 64;
+  if (tcp::smem_bytes<32>(M, N, Dc, Dq) <= tc::SMEM_LIMIT) return 32;
+  return 0;
+}
+
+size_t smem_for(int dtype, int M, int N, int Dc, int Dq) {
+  if (dtype == 0) return smem_bytes<float>(M, N, Dc, Dq);
+  return tc_slab_rows(M, N, Dc, Dq) == 32 ? tcp::smem_bytes<32>(M, N, Dc, Dq)
+                                          : tcp::smem_bytes<64>(M, N, Dc, Dq);
+}
+
+template <typename K, typename... Args>
+int launch_kernel(K kernel, int grid, size_t smem, cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(smem));
   if (err != cudaSuccess) return int(err);
-  fused_rounds_kernel<T, STASH><<<B, THREADS, smem, stream>>>(
-      static_cast<const T*>(xc_in), static_cast<const T*>(xq_in), syn, idx_c, idx_q,
-      static_cast<const T*>(mats), vecs, static_cast<T*>(xc_out),
-      static_cast<T*>(xq_out), static_cast<T*>(stash_c), static_cast<T*>(stash_q),
-      M, N, Dc, Dq, R);
+  kernel<<<grid, THREADS, smem, stream>>>(args...);
   return int(cudaGetLastError());
 }
 
@@ -251,14 +501,33 @@ int launch_dtype(int dtype, const void* xc_in, const void* xq_in, const void* sy
   const int* iq = static_cast<const int*>(idx_q);
   const float* v = static_cast<const float*>(vecs);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t smem = smem_for(dtype, M, N, Dc, Dq);
   if (dtype == 0)
-    return launch<float, STASH>(xc_in, xq_in, s, ic, iq, mats, v, xc_out, xq_out,
-                                stash_c, stash_q, B, M, N, Dc, Dq, R, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, STASH>(xc_in, xq_in, s, ic, iq, mats, v, xc_out,
-                                        xq_out, stash_c, stash_q, B, M, N, Dc, Dq, R,
-                                        st);
-  return int(cudaErrorInvalidValue);
+    return launch_kernel(fused_rounds_kernel<float, STASH>, B, smem, st,
+                         static_cast<const float*>(xc_in), static_cast<const float*>(xq_in),
+                         s, ic, iq, static_cast<const float*>(mats), v,
+                         static_cast<float*>(xc_out), static_cast<float*>(xq_out),
+                         static_cast<float*>(stash_c), static_cast<float*>(stash_q),
+                         M, N, Dc, Dq, R);
+  if (dtype != 1) return int(cudaErrorInvalidValue);
+  typedef __nv_bfloat16 bf;
+  const bf* xci = static_cast<const bf*>(xc_in);
+  const bf* xqi = static_cast<const bf*>(xq_in);
+  const bf* mt = static_cast<const bf*>(mats);
+  bf* xco = static_cast<bf*>(xc_out);
+  bf* xqo = static_cast<bf*>(xq_out);
+  bf* sc = static_cast<bf*>(stash_c);
+  bf* sq = static_cast<bf*>(stash_q);
+  switch (tc_slab_rows(M, N, Dc, Dq)) {
+    case 64:
+      return launch_kernel(tcp::fused_rounds_tc_kernel<STASH, 64>, B, smem, st, xci, xqi, s,
+                           ic, iq, mt, v, xco, xqo, sc, sq, M, N, Dc, Dq, R);
+    case 32:
+      return launch_kernel(tcp::fused_rounds_tc_kernel<STASH, 32>, B, smem, st, xci, xqi, s,
+                           ic, iq, mt, v, xco, xqo, sc, sq, M, N, Dc, Dq, R);
+    default:
+      return int(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -267,8 +536,7 @@ extern "C" {
 
 // Shared memory one block needs; dtype 0 = float32 states, 1 = bfloat16.
 long long fused_rounds_smem_bytes(int dtype, int M, int N, int Dc, int Dq) {
-  return dtype == 0 ? (long long)smem_bytes<float>(M, N, Dc, Dq)
-                    : (long long)smem_bytes<__nv_bfloat16>(M, N, Dc, Dq);
+  return (long long)smem_for(dtype, M, N, Dc, Dq);
 }
 
 // xc_in/xq_in/xc_out/xq_out: [B, M|N, 128] in the state type; syn [B, M] f32;

@@ -204,12 +204,13 @@ def _bwd_cuda(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq, state_
     mats, vecs = fd.cast_packs(mats32, vecs32, dt)
     mats_t = mats.transpose(1, 2).contiguous()
     ucs32 = vecs32[2].detach().float().contiguous()
-    grid = min(b, torch.cuda.get_device_properties(dev).multi_processor_count)
+    tiles = -(-b // lib.fused_rounds_bwd_tile(code))  # a block takes a tile of samples
+    grid = min(tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
     g_c = dxc.float().contiguous().clone()          # rewritten in place
     g_q = dxq.float().contiguous().clone()
     dsyn = torch.zeros((b, m), dtype=torch.float32, device=dev)
-    scratch = torch.empty(grid * lib.fused_rounds_bwd_scratch_floats(m, n),
-                          dtype=torch.float32, device=dev)
+    scratch = torch.empty(grid * lib.fused_rounds_bwd_scratch_bytes(code, m, n, dc, dq),
+                          dtype=torch.uint8, device=dev)
     part_mats = torch.zeros((grid, 10, h, h), dtype=torch.float32, device=dev)
     part_vecs = torch.zeros((grid, 8, 14, h), dtype=torch.float32, device=dev)
     dmats = torch.empty((10, h, h), dtype=torch.float32, device=dev)
