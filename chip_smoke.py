@@ -58,8 +58,15 @@ print one JSON line with their wall time:
  11 roll gather: K5 (the rounds on the surface code's raster) at the bench
     config with f32 slots and with slot16 against roll_rounds_plain on the
     card (every raster cell) and against K1 on the real rows, with stated
-    tolerances; its time beside its plain version's and K1's on the same
-    inputs, and edges/s of both schedules; then the trained d=11 weights
+    tolerances, and twice on the same inputs, bit-equal; its time and
+    TFLOP/s beside its bound and the f32 CUDA-core floor, its plain
+    version's time and K1's on the same inputs, and edges/s of both
+    schedules; its bf16 instantiation at d=13 (both slot modes: a 128-row
+    chunk and a 72-row tail) and d=15 (f32 slots: two 128-row chunks, 32-row
+    weight slabs) against roll_rounds_plain (B=64, R=3); the HMMA
+    instructions of each of its kernels (cuobjdump -sass: the bf16 ones run
+    on tensor cores) and the shared memory of each raster; then the trained
+    d=11 weights
     through PallasDecoder(schedule=('rollgather',)) (f32, R=14): K5 against
     the plain version, LER at p=0.05 on phase 4's 65,536 shots (both heads
     gated at |z| <= 4 against the JAX f32 rate), per-shot decisions against
@@ -876,16 +883,36 @@ def raster_errors(kc, kq, pc, pq) -> tuple[float, float]:
     return float(diff.max()), float(diff.mean())
 
 
+def sass_mma_counts(library: str) -> dict | None:
+    """HMMA instructions per kernel of a built library, from cuobjdump -sass
+    beside nvcc; None where the toolkit has no cuobjdump."""
+    from tpugnn_torch.kernels._build import nvcc_path
+
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out, name = {}, None
+    for line in run([tool, "-sass", library]).splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            out[name] = 0
+        elif name is not None and "HMMA" in line:
+            out[name] += 1
+    return out
+
+
 def phase_roll_gather(graph, dg, dev, trained, info: dict) -> tuple[dict, dict]:
     """Phase 11: K5 at the bench config against its plain version and K1,
-    their times; the trained d=11 weights on the roll path.  Returns the
-    launches of its LER run and the kernel-table row's numbers."""
+    their times; K5 at d=13 and d=15; its SASS; the trained d=11 weights on
+    the roll path.  Returns the launches of its LER run and the kernel-table
+    row's numbers."""
     import torch
 
     from tpugnn_torch.configs import ModelConfig
     from tpugnn_torch.eval import ler_monte_carlo
     from tpugnn_torch.kernels import fused_decoder as fd
     from tpugnn_torch.kernels import roll_gather as rg
+    from tpugnn_torch.kernels._build import build_libraries, load_library
     from tpugnn_torch.models import GNNDecoder, PallasDecoder
     from tpugnn_torch.models.convert import read_meta
     from tpugnn_torch.sampling import sample_batch
@@ -906,14 +933,18 @@ def phase_roll_gather(graph, dg, dev, trained, info: dict) -> tuple[dict, dict]:
     w = fd.RoundWeights(*[t.detach() for t in model.to(dev).rounds.round_weights()])
     xc, xq, s = random_states(dg, B, h, gen)
     edges = B * graph.n_edges * rounds
+    flops = rounds_flops(graph, h) * B * rounds
     bench = {}
     with torch.inference_mode():
         r_ops = rg.to_raster(xc, xq, s, plan, w, "bfloat16")
         k1c, k1q = fd.decoder_rounds(xc, xq, s, ops, w, rounds, "bfloat16")
         for slot in ("float32", "bfloat16"):
             kc, kq = rg._roll_rounds_cuda(r_ops, rounds=rounds, slot_dtype=slot)
+            kc2, kq2 = rg._roll_rounds_cuda(r_ops, rounds=rounds, slot_dtype=slot)
             pc, pq = rg.roll_rounds_plain(r_ops, rounds=rounds, slot_dtype=slot)
             torch.cuda.synchronize()
+            repeatable = bool(torch.equal(kc, kc2) and torch.equal(kq, kq2))
+            del kc2, kq2
             max_err, mean_err = raster_errors(kc, kq, pc, pq)
             oc, oq = rg.from_raster(kc, kq, plan)
             k1_max, k1_mean = raster_errors(real(oc, graph.n_checks), real(oq, graph.n_qubits),
@@ -927,11 +958,14 @@ def phase_roll_gather(graph, dg, dev, trained, info: dict) -> tuple[dict, dict]:
                            warmup=1, iters=5)
             bench[slot] = dict(max_abs_err=max_err, mean_abs_err=mean_err,
                                vs_k1_real_rows_max=k1_max, vs_k1_real_rows_mean=k1_mean,
-                               kernel_ms=k_ms, call_ms=call_ms, plain_ms=p_ms,
-                               edges_per_s=edges / (call_ms / 1e3),
+                               repeatable=repeatable, kernel_ms=k_ms,
+                               kernel_tflops=flops / (k_ms * 1e-3) / 1e12, call_ms=call_ms,
+                               plain_ms=p_ms, edges_per_s=edges / (call_ms / 1e3),
                                edges_per_s_kernel=edges / (k_ms / 1e3))
             if not finite:
                 raise RuntimeError(f"K5 slots {slot}: non-finite states")
+            if not repeatable:
+                raise RuntimeError(f"K5 slots {slot}: two runs on the same inputs differ")
             if max_err > TOL_BF16_MAX or mean_err > TOL_BF16_MEAN:
                 raise RuntimeError(f"K5 slots {slot} disagrees with roll_rounds_plain: "
                                    f"{bench[slot]}")
@@ -940,13 +974,49 @@ def phase_roll_gather(graph, dg, dev, trained, info: dict) -> tuple[dict, dict]:
                                    f"{bench[slot]}")
         k1_ms = time_ms(lambda: fd.decoder_rounds(xc, xq, s, ops, w, rounds, "bfloat16"))
     del r_ops, k1c, k1q
-    flops = rounds_flops(graph, h) * B * rounds
     t_ops, t_bytes = flops / H100_BF16_FLOPS * 1e3, rounds_bytes(graph, B, h, 2) / H100_HBM_BPS * 1e3
     info.update(batch=B, rounds=rounds, l_pad=plan.l_pad, raster_rows=2 * plan.l_pad,
                 real_rows=graph.n_checks + graph.n_qubits, bench=bench, k1_ms=k1_ms,
                 k1_edges_per_s=edges / (k1_ms / 1e3), bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_by="operations" if t_ops >= t_bytes else "bytes", gflop=flops / 1e9,
+                f32_core_ms=flops / H100_F32_FLOPS * 1e3,
                 tol_max=TOL_BF16_MAX, tol_mean=TOL_BF16_MEAN)
+
+    # the bf16 kernel on larger rasters: d=13 (a 128-row chunk and a 72-row
+    # tail, both slot modes), d=15 (two 128-row chunks, 32-row weight slabs)
+    lib = load_library("roll_gather")
+    info["larger_rasters"] = {}
+    for d, slots, seed in ((13, ("float32", "bfloat16"), 31), (15, ("float32",), 32)):
+        g_d, _, _, w_d, xc, xq, s, _ = random_round_case(d, D13_BATCH, D13_ROUNDS, "bfloat16",
+                                                         seed, dev)
+        plan_d = rg.plan_for_graph(g_d)
+        with torch.inference_mode():
+            r_d = rg.to_raster(xc, xq, s, plan_d, w_d, "bfloat16")
+            for slot in slots:
+                kc, kq = rg._roll_rounds_cuda(r_d, rounds=D13_ROUNDS, slot_dtype=slot)
+                pc, pq = rg.roll_rounds_plain(r_d, rounds=D13_ROUNDS, slot_dtype=slot)
+                torch.cuda.synchronize()
+                max_err, mean_err = raster_errors(kc, kq, pc, pq)
+                finite = bool(torch.isfinite(kc.float()).all() and torch.isfinite(kq.float()).all())
+                res = dict(batch=D13_BATCH, rounds=D13_ROUNDS, l_pad=plan_d.l_pad,
+                           smem_bytes=lib.roll_rounds_smem_bytes(1, plan_d.l_pad),
+                           max_abs_err=max_err, mean_abs_err=mean_err)
+                info["larger_rasters"][f"d{d}_slots_{slot}"] = res
+                if not finite or max_err > TOL_BF16_MAX or mean_err > TOL_BF16_MEAN:
+                    raise RuntimeError(f"K5 bf16 at d={d}, slots {slot}, disagrees with "
+                                       f"roll_rounds_plain: {res}")
+        del r_d, kc, kq, pc, pq
+    info["smem_bytes"] = {
+        f"d{d}": {dt: lib.roll_rounds_smem_bytes(code, rg.plan_for_graph(
+            build_code("surface", d)).l_pad) for dt, code in (("float32", 0), ("bfloat16", 1))}
+        for d in (11, 13, 15)}
+    # the bf16 kernels run their products on tensor cores, the f32 one on FMA loops
+    mma = sass_mma_counts(build_libraries(["roll_gather"])["roll_gather"][0])
+    info["sass_hmma"] = mma
+    if mma is not None:
+        tc = {k: v for k, v in mma.items() if "roll_rounds_tc_kernel" in k}
+        if not tc or not all(tc.values()):
+            raise RuntimeError(f"K5's bf16 kernels have no HMMA instruction: {mma}")
 
     # the trained d=11 weights through PallasDecoder on the roll path
     pd = PallasDecoder(trained, ("rollgather",))
@@ -1021,8 +1091,10 @@ def phase_roll_gather(graph, dg, dev, trained, info: dict) -> tuple[dict, dict]:
     f32s, s16 = bench["float32"], bench["bfloat16"]
     row = dict(max_abs_err=f32s["max_abs_err"], max_abs_err_slot16=s16["max_abs_err"],
                max_abs_err_f32=f32_max, ms=f32s["kernel_ms"], ms_slot16=s16["kernel_ms"],
-               plain_ms=f32s["plain_ms"], plain_ms_slot16=s16["plain_ms"],
-               bound_ms=info["bound_ms"], bound_by=info["bound_by"], library_ms=None,
+               tflops=f32s["kernel_tflops"], tflops_slot16=s16["kernel_tflops"],
+               call_ms=f32s["call_ms"], plain_ms=f32s["plain_ms"],
+               plain_ms_slot16=s16["plain_ms"], bound_ms=info["bound_ms"],
+               bound_by=info["bound_by"], f32_core_ms=info["f32_core_ms"], library_ms=None,
                yardstick_ms=k1_ms, yardstick="K1 (fused_rounds) on the same inputs")
     return launched, row
 

@@ -348,14 +348,18 @@ def test_roll_decode_needs_cuda_unless_asked_for_cpu(monkeypatch):
 
 
 class _StubLibrary:
-    """The roll library as far as a launch: records the call and stops."""
+    """The roll library as far as a launch: records the call and stops.
+    ``smem`` is the block's shared memory, or a function of (dtype code,
+    l_pad) giving it."""
 
     def __init__(self, smem=0):
         self.smem = smem
         self.calls = []
+        self.queries = []
 
     def roll_rounds_smem_bytes(self, code, l_pad):
-        return self.smem
+        self.queries.append((code, l_pad))
+        return self.smem(code, l_pad) if callable(self.smem) else self.smem
 
     def roll_rounds_launch(self, *args):
         self.calls.append(args)
@@ -433,6 +437,42 @@ def test_cuda_wrapper_checks_and_raises(stub_library, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         rg._roll_rounds_cuda(ops, rounds=1)
     assert rg.launch_counts() == {"roll_rounds": 0} and not stub_library.calls
+
+
+# What roll_rounds_smem_bytes returns on the card, (dtype code, l_pad) ->
+# bytes (chip_smoke.py phase 11 prints it): f32 panels and 32-row chunks on
+# FMA loops; bf16 swizzled panels, tensor-core chunk buffers and a double
+# buffer of 64-row weight slabs (32-row at d=15, where 64 do not fit); the
+# d=11 raster runs one 144-row chunk of 9 warps.
+_SMEM_ON_THE_CARD = {(0, 144): 206112, (1, 144): 187168, (0, 200): 263568,
+                     (1, 200): 207248, (0, 256): 321024, (1, 256): 218624}
+
+
+@pytest.mark.parametrize("d,state_dtype,slot_dtype,fits", [
+    (11, "float32", "float32", True), (11, "bfloat16", "float32", True),
+    (11, "bfloat16", "bfloat16", True), (13, "float32", "float32", False),
+    (13, "bfloat16", "float32", True), (13, "bfloat16", "bfloat16", True),
+    (15, "float32", "float32", False), (15, "bfloat16", "float32", True)])
+def test_cuda_wrapper_sizes_the_block_by_state_dtype(d, state_dtype, slot_dtype, fits,
+                                                     stub_library):
+    """The wrapper asks the library for the block's shared memory with the
+    states' dtype code and the raster's length, launches where that fits
+    (bf16 up to d=15 on the tensor-core kernel) and refuses before a launch
+    where it does not (f32 from d=13)."""
+    stub_library.smem = lambda code, l_pad: _SMEM_ON_THE_CARD[(code, l_pad)]
+    plan, ops = _ops(d, state_dtype)
+    code = 0 if state_dtype == "float32" else 1
+    if fits:
+        rg._roll_rounds_cuda(ops, rounds=2, slot_dtype=slot_dtype)
+        (args,) = stub_library.calls
+        assert args[:2] == (code, int(slot_dtype == "bfloat16"))
+        assert args[12:15] == (2, plan.l_pad, 2)
+        assert rg.launch_counts() == {"roll_rounds": 1}
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            rg._roll_rounds_cuda(ops, rounds=2, slot_dtype=slot_dtype)
+        assert not stub_library.calls and rg.launch_counts() == {"roll_rounds": 0}
+    assert stub_library.queries == [(code, plan.l_pad)]
 
 
 def test_cpu_dispatch_is_the_plain_version():

@@ -1,14 +1,16 @@
 """The premise of the bf16 tensor-core kernels: every matrix product of the
 plain versions reads bf16 values.
 
-K1/K2a (``csrc/fused_rounds.cu``) and K2b (``csrc/fused_backward.cu``) form
-their bf16 products on ``mma.sync`` with bf16 operands and f32 accumulation.
+K1/K2a (``csrc/fused_rounds.cu``), K2b (``csrc/fused_backward.cu``) and K5
+(``csrc/roll_gather.cu``) form their bf16 products on ``mma.sync`` with bf16
+operands and f32 accumulation.
 That computes the plain versions' function only if each operand of each
 product the plain versions form in bf16 is already a bf16 value (states and
 hiddens rounded, packed matrices stored in bf16, cotangents rounded where the
 JAX kernel rounds them): then the f32 products are exact and only the f32
 summation order differs.  These tests watch every product of
-``rounds_fwd_stash_plain`` and ``rounds_vjp_plain`` under a
+``rounds_fwd_stash_plain``, ``rounds_vjp_plain`` and ``roll_rounds_plain``
+(with f32 and with bf16 slot sums) under a
 ``TorchFunctionMode`` and hold each operand to ``a == bf16(a)``, so a later
 change to the plain versions that feeds a product an unrounded f32 operand
 fails here.
@@ -21,6 +23,7 @@ from torch.overrides import TorchFunctionMode
 
 from tpugnn_torch.kernels import fused_backward as fb
 from tpugnn_torch.kernels import fused_decoder as fd
+from tpugnn_torch.kernels import roll_gather as rg
 from tpugnn_torch.tanner import build_code
 
 _PRODUCTS = {torch.matmul, torch.mm, torch.bmm, torch.Tensor.matmul, torch.Tensor.mm,
@@ -43,10 +46,7 @@ class _WatchProducts(TorchFunctionMode):
         return func(*args, **kwargs)
 
 
-def _case(d, h, batch, seed):
-    graph = build_code("surface", d).to("cpu")
-    ops = fd.make_operators(graph)
-    rng = np.random.default_rng(seed)
+def _weights(h, rng):
     w = {}
     for f in fd.RoundWeights._fields:
         if f in ("b0_c", "bo_c", "b0_q", "bo_q", "uc_s", "uc_b0", "uc_b1", "uq_b0",
@@ -55,7 +55,14 @@ def _case(d, h, batch, seed):
         else:
             a = rng.standard_normal((h, h)) / np.sqrt(h)
         w[f] = torch.from_numpy(a.astype(np.float32))
-    mats32, vecs32 = fd.pack_weights_f32(fd.RoundWeights(**w))
+    return fd.RoundWeights(**w)
+
+
+def _case(d, h, batch, seed):
+    graph = build_code("surface", d).to("cpu")
+    ops = fd.make_operators(graph)
+    rng = np.random.default_rng(seed)
+    mats32, vecs32 = fd.pack_weights_f32(_weights(h, rng))
     m, n = graph.n_checks_pad, graph.n_qubits_pad
     t = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
     xc, xq = t(batch, m, h), t(batch, n, h)
@@ -81,6 +88,29 @@ def test_every_product_reads_bf16_values(d, h, batch, stage):
                                     cot_q, state_dtype="bfloat16")
     # the forward forms 10 products per round, the adjoint 30
     assert len(watch.seen) == (10 if stage == "fwd_stash" else 30) * rounds
+    bad = [i for i, ok in enumerate(watch.seen) if not (len(ok) == 2 and all(ok))]
+    assert not bad, f"products {bad} of {len(watch.seen)} read an operand that is not bf16"
+
+
+@pytest.mark.parametrize("d,h,batch", [(3, 16, 4), (5, 32, 2)])
+@pytest.mark.parametrize("slot_dtype", ["float32", "bfloat16"])
+def test_every_roll_product_reads_bf16_values(d, h, batch, slot_dtype):
+    """K5's premise: with bf16 states every product of roll_rounds_plain
+    (the projections, ydb, x @ ux, hs @ wf and hc @ w1 of both sides) reads
+    bf16 values, with f32 slot sums and with slot16."""
+    graph = build_code("surface", d).to("cpu")
+    rng = np.random.default_rng(d)
+    t = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    syn = torch.from_numpy(np.sign(rng.standard_normal((batch, graph.n_checks_pad, 1)))
+                           .astype(np.float32))
+    ops = rg.to_raster(t(batch, graph.n_checks_pad, h), t(batch, graph.n_qubits_pad, h), syn,
+                       rg.plan_for_graph(graph), _weights(h, rng), "bfloat16")
+    rounds = 3
+    watch = _WatchProducts()
+    with torch.no_grad(), watch:
+        rg.roll_rounds_plain(ops, rounds=rounds, slot_dtype=slot_dtype)
+    # 5 products per side and round
+    assert len(watch.seen) == 10 * rounds
     bad = [i for i, ok in enumerate(watch.seen) if not (len(ok) == 2 and all(ok))]
     assert not bad, f"products {bad} of {len(watch.seen)} read an operand that is not bf16"
 

@@ -12,28 +12,41 @@
 // Mosaic has no dynamic gather; here a thread reads the source row directly
 // by its index, with no index table.  The batch layout is [B, L, H].
 //
-// Design: K1's (fused_rounds.cu), on L raster rows per side instead of the
-// graph's padded rows.  One block of 256 threads per sample; all R rounds
-// loop inside the block.  Per round:
+// One block per sample; all R rounds loop inside the block.  Per round:
 //   A  ys_c = rnd(x_q @ ws_c) for every qubit cell        -> shared panel [L, H]
-//   B  check cells in chunks of 32: x @ [wd_c|uc_x|ws_q] (ws_q part -> shared
-//      panel ys_q [L, H]), the four-slot rotation sum over ys_c, the folded
-//      aggregation GEMM plus (deg * bo) @ ua, update MLP, residual, LayerNorm;
-//      the new rows overwrite the state in place
-//   C  qubit cells in chunks of 32, the same against ys_q
+//   B  check cells: ys_q = rnd(x @ ws_q) (-> shared panel [L, H]), ydb = x @
+//      wd_c + b0, the four-slot rotation sum over ys_c in offs order, the
+//      folded aggregation GEMM plus (deg * bo) @ ua, update MLP, residual,
+//      LayerNorm; the new rows overwrite the state in place
+//   C  qubit cells, the same against ys_q
 // Empty cells are computed like the others (their states move by relu(ub0)),
 // as in the JAX kernel.  With SLOT16 the slot stage rounds to bf16 after
 // every add, as the JAX kernel's bf16 slot type does (an f32 add then one
 // rounding to bf16 is the bf16 add: 24 >= 2 * 8 + 2 bits).
 //
+// Two instantiations:
+//   bf16 states (the bench config's pallas_roll and pallas_roll16): the
+//     tensor-core path, tcr:: below, on K1's routine (rounds_mma.cuh).  Every
+//     operand of every product is a bf16 value (states, the slot sum and the
+//     update hidden are rounded, the packed matrices stored in bf16), so
+//     mma.sync.m16n8k16 bf16 with f32 accumulation forms the products of the
+//     plain version; only the f32 summation order differs.  A chunk is a
+//     whole side: at d=11 its 144 raster rows run as one chunk of 9 warps (a
+//     128-row chunk of 8 warps would leave a 16-row tail that one warp works
+//     through behind every slab barrier); other rasters run 128-row chunks of
+//     8 warps and a ragged tail (d=13: 128 + 72, d=15: 2 x 128).
+//   f32 states (the trained roll decode): 32-row chunks of f32 FMA loops
+//     (gemm_chunk, rounds_common.cuh).
+//
 // Bounds on an H100 at d=11, H=128: the work is K1's (the raster's 288 rows
-// against the graph's 241 real ones are this design's overhead), 42 MFLOP per
-// sample and round; bound by operations: at B=4096, R=8 about 1.3 ms at the
-// bf16 tensor-core peak and 21 ms at the f32 CUDA-core peak this kernel's FMA
-// loops can reach.  It runs on CUDA cores, one block per SM by shared memory
-// (about 206 KB at f32): a first version that is right, not yet a fast one.
+// against the graph's 241 real ones are this design's overhead), 39.7 MFLOP
+// per sample and round on the real rows; HBM traffic is the states in and
+// out, so it is bound by operations: at B=4096, R=8 1.32 ms at the bf16
+// tensor-core peak and 19.4 ms at the f32 CUDA-core peak.  One block per SM
+// by shared memory (bf16 at d=11 about 187 KB, f32 about 206 KB).
 
 #include "rounds_common.cuh"
+#include "rounds_mma.cuh"
 
 namespace {
 
@@ -45,52 +58,53 @@ struct Offsets {
   int o[SLOTS];
 };
 
-template <typename T>
+// source cell of slot offset o from cell r, on a raster of L cells
+__device__ __forceinline__ int wrap(int r, int o, int L) {
+  const int src = r + o;
+  return src < 0 ? src + L : (src >= L ? src - L : src);
+}
+
+// ---------------------------------------------------------------------------
+// The f32 path: 32-row chunks, each warp 4 rows and each lane 4 columns, f32
+// FMA loops over a 16-deep slab.
+
 struct Smem {
-  T* ys_c;               // [L][H] qubit-cell projections, read by check cells
-  T* ys_q;               // [L][H] check-cell projections, read by qubit cells
+  float* ys_c;           // [L][H] qubit-cell projections, read by check cells
+  float* ys_q;           // [L][H] check-cell projections, read by qubit cells
   float* xs;             // [CH][XLD] state chunk (GEMM A operand, residual)
   float* hs;             // [CH][XLD] slot sum, then update hidden (GEMM A operand)
-  T* wsl;                // [KS][3*H] staged weight slab
+  float* wsl;            // [KS][3*H] staged weight slab
   unsigned char* bits;   // [2][L] slot-mask bits: check cells, then qubit cells
 };
 
-template <typename T>
 __host__ __device__ inline size_t smem_bytes(int L) {
-  return 2 * align16(size_t(L) * H * sizeof(T)) +
+  return 2 * align16(size_t(L) * H * sizeof(float)) +
          2 * align16(size_t(CH) * XLD * sizeof(float)) +
-         align16(size_t(KS) * 3 * H * sizeof(T)) + align16(size_t(2) * L);
+         align16(size_t(KS) * 3 * H * sizeof(float)) + align16(size_t(2) * L);
 }
 
-template <typename T>
-__device__ Smem<T> carve(unsigned char* base, int L) {
-  Smem<T> s;
+__device__ Smem carve(unsigned char* base, int L) {
+  Smem s;
   size_t o = 0;
-  s.ys_c = reinterpret_cast<T*>(base + o);     o += align16(size_t(L) * H * sizeof(T));
-  s.ys_q = reinterpret_cast<T*>(base + o);     o += align16(size_t(L) * H * sizeof(T));
+  s.ys_c = reinterpret_cast<float*>(base + o); o += align16(size_t(L) * H * sizeof(float));
+  s.ys_q = reinterpret_cast<float*>(base + o); o += align16(size_t(L) * H * sizeof(float));
   s.xs = reinterpret_cast<float*>(base + o);   o += align16(size_t(CH) * XLD * sizeof(float));
   s.hs = reinterpret_cast<float*>(base + o);   o += align16(size_t(CH) * XLD * sizeof(float));
-  s.wsl = reinterpret_cast<T*>(base + o);      o += align16(size_t(KS) * 3 * H * sizeof(T));
+  s.wsl = reinterpret_cast<float*>(base + o);  o += align16(size_t(KS) * 3 * H * sizeof(float));
   s.bits = base + o;
   return s;
-}
-
-// the slot stage's rounding: to bf16 after every op with SLOT16, none in f32
-template <bool SLOT16>
-__device__ __forceinline__ float srnd(float x) {
-  if constexpr (SLOT16) return __bfloat162float(__float2bfloat16_rn(x));
-  return x;
 }
 
 // Phases B and C: update cells [0, L) of state x in place (reading the state
 // from x_src, writing it to x_dst, which may alias).  NW = 3 also writes the
 // projection x @ W[M_WS] into ys_out (the other side's gather source); SYN
-// adds the syndrome term rnd(syn * uc_s).
-template <typename T, int NW, bool SYN, bool SLOT16>
-__device__ void update_cells(const T* x_src, T* x_dst, int L, const T* ys_src, T* ys_out,
-                             const unsigned char* bits, Offsets offs, const float* syn,
-                             const float* __restrict__ degbo, const T* __restrict__ W,
-                             const float* __restrict__ vec, const Smem<T>& s) {
+// adds the syndrome term syn * uc_s.
+template <int NW, bool SYN>
+__device__ void update_cells(const float* x_src, float* x_dst, int L, const float* ys_src,
+                             float* ys_out, const unsigned char* bits, Offsets offs,
+                             const float* syn, const float* __restrict__ degbo,
+                             const float* __restrict__ W, const float* __restrict__ vec,
+                             const Smem& s) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int c0 = lane * 4;
   float b0[4], ucs[4], ub0[4], ub1[4], lns[4], lnb[4];
@@ -100,7 +114,6 @@ __device__ void update_cells(const T* x_src, T* x_dst, int L, const T* ys_src, T
   load4(vec + V_UB1 * H + c0, ub1);
   load4(vec + V_LNS * H + c0, lns);
   load4(vec + V_LNB * H + c0, lnb);
-  const T tag{};
 
   for (int row0 = 0; row0 < L; row0 += CH) {
     __syncthreads();  // the previous chunk's readers of xs / hs are done
@@ -108,7 +121,7 @@ __device__ void update_cells(const T* x_src, T* x_dst, int L, const T* ys_src, T
 
     // [x @ wd | x @ ux | x @ ws]
     float acc[NW][4][4];
-    gemm_chunk<T, NW>(s.xs, W, s.wsl, acc);
+    gemm_chunk<float, NW>(s.xs, W, s.wsl, acc);
 
     // four-slot rotation sum over the source panel, in offs order
 #pragma unroll
@@ -124,28 +137,23 @@ __device__ void update_cells(const T* x_src, T* x_dst, int L, const T* ys_src, T
         }
         float ydb[4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) ydb[j] = srnd<SLOT16>(acc[M_WD][i][j] + b0[j]);
+        for (int j = 0; j < 4; ++j) ydb[j] = acc[M_WD][i][j] + b0[j];
         const unsigned m = bits[r];
 #pragma unroll
         for (int k = 0; k < SLOTS; ++k) {
           if (!((m >> k) & 1u)) continue;   // a masked slot adds exactly 0
-          int src = r + offs.o[k];
-          src = src < 0 ? src + L : (src >= L ? src - L : src);
           float y[4];
-          load4(ys_src + size_t(src) * H + c0, y);
+          load4(ys_src + size_t(wrap(r, offs.o[k], L)) * H + c0, y);
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            h4[j] = srnd<SLOT16>(h4[j] + fmaxf(srnd<SLOT16>(y[j] + ydb[j]), 0.f));
+          for (int j = 0; j < 4; ++j) h4[j] += fmaxf(y[j] + ydb[j], 0.f);
         }
       }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) h4[j] = rnd(h4[j], tag);
       store4(s.hs + lr * XLD + c0, h4);
     }
 
     // folded aggregation GEMM, update-MLP pre-activation
     float agg[1][4][4];
-    gemm_chunk<T, 1>(s.hs, W + size_t(M_WF) * H * H, s.wsl, agg);
+    gemm_chunk<float, 1>(s.hs, W + size_t(M_WF) * H * H, s.wsl, agg);
     __syncthreads();  // every warp has read hs before it is overwritten
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -157,15 +165,15 @@ __device__ void update_cells(const T* x_src, T* x_dst, int L, const T* ys_src, T
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         float pre = acc[M_UX][i][j] + (agg[0][i][j] + db[j]);
-        if (SYN) pre += rnd(__fmul_rn(sv, ucs[j]), tag);
+        if (SYN) pre += __fmul_rn(sv, ucs[j]);
         pre += ub0[j];
-        hc[j] = rnd(fmaxf(pre, 0.f), tag);
+        hc[j] = fmaxf(pre, 0.f);
       }
       store4(s.hs + lr * XLD + c0, hc);
     }
 
     // update output GEMM, residual, LayerNorm (two-pass, eps 1e-6)
-    gemm_chunk<T, 1>(s.hs, W + size_t(M_W1) * H * H, s.wsl, agg);
+    gemm_chunk<float, 1>(s.hs, W + size_t(M_W1) * H * H, s.wsl, agg);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int lr = warp * 4 + i, r = row0 + lr;
@@ -189,54 +197,337 @@ __device__ void update_cells(const T* x_src, T* x_dst, int L, const T* ys_src, T
   }
 }
 
-template <typename T, bool SLOT16>
 __global__ void __launch_bounds__(THREADS, 1)
-roll_rounds_kernel(const T* xc_in, const T* xq_in, const float* __restrict__ syn,
+roll_rounds_kernel(const float* xc_in, const float* xq_in, const float* __restrict__ syn,
                    const int* __restrict__ maskbits, const float* __restrict__ degbo,
-                   const T* __restrict__ mats, const float* __restrict__ vecs,
-                   T* xc_out, T* xq_out, Offsets offs_c, Offsets offs_q, int L, int R) {
+                   const float* __restrict__ mats, const float* __restrict__ vecs,
+                   float* xc_out, float* xq_out, Offsets offs_c, Offsets offs_q, int L,
+                   int R) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem<T> s = carve<T>(smem_raw, L);
+  const Smem s = carve(smem_raw, L);
   const size_t b = blockIdx.x;
   for (int e = threadIdx.x; e < 2 * L; e += THREADS)
     s.bits[e] = static_cast<unsigned char>(maskbits[e]);
   const float* syn_b = syn + b * L;
-  T* xc = xc_out + b * size_t(L) * H;
-  T* xq = xq_out + b * size_t(L) * H;
-  const T* wc = mats;                         // check side's 5 matrices
-  const T* wq = mats + size_t(NMAT) * H * H;  // qubit side's 5 matrices
+  float* xc = xc_out + b * size_t(L) * H;
+  float* xq = xq_out + b * size_t(L) * H;
+  const float* wc = mats;                         // check side's 5 matrices
+  const float* wq = mats + size_t(NMAT) * H * H;  // qubit side's 5 matrices
 
   for (int round = 0; round < R; ++round) {
     // round 0 reads the inputs; later rounds the states rewritten in place
-    const T* xc_src = round == 0 ? xc_in + b * size_t(L) * H : xc;
-    const T* xq_src = round == 0 ? xq_in + b * size_t(L) * H : xq;
-    project_rows<T>(xq_src, L, wq + size_t(M_WS) * H * H, s.ys_c, s.xs, s.wsl);
+    const float* xc_src = round == 0 ? xc_in + b * size_t(L) * H : xc;
+    const float* xq_src = round == 0 ? xq_in + b * size_t(L) * H : xq;
+    project_rows<float>(xq_src, L, wq + size_t(M_WS) * H * H, s.ys_c, s.xs, s.wsl);
     __syncthreads();
-    update_cells<T, 3, true, SLOT16>(xc_src, xc, L, s.ys_c, s.ys_q, s.bits, offs_c,
-                                     syn_b, degbo, wc, vecs, s);
+    update_cells<3, true>(xc_src, xc, L, s.ys_c, s.ys_q, s.bits, offs_c, syn_b, degbo, wc,
+                          vecs, s);
     __syncthreads();
-    update_cells<T, 2, false, SLOT16>(xq_src, xq, L, s.ys_q, nullptr, s.bits + L, offs_q,
-                                      nullptr, degbo + size_t(L) * H, wq, vecs + NVEC * H,
-                                      s);
+    update_cells<2, false>(xq_src, xq, L, s.ys_q, nullptr, s.bits + L, offs_q, nullptr,
+                           degbo + size_t(L) * H, wq, vecs + NVEC * H, s);
     __syncthreads();
   }
 }
 
-template <typename T, bool SLOT16>
-int launch(const void* xc_in, const void* xq_in, const float* syn, const int* bits,
-           const float* degbo, const void* mats, const float* vecs, void* xc_out,
-           void* xq_out, Offsets offs_c, Offsets offs_q, int B, int L, int R,
-           cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(L);
-  cudaError_t err = cudaFuncSetAttribute(roll_rounds_kernel<T, SLOT16>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+// ---------------------------------------------------------------------------
+// The bf16 path on tensor cores (rounds_mma.cuh), K1's tcp:: schedule on the
+// raster.  NWARP warps, one chunk of 16 * NWARP rows (a second, ragged one
+// for a longer side), one product (one weight matrix) at a time, each
+// accumulator m16 x n128 per warp:
+//   A  ys_c = rnd(x_q @ ws_c)
+//   B  check chunk: ys_q = rnd(x @ ws_q); ydb = x @ wd + b0 and the slot sum
+//      in offs order under the mask bits; pre = hs @ wf + x @ ux (the second
+//      product accumulates into the first's registers) + (deg * bo) @ ua +
+//      rnd(syn * uc_s) + ub0; hc @ w1, the residual and LayerNorm
+//   C  qubit chunk: the same without ys_q and the syndrome term
+// A warp with no rows in a chunk (the ragged tail) only takes part in the
+// weight copies and the barriers.  Phase B's last ys_q store and phase C's
+// first gather are separated by the slab barriers of phase C's first
+// products, as phase A's ys_c stores and phase B's gathers are.
+namespace tcr {
+
+using namespace rounds::tc;
+
+template <int NWARP>
+__host__ __device__ constexpr size_t chunk_bytes() {
+  return size_t(16 * NWARP) * LDB * sizeof(bf16);
+}
+
+template <int SR, int NWARP>
+__host__ __device__ inline size_t smem_bytes(int L) {
+  return 2 * align16(size_t(L) * H * sizeof(bf16)) + 2 * chunk_bytes<NWARP>() +
+         slab_bytes(SR) + align16(size_t(2) * L);
+}
+
+struct Smem {
+  bf16* ys_c;            // [L][H] swizzled, gathered by check cells
+  bf16* ys_q;            // [L][H] swizzled, gathered by qubit cells
+  bf16* xs;              // [16 NWARP][LDB] state chunk (A operand, residual, output)
+  bf16* hs;              // [16 NWARP][LDB] slot sum, then update hidden (A operand)
+  bf16* slab;            // [2][SR][LDB] weight slabs
+  unsigned char* bits;   // [2][L] slot-mask bits: check cells, then qubit cells
+};
+
+template <int SR, int NWARP>
+__device__ Smem carve(unsigned char* base, int L) {
+  Smem s;
+  size_t o = 0;
+  s.ys_c = reinterpret_cast<bf16*>(base + o);  o += align16(size_t(L) * H * sizeof(bf16));
+  s.ys_q = reinterpret_cast<bf16*>(base + o);  o += align16(size_t(L) * H * sizeof(bf16));
+  s.xs = reinterpret_cast<bf16*>(base + o);    o += chunk_bytes<NWARP>();
+  s.hs = reinterpret_cast<bf16*>(base + o);    o += chunk_bytes<NWARP>();
+  s.slab = reinterpret_cast<bf16*>(base + o);  o += slab_bytes(SR);
+  s.bits = base + o;
+  return s;
+}
+
+// the slot stage's rounding: to bf16 after every op with SLOT16, none in f32
+template <bool SLOT16>
+__device__ __forceinline__ float srnd(float x) {
+  if constexpr (SLOT16) return __bfloat162float(__float2bfloat16_rn(x));
+  return x;
+}
+
+// Phases B (CHECK) and C: cells [0, L) of state x_src updated into x_dst
+// (which may alias it); CHECK also writes ys_out = rnd(x @ ws) and adds the
+// syndrome term.  `after` is the product that follows the last chunk.
+template <int SR, int NWARP, bool CHECK, bool SLOT16>
+__device__ void update_cells_tc(const bf16* x_src, bf16* x_dst, int L, const bf16* ys_src,
+                                bf16* ys_out, const unsigned char* bits, Offsets offs,
+                                const float* syn, const float* __restrict__ degbo,
+                                const bf16* __restrict__ W, const float* __restrict__ vec,
+                                const Smem& s, Slabs<SR>& sl, const bf16* after) {
+  constexpr int NTH = 32 * NWARP, CRN = 16 * NWARP;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  bf16* xa = s.xs + 16 * warp * LDB;
+  bf16* ha = s.hs + 16 * warp * LDB;
+  const bf16* wd = W + size_t(M_WD) * HH;
+  const bf16* ux = W + size_t(M_UX) * HH;
+  const bf16* ws = W + size_t(M_WS) * HH;
+  const bf16* wf = W + size_t(M_WF) * HH;
+  const bf16* w1 = W + size_t(M_W1) * HH;
+  const bf16* first = CHECK ? ws : wd;
+
+  for (int row0 = 0; row0 < L; row0 += CRN) {
+    const int r0 = row0 + 16 * warp;
+    const int n = max(0, min(16, L - r0));
+    const bool active = n > 0;
+    load_rows_warp(xa, x_src + size_t(r0) * H, n);
+    float acc[NT][4];
+
+    if (CHECK) {   // the other side's gather source
+      mma_pass<SR, false, NTH>(xa, ws, sl, wd, acc, active);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + g + 8 * h;
+        if (r < L) {
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+            st_bf2(ys_out + swz(r, 8 * j + 2 * t), acc[j][2 * h], acc[j][2 * h + 1]);
+        }
+      }
+    }
+
+    // ydb = x @ wd + b0, then the four-slot sum over the source panel
+    mma_pass<SR, false, NTH>(xa, wd, sl, wf, acc, active);
+    if (active) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float2 b0 = ld_vec2(vec, V_B0, 8 * j + 2 * t);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          acc[j][2 * h] = srnd<SLOT16>(acc[j][2 * h] + b0.x);
+          acc[j][2 * h + 1] = srnd<SLOT16>(acc[j][2 * h + 1] + b0.y);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + g + 8 * h;
+        float hsum[NT][2];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) hsum[j][0] = hsum[j][1] = 0.f;
+        if (r < L) {
+          const unsigned m = bits[r];
+#pragma unroll
+          for (int k = 0; k < SLOTS; ++k) {
+            // a masked slot adds exactly 0: selected, not branched, so the
+            // lanes of a quad group stay together
+            const bool real = (m >> k) & 1u;
+            const int src = wrap(r, offs.o[k], L);
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+              const float2 y = ld_bf2(ys_src + swz(src, 8 * j + 2 * t));
+              const float t0 = fmaxf(srnd<SLOT16>(y.x + acc[j][2 * h]), 0.f);
+              const float t1 = fmaxf(srnd<SLOT16>(y.y + acc[j][2 * h + 1]), 0.f);
+              hsum[j][0] = srnd<SLOT16>(hsum[j][0] + (real ? t0 : 0.f));
+              hsum[j][1] = srnd<SLOT16>(hsum[j][1] + (real ? t1 : 0.f));
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          st_bf2(ha + (g + 8 * h) * LDB + 8 * j + 2 * t, hsum[j][0], hsum[j][1]);
+      }
+      __syncwarp();
+    }
+
+    // update-MLP pre-activation: hs @ (wo @ ua) + x @ ux + (deg * bo) @ ua + ...
+    mma_pass<SR, false, NTH>(ha, wf, sl, ux, acc, active);
+    mma_pass<SR, true, NTH>(xa, ux, sl, w1, acc, active);
+    if (active) {
+      float sv[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + g + 8 * h;
+        sv[h] = (CHECK && r < L) ? syn[r] : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int c = 8 * j + 2 * t;
+        const float2 ub0 = ld_vec2(vec, V_UB0, c);
+        float2 ucs = make_float2(0.f, 0.f);
+        if (CHECK) ucs = ld_vec2(vec, V_UCS, c);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // rows past L (a ragged warp) read the last cell's entries and
+          // are never stored
+          const float2 db = ld_vec2(degbo, min(r0 + g + 8 * h, L - 1), c);
+          float p0 = acc[j][2 * h] + db.x;
+          float p1 = acc[j][2 * h + 1] + db.y;
+          if (CHECK) {
+            p0 += rnd(__fmul_rn(sv[h], ucs.x), bf16{});
+            p1 += rnd(__fmul_rn(sv[h], ucs.y), bf16{});
+          }
+          st_bf2(ha + (g + 8 * h) * LDB + c, fmaxf(p0 + ub0.x, 0.f), fmaxf(p1 + ub0.y, 0.f));
+        }
+      }
+      __syncwarp();
+    }
+
+    // update output, residual, LayerNorm (two-pass, eps 1e-6)
+    mma_pass<SR, false, NTH>(ha, w1, sl, row0 + CRN < L ? first : after, acc, active);
+    if (active) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int c = 8 * j + 2 * t;
+          const float2 x = ld_bf2(xa + (g + 8 * h) * LDB + c);
+          const float2 ub1 = ld_vec2(vec, V_UB1, c);
+          acc[j][2 * h] += x.x + ub1.x;
+          acc[j][2 * h + 1] += x.y + ub1.y;
+          sum += acc[j][2 * h] + acc[j][2 * h + 1];
+        }
+        const float mu = quad_sum(sum) * (1.f / H);
+        float sq = 0.f;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          acc[j][2 * h] -= mu;
+          acc[j][2 * h + 1] -= mu;
+          sq += acc[j][2 * h] * acc[j][2 * h] + acc[j][2 * h + 1] * acc[j][2 * h + 1];
+        }
+        const float rs = rsqrtf(quad_sum(sq) * (1.f / H) + 1e-6f);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int c = 8 * j + 2 * t;
+          const float2 lns = ld_vec2(vec, V_LNS, c), lnb = ld_vec2(vec, V_LNB, c);
+          st_bf2(xa + (g + 8 * h) * LDB + c, acc[j][2 * h] * rs * lns.x + lnb.x,
+                 acc[j][2 * h + 1] * rs * lns.y + lnb.y);
+        }
+      }
+      store_rows_warp(x_dst + size_t(r0) * H, xa, n);
+    }
+  }
+}
+
+template <int SR, int NWARP, bool SLOT16>
+__global__ void __launch_bounds__(32 * NWARP, 1)
+roll_rounds_tc_kernel(const bf16* xc_in, const bf16* xq_in, const float* __restrict__ syn,
+                      const int* __restrict__ maskbits, const float* __restrict__ degbo,
+                      const bf16* __restrict__ mats, const float* __restrict__ vecs,
+                      bf16* xc_out, bf16* xq_out, Offsets offs_c, Offsets offs_q, int L,
+                      int R) {
+  constexpr int NTH = 32 * NWARP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Smem s = carve<SR, NWARP>(smem_raw, L);
+  const size_t b = blockIdx.x;
+  for (int e = threadIdx.x; e < 2 * L; e += NTH)
+    s.bits[e] = static_cast<unsigned char>(maskbits[e]);
+  const float* syn_b = syn + b * L;
+  bf16* xc = xc_out + b * size_t(L) * H;
+  bf16* xq = xq_out + b * size_t(L) * H;
+  const bf16* wc = mats;
+  const bf16* wq = mats + size_t(NMAT) * HH;
+  const bf16* proj = wq + size_t(M_WS) * HH;   // ys_c = rnd(x_q @ ws_c)
+  Slabs<SR> sl{s.slab, 0};
+  prime<SR, NTH>(sl, proj);
+
+  for (int round = 0; round < R; ++round) {
+    // round 0 reads the inputs; later rounds the states rewritten in place
+    const bf16* xc_src = round == 0 ? xc_in + b * size_t(L) * H : xc;
+    const bf16* xq_src = round == 0 ? xq_in + b * size_t(L) * H : xq;
+    project_rows_tc<SR, NTH>(xq_src, L, proj, s.ys_c, s.xs, sl, wc + size_t(M_WS) * HH);
+    update_cells_tc<SR, NWARP, true, SLOT16>(xc_src, xc, L, s.ys_c, s.ys_q, s.bits, offs_c,
+                                             syn_b, degbo, wc, vecs, s, sl,
+                                             wq + size_t(M_WD) * HH);
+    update_cells_tc<SR, NWARP, false, SLOT16>(xq_src, xq, L, s.ys_q, nullptr, s.bits + L,
+                                              offs_q, nullptr, degbo + size_t(L) * H, wq,
+                                              vecs + NVEC * H, s, sl,
+                                              round + 1 < R ? proj : nullptr);
+    __syncthreads();   // the round's state writes are visible to the next round
+  }
+}
+
+}  // namespace tcr
+
+// Warps of the bf16 kernel: a raster of 129..144 cells (d=11) runs as one
+// chunk of 9 warps, any other as chunks of 128 rows (8 warps).
+int tc_warps(int L) { return L > 128 && L <= 144 ? 9 : 8; }
+
+// Slab rows of the 8-warp bf16 kernel: 64 where that fits in shared memory,
+// else 32 (d=15).
+int tc_slab_rows(int L) { return tcr::smem_bytes<64, 8>(L) <= tc::SMEM_LIMIT ? 64 : 32; }
+
+size_t smem_for(int dtype, int L) {
+  if (dtype == 0) return smem_bytes(L);
+  if (tc_warps(L) == 9) return tcr::smem_bytes<64, 9>(L);
+  return tc_slab_rows(L) == 64 ? tcr::smem_bytes<64, 8>(L) : tcr::smem_bytes<32, 8>(L);
+}
+
+template <typename T, typename K>
+int launch_kernel(K kernel, int threads, size_t smem, const void* xc_in, const void* xq_in,
+                  const float* syn, const int* bits, const float* degbo, const void* mats,
+                  const float* vecs, void* xc_out, void* xq_out, Offsets offs_c,
+                  Offsets offs_q, int B, int L, int R, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(smem));
   if (err != cudaSuccess) return int(err);
-  roll_rounds_kernel<T, SLOT16><<<B, THREADS, smem, stream>>>(
+  kernel<<<B, threads, smem, stream>>>(
       static_cast<const T*>(xc_in), static_cast<const T*>(xq_in), syn, bits, degbo,
       static_cast<const T*>(mats), vecs, static_cast<T*>(xc_out), static_cast<T*>(xq_out),
       offs_c, offs_q, L, R);
   return int(cudaGetLastError());
+}
+
+template <bool SLOT16>
+int launch_tc(size_t smem, const void* xc_in, const void* xq_in, const float* syn,
+              const int* bits, const float* degbo, const void* mats, const float* vecs,
+              void* xc_out, void* xq_out, Offsets offs_c, Offsets offs_q, int B, int L,
+              int R, cudaStream_t st) {
+  typedef __nv_bfloat16 bf;
+  if (tc_warps(L) == 9)
+    return launch_kernel<bf>(
+        tcr::roll_rounds_tc_kernel<64, 9, SLOT16>, 9 * 32, smem, xc_in, xq_in, syn, bits,
+        degbo, mats, vecs, xc_out, xq_out, offs_c, offs_q, B, L, R, st);
+  if (tc_slab_rows(L) == 64)
+    return launch_kernel<bf>(
+        tcr::roll_rounds_tc_kernel<64, 8, SLOT16>, 8 * 32, smem, xc_in, xq_in, syn, bits,
+        degbo, mats, vecs, xc_out, xq_out, offs_c, offs_q, B, L, R, st);
+  return launch_kernel<bf>(
+      tcr::roll_rounds_tc_kernel<32, 8, SLOT16>, 8 * 32, smem, xc_in, xq_in, syn, bits,
+      degbo, mats, vecs, xc_out, xq_out, offs_c, offs_q, B, L, R, st);
 }
 
 }  // namespace
@@ -245,8 +536,7 @@ extern "C" {
 
 // Shared memory one block needs; dtype 0 = float32 states, 1 = bfloat16.
 long long roll_rounds_smem_bytes(int dtype, int L) {
-  return dtype == 0 ? (long long)smem_bytes<float>(L)
-                    : (long long)smem_bytes<__nv_bfloat16>(L);
+  return (long long)smem_for(dtype, L);
 }
 
 // xc_in/xq_in/xc_out/xq_out: [B, L, 128] raster states in the state type;
@@ -274,16 +564,17 @@ int roll_rounds_launch(int dtype, int slot16, const void* xc_in, const void* xq_
   const float* db = static_cast<const float*>(degbo);
   const float* v = static_cast<const float*>(vecs);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t smem = smem_for(dtype, L);
   if (dtype == 0)
-    return launch<float, false>(xc_in, xq_in, s, mb, db, mats, v, xc_out, xq_out, oc, oq,
-                                B, L, R, st);
-  if (dtype == 1 && slot16)
-    return launch<__nv_bfloat16, true>(xc_in, xq_in, s, mb, db, mats, v, xc_out, xq_out,
-                                       oc, oq, B, L, R, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, false>(xc_in, xq_in, s, mb, db, mats, v, xc_out, xq_out,
-                                        oc, oq, B, L, R, st);
-  return int(cudaErrorInvalidValue);
+    return launch_kernel<float>(
+        roll_rounds_kernel, THREADS, smem, xc_in, xq_in, s, mb, db, mats, v, xc_out, xq_out,
+        oc, oq, B, L, R, st);
+  if (dtype != 1) return int(cudaErrorInvalidValue);
+  if (slot16)
+    return launch_tc<true>(smem, xc_in, xq_in, s, mb, db, mats, v, xc_out, xq_out, oc, oq,
+                           B, L, R, st);
+  return launch_tc<false>(smem, xc_in, xq_in, s, mb, db, mats, v, xc_out, xq_out, oc, oq,
+                          B, L, R, st);
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 // Tensor-core chunk GEMMs of the bf16 rounds kernels (fused_rounds.cu: K1
-// and K2a; fused_backward.cu: K2b).  The f32 instantiations keep the FMA
-// loops of rounds_common.cuh.
+// and K2a; fused_backward.cu: K2b; roll_gather.cu: K5).  The f32
+// instantiations keep the FMA loops of rounds_common.cuh.
 //
 // A chunk is a whole side of up to CR = 128 rows: each of the 8 warps owns
 // 16 rows and all 128 columns of a product, as one m16 x n128 f32
@@ -20,7 +20,8 @@
 // rows g and g + 8 of its warp's 16, columns 8 j + 2 t and 8 j + 2 t + 1 of
 // each n-tile j: acc[j][2 h + c] is row g + 8 h, column 8 j + 2 t + c.  A
 // row's 128 columns sit in one quad of lanes, so a row reduction is two
-// shuffles.
+// shuffles.  The block-wide routines take the block's thread count NTH
+// (THREADS by default); K5 runs a 144-row side as one chunk of 9 warps.
 #pragma once
 
 #include "rounds_common.cuh"
@@ -125,10 +126,10 @@ struct Slabs {
 
 // Copy rows [k0, k0 + SR) of the matrix W into slab buffer dst, the whole
 // block, as one cp.async group.
-template <int SR>
+template <int SR, int NTH = THREADS>
 __device__ __forceinline__ void issue_slab(bf16* dst, const bf16* W, int k0) {
   constexpr int UPR = H / 8;      // 16-byte units per row
-  for (int u = threadIdx.x; u < SR * UPR; u += THREADS) {
+  for (int u = threadIdx.x; u < SR * UPR; u += NTH) {
     const int kk = u / UPR, c = (u - kk * UPR) * 8;
     cp_async16(dst + kk * LDB + c, W + size_t(k0 + kk) * H + c);
   }
@@ -136,9 +137,9 @@ __device__ __forceinline__ void issue_slab(bf16* dst, const bf16* W, int k0) {
 }
 
 // Start the stream with the first product's first slab.
-template <int SR>
+template <int SR, int NTH = THREADS>
 __device__ __forceinline__ void prime(Slabs<SR>& sl, const bf16* W) {
-  issue_slab<SR>(sl.buffer(sl.buf), W, 0);
+  issue_slab<SR, NTH>(sl.buffer(sl.buf), W, 0);
 }
 
 // acc (+)= A @ W for the [H][H] matrix W.  A is this warp's 16 rows of a
@@ -146,7 +147,7 @@ __device__ __forceinline__ void prime(Slabs<SR>& sl, const bf16* W) {
 // sl.buf; on exit the first slab of `next` is (if not null).  Every thread
 // of the block calls this; warps with no rows in the chunk pass active =
 // false and only take part in the copies and barriers.
-template <int SR, bool ACC = false>
+template <int SR, bool ACC = false, int NTH = THREADS>
 __device__ __forceinline__ void mma_pass(const bf16* A, const bf16* __restrict__ W,
                                          Slabs<SR>& sl, const bf16* next,
                                          float (&acc)[NT][4], bool active) {
@@ -158,8 +159,8 @@ __device__ __forceinline__ void mma_pass(const bf16* A, const bf16* __restrict__
     __syncthreads();    // this slab landed for all; every warp is done with the last
     const bf16* cur = sl.buffer(sl.buf);
     sl.buf ^= 1;
-    if (k0 + SR < H) issue_slab<SR>(sl.buffer(sl.buf), W, k0 + SR);
-    else if (next != nullptr) issue_slab<SR>(sl.buffer(sl.buf), next, 0);
+    if (k0 + SR < H) issue_slab<SR, NTH>(sl.buffer(sl.buf), W, k0 + SR);
+    else if (next != nullptr) issue_slab<SR, NTH>(sl.buffer(sl.buf), next, 0);
     if (active) {
 #pragma unroll
       for (int kk = 0; kk < SR; kk += 16) {
@@ -205,22 +206,24 @@ __device__ __forceinline__ void store_rows_warp(bf16* dst, const bf16* src, int 
   }
 }
 
-// panel[r] = rnd(x[r] @ W) for rows [0, rows), through the chunk buffer xs,
-// into a swizzled panel; then the first slab of `after` is in flight.
-template <int SR>
+// panel[r] = rnd(x[r] @ W) for rows [0, rows), through the chunk buffer xs
+// (NTH / 2 rows), into a swizzled panel; then the first slab of `after` is
+// in flight.
+template <int SR, int NTH = THREADS>
 __device__ __noinline__ void project_rows_tc(const bf16* x, int rows, const bf16* __restrict__ W,
                                              bf16* panel, bf16* xs, Slabs<SR>& slref,
                                              const bf16* after) {
   Slabs<SR> sl = slref;   // in registers: the asm's memory clobbers would reload it
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  for (int row0 = 0; row0 < rows; row0 += CR) {
+  constexpr int CRN = NTH / 32 * 16;
+  for (int row0 = 0; row0 < rows; row0 += CRN) {
     const int r0 = row0 + 16 * warp;
     const int n = max(0, min(16, rows - r0));
     bf16* xa = xs + 16 * warp * LDB;
     load_rows_warp(xa, x + size_t(r0) * H, n);
     float acc[NT][4];
-    mma_pass<SR>(xa, W, sl, row0 + CR < rows ? W : after, acc, n > 0);
+    mma_pass<SR, false, NTH>(xa, W, sl, row0 + CRN < rows ? W : after, acc, n > 0);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = r0 + g + 8 * h;

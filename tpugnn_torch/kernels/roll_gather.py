@@ -20,8 +20,10 @@ rounds there on every cell, empty cells included, and permutes back
 * a tensor on a CUDA device goes to the hand-written kernel
   ``csrc/roll_gather.cu``, which replaces the TPU kernel
   ``decoder_rounds_roll`` (``pl.pallas_call`` at
-  ``tpugnn/kernels/roll_gather.py:364``).  It launches or raises; there is
-  no fallback to the plain version or to K1.
+  ``tpugnn/kernels/roll_gather.py:364``): with bf16 states its products run
+  on the tensor cores (``mma.sync``, K1's routine in ``csrc/rounds_mma.cuh``),
+  with f32 states on f32 FMA loops.  It launches or raises; there is no
+  fallback to the plain version, to the other instantiation or to K1.
 
 It is inference only, as in the JAX package: a call that autograd would have
 to differentiate raises.
@@ -396,7 +398,8 @@ def _roll_rounds_cuda(ops: RasterOperands, *, rounds: int, slot_dtype: str = "fl
     smem = lib.roll_rounds_smem_bytes(code, l_pad)
     if smem > SMEM_LIMIT:
         raise ValueError(f"raster too large for the roll-rounds kernel: needs {smem} B "
-                         f"of shared memory per block (l_pad={l_pad}), limit {SMEM_LIMIT}")
+                         f"of shared memory per block (l_pad={l_pad}, {dt} states), "
+                         f"limit {SMEM_LIMIT}")
     bits = _mask_bits(ops.masks)
     offs = (ctypes.c_int * 8)(*ops.offs_c, *ops.offs_q)
     xc, xq = ops.xc.contiguous(), ops.xq.contiguous()
