@@ -61,14 +61,15 @@ print one JSON line with their wall time:
     tolerances, and twice on the same inputs, bit-equal; its time and
     TFLOP/s beside its bound and the f32 CUDA-core floor, its plain
     version's time and K1's on the same inputs, and edges/s of both
-    schedules; its bf16 instantiation at d=13 (both slot modes: a 128-row
-    chunk and a 72-row tail) and d=15 (f32 slots: two 128-row chunks, 32-row
+    schedules; its bf16 instantiation at d=13 (both slot modes: a 144-row
+    chunk and a 56-row tail) and d=15 (f32 slots: 144 + 112 rows, 32-row
     weight slabs) against roll_rounds_plain (B=64, R=3); the HMMA
     instructions of each of its kernels (cuobjdump -sass: the bf16 ones run
-    on tensor cores) and the shared memory of each raster; then the trained
-    d=11 weights
+    on tensor cores; fails where the toolkit has no cuobjdump) and the
+    shared memory of each raster; then the trained d=11 weights
     through PallasDecoder(schedule=('rollgather',)) (f32, R=14): K5 against
-    the plain version, LER at p=0.05 on phase 4's 65,536 shots (both heads
+    the plain version, its f32 kernel's time beside its bound and the plain
+    version's (the kernel the main path launches), LER at p=0.05 on phase 4's 65,536 shots (both heads
     gated at |z| <= 4 against the JAX f32 rate), per-shot decisions against
     phase 4's fused decode (>= 99.9% equal), one K5 launch per chunk and no
     K1, the forward's time; and the wrapper's refusal of d=13 in f32 (its
@@ -883,14 +884,15 @@ def raster_errors(kc, kq, pc, pq) -> tuple[float, float]:
     return float(diff.max()), float(diff.mean())
 
 
-def sass_mma_counts(library: str) -> dict | None:
+def sass_mma_counts(library: str) -> dict:
     """HMMA instructions per kernel of a built library, from cuobjdump -sass
-    beside nvcc; None where the toolkit has no cuobjdump."""
+    beside nvcc."""
     from tpugnn_torch.kernels._build import nvcc_path
 
     tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
     if not os.path.exists(tool):
-        return None
+        raise RuntimeError(f"no cuobjdump beside nvcc ({tool}): cannot check that K5's "
+                           "bf16 kernels run on tensor cores")
     out, name = {}, None
     for line in run([tool, "-sass", library]).splitlines():
         if "Function : " in line:
@@ -982,8 +984,8 @@ def phase_roll_gather(graph, dg, dev, trained, info: dict) -> tuple[dict, dict]:
                 f32_core_ms=flops / H100_F32_FLOPS * 1e3,
                 tol_max=TOL_BF16_MAX, tol_mean=TOL_BF16_MEAN)
 
-    # the bf16 kernel on larger rasters: d=13 (a 128-row chunk and a 72-row
-    # tail, both slot modes), d=15 (two 128-row chunks, 32-row weight slabs)
+    # the bf16 kernel on larger rasters: d=13 (a 144-row chunk and a 56-row
+    # tail, both slot modes), d=15 (144 + 112 rows, 32-row weight slabs)
     lib = load_library("roll_gather")
     info["larger_rasters"] = {}
     for d, slots, seed in ((13, ("float32", "bfloat16"), 31), (15, ("float32",), 32)):
@@ -1013,10 +1015,9 @@ def phase_roll_gather(graph, dg, dev, trained, info: dict) -> tuple[dict, dict]:
     # the bf16 kernels run their products on tensor cores, the f32 one on FMA loops
     mma = sass_mma_counts(build_libraries(["roll_gather"])["roll_gather"][0])
     info["sass_hmma"] = mma
-    if mma is not None:
-        tc = {k: v for k, v in mma.items() if "roll_rounds_tc_kernel" in k}
-        if not tc or not all(tc.values()):
-            raise RuntimeError(f"K5's bf16 kernels have no HMMA instruction: {mma}")
+    tc = {k: v for k, v in mma.items() if "roll_rounds_tc_kernel" in k}
+    if not tc or not all(tc.values()):
+        raise RuntimeError(f"K5's bf16 kernels have no HMMA instruction: {mma}")
 
     # the trained d=11 weights through PallasDecoder on the roll path
     pd = PallasDecoder(trained, ("rollgather",))
@@ -1030,7 +1031,15 @@ def phase_roll_gather(graph, dg, dev, trained, info: dict) -> tuple[dict, dict]:
         pc, pq = rg.roll_rounds_plain(t_ops_r, rounds=r_t)
         torch.cuda.synchronize()
         f32_max, f32_mean = raster_errors(kc, kq, pc, pq)
-        del t_ops_r, kc, kq, pc, pq
+        del kc, kq, pc, pq
+        # the kernel the main path launches: f32 on FMA loops
+        f32_ms = time_ms(lambda: rg._roll_rounds_cuda(t_ops_r, rounds=r_t), warmup=2, iters=7)
+        f32_plain_ms = time_ms(lambda: rg.roll_rounds_plain(t_ops_r, rounds=r_t),
+                               warmup=1, iters=3)
+        del t_ops_r
+    f32_flops = rounds_flops(graph, h) * B * r_t
+    f32_ops_ms = f32_flops / H100_F32_FLOPS * 1e3
+    f32_bytes_ms = rounds_bytes(graph, B, h, 4) / H100_HBM_BPS * 1e3
     if f32_max > TOL_F32:
         raise RuntimeError(f"K5 f32 (trained weights, R={r_t}) disagrees with "
                            f"roll_rounds_plain: max {f32_max}")
@@ -1073,7 +1082,9 @@ def phase_roll_gather(graph, dg, dev, trained, info: dict) -> tuple[dict, dict]:
             raise RuntimeError("K5 took d=13 in f32, whose raster exceeds shared memory")
     info["trained"] = dict(
         rounds=r_t, k5_vs_plain_f32_max=f32_max, k5_vs_plain_f32_mean=f32_mean,
-        tol_f32=TOL_F32, shots=n, ler_logical=ev["ler_logical"], ler_qubit=ev["ler"],
+        tol_f32=TOL_F32, kernel_ms=f32_ms, kernel_tflops=f32_flops / (f32_ms * 1e-3) / 1e12,
+        plain_ms=f32_plain_ms, bound_ms=max(f32_ops_ms, f32_bytes_ms),
+        bound_by="operations" if f32_ops_ms >= f32_bytes_ms else "bytes", shots=n, ler_logical=ev["ler_logical"], ler_qubit=ev["ler"],
         ler_hybrid=ev["ler_hybrid"], z=z, ler_seconds=ler_s,
         jax_f32=dict(shots=ref["shots"], ler_logical=ref["ler_logical"], ler_qubit=ref["ler"]),
         launches=launched, shot_agreement_with_fused=agree, min_shot_agreement=MIN_SHOT_AGREE,
@@ -1094,7 +1105,10 @@ def phase_roll_gather(graph, dg, dev, trained, info: dict) -> tuple[dict, dict]:
                tflops=f32s["kernel_tflops"], tflops_slot16=s16["kernel_tflops"],
                call_ms=f32s["call_ms"], plain_ms=f32s["plain_ms"],
                plain_ms_slot16=s16["plain_ms"], bound_ms=info["bound_ms"],
-               bound_by=info["bound_by"], f32_core_ms=info["f32_core_ms"], library_ms=None,
+               bound_by=info["bound_by"], library_ms=None,
+               ms_f32=info["trained"]["kernel_ms"], tflops_f32=info["trained"]["kernel_tflops"],
+               plain_ms_f32=info["trained"]["plain_ms"], bound_ms_f32=info["trained"]["bound_ms"],
+               bound_by_f32=info["trained"]["bound_by"],
                yardstick_ms=k1_ms, yardstick="K1 (fused_rounds) on the same inputs")
     return launched, row
 

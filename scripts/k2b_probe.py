@@ -24,16 +24,16 @@ nothing of JAX.
 
 from __future__ import annotations
 
-import ctypes
-import json
 import os
-import subprocess
 import sys
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from _probe_common import (CSRC, REPO, build_copies, emit, replaced, stage_cycles,
+                           with_library, with_probes)
+
 sys.path.insert(0, REPO)
 
-SOURCE = os.path.join(REPO, "tpugnn_torch", "kernels", "csrc", "fused_backward.cu")
+SOURCE = os.path.join(CSRC, "fused_backward.cu")
+LIBRARY = "fused_backward"
 
 # Parts of the source cut out for the `cuts` measurement: name -> list of
 # (text, replacement).  Each text must occur in the source.
@@ -68,66 +68,6 @@ PROBES = [
     ("        state_cotangent<SR>(q, i, s, sl, proj_q);\n", "S4"),
     ("      weight_grads(q, nt * N, s);\n", "S5"),
 ]
-PROBE_DEFS = """
-__device__ long long g_probe[16];
-__device__ long long g_probe_last;
-#define PROBE(k) do { if (threadIdx.x == 0 && blockIdx.x == 0) { \\
-    long long now = clock64(); g_probe[k] += now - g_probe_last; g_probe_last = now; } } while (0)
-"""
-PROBE_API = """
-extern "C" int probe_read(long long* out) {
-  return (int)cudaMemcpyFromSymbol(out, g_probe, sizeof(long long) * 16);
-}
-extern "C" int probe_reset() {
-  long long z[16] = {0};
-  return (int)cudaMemcpyToSymbol(g_probe, z, sizeof(z));
-}
-"""
-
-
-def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
-
-
-def build_copies(texts: dict) -> dict:
-    """Build copies of the source (name -> text), one nvcc each, all started
-    together; returns them loaded, name -> library."""
-    from tpugnn_torch.kernels import _build
-
-    out_dir = os.path.join(REPO, "tpugnn_torch", "_build")
-    os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    for name, text in texts.items():
-        path = os.path.join(os.path.dirname(SOURCE), f"_probe_{name}.cu")
-        with open(path, "w") as f:
-            f.write(text)
-        lib_path = os.path.join(out_dir, f"libk2b_probe_{name}.so")
-        procs[name] = (path, lib_path, subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib_path, path],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (path, lib_path, proc) in procs.items():
-        log = proc.communicate()[0]
-        os.remove(path)
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {name}:\n{log[-3000:]}")
-        lib = ctypes.CDLL(lib_path)
-        for fn, (args, res) in _build._SIGNATURES["fused_backward"].items():
-            f = getattr(lib, fn)
-            f.argtypes = args
-            f.restype = res
-        libs[name] = lib
-    return libs
-
-
-def replaced(src: str, pairs) -> str:
-    for a, b in pairs:
-        if src.count(a) != 1:
-            raise RuntimeError(f"text not once in the source: {a!r}")
-        src = src.replace(a, b)
-    return src
-
-
 def case(batch: int):
     """K2b's inputs at the flagship shapes, and a call of it."""
     import torch
@@ -146,17 +86,6 @@ def case(batch: int):
     return lambda: fb._bwd_cuda(sc, sq, s, ops, mats32, vecs32, cot_c, cot_q, "bfloat16")
 
 
-def with_library(lib, fn):
-    from tpugnn_torch.kernels import _build
-
-    real = _build.load_library
-    _build.load_library = lambda name: lib if name == "fused_backward" else real(name)
-    try:
-        return fn()
-    finally:
-        _build.load_library = real
-
-
 def main() -> int:
     import torch
 
@@ -169,10 +98,9 @@ def main() -> int:
     build_libraries(["fused_rounds", "fused_backward"])
     src = open(SOURCE).read()
     card = cs.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
-    text = src.replace('#include "rounds_mma.cuh"\n', '#include "rounds_mma.cuh"\n' + PROBE_DEFS, 1)
-    text = replaced(text, [(a, a + f"        PROBE({k});\n") for k, (a, _) in enumerate(PROBES)])
-    libs = build_copies({"clock": text + PROBE_API,
-                         **{name: replaced(src, pairs) for name, pairs in CUTS.items()}})
+    libs, _ = build_copies(LIBRARY, {
+        "clock": with_probes(src, PROBES, " " * 8),
+        **{name: replaced(src, pairs) for name, pairs in CUTS.items()}})
 
     scale = {}
     for b in (64, 256, 1056, 4096):
@@ -188,27 +116,16 @@ def main() -> int:
     emit({"scale": scale, "card": card})
 
     lib = libs.pop("clock")
-    lib.probe_read.argtypes = [ctypes.c_void_p]
     run = case(4096)
     with torch.no_grad():
-        with_library(lib, run)
-        torch.cuda.synchronize()
-        lib.probe_reset()
-        ms = with_library(lib, lambda: cs.time_ms(run, warmup=0, iters=1))
-    cycles = (ctypes.c_longlong * 16)()
-    lib.probe_read(ctypes.cast(cycles, ctypes.c_void_p))
-    # the loop-top probe's first count spans the gap since the previous launch
-    counts = {name: int(cycles[k]) for k, (_, name) in enumerate(PROBES)}
-    del counts[PROBES[0][1]]
-    total = sum(counts.values())
-    emit({"probe": {"ms": ms, "cycles": counts,
-                    "share": {k: v / total for k, v in counts.items()}}, "card": card})
+        probe = stage_cycles(lib, PROBES, lambda: with_library(LIBRARY, lib, run))
+    emit({"probe": probe, "card": card})
 
     times = {}
     with torch.no_grad():
         times["unchanged"] = cs.time_ms(run, warmup=2, iters=7)
         for name, lib in libs.items():
-            times[name] = with_library(lib, lambda: cs.time_ms(run, warmup=2, iters=7))
+            times[name] = with_library(LIBRARY, lib, lambda: cs.time_ms(run, warmup=2, iters=7))
     emit({"cuts_ms": times, "card": card})
     return 0
 

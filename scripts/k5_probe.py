@@ -8,12 +8,14 @@ config (surface d=11, B=4096, R=8, H=128, seeded random weights and states),
 with f32 slots and with ``slot16``, against copies of its source that change
 one thing, each printed as one JSON line:
 
-  variants  K5's time as built, beside copies with its d=11 raster side run
-            as a 128-row chunk of 8 warps and a 16-row tail (``warps8``) and
-            the same with the tail cut out (``warps8_no_tail``; timing only,
-            its states are wrong), in turns within one process; the states
-            of the copies that compute the function against
-            ``roll_rounds_plain``.
+  variants  K5's time as built (9 warps, 144-row chunks), beside copies
+            with 8 warps, so d=11's raster side runs as a 128-row chunk and
+            a 16-row tail (``warps8``), and the same with the tail cut out
+            (``warps8_no_tail``; timing only, its states are wrong), in turns
+            within one process; the states of the copies that compute the
+            function against ``roll_rounds_plain``.
+  larger    the same for ``as_built`` and ``warps8`` at d=13 and d=15
+            (B=4096, R=8, f32 slots), where both run a ragged tail.
   probe     one block's clock cycles per stage (A, B, C of a round) of the
             kernel as built, from a copy with ``clock64()`` probes at the
             stage boundaries (thread 0 of block 0), and of ``warps8``.
@@ -23,29 +25,28 @@ one thing, each printed as one JSON line:
             f32 on the trained d=11 weights (B=4096, R=14) with whether the
             two f32 results are bit-equal.
 
-The copies (the unchanged source among them) are built with the flags of ``tpugnn_torch/kernels/_build.py``
-into ``tpugnn_torch/_build/`` and loaded in place of the library; the
-registers and spills ``ptxas`` reports for each bf16 kernel are printed with
-them.  Imports nothing of JAX.
+The copies (the unchanged source among them) are built by
+``_probe_common.py`` and loaded in place of the library; the registers and
+spills ``ptxas`` reports for each bf16 kernel are printed with them.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
-import json
 import os
 import re
-import subprocess
 import sys
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from _probe_common import (CSRC, REPO, build_copies, emit, replaced, stage_cycles,
+                           with_library, with_probes)
+
 sys.path.insert(0, REPO)
 
-SOURCE = os.path.join(REPO, "tpugnn_torch", "kernels", "csrc", "roll_gather.cu")
+SOURCE = os.path.join(CSRC, "roll_gather.cu")
+LIBRARY = "roll_gather"
 
-WARPS8 = [("int tc_warps(int L) { return L > 128 && L <= 144 ? 9 : 8; }",
-           "int tc_warps(int L) { return 8; }")]
+WARPS8 = [("constexpr int TC_WARPS = 9;", "constexpr int TC_WARPS = 8;")]
 NO_TAIL = [
     ("  for (int row0 = 0; row0 < L; row0 += CRN) {\n    const int r0 = row0 + 16 * warp;\n"
      "    const int n = max(0, min(16, L - r0));\n    const bool active = n > 0;",
@@ -68,33 +69,6 @@ PROBES = [
     ("                                              round + 1 < R ? proj : nullptr);\n",
      "C qubit cells"),
 ]
-PROBE_DEFS = """
-__device__ long long g_probe[16];
-__device__ long long g_probe_last;
-#define PROBE(k) do { if (threadIdx.x == 0 && blockIdx.x == 0) { \\
-    long long now = clock64(); g_probe[k] += now - g_probe_last; g_probe_last = now; } } while (0)
-"""
-PROBE_API = """
-extern "C" int probe_read(long long* out) {
-  return (int)cudaMemcpyFromSymbol(out, g_probe, sizeof(long long) * 16);
-}
-extern "C" int probe_reset() {
-  long long z[16] = {0};
-  return (int)cudaMemcpyToSymbol(g_probe, z, sizeof(z));
-}
-"""
-
-
-def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
-
-
-def replaced(src: str, pairs) -> str:
-    for a, b in pairs:
-        if src.count(a) != 1:
-            raise RuntimeError(f"text not once in the source: {a!r}")
-        src = src.replace(a, b)
-    return src
 
 
 def kernel_resources(log: str) -> dict:
@@ -114,62 +88,45 @@ def kernel_resources(log: str) -> dict:
     return out
 
 
-def build_copies(texts: dict) -> tuple[dict, dict]:
-    """Build copies of the source (name -> text), one nvcc each, all started
-    together; returns them loaded (name -> library) and their bf16 kernels'
-    registers and spills."""
-    from tpugnn_torch.kernels import _build
-
-    out_dir = os.path.join(REPO, "tpugnn_torch", "_build")
-    os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    for name, text in texts.items():
-        path = os.path.join(os.path.dirname(SOURCE), f"_probe_{name}.cu")
-        with open(path, "w") as f:
-            f.write(text)
-        lib_path = os.path.join(out_dir, f"libk5_probe_{name}.so")
-        procs[name] = (path, lib_path, subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib_path, path],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs, resources = {}, {}
-    for name, (path, lib_path, proc) in procs.items():
-        log = proc.communicate()[0]
-        os.remove(path)
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {name}:\n{log[-3000:]}")
-        lib = ctypes.CDLL(lib_path)
-        for fn, (args, res) in _build._SIGNATURES["roll_gather"].items():
-            f = getattr(lib, fn)
-            f.argtypes = args
-            f.restype = res
-        libs[name] = lib
-        resources[name] = kernel_resources(log)
-    return libs, resources
-
-
-def bench_operands():
-    """The d=11 graph and K5's raster operands at the bench config on the
-    card."""
+def raster_operands(d: int):
+    """The graph and K5's raster operands of surface distance d at the bench
+    config (B=4096, R=8, seeded random weights and states) on the card."""
     import torch
 
     import chip_smoke as cs
     from tpugnn_torch.kernels import roll_gather as rg
 
-    graph, _, _, w, xc, xq, s, _ = cs.random_round_case(11, cs.B, 8, "bfloat16", 5,
+    graph, _, _, w, xc, xq, s, _ = cs.random_round_case(d, cs.B, 8, "bfloat16", 5,
                                                         torch.device("cuda", 0))
     with torch.inference_mode():
         return graph, rg.to_raster(xc, xq, s, rg.plan_for_graph(graph), w, "bfloat16")
 
 
-def with_library(lib, fn):
-    from tpugnn_torch.kernels import _build
+def in_turns(libs: dict, order, call) -> dict:
+    """call's ms on each library of `order`, then in the reverse order."""
+    import chip_smoke as cs
 
-    real = _build.load_library
-    _build.load_library = lambda name: lib if name == "roll_gather" else real(name)
-    try:
-        return fn()
-    finally:
-        _build.load_library = real
+    t = {k: [] for k in order}
+    for name in (*order, *reversed(order)):
+        t[name].append(with_library(LIBRARY, libs[name], lambda: cs.time_ms(call)))
+    return t
+
+
+def versus_plain(libs: dict, names, ops, rounds: int, slot: str) -> dict:
+    """Max and mean abs difference from roll_rounds_plain of each library."""
+    import torch
+
+    import chip_smoke as cs
+    from tpugnn_torch.kernels import roll_gather as rg
+
+    pc, pq = rg.roll_rounds_plain(ops, rounds=rounds, slot_dtype=slot)
+    out = {}
+    for name in names:
+        kc, kq = with_library(LIBRARY, libs[name], lambda: rg._roll_rounds_cuda(
+            ops, rounds=rounds, slot_dtype=slot))
+        torch.cuda.synchronize()
+        out[name] = cs.raster_errors(kc, kq, pc, pq)
+    return out
 
 
 def parent_comparison(libs: dict, ops, rounds: int, card: str) -> None:
@@ -182,17 +139,12 @@ def parent_comparison(libs: dict, ops, rounds: int, card: str) -> None:
     from tpugnn_torch.kernels import roll_gather as rg
     from tpugnn_torch.models.convert import load_decoder
 
-    def turns(call) -> dict:
-        t = {"parent": [], "as_built": []}
-        for name in ("parent", "as_built", "as_built", "parent"):
-            t[name].append(with_library(libs[name], lambda: cs.time_ms(call)))
-        return t
-
+    order = ("parent", "as_built")
     out = {}
     with torch.inference_mode():
         for slot in ("float32", "bfloat16"):
-            out[f"bf16_slots_{slot}_ms"] = turns(
-                lambda: rg._roll_rounds_cuda(ops, rounds=rounds, slot_dtype=slot))
+            out[f"bf16_slots_{slot}_ms"] = in_turns(
+                libs, order, lambda: rg._roll_rounds_cuda(ops, rounds=rounds, slot_dtype=slot))
         _, model, graph = load_decoder(device="cuda")
         dg = graph.to("cuda")
         w = fd.RoundWeights(*[t.detach() for t in model.rounds.round_weights()])
@@ -200,10 +152,10 @@ def parent_comparison(libs: dict, ops, rounds: int, card: str) -> None:
         f32 = rg.to_raster(xc, xq, s, rg.plan_for_graph(graph), w, "float32")
         r_t = model.cfg.rounds
         call = lambda: rg._roll_rounds_cuda(f32, rounds=r_t)
-        a, b = with_library(libs["parent"], call), with_library(libs["as_built"], call)
+        a, b = (with_library(LIBRARY, libs[n], call) for n in order)
         torch.cuda.synchronize()
         out["f32_trained_bit_equal"] = bool(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))
-        out["f32_trained_ms"] = turns(call)
+        out["f32_trained_ms"] = in_turns(libs, order, call)
     emit({"parent": out, "card": card})
 
 
@@ -221,54 +173,51 @@ def main() -> int:
         return 2
     src = open(SOURCE).read()
     card = cs.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
-    clock = src.replace('#include "rounds_mma.cuh"\n', '#include "rounds_mma.cuh"\n' + PROBE_DEFS, 1)
-    clock = replaced(clock, [(a, a + f"    PROBE({k});\n") for k, (a, _) in enumerate(PROBES)])
     texts = {"as_built": src, **{name: replaced(src, pairs) for name, pairs in VARIANTS.items()},
-             "clock": clock + PROBE_API, "clock_warps8": replaced(clock, WARPS8) + PROBE_API}
+             "clock": with_probes(src, PROBES, " " * 4),
+             "clock_warps8": with_probes(replaced(src, WARPS8), PROBES, " " * 4)}
     if args.parent:
         texts["parent"] = open(args.parent).read()
-    libs, resources = build_copies(texts)
+    libs, logs = build_copies(LIBRARY, texts)
+    resources = {name: kernel_resources(log) for name, log in logs.items()}
 
-    graph, ops = bench_operands()
+    graph, ops = raster_operands(11)
     rounds = 8
     flops = cs.rounds_flops(graph, 128) * cs.B * rounds
     times, errors = {}, {}
     with torch.inference_mode():
         for slot in ("float32", "bfloat16"):
             call = lambda: rg._roll_rounds_cuda(ops, rounds=rounds, slot_dtype=slot)
-            pc, pq = rg.roll_rounds_plain(ops, rounds=rounds, slot_dtype=slot)
-            for name in ("as_built", "warps8"):
-                kc, kq = with_library(libs[name], call)
-                torch.cuda.synchronize()
-                errors[f"{name}/{slot}"] = cs.raster_errors(kc, kq, pc, pq)
-                del kc, kq
-            del pc, pq
-            t = {k: [] for k in ("as_built", *VARIANTS)}
-            for order in (("as_built", "warps8", "warps8_no_tail"),
-                          ("warps8_no_tail", "warps8", "as_built")):
-                for name in order:
-                    t[name].append(with_library(libs[name], lambda: cs.time_ms(call)))
+            for name, e in versus_plain(libs, ("as_built", "warps8"), ops, rounds, slot).items():
+                errors[f"{name}/{slot}"] = e
+            t = in_turns(libs, ("as_built", "warps8", "warps8_no_tail"), call)
             times[slot] = {k: dict(ms=v, tflops=[flops / (x * 1e-3) / 1e12 for x in v])
                            for k, v in t.items()}
     emit({"variants": times, "errors_max_mean": errors, "resources": resources, "card": card})
 
-    probes = {}
-    for name in ("clock", "clock_warps8"):
-        lib = libs[name]
-        lib.probe_read.argtypes = [ctypes.c_void_p]
+    larger = {}
+    for d in (13, 15):
+        g_d, ops_d = raster_operands(d)
+        flops_d = cs.rounds_flops(g_d, 128) * cs.B * rounds
         with torch.inference_mode():
-            call = lambda: rg._roll_rounds_cuda(ops, rounds=rounds)
-            with_library(lib, call)
-            torch.cuda.synchronize()
-            lib.probe_reset()
-            ms = with_library(lib, lambda: cs.time_ms(call, warmup=0, iters=1))
-        cycles = (ctypes.c_longlong * 16)()
-        lib.probe_read(ctypes.cast(cycles, ctypes.c_void_p))
-        counts = {stage: int(cycles[k]) for k, (_, stage) in enumerate(PROBES)}
-        del counts[PROBES[0][1]]   # spans the gap since the previous launch
-        total = sum(counts.values())
-        probes[name] = {"ms": ms, "cycles": counts,
-                        "share": {k: v / total for k, v in counts.items()}}
+            t = in_turns(libs, ("as_built", "warps8"),
+                         lambda: rg._roll_rounds_cuda(ops_d, rounds=rounds))
+            larger[f"d{d}"] = dict(
+                l_pad=ops_d.xc.shape[1],
+                times={k: dict(ms=v, tflops=[flops_d / (x * 1e-3) / 1e12 for x in v])
+                       for k, v in t.items()},
+                errors_max_mean=versus_plain(libs, ("as_built", "warps8"), ops_d, rounds,
+                                             "float32"))
+        del ops_d
+        torch.cuda.empty_cache()
+    emit({"larger": larger, "card": card})
+
+    probes = {}
+    with torch.inference_mode():
+        call = lambda: rg._roll_rounds_cuda(ops, rounds=rounds)
+        for name in ("clock", "clock_warps8"):
+            probes[name] = stage_cycles(libs[name], PROBES,
+                                        lambda: with_library(LIBRARY, libs[name], call))
     emit({"probe": probes, "card": card})
     if args.parent:
         parent_comparison(libs, ops, rounds, card)

@@ -442,10 +442,10 @@ def test_cuda_wrapper_checks_and_raises(stub_library, monkeypatch):
 # What roll_rounds_smem_bytes returns on the card, (dtype code, l_pad) ->
 # bytes (chip_smoke.py phase 11 prints it): f32 panels and 32-row chunks on
 # FMA loops; bf16 swizzled panels, tensor-core chunk buffers and a double
-# buffer of 64-row weight slabs (32-row at d=15, where 64 do not fit); the
-# d=11 raster runs one 144-row chunk of 9 warps.
+# buffer of 64-row weight slabs (32-row at d=15, where 64 do not fit), for
+# 144-row chunks of 9 warps.
 _SMEM_ON_THE_CARD = {(0, 144): 206112, (1, 144): 187168, (0, 200): 263568,
-                     (1, 200): 207248, (0, 256): 321024, (1, 256): 218624}
+                     (1, 200): 215952, (0, 256): 321024, (1, 256): 227328}
 
 
 @pytest.mark.parametrize("d,state_dtype,slot_dtype,fits", [

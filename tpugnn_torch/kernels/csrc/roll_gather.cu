@@ -30,11 +30,11 @@
 //     operand of every product is a bf16 value (states, the slot sum and the
 //     update hidden are rounded, the packed matrices stored in bf16), so
 //     mma.sync.m16n8k16 bf16 with f32 accumulation forms the products of the
-//     plain version; only the f32 summation order differs.  A chunk is a
-//     whole side: at d=11 its 144 raster rows run as one chunk of 9 warps (a
-//     128-row chunk of 8 warps would leave a 16-row tail that one warp works
-//     through behind every slab barrier); other rasters run 128-row chunks of
-//     8 warps and a ragged tail (d=13: 128 + 72, d=15: 2 x 128).
+//     plain version; only the f32 summation order differs.  A block has 9
+//     warps, so a chunk is 144 rows: d=11's whole raster side (a 128-row
+//     chunk of 8 warps would leave a 16-row tail that one warp works through
+//     behind every slab barrier); larger rasters run a second, ragged chunk
+//     (d=13: 144 + 56, d=15: 144 + 112, with 32-row weight slabs).
 //   f32 states (the trained roll decode): 32-row chunks of f32 FMA loops
 //     (gemm_chunk, rounds_common.cuh).
 //
@@ -231,8 +231,7 @@ roll_rounds_kernel(const float* xc_in, const float* xq_in, const float* __restri
 
 // ---------------------------------------------------------------------------
 // The bf16 path on tensor cores (rounds_mma.cuh), K1's tcp:: schedule on the
-// raster.  NWARP warps, one chunk of 16 * NWARP rows (a second, ragged one
-// for a longer side), one product (one weight matrix) at a time, each
+// raster.  NWARP warps, chunks of 16 * NWARP rows (the last one ragged), one product (one weight matrix) at a time, each
 // accumulator m16 x n128 per warp:
 //   A  ys_c = rnd(x_q @ ws_c)
 //   B  check chunk: ys_q = rnd(x @ ws_q); ydb = x @ wd + b0 and the slot sum
@@ -482,18 +481,19 @@ roll_rounds_tc_kernel(const bf16* xc_in, const bf16* xq_in, const float* __restr
 
 }  // namespace tcr
 
-// Warps of the bf16 kernel: a raster of 129..144 cells (d=11) runs as one
-// chunk of 9 warps, any other as chunks of 128 rows (8 warps).
-int tc_warps(int L) { return L > 128 && L <= 144 ? 9 : 8; }
+// Warps of the bf16 kernel: d=11's raster side (144 cells) is one chunk.
+constexpr int TC_WARPS = 9;
 
-// Slab rows of the 8-warp bf16 kernel: 64 where that fits in shared memory,
-// else 32 (d=15).
-int tc_slab_rows(int L) { return tcr::smem_bytes<64, 8>(L) <= tc::SMEM_LIMIT ? 64 : 32; }
+// Slab rows of the bf16 kernel: 64 where that fits in shared memory, else 32
+// (d=15).
+int tc_slab_rows(int L) {
+  return tcr::smem_bytes<64, TC_WARPS>(L) <= tc::SMEM_LIMIT ? 64 : 32;
+}
 
 size_t smem_for(int dtype, int L) {
   if (dtype == 0) return smem_bytes(L);
-  if (tc_warps(L) == 9) return tcr::smem_bytes<64, 9>(L);
-  return tc_slab_rows(L) == 64 ? tcr::smem_bytes<64, 8>(L) : tcr::smem_bytes<32, 8>(L);
+  return tc_slab_rows(L) == 64 ? tcr::smem_bytes<64, TC_WARPS>(L)
+                               : tcr::smem_bytes<32, TC_WARPS>(L);
 }
 
 template <typename T, typename K>
@@ -517,17 +517,13 @@ int launch_tc(size_t smem, const void* xc_in, const void* xq_in, const float* sy
               void* xc_out, void* xq_out, Offsets offs_c, Offsets offs_q, int B, int L,
               int R, cudaStream_t st) {
   typedef __nv_bfloat16 bf;
-  if (tc_warps(L) == 9)
-    return launch_kernel<bf>(
-        tcr::roll_rounds_tc_kernel<64, 9, SLOT16>, 9 * 32, smem, xc_in, xq_in, syn, bits,
-        degbo, mats, vecs, xc_out, xq_out, offs_c, offs_q, B, L, R, st);
   if (tc_slab_rows(L) == 64)
     return launch_kernel<bf>(
-        tcr::roll_rounds_tc_kernel<64, 8, SLOT16>, 8 * 32, smem, xc_in, xq_in, syn, bits,
-        degbo, mats, vecs, xc_out, xq_out, offs_c, offs_q, B, L, R, st);
+        tcr::roll_rounds_tc_kernel<64, TC_WARPS, SLOT16>, 32 * TC_WARPS, smem, xc_in, xq_in,
+        syn, bits, degbo, mats, vecs, xc_out, xq_out, offs_c, offs_q, B, L, R, st);
   return launch_kernel<bf>(
-      tcr::roll_rounds_tc_kernel<32, 8, SLOT16>, 8 * 32, smem, xc_in, xq_in, syn, bits,
-      degbo, mats, vecs, xc_out, xq_out, offs_c, offs_q, B, L, R, st);
+      tcr::roll_rounds_tc_kernel<32, TC_WARPS, SLOT16>, 32 * TC_WARPS, smem, xc_in, xq_in,
+      syn, bits, degbo, mats, vecs, xc_out, xq_out, offs_c, offs_q, B, L, R, st);
 }
 
 }  // namespace

@@ -21,7 +21,7 @@
 // each n-tile j: acc[j][2 h + c] is row g + 8 h, column 8 j + 2 t + c.  A
 // row's 128 columns sit in one quad of lanes, so a row reduction is two
 // shuffles.  The block-wide routines take the block's thread count NTH
-// (THREADS by default); K5 runs a 144-row side as one chunk of 9 warps.
+// (THREADS by default); K5 runs 9 warps, so its chunks are 144 rows.
 #pragma once
 
 #include "rounds_common.cuh"
