@@ -42,7 +42,16 @@ print one JSON line with their wall time:
     B=4096, F = H = MH = 128 against their plain versions on the card, in f32
     and bf16, with stated tolerances; their times beside their plain
     versions', their bounds and the PyTorch call that computes the same
-    function (index_add_, scatter_reduce amax)
+    function (index_add_, scatter_reduce amax).  K4 runs both directions,
+    with the states in the compute type; each call must launch the
+    tensor-core kernel in bf16 and the FMA kernel in f32; bf16 twice on the
+    same inputs, bit-equal; bf16 at d=13 and d=15 (B=64, both directions:
+    larger panels, d=15's rounded up to 16-row groups) against the plain
+    version; cuobjdump -sass must find HMMA in its tensor-core kernel and
+    none in its FMA kernels; its time in bf16 and f32 (one call on f32
+    states, the wrapper's cast inside, as the other kernels are timed; per
+    call over 8 back-to-back calls on compute-type states beside it), bound
+    and achieved GB/s
   9 generic flagship: the trained d=11 weights on the generic engine
     (load_decoder(backend='pallas'), f32, R=14): LER at p=0.05 on phase 4's
     65,536 shots, both heads gated at |z| <= 4 against the JAX f32 rate;
@@ -257,6 +266,16 @@ def time_ms(fn, warmup: int = 3, iters: int = 15) -> float:
     return statistics.median(times)
 
 
+def time_ms_per_call(fn, calls: int = 8) -> float:
+    """time_ms of ``calls`` back-to-back calls of ``fn``, per call: the host
+    enqueues a call while the card runs the last, so a kernel under a
+    millisecond is timed without the host's time to launch it."""
+    def run():
+        for _ in range(calls):
+            fn()
+    return time_ms(run) / calls
+
+
 def rounds_flops(graph, h: int) -> float:
     """Operations one sample's round needs with folded weights: ten [rows, H]
     x [H, H] GEMMs per side pair (5 over check rows, 5 over qubit rows) and an
@@ -453,17 +472,72 @@ def ell_bound(graph, batch: int, f: int, itemsize: int, to: str) -> tuple[float,
     return bound(nbytes, batch * graph.n_edges * f, H100_F32_FLOPS)
 
 
-def sddmm_bound(graph, batch: int, h: int, mh: int, compute: str) -> tuple[float, str]:
-    """K4 to checks: the real rows of both sides read once, each real slot's
-    f32 output written once, the weights once; both projections over the
-    real rows and an add, add and relu per real slot and column, at the
-    compute type's peak (bf16 tensor cores or f32 CUDA cores)."""
-    itemsize, peak = (2, H100_BF16_FLOPS) if compute == "bfloat16" else (4, H100_F32_FLOPS)
+def sddmm_bytes(graph, batch: int, h: int, mh: int, compute: str) -> float:
+    """Bytes K4 to checks must move: the real rows of both sides read once,
+    each real slot's f32 output written once, the weights, bias and slot
+    table once."""
+    itemsize = 2 if compute == "bfloat16" else 4
     rows = graph.n_checks + graph.n_qubits
-    nbytes = (batch * rows * h * itemsize + batch * graph.n_edges * mh * 4 + 2 * h * mh * 4
-              + mh * 4 + graph.n_checks_pad * graph.deg_max_check * 4)
+    return (batch * rows * h * itemsize + batch * graph.n_edges * mh * 4 + 2 * h * mh * 4
+            + mh * 4 + graph.n_checks_pad * graph.deg_max_check * 4)
+
+
+def sddmm_padded_bytes(graph, batch: int, h: int, mh: int, compute: str) -> float:
+    """Bytes K4's kernels move to checks at least: the padded rows of both
+    sides read and every padded slot's f32 row written."""
+    itemsize = 2 if compute == "bfloat16" else 4
+    rows_pad = graph.n_checks_pad + graph.n_qubits_pad
+    return (batch * rows_pad * h * itemsize
+            + batch * graph.n_checks_pad * graph.deg_max_check * mh * 4)
+
+
+def sddmm_bound(graph, batch: int, h: int, mh: int, compute: str) -> tuple[float, str]:
+    """K4 to checks: sddmm_bytes at the HBM rate against both projections
+    over the real rows and an add, add and relu per real slot and column, at
+    the compute type's peak (bf16 tensor cores or f32 CUDA cores)."""
+    peak = H100_BF16_FLOPS if compute == "bfloat16" else H100_F32_FLOPS
+    rows = graph.n_checks + graph.n_qubits
     ops = 2 * batch * rows * h * mh + 3 * batch * graph.n_edges * mh
-    return bound(nbytes, ops, peak)
+    return bound(sddmm_bytes(graph, batch, h, mh, compute), ops, peak)
+
+
+def sddmm_vs_plain(args, compute: str, name: str, twice: bool) -> dict:
+    """K4 on the card against its plain version on the same inputs, at
+    H = MH = 128: the call must launch the tensor-core kernel in bf16 and the
+    FMA kernel in f32, once; the max error and the share of outputs that
+    differ are gated at the compute type's tolerance; with ``twice`` a
+    second call on the same inputs must be bit-equal."""
+    import torch
+
+    from tpugnn_torch.kernels import sddmm
+
+    sddmm.reset_launch_counts()
+    k = sddmm.sddmm_edge_hidden(*args, compute_dtype=compute)
+    routes = sddmm.launch_counts()
+    want = "sddmm_edge_hidden_tc" if compute == "bfloat16" else "sddmm_edge_hidden"
+    if routes != {**{r: 0 for r in routes}, want: 1}:
+        raise RuntimeError(f"K4 {name}: launched {routes}, not one {want}")
+    p = sddmm.sddmm_edge_hidden_plain(*args, compute_dtype=compute)
+    torch.cuda.synchronize()
+    diff = (k - p).abs()
+    out = dict(kernel=want, max_abs_err=float(diff.max()),
+               differing_share=float(torch.count_nonzero(diff)) / diff.numel())
+    finite = bool(torch.isfinite(k).all())
+    del p, diff
+    if twice:
+        out["bit_equal_twice"] = bool(torch.equal(k, sddmm.sddmm_edge_hidden(
+            *args, compute_dtype=compute)))
+    del k
+    if not finite:
+        raise RuntimeError(f"K4 {name}: non-finite output")
+    if compute == "float32" and out["max_abs_err"] > TOL_SDDMM_F32:
+        raise RuntimeError(f"K4 {name} disagrees with the plain version: {out}")
+    if compute == "bfloat16" and (out["max_abs_err"] > TOL_SDDMM_BF16_MAX
+                                  or out["differing_share"] > TOL_SDDMM_BF16_SHARE):
+        raise RuntimeError(f"K4 {name} disagrees with the plain version: {out}")
+    if twice and not out["bit_equal_twice"]:
+        raise RuntimeError(f"K4 {name}: two calls on the same inputs differ")
+    return out
 
 
 def train_steps_vs_plain(state, cfg, dg, dev) -> dict:
@@ -528,6 +602,8 @@ def phase_spmm_sddmm(graph, dg, dev, info: dict) -> dict:
     from tpugnn_torch import mp
     from tpugnn_torch.kernels import fused_decoder as fd
     from tpugnn_torch.kernels import sddmm, spmm
+    from tpugnn_torch.kernels._build import build_libraries, load_library
+    from tpugnn_torch.tanner import build_code
 
     f = 128
     gen = torch.Generator(device=dev).manual_seed(31)
@@ -598,38 +674,77 @@ def phase_spmm_sddmm(graph, dg, dev, info: dict) -> dict:
             del lib_sum, lib_max, k_sum, k_max
         info["ell_times"] = times
 
-        # K4 to checks: x_dst the check states, x_src the qubit states
+        # K4 in both directions at the bench config (to checks: x_dst the
+        # check states, x_src the qubit states); bf16 at H = MH = 128 must
+        # take the tensor-core kernel, f32 the FMA kernel
         h = mh = 128
-        xd = torch.randn((B, graph.n_checks_pad, h), generator=gen, device=dev)
-        xs = torch.randn((B, graph.n_qubits_pad, h), generator=gen, device=dev)
-        xd *= dg.check_mask[:, None]
-        xs *= dg.qubit_mask[:, None]
+        src_c, mask_c, _, src_q, mask_q, _ = fd.make_operators(dg)
+        xc = torch.randn((B, graph.n_checks_pad, h), generator=gen, device=dev)
+        xq = torch.randn((B, graph.n_qubits_pad, h), generator=gen, device=dev)
+        xc *= dg.check_mask[:, None]
+        xq *= dg.qubit_mask[:, None]
         wd = torch.randn((h, mh), generator=gen, device=dev) / h ** 0.5
         ws = torch.randn((h, mh), generator=gen, device=dev) / h ** 0.5
         b = 0.1 * torch.randn(mh, generator=gen, device=dev)
-        src_c, mask_c = fd.make_operators(dg)[:2]
-        args = (xd, xs, src_c, mask_c, wd, ws, b)
         k4 = {}
         for cdt in ("float32", "bfloat16"):
-            k = sddmm.sddmm_edge_hidden(*args, compute_dtype=cdt)
-            p = sddmm.sddmm_edge_hidden_plain(*args, compute_dtype=cdt)
-            torch.cuda.synchronize()
-            diff = (k - p).abs()
-            err, share = float(diff.max()), float((diff > 0).float().mean())
-            finite = bool(torch.isfinite(k).all())
-            del k, p, diff
-            t_k = time_ms(lambda: sddmm.sddmm_edge_hidden(*args, compute_dtype=cdt))
-            t_p = time_ms(lambda: sddmm.sddmm_edge_hidden_plain(*args, compute_dtype=cdt))
+            # the states in the compute type, as a model of that type holds
+            # them (the JAX wrapper casts them before its kernel)
+            c, q = xc.to(fd.STATE_DTYPES[cdt]), xq.to(fd.STATE_DTYPES[cdt])
+            for to, args in (("check", (c, q, src_c, mask_c, wd, ws, b)),
+                             ("qubit", (q, c, src_q, mask_q, wd, ws, b))):
+                name = f"{to}_{cdt}"
+                k4[name] = sddmm_vs_plain(args, cdt, name, twice=cdt == "bfloat16")
+            # the kernels line's time, as PR 8 took it: one call to checks on
+            # the f32 states, the wrapper's cast to the compute type inside;
+            # that call must launch the same kernel and give the same output
+            # as the call on the compute-type states
+            name, args, args32 = (f"check_{cdt}", (c, q, src_c, mask_c, wd, ws, b),
+                                  (xc, xq, src_c, mask_c, wd, ws, b))
+            sddmm.reset_launch_counts()
+            same = torch.equal(sddmm.sddmm_edge_hidden(*args32, compute_dtype=cdt),
+                               sddmm.sddmm_edge_hidden(*args, compute_dtype=cdt))
+            routes = sddmm.launch_counts()
+            if not same or routes[k4[name]["kernel"]] != 2 or sum(routes.values()) != 2:
+                raise RuntimeError(f"K4 {name} on f32 states: launched {routes}, output "
+                                   f"equal to the compute-type states' {same}")
+            t_k = time_ms(lambda: sddmm.sddmm_edge_hidden(*args32, compute_dtype=cdt))
+            t_p = time_ms(lambda: sddmm.sddmm_edge_hidden_plain(*args32, compute_dtype=cdt))
+            t_c = time_ms_per_call(lambda: sddmm.sddmm_edge_hidden(*args, compute_dtype=cdt))
             b_ms, b_by = sddmm_bound(graph, B, h, mh, cdt)
-            k4[cdt] = dict(max_abs_err=err, differing_share=share, ms=t_k, plain_ms=t_p,
-                           bound_ms=b_ms, bound_by=b_by)
-            if not finite:
-                raise RuntimeError(f"K4 {cdt}: non-finite output")
-            if cdt == "float32" and err > TOL_SDDMM_F32:
-                raise RuntimeError(f"K4 f32 disagrees with the plain version: {err}")
-            if cdt == "bfloat16" and (err > TOL_SDDMM_BF16_MAX
-                                      or share > TOL_SDDMM_BF16_SHARE):
-                raise RuntimeError(f"K4 bf16 disagrees with the plain version: {k4[cdt]}")
+            k4[name].update(
+                ms=t_k, plain_ms=t_p, per_call_ms_compute_states=t_c, bound_ms=b_ms,
+                bound_by=b_by, gb_per_s=sddmm_bytes(graph, B, h, mh, cdt) / (t_k * 1e-3) / 1e9,
+                padded_gb_per_s_compute_states=sddmm_padded_bytes(graph, B, h, mh, cdt)
+                / (t_c * 1e-3) / 1e9)
+            del c, q, args, args32
+        del xc, xq
+        # the tensor-core kernel on larger panels: d=13 (176 rows a side)
+        # and d=15 (232 rows, in 240-row panels)
+        for d in (13, 15):
+            g_d = build_code("surface", d)
+            dg_d = g_d.to(dev)
+            sc, mc, _, sq, mq, _ = fd.make_operators(dg_d)
+            xc = torch.randn((D13_BATCH, g_d.n_checks_pad, h), generator=gen, device=dev)
+            xq = torch.randn((D13_BATCH, g_d.n_qubits_pad, h), generator=gen, device=dev)
+            xc = (xc * dg_d.check_mask[:, None]).bfloat16()
+            xq = (xq * dg_d.qubit_mask[:, None]).bfloat16()
+            for to, args in (("check", (xc, xq, sc, mc, wd, ws, b)),
+                             ("qubit", (xq, xc, sq, mq, wd, ws, b))):
+                k4[f"d{d}_{to}_bfloat16"] = sddmm_vs_plain(args, "bfloat16",
+                                                           f"d={d} {to}", twice=False)
+        lib = load_library("sddmm")
+        info["sddmm_tc_smem_bytes"] = {
+            f"d{d}": lib.sddmm_tc_smem_bytes(g.n_checks_pad, g.n_qubits_pad, g.deg_max_check)
+            for d, g in ((d, build_code("surface", d)) for d in (11, 13, 15))}
+        # the tensor-core kernel runs its products on HMMA, the FMA one does not
+        mma = sass_mma_counts(build_libraries(["sddmm"])["sddmm"][0])
+        info["sass_hmma"] = mma
+        tc = [v for k, v in mma.items() if "sddmm_tc_kernel" in k]
+        fma = [v for k, v in mma.items() if "sddmm_kernel" in k]
+        if not tc or not all(tc) or not fma or any(fma):
+            raise RuntimeError(f"K4's HMMA counts are not tensor-core kernel > 0, FMA "
+                               f"kernels 0: {mma}")
         info["sddmm"] = k4
     info.update(tol_ell_sum_rel=TOL_ELL_SUM_REL, tol_sddmm_f32=TOL_SDDMM_F32,
                 tol_sddmm_bf16_max=TOL_SDDMM_BF16_MAX,
@@ -647,11 +762,18 @@ def phase_spmm_sddmm(graph, dg, dev, info: dict) -> dict:
                         bound_by=tc["bound_by"], library_ms=tc["scatter_amax_ms"],
                         library="scatter_reduce amax (include_self=False) + "
                                 "where(isneginf, 0) fix-up of empty rows"),
-        "sddmm_edge_hidden": dict(max_abs_err=k4["bfloat16"]["max_abs_err"],
-                                  max_abs_err_f32=k4["float32"]["max_abs_err"],
-                                  ms=k4["bfloat16"]["ms"], plain_ms=k4["bfloat16"]["plain_ms"],
-                                  bound_ms=k4["bfloat16"]["bound_ms"],
-                                  bound_by=k4["bfloat16"]["bound_by"], library_ms=None),
+        "sddmm_edge_hidden": dict(
+            max_abs_err=max(v["max_abs_err"] for k, v in k4.items() if "bfloat16" in k),
+            max_abs_err_f32=max(v["max_abs_err"] for k, v in k4.items() if "float32" in k),
+            ms=k4["check_bfloat16"]["ms"], plain_ms=k4["check_bfloat16"]["plain_ms"],
+            bound_ms=k4["check_bfloat16"]["bound_ms"],
+            bound_by=k4["check_bfloat16"]["bound_by"], library_ms=None,
+            gb_per_s=k4["check_bfloat16"]["gb_per_s"],
+            per_call_ms_compute_states=k4["check_bfloat16"]["per_call_ms_compute_states"],
+            ms_f32=k4["check_float32"]["ms"], plain_ms_f32=k4["check_float32"]["plain_ms"],
+            bound_ms_f32=k4["check_float32"]["bound_ms"],
+            bound_by_f32=k4["check_float32"]["bound_by"],
+            gb_per_s_f32=k4["check_float32"]["gb_per_s"]),
     }
 
 
@@ -891,7 +1013,7 @@ def sass_mma_counts(library: str) -> dict:
 
     tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
     if not os.path.exists(tool):
-        raise RuntimeError(f"no cuobjdump beside nvcc ({tool}): cannot check that K5's "
+        raise RuntimeError(f"no cuobjdump beside nvcc ({tool}): cannot check that the "
                            "bf16 kernels run on tensor cores")
     out, name = {}, None
     for line in run([tool, "-sass", library]).splitlines():

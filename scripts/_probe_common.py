@@ -9,6 +9,7 @@ from __future__ import annotations
 import ctypes
 import json
 import os
+import re
 import subprocess
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -79,11 +80,31 @@ def build_copies(library: str, texts: dict) -> tuple[dict, dict]:
             raise RuntimeError(f"nvcc failed on {name}:\n{logs[name][-3000:]}")
         lib = ctypes.CDLL(lib_path)
         for fn, (args, res) in _build._SIGNATURES[library].items():
+            if not hasattr(lib, fn):   # an older source without this entry point
+                continue
             f = getattr(lib, fn)
             f.argtypes = args
             f.restype = res
         libs[name] = lib
     return libs, logs
+
+
+def kernel_resources(log: str, kernel: str) -> dict:
+    """Registers and spill bytes from a ptxas -v log, per function whose
+    name contains `kernel`."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )(\w+)", line)
+        if m:
+            name = m.group(1)
+        if name and kernel in name:
+            s = re.search(r"(\d+) bytes spill stores", line)
+            if s:
+                out.setdefault(name, {})["spill_store_bytes"] = int(s.group(1))
+            r = re.search(r"Used (\d+) registers", line)
+            if r:
+                out.setdefault(name, {})["registers"] = int(r.group(1))
+    return out
 
 
 def with_library(library: str, lib, fn):

@@ -35,11 +35,10 @@ from __future__ import annotations
 
 import argparse
 import os
-import re
 import sys
 
-from _probe_common import (CSRC, REPO, build_copies, emit, replaced, stage_cycles,
-                           with_library, with_probes)
+from _probe_common import (CSRC, REPO, build_copies, emit, kernel_resources, replaced,
+                           stage_cycles, with_library, with_probes)
 
 sys.path.insert(0, REPO)
 
@@ -69,23 +68,6 @@ PROBES = [
     ("                                              round + 1 < R ? proj : nullptr);\n",
      "C qubit cells"),
 ]
-
-
-def kernel_resources(log: str) -> dict:
-    """Registers and spill bytes per bf16 kernel from a ptxas -v log."""
-    out, name = {}, None
-    for line in log.splitlines():
-        m = re.search(r"(?:Compiling entry function '|Function properties for )(\w+)", line)
-        if m:
-            name = m.group(1)
-        if name and "roll_rounds_tc_kernel" in name:
-            s = re.search(r"(\d+) bytes spill stores", line)
-            if s:
-                out.setdefault(name, {})["spill_store_bytes"] = int(s.group(1))
-            r = re.search(r"Used (\d+) registers", line)
-            if r:
-                out.setdefault(name, {})["registers"] = int(r.group(1))
-    return out
 
 
 def raster_operands(d: int):
@@ -179,7 +161,8 @@ def main() -> int:
     if args.parent:
         texts["parent"] = open(args.parent).read()
     libs, logs = build_copies(LIBRARY, texts)
-    resources = {name: kernel_resources(log) for name, log in logs.items()}
+    resources = {name: kernel_resources(log, "roll_rounds_tc_kernel")
+                 for name, log in logs.items()}
 
     graph, ops = raster_operands(11)
     rounds = 8

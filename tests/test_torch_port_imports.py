@@ -100,3 +100,15 @@ def test_build_is_lazy():
     assert set(_build.SOURCES) == {"fused_rounds", "fused_backward", "spmm", "sddmm",
                                   "roll_gather"}
     assert "-gencode" in _build.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("script", ["_probe_common.py", "k2b_probe.py", "k4_probe.py",
+                                    "k5_probe.py", "smoke_turns.py"])
+def test_kernel_probes_import_no_jax(script):
+    """The kernel probes run on the card's machine, which has no JAX."""
+    with open(os.path.join(REPO, "scripts", script)) as f:
+        tree = ast.parse(f.read(), script)
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.level == 0 and n.module]
+    assert not [n for n in names if n.split(".")[0] in FORBIDDEN]

@@ -17,6 +17,7 @@ Tolerances:
 """
 
 import contextlib
+import ctypes
 
 import jax.numpy as jnp
 import numpy as np
@@ -260,7 +261,136 @@ def test_sddmm_cuda_wrapper_launches(stub_kernels):
     # (compute code, xd, xs, table, wd, ws, bias, out, B, rows_dst, rows_src, D, H, MH, stream)
     assert args[0] == 1 and args[8:14] == (2, jg.n_checks_pad, jg.n_qubits_pad,
                                            jg.deg_max_check, 32, 48)
-    assert sddmm.launch_counts() == {"sddmm_edge_hidden": 1}
+    assert sddmm.launch_counts() == {"sddmm_edge_hidden": 1, "sddmm_edge_hidden_tc": 0}
     with pytest.raises(ValueError, match="weights"):
         sddmm._sddmm_cuda(t(xd), t(xs), t(slot_src), t(mask_c), t(wd), t(ws[:8]), t(bias),
                           torch.float32)
+
+
+def _tc_smem(rows_dst, rows_src, d):
+    """The tensor-core kernel's shared memory, as csrc/sddmm.cu sizes it:
+    both weight matrices, then the source and destination panels (rows
+    rounded up to 16), all at a row stride of 136 bf16, and the slot table."""
+    r16 = lambda r: (r + 15) // 16 * 16
+    return (2 * 128 * 136 * 2 + (r16(rows_src) + r16(rows_dst)) * 272
+            + (rows_dst * d * 4 + 15) // 16 * 16)
+
+
+def _fma_smem(rows_dst, rows_src, d, mh):
+    """The FMA kernel's: the f32 panel, two 16 x 64 f32 slabs, the slot table."""
+    a16 = lambda x: (x + 15) // 16 * 16
+    return a16(rows_src * mh * 4) + 2 * 16 * 64 * 4 + a16(rows_dst * d * 4)
+
+
+class _SizingStub(_StubLibrary):
+    """A stub that sizes shared memory as the card's library does and keeps
+    a copy of the weights each launch reads (the wrapper's tensors are gone
+    after the call)."""
+
+    def sddmm_smem_bytes(self, rows_dst, rows_src, d, mh):
+        return _fma_smem(rows_dst, rows_src, d, mh)
+
+    def sddmm_tc_smem_bytes(self, rows_dst, rows_src, d):
+        return _tc_smem(rows_dst, rows_src, d)
+
+    def __getattr__(self, entry):
+        def launch(*args):
+            tc = entry == "sddmm_edge_hidden_tc_launch"
+            h, mh = args[11:13] if tc else args[12:14]
+            size = h * mh * (2 if tc else 4)
+            wd_ptr, ws_ptr = args[3:5] if tc else args[4:6]
+            weights = tuple(ctypes.string_at(p, size) for p in (wd_ptr, ws_ptr))
+            self.calls.append((entry, args, weights))
+            return 0
+        return launch
+
+
+@pytest.fixture
+def sizing_stub(monkeypatch, stub_kernels):
+    from tpugnn_torch.kernels import _build
+
+    calls = []
+    monkeypatch.setattr(_build, "load_library", lambda name: _SizingStub(name, calls))
+    return calls
+
+
+def _wide_inputs(b, rows_dst, rows_src, d, h, mh, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    xd, xs = torch.randn(b, rows_dst, h, generator=g), torch.randn(b, rows_src, h, generator=g)
+    src = torch.randint(0, rows_src, (rows_dst, d), generator=g)
+    mask = (torch.rand(rows_dst, d, generator=g) > 0.2).float()
+    wd, ws = torch.randn(h, mh, generator=g) / h ** 0.5, torch.randn(h, mh, generator=g) / h ** 0.5
+    return xd, xs, src, mask, wd, ws, 0.1 * torch.randn(mh, generator=g)
+
+
+@pytest.mark.parametrize("dtype,h,mh,route", [
+    (torch.bfloat16, 128, 128, "sddmm_edge_hidden_tc"),
+    (torch.float32, 128, 128, "sddmm_edge_hidden"),
+    (torch.bfloat16, 32, 48, "sddmm_edge_hidden"),
+    (torch.bfloat16, 64, 64, "sddmm_edge_hidden"),
+    (torch.bfloat16, 128, 64, "sddmm_edge_hidden"),
+])
+def test_sddmm_cuda_wrapper_picks_the_kernel_by_shape(dtype, h, mh, route, sizing_stub):
+    """bf16 at H = MH = 128 launches the tensor-core entry with bf16 weights;
+    f32, or any other width, the FMA entry with f32 weights; the launch is
+    counted under its kernel's name."""
+    xd, xs, src, mask, wd, ws, bias = _wide_inputs(2, 128, 128, 4, h, mh)
+    out = sddmm._sddmm_cuda(xd, xs, src, mask, wd, ws, bias, dtype)
+    assert out.shape == (2, 128 * 4, mh) and out.dtype == torch.float32
+    (entry, args, (wd_bytes, ws_bytes)), = sizing_stub
+    other = {"sddmm_edge_hidden": "sddmm_edge_hidden_tc",
+             "sddmm_edge_hidden_tc": "sddmm_edge_hidden"}[route]
+    assert sddmm.launch_counts() == {route: 1, other: 0}
+    wdt = torch.bfloat16 if route.endswith("_tc") else torch.float32
+    for got, w in ((wd_bytes, wd), (ws_bytes, ws)):
+        assert torch.equal(torch.frombuffer(bytearray(got), dtype=wdt), w.to(wdt).flatten())
+    if route.endswith("_tc"):
+        # (xd, xs, table, wd, ws, bias, out, B, rows_dst, rows_src, D, H, MH, stream)
+        assert entry == "sddmm_edge_hidden_tc_launch" and args[7:13] == (2, 128, 128, 4, h, mh)
+    else:
+        assert entry == "sddmm_edge_hidden_launch"
+        assert args[0] == int(dtype == torch.bfloat16) and args[8:14] == (2, 128, 128, 4, h, mh)
+
+
+@pytest.mark.parametrize("dtype,rows_src", [(torch.bfloat16, 592), (torch.float32, 448)])
+def test_sddmm_cuda_wrapper_refuses_a_panel_that_does_not_fit(dtype, rows_src, sizing_stub):
+    """A source panel larger than a block's shared memory is refused before
+    any launch, on either kernel; the largest that fits launches."""
+    fits = rows_src - 16
+    for rows, ok in ((fits, True), (rows_src, False)):
+        args = _wide_inputs(1, 16, rows, 4, 128, 128)
+        if ok:
+            sddmm._sddmm_cuda(*args, dtype)
+            continue
+        with pytest.raises(ValueError, match="shared memory"):
+            sddmm._sddmm_cuda(*args, dtype)
+    assert len(sizing_stub) == 1
+    route = "sddmm_edge_hidden_tc" if dtype == torch.bfloat16 else "sddmm_edge_hidden"
+    assert sddmm.launch_counts()[route] == 1 and sum(sddmm.launch_counts().values()) == 1
+
+
+def test_sddmm_launch_counts_per_kernel(sizing_stub):
+    """Counts name the kernel that ran: two bench-width bf16 calls and one
+    f32 call count 2 and 1."""
+    args = _wide_inputs(1, 16, 16, 4, 128, 128)
+    for dtype in (torch.bfloat16, torch.float32, torch.bfloat16):
+        sddmm._sddmm_cuda(*args, dtype)
+    assert sddmm.launch_counts() == {"sddmm_edge_hidden": 1, "sddmm_edge_hidden_tc": 2}
+    assert [c[0] for c in sizing_stub] == ["sddmm_edge_hidden_tc_launch",
+                                           "sddmm_edge_hidden_launch",
+                                           "sddmm_edge_hidden_tc_launch"]
+    sddmm.reset_launch_counts()
+    assert sddmm.launch_counts() == {"sddmm_edge_hidden": 0, "sddmm_edge_hidden_tc": 0}
+
+
+def test_sddmm_cuda_wrapper_aligns_its_operands(sizing_stub):
+    """The tensor-core kernel reads x, the weights and the bias 16 bytes at
+    a time: an operand whose storage starts off a 16-byte boundary reaches
+    the kernel as an aligned copy."""
+    xd, xs, src, mask, wd, ws, bias = _wide_inputs(1, 16, 16, 4, 128, 128)
+    shifted = torch.cat([torch.zeros(1), bias])[1:]
+    assert shifted.data_ptr() % 16 != 0 and torch.equal(shifted, bias)
+    sddmm._sddmm_cuda(xd, xs, src, mask, wd, ws, shifted, torch.bfloat16)
+    (entry, args, _), = sizing_stub
+    assert entry == "sddmm_edge_hidden_tc_launch"
+    assert all(p % 16 == 0 for p in args[:7])

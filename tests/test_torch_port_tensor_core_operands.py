@@ -1,16 +1,16 @@
 """The premise of the bf16 tensor-core kernels: every matrix product of the
 plain versions reads bf16 values.
 
-K1/K2a (``csrc/fused_rounds.cu``), K2b (``csrc/fused_backward.cu``) and K5
-(``csrc/roll_gather.cu``) form their bf16 products on ``mma.sync`` with bf16
-operands and f32 accumulation.
+K1/K2a (``csrc/fused_rounds.cu``), K2b (``csrc/fused_backward.cu``), K4
+(``csrc/sddmm.cu``, bf16 at width 128) and K5 (``csrc/roll_gather.cu``) form
+their bf16 products on ``mma.sync`` with bf16 operands and f32 accumulation.
 That computes the plain versions' function only if each operand of each
 product the plain versions form in bf16 is already a bf16 value (states and
 hiddens rounded, packed matrices stored in bf16, cotangents rounded where the
 JAX kernel rounds them): then the f32 products are exact and only the f32
 summation order differs.  These tests watch every product of
-``rounds_fwd_stash_plain``, ``rounds_vjp_plain`` and ``roll_rounds_plain``
-(with f32 and with bf16 slot sums) under a
+``rounds_fwd_stash_plain``, ``rounds_vjp_plain``, ``roll_rounds_plain``
+(with f32 and with bf16 slot sums) and ``sddmm_edge_hidden_plain`` under a
 ``TorchFunctionMode`` and hold each operand to ``a == bf16(a)``, so a later
 change to the plain versions that feeds a product an unrounded f32 operand
 fails here.
@@ -24,6 +24,7 @@ from torch.overrides import TorchFunctionMode
 from tpugnn_torch.kernels import fused_backward as fb
 from tpugnn_torch.kernels import fused_decoder as fd
 from tpugnn_torch.kernels import roll_gather as rg
+from tpugnn_torch.kernels import sddmm
 from tpugnn_torch.tanner import build_code
 
 _PRODUCTS = {torch.matmul, torch.mm, torch.bmm, torch.Tensor.matmul, torch.Tensor.mm,
@@ -111,6 +112,29 @@ def test_every_roll_product_reads_bf16_values(d, h, batch, slot_dtype):
         rg.roll_rounds_plain(ops, rounds=rounds, slot_dtype=slot_dtype)
     # 5 products per side and round
     assert len(watch.seen) == 10 * rounds
+    bad = [i for i, ok in enumerate(watch.seen) if not (len(ok) == 2 and all(ok))]
+    assert not bad, f"products {bad} of {len(watch.seen)} read an operand that is not bf16"
+
+
+@pytest.mark.parametrize("h", [16, 32])
+@pytest.mark.parametrize("to", ["check", "qubit"])
+@pytest.mark.parametrize("d", [3, 5])
+def test_every_sddmm_product_reads_bf16_values(d, to, h):
+    """K4's premise: in bf16 both projections of sddmm_edge_hidden_plain
+    (x_dst @ wd and x_src @ ws) read bf16 values, in either direction."""
+    graph = build_code("surface", d).to("cpu")
+    src_c, mask_c, _, src_q, mask_q, _ = fd.make_operators(graph)
+    m, n = graph.n_checks_pad, graph.n_qubits_pad
+    rows_dst, rows_src, src, mask = (m, n, src_c, mask_c) if to == "check" else (n, m, src_q,
+                                                                                 mask_q)
+    rng = np.random.default_rng(d + h)
+    t = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    watch = _WatchProducts()
+    with torch.no_grad(), watch:
+        sddmm.sddmm_edge_hidden_plain(t(2, rows_dst, h), t(2, rows_src, h), src, mask,
+                                      t(h, h) / h ** 0.5, t(h, h) / h ** 0.5, t(h),
+                                      compute_dtype="bfloat16")
+    assert len(watch.seen) == 2
     bad = [i for i, ok in enumerate(watch.seen) if not (len(ok) == 2 and all(ok))]
     assert not bad, f"products {bad} of {len(watch.seen)} read an operand that is not bf16"
 

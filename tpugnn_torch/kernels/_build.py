@@ -52,6 +52,8 @@ _SIGNATURES = {
     "sddmm": {
         "sddmm_smem_bytes": ([_I] * 4, ctypes.c_longlong),
         "sddmm_edge_hidden_launch": ([_I] + [_P] * 7 + [_I] * 6 + [_P], _I),
+        "sddmm_tc_smem_bytes": ([_I] * 3, ctypes.c_longlong),
+        "sddmm_edge_hidden_tc_launch": ([_P] * 7 + [_I] * 6 + [_P], _I),
     },
     "roll_gather": {
         "roll_rounds_smem_bytes": ([_I] * 2, ctypes.c_longlong),

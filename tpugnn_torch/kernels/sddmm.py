@@ -18,10 +18,13 @@ f32.  In float32 everything is f32.
 
 * a tensor on the CPU goes to :func:`sddmm_edge_hidden_plain`, which
   defines the function;
-* a tensor on a CUDA device goes to the hand-written kernel
-  ``csrc/sddmm.cu``, which replaces ``sddmm_edge_hidden``
-  (``pl.pallas_call`` at ``tpugnn/kernels/sddmm.py:100``).  It launches or
-  raises; there is no fallback.  It has no backward (nor has JAX's).
+* a tensor on a CUDA device goes to the hand-written kernels of
+  ``csrc/sddmm.cu``, which replace ``sddmm_edge_hidden``
+  (``pl.pallas_call`` at ``tpugnn/kernels/sddmm.py:100``): in bfloat16 at
+  ``H = MH = 128`` the tensor-core kernel (``mma.sync``, weights rounded to
+  bf16 here, once), at any other width or in float32 the f32 FMA kernel.
+  The shape picks the kernel, never a failure: each launches or raises;
+  there is no fallback.  Neither has a backward (nor has JAX's).
 """
 
 from __future__ import annotations
@@ -38,7 +41,10 @@ from tpugnn_torch.kernels.fused_decoder import (
 __all__ = ["sddmm_edge_hidden", "sddmm_edge_hidden_plain", "launch_counts",
            "reset_launch_counts"]
 
-_LAUNCHES = {"sddmm_edge_hidden": 0}
+_TC_WIDTH = 128  # H = MH of the tensor-core kernel (rounds_common.cuh's width)
+
+# launches per kernel: the f32 FMA kernel and the bf16 tensor-core kernel
+_LAUNCHES = {"sddmm_edge_hidden": 0, "sddmm_edge_hidden_tc": 0}
 
 
 def launch_counts() -> dict:
@@ -104,25 +110,42 @@ def _sddmm_cuda(x_dst, x_src, slot_src, slot_mask, wd, ws, b, cdt):
         if t.device != dev:
             raise ValueError(f"all operands must be on {dev}, got {t.device}")
     lib = load_library("sddmm")
-    smem = lib.sddmm_smem_bytes(rows_dst, rows_src, d, mh)
+    tc = cdt == torch.bfloat16 and h == mh == _TC_WIDTH   # the tensor-core kernel
+    if tc:
+        smem = lib.sddmm_tc_smem_bytes(rows_dst, rows_src, d)
+    else:
+        smem = lib.sddmm_smem_bytes(rows_dst, rows_src, d, mh)
     if smem > SMEM_LIMIT:
         raise ValueError(f"too large for the SDDMM kernel: needs {smem} B of shared "
                          f"memory per block (rows_src={rows_src}, MH={mh}), limit "
                          f"{SMEM_LIMIT}")
-    xd = x_dst.detach().to(cdt).contiguous()
-    xs = x_src.detach().to(cdt).contiguous()
+    xd = _aligned(x_dst.detach().to(cdt).contiguous())
+    xs = _aligned(x_src.detach().to(cdt).contiguous())
     tbl = torch.where(slot_mask > 0, slot_src, -1).to(torch.int32).contiguous()
-    f32 = lambda t: t.detach().to(torch.float32).contiguous()
-    wd32, ws32, b32 = f32(wd), f32(ws), f32(b.reshape(-1))
+    wdt = cdt if tc else torch.float32   # the tensor-core kernel reads bf16 weights
+    wd_k, ws_k = (_aligned(w.detach().to(wdt).contiguous()) for w in (wd, ws))
+    b32 = _aligned(b.detach().to(torch.float32).reshape(-1).contiguous())
     out = torch.empty((bsz, rows_dst * d, mh), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     with _cuda_stream(dev) as stream:
-        err = lib.sddmm_edge_hidden_launch(
-            _DTYPE_CODE[cdt], xd.data_ptr(), xs.data_ptr(), tbl.data_ptr(),
-            wd32.data_ptr(), ws32.data_ptr(), b32.data_ptr(), out.data_ptr(),
-            bsz, rows_dst, rows_src, d, h, mh, stream)
+        if tc:
+            err = lib.sddmm_edge_hidden_tc_launch(
+                xd.data_ptr(), xs.data_ptr(), tbl.data_ptr(), wd_k.data_ptr(),
+                ws_k.data_ptr(), b32.data_ptr(), out.data_ptr(), bsz, rows_dst, rows_src,
+                d, h, mh, stream)
+        else:
+            err = lib.sddmm_edge_hidden_launch(
+                _DTYPE_CODE[cdt], xd.data_ptr(), xs.data_ptr(), tbl.data_ptr(),
+                wd_k.data_ptr(), ws_k.data_ptr(), b32.data_ptr(), out.data_ptr(),
+                bsz, rows_dst, rows_src, d, h, mh, stream)
     if err != 0:
         raise RuntimeError(f"sddmm_edge_hidden kernel launch failed: CUDA error {err}")
-    _LAUNCHES["sddmm_edge_hidden"] += 1
+    _LAUNCHES["sddmm_edge_hidden_tc" if tc else "sddmm_edge_hidden"] += 1
     return out
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its storage offset breaks the kernels'
+    16-byte loads."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
