@@ -12,23 +12,45 @@ print one JSON line with their wall time:
   2 kernel vs plain: the fused-rounds kernel against rounds_plain on the card
     at the main path's shapes, d=11, H=128, B=4096 (R=8 bf16 and R=14 f32),
     and at d=13 in bf16 (B=64, R=3: its 176-row sides run a whole 128-row
-    chunk and a ragged one), with stated tolerances
+    chunk and a ragged one), with stated tolerances; at d=13 and d=15 in
+    f32 (B=64, R=3), where the gather panels do not fit in shared memory,
+    through K1's global-panel variant; models of width 64 and 96 (d=11,
+    B=64, R=3, both state types) on the kernel's 128 columns, zero-padded;
+    each case must launch the kernel its graph, width and type call for
   3 serve: a DecodeEngine on the trained d=11 weights answers requests of
     1, 1000 and 5000 syndromes; outputs equal the model's direct decode
   4 LER: ler_monte_carlo of the trained weights at p=0.05 on 65,536 shots,
     z-scores against the JAX package's own f32 LER recorded in the weights
     file (both heads gated at |z| <= 4) and against benchmarks/LER_TABLE.md:30
     (logical head gated at |z| <= 4; per-qubit head reported, see below)
+  4b checkpoints: every surface-code checkpoint of benchmarks/LER_TABLE.md
+    (d=3, 5, 7, 9, 11, 13, 15; tpugnn_torch/assets/) through
+    DecodeEngine.from_npz and ler_monte_carlo at p=0.05 (65,536 shots,
+    f32; d=11 is phase 4's run): each must launch K1 (at d=3 and d=5 on
+    padded widths, at d=13 and d=15 its global-panel variant) and nothing
+    else, both heads gated at |z| <= 4 against the JAX f32 rate in its
+    weights file; the logical, hybrid and per-qubit z against the table's
+    p=0.05 row reported beside the 2-stderr criterion, not gated (the table
+    was taken on a TPU at one bf16 pass); the decode ms of one 4096-shot
+    forward; at d=13 and d=15 the roll path (K5's global-panel variant) on
+    8,192 of the same shots, its per-shot decisions against the fused
+    path's (>= 99.9% equal)
   5 timing: the bench config (d=11, B=4096, R=8, H=128, bf16) with CUDA
     events: the kernel's step and its TFLOP/s beside its bound and the f32
     CUDA-core floor, rounds_plain, and an index_select + index_add_ round
-    loop as the yardstick
+    loop as the yardstick; K1's global-panel variant at d=13 and d=15
+    (B=4096, R=14, f32) against its plain version, with its time, the
+    plain version's and its bound; K1 and K5 at d=3 with H=64 and at d=5
+    with H=96 (padded) beside a 128-wide model on the same graph
   6 training kernels vs plain: at the flagship training shapes (d=11, H=128,
     R=14, B=4096) in bf16 and in f32, K2a's outputs against K1's, its stash
     against rounds_fwd_stash_plain, and K2b's gradients (states, syndrome and
     every weight leaf) against rounds_vjp_plain, with stated tolerances; K2b
     twice on the same inputs, bit-equal; the same checks at d=13 in bf16
-    (B=64, R=3)
+    (B=64, R=3); a model of width 64 (padded to 128) in both state types:
+    its outputs and every gradient leaf at width 64 against the plain
+    versions (d=11, B=64, R=3), and two train steps from a 10-step run
+    through K2a/K2b against the plain versions
   7 train: train() on the flagship training config from a seeded random
     init, TRAIN_STEPS steps in two calls with a checkpoint resume between
     them; gates a finite, falling loss, one K2a and one K2b launch and no K1
@@ -81,10 +103,12 @@ print one JSON line with their wall time:
     version's (the kernel the main path launches), LER at p=0.05 on phase 4's 65,536 shots (both heads
     gated at |z| <= 4 against the JAX f32 rate), per-shot decisions against
     phase 4's fused decode (>= 99.9% equal), one K5 launch per chunk and no
-    K1, the forward's time; and the wrapper's refusal of d=13 in f32 (its
-    raster does not fit in shared memory)
+    K1, the forward's time; K5's global-panel variant at d=13 and d=15 in
+    f32 against the plain version (B=64, R=3) and timed (B=4096, R=14),
+    K5 at widths 64 and 96 in both state types (d=11, B=64, R=3); and the
+    refusal of a width-160 model by K5's and K1's wrappers, before a launch
 
-Phases 3, 4, 7, 9, 10 and 11 are the main paths; the launch counts of every
+Phases 3, 4, 4b, 7, 9, 10 and 11 are the main paths; the launch counts of every
 kernel are reset before and read after each.  Then it prints the kernel
 table as one JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.  Any
@@ -209,6 +233,33 @@ MIN_SHOT_AGREE = 0.999
 # GEMM precision moves it, as for LER_TABLE.md:30)
 TORIC_REF_LER_LOGICAL = 0.01267
 TORIC_REF_LER_QUBIT = 0.1631
+
+# The surface-code checkpoints of benchmarks/LER_TABLE.md as
+# tpugnn_torch/assets/ carries them (scripts/export_torch_weights.py, each
+# with the JAX package's f32 LER at p=0.05): (weights file, d, H = MH, R, the
+# line of the table's p=0.05 row, its logical-head, hybrid and per-qubit
+# rates, 1e6 shots each, taken on a TPU).  The configs are those of
+# scripts/tpu_queue_r1b.sh:26-29, tpu_queue_r4a.sh:89 and tpu_queue_r4f.sh:50
+# as benchmarks/ler_table.py:132-142 reads them.
+CHECKPOINTS = (
+    ("surface_d3_h64_r8_4000.npz", 3, 64, 8, 10, 0.02917, 0.02923, 0.07777),
+    ("surface_d5_h96_r8_4000.npz", 5, 96, 8, 14, 0.01449, 0.01415, 0.232),
+    ("surface_d7_h128_r10_8000.npz", 7, 128, 10, 18, 0.005111, 0.005031, 0.3215),
+    ("surface_d9_h128_r12_8000.npz", 9, 128, 12, 22, 0.003465, 0.003385, 0.3923),
+    ("surface_d11_h128_r14_ema40000.npz", 11, 128, 14, 30, 0.00211, 0.002062, 0.4386),
+    ("surface_d13_h128_r14_ema8000.npz", 13, 128, 14, 34, 0.00711, 0.006938, 0.5532),
+    ("surface_d15_h128_r14_ema8000.npz", 15, 128, 14, 37, 0.04344, 0.04275, 0.6663),
+)
+# shots of d=13 and d=15 that the roll path (K5's global-panel variant)
+# decodes beside the fused path in the checkpoints phase
+ROLL_CHECK_SHOTS = 8192
+# R of the trained checkpoints from d=11 on: the shapes at which the
+# global-panel variants are timed (B=4096, f32)
+TRAINED_ROUNDS = 14
+# steps of the width-64 training run whose state the two-step check of
+# K2a/K2b at H=64 starts from (phase 6): AdamW's moments then hold that many
+# gradients, as phase 7's 30 steps do at H=128
+WIDTH_TRAIN_STEPS = 10
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak (NVIDIA data sheet, SXM)
 H100_F32_FLOPS = 67e12    # f32 outside the tensor cores
@@ -394,10 +445,11 @@ def random_states(dg, batch: int, h: int, gen):
     return xc * dg.check_mask[:, None], xq * dg.qubit_mask[:, None], s_pm
 
 
-def random_round_case(d: int, batch: int, rounds: int, dtype: str, seed: int, dev):
-    """A surface code of distance d on the card, seeded random full-width
-    round weights (H = MH = 128) and random states: ``(graph, dg, ops, w,
-    xc, xq, syn, gen)``."""
+def random_round_case(d: int, batch: int, rounds: int, dtype: str, seed: int, dev,
+                      h: int = 128):
+    """A surface code of distance d on the card, seeded random round weights
+    of width H = MH = h (the full width by default) and random states:
+    ``(graph, dg, ops, w, xc, xq, syn, gen)``."""
     import torch
 
     from tpugnn_torch.configs import ModelConfig
@@ -408,11 +460,11 @@ def random_round_case(d: int, batch: int, rounds: int, dtype: str, seed: int, de
     graph = build_code("surface", d)
     dg = graph.to(dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    model = GNNDecoder(ModelConfig(hidden=128, msg_hidden=128, rounds=rounds, backend="fused",
+    model = GNNDecoder(ModelConfig(hidden=h, msg_hidden=h, rounds=rounds, backend="fused",
                                    qubit_head="pauli4", dtype=dtype), k=1)
     model.init_random(torch.Generator().manual_seed(seed + 1), bias_std=0.1)
     w = fd.RoundWeights(*[t.detach() for t in model.to(dev).rounds.round_weights()])
-    xc, xq, syn = random_states(dg, batch, 128, gen)
+    xc, xq, syn = random_states(dg, batch, h, gen)
     return graph, dg, fd.make_operators(dg), w, xc, xq, syn, gen
 
 
@@ -1111,29 +1163,29 @@ def phase_roll_gather(graph, dg, dev, trained, info: dict) -> tuple[dict, dict]:
     lib = load_library("roll_gather")
     info["larger_rasters"] = {}
     for d, slots, seed in ((13, ("float32", "bfloat16"), 31), (15, ("float32",), 32)):
-        g_d, _, _, w_d, xc, xq, s, _ = random_round_case(d, D13_BATCH, D13_ROUNDS, "bfloat16",
-                                                         seed, dev)
-        plan_d = rg.plan_for_graph(g_d)
-        with torch.inference_mode():
-            r_d = rg.to_raster(xc, xq, s, plan_d, w_d, "bfloat16")
-            for slot in slots:
-                kc, kq = rg._roll_rounds_cuda(r_d, rounds=D13_ROUNDS, slot_dtype=slot)
-                pc, pq = rg.roll_rounds_plain(r_d, rounds=D13_ROUNDS, slot_dtype=slot)
-                torch.cuda.synchronize()
-                max_err, mean_err = raster_errors(kc, kq, pc, pq)
-                finite = bool(torch.isfinite(kc.float()).all() and torch.isfinite(kq.float()).all())
-                res = dict(batch=D13_BATCH, rounds=D13_ROUNDS, l_pad=plan_d.l_pad,
-                           smem_bytes=lib.roll_rounds_smem_bytes(1, plan_d.l_pad),
-                           max_abs_err=max_err, mean_abs_err=mean_err)
-                info["larger_rasters"][f"d{d}_slots_{slot}"] = res
-                if not finite or max_err > TOL_BF16_MAX or mean_err > TOL_BF16_MEAN:
-                    raise RuntimeError(f"K5 bf16 at d={d}, slots {slot}, disagrees with "
-                                       f"roll_rounds_plain: {res}")
-        del r_d, kc, kq, pc, pq
+        l_pad = rg.plan_for_graph(build_code("surface", d)).l_pad
+        for slot in slots:
+            info["larger_rasters"][f"d{d}_slots_{slot}"] = dict(
+                l_pad=l_pad, smem_bytes=lib.roll_rounds_smem_bytes(1, l_pad),
+                **rounds_vs_plain("k5", d, h, "bfloat16", seed, dev, "roll_rounds", slot))
+    # f32 from d=13 (its two panels do not fit in shared memory): the
+    # global-panel variant, at B=64, R=3 and at the trained shapes; narrower
+    # models zero-padded to 128 (d=11) in both state types
+    info["gpanels_float32"] = {
+        f"d{d}": rounds_vs_plain("k5", d, h, "float32", 80 + d, dev, "roll_rounds_gpanels")
+        for d in (13, 15)}
+    info["gpanels_timing"] = {f"d{d}": gpanels_timing("roll_rounds_gpanels", d, dev, 90 + d)
+                              for d in (13, 15)}
+    info["padded_widths"] = {
+        f"h{hw}_{dt}": rounds_vs_plain("k5", D, hw, dt, 100 + hw, dev, "roll_rounds")
+        for hw in (64, 96) for dt in ("bfloat16", "float32")}
     info["smem_bytes"] = {
         f"d{d}": {dt: lib.roll_rounds_smem_bytes(code, rg.plan_for_graph(
             build_code("surface", d)).l_pad) for dt, code in (("float32", 0), ("bfloat16", 1))}
         for d in (11, 13, 15)}
+    info["gpanels_smem_bytes"] = {
+        f"d{d}": lib.roll_rounds_gpanels_smem_bytes(rg.plan_for_graph(
+            build_code("surface", d)).l_pad) for d in (13, 15)}
     # the bf16 kernels run their products on tensor cores, the f32 one on FMA loops
     mma = sass_mma_counts(build_libraries(["roll_gather"])["roll_gather"][0])
     info["sass_hmma"] = mma
@@ -1189,19 +1241,26 @@ def phase_roll_gather(graph, dg, dev, trained, info: dict) -> tuple[dict, dict]:
         syn = sample_batch(gen, dg, 0.05, B).syndrome
         fwd_ms = time_ms(lambda: pd(dg, syn), warmup=2, iters=7)
         fused_ms = time_ms(lambda: trained(dg, syn), warmup=2, iters=7)
-        # d=13's raster in f32 does not fit in shared memory: refused, not launched
-        g13 = build_code("surface", 13)
-        z13 = torch.zeros((1, g13.n_checks_pad, h), device=dev)
-        zq13 = torch.zeros((1, g13.n_qubits_pad, h), device=dev)
-        before = rg.launch_counts()["roll_rounds"]
-        try:
-            rg._roll_rounds_cuda(rg.to_raster(z13, zq13, z13[..., :1], rg.plan_for_graph(g13),
-                                              wt, "float32"), rounds=1)
-            refused = None
-        except ValueError as e:
-            refused = str(e)
-        if refused is None or rg.launch_counts()["roll_rounds"] != before:
-            raise RuntimeError("K5 took d=13 in f32, whose raster exceeds shared memory")
+        # a model wider than the kernels' 128 columns: refused by K5's and
+        # K1's wrappers, with the limit named, before any launch
+        w160 = fd.RoundWeights(*[torch.zeros((a.shape[0] if a.shape[0] == 1 else 160, 160),
+                                             device=dev) for a in wt])
+        z160 = torch.zeros((1, graph.n_checks_pad, 160), device=dev)
+        zq160 = torch.zeros((1, graph.n_qubits_pad, 160), device=dev)
+        before = counts()
+        refused = {}
+        for name, call in (
+                ("roll_rounds", lambda: rg._roll_rounds_cuda(rg.to_raster(
+                    z160, zq160, z160[..., :1], plan, w160, "float32"), rounds=1)),
+                ("fused_rounds", lambda: fd.decoder_rounds(z160, zq160, z160[..., :1], ops,
+                                                           w160, 1, "float32"))):
+            try:
+                call()
+            except ValueError as e:
+                refused[name] = str(e)
+        if (set(refused) != {"roll_rounds", "fused_rounds"} or counts() != before
+                or not all("at most 128" in m for m in refused.values())):
+            raise RuntimeError(f"a width-160 model was not refused before a launch: {refused}")
     info["trained"] = dict(
         rounds=r_t, k5_vs_plain_f32_max=f32_max, k5_vs_plain_f32_mean=f32_mean,
         tol_f32=TOL_F32, kernel_ms=f32_ms, kernel_tflops=f32_flops / (f32_ms * 1e-3) / 1e12,
@@ -1211,7 +1270,7 @@ def phase_roll_gather(graph, dg, dev, trained, info: dict) -> tuple[dict, dict]:
         jax_f32=dict(shots=ref["shots"], ler_logical=ref["ler_logical"], ler_qubit=ref["ler"]),
         launches=launched, shot_agreement_with_fused=agree, min_shot_agreement=MIN_SHOT_AGREE,
         forward_ms=fwd_ms, fused_forward_ms=fused_ms,
-        edges_per_s=B * graph.n_edges * r_t / (fwd_ms / 1e3), d13_f32_refused=refused)
+        edges_per_s=B * graph.n_edges * r_t / (fwd_ms / 1e3), width160_refused=refused)
     want = {"roll_rounds": chunks, "fused_rounds": 0, "ell_sum": 0, "ell_max": 0}
     if any(launched[k] != v for k, v in want.items()):
         raise RuntimeError(f"roll LER launches {launched}, expected {want}")
@@ -1233,6 +1292,398 @@ def phase_roll_gather(graph, dg, dev, trained, info: dict) -> tuple[dict, dict]:
                bound_by_f32=info["trained"]["bound_by"],
                yardstick_ms=k1_ms, yardstick="K1 (fused_rounds) on the same inputs")
     return launched, row
+
+
+def rounds_tols(dtype: str) -> tuple[float, float]:
+    """The max and mean tolerances of the rounds kernels against their
+    plain versions in a state type."""
+    return (TOL_F32, TOL_F32) if dtype == "float32" else (TOL_BF16_MAX, TOL_BF16_MEAN)
+
+
+def kernel_and_plain(kernel: str, g, ops, w, xc, xq, s, rounds: int, dtype: str,
+                     slot_dtype: str = "float32"):
+    """``(run, plain)``: one call of K1's wrapper (``kernel`` 'k1', through
+    ``decoder_rounds``) or K5's ('k5', its raster wrapper) on a case, and its
+    plain version on the same inputs."""
+    from tpugnn_torch.kernels import fused_decoder as fd
+    from tpugnn_torch.kernels import roll_gather as rg
+
+    if kernel == "k1":
+        return (lambda: fd.decoder_rounds(xc, xq, s, ops, w, rounds, dtype),
+                lambda: fd.rounds_plain(xc, xq, s, ops, w, rounds=rounds, state_dtype=dtype))
+    r_ops = rg.to_raster(xc, xq, s, rg.plan_for_graph(g), w, dtype)
+    return (lambda: rg._roll_rounds_cuda(r_ops, rounds=rounds, slot_dtype=slot_dtype),
+            lambda: rg.roll_rounds_plain(r_ops, rounds=rounds, slot_dtype=slot_dtype))
+
+
+def held_to_plain(run, plain, want: str, dtype: str, what: str) -> dict:
+    """One untimed call of ``run`` against ``plain``: it must launch ``want``
+    once and nothing else, and its states must be finite, of the plain
+    version's shapes and within the state type's tolerance.  Raises
+    otherwise; returns the errors and tolerances."""
+    import torch
+
+    with torch.inference_mode():
+        reset_counts()
+        kc, kq = run()
+        launched = counts()
+        pc, pq = plain()
+        torch.cuda.synchronize()
+        max_err, mean_err = raster_errors(kc, kq, pc, pq)
+        finite = bool(torch.isfinite(kc.float()).all() and torch.isfinite(kq.float()).all())
+        shapes = tuple(kc.shape) == tuple(pc.shape) and tuple(kq.shape) == tuple(pq.shape)
+    tol_max, tol_mean = rounds_tols(dtype)
+    res = dict(kernel=want, max_abs_err=max_err, mean_abs_err=mean_err, tol_max=tol_max,
+               tol_mean=tol_mean)
+    if launched[want] != 1 or sum(launched.values()) != 1:
+        raise RuntimeError(f"{what}: launched {launched}, not one {want}")
+    if not (finite and shapes) or max_err > tol_max or mean_err > tol_mean:
+        raise RuntimeError(f"{what} disagrees with its plain version: {res}")
+    return res
+
+
+def rounds_vs_plain(kernel: str, d: int, h: int, dtype: str, seed: int, dev, want: str,
+                    slot_dtype: str = "float32") -> dict:
+    """K1 ('k1') or K5 ('k5') on a random case of width ``h`` (d, B=64,
+    R=3) held to its plain version at that width (:func:`held_to_plain`):
+    it must launch ``want`` (the shared-panel kernel or its global-panel
+    variant)."""
+    g, _, ops, w, xc, xq, s, _ = random_round_case(d, D13_BATCH, D13_ROUNDS, dtype, seed, dev,
+                                                   h=h)
+    run, plain = kernel_and_plain(kernel, g, ops, w, xc, xq, s, D13_ROUNDS, dtype, slot_dtype)
+    res = held_to_plain(run, plain, want, dtype,
+                        f"{kernel} d={d} H={h} {dtype} slots {slot_dtype}")
+    return dict(d=d, width=h, dtype=dtype, batch=D13_BATCH, rounds=D13_ROUNDS, **res)
+
+
+def gpanels_timing(kernel: str, d: int, dev, seed: int) -> dict:
+    """The f32 global-panel variant of K1 ('fused_rounds_gpanels') or K5
+    ('roll_rounds_gpanels') at the trained configs' shapes (B=4096,
+    R=TRAINED_ROUNDS, random full-width weights): one call held to the plain
+    version (:func:`held_to_plain`), the variant's time, the plain
+    version's, and the bound: the f32 CUDA-core floor on the graph's real
+    rows (its bytes term is smaller)."""
+    import torch
+
+    r, h = TRAINED_ROUNDS, 128
+    g, _, ops, w, xc, xq, s, _ = random_round_case(d, B, r, "float32", seed, dev)
+    run, plain = kernel_and_plain("k1" if kernel == "fused_rounds_gpanels" else "k5",
+                                  g, ops, w, xc, xq, s, r, "float32")
+    res = held_to_plain(run, plain, kernel, "float32", f"{kernel} at d={d}, B={B}, R={r}")
+    with torch.inference_mode():
+        ms = time_ms(run, warmup=1, iters=3)
+        plain_ms = time_ms(plain, warmup=0, iters=1)
+    flops = rounds_flops(g, h) * B * r
+    b_ms, b_by = bound(rounds_bytes(g, B, h, 4), flops, H100_F32_FLOPS)
+    torch.cuda.empty_cache()
+    return dict(d=d, batch=B, rounds=r, dtype="float32", real_rows=g.n_checks + g.n_qubits,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                tflops=flops / (ms * 1e-3) / 1e12, **res)
+
+
+def padded_width_timing(d: int, h: int, dev, seed: int) -> dict:
+    """K1 and K5 at distance d with a width-h model (zero-padded to 128) and
+    with a 128-wide one, B=4096, R=8, in f32 and bf16 (one wrapper call
+    each, its padding inside): each call first held to its plain version
+    (:func:`held_to_plain`; ``<kernel>_max_abs_err_<dtype>_h<width>``),
+    then timed.  A padded model runs the 128-wide work, where a kernel built
+    for h would need (h/128)^2 of the products.  Beside them the bound of
+    the width-h work."""
+    import torch
+
+    rounds = 8
+    out = dict(d=d, width=h, batch=B, rounds=rounds)
+    for dtype in ("float32", "bfloat16"):
+        for width in (h, 128):
+            g, _, ops, w, xc, xq, s, _ = random_round_case(d, B, rounds, dtype, seed, dev,
+                                                           h=width)
+            for kernel, want in (("k1", "fused_rounds"), ("k5", "roll_rounds")):
+                run, plain = kernel_and_plain(kernel, g, ops, w, xc, xq, s, rounds, dtype)
+                res = held_to_plain(run, plain, want, dtype,
+                                    f"{kernel} d={d} H={width} B={B} R={rounds} {dtype}")
+                out[f"{kernel}_max_abs_err_{dtype}_h{width}"] = res["max_abs_err"]
+                with torch.inference_mode():
+                    out[f"{kernel}_ms_{dtype}_h{width}"] = time_ms(run)
+                del run, plain
+            peak = H100_F32_FLOPS if dtype == "float32" else H100_BF16_FLOPS
+            itemsize = 4 if dtype == "float32" else 2
+            out[f"bound_ms_{dtype}_h{width}"] = bound(
+                rounds_bytes(g, B, width, itemsize), rounds_flops(g, width) * B * rounds,
+                peak)[0]
+    return out
+
+
+def rounds_kernel_times() -> dict:
+    """The rounds kernels' times on one card, by CUDA events, each one call
+    of the wrapper the main path calls, at d=11, B=4096, on seeded random
+    full-width weights (``scripts/smoke_turns.py --kernels`` runs this in
+    turns on two checkouts; it needs only the checkout's ``tpugnn_torch``
+    on ``sys.path``):
+
+    * ``k1_bf16``, ``k5_bf16``: K1 and K5 at the bench config (R=8, bf16);
+    * ``k1_f32``, ``k5_f32``: K1 and K5 at the trained decode's shape (R=14,
+      f32 states);
+    * ``k2a_bf16``, ``k2b_bf16``: K2a and K2b at the training shape (R=14,
+      bf16);
+    * ``k1_f32_gpanels``, ``k5_f32_gpanels`` (where the checkout has them):
+      the f32 global-panel variants on the same inputs as ``k1_f32`` and
+      ``k5_f32``, taken by lowering the shared-memory limit the wrappers
+      compare against to the variant's need at d=11, so that the call runs
+      the main path's wrapper code and launches the variant once."""
+    import contextlib
+
+    import torch
+
+    from tpugnn_torch.kernels import fused_backward as fb
+    from tpugnn_torch.kernels import fused_decoder as fd
+    from tpugnn_torch.kernels import roll_gather as rg
+    from tpugnn_torch.kernels._build import build_libraries, load_library
+
+    @contextlib.contextmanager
+    def smem_limit(module, limit):
+        old, module.SMEM_LIMIT = module.SMEM_LIMIT, limit
+        try:
+            yield
+        finally:
+            module.SMEM_LIMIT = old
+
+    def launched_once(name, fn):
+        before = counts()[name]
+        fn()
+        torch.cuda.synchronize()
+        if counts()[name] != before + 1:
+            raise RuntimeError(f"{name} was not launched")
+
+    t0 = time.perf_counter()
+    build_libraries(["fused_rounds", "fused_backward", "roll_gather"])
+    out = dict(build_seconds=round(time.perf_counter() - t0, 1))
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.inference_mode():
+        g, _, ops, w, xc, xq, s, _ = random_round_case(D, B, 8, "bfloat16", 13, dev)
+        out["k1_bf16"] = time_ms(lambda: fd.decoder_rounds(xc, xq, s, ops, w, 8, "bfloat16"))
+        r_ops = rg.to_raster(xc, xq, s, rg.plan_for_graph(g), w, "bfloat16")
+        out["k5_bf16"] = time_ms(lambda: rg._roll_rounds_cuda(r_ops, rounds=8))
+        r = TRAINED_ROUNDS
+        g, _, ops, w, xc, xq, s, _ = random_round_case(D, B, r, "float32", 6, dev)
+        r_ops = rg.to_raster(xc, xq, s, rg.plan_for_graph(g), w, "float32")
+        k1 = lambda: fd.decoder_rounds(xc, xq, s, ops, w, r, "float32")
+        k5 = lambda: rg._roll_rounds_cuda(r_ops, rounds=r)
+        out["k1_f32"] = time_ms(k1, warmup=2, iters=7)
+        out["k5_f32"] = time_ms(k5, warmup=2, iters=7)
+        if "fused_rounds_gpanels" in fd.launch_counts():
+            lib = load_library("fused_rounds")
+            src_c, src_q = ops[0], ops[3]
+            need = lib.fused_rounds_gpanels_smem_bytes(src_c.shape[0], src_q.shape[0],
+                                                       src_c.shape[1], src_q.shape[1])
+            with smem_limit(fd, need):
+                launched_once("fused_rounds_gpanels", k1)
+                out["k1_f32_gpanels"] = time_ms(k1, warmup=2, iters=7)
+            need = load_library("roll_gather").roll_rounds_gpanels_smem_bytes(
+                r_ops.xc.shape[1])
+            with smem_limit(rg, need):
+                launched_once("roll_rounds_gpanels", k5)
+                out["k5_f32_gpanels"] = time_ms(k5, warmup=2, iters=7)
+        del r_ops
+    with torch.no_grad():
+        _, _, ops, w, xc, xq, s, gen = random_round_case(D, B, r, "bfloat16", 10, dev)
+        mats32, vecs32 = fd.pack_weights_f32(w)
+        cot_c = torch.randn(xc.shape, generator=gen, device=dev)
+        cot_q = torch.randn(xq.shape, generator=gen, device=dev)
+        out["k2a_bf16"] = time_ms(lambda: fb._fwd_stash_cuda(xc, xq, s, ops, mats32, vecs32,
+                                                             r, "bfloat16"))
+        _, _, sc, sq = fb._fwd_stash_cuda(xc, xq, s, ops, mats32, vecs32, r, "bfloat16")
+        out["k2b_bf16"] = time_ms(lambda: fb._bwd_cuda(sc, sq, s, ops, mats32, vecs32, cot_c,
+                                                       cot_q, "bfloat16"), warmup=2, iters=7)
+    return out
+
+
+def width_train_config(dtype: str, steps: int):
+    """A width-64 model trained through K2a/K2b (zero-padded to 128): the
+    flagship training recipe at d=11 with H = MH = 64, R=3, batch 256."""
+    from tpugnn_torch.configs import CodeConfig, ExperimentConfig, ModelConfig, TrainConfig
+
+    return ExperimentConfig(
+        code=CodeConfig(family="surface", distance=D, p=0.05),
+        model=ModelConfig(hidden=64, msg_hidden=64, rounds=D13_ROUNDS, backend="fused",
+                          readout="both", qubit_head="pauli4", dtype=dtype),
+        train=TrainConfig(batch=256, steps=steps, lr=1e-3, warmup_steps=200,
+                          eval_every=1000, eval_shots=1024, seed=0, p_mix=(0.01, 0.05)))
+
+
+def train_width_check(dtype: str, dg, dev) -> dict:
+    """K2a/K2b for a model of width 64 (states and packs zero-padded to 128
+    outside the autograd Function): (1) on a random case (d=11, B=64, R=3)
+    the outputs and every gradient leaf (both states and the 25 round-weight
+    leaves, at width 64) through the kernels against the plain versions at
+    width 64, gated as at 128; (2) TRAIN_CHECK_STEPS train steps from the
+    state of a WIDTH_TRAIN_STEPS-step run through K2a/K2b and through the
+    plain versions (train_steps_vs_plain), each parameter's change gated at
+    TRAIN_STEP_REL."""
+    import torch
+
+    from tpugnn_torch.kernels import fused_backward as fb
+    from tpugnn_torch.kernels import fused_decoder as fd
+    from tpugnn_torch.train import train
+
+    h = 64
+    _, _, ops, w, xc, xq, s, gen = random_round_case(D, D13_BATCH, D13_ROUNDS, dtype, 70, dev,
+                                                     h=h)
+    cot_c = torch.randn(xc.shape, generator=gen, device=dev)
+    cot_q = torch.randn(xq.shape, generator=gen, device=dev)
+
+    def run(kernels):
+        leaves = [t.clone().requires_grad_(True) for t in w]
+        xs = [xc.clone().requires_grad_(True), xq.clone().requires_grad_(True)]
+        with torch.enable_grad():
+            oc, oq = fb.trained_rounds(xs[0], xs[1], s, ops, fd.RoundWeights(*leaves),
+                                       D13_ROUNDS, dtype, kernels=kernels)
+            ((oc * cot_c).sum() + (oq * cot_q).sum()).backward()
+        return oc.detach(), oq.detach(), [t.grad for t in xs + leaves]
+
+    reset_counts()
+    kc, kq, kg = run(True)
+    launched = counts()
+    pc, pq, pg = run(False)
+    torch.cuda.synchronize()
+    names = ("dxc", "dxq") + fd.RoundWeights._fields
+    rels = {n: rel_err(a, b) for n, a, b in zip(names, kg, pg)}
+    worst = max(rels, key=rels.get)
+    shapes = all(tuple(a.shape) == tuple(b.shape) == tuple(t.shape)
+                 for a, b, t in zip(kg, pg, [xc, xq, *w]))
+    max_err, mean_err = raster_errors(kc, kq, pc, pq)
+    tol_max, tol_mean = rounds_tols(dtype)
+    tol_rel = TOL_GRAD_REL_F32 if dtype == "float32" else TOL_GRAD_REL_BF16
+    out = dict(width=h, batch=D13_BATCH, rounds=D13_ROUNDS, launches=launched,
+               k2a_vs_plain_max=max_err, k2a_vs_plain_mean=mean_err, k2b_worst_rel=rels[worst],
+               k2b_worst_leaf=worst, k2b_rel=rels, tol_max=tol_max, tol_mean=tol_mean,
+               tol_rel=tol_rel, grads_at_model_width=shapes)
+    want = {"fused_rounds_fwd_stash": 1, "fused_rounds_bwd": 1}
+    if any(launched[k] != v for k, v in want.items()) or sum(launched.values()) != 2:
+        raise RuntimeError(f"H=64 {dtype}: launched {launched}, not one K2a and one K2b")
+    if not shapes or max_err > tol_max or mean_err > tol_mean or rels[worst] > tol_rel:
+        raise RuntimeError(f"H=64 {dtype}: K2a/K2b disagree with the plain versions: {out}")
+
+    cfg = width_train_config(dtype, WIDTH_TRAIN_STEPS)
+    state, _, _, _ = train(cfg, device="cuda", log=lambda msg: None)
+    step_errs = train_steps_vs_plain(state, cfg, dg, dev)
+    k_worst = [max(e.items(), key=lambda kv: kv[1]) for e in step_errs["kernels"]]
+    out["steps_vs_plain"] = dict(
+        warmup_steps=WIDTH_TRAIN_STEPS, steps=TRAIN_CHECK_STEPS, bound=TRAIN_STEP_REL,
+        kernels_worst=[dict(leaf=n, rel=v) for n, v in k_worst],
+        zero_wgrads_least=[dict(leaf=n, rel=v) for n, v in (
+            min(((n, v) for n, v in e.items() if n.startswith("rounds.")), key=lambda kv: kv[1])
+            for e in step_errs["zero_wgrads"])])
+    if any(v > TRAIN_STEP_REL for _, v in k_worst):
+        raise RuntimeError(f"H=64 {dtype}: steps through K2a/K2b move the parameters "
+                           f"otherwise than their plain versions: {out['steps_vs_plain']}")
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_checkpoints(dev, d11: dict, info: dict) -> dict:
+    """The `checkpoints` phase: every surface-code checkpoint of
+    benchmarks/LER_TABLE.md (CHECKPOINTS) through DecodeEngine.from_npz on
+    the card and ler_monte_carlo at p=0.05 (LER_SHOTS shots, B=4096, f32);
+    d=11 takes phase 4's run (``d11``: its LER and launches).  Gates: each
+    run launched the kernel its graph and dtype call for (K1, its
+    global-panel variant at d=13 and d=15; narrower models on padded
+    widths) and nothing else; both heads within |z| <= 4 of the JAX f32
+    rate in the weights file.  Reported: the logical, hybrid and per-qubit
+    z against the table's row beside the 2-stderr criterion (not gated: the
+    table was taken on a TPU at one bf16 pass), and the decode ms of one
+    4096-shot forward.  At d=13 and d=15 the roll path (K5's global-panel
+    variant) decodes ROLL_CHECK_SHOTS of the same shots, and its per-shot
+    decisions must agree with the fused decode's (>= MIN_SHOT_AGREE).
+    Returns the launches of the phase's LER and roll runs."""
+    import torch
+
+    from tpugnn_torch.eval import ler_monte_carlo
+    from tpugnn_torch.kernels import fused_decoder as fd
+    from tpugnn_torch.models import PallasDecoder
+    from tpugnn_torch.models.convert import read_meta
+    from tpugnn_torch.sampling import sample_batch
+    from tpugnn_torch.serve import DecodeEngine
+
+    assets = os.path.join(REPO, "tpugnn_torch", "assets")
+    total = dict.fromkeys(counts(), 0)
+    for fname, d, h, rounds, line, t_log, t_hyb, t_qub in CHECKPOINTS:
+        path = os.path.join(assets, fname)
+        meta = read_meta(path)
+        ref = meta["ler_reference"]
+        m = meta["model"]
+        if (meta["code"]["distance"], m["hidden"], m["msg_hidden"], m["rounds"]) != (d, h, h, rounds):
+            raise RuntimeError(f"{fname}: config {meta['code']} {m}")
+        if ref["p"] != 0.05:
+            raise RuntimeError(f"{fname}: reference LER at p={ref['p']}")
+        eng = DecodeEngine.from_npz(path, device="cuda", max_batch=B)
+        graph, model = eng.graph, eng.model
+        dgc = graph.to(dev)
+        want = "fused_rounds_gpanels" if d >= 13 else "fused_rounds"
+        seed = 3000 + d
+        if d == D:     # phase 4's run of the same weights
+            ev, launched, seed = d11["ev"], d11["launches"], 2025
+        else:
+            reset_counts()
+            ev = ler_monte_carlo(model, graph, p=0.05, shots=LER_SHOTS, batch=B,
+                                 generator=torch.Generator(device=dev).manual_seed(seed),
+                                 device="cuda")
+            launched = counts()
+        n = int(ev["shots"])
+        z = lambda rate, ref_rate, ref_n: z_score(rate, n, ref_rate, ref_n)
+        res = dict(
+            d=d, width=h, rounds=rounds, step=meta["step"], source=meta["source"],
+            table_line=f"benchmarks/LER_TABLE.md:{line}", shots=n,
+            ler_logical=ev["ler_logical"], ler_hybrid=ev["ler_hybrid"], ler_qubit=ev["ler"],
+            jax_f32=dict(shots=ref["shots"], seed=ref["seed"], ler_logical=ref["ler_logical"],
+                         ler_hybrid=ref["ler_hybrid"], ler_qubit=ref["ler"]),
+            z_vs_jax_f32=dict(logical=z(ev["ler_logical"], ref["ler_logical"], ref["shots"]),
+                              hybrid=z(ev["ler_hybrid"], ref["ler_hybrid"], ref["shots"]),
+                              qubit=z(ev["ler"], ref["ler"], ref["shots"])),
+            table=dict(shots=REF_SHOTS, ler_logical=t_log, ler_hybrid=t_hyb, ler_qubit=t_qub),
+            z_vs_table=dict(logical=z(ev["ler_logical"], t_log, REF_SHOTS),
+                            hybrid=z(ev["ler_hybrid"], t_hyb, REF_SHOTS),
+                            qubit=z(ev["ler"], t_qub, REF_SHOTS)),
+            kernel=want, padded_width=h < fd.WIDTH, launches=launched)
+        res["within_2_stderr_of_table"] = {k: abs(v) <= 2 for k, v in res["z_vs_table"].items()}
+        with torch.inference_mode():
+            syn = sample_batch(torch.Generator(device=dev).manual_seed(seed + 1), dgc, 0.05,
+                               B).syndrome
+            res["decode_ms"] = time_ms(lambda: model(dgc, syn), warmup=1, iters=5)
+        chunks = LER_SHOTS // B
+        others = {k: v for k, v in launched.items() if k != want and v}
+        if launched[want] != chunks or others:
+            raise RuntimeError(f"checkpoint d={d}: launched {launched}, expected {chunks} "
+                               f"{want} and nothing else")
+        for k, v in launched.items():
+            total[k] = total.get(k, 0) + (v if d != D else 0)
+        if d >= 13:      # the same shots through the roll path: K5's global panels
+            pd = PallasDecoder(model, ("rollgather",))
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            same = torch.zeros((), device=dev)
+            reset_counts()
+            with torch.inference_mode():
+                for _ in range(ROLL_CHECK_SHOTS // B):
+                    b = sample_batch(gen, dgc, 0.05, B)
+                    fr, lr = shot_decisions(pd, dgc, b)
+                    ff, lf = shot_decisions(model, dgc, b)
+                    same += ((fr["fail_qubit"] == ff["fail_qubit"]) & (lr == lf).all(-1)).sum()
+            roll = counts()
+            res["roll"] = dict(shots=ROLL_CHECK_SHOTS, launches=roll,
+                               agreement_with_fused=float(same) / ROLL_CHECK_SHOTS)
+            total["roll_rounds_gpanels"] = (total.get("roll_rounds_gpanels", 0)
+                                            + roll["roll_rounds_gpanels"])
+            if (roll["roll_rounds_gpanels"] != ROLL_CHECK_SHOTS // B or roll["roll_rounds"]
+                    or res["roll"]["agreement_with_fused"] < MIN_SHOT_AGREE):
+                raise RuntimeError(f"checkpoint d={d} on the roll path: {res['roll']}")
+        info[f"d{d}"] = res
+        if abs(res["z_vs_jax_f32"]["logical"]) > 4 or abs(res["z_vs_jax_f32"]["qubit"]) > 4:
+            raise RuntimeError(f"checkpoint d={d}: LER off the JAX f32 reference: {res}")
+        del eng, model
+        torch.cuda.empty_cache()
+    info.update(shots=LER_SHOTS, batch=B, p=0.05, min_shot_agreement=MIN_SHOT_AGREE)
+    return total
 
 
 def main() -> int:
@@ -1323,23 +1774,18 @@ def main() -> int:
             info["yardstick_vs_plain_f32"] = float(torch.maximum(
                 (yc - pc).abs().max(), (yq - pq).abs().max()))
         # d=13 in bf16: 176-row sides, a whole 128-row chunk and a ragged one
-        g13, dg13, ops13, w13, xc, xq, s, _ = random_round_case(
-            13, D13_BATCH, D13_ROUNDS, "bfloat16", 12, dev)
-        with torch.inference_mode():
-            kc, kq = fd.decoder_rounds(xc, xq, s, ops13, w13, D13_ROUNDS, "bfloat16")
-            pc, pq = fd.rounds_plain(xc, xq, s, ops13, w13, rounds=D13_ROUNDS,
-                                     state_dtype="bfloat16")
-            torch.cuda.synchronize()
-            diff = torch.cat([(kc - pc).abs().flatten(), (kq - pq).abs().flatten()])
-            finite = bool(torch.isfinite(kc).all() and torch.isfinite(kq).all())
-        info["d13_bfloat16"] = dict(batch=D13_BATCH, rounds=D13_ROUNDS, rows=g13.n_checks_pad,
-                                    max_abs_err=float(diff.max()),
-                                    mean_abs_err=float(diff.mean()),
-                                    tol_max=TOL_BF16_MAX, tol_mean=TOL_BF16_MEAN)
-        if not finite or float(diff.max()) > TOL_BF16_MAX or float(diff.mean()) > TOL_BF16_MEAN:
-            raise RuntimeError(f"d=13 bf16: kernel disagrees with rounds_plain: "
-                               f"{info['d13_bfloat16']}")
-        del kc, kq, pc, pq, diff
+        info["d13_bfloat16"] = rounds_vs_plain("k1", 13, h, "bfloat16", 12, dev,
+                                               "fused_rounds")
+        # f32 at d=13 and d=15: the two gather panels do not fit in shared
+        # memory, so K1 runs its variant with the panels in global memory
+        info["gpanels_float32"] = {
+            f"d{d}": rounds_vs_plain("k1", d, h, "float32", 20 + d, dev, "fused_rounds_gpanels")
+            for d in (13, 15)}
+        # narrower models on the kernel's 128 columns, zero-padded (d=11)
+        info["padded_widths"] = {
+            f"h{hw}_{dt}": rounds_vs_plain("k1", D, hw, dt, 40 + hw, dev, "fused_rounds")
+            for hw in (64, 96) for dt in ("bfloat16", "float32")}
+        gp_checks, pw_checks = info["gpanels_float32"], info["padded_widths"]
 
     launches = {}
     with Phase("serve") as info:
@@ -1409,6 +1855,10 @@ def main() -> int:
     trained = eng.model
     del eng
 
+    with Phase("checkpoints") as info:
+        launches["checkpoints"] = phase_checkpoints(
+            dev, {"ev": ev, "launches": launches["ler"]}, info)
+
     with Phase("timing") as info:
         b, rounds = B, 8
         gen = torch.Generator(device=dev).manual_seed(5)
@@ -1453,6 +1903,12 @@ def main() -> int:
                                          rounds_bytes(graph, b, h, 4) / H100_HBM_BPS) * 1e3,
                     trained_kernel_share=rk_ms / fwd_ms,
                     trained_edges_per_s=b * graph.n_edges * r_t / (fwd_ms / 1e3))
+        # K1's global-panel variant at the trained checkpoints' shapes, and
+        # K1 and K5 on the padded widths of the d=3 and d=5 checkpoints
+        info["fused_rounds_gpanels"] = {
+            f"d{d}": gpanels_timing("fused_rounds_gpanels", d, dev, 50 + d) for d in (13, 15)}
+        info["padded_width"] = {f"d{d}_h{hw}": padded_width_timing(d, hw, dev, 60 + d)
+                                for d, hw in ((3, 64), (5, 96))}
         timing = dict(info)
 
     from tpugnn_torch.kernels import fused_backward as fb
@@ -1566,6 +2022,8 @@ def main() -> int:
             raise RuntimeError(f"d=13 bf16: K2a or K2b disagrees with its plain version: "
                                f"{info['d13_bfloat16']}")
         del kc, kq, sc, sq, pc, pq, psc, psq, kg, pg, out_diff, st_diff
+        # a model of width 64 trains through K2a/K2b on padded operands
+        info["width64"] = {dt: train_width_check(dt, dg, dev) for dt in ("bfloat16", "float32")}
 
     with Phase("train") as info:
         import tempfile
@@ -1618,8 +2076,8 @@ def main() -> int:
                     step_ms_median=statistics.median(step_ms), step_ms=step_ms)
         if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
             raise RuntimeError(f"train: {len(losses)} steps, losses {losses}")
-        if any(c != {"fused_rounds": 0, "fused_rounds_fwd_stash": 1, "fused_rounds_bwd": 1}
-               for c in per_step):
+        if any(c != {"fused_rounds": 0, "fused_rounds_gpanels": 0, "fused_rounds_fwd_stash": 1,
+                     "fused_rounds_bwd": 1} for c in per_step):
             raise RuntimeError(f"train: a step did not launch K2a and K2b once each "
                                f"(and K1 never): {per_step}")
         if not last5 < LOSS_FALL * first5:
@@ -1730,6 +2188,7 @@ def main() -> int:
 
     with Phase("roll_gather") as info:
         launches["roll_ler"], roll_row = phase_roll_gather(graph, dg, dev, trained, info)
+        roll_info = dict(info)
     del trained
 
     def by_path(kernel):
@@ -1740,6 +2199,35 @@ def main() -> int:
         return {"name": name, "route": "cuda", "launches": sum(paths.values()),
                 "launches_by_path": paths, **kw}
 
+    def variant(name, checks: dict, timings: dict) -> dict:
+        """A global-panel variant's fields: its launches, its max error
+        against the plain version (B=64, R=3 and at the timed shapes), and
+        per graph its time, the plain version's and its bound."""
+        paths = by_path(name)
+        return dict(name=name, launches=sum(paths.values()), launches_by_path=paths,
+                    max_abs_err=max(max(v["max_abs_err"] for v in checks.values()),
+                                    max(v["max_abs_err"] for v in timings.values())),
+                    **{d: {k: t[k] for k in ("batch", "rounds", "real_rows", "ms", "plain_ms",
+                                             "bound_ms", "bound_by", "tflops")}
+                       for d, t in timings.items()})
+
+    def padded(kernel: str, checks: dict) -> dict:
+        """The padded widths' fields: max errors against the plain version by
+        state type (H=64 and 96 at d=11, B=64, R=3, and every timed case) and
+        per case the d=3 (H=64) and d=5 (H=96) times and errors beside a
+        128-wide model's on the same graph."""
+        cases = timing["padded_width"]
+
+        def worst(dtype):
+            return max([v["max_abs_err"] for k, v in checks.items() if dtype in k] +
+                       [v for t in cases.values() for k, v in t.items()
+                        if k.startswith(f"{kernel}_max_abs_err_{dtype}")])
+        return dict(
+            max_abs_err=worst("bfloat16"), max_abs_err_f32=worst("float32"),
+            **{case: {k.replace(f"{kernel}_", ""): v for k, v in t.items()
+                      if k.startswith(f"{kernel}_") or k.startswith("bound_ms")}
+               for case, t in cases.items()})
+
     emit({"kernels": [row(
         "fused_rounds",
         source="tpugnn_torch/kernels/csrc/fused_rounds.cu",
@@ -1748,6 +2236,8 @@ def main() -> int:
         ms=timing["kernel_ms"], plain_ms=timing["plain_ms"],
         bound_ms=timing["bound_ms"], bound_by=timing["bound_by"],
         library_ms=None, yardstick_ms=timing["yardstick_ms"],
+        gpanels=variant("fused_rounds_gpanels", gp_checks, timing["fused_rounds_gpanels"]),
+        padded_width=padded("k1", pw_checks),
     ), row(
         "fused_rounds_fwd_stash",
         source="tpugnn_torch/kernels/csrc/fused_rounds.cu",
@@ -1780,6 +2270,9 @@ def main() -> int:
     ), row(
         "roll_rounds", source="tpugnn_torch/kernels/csrc/roll_gather.cu",
         replaces="tpugnn/kernels/roll_gather.py:364", **roll_row,
+        gpanels=variant("roll_rounds_gpanels", roll_info["gpanels_float32"],
+                        roll_info["gpanels_timing"]),
+        padded_width=padded("k5", roll_info["padded_widths"]),
     )]})
     emit({"total_seconds": round(time.perf_counter() - t_start, 3)})
     print(run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -64,8 +64,9 @@ PROBES = [
      "loop top (launch gap, discarded)"),
     ("    project_rows_tc<SR, NTH>(xq_src, L, proj, s.ys_c, s.xs, sl, wc + size_t(M_WS) * HH);\n",
      "A projection"),
-    ("                                             wq + size_t(M_WD) * HH);\n", "B check cells"),
-    ("                                              round + 1 < R ? proj : nullptr);\n",
+    ("                                             wq + size_t(M_WD) * HH, width);\n",
+     "B check cells"),
+    ("                                              round + 1 < R ? proj : nullptr, width);\n",
      "C qubit cells"),
 ]
 

@@ -20,6 +20,7 @@ Bounds, each with what this file measured on the CPU:
 """
 
 import contextlib
+import types
 
 import jax
 import jax.numpy as jnp
@@ -350,19 +351,31 @@ def test_roll_decode_needs_cuda_unless_asked_for_cpu(monkeypatch):
 class _StubLibrary:
     """The roll library as far as a launch: records the call and stops.
     ``smem`` is the block's shared memory, or a function of (dtype code,
-    l_pad) giving it."""
+    l_pad) giving it; ``gpanels_smem`` the same for the f32 variant with
+    its gather panels in global memory (dtype code "gp")."""
 
     def __init__(self, smem=0):
         self.smem = smem
+        self.gpanels_smem = 0
         self.calls = []
+        self.gpanels_calls = []
         self.queries = []
 
     def roll_rounds_smem_bytes(self, code, l_pad):
         self.queries.append((code, l_pad))
         return self.smem(code, l_pad) if callable(self.smem) else self.smem
 
+    def roll_rounds_gpanels_smem_bytes(self, l_pad):
+        self.queries.append(("gp", l_pad))
+        s = self.gpanels_smem
+        return s("gp", l_pad) if callable(s) else s
+
     def roll_rounds_launch(self, *args):
         self.calls.append(args)
+        return 0
+
+    def roll_rounds_gpanels_launch(self, *args):
+        self.gpanels_calls.append(args)
         return 0
 
 
@@ -374,6 +387,9 @@ def stub_library(monkeypatch):
     monkeypatch.setattr(_build, "load_library", lambda name: lib if name == "roll_gather"
                         else pytest.fail(f"loaded {name}"))
     monkeypatch.setattr(rg, "_cuda_stream", lambda dev: contextlib.nullcontext(0))
+    # the persistent grid of the global-panel variant: one block per SM
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: types.SimpleNamespace(multi_processor_count=132))
     rg.reset_launch_counts()
     return lib
 
@@ -400,9 +416,9 @@ def test_cuda_wrapper_launches_k5(state_dtype, slot_dtype, code, slot16, stub_li
     (args,) = stub_library.calls
     # (dtype code, slot16, xc, xq, syn, bits, degbo, mats, vecs, out_c, out_q,
     #  offs, B, l_pad, R, stream)
-    assert args[:2] == (code, slot16) and args[12:15] == (2, plan.l_pad, 3)
+    assert args[:2] == (code, slot16) and args[12:16] == (2, plan.l_pad, 3, 128)
     assert list(args[11]) == list(plan.offs_c + plan.offs_q)
-    assert rg.launch_counts() == {"roll_rounds": 1}
+    assert rg.launch_counts() == {"roll_rounds": 1, "roll_rounds_gpanels": 0}
 
 
 def test_cuda_wrapper_mask_bits():
@@ -416,19 +432,26 @@ def test_cuda_wrapper_mask_bits():
 
 
 def test_cuda_wrapper_checks_and_raises(stub_library, monkeypatch):
-    """No fallback: operands the kernel does not take, a raster too large
-    for shared memory and a failed build all raise."""
+    """No fallback: operands the kernel does not take (a width above its
+    128 columns), a raster too large for shared memory (in bf16, or in f32
+    even with the gather panels in global memory) and a failed build all
+    raise."""
     from tpugnn_torch.kernels import _build
 
-    _, ops32 = _ops(3, "float32", h=32)
-    with pytest.raises(ValueError, match="128"):
-        rg._roll_rounds_cuda(ops32, rounds=1)
+    _, ops160 = _ops(3, "float32", h=160)
+    with pytest.raises(ValueError, match="at most 128"):
+        rg._roll_rounds_cuda(ops160, rounds=1)
     _, ops = _ops(3, "float32")
     with pytest.raises(ValueError, match="rounds"):
         rg._roll_rounds_cuda(ops, rounds=0)
     stub_library.smem = fd.SMEM_LIMIT + 1
-    with pytest.raises(ValueError, match="shared memory"):
+    stub_library.gpanels_smem = fd.SMEM_LIMIT + 1
+    with pytest.raises(ValueError, match="shared memory.*global memory.*limit 232448"):
         rg._roll_rounds_cuda(ops, rounds=1)
+    stub_library.gpanels_smem = 0      # bf16 never takes the global panels
+    _, ops16 = _ops(3, "bfloat16")
+    with pytest.raises(ValueError, match="shared memory"):
+        rg._roll_rounds_cuda(ops16, rounds=1)
 
     def no_nvcc(name):
         raise RuntimeError("nvcc not found")
@@ -436,7 +459,8 @@ def test_cuda_wrapper_checks_and_raises(stub_library, monkeypatch):
     monkeypatch.setattr(_build, "load_library", no_nvcc)
     with pytest.raises(RuntimeError, match="nvcc"):
         rg._roll_rounds_cuda(ops, rounds=1)
-    assert rg.launch_counts() == {"roll_rounds": 0} and not stub_library.calls
+    assert rg.launch_counts() == {"roll_rounds": 0, "roll_rounds_gpanels": 0}
+    assert not stub_library.calls and not stub_library.gpanels_calls
 
 
 # What roll_rounds_smem_bytes returns on the card, (dtype code, l_pad) ->
@@ -445,7 +469,8 @@ def test_cuda_wrapper_checks_and_raises(stub_library, monkeypatch):
 # buffer of 64-row weight slabs (32-row at d=15, where 64 do not fit), for
 # 144-row chunks of 9 warps.
 _SMEM_ON_THE_CARD = {(0, 144): 206112, (1, 144): 187168, (0, 200): 263568,
-                     (1, 200): 215952, (0, 256): 321024, (1, 256): 227328}
+                     (1, 200): 215952, (0, 256): 321024, (1, 256): 227328,
+                     ("gp", 200): 58768, ("gp", 256): 58880}
 
 
 @pytest.mark.parametrize("d,state_dtype,slot_dtype,fits", [
@@ -456,23 +481,30 @@ _SMEM_ON_THE_CARD = {(0, 144): 206112, (1, 144): 187168, (0, 200): 263568,
 def test_cuda_wrapper_sizes_the_block_by_state_dtype(d, state_dtype, slot_dtype, fits,
                                                      stub_library):
     """The wrapper asks the library for the block's shared memory with the
-    states' dtype code and the raster's length, launches where that fits
-    (bf16 up to d=15 on the tensor-core kernel) and refuses before a launch
-    where it does not (f32 from d=13)."""
+    states' dtype code and the raster's length and launches the shared-panel
+    kernel where that fits (bf16 up to d=15 on the tensor-core kernel);
+    where it does not (f32 from d=13) it asks for the global-panel
+    variant's and launches that, on a persistent grid of one block per SM
+    with [grid, 2 l_pad, 128] f32 panels."""
     stub_library.smem = lambda code, l_pad: _SMEM_ON_THE_CARD[(code, l_pad)]
+    stub_library.gpanels_smem = lambda code, l_pad: _SMEM_ON_THE_CARD[(code, l_pad)]
     plan, ops = _ops(d, state_dtype)
     code = 0 if state_dtype == "float32" else 1
+    rg._roll_rounds_cuda(ops, rounds=2, slot_dtype=slot_dtype)
     if fits:
-        rg._roll_rounds_cuda(ops, rounds=2, slot_dtype=slot_dtype)
         (args,) = stub_library.calls
         assert args[:2] == (code, int(slot_dtype == "bfloat16"))
-        assert args[12:15] == (2, plan.l_pad, 2)
-        assert rg.launch_counts() == {"roll_rounds": 1}
+        assert args[12:16] == (2, plan.l_pad, 2, 128)
+        assert rg.launch_counts() == {"roll_rounds": 1, "roll_rounds_gpanels": 0}
+        assert stub_library.queries == [(code, plan.l_pad)]
     else:
-        with pytest.raises(ValueError, match="shared memory"):
-            rg._roll_rounds_cuda(ops, rounds=2, slot_dtype=slot_dtype)
-        assert not stub_library.calls and rg.launch_counts() == {"roll_rounds": 0}
-    assert stub_library.queries == [(code, plan.l_pad)]
+        (args,) = stub_library.gpanels_calls
+        # (xc, xq, syn, bits, degbo, mats, vecs, out_c, out_q, panels, offs,
+        #  B, l_pad, R, width, grid, stream)
+        assert args[11:16] == (2, plan.l_pad, 2, 128, 2)
+        assert not stub_library.calls
+        assert rg.launch_counts() == {"roll_rounds": 0, "roll_rounds_gpanels": 1}
+        assert stub_library.queries == [(code, plan.l_pad), ("gp", plan.l_pad)]
 
 
 def test_cpu_dispatch_is_the_plain_version():

@@ -1,0 +1,434 @@
+"""Narrower models on the rounds kernels' 128 columns, and the wrappers' choice
+of kernel by graph, width and state type.
+
+The rounds kernels (K1, K2a/K2b, K5) are built for 128 columns.  A model of
+width h < 128 runs on states and packs zero-padded to 128, with the
+LayerNorm's mean and variance over the first h columns (``width=h`` in the
+plain versions).  Here the plain twins of that padded function are held to
+the real-width plain versions and to the JAX package's kernels in interpret
+mode (h=24, as ``decoder_rounds_tiled`` and ``decoder_rounds_roll`` run a
+model of that width), its adjoint to the unpadded gradients; and the CUDA
+wrappers, with a stubbed library that sizes shared memory as the card's
+does, to the C entry point each call must reach.  Tolerances are those of
+tests/test_torch_port_fused_rounds.py (states) and
+tests/test_torch_port_backward.py (gradients).
+"""
+
+import contextlib
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpugnn.kernels import fused_decoder as jfd
+from tpugnn.kernels import roll_gather as jrg
+from tpugnn.tanner import build_code as jax_build_code
+from tpugnn_torch.configs import CodeConfig, ExperimentConfig, ModelConfig, TrainConfig
+from tpugnn_torch.kernels import fused_backward as fb
+from tpugnn_torch.kernels import fused_decoder as fd
+from tpugnn_torch.kernels import roll_gather as rg
+from tpugnn_torch.models import GNNDecoder
+from tpugnn_torch.models import decoder as dec
+from tpugnn_torch.sampling import sample_batch
+from tpugnn_torch.tanner import build_code
+from tpugnn_torch.train.loop import train_step
+from tpugnn_torch.train.optim import make_optimizer
+
+torch.set_num_threads(1)
+
+# states: tests/test_torch_port_fused_rounds.py
+ATOL, RTOL = 5e-4, 1e-3
+BF16_MEAN_ABS = 1e-4
+BF16_SHARE_DIFFERENT = 0.01
+# gradients: tests/test_torch_port_backward.py
+G_ATOL, G_RTOL = 2e-3, 2e-3
+W_ATOL, W_RTOL = 2e-3, 5e-3
+BF16_REL = 2e-2
+PLAN_FIELDS = ("cell_of_check", "cell_of_qubit", "mask_c", "mask_q", "deg_c", "deg_q")
+
+
+def _weights(h, seed):
+    rng = np.random.default_rng(seed)
+    out = {}
+    for f in fd.RoundWeights._fields:
+        vec = f.startswith(("b", "ln")) or f in ("uc_s", "uc_b0", "uc_b1", "uq_b0", "uq_b1")
+        shp = (1, h) if vec else (h, h)
+        w = rng.standard_normal(shp).astype(np.float32) * (0.2 if vec else h ** -0.5)
+        out[f] = (w + (1.0 if f.endswith("scale") else 0.0)).astype(np.float32)
+    return out
+
+
+def _states(jg, h, batch, seed):
+    """States with zero padded rows and a +-1 syndrome feature on real checks."""
+    rng = np.random.default_rng(seed)
+    cm, qm = np.asarray(jg.check_mask), np.asarray(jg.qubit_mask)
+    xc = rng.standard_normal((batch, jg.n_checks_pad, h)).astype(np.float32) * cm[None, :, None]
+    xq = rng.standard_normal((batch, jg.n_qubits_pad, h)).astype(np.float32) * qm[None, :, None]
+    syn = np.sign(rng.standard_normal((batch, jg.n_checks_pad, 1))).astype(np.float32)
+    return xc, xq, syn * cm[None, :, None]
+
+
+def _case(d, h, batch, seed):
+    """(jax graph, torch graph, numpy weights, torch weights, torch states)."""
+    jg = jax_build_code("surface", d)
+    tg = build_code("surface", d).to("cpu")
+    w = _weights(h, seed)
+    tw = fd.RoundWeights(**{k: torch.from_numpy(v) for k, v in w.items()})
+    xc, xq, syn = (torch.from_numpy(a) for a in _states(jg, h, batch, seed + 1))
+    return jg, tg, w, tw, (xc, xq, syn)
+
+
+def _padded_rounds(tg, tw, states, rounds, dtype, h):
+    """The padded twin: packs and states zero-padded to 128, the LayerNorm
+    over the first h columns; returns the 128-wide f32 outputs."""
+    dt = fd.STATE_DTYPES[dtype]
+    mats, vecs = fd.pad_packs(*fd.pack_weights(tw, dt))
+    xc, xq = fd.pad_states(*states[:2])
+    return fd.rounds_packed(xc, xq, states[2], fd.make_operators(tg), mats, vecs,
+                            rounds=rounds, dtype=dt, width=h)
+
+
+def _assert_states_close(got, ref, dtype):
+    for g, r in zip(got, ref):
+        g, r = np.asarray(g, np.float32), np.asarray(r, np.float32)
+        assert g.shape == r.shape
+        if dtype == "float32":
+            np.testing.assert_allclose(g, r, atol=ATOL, rtol=RTOL)
+        else:
+            diff = np.abs(g - r)
+            assert diff.mean() <= BF16_MEAN_ABS, diff.mean()
+            assert (diff > 0).mean() <= BF16_SHARE_DIFFERENT, (diff > 0).mean()
+
+
+def _assert_padded_zero(outs, h):
+    for o in outs:
+        assert o.shape[-1] == fd.WIDTH
+        assert torch.count_nonzero(o[..., h:]) == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h", [24, 64, 96])
+def test_padded_rounds_equal_real_width(h, dtype):
+    """rounds_packed on operands padded to 128 with width=h equals
+    rounds_plain at width h, and leaves every padded column exactly 0."""
+    _, tg, _, tw, states = _case(5, h, 4, seed=h)
+    got = _padded_rounds(tg, tw, states, 3, dtype, h)
+    _assert_padded_zero(got, h)
+    ref = fd.rounds_plain(*states, fd.make_operators(tg), tw, rounds=3, state_dtype=dtype)
+    _assert_states_close([g[..., :h] for g in got], ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_padded_rounds_match_jax_interpret(dtype):
+    """At h=24 the padded twin equals the JAX package's Pallas kernel
+    (decoder_rounds_tiled, interpret mode) on a model of width 24."""
+    h, rounds = 24, 2
+    jg, tg, w, tw, states = _case(3, h, 4, seed=7)
+    got = _padded_rounds(tg, tw, states, rounds, dtype, h)
+    ref = jfd.decoder_rounds(*(jnp.asarray(s.numpy()) for s in states), jfd.make_operators(jg),
+                             jfd.RoundWeights(**{k: jnp.asarray(v) for k, v in w.items()}),
+                             rounds=rounds, interpret=True, compute_dtype=dtype)
+    _assert_states_close([g[..., :h] for g in got], ref, dtype)
+
+
+def _padded_roll(tg, tw, states, rounds, dtype, h):
+    plan = rg.plan_for_graph(tg)
+    ops = rg.pad_raster(rg.to_raster(*states, plan, tw, dtype))
+    out = rg.roll_rounds_plain(ops, rounds=rounds, width=h)
+    _assert_padded_zero([o.float() for o in out], h)
+    return rg.from_raster(out[0][..., :h], out[1][..., :h], plan)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h", [24, 64, 96])
+def test_padded_roll_equals_real_width(h, dtype):
+    """The roll twin on padded raster operands (pad_raster, width=h) equals
+    decoder_rounds_roll at width h, and leaves every padded column 0."""
+    _, tg, _, tw, states = _case(5, h, 4, seed=30 + h)
+    got = _padded_roll(tg, tw, states, 3, dtype, h)
+    ref = rg.decoder_rounds_roll(*states, rg.plan_for_graph(tg), tw, rounds=3,
+                                 state_dtype=dtype)
+    _assert_states_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_padded_roll_matches_jax_interpret(dtype):
+    """At h=24 the padded roll twin equals the JAX package's roll kernel
+    (decoder_rounds_roll, interpret mode) on a model of width 24."""
+    h, rounds = 24, 2
+    jg, tg, w, tw, states = _case(3, h, 4, seed=9)
+    got = _padded_roll(tg, tw, states, rounds, dtype, h)
+    plan = jrg.raster_plan(jg)
+    ref = jrg.decoder_rounds_roll(
+        *(jnp.asarray(s.numpy()) for s in states),
+        tuple(jnp.asarray(getattr(plan, f)) for f in PLAN_FIELDS),
+        (plan.d, plan.l_pad, plan.offs_c, plan.offs_q),
+        jfd.RoundWeights(**{k: jnp.asarray(v) for k, v in w.items()}),
+        rounds=rounds, interpret=True, compute_dtype=dtype, slot_dtype="float32",
+        block_batch=8)
+    _assert_states_close(got, ref, dtype)
+
+
+def _grads(tg, tw, states, rounds, dtype, pad, cot):
+    """Gradients of a random linear functional of both outputs through the
+    plain versions, on the kernels' padded operands (padded_rounds, as the
+    kernels take them) or at the model's width (trained_rounds)."""
+    xc, xq, syn = (s.clone().requires_grad_(True) for s in states)
+    leaves = {k: v.clone().requires_grad_(True) for k, v in tw._asdict().items()}
+    w, ops = fd.RoundWeights(**leaves), fd.make_operators(tg)
+    if pad:
+        oc, oq = fb.padded_rounds(xc, xq, syn, ops, *fd.pack_weights_f32(w), rounds, dtype,
+                                  kernels=False)
+    else:
+        oc, oq = fb.trained_rounds(xc, xq, syn, ops, w, rounds, dtype, kernels=False)
+    assert oc.shape == states[0].shape and oq.shape == states[1].shape
+    ((oc * cot[0]).sum() + (oq * cot[1]).sum()).backward()
+    out = {"dxc": xc.grad, "dxq": xq.grad, "dsyn": syn.grad}
+    out.update({k: v.grad for k, v in leaves.items()})
+    return {k: v.numpy() for k, v in out.items()}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h", [24, 64])
+def test_padded_gradients_equal_unpadded(h, dtype):
+    """Through the padded path (F.pad outside the autograd Function, the
+    masked LayerNorm and its adjoint inside) every gradient, of the input
+    states, the syndrome feature and all 25 round-weight leaves, has the
+    leaf's own shape and equals the unpadded plain version's."""
+    _, tg, _, tw, states = _case(3, h, 4, seed=50 + h)
+    rng = np.random.default_rng(h)
+    cot = [torch.from_numpy(rng.standard_normal(s.shape).astype(np.float32))
+           for s in states[:2]]
+    got = _grads(tg, tw, states, 2, dtype, True, cot)
+    ref = _grads(tg, tw, states, 2, dtype, False, cot)
+    for k, r in ref.items():
+        g = got[k]
+        assert g.shape == r.shape, k
+        if dtype == "bfloat16":
+            rel = np.linalg.norm(g - r) / max(np.linalg.norm(r), 1e-6)
+            assert rel <= BF16_REL, f"{k}: relative error {rel}"
+        elif k in ("dxc", "dxq", "dsyn"):
+            np.testing.assert_allclose(g, r, atol=G_ATOL, rtol=G_RTOL, err_msg=k)
+        else:
+            scale = max(1.0, float(np.abs(r).max()))
+            np.testing.assert_allclose(g, r, atol=W_ATOL * scale, rtol=W_RTOL, err_msg=k)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_no_cotangent_reaches_a_padded_column(dtype):
+    """K2b's plain version on padded operands (width=h), given the output
+    cotangents the wrapper's slice leaves (0 on the padded columns), returns
+    exactly 0 on every padded column of the state cotangents and every
+    padded row and column of the pack gradients."""
+    h, rounds = 24, 2
+    _, tg, _, tw, states = _case(3, h, 2, seed=61)
+    mats32, vecs32 = fd.pad_packs(*fd.pack_weights_f32(tw))
+    xc, xq = fd.pad_states(*states[:2])
+    ops = fd.make_operators(tg)
+    _, _, sc, sq = fb.rounds_fwd_stash_plain(xc, xq, states[2], ops, mats32, vecs32,
+                                             rounds=rounds, state_dtype=dtype, width=h)
+    rng = np.random.default_rng(3)
+    cot_c, cot_q = fd.pad_states(*(torch.from_numpy(rng.standard_normal(x.shape).astype(
+        np.float32)) for x in states[:2]))
+    dxc, dxq, _, dmats, dvecs = fb.rounds_vjp_plain(sc, sq, states[2], ops, mats32, vecs32,
+                                                    cot_c, cot_q, state_dtype=dtype, width=h)
+    for t in (dxc, dxq, dvecs):
+        assert torch.count_nonzero(t[..., h:]) == 0
+    assert torch.count_nonzero(dmats[:, h:, :]) == 0
+    assert torch.count_nonzero(dmats[:, :, h:]) == 0
+    assert torch.count_nonzero(dxc[..., :h]) > 0 and torch.count_nonzero(dmats) > 0
+
+
+def _rounds_on_cpu(pad):
+    """decoder_rounds of a training step on the plain versions: on the
+    kernels' padded operands (padded_rounds) or at the model's width."""
+    def rounds(xc, xq, syn, ops, w, r, dt):
+        if pad:
+            return fb.padded_rounds(xc, xq, syn, ops, *fd.pack_weights_f32(w), r, dt,
+                                    kernels=False)
+        return fb.trained_rounds(xc, xq, syn, ops, w, r, dt, kernels=False)
+    return rounds
+
+
+def test_train_step_on_the_padded_path_equals_unpadded(monkeypatch):
+    """A train step of a width-24 model whose rounds run on the padded path
+    (as on a card) moves every parameter as the unpadded path does, and the
+    parameter tree keeps the model's width: no padded entry reaches it."""
+    cfg = ExperimentConfig(
+        code=CodeConfig(family="surface", distance=3, p=0.05),
+        model=ModelConfig(hidden=24, msg_hidden=24, rounds=2, backend="fused",
+                          qubit_head="pauli4"),
+        train=TrainConfig(batch=8, steps=4, warmup_steps=1))
+    graph = build_code("surface", 3).to("cpu")
+    batch = sample_batch(torch.Generator().manual_seed(1), graph, 0.1, 8)
+    after = {}
+    for pad in (False, True):
+        model = GNNDecoder(cfg.model, k=graph.k).init_random(torch.Generator().manual_seed(2))
+        shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+        opt = make_optimizer(cfg, model.parameters())
+        monkeypatch.setattr(dec, "decoder_rounds", _rounds_on_cpu(pad))
+        train_step(model, opt, graph, batch, cfg)
+        after[pad] = {n: p.detach().clone() for n, p in model.named_parameters()}
+        assert {n: tuple(p.shape) for n, p in after[pad].items()} == shapes
+    for n, p in after[False].items():
+        torch.testing.assert_close(after[True][n], p, atol=1e-6, rtol=1e-5, msg=n)
+
+
+# --- the CUDA wrappers with a stubbed library (CPU tensors standing in) ---
+
+def _align16(x):
+    return (x + 15) & ~15
+
+
+def _k1_smem(code, m, n, dc, dq, gpanels=False):
+    """fused_rounds_smem_bytes / fused_rounds_gpanels_smem_bytes as
+    csrc/fused_rounds.cu computes them: f32 panels, two 32-row f32 chunk
+    buffers and a 16-row slab of three matrices; bf16 swizzled panels,
+    128-row chunk buffers and a double buffer of 64-row slabs (32-row
+    where 64 do not fit); the slot tables."""
+    tables = _align16(m * dc * 4) + _align16(n * dq * 4)
+    if code == 0:
+        panels = 0 if gpanels else _align16(n * 512) + _align16(m * 512)
+        return panels + 2 * _align16(32 * 132 * 4) + _align16(16 * 3 * 128 * 4) + tables
+    bf = lambda sr: _align16(n * 256) + _align16(m * 256) + 2 * 128 * 136 * 2 + 2 * sr * 272
+    return (bf(64) if bf(64) + tables <= fd.SMEM_LIMIT else bf(32)) + tables
+
+
+class _K1Library:
+    """The fused-rounds library as far as a launch: records each entry point
+    reached with its arguments and stops."""
+
+    def __init__(self):
+        self.calls = []
+
+    def fused_rounds_smem_bytes(self, code, m, n, dc, dq):
+        return _k1_smem(code, m, n, dc, dq)
+
+    def fused_rounds_gpanels_smem_bytes(self, m, n, dc, dq):
+        return _k1_smem(0, m, n, dc, dq, gpanels=True)
+
+    def __getattr__(self, entry):
+        def launch(*args):
+            self.calls.append((entry, args))
+            return 0
+        return launch
+
+
+@pytest.fixture
+def k1_library(monkeypatch):
+    from tpugnn_torch.kernels import _build
+
+    lib = _K1Library()
+    monkeypatch.setattr(_build, "load_library", lambda name: lib if name == "fused_rounds"
+                        else pytest.fail(f"loaded {name}"))
+    monkeypatch.setattr(fd, "_cuda_stream", lambda dev: contextlib.nullcontext(0))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: types.SimpleNamespace(multi_processor_count=132))
+    fd.reset_launch_counts()
+    return lib
+
+
+def test_stub_sizes_shared_memory_as_the_card():
+    """The stub's sizes are those csrc/fused_rounds.cu computes on the
+    card: f32 193,536 B at d=11 (fits), 244,224 at d=13 and 303,360 at d=15
+    (over SMEM_LIMIT); bf16, and f32 without the panels, fit through d=15."""
+    sizes = {}
+    for d in (11, 13, 15):
+        g = build_code("surface", d).to("cpu")
+        src_c, _, _, src_q, _, _ = fd.make_operators(g)
+        args = (g.n_checks_pad, g.n_qubits_pad, src_c.shape[1], src_q.shape[1])
+        sizes[d] = (_k1_smem(0, *args), _k1_smem(1, *args), _k1_smem(0, *args, gpanels=True))
+    assert [sizes[d][0] for d in (11, 13, 15)] == [193536, 244224, 303360]
+    assert all(s[1] <= fd.SMEM_LIMIT and s[2] <= fd.SMEM_LIMIT for s in sizes.values())
+
+
+def _k1_call(d, h, dtype, batch=2):
+    g = build_code("surface", d).to("cpu")
+    w = fd.RoundWeights(**{k: torch.from_numpy(v) for k, v in _weights(h, 0).items()})
+    xc = torch.zeros((batch, g.n_checks_pad, h))
+    xq = torch.zeros((batch, g.n_qubits_pad, h))
+    return g, (xc, xq, xc[..., :1], fd.make_operators(g), w, 2, dtype)
+
+
+@pytest.mark.parametrize("d,dtype,entry", [
+    (11, "float32", "fused_rounds_launch"),
+    (13, "float32", "fused_rounds_gpanels_launch"),
+    (15, "float32", "fused_rounds_gpanels_launch"),
+    (13, "bfloat16", "fused_rounds_launch"),
+    (15, "bfloat16", "fused_rounds_launch")])
+def test_k1_wrapper_picks_the_panel_route(d, dtype, entry, k1_library):
+    """f32 graphs whose panels overflow shared memory (d=13, d=15) take the
+    global-panel variant on a persistent grid of min(B, SMs) blocks; d <= 11
+    keeps the shared-panel kernel, and bf16 never takes the variant.  Each
+    call is counted under its kernel's name."""
+    g, args = _k1_call(d, 128, dtype, batch=200)
+    out_c, out_q = fd._rounds_cuda(*args)
+    ((name, a),) = k1_library.calls
+    assert name == entry and out_c.shape == args[0].shape
+    m, n = g.n_checks_pad, g.n_qubits_pad
+    if entry == "fused_rounds_gpanels_launch":
+        # (9 operand pointers, panels, B, M, N, Dc, Dq, R, width, grid, stream)
+        assert a[10:13] == (200, m, n) and a[15:18] == (2, 128, 132)
+        assert fd.launch_counts()["fused_rounds_gpanels"] == 1
+        assert fd.launch_counts()["fused_rounds"] == 0
+    else:
+        # (dtype code, 9 operand pointers, B, M, N, Dc, Dq, R, width, stream)
+        assert a[0] == (0 if dtype == "float32" else 1) and a[10:13] == (200, m, n)
+        assert a[15:17] == (2, 128)
+        assert fd.launch_counts()["fused_rounds"] == 1
+        assert fd.launch_counts()["fused_rounds_gpanels"] == 0
+
+
+@pytest.mark.parametrize("h", [64, 96])
+def test_k1_wrapper_pads_narrow_models(h, k1_library):
+    """A model of width h < 128 reaches the kernel with the model's width as
+    its LayerNorm width and comes back at width h."""
+    _, args = _k1_call(5, h, "float32")
+    out_c, out_q = fd._rounds_cuda(*args)
+    ((name, a),) = k1_library.calls
+    assert name == "fused_rounds_launch" and a[16] == h
+    assert out_c.shape[-1] == h and out_q.shape[-1] == h
+
+
+def test_k2a_keeps_its_shared_memory_check(k1_library):
+    """K2a (the stash flag) has no global-panel variant: f32 at d=13 is
+    refused before a launch, as before."""
+    g, args = _k1_call(13, 128, "float32")
+    mats32, vecs32 = fd.pack_weights_f32(args[4])
+    with pytest.raises(ValueError, match="shared memory"):
+        fb._fwd_stash_cuda(args[0], args[1], args[2], args[3], mats32, vecs32, 2, "float32")
+    assert not k1_library.calls
+
+
+@pytest.mark.parametrize("entry", ["k1", "k5", "k2"])
+def test_wrappers_refuse_widths_above_128(entry, k1_library, monkeypatch):
+    """H = 160 is refused by every rounds wrapper with a ValueError that
+    names the kernels' limit, before a library call."""
+    g, args = _k1_call(3, 160, "float32")
+    if entry == "k1":
+        call = lambda: fd._rounds_cuda(*args)
+    elif entry == "k5":
+        plan = rg.plan_for_graph(g)
+        call = lambda: rg._roll_rounds_cuda(rg.to_raster(*args[:3], plan, args[4], "float32"),
+                                            rounds=1)
+    else:
+        call = lambda: fb.trained_rounds(*args, kernels=True)
+    with pytest.raises(ValueError, match="at most 128"):
+        call()
+    assert not k1_library.calls
+
+
+def test_msg_hidden_other_than_hidden_is_refused():
+    """The fused layout needs msg_hidden == hidden, as the plain versions do."""
+    w = _weights(32, 0)
+    for f in ("wd_c", "ws_c", "wd_q", "ws_q"):
+        w[f] = w[f][:, :16]
+    for f in ("wo_c", "wo_q"):
+        w[f] = w[f][:16]
+    for f in ("b0_c", "b0_q"):
+        w[f] = w[f][:, :16]
+    tw = fd.RoundWeights(**{k: torch.from_numpy(v) for k, v in w.items()})
+    with pytest.raises(ValueError, match="msg_hidden == hidden"):
+        fd.pack_weights_f32(tw)

@@ -37,14 +37,16 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "fused_rounds": {
         "fused_rounds_smem_bytes": ([_I] * 5, ctypes.c_longlong),
-        "fused_rounds_launch": ([_I] + [_P] * 9 + [_I] * 6 + [_P], _I),
-        "fused_rounds_stash_launch": ([_I] + [_P] * 11 + [_I] * 6 + [_P], _I),
+        "fused_rounds_gpanels_smem_bytes": ([_I] * 4, ctypes.c_longlong),
+        "fused_rounds_launch": ([_I] + [_P] * 9 + [_I] * 7 + [_P], _I),
+        "fused_rounds_gpanels_launch": ([_P] * 10 + [_I] * 8 + [_P], _I),
+        "fused_rounds_stash_launch": ([_I] + [_P] * 11 + [_I] * 7 + [_P], _I),
     },
     "fused_backward": {
         "fused_rounds_bwd_smem_bytes": ([_I] * 5, ctypes.c_longlong),
         "fused_rounds_bwd_tile": ([_I], _I),
         "fused_rounds_bwd_scratch_bytes": ([_I] * 5, ctypes.c_longlong),
-        "fused_rounds_bwd_launch": ([_I] + [_P] * 17 + [_I] * 7 + [_P], _I),
+        "fused_rounds_bwd_launch": ([_I] + [_P] * 17 + [_I] * 8 + [_P], _I),
     },
     "spmm": {
         "ell_aggregate_launch": ([_I, _I] + [_P] * 3 + [_I] * 5 + [_P], _I),
@@ -57,7 +59,9 @@ _SIGNATURES = {
     },
     "roll_gather": {
         "roll_rounds_smem_bytes": ([_I] * 2, ctypes.c_longlong),
-        "roll_rounds_launch": ([_I] * 2 + [_P] * 10 + [_I] * 3 + [_P], _I),
+        "roll_rounds_gpanels_smem_bytes": ([_I], ctypes.c_longlong),
+        "roll_rounds_launch": ([_I] * 2 + [_P] * 10 + [_I] * 4 + [_P], _I),
+        "roll_rounds_gpanels_launch": ([_P] * 11 + [_I] * 5 + [_P], _I),
     },
 }
 

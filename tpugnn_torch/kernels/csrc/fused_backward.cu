@@ -56,6 +56,12 @@
 // it; the running state cotangents in the dxc/dxq outputs; the tile's
 // residuals in its bf16 scratch (3 MB a block).
 //
+// Width: as the forward's (fused_rounds.cu).  The stash and the packs come
+// zero-padded to 128 columns, and the LayerNorm runs over the model's first
+// `width` columns; its backward is the derivative of that masked forward, so
+// dpre is 0 on every padded column, and no cotangent reaches one.  The
+// masking is compiled in only for width < 128 (MASK).
+//
 // Bounds on an H100 at d=11, H=128, per sample and round: the replay's 10
 // products, the adjoint's 10 and the 10 weight-gradient products are 30
 // [rows, 128] x [128, 128] products, about 3x K1's 39.7 MFLOP, plus the stash
@@ -130,6 +136,7 @@ struct Dir {
   const T* x;         // [rows][H] round-input states (stash)
   float* g;           // [rows][H] state cotangent, rewritten in place
   int rows, D, src_rows;
+  int width;          // the LayerNorm's columns
   const int* idx;     // [rows][D] (shared)
   const int* off;     // readers table of the gather (shared)
   const int* lst;
@@ -153,7 +160,7 @@ __device__ __forceinline__ void add_partial(float* p, const float v[4]) {
 }
 
 // S2: replay one direction's update and chain the adjoint down to dhs.
-template <typename T, bool SYN>
+template <typename T, bool SYN, bool MASK>
 __device__ void replay_adjoint(const Dir<T>& d, const float* syn, float* dsyn,
                                const float* ucs32, const Smem<T>& s) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -229,8 +236,9 @@ __device__ void replay_adjoint(const Dir<T>& d, const float* syn, float* dsyn,
     }
 
     gemm_chunk<T, 1>(s.hs, d.W + size_t(M_W1) * HH, s.wsl, agg);
-    // LayerNorm forward and backward; a warp reads and writes only its own
-    // rows of xs here
+    // LayerNorm forward and backward over the first d.width columns; a warp
+    // reads and writes only its own rows of xs here
+    const float inv_w = MASK ? 1.f / d.width : 1.f / H;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int lr = warp * 4 + i, r = row0 + lr;
@@ -240,14 +248,15 @@ __device__ void replay_adjoint(const Dir<T>& d, const float* syn, float* dsyn,
         v[j] = s.xs[lr * XLD + c0 + j] + agg[0][i][j] + ub1[j];
         sum += v[j];
       }
-      const float mu = warp_sum(sum) * (1.f / H);
+      const float mu = warp_sum(sum) * inv_w;
       float sq = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         v[j] -= mu;
+        if (MASK && c0 + j >= d.width) v[j] = 0.f;
         sq += v[j] * v[j];
       }
-      const float inv = rsqrtf(warp_sum(sq) * (1.f / H) + 1e-6f);
+      const float inv = rsqrtf(warp_sum(sq) * inv_w + 1e-6f);
       float g[4] = {0.f, 0.f, 0.f, 0.f};
       if (r < rows) load4(d.g + size_t(r) * H + c0, g);
       float nh[4], dnh[4], s1 = 0.f, s2 = 0.f;
@@ -260,12 +269,13 @@ __device__ void replay_adjoint(const Dir<T>& d, const float* syn, float* dsyn,
         s1 += dnh[j];
         s2 += dnh[j] * nh[j];
       }
-      const float m1 = warp_sum(s1) * (1.f / H);
-      const float m2 = warp_sum(s2) * (1.f / H);
+      const float m1 = warp_sum(s1) * inv_w;
+      const float m2 = warp_sum(s2) * inv_w;
       float dpre[4], dpr[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         dpre[j] = inv * (dnh[j] - m1 - nh[j] * m2);
+        if (MASK && c0 + j >= d.width) dpre[j] = 0.f;
         p_ub1[j] += dpre[j];
         dpr[j] = rnd(dpre[j], tag);
       }
@@ -459,7 +469,7 @@ __device__ void build_readers(const int* idx, int rows, int D, int src_rows, int
   __syncthreads();
 }
 
-template <typename T>
+template <typename T, bool MASK>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_rounds_bwd_kernel(const T* __restrict__ stash_c, const T* __restrict__ stash_q,
                         const float* __restrict__ syn, const int* __restrict__ idx_c,
@@ -467,7 +477,8 @@ fused_rounds_bwd_kernel(const T* __restrict__ stash_c, const T* __restrict__ sta
                         const T* __restrict__ mats_t, const float* __restrict__ vecs,
                         const float* __restrict__ ucs32, float* dxc, float* dxq,
                         float* dsyn, float* scratch, float* part_mats,
-                        float* part_vecs, int B, int M, int N, int Dc, int Dq, int R) {
+                        float* part_vecs, int B, int M, int N, int Dc, int Dq, int R,
+                        int width) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Smem<T> s = carve<T>(smem_raw, M, N, Dc, Dq);
   for (int e = threadIdx.x; e < M * Dc; e += THREADS) s.idx_c[e] = idx_c[e];
@@ -479,6 +490,7 @@ fused_rounds_bwd_kernel(const T* __restrict__ stash_c, const T* __restrict__ sta
   float* sc = scratch + size_t(blockIdx.x) * scratch_rows(M, N) * H;
   auto take = [&](int rows) { float* p = sc; sc += size_t(rows) * H; return p; };
   Dir<T> c, q;
+  c.width = q.width = width;
   c.rows = M; c.D = Dc; c.src_rows = N;
   c.idx = s.idx_c; c.off = s.off_c; c.lst = s.lst_c; c.ys = s.ys_c;
   c.W = mats; c.WT = mats_t; c.vec = vecs;
@@ -507,8 +519,8 @@ fused_rounds_bwd_kernel(const T* __restrict__ stash_c, const T* __restrict__ sta
       q.x = stash_q + (size_t(r) * B + b) * N * H;
       project_rows<T>(q.x, N, q.W + size_t(M_WS) * HH, s.ys_c, s.xs, s.wsl);
       project_rows<T>(c.x, M, c.W + size_t(M_WS) * HH, s.ys_q, s.xs, s.wsl);
-      replay_adjoint<T, true>(c, syn_b, dsyn_b, ucs32, s);
-      replay_adjoint<T, false>(q, nullptr, nullptr, nullptr, s);
+      replay_adjoint<T, true, MASK>(c, syn_b, dsyn_b, ucs32, s);
+      replay_adjoint<T, false, MASK>(q, nullptr, nullptr, nullptr, s);
       __syncthreads();
       gather_adjoint<T>(c);
       gather_adjoint<T>(q);
@@ -641,6 +653,7 @@ struct Dir {
   const bf16* x;      // [tile] round-input states (the stash)
   float* g;           // [tile] state cotangent, rewritten in place
   int rows, D, src_rows;
+  int width;          // the LayerNorm's columns
   const int* idx;     // [rows][D] (shared)
   const int* off;     // readers table of the gather (shared): the slots
   const int* lst;     //   r * D + k that read source row s are lst[off[s] .. off[s+1])
@@ -699,7 +712,7 @@ __device__ __noinline__ void colsum_add(float (&v)[32], float* p) {
 // per sample small.  x_in_xs: the chunk buffer xs already holds the
 // direction's states (S1 projected them last, in one chunk).  `after` is the
 // product that follows.
-template <int SR>
+template <int SR, bool MASK>
 __device__ __noinline__ void replay_adjoint(const Dir& dref, int i, const float* syn,
                                             float* dsyn, const float* ucs32, const Smem& s,
                                             Slabs<SR>& slref, const bf16* after,
@@ -821,6 +834,7 @@ __device__ __noinline__ void replay_adjoint(const Dir& dref, int i, const float*
       }
     }
     mma_pass<SR>(ha, w1, sl, w1t, acc, active);
+    const float inv_w = MASK ? 1.f / d.width : 1.f / H;
     float inv[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -834,16 +848,18 @@ __device__ __noinline__ void replay_adjoint(const Dir& dref, int i, const float*
         acc[j][2 * h + 1] += xv.y + ub1.y;
         sum += acc[j][2 * h] + acc[j][2 * h + 1];
       }
-      const float mu = quad_sum(sum) * (1.f / H);
+      const float mu = quad_sum(sum) * inv_w;
       float sq = 0.f;
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          acc[j][2 * h + c] -= mu;
-          sq += acc[j][2 * h + c] * acc[j][2 * h + c];
-        }
-      inv[h] = rsqrtf(quad_sum(sq) * (1.f / H) + 1e-6f);
+        for (int c = 0; c < 2; ++c) acc[j][2 * h + c] -= mu;
+      if (MASK) mask_columns(acc, h, t, d.width);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) sq += acc[j][2 * h + c] * acc[j][2 * h + c];
+      inv[h] = rsqrtf(quad_sum(sq) * inv_w + 1e-6f);
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -883,14 +899,18 @@ __device__ __noinline__ void replay_adjoint(const Dir& dref, int i, const float*
           s1 += gv[j][2 * h + c];
           s2 += gv[j][2 * h + c] * acc[j][2 * h + c];
         }
-      const float m1 = quad_sum(s1) * (1.f / H);
-      const float m2 = quad_sum(s2) * (1.f / H);
+      const float m1 = quad_sum(s1) * inv_w;
+      const float m2 = quad_sum(s2) * inv_w;
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const int c = 8 * j + 2 * t;
 #pragma unroll
         for (int e = 0; e < 2; ++e)
           gv[j][2 * h + e] = inv[h] * (gv[j][2 * h + e] - m1 - acc[j][2 * h + e] * m2);
+        if (MASK) {   // a narrower model's padded columns
+          if (c >= d.width) gv[j][2 * h] = 0.f;
+          if (c + 1 >= d.width) gv[j][2 * h + 1] = 0.f;
+        }
         if (r < rows)
           *reinterpret_cast<float2*>(gs + size_t(r) * H + c) =
               make_float2(gv[j][2 * h], gv[j][2 * h + 1]);
@@ -1219,7 +1239,7 @@ __device__ void weight_grads(const Dir& d, int n, const Smem& s) {
   }
 }
 
-template <int SR>
+template <int SR, bool MASK>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_rounds_bwd_tc_kernel(const bf16* __restrict__ stash_c, const bf16* __restrict__ stash_q,
                            const float* __restrict__ syn, const int* __restrict__ idx_c,
@@ -1228,7 +1248,7 @@ fused_rounds_bwd_tc_kernel(const bf16* __restrict__ stash_c, const bf16* __restr
                            const float* __restrict__ ucs32, float* dxc, float* dxq,
                            float* dsyn, unsigned char* scratch, float* part_mats,
                            float* part_vecs, int B, int M, int N, int Dc, int Dq, int R,
-                           int live_smem) {
+                           int live_smem, int width) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Smem s = carve<SR>(smem_raw, M, N, Dc, Dq, live_smem != 0);
   for (int e = threadIdx.x; e < M * Dc; e += THREADS) s.idx_c[e] = idx_c[e];
@@ -1243,6 +1263,7 @@ fused_rounds_bwd_tc_kernel(const bf16* __restrict__ stash_c, const bf16* __restr
     return reinterpret_cast<bf16*>(take(size_t(TILE) * rows * H * sizeof(bf16)));
   };
   Dir c, q;
+  c.width = q.width = width;
   c.rows = M; c.D = Dc; c.src_rows = N;
   c.idx = s.idx_c; c.off = s.off_c; c.lst = s.lst_c; c.ys = s.ys_c;
   c.W = mats; c.WT = mats_t; c.vec = vecs;
@@ -1290,9 +1311,9 @@ fused_rounds_bwd_tc_kernel(const bf16* __restrict__ stash_c, const bf16* __restr
         project_rows_tc<SR>(q.x + size_t(i) * N * H, N, proj_q, s.ys_c, s.xs, sl, proj_c);
         project_rows_tc<SR>(c.x + size_t(i) * M * H, M, proj_c, s.ys_q, s.xs, sl,
                             c.W + size_t(M_WD) * HH);
-        replay_adjoint<SR>(c, i, syn + size_t(b) * M, dsyn + size_t(b) * M, ucs32, s, sl,
+        replay_adjoint<SR, MASK>(c, i, syn + size_t(b) * M, dsyn + size_t(b) * M, ucs32, s, sl,
                            q.W + size_t(M_WD) * HH, true);
-        replay_adjoint<SR>(q, i, nullptr, nullptr, nullptr, s, sl, c.WT + size_t(M_WD) * HH,
+        replay_adjoint<SR, MASK>(q, i, nullptr, nullptr, nullptr, s, sl, c.WT + size_t(M_WD) * HH,
                            false);
         __syncthreads();   // every row's dhs and slot masks are written
         gather_adjoint(c, i);
@@ -1365,16 +1386,19 @@ long long fused_rounds_bwd_scratch_bytes(int dtype, int M, int N, int Dc, int Dq
 // [B, M] f32 (zeroed by the caller), dmats [10, 128, 128] and dvecs
 // [14, 128] f32.  Scratch: scratch (grid x fused_rounds_bwd_scratch_bytes),
 // part_mats [grid, 10, 128, 128] and part_vecs [grid, 8, 14, 128], both
-// zeroed by the caller.  Launches the adjoint on `grid` blocks, then the sum
-// of the partials; returns the first launch error (0 on success).
+// zeroed by the caller.  width (<= 128): the model's width, the columns past
+// it zero in the stash and the packs.  Launches the adjoint on `grid`
+// blocks, then the sum of the partials; returns the first launch error (0 on
+// success).
 int fused_rounds_bwd_launch(int dtype, const void* stash_c, const void* stash_q,
                             const void* syn, const void* idx_c, const void* idx_q,
                             const void* mats, const void* mats_t, const void* vecs,
                             const void* ucs32, void* dxc, void* dxq, void* dsyn,
                             void* scratch, void* part_mats, void* part_vecs, void* dmats,
                             void* dvecs, int B, int M, int N, int Dc, int Dq, int R,
-                            int grid, void* stream) {
-  if (B <= 0 || M <= 0 || N <= 0 || Dc <= 0 || Dq <= 0 || R <= 0 || grid <= 0)
+                            int width, int grid, void* stream) {
+  if (B <= 0 || M <= 0 || N <= 0 || Dc <= 0 || Dq <= 0 || R <= 0 || grid <= 0 ||
+      width <= 0 || width > H)
     return int(cudaErrorInvalidValue);
   const float* s = static_cast<const float*>(syn);
   const int* ic = static_cast<const int*>(idx_c);
@@ -1390,11 +1414,12 @@ int fused_rounds_bwd_launch(int dtype, const void* stash_c, const void* stash_q,
   const size_t smem = smem_for(dtype, M, N, Dc, Dq);
   int err;
   if (dtype == 0) {
-    err = launch_kernel(fused_rounds_bwd_kernel<float>, grid, smem, st,
+    err = launch_kernel(width < H ? fused_rounds_bwd_kernel<float, true>
+                                  : fused_rounds_bwd_kernel<float, false>, grid, smem, st,
                         static_cast<const float*>(stash_c), static_cast<const float*>(stash_q),
                         s, ic, iq, static_cast<const float*>(mats),
                         static_cast<const float*>(mats_t), v, u, gc, gq, ds,
-                        static_cast<float*>(scratch), pm, pv, B, M, N, Dc, Dq, R);
+                        static_cast<float*>(scratch), pm, pv, B, M, N, Dc, Dq, R, width);
   } else if (dtype == 1) {
     typedef __nv_bfloat16 bf;
     const bf* sc = static_cast<const bf*>(stash_c);
@@ -1404,14 +1429,13 @@ int fused_rounds_bwd_launch(int dtype, const void* stash_c, const void* stash_q,
     unsigned char* scr = static_cast<unsigned char*>(scratch);
     const int lay = tc_layout(M, N, Dc, Dq);
     if (lay == 0) return int(cudaErrorInvalidValue);
-    if (lay >= 128)
-      err = launch_kernel(tcb::fused_rounds_bwd_tc_kernel<64>, grid, smem, st, sc, sq, s, ic,
-                          iq, mt, mtt, v, u, gc, gq, ds, scr, pm, pv, B, M, N, Dc, Dq, R,
-                          lay & 1);
-    else
-      err = launch_kernel(tcb::fused_rounds_bwd_tc_kernel<32>, grid, smem, st, sc, sq, s, ic,
-                          iq, mt, mtt, v, u, gc, gq, ds, scr, pm, pv, B, M, N, Dc, Dq, R,
-                          lay & 1);
+    const bool mask = width < H;
+    auto kernel = lay >= 128 ? (mask ? tcb::fused_rounds_bwd_tc_kernel<64, true>
+                                     : tcb::fused_rounds_bwd_tc_kernel<64, false>)
+                             : (mask ? tcb::fused_rounds_bwd_tc_kernel<32, true>
+                                     : tcb::fused_rounds_bwd_tc_kernel<32, false>);
+    err = launch_kernel(kernel, grid, smem, st, sc, sq, s, ic, iq, mt, mtt, v, u, gc, gq, ds,
+                        scr, pm, pv, B, M, N, Dc, Dq, R, lay & 1, width);
   } else {
     return int(cudaErrorInvalidValue);
   }

@@ -36,7 +36,23 @@
 //     more rows (d=13: 176) runs a second, ragged chunk.
 //   f32 states (the trained decode, serve, LER): 32-row chunks, each warp 4
 //     rows and each lane 4 columns, f32 FMA loops over a 16-deep slab
-//     (gemm_chunk, rounds_common.cuh), unchanged.
+//     (gemm_chunk, rounds_common.cuh).  Where the two f32 gather panels do
+//     not fit in shared memory beside the chunk buffers (d=13: 244,224 B,
+//     d=15: 303,360 B of a block's 232,448), its GP variant keeps them in a
+//     per-block global scratch [grid][N + M][H], read through L1/L2 with
+//     plain loads (not ld.global.nc: every round rewrites them), on a
+//     persistent grid of one block per SM, so the resident blocks' panels
+//     (230 KB a block at d=15, 30 MB in all) stay in the 50 MB L2.  The
+//     arithmetic is the shared-panel kernel's, in the same order.
+//
+// Width.  The kernels are built for H = 128 columns; a model of width
+// h < 128 runs on states and packs zero-padded to 128 (the wrapper pads).
+// Every padded column stays exactly 0 through a round (zero weight rows and
+// columns, zero biases, relu(0) = 0, LayerNorm scale and bias 0), so only
+// the LayerNorm sees the width: its mean and variance are taken over the
+// first `width` columns, and the centred value is 0 on the others.  That
+// masking is compiled in only for width < 128 (MASK): at 128 the kernels
+// run the unmasked LayerNorm.
 //
 // Bounds on an H100 at d=11, H=128: 39.7 MFLOP per sample and round on the
 // 241 real rows with the folded weights; HBM traffic is only the states in
@@ -63,11 +79,14 @@ struct Smem {
   int* idx_q;   // [N][Dq]
 };
 
-template <typename T>
+// GP: the gather panels are in global memory, not in the block's share
+template <typename T, bool GP = false>
 __host__ __device__ inline size_t smem_bytes(int M, int N, int Dc, int Dq) {
   size_t s = 0;
-  s += align16(size_t(N) * H * sizeof(T));
-  s += align16(size_t(M) * H * sizeof(T));
+  if (!GP) {
+    s += align16(size_t(N) * H * sizeof(T));
+    s += align16(size_t(M) * H * sizeof(T));
+  }
   s += 2 * align16(size_t(CH) * XLD * sizeof(float));
   s += align16(size_t(KS) * 3 * H * sizeof(T));
   s += align16(size_t(M) * Dc * sizeof(int));
@@ -75,12 +94,18 @@ __host__ __device__ inline size_t smem_bytes(int M, int N, int Dc, int Dq) {
   return s;
 }
 
-template <typename T>
-__device__ Smem<T> carve(unsigned char* base, int M, int N, int Dc, int Dq) {
+// panels: the block's global panels [N + M][H] (GP), or nullptr
+template <typename T, bool GP>
+__device__ Smem<T> carve(unsigned char* base, int M, int N, int Dc, int Dq, T* panels) {
   Smem<T> s;
   size_t o = 0;
-  s.ys_c = reinterpret_cast<T*>(base + o);     o += align16(size_t(N) * H * sizeof(T));
-  s.ys_q = reinterpret_cast<T*>(base + o);     o += align16(size_t(M) * H * sizeof(T));
+  if (GP) {
+    s.ys_c = panels;
+    s.ys_q = panels + size_t(N) * H;
+  } else {
+    s.ys_c = reinterpret_cast<T*>(base + o);   o += align16(size_t(N) * H * sizeof(T));
+    s.ys_q = reinterpret_cast<T*>(base + o);   o += align16(size_t(M) * H * sizeof(T));
+  }
   s.xs = reinterpret_cast<float*>(base + o);   o += align16(size_t(CH) * XLD * sizeof(float));
   s.hs = reinterpret_cast<float*>(base + o);   o += align16(size_t(CH) * XLD * sizeof(float));
   s.wsl = reinterpret_cast<T*>(base + o);      o += align16(size_t(KS) * 3 * H * sizeof(T));
@@ -92,12 +117,13 @@ __device__ Smem<T> carve(unsigned char* base, int M, int N, int Dc, int Dq) {
 // Phases B and C: update rows [0, rows) of state x in place (reading the
 // state from x_src, writing it to x_dst, which may alias).  NW = 3 also
 // writes the projection x @ W[M_WS] into ys_out (the other direction's
-// gather source); SYN adds the syndrome term.
-template <typename T, int NW, bool SYN>
+// gather source); SYN adds the syndrome term.  With MASK the LayerNorm runs
+// over the first `width` columns.
+template <typename T, int NW, bool SYN, bool MASK>
 __device__ void update_rows(const T* x_src, T* x_dst, int rows,
                             const T* ys_src, T* ys_out, const int* idx, int D,
                             const float* syn, const T* __restrict__ W,
-                            const float* __restrict__ vec, const Smem<T>& s) {
+                            const float* __restrict__ vec, const Smem<T>& s, int width) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int c0 = lane * 4;
   float b0[4], boa[4], ucs[4], ub0[4], ub1[4], lns[4], lnb[4];
@@ -168,8 +194,10 @@ __device__ void update_rows(const T* x_src, T* x_dst, int rows,
       store4(s.hs + lr * XLD + c0, hc);
     }
 
-    // update output GEMM, residual, LayerNorm (two-pass, eps 1e-6)
+    // update output GEMM, residual, LayerNorm (two-pass, eps 1e-6, over
+    // the first `width` columns; a padded column's v is 0)
     gemm_chunk<T, 1>(s.hs, W + size_t(M_W1) * H * H, s.wsl, agg);
+    const float inv_w = MASK ? 1.f / width : 1.f / H;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int lr = warp * 4 + i, r = row0 + lr;
@@ -180,54 +208,65 @@ __device__ void update_rows(const T* x_src, T* x_dst, int rows,
         v[j] = s.xs[lr * XLD + c0 + j] + agg[0][i][j] + ub1[j];
         sum += v[j];
       }
-      const float mu = warp_sum(sum) * (1.f / H);
+      const float mu = warp_sum(sum) * inv_w;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] -= mu;
+      if (MASK) {   // a narrower model's padded columns
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (c0 + j >= width) v[j] = 0.f;
+      }
       float sq = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sq += (v[j] - mu) * (v[j] - mu);
-      const float rs = rsqrtf(warp_sum(sq) * (1.f / H) + 1e-6f);
+      for (int j = 0; j < 4; ++j) sq += v[j] * v[j];
+      const float rs = rsqrtf(warp_sum(sq) * inv_w + 1e-6f);
       float o[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) o[j] = (v[j] - mu) * rs * lns[j] + lnb[j];
+      for (int j = 0; j < 4; ++j) o[j] = v[j] * rs * lns[j] + lnb[j];
       if (r < rows) store4(x_dst + size_t(r) * H + c0, o);
     }
   }
 }
 
-template <typename T, bool STASH>
+// One block per sample (grid = B), or with GP a persistent grid whose
+// blocks walk the samples, each with its own panels in `panels`.
+template <typename T, bool STASH, bool GP, bool MASK>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_rounds_kernel(const T* xc_in, const T* xq_in, const float* __restrict__ syn,
                     const int* __restrict__ idx_c, const int* __restrict__ idx_q,
                     const T* __restrict__ mats, const float* __restrict__ vecs,
-                    T* xc_out, T* xq_out, T* stash_c, T* stash_q,
-                    int M, int N, int Dc, int Dq, int R) {
+                    T* xc_out, T* xq_out, T* stash_c, T* stash_q, T* panels,
+                    int B, int M, int N, int Dc, int Dq, int R, int width) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem<T> s = carve<T>(smem_raw, M, N, Dc, Dq);
-  const size_t b = blockIdx.x;
+  const Smem<T> s = carve<T, GP>(smem_raw, M, N, Dc, Dq,
+                                 GP ? panels + size_t(blockIdx.x) * (M + N) * H : nullptr);
   for (int e = threadIdx.x; e < M * Dc; e += THREADS) s.idx_c[e] = idx_c[e];
   for (int e = threadIdx.x; e < N * Dq; e += THREADS) s.idx_q[e] = idx_q[e];
-  const float* syn_b = syn + b * M;
-  T* xc = xc_out + b * size_t(M) * H;
-  T* xq = xq_out + b * size_t(N) * H;
   const T* wc = mats;                       // check direction's 5 matrices
   const T* wq = mats + size_t(NMAT) * H * H;  // qubit direction's 5 matrices
 
-  for (int round = 0; round < R; ++round) {
-    // round 0 reads the inputs; later rounds the states rewritten in place
-    const T* xc_src = round == 0 ? xc_in + b * size_t(M) * H : xc;
-    const T* xq_src = round == 0 ? xq_in + b * size_t(N) * H : xq;
-    if (STASH) {  // read before project_rows' first barrier, rewritten after it
-      const size_t sb = size_t(round) * gridDim.x + b;
-      block_copy16(stash_c + sb * M * H, xc_src, size_t(M) * H * sizeof(T) / 16);
-      block_copy16(stash_q + sb * N * H, xq_src, size_t(N) * H * sizeof(T) / 16);
+  for (size_t b = blockIdx.x; b < size_t(B); b += gridDim.x) {
+    const float* syn_b = syn + b * M;
+    T* xc = xc_out + b * size_t(M) * H;
+    T* xq = xq_out + b * size_t(N) * H;
+    for (int round = 0; round < R; ++round) {
+      // round 0 reads the inputs; later rounds the states rewritten in place
+      const T* xc_src = round == 0 ? xc_in + b * size_t(M) * H : xc;
+      const T* xq_src = round == 0 ? xq_in + b * size_t(N) * H : xq;
+      if (STASH) {  // read before project_rows' first barrier, rewritten after it
+        const size_t sb = size_t(round) * B + b;
+        block_copy16(stash_c + sb * M * H, xc_src, size_t(M) * H * sizeof(T) / 16);
+        block_copy16(stash_q + sb * N * H, xq_src, size_t(N) * H * sizeof(T) / 16);
+      }
+      project_rows<T>(xq_src, N, wq + size_t(M_WS) * H * H, s.ys_c, s.xs, s.wsl);
+      __syncthreads();
+      update_rows<T, 3, true, MASK>(xc_src, xc, M, s.ys_c, s.ys_q, s.idx_c, Dc, syn_b,
+                                    wc, vecs, s, width);
+      __syncthreads();
+      update_rows<T, 2, false, MASK>(xq_src, xq, N, s.ys_q, nullptr, s.idx_q, Dq, nullptr,
+                                     wq, vecs + NVEC * H, s, width);
+      __syncthreads();
     }
-    project_rows<T>(xq_src, N, wq + size_t(M_WS) * H * H, s.ys_c, s.xs, s.wsl);
-    __syncthreads();
-    update_rows<T, 3, true>(xc_src, xc, M, s.ys_c, s.ys_q, s.idx_c, Dc, syn_b,
-                            wc, vecs, s);
-    __syncthreads();
-    update_rows<T, 2, false>(xq_src, xq, N, s.ys_q, nullptr, s.idx_q, Dq, nullptr,
-                             wq, vecs + NVEC * H, s);
-    __syncthreads();
   }
 }
 
@@ -286,11 +325,11 @@ __device__ Smem carve(unsigned char* base, int M, int N, int Dc) {
 // Phases B (CHECK) and C: rows [0, rows) of state x_src updated into x_dst
 // (which may alias it); CHECK also writes ys_out = rnd(x @ ws) and adds the
 // syndrome term.  `after` is the product that follows the last chunk.
-template <int SR, bool CHECK>
+template <int SR, bool CHECK, bool MASK>
 __device__ void update_rows_tc(const bf16* x_src, bf16* x_dst, int rows, const bf16* ys_src,
                                bf16* ys_out, const int* idx, int D, const float* syn,
                                const bf16* __restrict__ W, const float* __restrict__ vec,
-                               const Smem& s, Slabs<SR>& sl, const bf16* after) {
+                               const Smem& s, Slabs<SR>& sl, const bf16* after, int width) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   bf16* xa = s.xs + 16 * warp * LDB;
@@ -388,8 +427,10 @@ __device__ void update_rows_tc(const bf16* x_src, bf16* x_dst, int rows, const b
     }
     __syncwarp();
 
-    // update output, residual, LayerNorm (two-pass, eps 1e-6)
+    // update output, residual, LayerNorm (two-pass, eps 1e-6, over the
+    // first `width` columns)
     mma_pass<SR>(ha, w1, sl, row0 + CR < rows ? first : after, acc, active);
+    const float inv_w = MASK ? 1.f / width : 1.f / H;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float sum = 0.f;
@@ -402,15 +443,18 @@ __device__ void update_rows_tc(const bf16* x_src, bf16* x_dst, int rows, const b
         acc[j][2 * h + 1] += x.y + ub1.y;
         sum += acc[j][2 * h] + acc[j][2 * h + 1];
       }
-      const float mu = quad_sum(sum) * (1.f / H);
-      float sq = 0.f;
+      const float mu = quad_sum(sum) * inv_w;
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         acc[j][2 * h] -= mu;
         acc[j][2 * h + 1] -= mu;
-        sq += acc[j][2 * h] * acc[j][2 * h] + acc[j][2 * h + 1] * acc[j][2 * h + 1];
       }
-      const float rs = rsqrtf(quad_sum(sq) * (1.f / H) + 1e-6f);
+      if (MASK) mask_columns(acc, h, t, width);
+      float sq = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        sq += acc[j][2 * h] * acc[j][2 * h] + acc[j][2 * h + 1] * acc[j][2 * h + 1];
+      const float rs = rsqrtf(quad_sum(sq) * inv_w + 1e-6f);
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const int c = 8 * j + 2 * t;
@@ -423,13 +467,13 @@ __device__ void update_rows_tc(const bf16* x_src, bf16* x_dst, int rows, const b
   }
 }
 
-template <bool STASH, int SR>
+template <bool STASH, int SR, bool MASK>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_rounds_tc_kernel(const bf16* xc_in, const bf16* xq_in, const float* __restrict__ syn,
                        const int* __restrict__ idx_c, const int* __restrict__ idx_q,
                        const bf16* __restrict__ mats, const float* __restrict__ vecs,
                        bf16* xc_out, bf16* xq_out, bf16* stash_c, bf16* stash_q,
-                       int M, int N, int Dc, int Dq, int R) {
+                       int M, int N, int Dc, int Dq, int R, int width) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Smem s = carve<SR>(smem_raw, M, N, Dc);
   const size_t b = blockIdx.x;
@@ -453,10 +497,10 @@ fused_rounds_tc_kernel(const bf16* xc_in, const bf16* xq_in, const float* __rest
       block_copy16(stash_q + sb * N * H, xq_src, size_t(N) * H * sizeof(bf16) / 16);
     }
     project_rows_tc<SR>(xq_src, N, proj, s.ys_c, s.xs, sl, wc + size_t(M_WS) * HH);
-    update_rows_tc<SR, true>(xc_src, xc, M, s.ys_c, s.ys_q, s.idx_c, Dc, syn_b, wc, vecs,
-                             s, sl, wq + size_t(M_WD) * HH);
-    update_rows_tc<SR, false>(xq_src, xq, N, s.ys_q, nullptr, s.idx_q, Dq, nullptr, wq,
-                              vecs + NVEC * H, s, sl, round + 1 < R ? proj : nullptr);
+    update_rows_tc<SR, true, MASK>(xc_src, xc, M, s.ys_c, s.ys_q, s.idx_c, Dc, syn_b, wc, vecs,
+                             s, sl, wq + size_t(M_WD) * HH, width);
+    update_rows_tc<SR, false, MASK>(xq_src, xq, N, s.ys_q, nullptr, s.idx_q, Dq, nullptr, wq,
+                              vecs + NVEC * H, s, sl, round + 1 < R ? proj : nullptr, width);
     __syncthreads();   // the round's state writes are visible to the next round
   }
 }
@@ -486,14 +530,18 @@ int launch_kernel(K kernel, int grid, size_t smem, cudaStream_t stream, Args... 
   return int(cudaGetLastError());
 }
 
+bool bad_shape(int B, int M, int N, int Dc, int Dq, int R, int width) {
+  return B <= 0 || M <= 0 || N <= 0 || Dc <= 0 || Dq <= 0 || R <= 0 || width <= 0 ||
+         width > H;
+}
+
 template <bool STASH>
 int launch_dtype(int dtype, const void* xc_in, const void* xq_in, const void* syn,
                  const void* idx_c, const void* idx_q, const void* mats,
                  const void* vecs, void* xc_out, void* xq_out, void* stash_c,
-                 void* stash_q, int B, int M, int N, int Dc, int Dq, int R,
+                 void* stash_q, int B, int M, int N, int Dc, int Dq, int R, int width,
                  void* stream) {
-  if (B <= 0 || M <= 0 || N <= 0 || Dc <= 0 || Dq <= 0 || R <= 0)
-    return int(cudaErrorInvalidValue);
+  if (bad_shape(B, M, N, Dc, Dq, R, width)) return int(cudaErrorInvalidValue);
   if (STASH && (stash_c == nullptr || stash_q == nullptr))
     return int(cudaErrorInvalidValue);
   const float* s = static_cast<const float*>(syn);
@@ -502,13 +550,15 @@ int launch_dtype(int dtype, const void* xc_in, const void* xq_in, const void* sy
   const float* v = static_cast<const float*>(vecs);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t smem = smem_for(dtype, M, N, Dc, Dq);
+  const bool mask = width < H;
   if (dtype == 0)
-    return launch_kernel(fused_rounds_kernel<float, STASH>, B, smem, st,
+    return launch_kernel(mask ? fused_rounds_kernel<float, STASH, false, true>
+                              : fused_rounds_kernel<float, STASH, false, false>, B, smem, st,
                          static_cast<const float*>(xc_in), static_cast<const float*>(xq_in),
                          s, ic, iq, static_cast<const float*>(mats), v,
                          static_cast<float*>(xc_out), static_cast<float*>(xq_out),
                          static_cast<float*>(stash_c), static_cast<float*>(stash_q),
-                         M, N, Dc, Dq, R);
+                         static_cast<float*>(nullptr), B, M, N, Dc, Dq, R, width);
   if (dtype != 1) return int(cudaErrorInvalidValue);
   typedef __nv_bfloat16 bf;
   const bf* xci = static_cast<const bf*>(xc_in);
@@ -520,11 +570,15 @@ int launch_dtype(int dtype, const void* xc_in, const void* xq_in, const void* sy
   bf* sq = static_cast<bf*>(stash_q);
   switch (tc_slab_rows(M, N, Dc, Dq)) {
     case 64:
-      return launch_kernel(tcp::fused_rounds_tc_kernel<STASH, 64>, B, smem, st, xci, xqi, s,
-                           ic, iq, mt, v, xco, xqo, sc, sq, M, N, Dc, Dq, R);
+      return launch_kernel(mask ? tcp::fused_rounds_tc_kernel<STASH, 64, true>
+                                : tcp::fused_rounds_tc_kernel<STASH, 64, false>, B, smem, st,
+                           xci, xqi, s, ic, iq, mt, v, xco, xqo, sc, sq, M, N, Dc, Dq, R,
+                           width);
     case 32:
-      return launch_kernel(tcp::fused_rounds_tc_kernel<STASH, 32>, B, smem, st, xci, xqi, s,
-                           ic, iq, mt, v, xco, xqo, sc, sq, M, N, Dc, Dq, R);
+      return launch_kernel(mask ? tcp::fused_rounds_tc_kernel<STASH, 32, true>
+                                : tcp::fused_rounds_tc_kernel<STASH, 32, false>, B, smem, st,
+                           xci, xqi, s, ic, iq, mt, v, xco, xqo, sc, sq, M, N, Dc, Dq, R,
+                           width);
     default:
       return int(cudaErrorInvalidValue);
   }
@@ -539,18 +593,46 @@ long long fused_rounds_smem_bytes(int dtype, int M, int N, int Dc, int Dq) {
   return (long long)smem_for(dtype, M, N, Dc, Dq);
 }
 
+// Shared memory one block of the f32 global-panel variant needs.
+long long fused_rounds_gpanels_smem_bytes(int M, int N, int Dc, int Dq) {
+  return (long long)smem_bytes<float, true>(M, N, Dc, Dq);
+}
+
 // xc_in/xq_in/xc_out/xq_out: [B, M|N, 128] in the state type; syn [B, M] f32;
 // idx_c [M, Dc], idx_q [N, Dq] int32 (-1 = masked slot); mats [10, 128, 128]
-// in the state type; vecs [14, 128] f32.  Returns cudaGetLastError() after the
-// launch (0 on success).
+// in the state type; vecs [14, 128] f32; width (<= 128): the model's width,
+// the columns past it zero in every operand.  Returns cudaGetLastError()
+// after the launch (0 on success).
 int fused_rounds_launch(int dtype, const void* xc_in, const void* xq_in,
                         const void* syn, const void* idx_c, const void* idx_q,
                         const void* mats, const void* vecs, void* xc_out,
                         void* xq_out, int B, int M, int N, int Dc, int Dq, int R,
-                        void* stream) {
+                        int width, void* stream) {
   return launch_dtype<false>(dtype, xc_in, xq_in, syn, idx_c, idx_q, mats, vecs,
                              xc_out, xq_out, nullptr, nullptr, B, M, N, Dc, Dq, R,
-                             stream);
+                             width, stream);
+}
+
+// The f32 global-panel variant of fused_rounds_launch: `grid` blocks walk the
+// samples, block i with its two panels in panels[i] ([grid][N + M][128] f32
+// scratch).
+int fused_rounds_gpanels_launch(const void* xc_in, const void* xq_in, const void* syn,
+                                const void* idx_c, const void* idx_q, const void* mats,
+                                const void* vecs, void* xc_out, void* xq_out, void* panels,
+                                int B, int M, int N, int Dc, int Dq, int R, int width,
+                                int grid, void* stream) {
+  if (bad_shape(B, M, N, Dc, Dq, R, width) || grid <= 0 || panels == nullptr)
+    return int(cudaErrorInvalidValue);
+  return launch_kernel(width < H ? fused_rounds_kernel<float, false, true, true>
+                                 : fused_rounds_kernel<float, false, true, false>, grid,
+                       smem_bytes<float, true>(M, N, Dc, Dq),
+                       static_cast<cudaStream_t>(stream), static_cast<const float*>(xc_in),
+                       static_cast<const float*>(xq_in), static_cast<const float*>(syn),
+                       static_cast<const int*>(idx_c), static_cast<const int*>(idx_q),
+                       static_cast<const float*>(mats), static_cast<const float*>(vecs),
+                       static_cast<float*>(xc_out), static_cast<float*>(xq_out),
+                       static_cast<float*>(nullptr), static_cast<float*>(nullptr),
+                       static_cast<float*>(panels), B, M, N, Dc, Dq, R, width);
 }
 
 // K2a: as fused_rounds_launch, and every round's input states go to
@@ -559,10 +641,11 @@ int fused_rounds_stash_launch(int dtype, const void* xc_in, const void* xq_in,
                               const void* syn, const void* idx_c, const void* idx_q,
                               const void* mats, const void* vecs, void* xc_out,
                               void* xq_out, void* stash_c, void* stash_q, int B,
-                              int M, int N, int Dc, int Dq, int R, void* stream) {
+                              int M, int N, int Dc, int Dq, int R, int width,
+                              void* stream) {
   return launch_dtype<true>(dtype, xc_in, xq_in, syn, idx_c, idx_q, mats, vecs,
                             xc_out, xq_out, stash_c, stash_q, B, M, N, Dc, Dq, R,
-                            stream);
+                            width, stream);
 }
 
 }  // extern "C"

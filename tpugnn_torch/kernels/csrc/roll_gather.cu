@@ -36,7 +36,14 @@
 //     behind every slab barrier); larger rasters run a second, ragged chunk
 //     (d=13: 144 + 56, d=15: 144 + 112, with 32-row weight slabs).
 //   f32 states (the trained roll decode): 32-row chunks of f32 FMA loops
-//     (gemm_chunk, rounds_common.cuh).
+//     (gemm_chunk, rounds_common.cuh).  From d=13 the two f32 panels do not
+//     fit in shared memory (l_pad 200: 263,568 B); there its GP variant
+//     keeps them in a per-block global scratch [grid][2 L][H] on a
+//     persistent grid of one block per SM, as K1's (fused_rounds.cu).
+//
+// Width: as K1's.  States and packs come zero-padded to 128 columns, and
+// with MASK (compiled in only for width < 128) the LayerNorm runs over the
+// model's first `width` columns.
 //
 // Bounds on an H100 at d=11, H=128: the work is K1's (the raster's 288 rows
 // against the graph's 241 real ones are this design's overhead), 39.7 MFLOP
@@ -77,17 +84,26 @@ struct Smem {
   unsigned char* bits;   // [2][L] slot-mask bits: check cells, then qubit cells
 };
 
+// GP: the gather panels are in global memory, not in the block's share
+template <bool GP = false>
 __host__ __device__ inline size_t smem_bytes(int L) {
-  return 2 * align16(size_t(L) * H * sizeof(float)) +
+  return (GP ? 0 : 2 * align16(size_t(L) * H * sizeof(float))) +
          2 * align16(size_t(CH) * XLD * sizeof(float)) +
          align16(size_t(KS) * 3 * H * sizeof(float)) + align16(size_t(2) * L);
 }
 
-__device__ Smem carve(unsigned char* base, int L) {
+// panels: the block's global panels [2 L][H] (GP), or nullptr
+template <bool GP>
+__device__ Smem carve(unsigned char* base, int L, float* panels) {
   Smem s;
   size_t o = 0;
-  s.ys_c = reinterpret_cast<float*>(base + o); o += align16(size_t(L) * H * sizeof(float));
-  s.ys_q = reinterpret_cast<float*>(base + o); o += align16(size_t(L) * H * sizeof(float));
+  if (GP) {
+    s.ys_c = panels;
+    s.ys_q = panels + size_t(L) * H;
+  } else {
+    s.ys_c = reinterpret_cast<float*>(base + o); o += align16(size_t(L) * H * sizeof(float));
+    s.ys_q = reinterpret_cast<float*>(base + o); o += align16(size_t(L) * H * sizeof(float));
+  }
   s.xs = reinterpret_cast<float*>(base + o);   o += align16(size_t(CH) * XLD * sizeof(float));
   s.hs = reinterpret_cast<float*>(base + o);   o += align16(size_t(CH) * XLD * sizeof(float));
   s.wsl = reinterpret_cast<float*>(base + o);  o += align16(size_t(KS) * 3 * H * sizeof(float));
@@ -99,12 +115,12 @@ __device__ Smem carve(unsigned char* base, int L) {
 // from x_src, writing it to x_dst, which may alias).  NW = 3 also writes the
 // projection x @ W[M_WS] into ys_out (the other side's gather source); SYN
 // adds the syndrome term syn * uc_s.
-template <int NW, bool SYN>
+template <int NW, bool SYN, bool MASK>
 __device__ void update_cells(const float* x_src, float* x_dst, int L, const float* ys_src,
                              float* ys_out, const unsigned char* bits, Offsets offs,
                              const float* syn, const float* __restrict__ degbo,
                              const float* __restrict__ W, const float* __restrict__ vec,
-                             const Smem& s) {
+                             const Smem& s, int width) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int c0 = lane * 4;
   float b0[4], ucs[4], ub0[4], ub1[4], lns[4], lnb[4];
@@ -172,8 +188,10 @@ __device__ void update_cells(const float* x_src, float* x_dst, int L, const floa
       store4(s.hs + lr * XLD + c0, hc);
     }
 
-    // update output GEMM, residual, LayerNorm (two-pass, eps 1e-6)
+    // update output GEMM, residual, LayerNorm (two-pass, eps 1e-6, over
+    // the first `width` columns; a padded column's v is 0)
     gemm_chunk<float, 1>(s.hs, W + size_t(M_W1) * H * H, s.wsl, agg);
+    const float inv_w = MASK ? 1.f / width : 1.f / H;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int lr = warp * 4 + i, r = row0 + lr;
@@ -184,48 +202,60 @@ __device__ void update_cells(const float* x_src, float* x_dst, int L, const floa
         v[j] = s.xs[lr * XLD + c0 + j] + agg[0][i][j] + ub1[j];
         sum += v[j];
       }
-      const float mu = warp_sum(sum) * (1.f / H);
+      const float mu = warp_sum(sum) * inv_w;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] -= mu;
+      if (MASK) {   // a narrower model's padded columns
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (c0 + j >= width) v[j] = 0.f;
+      }
       float sq = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sq += (v[j] - mu) * (v[j] - mu);
-      const float rs = rsqrtf(warp_sum(sq) * (1.f / H) + 1e-6f);
+      for (int j = 0; j < 4; ++j) sq += v[j] * v[j];
+      const float rs = rsqrtf(warp_sum(sq) * inv_w + 1e-6f);
       float o[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) o[j] = (v[j] - mu) * rs * lns[j] + lnb[j];
+      for (int j = 0; j < 4; ++j) o[j] = v[j] * rs * lns[j] + lnb[j];
       if (r < L) store4(x_dst + size_t(r) * H + c0, o);
     }
   }
 }
 
+// One block per sample (grid = B), or with GP a persistent grid whose
+// blocks walk the samples, each with its own panels in `panels`.
+template <bool GP, bool MASK>
 __global__ void __launch_bounds__(THREADS, 1)
 roll_rounds_kernel(const float* xc_in, const float* xq_in, const float* __restrict__ syn,
                    const int* __restrict__ maskbits, const float* __restrict__ degbo,
                    const float* __restrict__ mats, const float* __restrict__ vecs,
                    float* xc_out, float* xq_out, Offsets offs_c, Offsets offs_q, int L,
-                   int R) {
+                   int R, int width, float* panels, int B) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem s = carve(smem_raw, L);
-  const size_t b = blockIdx.x;
+  const Smem s = carve<GP>(smem_raw, L,
+                           GP ? panels + size_t(blockIdx.x) * 2 * L * H : nullptr);
   for (int e = threadIdx.x; e < 2 * L; e += THREADS)
     s.bits[e] = static_cast<unsigned char>(maskbits[e]);
-  const float* syn_b = syn + b * L;
-  float* xc = xc_out + b * size_t(L) * H;
-  float* xq = xq_out + b * size_t(L) * H;
   const float* wc = mats;                         // check side's 5 matrices
   const float* wq = mats + size_t(NMAT) * H * H;  // qubit side's 5 matrices
 
-  for (int round = 0; round < R; ++round) {
-    // round 0 reads the inputs; later rounds the states rewritten in place
-    const float* xc_src = round == 0 ? xc_in + b * size_t(L) * H : xc;
-    const float* xq_src = round == 0 ? xq_in + b * size_t(L) * H : xq;
-    project_rows<float>(xq_src, L, wq + size_t(M_WS) * H * H, s.ys_c, s.xs, s.wsl);
-    __syncthreads();
-    update_cells<3, true>(xc_src, xc, L, s.ys_c, s.ys_q, s.bits, offs_c, syn_b, degbo, wc,
-                          vecs, s);
-    __syncthreads();
-    update_cells<2, false>(xq_src, xq, L, s.ys_q, nullptr, s.bits + L, offs_q, nullptr,
-                           degbo + size_t(L) * H, wq, vecs + NVEC * H, s);
-    __syncthreads();
+  for (size_t b = blockIdx.x; b < size_t(B); b += gridDim.x) {
+    const float* syn_b = syn + b * L;
+    float* xc = xc_out + b * size_t(L) * H;
+    float* xq = xq_out + b * size_t(L) * H;
+    for (int round = 0; round < R; ++round) {
+      // round 0 reads the inputs; later rounds the states rewritten in place
+      const float* xc_src = round == 0 ? xc_in + b * size_t(L) * H : xc;
+      const float* xq_src = round == 0 ? xq_in + b * size_t(L) * H : xq;
+      project_rows<float>(xq_src, L, wq + size_t(M_WS) * H * H, s.ys_c, s.xs, s.wsl);
+      __syncthreads();
+      update_cells<3, true, MASK>(xc_src, xc, L, s.ys_c, s.ys_q, s.bits, offs_c, syn_b, degbo, wc,
+                            vecs, s, width);
+      __syncthreads();
+      update_cells<2, false, MASK>(xq_src, xq, L, s.ys_q, nullptr, s.bits + L, offs_q, nullptr,
+                             degbo + size_t(L) * H, wq, vecs + NVEC * H, s, width);
+      __syncthreads();
+    }
   }
 }
 
@@ -290,12 +320,12 @@ __device__ __forceinline__ float srnd(float x) {
 // Phases B (CHECK) and C: cells [0, L) of state x_src updated into x_dst
 // (which may alias it); CHECK also writes ys_out = rnd(x @ ws) and adds the
 // syndrome term.  `after` is the product that follows the last chunk.
-template <int SR, int NWARP, bool CHECK, bool SLOT16>
+template <int SR, int NWARP, bool CHECK, bool SLOT16, bool MASK>
 __device__ void update_cells_tc(const bf16* x_src, bf16* x_dst, int L, const bf16* ys_src,
                                 bf16* ys_out, const unsigned char* bits, Offsets offs,
                                 const float* syn, const float* __restrict__ degbo,
                                 const bf16* __restrict__ W, const float* __restrict__ vec,
-                                const Smem& s, Slabs<SR>& sl, const bf16* after) {
+                                const Smem& s, Slabs<SR>& sl, const bf16* after, int width) {
   constexpr int NTH = 32 * NWARP, CRN = 16 * NWARP;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -404,9 +434,11 @@ __device__ void update_cells_tc(const bf16* x_src, bf16* x_dst, int L, const bf1
       __syncwarp();
     }
 
-    // update output, residual, LayerNorm (two-pass, eps 1e-6)
+    // update output, residual, LayerNorm (two-pass, eps 1e-6, over the
+    // first `width` columns)
     mma_pass<SR, false, NTH>(ha, w1, sl, row0 + CRN < L ? first : after, acc, active);
     if (active) {
+      const float inv_w = MASK ? 1.f / width : 1.f / H;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         float sum = 0.f;
@@ -419,15 +451,18 @@ __device__ void update_cells_tc(const bf16* x_src, bf16* x_dst, int L, const bf1
           acc[j][2 * h + 1] += x.y + ub1.y;
           sum += acc[j][2 * h] + acc[j][2 * h + 1];
         }
-        const float mu = quad_sum(sum) * (1.f / H);
-        float sq = 0.f;
+        const float mu = quad_sum(sum) * inv_w;
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
           acc[j][2 * h] -= mu;
           acc[j][2 * h + 1] -= mu;
-          sq += acc[j][2 * h] * acc[j][2 * h] + acc[j][2 * h + 1] * acc[j][2 * h + 1];
         }
-        const float rs = rsqrtf(quad_sum(sq) * (1.f / H) + 1e-6f);
+        if (MASK) mask_columns(acc, h, t, width);
+        float sq = 0.f;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          sq += acc[j][2 * h] * acc[j][2 * h] + acc[j][2 * h + 1] * acc[j][2 * h + 1];
+        const float rs = rsqrtf(quad_sum(sq) * inv_w + 1e-6f);
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
           const int c = 8 * j + 2 * t;
@@ -441,13 +476,13 @@ __device__ void update_cells_tc(const bf16* x_src, bf16* x_dst, int L, const bf1
   }
 }
 
-template <int SR, int NWARP, bool SLOT16>
+template <int SR, int NWARP, bool SLOT16, bool MASK>
 __global__ void __launch_bounds__(32 * NWARP, 1)
 roll_rounds_tc_kernel(const bf16* xc_in, const bf16* xq_in, const float* __restrict__ syn,
                       const int* __restrict__ maskbits, const float* __restrict__ degbo,
                       const bf16* __restrict__ mats, const float* __restrict__ vecs,
                       bf16* xc_out, bf16* xq_out, Offsets offs_c, Offsets offs_q, int L,
-                      int R) {
+                      int R, int width) {
   constexpr int NTH = 32 * NWARP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Smem s = carve<SR, NWARP>(smem_raw, L);
@@ -468,13 +503,13 @@ roll_rounds_tc_kernel(const bf16* xc_in, const bf16* xq_in, const float* __restr
     const bf16* xc_src = round == 0 ? xc_in + b * size_t(L) * H : xc;
     const bf16* xq_src = round == 0 ? xq_in + b * size_t(L) * H : xq;
     project_rows_tc<SR, NTH>(xq_src, L, proj, s.ys_c, s.xs, sl, wc + size_t(M_WS) * HH);
-    update_cells_tc<SR, NWARP, true, SLOT16>(xc_src, xc, L, s.ys_c, s.ys_q, s.bits, offs_c,
+    update_cells_tc<SR, NWARP, true, SLOT16, MASK>(xc_src, xc, L, s.ys_c, s.ys_q, s.bits, offs_c,
                                              syn_b, degbo, wc, vecs, s, sl,
-                                             wq + size_t(M_WD) * HH);
-    update_cells_tc<SR, NWARP, false, SLOT16>(xq_src, xq, L, s.ys_q, nullptr, s.bits + L,
+                                             wq + size_t(M_WD) * HH, width);
+    update_cells_tc<SR, NWARP, false, SLOT16, MASK>(xq_src, xq, L, s.ys_q, nullptr, s.bits + L,
                                               offs_q, nullptr, degbo + size_t(L) * H, wq,
                                               vecs + NVEC * H, s, sl,
-                                              round + 1 < R ? proj : nullptr);
+                                              round + 1 < R ? proj : nullptr, width);
     __syncthreads();   // the round's state writes are visible to the next round
   }
 }
@@ -496,34 +531,58 @@ size_t smem_for(int dtype, int L) {
                                : tcr::smem_bytes<32, TC_WARPS>(L);
 }
 
-template <typename T, typename K>
-int launch_kernel(K kernel, int threads, size_t smem, const void* xc_in, const void* xq_in,
-                  const float* syn, const int* bits, const float* degbo, const void* mats,
-                  const float* vecs, void* xc_out, void* xq_out, Offsets offs_c,
-                  Offsets offs_q, int B, int L, int R, cudaStream_t stream) {
+// The launch's arguments past the kernel's choice: one call of any of the
+// kernels, with `grid` blocks (B, or the persistent grid of the GP variant).
+struct Launch {
+  const void *xc_in, *xq_in;
+  const float* syn;
+  const int* bits;
+  const float* degbo;
+  const void* mats;
+  const float* vecs;
+  void *xc_out, *xq_out;
+  Offsets offs_c, offs_q;
+  int B, L, R, width, grid;
+  float* panels;
+  cudaStream_t stream;
+};
+
+// `extra`: the arguments past `width` (the f32 kernel's panels and B).
+template <typename T, typename K, typename... Extra>
+int launch_kernel(K kernel, int threads, size_t smem, const Launch& a, Extra... extra) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(smem));
   if (err != cudaSuccess) return int(err);
-  kernel<<<B, threads, smem, stream>>>(
-      static_cast<const T*>(xc_in), static_cast<const T*>(xq_in), syn, bits, degbo,
-      static_cast<const T*>(mats), vecs, static_cast<T*>(xc_out), static_cast<T*>(xq_out),
-      offs_c, offs_q, L, R);
+  kernel<<<a.grid, threads, smem, a.stream>>>(
+      static_cast<const T*>(a.xc_in), static_cast<const T*>(a.xq_in), a.syn, a.bits, a.degbo,
+      static_cast<const T*>(a.mats), a.vecs, static_cast<T*>(a.xc_out),
+      static_cast<T*>(a.xq_out), a.offs_c, a.offs_q, a.L, a.R, a.width, extra...);
   return int(cudaGetLastError());
 }
 
-template <bool SLOT16>
-int launch_tc(size_t smem, const void* xc_in, const void* xq_in, const float* syn,
-              const int* bits, const float* degbo, const void* mats, const float* vecs,
-              void* xc_out, void* xq_out, Offsets offs_c, Offsets offs_q, int B, int L,
-              int R, cudaStream_t st) {
+template <bool SLOT16, bool MASK>
+int launch_tc(size_t smem, const Launch& a) {
   typedef __nv_bfloat16 bf;
-  if (tc_slab_rows(L) == 64)
-    return launch_kernel<bf>(
-        tcr::roll_rounds_tc_kernel<64, TC_WARPS, SLOT16>, 32 * TC_WARPS, smem, xc_in, xq_in,
-        syn, bits, degbo, mats, vecs, xc_out, xq_out, offs_c, offs_q, B, L, R, st);
-  return launch_kernel<bf>(
-      tcr::roll_rounds_tc_kernel<32, TC_WARPS, SLOT16>, 32 * TC_WARPS, smem, xc_in, xq_in,
-      syn, bits, degbo, mats, vecs, xc_out, xq_out, offs_c, offs_q, B, L, R, st);
+  if (tc_slab_rows(a.L) == 64)
+    return launch_kernel<bf>(tcr::roll_rounds_tc_kernel<64, TC_WARPS, SLOT16, MASK>,
+                             32 * TC_WARPS, smem, a);
+  return launch_kernel<bf>(tcr::roll_rounds_tc_kernel<32, TC_WARPS, SLOT16, MASK>,
+                           32 * TC_WARPS, smem, a);
+}
+
+// Checks the shapes and reads the offsets; returns 0 or an error.
+int prepare(Launch& a, const void* offs) {
+  if (a.B <= 0 || a.L <= 0 || a.R <= 0 || a.width <= 0 || a.width > H || offs == nullptr)
+    return int(cudaErrorInvalidValue);
+  const int* o = static_cast<const int*>(offs);
+  for (int k = 0; k < SLOTS; ++k) {
+    a.offs_c.o[k] = o[k];
+    a.offs_q.o[k] = o[SLOTS + k];
+    if (a.offs_c.o[k] <= -a.L || a.offs_c.o[k] >= a.L || a.offs_q.o[k] <= -a.L ||
+        a.offs_q.o[k] >= a.L)
+      return int(cudaErrorInvalidValue);
+  }
+  return 0;
 }
 
 }  // namespace
@@ -535,42 +594,55 @@ long long roll_rounds_smem_bytes(int dtype, int L) {
   return (long long)smem_for(dtype, L);
 }
 
+// Shared memory one block of the f32 global-panel variant needs.
+long long roll_rounds_gpanels_smem_bytes(int L) {
+  return (long long)smem_bytes<true>(L);
+}
+
 // xc_in/xq_in/xc_out/xq_out: [B, L, 128] raster states in the state type;
 // syn [B, L] f32; maskbits [2, L] int32 (bit k: slot k of the cell is real;
 // check cells, then qubit cells); degbo [2, L, 128] f32; mats [10, 128, 128]
 // in the state type; vecs [14, 128] f32 (row 2 the unrounded uc_s); offs, a
 // host array of 8 ints: the four check-side offsets, then the four qubit-side
-// ones.  slot16 (bf16 states only) rounds the slot stage to bf16.  Returns
-// cudaGetLastError() after the launch (0 on success).
+// ones.  slot16 (bf16 states only) rounds the slot stage to bf16.  width
+// (<= 128): the model's width, the columns past it zero in every operand.
+// Returns cudaGetLastError() after the launch (0 on success).
 int roll_rounds_launch(int dtype, int slot16, const void* xc_in, const void* xq_in,
                        const void* syn, const void* maskbits, const void* degbo,
                        const void* mats, const void* vecs, void* xc_out, void* xq_out,
-                       const void* offs, int B, int L, int R, void* stream) {
-  if (B <= 0 || L <= 0 || R <= 0 || offs == nullptr) return int(cudaErrorInvalidValue);
-  Offsets oc, oq;
-  const int* o = static_cast<const int*>(offs);
-  for (int k = 0; k < SLOTS; ++k) {
-    oc.o[k] = o[k];
-    oq.o[k] = o[SLOTS + k];
-    if (oc.o[k] <= -L || oc.o[k] >= L || oq.o[k] <= -L || oq.o[k] >= L)
-      return int(cudaErrorInvalidValue);
-  }
-  const float* s = static_cast<const float*>(syn);
-  const int* mb = static_cast<const int*>(maskbits);
-  const float* db = static_cast<const float*>(degbo);
-  const float* v = static_cast<const float*>(vecs);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+                       const void* offs, int B, int L, int R, int width, void* stream) {
+  Launch a{xc_in, xq_in, static_cast<const float*>(syn), static_cast<const int*>(maskbits),
+           static_cast<const float*>(degbo), mats, static_cast<const float*>(vecs), xc_out,
+           xq_out, {}, {}, B, L, R, width, B, nullptr, static_cast<cudaStream_t>(stream)};
+  if (int err = prepare(a, offs)) return err;
   const size_t smem = smem_for(dtype, L);
+  const bool mask = width < H;
   if (dtype == 0)
-    return launch_kernel<float>(
-        roll_rounds_kernel, THREADS, smem, xc_in, xq_in, s, mb, db, mats, v, xc_out, xq_out,
-        oc, oq, B, L, R, st);
+    return launch_kernel<float>(mask ? roll_rounds_kernel<false, true>
+                                     : roll_rounds_kernel<false, false>, THREADS, smem, a,
+                                a.panels, a.B);
   if (dtype != 1) return int(cudaErrorInvalidValue);
-  if (slot16)
-    return launch_tc<true>(smem, xc_in, xq_in, s, mb, db, mats, v, xc_out, xq_out, oc, oq,
-                           B, L, R, st);
-  return launch_tc<false>(smem, xc_in, xq_in, s, mb, db, mats, v, xc_out, xq_out, oc, oq,
-                          B, L, R, st);
+  if (mask) return slot16 ? launch_tc<true, true>(smem, a) : launch_tc<false, true>(smem, a);
+  return slot16 ? launch_tc<true, false>(smem, a) : launch_tc<false, false>(smem, a);
+}
+
+// The f32 global-panel variant of roll_rounds_launch: `grid` blocks walk the
+// samples, block i with its two panels in panels[i] ([grid][2 L][128] f32
+// scratch).
+int roll_rounds_gpanels_launch(const void* xc_in, const void* xq_in, const void* syn,
+                               const void* maskbits, const void* degbo, const void* mats,
+                               const void* vecs, void* xc_out, void* xq_out, void* panels,
+                               const void* offs, int B, int L, int R, int width, int grid,
+                               void* stream) {
+  Launch a{xc_in, xq_in, static_cast<const float*>(syn), static_cast<const int*>(maskbits),
+           static_cast<const float*>(degbo), mats, static_cast<const float*>(vecs), xc_out,
+           xq_out, {}, {}, B, L, R, width, grid, static_cast<float*>(panels),
+           static_cast<cudaStream_t>(stream)};
+  if (int err = prepare(a, offs)) return err;
+  if (grid <= 0 || panels == nullptr) return int(cudaErrorInvalidValue);
+  return launch_kernel<float>(width < H ? roll_rounds_kernel<true, true>
+                                         : roll_rounds_kernel<true, false>, THREADS,
+                              smem_bytes<true>(L), a, a.panels, a.B);
 }
 
 }  // extern "C"

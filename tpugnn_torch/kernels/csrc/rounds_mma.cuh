@@ -66,6 +66,18 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Zero the columns from `width` on of row half h of an m16 x n128
+// accumulator (a narrower model's padded columns, before its LayerNorm's
+// variance).
+__device__ __forceinline__ void mask_columns(float (&acc)[NT][4], int h, int t, int width) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int c = 8 * j + 2 * t;
+    if (c >= width) acc[j][2 * h] = 0.f;
+    if (c + 1 >= width) acc[j][2 * h + 1] = 0.f;
+  }
+}
+
 // 16 bytes global -> shared, asynchronous; src_bytes = 0 fills zeros
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes = 16) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"

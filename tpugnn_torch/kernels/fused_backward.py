@@ -20,6 +20,12 @@ gradients of ``wo @ ua`` and ``bo @ ua`` into ``wo``, ``ua`` and ``bo``:
   ``csrc/fused_backward.cu`` (K2b, replacing ``_bwd``'s ``pl.pallas_call`` at
   ``:624``); on a CPU tensor, :func:`rounds_vjp_plain`.
 
+A model narrower than the kernels' 128 columns trains on states and packs
+zero-padded outside the autograd Function (:func:`padded_rounds`, with
+``F.pad``), so autograd slices every gradient back to the model's width;
+inside, the LayerNorm and its adjoint run over the model's ``width``
+columns, and no cotangent reaches a padded one.
+
 Cotangents are f32.  Where the JAX kernel rounds a cotangent to the state
 type before a product (``dpre``, ``dt``, each slot's ``dz`` before the
 scatter, and ``dydb``/``dys`` in the wide projection), both versions here
@@ -34,21 +40,22 @@ import torch
 
 from tpugnn_torch.kernels import fused_decoder as fd
 
-__all__ = ["FusedRoundsFn", "rounds_fwd_stash_plain", "rounds_vjp_plain",
+__all__ = ["FusedRoundsFn", "padded_rounds", "rounds_fwd_stash_plain", "rounds_vjp_plain",
            "trained_rounds"]
 
 def rounds_fwd_stash_plain(xc, xq, syn, operators, mats32, vecs32, *, rounds: int,
-                           state_dtype: str = "float32"):
+                           state_dtype: str = "float32", width: int | None = None):
     """Plain version of K2a: ``(xc, xq, stash_c, stash_q)``.
 
     The outputs are :func:`~tpugnn_torch.kernels.fused_decoder.rounds_plain`'s
     (f32); ``stash_c`` [R, B, M, H] and ``stash_q`` [R, B, N, H] hold every
-    round's input states in the state type."""
+    round's input states in the state type.  ``width``: the LayerNorm's
+    columns on padded operands (None: all)."""
     dt = fd.STATE_DTYPES[state_dtype]
     mats, vecs = fd.cast_packs(mats32, vecs32, dt)
     stash = ([], [])
     xc, xq = fd.rounds_packed(xc, xq, syn, operators, mats, vecs, rounds=rounds,
-                              dtype=dt, stash=stash)
+                              dtype=dt, stash=stash, width=width)
     return xc, xq, torch.stack(stash[0]), torch.stack(stash[1])
 
 
@@ -57,18 +64,20 @@ def _wgrad(a, b):
     return a.reshape(-1, a.shape[-1]).T @ b.reshape(-1, b.shape[-1])
 
 
-def _head_adjoint(g, res, mats, vecs, deg, rnd, dvec):
+def _head_adjoint(g, res, mats, vecs, deg, rnd, dvec, width=None):
     """LayerNorm, residual-MLP and folded-aggregation adjoint of one
     direction.  ``g`` is the cotangent of the round's new states.  Fills
     ``dvec`` rows 1 and 3-6 and returns ``(dpre, dt, dt_r, dhs, dw1, dwf)``:
     ``dpre`` is the residual's share of the state cotangent, ``dt_r`` is
-    ``dt`` rounded to the state type, as the products read it."""
+    ``dt`` rounded to the state type, as the products read it.  The
+    LayerNorm's adjoint is over its first ``width`` columns, ``dpre`` 0 on
+    the others."""
     nh, inv, t, hc, hs = res["nh"], res["inv"], res["t"], res["hc"], res["hs"]
     dvec[5] = (g * nh).sum((0, 1))
     dvec[6] = g.sum((0, 1))
     dnh = g * vecs[5]
-    dpre = inv * (dnh - dnh.mean(-1, keepdim=True)
-                  - nh * (dnh * nh).mean(-1, keepdim=True))
+    dpre = fd.ln_mask(inv * (dnh - fd.ln_mean(dnh, width)
+                             - nh * fd.ln_mean(dnh * nh, width)), width)
     dpre_r = rnd(dpre)
     dw1 = _wgrad(hc, dpre_r)
     dvec[4] = dpre.sum((0, 1))
@@ -96,7 +105,7 @@ def _gather_adjoint(dhs, live, src, n_src, rnd, dvec):
 
 
 def rounds_vjp_plain(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq, *,
-                     state_dtype: str = "float32"):
+                     state_dtype: str = "float32", width: int | None = None):
     """Plain version of K2b: the explicit adjoint of the rounds.
 
     Replays each round from the stash (:func:`rounds_fwd_stash_plain`) and
@@ -104,7 +113,8 @@ def rounds_vjp_plain(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq,
     (``tpugnn/kernels/fused_backward.py:273``).  ``dxc``/``dxq`` are the
     cotangents of the rounds' outputs.  Returns ``(dxc, dxq, dsyn, dmats,
     dvecs)`` in f32: the cotangents of the input states, of ``syn`` (shaped
-    like it) and of the f32 packs."""
+    like it) and of the f32 packs.  ``width``: the LayerNorm's columns on
+    padded operands (None: all)."""
     dt = fd.STATE_DTYPES[state_dtype]
     src_c, mask_c, deg_c, src_q, mask_q, deg_q = operators
     mats, vecs = fd.cast_packs(mats32, vecs32, dt)
@@ -125,15 +135,15 @@ def rounds_vjp_plain(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq,
         ys_q = rnd(xc @ mats[2])
         res_c, res_q = {}, {}
         fd._update(xc, ys_c, src_c, mask_c, deg_c, mats[0:5], vecs[0:7], synterm, rnd,
-                   keep=res_c)
+                   keep=res_c, width=width)
         fd._update(xq, ys_q, src_q, mask_q, deg_q, mats[5:10], vecs[7:14], 0.0, rnd,
-                   keep=res_q)
+                   keep=res_q, width=width)
         dv_c = torch.zeros((7, h), device=gc.device)
         dv_q = torch.zeros((7, h), device=gc.device)
         dpre_c, dt_c, dtr_c, dhs_c, dw1_c, dwf_c = _head_adjoint(
-            gc, res_c, mats[0:5], vecs[0:7], deg_c, rnd, dv_c)
+            gc, res_c, mats[0:5], vecs[0:7], deg_c, rnd, dv_c, width)
         dpre_q, _, dtr_q, dhs_q, dw1_q, dwf_q = _head_adjoint(
-            gq, res_q, mats[5:10], vecs[7:14], deg_q, rnd, dv_q)
+            gq, res_q, mats[5:10], vecs[7:14], deg_q, rnd, dv_q, width)
         dv_c[2] = (s * dt_c).sum((0, 1))
         dsyn += (dt_c * ucs32).sum(-1)
         dydb_c, dys_c = _gather_adjoint(dhs_c, res_c["live"], src_c, n, rnd, dv_c)
@@ -151,13 +161,16 @@ def rounds_vjp_plain(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq,
     return gc, gq, dsyn.reshape(syn.shape), dmats, dvecs
 
 
-def _fwd_stash_cuda(xc, xq, syn, operators, mats32, vecs32, rounds, state_dtype):
-    """K2a: the fused-rounds kernel with its stash flag."""
+def _fwd_stash_cuda(xc, xq, syn, operators, mats32, vecs32, rounds, state_dtype,
+                    width=fd.WIDTH):
+    """K2a: the fused-rounds kernel with its stash flag, on operands padded
+    to ``fd.WIDTH`` columns; ``width`` is the model's."""
     from tpugnn_torch.kernels._build import load_library
 
     dt = fd.STATE_DTYPES[state_dtype]
+    fd.check_width(width)
     lib = load_library("fused_rounds")
-    a = fd._cuda_operands(lib, xc, xq, syn, operators, mats32, rounds, dt)
+    a = fd._cuda_operands(lib, xc, xq, syn, operators, mats32, rounds, dt, gpanels=False)
     mats, vecs = fd.cast_packs(mats32, vecs32, dt)
     b, m, n, h = a.b, a.m, a.n, xc.shape[2]
     stash_c = torch.empty((rounds, b, m, h), dtype=dt, device=xc.device)
@@ -169,16 +182,18 @@ def _fwd_stash_cuda(xc, xq, syn, operators, mats32, vecs32, rounds, state_dtype)
             a.code, a.xc.data_ptr(), a.xq.data_ptr(), a.syn.data_ptr(),
             a.idx_c.data_ptr(), a.idx_q.data_ptr(), mats.data_ptr(), vecs.data_ptr(),
             out_c.data_ptr(), out_q.data_ptr(), stash_c.data_ptr(), stash_q.data_ptr(),
-            b, m, n, a.dc, a.dq, rounds, stream)
+            b, m, n, a.dc, a.dq, rounds, width, stream)
     if err != 0:
         raise RuntimeError(f"fused_rounds_fwd_stash kernel launch failed: CUDA error {err}")
     fd._LAUNCHES["fused_rounds_fwd_stash"] += 1
     return out_c.float(), out_q.float(), stash_c, stash_q
 
 
-def _bwd_cuda(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq, state_dtype):
+def _bwd_cuda(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq, state_dtype,
+              width=fd.WIDTH):
     """K2b: the reverse round walk, then the fixed-order sum of the blocks'
-    weight-gradient partials (two launches, counted as one call)."""
+    weight-gradient partials (two launches, counted as one call), on
+    operands padded to ``fd.WIDTH`` columns; ``width`` is the model's."""
     from tpugnn_torch.kernels._build import load_library
 
     dt = fd.STATE_DTYPES[state_dtype]
@@ -187,10 +202,11 @@ def _bwd_cuda(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq, state_
     n = stash_q.shape[2]
     dev = stash_c.device
     src_c, mask_c, _, src_q, mask_q, _ = operators
-    if h != 128 or stash_c.dtype != dt or stash_q.shape[:2] != stash_c.shape[:2]:
-        raise ValueError(f"the backward kernel takes the stash of K2a at hidden 128, "
-                         f"got {tuple(stash_c.shape)} {stash_c.dtype} and "
-                         f"{tuple(stash_q.shape)}")
+    fd.check_width(width)
+    if h != fd.WIDTH or stash_c.dtype != dt or stash_q.shape[:2] != stash_c.shape[:2]:
+        raise ValueError(f"the backward kernel takes the stash of K2a, padded to "
+                         f"{fd.WIDTH} columns, got {tuple(stash_c.shape)} {stash_c.dtype} "
+                         f"and {tuple(stash_q.shape)}")
     if src_c.shape[0] != m or src_q.shape[0] != n or src_c.device != dev:
         raise ValueError("operators do not match the stash's rows or device")
     idx_c, idx_q = fd._slot_tables(src_c, mask_c, src_q, mask_q)
@@ -223,7 +239,7 @@ def _bwd_cuda(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq, state_
             vecs.data_ptr(), ucs32.data_ptr(),
             g_c.data_ptr(), g_q.data_ptr(), dsyn.data_ptr(), scratch.data_ptr(),
             part_mats.data_ptr(), part_vecs.data_ptr(), dmats.data_ptr(),
-            dvecs.data_ptr(), b, m, n, dc, dq, rounds, grid, stream)
+            dvecs.data_ptr(), b, m, n, dc, dq, rounds, width, grid, stream)
     if err != 0:
         raise RuntimeError(f"fused_rounds_bwd kernel launch failed: CUDA error {err}")
     fd._LAUNCHES["fused_rounds_bwd"] += 1
@@ -235,23 +251,27 @@ class FusedRoundsFn(torch.autograd.Function):
     of ``make_kernel_vjp_rounds``).
 
     ``apply(xc, xq, syn, mats32, vecs32, operators, rounds, state_dtype,
-    kernels)``: ``kernels`` selects K2a/K2b (CUDA tensors) or the plain
-    versions (CPU tensors); the caller decides it from the device."""
+    kernels, width)``: ``kernels`` selects K2a/K2b (CUDA tensors) or the
+    plain versions (CPU tensors); the caller decides it from the device.
+    ``width`` is the model's width on operands padded past it (the
+    LayerNorm's columns), or None where they are not."""
 
     @staticmethod
     def forward(ctx, xc, xq, syn, mats32, vecs32, operators, rounds, state_dtype,
-                kernels):
+                kernels, width):
         if kernels:
             outs = _fwd_stash_cuda(xc, xq, syn, operators, mats32, vecs32, rounds,
-                                   state_dtype)
+                                   state_dtype, width)
         else:
             outs = rounds_fwd_stash_plain(xc, xq, syn, operators, mats32, vecs32,
-                                          rounds=rounds, state_dtype=state_dtype)
+                                          rounds=rounds, state_dtype=state_dtype,
+                                          width=width)
         xc_o, xq_o, stash_c, stash_q = outs
         ctx.save_for_backward(stash_c, stash_q, syn, mats32, vecs32)
         ctx.operators = operators
         ctx.state_dtype = state_dtype
         ctx.kernels = kernels
+        ctx.width = width
         return xc_o, xq_o
 
     @staticmethod
@@ -264,16 +284,35 @@ class FusedRoundsFn(torch.autograd.Function):
             dxq = torch.zeros(stash_q.shape[1:], device=stash_q.device)
         args = (stash_c, stash_q, syn, ctx.operators, mats32, vecs32, dxc, dxq)
         if ctx.kernels:
-            grads = _bwd_cuda(*args, ctx.state_dtype)
+            grads = _bwd_cuda(*args, ctx.state_dtype, ctx.width)
         else:
-            grads = rounds_vjp_plain(*args, state_dtype=ctx.state_dtype)
-        return (*grads, None, None, None, None)
+            grads = rounds_vjp_plain(*args, state_dtype=ctx.state_dtype, width=ctx.width)
+        return (*grads, None, None, None, None, None)
+
+
+def padded_rounds(xc, xq, syn, operators, mats32, vecs32, rounds: int,
+                  state_dtype: str = "float32", *, kernels: bool):
+    """:class:`FusedRoundsFn` on the kernels' ``fd.WIDTH`` columns: the
+    states and f32 packs go in zero-padded (``F.pad``, so autograd slices
+    their gradients back to the model's width) and the outputs come back
+    sliced to it."""
+    h = mats32.shape[-1]
+    fd.check_width(h)
+    mats32, vecs32 = fd.pad_packs(mats32, vecs32)
+    xc, xq = fd.pad_states(xc, xq)
+    xc_o, xq_o = FusedRoundsFn.apply(xc, xq, syn, mats32, vecs32, operators, rounds,
+                                     state_dtype, kernels, h)
+    return xc_o[..., :h], xq_o[..., :h]
 
 
 def trained_rounds(xc, xq, syn, operators, weights, rounds: int,
                    state_dtype: str = "float32", *, kernels: bool):
     """The differentiable rounds: packs the weights in f32 (autograd records
-    the packing) and calls :class:`FusedRoundsFn`."""
+    the packing) and calls :class:`FusedRoundsFn`, for the kernels through
+    :func:`padded_rounds`."""
     mats32, vecs32 = fd.pack_weights_f32(weights)
+    if kernels:
+        return padded_rounds(xc, xq, syn, operators, mats32, vecs32, rounds, state_dtype,
+                             kernels=True)
     return FusedRoundsFn.apply(xc, xq, syn, mats32, vecs32, operators, rounds,
-                               state_dtype, kernels)
+                               state_dtype, kernels, None)

@@ -30,6 +30,17 @@ arithmetic in f32::
 reassociation, the TPU kernel's "fold" variant); the matrices are then stored
 in the state type and the vectors in f32.  The slot gather reads source rows
 by index, not through the TPU's one-hot incidence GEMM.
+
+The kernels are built for ``WIDTH`` = 128 columns.  A model of width
+``h < 128`` runs on states and packs zero-padded to 128 (:func:`pad_packs`,
+:func:`pad_states`), which keeps every padded column exactly 0 through a
+round, and the LayerNorm takes its mean and variance over the first ``h``
+columns (``width=h`` in the plain versions; 0 on the rest).  The padding is
+exact, as the JAX package's ``pad_msg_width`` is
+(``tpugnn/kernels/fused_decoder.py:127-142``).  With f32 states, a graph
+whose two gather panels do not fit in a block's shared memory beside the
+chunk buffers (d=13, d=15) runs K1's variant with the panels in global
+memory (``fused_rounds_gpanels`` in :func:`launch_counts`).
 """
 
 from __future__ import annotations
@@ -39,19 +50,23 @@ import ctypes
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 __all__ = ["RoundWeights", "make_operators", "pack_weights", "pack_weights_f32",
-           "cast_packs", "rounds_plain",
+           "cast_packs", "pad_packs", "pad_states", "check_width", "rounds_plain",
            "decoder_rounds", "launch_counts", "reset_launch_counts",
-           "STATE_DTYPES", "SMEM_LIMIT"]
+           "STATE_DTYPES", "SMEM_LIMIT", "WIDTH"]
 
 STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448  # dynamic shared memory one block may use on Hopper
+WIDTH = 128          # the columns the rounds kernels are built for
 
 # launches of the CUDA kernels in this process: K1 (decoder_rounds without
-# grad), K2a and K2b (kernels/fused_backward.py)
-_LAUNCHES = {"fused_rounds": 0, "fused_rounds_fwd_stash": 0, "fused_rounds_bwd": 0}
+# grad; its f32 variant with the gather panels in global memory apart), K2a
+# and K2b (kernels/fused_backward.py)
+_LAUNCHES = {"fused_rounds": 0, "fused_rounds_gpanels": 0, "fused_rounds_fwd_stash": 0,
+             "fused_rounds_bwd": 0}
 
 
 def launch_counts() -> dict:
@@ -161,14 +176,56 @@ def cast_packs(mats: torch.Tensor, vecs: torch.Tensor, dtype: torch.dtype):
     return mats.to(dtype).contiguous(), vecs.contiguous()
 
 
+def pad_packs(mats: torch.Tensor, vecs: torch.Tensor, width: int = WIDTH):
+    """The packs zero-padded to ``width`` columns (and rows), differentiably:
+    ``mats`` [10, h, h] -> [10, width, width], ``vecs`` [14, h] -> [14,
+    width]; as they are where ``h == width``.  The padded LayerNorm scale
+    and bias are 0, so a padded column's state stays 0."""
+    p = width - mats.shape[-1]
+    return (mats, vecs) if p == 0 else (F.pad(mats, (0, p, 0, p)), F.pad(vecs, (0, p)))
+
+
+def pad_states(*xs: torch.Tensor, width: int = WIDTH):
+    """Each ``x`` [..., h] zero-padded to [..., width], differentiably (as it
+    is where ``h == width``: ``F.pad`` would copy it)."""
+    return tuple(x if x.shape[-1] == width else F.pad(x, (0, width - x.shape[-1]))
+                 for x in xs)
+
+
+def check_width(h: int) -> None:
+    """Raises unless the kernels take a model of width ``h``."""
+    if not 1 <= h <= WIDTH:
+        raise ValueError(f"the rounds kernels take hidden = msg_hidden of at most "
+                         f"{WIDTH}, got {h}")
+
+
 def pack_weights(w: RoundWeights, dtype: torch.dtype):
     """``(mats, vecs)`` of :func:`pack_weights_f32` as the kernels and the
     plain versions read them (:func:`cast_packs`)."""
     return cast_packs(*pack_weights_f32(w), dtype)
 
 
-def _update(x, ys_src, src, mask, deg, mats, vecs, synterm, rnd, keep=None):
-    """One direction's node update (see the module docstring).
+def ln_mean(t: torch.Tensor, width: int | None) -> torch.Tensor:
+    """The mean over the first ``width`` columns (all for None)."""
+    return t.mean(-1, keepdim=True) if width is None else t[..., :width].mean(-1, keepdim=True)
+
+
+def ln_mask(t: torch.Tensor, width: int | None) -> torch.Tensor:
+    """``t`` with the columns from ``width`` on set to 0 (as it is for None)."""
+    return t if width is None else F.pad(t[..., :width], (0, t.shape[-1] - width))
+
+
+def layer_norm(v: torch.Tensor, width: int | None):
+    """The rounds' LayerNorm before its scale and bias (eps 1e-6), over the
+    first ``width`` columns: ``(nh, inv)``, ``nh`` 0 on the others."""
+    ctr = ln_mask(v - ln_mean(v, width), width)
+    inv = torch.rsqrt(ln_mean(ctr * ctr, width) + 1e-6)
+    return ctr * inv, inv
+
+
+def _update(x, ys_src, src, mask, deg, mats, vecs, synterm, rnd, keep=None, width=None):
+    """One direction's node update (see the module docstring); the
+    LayerNorm over the first ``width`` columns.
 
     ``keep``, a dict, receives what the adjoint reads: the slot relu's
     live mask, ``hs``, ``t``, ``hc`` and the LayerNorm's ``nh`` and
@@ -183,10 +240,7 @@ def _update(x, ys_src, src, mask, deg, mats, vecs, synterm, rnd, keep=None):
     hs = rnd(z.sum(2))
     t = ux + hs @ mats[3] + deg[:, None] * vecs[1] + synterm + vecs[3]
     hc = rnd(torch.relu(t))
-    v = x + hc @ mats[4] + vecs[4]
-    ctr = v - v.mean(-1, keepdim=True)
-    inv = torch.rsqrt((ctr * ctr).mean(-1, keepdim=True) + 1e-6)
-    nh = ctr * inv
+    nh, inv = layer_norm(x + hc @ mats[4] + vecs[4], width)
     if keep is not None:
         keep.update(live=(zin > 0) & (mask[None, :, :, None] > 0), hs=hs, t=t,
                     hc=hc, nh=nh, inv=inv)
@@ -194,11 +248,13 @@ def _update(x, ys_src, src, mask, deg, mats, vecs, synterm, rnd, keep=None):
 
 
 def rounds_packed(xc, xq, syn, operators, mats, vecs, *, rounds: int,
-                  dtype: torch.dtype, stash=None):
+                  dtype: torch.dtype, stash=None, width: int | None = None):
     """The rounds on packed weights (:func:`cast_packs`); returns f32 states.
 
     ``stash``, a pair of lists, receives each round's input states in
-    ``dtype`` (the residuals of training)."""
+    ``dtype`` (the residuals of training).  ``width``: the model's width
+    when states and packs are zero-padded past it (:func:`pad_packs`), the
+    LayerNorm's columns; None for all."""
     src_c, mask_c, deg_c, src_q, mask_q, deg_q = operators
     mats = mats.float()
     rnd = lambda t: t.to(dtype).float()
@@ -212,8 +268,10 @@ def rounds_packed(xc, xq, syn, operators, mats, vecs, *, rounds: int,
         ys_c = rnd(xq @ mats[7])       # qubit sources of the check gather
         ys_q = rnd(xc @ mats[2])       # check sources of the qubit gather
         xc, xq = (
-            _update(xc, ys_c, src_c, mask_c, deg_c, mats[0:5], vecs[0:7], synterm, rnd),
-            _update(xq, ys_q, src_q, mask_q, deg_q, mats[5:10], vecs[7:14], 0.0, rnd),
+            _update(xc, ys_c, src_c, mask_c, deg_c, mats[0:5], vecs[0:7], synterm, rnd,
+                    width=width),
+            _update(xq, ys_q, src_q, mask_q, deg_q, mats[5:10], vecs[7:14], 0.0, rnd,
+                    width=width),
         )
     return xc, xq
 
@@ -276,6 +334,7 @@ def _slot_tables(src_c, mask_c, src_q, mask_q):
 
 class _CudaOperands(NamedTuple):
     code: int
+    gpanels: bool         # the f32 variant with the gather panels in global memory
     b: int
     m: int
     n: int
@@ -288,18 +347,21 @@ class _CudaOperands(NamedTuple):
     idx_q: torch.Tensor
 
 
-def _cuda_operands(lib, xc, xq, syn, operators, mats, rounds, dt) -> _CudaOperands:
-    """Checks a call of the forward kernels (K1, K2a) and prepares its
-    operands; raises on anything the kernels do not take."""
+def _cuda_operands(lib, xc, xq, syn, operators, mats, rounds, dt, *,
+                   gpanels: bool) -> _CudaOperands:
+    """Checks a call of the forward kernels (K1, K2a) on states and packs
+    padded to ``WIDTH`` and prepares its operands; raises on anything the
+    kernels do not take.  With ``gpanels`` (K1) an f32 graph whose gather
+    panels do not fit in shared memory takes the global-panel variant."""
     src_c, mask_c, _, src_q, mask_q, _ = operators
     b, m, h = xc.shape
     n = xq.shape[1]
     dc, dq = src_c.shape[1], src_q.shape[1]
     if xq.shape[0] != b or xq.shape[2] != h:
         raise ValueError(f"state shapes disagree: {tuple(xc.shape)} vs {tuple(xq.shape)}")
-    if h != 128 or tuple(mats.shape[-2:]) != (128, 128):
-        raise ValueError("the fused-rounds kernels are built for hidden = "
-                         f"msg_hidden = 128, got {tuple(mats.shape[-2:])}")
+    if h != WIDTH or tuple(mats.shape[-2:]) != (WIDTH, WIDTH):
+        raise ValueError(f"the fused-rounds kernels take states and packs padded to "
+                         f"{WIDTH} columns, got {h} and {tuple(mats.shape[-2:])}")
     if rounds < 1:
         raise ValueError(f"rounds must be >= 1, got {rounds}")
     if src_c.shape[0] != m or src_q.shape[0] != n:
@@ -310,12 +372,16 @@ def _cuda_operands(lib, xc, xq, syn, operators, mats, rounds, dt) -> _CudaOperan
             raise ValueError(f"all operands must be on {dev}, got {t.device}")
     code = _DTYPE_CODE[dt]
     smem = lib.fused_rounds_smem_bytes(code, m, n, dc, dq)
+    gpanels = gpanels and code == 0 and smem > SMEM_LIMIT
+    if gpanels:
+        smem = lib.fused_rounds_gpanels_smem_bytes(m, n, dc, dq)
     if smem > SMEM_LIMIT:
         raise ValueError(f"graph too large for the fused-rounds kernel: needs "
-                         f"{smem} B of shared memory per block (M={m}, N={n}), "
+                         f"{smem} B of shared memory per block (M={m}, N={n}"
+                         f"{', gather panels in global memory' if gpanels else ''}), "
                          f"limit {SMEM_LIMIT}")
     idx_c, idx_q = _slot_tables(src_c, mask_c, src_q, mask_q)
-    return _CudaOperands(code, b, m, n, dc, dq, xc.detach().to(dt).contiguous(),
+    return _CudaOperands(code, gpanels, b, m, n, dc, dq, xc.detach().to(dt).contiguous(),
                          xq.detach().to(dt).contiguous(),
                          syn.detach().reshape(b, m).to(torch.float32).contiguous(),
                          idx_c, idx_q)
@@ -330,18 +396,32 @@ def _rounds_cuda(xc, xq, syn, operators, weights, rounds, state_dtype):
         return trained_rounds(xc, xq, syn, operators, weights, rounds, state_dtype,
                               kernels=True)
     dt = STATE_DTYPES[state_dtype]
-    lib = load_library("fused_rounds")
     mats, vecs = pack_weights(weights, dt)
-    a = _cuda_operands(lib, xc, xq, syn, operators, mats, rounds, dt)
+    h = mats.shape[-1]
+    check_width(h)
+    if xc.shape[-1] != h:
+        raise ValueError(f"states of width {xc.shape[-1]}, weights of width {h}")
+    lib = load_library("fused_rounds")
+    mats, vecs = pad_packs(mats, vecs)
+    xc, xq = pad_states(xc, xq)
+    a = _cuda_operands(lib, xc, xq, syn, operators, mats, rounds, dt, gpanels=True)
     out_c = torch.empty_like(a.xc)
     out_q = torch.empty_like(a.xq)
     with _cuda_stream(xc.device) as stream:
-        err = lib.fused_rounds_launch(
-            a.code, a.xc.data_ptr(), a.xq.data_ptr(), a.syn.data_ptr(),
-            a.idx_c.data_ptr(), a.idx_q.data_ptr(), mats.data_ptr(),
-            vecs.data_ptr(), out_c.data_ptr(), out_q.data_ptr(),
-            a.b, a.m, a.n, a.dc, a.dq, rounds, stream)
+        ptrs = (a.xc.data_ptr(), a.xq.data_ptr(), a.syn.data_ptr(), a.idx_c.data_ptr(),
+                a.idx_q.data_ptr(), mats.data_ptr(), vecs.data_ptr(), out_c.data_ptr(),
+                out_q.data_ptr())
+        if a.gpanels:   # a persistent grid of one block per SM, each its own panels
+            grid = min(a.b, torch.cuda.get_device_properties(xc.device).multi_processor_count)
+            panels = torch.empty((grid, a.m + a.n, WIDTH), dtype=torch.float32,
+                                 device=xc.device)
+            err = lib.fused_rounds_gpanels_launch(*ptrs, panels.data_ptr(), a.b, a.m, a.n,
+                                                  a.dc, a.dq, rounds, h, grid, stream)
+        else:
+            err = lib.fused_rounds_launch(a.code, *ptrs, a.b, a.m, a.n, a.dc, a.dq, rounds,
+                                          h, stream)
+    name = "fused_rounds_gpanels" if a.gpanels else "fused_rounds"
     if err != 0:
-        raise RuntimeError(f"fused_rounds kernel launch failed: CUDA error {err}")
-    _LAUNCHES["fused_rounds"] += 1
-    return out_c.float(), out_q.float()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    _LAUNCHES[name] += 1
+    return out_c[..., :h].float(), out_q[..., :h].float()

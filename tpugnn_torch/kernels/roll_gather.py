@@ -28,6 +28,12 @@ rounds there on every cell, empty cells included, and permutes back
 It is inference only, as in the JAX package: a call that autograd would have
 to differentiate raises.
 
+As K1's, the kernel is built for 128 columns: a narrower model's raster
+operands are zero-padded to 128 (:func:`pad_raster`) and its LayerNorm runs
+over the model's ``width`` columns.  With f32 states a raster whose gather
+panels do not fit in shared memory (from d=13) runs the kernel's variant
+with the panels in global memory (``roll_rounds_gpanels``).
+
 One round, per side (checks shown; qubits alike without the syndrome term),
 with ``rnd`` rounding to the state type ``cdt`` and ``sdt`` the slot type
 (f32, or ``cdt`` with ``slot_dtype='bfloat16'``)::
@@ -60,20 +66,26 @@ from tpugnn_torch.kernels.fused_decoder import (
     _DTYPE_CODE,
     SMEM_LIMIT,
     STATE_DTYPES,
+    WIDTH,
     RoundWeights,
     _cuda_stream,
     _needs_grad,
+    check_width,
+    layer_norm,
     pack_weights_f32,
+    pad_packs,
+    pad_states,
 )
 
 __all__ = ["RollPlan", "RasterOperands", "raster_plan", "plan_for_graph", "rotate",
-           "to_raster", "from_raster", "roll_rounds_plain", "decoder_rounds_roll",
-           "launch_counts", "reset_launch_counts", "SLOT_DTYPES"]
+           "to_raster", "from_raster", "pad_raster", "roll_rounds_plain",
+           "decoder_rounds_roll", "launch_counts", "reset_launch_counts", "SLOT_DTYPES"]
 
 SLOT_DTYPES = ("float32", "bfloat16")
 
-# launches of the CUDA kernel in this process: K5
-_LAUNCHES = {"roll_rounds": 0}
+# launches of the CUDA kernel in this process: K5, its f32 variant with the
+# gather panels in global memory apart
+_LAUNCHES = {"roll_rounds": 0, "roll_rounds_gpanels": 0}
 
 
 def launch_counts() -> dict:
@@ -271,6 +283,14 @@ def to_raster(xc, xq, syn, plan: RollPlan, weights: RoundWeights,
                           tuple(plan.offs_q))
 
 
+def pad_raster(ops: RasterOperands, width: int = WIDTH) -> RasterOperands:
+    """``ops`` with states, ``degbo`` and packs zero-padded to ``width``
+    columns (the kernel's operands for a narrower model)."""
+    mats, vecs = pad_packs(ops.mats, ops.vecs, width)
+    xc, xq, degbo = pad_states(ops.xc, ops.xq, ops.degbo, width=width)
+    return ops._replace(xc=xc, xq=xq, degbo=degbo, mats=mats, vecs=vecs)
+
+
 def from_raster(xc_r, xq_r, plan: RollPlan):
     """Raster states back to the original row layout, in f32: row ``r``
     reads cell ``cell_of_row[r]``, so every padded row reads the last cell."""
@@ -299,23 +319,24 @@ def _slot_sum(ys, ydb, masks, offs, sdt):
     return hs
 
 
-def _update(x, ux, hs, wf, degbo, syn_term, ub0, w1, ub1, ln_s, ln_b, dt):
+def _update(x, ux, hs, wf, degbo, syn_term, ub0, w1, ub1, ln_s, ln_b, dt, width):
     """The rest of one side's round from the slot sum: returns the new
-    states in ``dt``."""
+    states in ``dt``; the LayerNorm over the first ``width`` columns."""
     agg = hs.float() @ wf + degbo
     pre = ux + agg
     if syn_term is not None:
         pre = pre + syn_term
     hc = torch.relu(pre + ub0).to(dt).float()
-    v = x + hc @ w1 + ub1
-    ctr = v - v.mean(-1, keepdim=True)
-    nh = ctr * torch.rsqrt((ctr * ctr).mean(-1, keepdim=True) + 1e-6)
+    nh, _ = layer_norm(x + hc @ w1 + ub1, width)
     return (nh * ln_s + ln_b).to(dt)
 
 
-def roll_rounds_plain(ops: RasterOperands, *, rounds: int, slot_dtype: str = "float32"):
+def roll_rounds_plain(ops: RasterOperands, *, rounds: int, slot_dtype: str = "float32",
+                      width: int | None = None):
     """Plain PyTorch version of K5: the rounds on the raster, every cell
-    included; returns ``(xc, xq)`` [B, l_pad, H] in the state type."""
+    included; returns ``(xc, xq)`` [B, l_pad, H] in the state type.
+    ``width``: the model's width on operands padded past it
+    (:func:`pad_raster`), the LayerNorm's columns; None for all."""
     dt = ops.xc.dtype
     sdt = _slot_dtype(slot_dtype, dt)
     mats, v = ops.mats.float(), ops.vecs
@@ -329,9 +350,9 @@ def roll_rounds_plain(ops: RasterOperands, *, rounds: int, slot_dtype: str = "fl
         hs_q = _slot_sum(ys_q, xqf @ mats[5] + v[7], ops.masks[1], ops.offs_q, sdt).to(dt)
         xc, xq = (
             _update(xcf, xcf @ mats[1], hs_c, mats[3], ops.degbo[0], syn_term, v[3],
-                    mats[4], v[4], v[5], v[6], dt),
+                    mats[4], v[4], v[5], v[6], dt, width),
             _update(xqf, xqf @ mats[6], hs_q, mats[8], ops.degbo[1], None, v[10],
-                    mats[9], v[11], v[12], v[13], dt),
+                    mats[9], v[11], v[12], v[13], dt, width),
         )
     return xc, xq
 
@@ -369,8 +390,9 @@ def _mask_bits(masks: torch.Tensor) -> torch.Tensor:
 
 def _roll_rounds_cuda(ops: RasterOperands, *, rounds: int, slot_dtype: str = "float32"):
     """Launches K5 on raster operands on a card; returns ``(xc, xq)``
-    [B, l_pad, H] in the state type.  Raises on what the kernel does not
-    take."""
+    [B, l_pad, H] in the state type.  A model narrower than 128 runs on
+    operands padded to 128 (:func:`pad_raster`).  Raises on what the kernel
+    does not take."""
     from tpugnn_torch.kernels._build import load_library
 
     dt = ops.xc.dtype
@@ -379,10 +401,10 @@ def _roll_rounds_cuda(ops: RasterOperands, *, rounds: int, slot_dtype: str = "fl
     if tuple(ops.xq.shape) != (b, l_pad, h) or tuple(ops.syn.shape) != (b, l_pad):
         raise ValueError(f"raster shapes disagree: {tuple(ops.xc.shape)}, "
                          f"{tuple(ops.xq.shape)}, {tuple(ops.syn.shape)}")
-    if h != 128 or tuple(ops.mats.shape) != (10, 128, 128):
-        raise ValueError("the roll-rounds kernel is built for hidden = msg_hidden = "
-                         f"128, got states of width {h} and weights "
-                         f"{tuple(ops.mats.shape)}")
+    check_width(h)
+    if tuple(ops.mats.shape) != (10, h, h) or tuple(ops.degbo.shape) != (2, l_pad, h):
+        raise ValueError(f"the roll-rounds kernel takes weights of the states' width "
+                         f"{h}, got {tuple(ops.mats.shape)} and {tuple(ops.degbo.shape)}")
     if rounds < 1:
         raise ValueError(f"rounds must be >= 1, got {rounds}")
     if len(ops.offs_c) != 4 or len(ops.offs_q) != 4 or tuple(ops.masks.shape) != (2, 4, l_pad):
@@ -396,10 +418,15 @@ def _roll_rounds_cuda(ops: RasterOperands, *, rounds: int, slot_dtype: str = "fl
     lib = load_library("roll_gather")
     code = _DTYPE_CODE[dt]
     smem = lib.roll_rounds_smem_bytes(code, l_pad)
+    gpanels = smem > SMEM_LIMIT and code == 0
+    if gpanels:
+        smem = lib.roll_rounds_gpanels_smem_bytes(l_pad)
     if smem > SMEM_LIMIT:
         raise ValueError(f"raster too large for the roll-rounds kernel: needs {smem} B "
-                         f"of shared memory per block (l_pad={l_pad}, {dt} states), "
+                         f"of shared memory per block (l_pad={l_pad}, {dt} states"
+                         f"{', gather panels in global memory' if gpanels else ''}), "
                          f"limit {SMEM_LIMIT}")
+    ops = pad_raster(ops)
     bits = _mask_bits(ops.masks)
     offs = (ctypes.c_int * 8)(*ops.offs_c, *ops.offs_q)
     xc, xq = ops.xc.contiguous(), ops.xq.contiguous()
@@ -408,11 +435,19 @@ def _roll_rounds_cuda(ops: RasterOperands, *, rounds: int, slot_dtype: str = "fl
     vecs = ops.vecs.float().contiguous()
     out_c, out_q = torch.empty_like(xc), torch.empty_like(xq)
     with _cuda_stream(dev) as stream:
-        err = lib.roll_rounds_launch(
-            code, int(slot16), xc.data_ptr(), xq.data_ptr(), syn.data_ptr(),
-            bits.data_ptr(), degbo.data_ptr(), mats.data_ptr(), vecs.data_ptr(),
-            out_c.data_ptr(), out_q.data_ptr(), offs, b, l_pad, rounds, stream)
+        ptrs = (xc.data_ptr(), xq.data_ptr(), syn.data_ptr(), bits.data_ptr(),
+                degbo.data_ptr(), mats.data_ptr(), vecs.data_ptr(), out_c.data_ptr(),
+                out_q.data_ptr())
+        if gpanels:     # a persistent grid of one block per SM, each its own panels
+            grid = min(b, torch.cuda.get_device_properties(dev).multi_processor_count)
+            panels = torch.empty((grid, 2 * l_pad, WIDTH), dtype=torch.float32, device=dev)
+            err = lib.roll_rounds_gpanels_launch(*ptrs, panels.data_ptr(), offs, b, l_pad,
+                                                 rounds, h, grid, stream)
+        else:
+            err = lib.roll_rounds_launch(code, int(slot16), *ptrs, offs, b, l_pad, rounds,
+                                         h, stream)
+    name = "roll_rounds_gpanels" if gpanels else "roll_rounds"
     if err != 0:
-        raise RuntimeError(f"roll_rounds kernel launch failed: CUDA error {err}")
-    _LAUNCHES["roll_rounds"] += 1
-    return out_c, out_q
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    _LAUNCHES[name] += 1
+    return out_c[..., :h], out_q[..., :h]
