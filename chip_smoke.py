@@ -18,7 +18,18 @@ print one JSON line with their wall time:
     B=64, R=3, both state types) on the kernel's 128 columns, zero-padded;
     each case must launch the kernel its graph, width and type call for
   3 serve: a DecodeEngine on the trained d=11 weights answers requests of
-    1, 1000 and 5000 syndromes; outputs equal the model's direct decode
+    1, 1000 and 5000 syndromes; outputs equal the model's direct decode;
+    then an engine per cleanup mode (uf, mwpm, best_of with both cost
+    rules, eager and lazy, device, best_of_device) answers the same
+    requests: every output syndrome-consistent, every request one K1
+    launch per chunk and nothing else, uf/mwpm equal to
+    gnn_cleanup_corrections and eager best_of to min_weight_select over
+    eval/hybrid's candidates bit for bit, lazy best_of never lighter than
+    eager, best_of_device's mean weight within 1.25 of best_of's, device
+    with no host decoder call and its repair on the card; each mode's
+    shots/s on 4096-syndrome requests and on one 4 x 4096 request with the
+    host tail's and the device span's share, and DeviceRepair's ms per
+    4096-shot chunk
   4 LER: ler_monte_carlo of the trained weights at p=0.05 on 65,536 shots,
     z-scores against the JAX package's own f32 LER recorded in the weights
     file (both heads gated at |z| <= 4) and against benchmarks/LER_TABLE.md:30
@@ -35,6 +46,15 @@ print one JSON line with their wall time:
     forward; at d=13 and d=15 the roll path (K5's global-panel variant) on
     8,192 of the same shots, its per-shot decisions against the fused
     path's (>= 99.9% equal)
+  4c hybrid: ler_all_columns of the trained d=11 weights at p=0.05 on
+    phase 4's 65,536 shots (same seed; B=4096, f32) with best-of, GNN+MWPM
+    and the raw union-find and MWPM baselines: ler, ler_logical and
+    ler_hybrid equal phase 4's exactly; GNN+UF, GNN+MWPM and best-of
+    within |z| <= 4 of the JAX f32 columns in the weights file's sidecar;
+    raw union-find and MWPM within |z| <= 4 of benchmarks/LER_TABLE.md:30;
+    no cleanup column leaves a syndrome; 16 K1 launches and nothing else;
+    every column's z against the table's row reported beside the 2-stderr
+    criterion, with the host's and the device's seconds
   5 timing: the bench config (d=11, B=4096, R=8, H=128, bf16) with CUDA
     events: the kernel's step and its TFLOP/s beside its bound and the f32
     CUDA-core floor, rounds_plain, and an index_select + index_add_ round
@@ -108,8 +128,9 @@ print one JSON line with their wall time:
     K5 at widths 64 and 96 in both state types (d=11, B=64, R=3); and the
     refusal of a width-160 model by K5's and K1's wrappers, before a launch
 
-Phases 3, 4, 4b, 7, 9, 10 and 11 are the main paths; the launch counts of every
-kernel are reset before and read after each.  Then it prints the kernel
+Phases 3 (each engine's requests), 4, 4b, 4c, 7, 9, 10 and 11 are the main
+paths; the launch counts of every kernel are reset before and read after
+each.  Then it prints the kernel
 table as one JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.  Any
 failure raises and exits nonzero.  It exits nonzero without printing a result
@@ -260,6 +281,30 @@ TRAINED_ROUNDS = 14
 # K2a/K2b at H=64 starts from (phase 6): AdamW's moments then hold that many
 # gradients, as phase 7's 30 steps do at H=128
 WIDTH_TRAIN_STEPS = 10
+
+# benchmarks/LER_TABLE.md:30 (v3_surface_d11/ema@40000, p=0.05, 1e6 shots,
+# taken on a TPU), every column the hybrid phase reports: the GNN hybrid,
+# GNN+UF, GNN+MWPM, best-of, logical and per-qubit heads, and the raw
+# union-find and MWPM baselines
+TABLE_D11_P05 = {"ler_hybrid": 0.002062, "gnn_uf": 0.0009805, "gnn_mwpm": 0.0009696,
+                 "gnn_best_of": 0.0007264, "ler_logical": 0.00211, "ler": 0.4386,
+                 "uf": 0.002856, "mwpm": 0.001777}
+# the hybrid phase's gate: |z| of the cleanup columns against the JAX f32
+# columns of the same weights, and of the raw baselines against the table
+HYBRID_Z = 4
+# phase 3's cleanup engines: (cleanup, keyword arguments); best_of with both
+# cost rules, eager and lazy
+SERVE_MODES = (
+    ("uf", {}), ("mwpm", {}),
+    ("best_of", {"select_cost": "weight"}), ("best_of", {"select_cost": "weight", "lazy": True}),
+    ("best_of", {"select_cost": "nll"}), ("best_of", {"select_cost": "nll", "lazy": True}),
+    ("device", {}), ("best_of_device", {}),
+)
+# 4096-syndrome requests timed per cleanup engine
+SERVE_TIMED = 3
+# best_of_device's mean correction weight over best_of's (tests/test_serve.py:
+# test_best_of_device_not_heavier_than_full_best_of)
+BEST_OF_DEVICE_WEIGHT_RATIO = 1.25
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak (NVIDIA data sheet, SXM)
 H100_F32_FLOPS = 67e12    # f32 outside the tensor cores
@@ -1582,6 +1627,279 @@ def train_width_check(dtype: str, dg, dev) -> dict:
     return out
 
 
+def consistent(graph, corr, syn) -> bool:
+    """Every correction [B, n, 2] reproduces its syndrome [B, >= m]; the
+    parity products run on the graph's device (``graph``: tensors)."""
+    import torch
+
+    n, m = graph.n_qubits, graph.n_checks
+    dev = graph.h_syn_ex.device
+    c = torch.from_numpy(corr).to(dev).float()
+    s_hat = torch.remainder(c[:, :, 0] @ graph.h_syn_ex[:m, :n].T
+                            + c[:, :, 1] @ graph.h_syn_ez[:m, :n].T, 2.0)
+    return bool(torch.equal(s_hat, torch.from_numpy(syn[:, :m]).to(dev).float()))
+
+
+def padded_chunks(graph, syn):
+    """A request's syndromes as the engine sends them: f32 [B, m_pad]
+    chunks zero-padded to B rows, each with its number of real rows."""
+    import numpy as np
+
+    full = np.zeros((syn.shape[0], graph.n_checks_pad), np.float32)
+    full[:, :syn.shape[1]] = syn
+    for lo in range(0, syn.shape[0], B):
+        part = full[lo:lo + B]
+        chunk = np.zeros((B, graph.n_checks_pad), np.float32)
+        chunk[:len(part)] = part
+        yield chunk, len(part)
+
+
+class HostDecoderCalls:
+    """Counts the calls of the host decoders (union-find and each MWPM
+    sector) while it is entered, from any thread."""
+
+    def __enter__(self):
+        import threading
+
+        from tpugnn_torch.baselines import mwpm, union_find
+
+        self.n, lock = 0, threading.Lock()
+        self._orig = [(union_find.UnionFindDecoder, union_find.UnionFindDecoder.decode),
+                      (mwpm.MWPMSectorDecoder, mwpm.MWPMSectorDecoder.decode)]
+
+        def counted(f):
+            def g(*a, **kw):
+                with lock:
+                    self.n += 1
+                return f(*a, **kw)
+            return g
+
+        for cls, f in self._orig:
+            cls.decode = counted(f)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, f in self._orig:
+            cls.decode = f
+        return False
+
+
+def serve_references(mode: str, kw: dict, eng, graph, dev, reqs, outs) -> dict:
+    """The serve outputs of ``mode`` against eval/hybrid on the same padded
+    chunks: 'uf'/'mwpm' against gnn_cleanup_corrections, 'best_of' with
+    lazy=False against min_weight_select over the candidates eval/hybrid
+    builds; bit for bit.  Returns the number of shots compared."""
+    import numpy as np
+    import torch
+
+    from tpugnn_torch.baselines import MWPMDecoder, UnionFindDecoder
+    from tpugnn_torch.eval import gnn_cleanup_corrections
+    from tpugnn_torch.eval.hybrid import _chunk, _HostCopy, lazy_decode, min_weight_select
+
+    n = graph.n_qubits
+    uf, mw = UnionFindDecoder(graph), MWPMDecoder(graph, p=eng.cfg.code.p)
+    nll = kw.get("select_cost") == "nll"
+    temp = float(os.environ.get("TPUGNN_NLL_TEMP", "1.0"))
+    dg = graph.to(dev)
+    compared = 0
+    for r, o in zip(reqs, outs):
+        want = []
+        for chunk, nb in padded_chunks(graph, r):
+            if mode in ("uf", "mwpm"):
+                ex, ez = gnn_cleanup_corrections(eng.model, graph, chunk,
+                                                 uf if mode == "uf" else mw, device=dev)
+            else:
+                h = _HostCopy(_chunk(eng.model, dg, torch.from_numpy(chunk).to(dev), None,
+                                     with_nlp=nll, nll_temp=temp)).numpy()
+                exg, ezg, s_res = h["ex_g"][:, :n], h["ez_g"][:, :n], h["s_res"]
+                exu, ezu = lazy_decode(uf, s_res)
+                exm, ezm = lazy_decode(mw, s_res)
+                cands = {"qubit": (exg, ezg), "logical": (h["lex"][:, :n], h["lez"][:, :n]),
+                         "gnn_uf": (exg ^ exu, ezg ^ ezu), "gnn_mwpm": (exg ^ exm, ezg ^ ezm),
+                         "mwpm": mw.decode(chunk.astype(np.uint8))}
+                syn_u8 = chunk.astype(np.uint8)
+                ex, ez, _ = min_weight_select(
+                    tuple(cands), cands, syn_u8, eng._hz, eng._hx,
+                    qubit_inconsistent=s_res.any(axis=1),
+                    nlp=h["nlp"][:, :n] if nll else None)
+            want.append(np.stack([ex, ez], axis=-1)[:nb])
+        if not np.array_equal(o, np.concatenate(want)):
+            raise RuntimeError(f"serve {mode} {kw}: the engine's corrections differ from "
+                               f"eval/hybrid's on the same syndromes")
+        compared += o.shape[0]
+    return compared
+
+
+def phase_serve_cleanup(graph, dev, reqs, info: dict) -> dict:
+    """Phase 3's cleanup modes (SERVE_MODES): for each, a DecodeEngine on
+    the trained d=11 weights answers the same requests of 1, 1000 and 5000
+    syndromes as the cleanup=None engine.  Gates: every output is
+    syndrome-consistent; every request launches K1 once per chunk and no
+    other kernel; 'uf'/'mwpm' equal gnn_cleanup_corrections and 'best_of'
+    with lazy=False equals min_weight_select over eval/hybrid's candidates
+    on the same padded chunks, bit for bit; lazy best_of is never lighter
+    than the eager engine's answer on a shot, and best_of_device's mean
+    weight is at most BEST_OF_DEVICE_WEIGHT_RATIO times the eager best_of's
+    (tests/test_serve.py); 'device' calls no host decoder and its repair
+    tables sit on the card.  Reported per mode: decoded shots/s of
+    4096-syndrome requests (median of SERVE_TIMED) and of one 4 x 4096
+    request (the in-flight window), each with the host tail's ms and the
+    device span's ms per chunk (the engine's ``timing``).  Returns the
+    launches of the modes' requests, by mode."""
+    import numpy as np
+    import torch
+
+    from tpugnn_torch.eval.hybrid import _chunk
+    from tpugnn_torch.sampling import sample_batch
+    from tpugnn_torch.serve import DecodeEngine
+
+    dg = graph.to(dev)
+    timed = sample_batch(torch.Generator(device=dev).manual_seed(2026), dg, 0.05,
+                         4 * B).syndrome.cpu().numpy().astype(np.uint8)
+    out_launches, weights = {}, {}
+    for mode, kw in SERVE_MODES:
+        name = "_".join([mode] + [f"{k}_{v}" for k, v in sorted(kw.items())])
+        launched = dict.fromkeys(counts(), 0)
+
+        def request(r):
+            reset_counts()
+            out = eng.decode(r)
+            c = counts()
+            want = {**dict.fromkeys(c, 0), "fused_rounds": -(-r.shape[0] // B)}
+            if c != want:
+                raise RuntimeError(f"serve {name}: a request of {r.shape[0]} launched {c}, "
+                                   f"not {want['fused_rounds']} K1 and nothing else")
+            for k, v in c.items():
+                launched[k] += v
+            return out
+
+        with HostDecoderCalls() as calls, DecodeEngine.from_npz(
+                device=dev, max_batch=B, cleanup=mode, **kw) as eng:
+            outs = [request(r) for r in reqs]
+            walls = []
+            eng.reset_timing()
+            for _ in range(SERVE_TIMED):
+                t0 = time.perf_counter()
+                request(timed[:B])
+                walls.append((time.perf_counter() - t0) * 1e3)
+            one = dict(eng.timing)
+            eng.reset_timing()
+            t0 = time.perf_counter()
+            request(timed)
+            wall4 = (time.perf_counter() - t0) * 1e3
+            four = dict(eng.timing)
+            host_calls = calls.n
+            res = dict(mode=mode, **kw, requests=[int(r.shape[0]) for r in reqs],
+                       host_decoder_calls=host_calls, launches=launched)
+            for r, o in zip(reqs, outs):
+                if o.shape != (r.shape[0], graph.n_qubits, 2) or not consistent(dg, o, r):
+                    raise RuntimeError(f"serve {name}: an output of shape {o.shape} is not "
+                                       f"syndrome-consistent")
+            if mode in ("uf", "mwpm") or (mode == "best_of" and not kw.get("lazy")):
+                res["equal_to_eval_hybrid_shots"] = serve_references(
+                    mode, kw, eng, graph, dev, reqs, outs)
+            if mode == "device":
+                # DeviceRepair alone on the residuals of a 4096-shot chunk
+                with torch.inference_mode():
+                    s_res = _chunk(eng.model, dg, torch.from_numpy(timed[:B]).to(dev).float(),
+                                   None, with_logical=False)["s_res"].float()
+                    res["repair_ms_per_chunk"] = time_ms(lambda: eng._repair.repair(s_res))
+                    res["residual_defects_per_shot"] = float(s_res.sum(1).mean())
+            if mode in ("device", "best_of_device"):
+                res["repair_device"] = str(eng._repair._x[0].device)
+                if eng._repair._x[0].device.type != dev.type:
+                    raise RuntimeError(f"serve {name}: the repair tables are not on the card")
+            if mode == "device" and host_calls:
+                raise RuntimeError(f"serve {name}: {host_calls} host decoder calls")
+        wall = statistics.median(walls)
+        per = lambda a, b: None if a is None else a / b
+        res.update(
+            shots_per_s_4096=B / (wall / 1e3), request_ms_4096=walls,
+            host_ms_per_chunk=one["host_ms"] / one["chunks"],
+            device_ms_per_chunk=per(one["device_ms"], one["chunks"]),
+            host_share=one["host_ms"] / sum(walls), device_share=per(one["device_ms"], sum(walls)),
+            shots_per_s_4x4096=4 * B / (wall4 / 1e3), request_ms_4x4096=wall4,
+            host_share_4x4096=four["host_ms"] / wall4,
+            device_share_4x4096=per(four["device_ms"], wall4))
+        w = np.concatenate([(o[:, :, 0] | o[:, :, 1]).sum(axis=1) for o in outs])
+        weights[name] = w
+        if mode == "best_of" and kw.get("select_cost") == "weight":
+            if kw.get("lazy"):
+                res["lazy_never_lighter"] = bool((w >= weights["best_of_select_cost_weight"])
+                                                 .all())
+                if not res["lazy_never_lighter"]:
+                    raise RuntimeError(f"serve {name}: a lazy answer is lighter than the "
+                                       f"eager engine's")
+        if mode == "best_of_device":
+            ref_w = weights["best_of_select_cost_weight"].mean()
+            res["mean_weight_vs_best_of"] = float(w.mean() / ref_w)
+            if w.mean() > BEST_OF_DEVICE_WEIGHT_RATIO * ref_w:
+                raise RuntimeError(f"serve {name}: mean weight {w.mean()} against best_of's "
+                                   f"{ref_w}")
+        info[name] = res
+        out_launches[f"serve_{name}"] = launched
+        torch.cuda.empty_cache()
+    return out_launches
+
+
+def phase_hybrid(graph, dev, trained, ev: dict, info: dict) -> dict:
+    """The `hybrid` phase: ler_all_columns of the trained d=11 weights at
+    p=0.05 on LER_SHOTS shots (B=4096, f32) from phase 4's seed, with
+    best-of (weight rule), GNN+MWPM and the raw union-find and MWPM
+    baselines.  Gates: ler, ler_logical and ler_hybrid equal phase 4's
+    ler_monte_carlo exactly (the same generator draws); gnn_uf, gnn_mwpm
+    and gnn_best_of within |z| <= HYBRID_Z of the JAX f32 columns of the
+    same weights (the sidecar of the weights file); raw uf and mwpm, which
+    depend on no network, within |z| <= HYBRID_Z of LER_TABLE.md:30;
+    syn_mismatch 0 for every cleanup column; 16 K1 launches and nothing
+    else.  Reported: every column's z against the table's row beside the
+    2-stderr criterion, and the phase's host and device seconds.  Returns
+    the run's launches."""
+    import torch
+
+    from tpugnn_torch.eval.hybrid import ler_all_columns
+    from tpugnn_torch.models.convert import read_columns, read_meta
+
+    ref = read_columns()
+    meta = read_meta()
+    if (ref["step"], ref["model"], ref["code"], ref["p"]) != (
+            meta["step"], meta["model"], meta["code"], 0.05):
+        raise RuntimeError(f"the columns sidecar is not of these weights at p=0.05: {ref}")
+    reset_counts()
+    gen = torch.Generator(device=dev).manual_seed(2025)
+    cols = ler_all_columns(trained, graph, p=0.05, shots=LER_SHOTS, batch=B, generator=gen,
+                           best_of=True, with_mwpm=True, with_uf_raw=True, device=dev)
+    launched = counts()
+    n = int(cols["shots"])
+    jax_cols = ref["columns"]
+    z_jax = {k: z_score(cols[k], n, jax_cols[k], ref["shots"])
+             for k in ("gnn_uf", "gnn_mwpm", "gnn_best_of", "uf", "mwpm", "ler_logical",
+                       "ler_hybrid", "ler")}
+    z_table = {k: z_score(cols[k], n, v, REF_SHOTS) for k, v in TABLE_D11_P05.items()}
+    plain = {k: (cols[k], ev[k]) for k in ("ler", "ler_logical", "ler_hybrid")}
+    info.update(shots=n, batch=B, p=0.05, columns={k: cols[k] for k in TABLE_D11_P05},
+                picked=cols["picked"], syn_mismatch=cols["syn_mismatch"],
+                jax_f32=dict(shots=ref["shots"], seed=ref["seed"], columns=jax_cols),
+                z_vs_jax_f32=z_jax, table=dict(shots=REF_SHOTS, columns=TABLE_D11_P05),
+                z_vs_table=z_table,
+                within_2_stderr_of_table={k: abs(v) <= 2 for k, v in z_table.items()},
+                plain_equal_to_ler_phase={k: a == b for k, (a, b) in plain.items()},
+                timing=cols["timing"], launches=launched)
+    if any(a != b for a, b in plain.values()):
+        raise RuntimeError(f"hybrid: the plain columns differ from phase 4's: {plain}")
+    gated = {"gnn_uf": z_jax["gnn_uf"], "gnn_mwpm": z_jax["gnn_mwpm"],
+             "gnn_best_of": z_jax["gnn_best_of"], "uf": z_table["uf"],
+             "mwpm": z_table["mwpm"]}
+    if any(abs(v) > HYBRID_Z for v in gated.values()):
+        raise RuntimeError(f"hybrid: a column is off its reference: {gated}")
+    if any(cols["syn_mismatch"].values()):
+        raise RuntimeError(f"hybrid: a cleanup column left syndromes: {cols['syn_mismatch']}")
+    chunks = LER_SHOTS // B
+    if launched != {**dict.fromkeys(launched, 0), "fused_rounds": chunks}:
+        raise RuntimeError(f"hybrid: launched {launched}, not {chunks} K1 and nothing else")
+    return launched
+
+
 def phase_checkpoints(dev, d11: dict, info: dict) -> dict:
     """The `checkpoints` phase: every surface-code checkpoint of
     benchmarks/LER_TABLE.md (CHECKPOINTS) through DecodeEngine.from_npz on
@@ -1823,6 +2141,7 @@ def main() -> int:
         info.update(requests=[int(r.shape[0]) for r in reqs],
                     widths=[int(r.shape[1]) for r in reqs], request_ms=request_ms,
                     launches=launches["serve"])
+        launches.update(phase_serve_cleanup(graph, dev, reqs, info))
 
     with Phase("ler") as info:
         reset_counts()
@@ -1858,6 +2177,9 @@ def main() -> int:
     with Phase("checkpoints") as info:
         launches["checkpoints"] = phase_checkpoints(
             dev, {"ev": ev, "launches": launches["ler"]}, info)
+
+    with Phase("hybrid") as info:
+        launches["hybrid"] = phase_hybrid(graph, dev, trained, ev, info)
 
     with Phase("timing") as info:
         b, rounds = B, 8

@@ -17,6 +17,20 @@ precision, which ``chip_smoke.py`` holds the port's LER on the card against.
         --head pauli4 --ler-p 0.05 --ler-shots 131072 --ler-seed 0 \
         --out tpugnn_torch/assets/surface_d11_h128_r14_ema40000.npz
 
+With ``--columns-shots N`` it runs the JAX package's hybrid evaluator
+``tpugnn.eval.hybrid.ler_all_columns`` (f32, on the CPU, best-of with the
+weight rule, GNN+MWPM and the raw union-find and MWPM baselines) and writes
+its columns to a sidecar JSON beside the weights file
+(``<out without .npz>.columns.json``), with the step and config they belong
+to; ``--columns-only`` writes the sidecar alone and leaves the weights file
+as it is.  ``chip_smoke.py`` holds the port's hybrid columns on the card
+against it.  131,072 shots take about 12 minutes at d=11:
+
+    JAX_PLATFORMS=cpu python scripts/export_torch_weights.py \
+        --ckpt runs/v3_surface_d11/ema --distance 11 --hidden 128 --rounds 14 \
+        --head pauli4 --ler-p 0.05 --columns-shots 131072 --ler-seed 0 \
+        --columns-only --out tpugnn_torch/assets/surface_d11_h128_r14_ema40000.npz
+
 This script imports JAX and ``tpugnn``; nothing in ``tpugnn_torch`` does.
 """
 
@@ -46,6 +60,11 @@ def main(argv=None) -> int:
     ap.add_argument("--ler-shots", type=int, default=0,
                     help="shots of the JAX f32 reference LER (0: none)")
     ap.add_argument("--ler-seed", type=int, default=0)
+    ap.add_argument("--columns-shots", type=int, default=0,
+                    help="shots of the JAX f32 hybrid columns (0: none)")
+    ap.add_argument("--columns-batch", type=int, default=2048)
+    ap.add_argument("--columns-only", action="store_true",
+                    help="write the columns sidecar and not the weights file")
     ap.add_argument("--out", required=True)
     args = ap.parse_args(argv)
 
@@ -100,10 +119,45 @@ def main(argv=None) -> int:
                         f"JAX {jax.__version__} on {jax.default_backend()}",
         }
         print(f"reference LER at p={args.ler_p}: {meta['ler_reference']}")
+    if args.columns_shots:
+        write_columns(args, model, restored.params, graph, meta)
+    if args.columns_only:
+        return 0
     np.savez(args.out, __meta__=np.array(json.dumps(meta, sort_keys=True)), **flat)
     n = sum(v.size for v in flat.values())
     print(f"wrote {args.out}: step {step}, {len(flat)} arrays, {n} parameters")
     return 0
+
+
+def write_columns(args, model, params, graph, meta) -> None:
+    """Run the JAX package's ``ler_all_columns`` on the restored decoder and
+    write its columns, with the weights' step and config, to the sidecar."""
+    import time
+
+    import jax
+    from tpugnn.eval.hybrid import ler_all_columns
+    from tpugnn_torch.models.convert import columns_path
+
+    t0 = time.perf_counter()
+    cols = ler_all_columns(model.apply, params, graph, p=args.ler_p,
+                           shots=args.columns_shots, batch=args.columns_batch,
+                           key=jax.random.PRNGKey(args.ler_seed), best_of=True,
+                           with_mwpm=True, with_uf_raw=True, select_cost="weight")
+    out = {"step": meta["step"], "source": meta["source"], "code": meta["code"],
+           "model": meta["model"], "p": args.ler_p, "shots": int(cols["shots"]),
+           "seed": args.ler_seed, "batch": args.columns_batch,
+           "select_cost": "weight",
+           "columns": {k: cols[k] for k in ("ler", "ler_logical", "ler_hybrid", "gnn_uf",
+                                            "gnn_mwpm", "gnn_best_of", "uf", "mwpm")},
+           "picked": cols["picked"],
+           "function": "tpugnn.eval.hybrid.ler_all_columns, GNNDecoder(backend='fused') "
+                       f"float32, JAX {jax.__version__} on {jax.default_backend()}",
+           "seconds": round(time.perf_counter() - t0, 1)}
+    path = columns_path(args.out)
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1, sort_keys=True)
+        f.write("\n")
+    print(f"wrote {path}: {out['columns']}")
 
 
 if __name__ == "__main__":

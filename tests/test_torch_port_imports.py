@@ -103,7 +103,7 @@ def test_build_is_lazy():
 
 
 @pytest.mark.parametrize("script", ["_probe_common.py", "k2b_probe.py", "k4_probe.py",
-                                    "k5_probe.py", "smoke_turns.py"])
+                                    "k5_probe.py", "smoke_turns.py", "ler_rows_card.py"])
 def test_kernel_probes_import_no_jax(script):
     """The kernel probes run on the card's machine, which has no JAX."""
     with open(os.path.join(REPO, "scripts", script)) as f:
@@ -112,3 +112,28 @@ def test_kernel_probes_import_no_jax(script):
     names += [n.module for n in ast.walk(tree)
               if isinstance(n, ast.ImportFrom) and n.level == 0 and n.module]
     assert not [n for n in names if n.split(".")[0] in FORBIDDEN]
+
+
+HYBRID_MODULES = ["tpugnn_torch.utils.native", "tpugnn_torch.baselines",
+                  "tpugnn_torch.baselines.union_find", "tpugnn_torch.baselines.mwpm",
+                  "tpugnn_torch.baselines.device_repair", "tpugnn_torch.eval.baseline",
+                  "tpugnn_torch.eval.hybrid", "tpugnn_torch.serve.engine"]
+
+
+@pytest.mark.parametrize("module", HYBRID_MODULES)
+def test_hybrid_modules_import_without_jax(module):
+    """Each module of the hybrid path imports where neither JAX, tpugnn nor
+    networkx can be imported (the card's machine has none of them), and
+    importing it builds nothing."""
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tpugnn', 'networkx'):\n"
+            "    sys.modules[m] = None\n"
+            f"import {module}\n"
+            "from tpugnn_torch.utils import native\n"
+            "assert native._LIB is None\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

@@ -20,11 +20,12 @@ import shutil
 import subprocess
 import time
 
-__all__ = ["HEADERS", "NVCC_FLAGS", "SOURCES", "build_libraries", "load_library", "nvcc_path"]
+__all__ = ["BUILD_DIR", "HEADERS", "NVCC_FLAGS", "SOURCES", "build_libraries", "load_library",
+           "nvcc_path"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
-_BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
+BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 # library name -> source
 SOURCES = {"fused_rounds": "fused_rounds.cu", "fused_backward": "fused_backward.cu",
            "spmm": "spmm.cu", "sddmm": "sddmm.cu", "roll_gather": "roll_gather.cu"}
@@ -80,7 +81,7 @@ def _library_path(name: str, version: str) -> str:
         with open(os.path.join(_CSRC, f), "rb") as fh:
             h.update(fh.read())
     h.update(" ".join(NVCC_FLAGS + (version,)).encode())
-    return os.path.join(_BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
 def build_libraries(names=None) -> dict:
@@ -97,8 +98,8 @@ def build_libraries(names=None) -> dict:
     out = {n: (_library_path(n, version), 0.0, "") for n in names}
     if all(os.path.exists(p) for p, _, _ in out.values()):
         return out
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    with open(os.path.join(_BUILD_DIR, ".lock"), "w") as lock:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             procs = {}

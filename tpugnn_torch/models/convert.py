@@ -27,8 +27,8 @@ import torch
 from tpugnn_torch.configs import CodeConfig, ExperimentConfig, ModelConfig
 
 __all__ = ["flatten_tree", "state_dict_from_flat", "params_from_flax", "load_npz",
-           "read_meta", "convert_flat_layout", "load_decoder", "DEFAULT_WEIGHTS",
-           "TORIC_D7_WEIGHTS"]
+           "read_meta", "columns_path", "read_columns", "convert_flat_layout", "load_decoder",
+           "DEFAULT_WEIGHTS", "TORIC_D7_WEIGHTS"]
 
 _ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                        "assets")
@@ -68,6 +68,21 @@ def read_meta(path: str = DEFAULT_WEIGHTS) -> dict:
     where the exporter measured it, ``ler_reference``."""
     with np.load(path, allow_pickle=False) as z:
         return json.loads(str(z["__meta__"]))
+
+
+def columns_path(path: str = DEFAULT_WEIGHTS) -> str:
+    """The sidecar of a weights file (``x.npz`` -> ``x.columns.json``):
+    the JAX package's f32 hybrid LER columns of those weights
+    (``scripts/export_torch_weights.py --columns-shots``)."""
+    return path.removesuffix(".npz") + ".columns.json"
+
+
+def read_columns(path: str = DEFAULT_WEIGHTS) -> dict:
+    """The columns sidecar of a weights file: step, config, p, shots, seed
+    and ``columns`` (``ler``, ``ler_logical``, ``ler_hybrid``, ``gnn_uf``,
+    ``gnn_mwpm``, ``gnn_best_of``, ``uf``, ``mwpm``)."""
+    with open(columns_path(path)) as f:
+        return json.load(f)
 
 
 def load_npz(path: str = DEFAULT_WEIGHTS) -> tuple[ExperimentConfig, dict, int]:
