@@ -55,6 +55,24 @@ print one JSON line with their wall time:
     no cleanup column leaves a syndrome; 16 K1 launches and nothing else;
     every column's z against the table's row reported beside the 2-stderr
     criterion, with the host's and the device's seconds
+  4d detector_and_stream: the detector-graph path.  The d=5 decoder over 5
+    noisy rounds (spacetime_surface_d5_t5_h96_r8_4000.npz: M=64, N=176,
+    Dc=6, Dq=2, H=96 padded, f32) through ler_all_columns at p=0.02 on
+    65,536 shots: every GNN column within |z| <= 4 of the JAX f32 columns
+    of its sidecar, raw union-find and MWPM within |z| <= 4 of
+    benchmarks/LER_DETECTOR.md:41, no syndrome left, 16 K1 launches; K1
+    held to its plain version on that graph (B=4096, R=8) and timed.
+    BP+OSD-0 at p=0.05 on 65,536 shots at d=11 and d=5 within |z| <= 4 of
+    LER_TABLE.md:26 and :14, no syndrome left; plain BP beside it, BP's ms
+    a chunk on the card, the OSD's median on the host.  The window decoder
+    (..._d5_t5_w_...) on the numpy streams of its sidecar, which are those
+    of runs/stream_quality_w.json's d=5 p=0.02 row (window 5, commit 1, 11
+    rounds, seed 11, 10,000 shots), with the five decoders of
+    benchmarks/stream_quality.py: union-find windowed and monolithic equal
+    to the JAX rates exactly, the GNN adapters (raw with deferral,
+    union-find cleanup, device repair) within 5 failing shots of the JAX
+    f32 counts on the same streams, one K1 launch per GNN window; ms per
+    window and committed rounds/s
   5 timing: the bench config (d=11, B=4096, R=8, H=128, bf16) with CUDA
     events: the kernel's step and its TFLOP/s beside its bound and the f32
     CUDA-core floor, rounds_plain, and an index_select + index_add_ round
@@ -128,8 +146,8 @@ print one JSON line with their wall time:
     K5 at widths 64 and 96 in both state types (d=11, B=64, R=3); and the
     refusal of a width-160 model by K5's and K1's wrappers, before a launch
 
-Phases 3 (each engine's requests), 4, 4b, 4c, 7, 9, 10 and 11 are the main
-paths; the launch counts of every kernel are reset before and read after
+Phases 3 (each engine's requests), 4, 4b, 4c, 4d (the monolithic decode
+and the streams), 7, 9, 10 and 11 are the main paths; the launch counts of every kernel are reset before and read after
 each.  Then it prints the kernel
 table as one JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.  Any
@@ -306,6 +324,33 @@ SERVE_TIMED = 3
 # test_best_of_device_not_heavier_than_full_best_of)
 BEST_OF_DEVICE_WEIGHT_RATIO = 1.25
 
+# The detector_and_stream phase.  benchmarks/LER_DETECTOR.md:41
+# (spacetime_surface_d5_t5@4000: surface d=5 over 5 noisy rounds, sector z,
+# p=0.02, 200,000 shots, taken on a TPU), every column it reports.
+DETECTOR_ROW = {"ler_hybrid": 0.03616, "gnn_uf": 0.04264, "gnn_mwpm": 0.04085,
+                "gnn_best_of": 0.03341, "ler_logical": 0.0362, "ler": 0.6164,
+                "uf": 0.05344, "mwpm": 0.03392}
+DETECTOR_ROW_SHOTS = 200_000
+DETECTOR_P = 0.02
+# the GNN columns, gated against the JAX f32 columns of the same weights
+# (the weights file's sidecar); the raw baselines against the row
+DETECTOR_GNN_COLUMNS = ("ler", "ler_logical", "ler_hybrid", "gnn_uf", "gnn_mwpm",
+                        "gnn_best_of")
+# BP+OSD-0 at p=0.05 (benchmarks/LER_TABLE.md, 1e6 shots; BP has no matrix
+# product, so the table's TPU rate is the same f32 computation): (d, line, rate)
+BP_OSD_ROWS = ((11, 26, 0.001996), (5, 14, 0.01629))
+BP_OSD_P = 0.05
+# runs/stream_quality_w.json, the d=5 p=0.02 row (the JAX package on a CPU),
+# which the window weights' sidecar reproduces on the same streams at the same
+# settings (window 5, commit 1, 11 rounds, seed 11, batch 256, 10,000 shots)
+STREAM_ROW = {"gnn_stream": 0.8134, "gnn_uf_stream": 0.0942, "gnn_dev_stream": 0.0922,
+              "uf_stream": 0.1261, "uf_monolithic": 0.1226}
+# the GNN window adapters decode the sidecar's own streams, so their failure
+# counts may differ from the JAX f32 counts only by the few shots whose
+# logits f32 rounding moves across 0
+STREAM_FAIL_SLACK = 5
+DETECTOR_Z = 4
+
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak (NVIDIA data sheet, SXM)
 H100_F32_FLOPS = 67e12    # f32 outside the tensor cores
 H100_HBM_BPS = 3.35e12
@@ -359,6 +404,16 @@ def time_ms(fn, warmup: int = 3, iters: int = 15) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def host_ms(fn, iters: int = 5) -> float:
+    """Median wall time of ``iters`` calls of ``fn``, for work on the host."""
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
 
@@ -1064,7 +1119,7 @@ def phase_toric_and_random(graph, dg, dev, info: dict, ell_times: dict) -> dict:
             err = float((out_k.qubit_logits - out_p.qubit_logits).abs().max())
             finite = bool(torch.isfinite(out_k.qubit_logits).all()
                           and torch.isfinite(out_k.logical_logits).all())
-            fwd_ms = time_ms(lambda: model(dg, syn), warmup=1, iters=5)
+            fwd_ms = time_ms(lambda: model(dg, syn), warmup=1, iters=3)
         info[f"random_{aggr}"] = dict(rounds=rounds, launches=launched[f"random_{aggr}"],
                                       agree=agree, min_agree=MIN_AGREE_F32,
                                       logits_max_abs_err=err, forward_ms=fwd_ms)
@@ -1083,7 +1138,7 @@ def phase_toric_and_random(graph, dg, dev, info: dict, ell_times: dict) -> dict:
         out = model(dg, syn)
         if not bool(torch.isfinite(out.qubit_logits).all()):
             raise RuntimeError("generic bench config: non-finite logits")
-        bench_ms = time_ms(lambda: model(dg, syn), warmup=2, iters=7)
+        bench_ms = time_ms(lambda: model(dg, syn), warmup=1, iters=5)
         breakdown = profile_forward(model, dg, syn)
     info["generic_bench"] = dict(rounds=rounds, dtype="bfloat16", forward_ms=bench_ms,
                                  forward_breakdown=breakdown,
@@ -1172,11 +1227,13 @@ def phase_roll_gather(graph, dg, dev, trained, info: dict) -> tuple[dict, dict]:
                                             real(k1c, graph.n_checks), real(k1q, graph.n_qubits))
             finite = bool(torch.isfinite(oc).all() and torch.isfinite(oq).all())
             del kc, kq, pc, pq, oc, oq
-            k_ms = time_ms(lambda: rg._roll_rounds_cuda(r_ops, rounds=rounds, slot_dtype=slot))
+            k_ms = time_ms(lambda: rg._roll_rounds_cuda(r_ops, rounds=rounds, slot_dtype=slot),
+                           warmup=2, iters=10)
             call_ms = time_ms(lambda: rg.decoder_rounds_roll(
-                xc, xq, s, plan, w, rounds=rounds, state_dtype="bfloat16", slot_dtype=slot))
+                xc, xq, s, plan, w, rounds=rounds, state_dtype="bfloat16", slot_dtype=slot),
+                warmup=2, iters=10)
             p_ms = time_ms(lambda: rg.roll_rounds_plain(r_ops, rounds=rounds, slot_dtype=slot),
-                           warmup=1, iters=5)
+                           warmup=0, iters=3)
             bench[slot] = dict(max_abs_err=max_err, mean_abs_err=mean_err,
                                vs_k1_real_rows_max=k1_max, vs_k1_real_rows_mean=k1_mean,
                                repeatable=repeatable, kernel_ms=k_ms,
@@ -1252,9 +1309,9 @@ def phase_roll_gather(graph, dg, dev, trained, info: dict) -> tuple[dict, dict]:
         f32_max, f32_mean = raster_errors(kc, kq, pc, pq)
         del kc, kq, pc, pq
         # the kernel the main path launches: f32 on FMA loops
-        f32_ms = time_ms(lambda: rg._roll_rounds_cuda(t_ops_r, rounds=r_t), warmup=2, iters=7)
+        f32_ms = time_ms(lambda: rg._roll_rounds_cuda(t_ops_r, rounds=r_t), warmup=1, iters=5)
         f32_plain_ms = time_ms(lambda: rg.roll_rounds_plain(t_ops_r, rounds=r_t),
-                               warmup=1, iters=3)
+                               warmup=0, iters=2)
         del t_ops_r
     f32_flops = rounds_flops(graph, h) * B * r_t
     f32_ops_ms = f32_flops / H100_F32_FLOPS * 1e3
@@ -1284,8 +1341,8 @@ def phase_roll_gather(graph, dg, dev, trained, info: dict) -> tuple[dict, dict]:
             same += ((fr["fail_qubit"] == ff["fail_qubit"]) & (lr == lf).all(-1)).sum()
         agree = float(same) / (chunks * B)
         syn = sample_batch(gen, dg, 0.05, B).syndrome
-        fwd_ms = time_ms(lambda: pd(dg, syn), warmup=2, iters=7)
-        fused_ms = time_ms(lambda: trained(dg, syn), warmup=2, iters=7)
+        fwd_ms = time_ms(lambda: pd(dg, syn), warmup=1, iters=5)
+        fused_ms = time_ms(lambda: trained(dg, syn), warmup=1, iters=5)
         # a model wider than the kernels' 128 columns: refused by K5's and
         # K1's wrappers, with the limit named, before any launch
         w160 = fd.RoundWeights(*[torch.zeros((a.shape[0] if a.shape[0] == 1 else 160, 160),
@@ -2004,6 +2061,209 @@ def phase_checkpoints(dev, d11: dict, info: dict) -> dict:
     return total
 
 
+def detector_k1_check(model, graph, dev) -> dict:
+    """K1 on the detector graph (M=64, N=176, Dc=6, Dq=2, width 96 padded to
+    128, f32, R=8) at the monolithic decode's shapes (B=4096): the trained
+    model's embedded states of sampled shots, one call held to the plain
+    version (:func:`held_to_plain`: the shared-panel kernel, once), its
+    time, the plain version's and its bound (the f32 CUDA-core floor on the
+    real rows at the model's width)."""
+    import torch
+
+    from tpugnn_torch.kernels import fused_decoder as fd
+    from tpugnn_torch.sampling import sample_batch
+
+    dg = graph.to(dev)
+    cfg = model.cfg
+    with torch.inference_mode():
+        syn = sample_batch(torch.Generator(device=dev).manual_seed(41), dg, DETECTOR_P,
+                           B).syndrome
+        xc, xq, s_pm = model.embed(dg, syn)
+        xq = xq.contiguous()
+        w = fd.RoundWeights(*[t.detach() for t in model.rounds.round_weights()])
+    ops = fd.make_operators(dg)
+    run, plain = kernel_and_plain("k1", graph, ops, w, xc, xq, s_pm[..., None], cfg.rounds,
+                                  cfg.dtype)
+    res = held_to_plain(run, plain, "fused_rounds", cfg.dtype,
+                        f"K1 on the detector graph {graph.name}")
+    with torch.inference_mode():
+        ms = time_ms(run, warmup=1, iters=5)
+        plain_ms = time_ms(plain, warmup=0, iters=1)
+    flops = rounds_flops(graph, cfg.hidden) * B * cfg.rounds
+    b_ms, b_by = bound(rounds_bytes(graph, B, cfg.hidden, 4), flops, H100_F32_FLOPS)
+    return dict(graph=graph.name, m_pad=graph.n_checks_pad, n_pad=graph.n_qubits_pad,
+                dc=graph.deg_max_check, dq=graph.deg_max_qubit, width=cfg.hidden,
+                batch=B, rounds=cfg.rounds, dtype=cfg.dtype, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, **res)
+
+
+def phase_detector_and_stream(dev, info: dict) -> tuple[dict, dict]:
+    """The `detector_and_stream` phase: the detector-graph decode path.
+
+    a. The monolithic detector decoder (tpugnn_torch/assets/
+       spacetime_surface_d5_t5_h96_r8_4000.npz: H=96, R=8, bits, f32) on its
+       detector graph through ler_all_columns at p=0.02 on LER_SHOTS shots
+       (B=4096): every GNN column within |z| <= DETECTOR_Z of the JAX f32
+       columns in its sidecar, raw union-find and MWPM within |z| <=
+       DETECTOR_Z of LER_DETECTOR.md:41, no cleanup syndrome left, 16 K1
+       launches (the shared-panel kernel) and nothing else; every column's
+       z against the row reported; K1 held to its plain version on the
+       graph and timed (:func:`detector_k1_check`); the decode ms of one
+       4096-shot forward.
+    b. ler_bp_osd at p=0.05 on LER_SHOTS shots at d=11 and d=5, each within
+       |z| <= DETECTOR_Z of LER_TABLE.md:26 / :14 with no syndrome mismatch,
+       and no kernel launch; ler_bp beside it (rate and syndrome mismatch
+       rate); BP's ms per 4096-shot chunk on the card and the OSD's host ms
+       per chunk.
+    c. The window decoder (spacetime_surface_d5_t5_w_h96_r8_4000.npz) in the
+       five decoders of benchmarks/stream_quality.py on the numpy streams
+       its sidecar's rates were measured on (the sidecar's settings):
+       uf_stream and uf_monolithic equal to the JAX rates in the sidecar
+       exactly; the three GNN adapters' failure counts within
+       STREAM_FAIL_SLACK shots of the sidecar's JAX f32 counts; one K1
+       launch per GNN window and nothing else; the z against the JAX rates
+       and runs/stream_quality_w.json's row reported, with each adapter's
+       ms per window and committed rounds per second.
+    Returns ``(launches by path, K1's check on the detector graph)``."""
+    import torch
+
+    from tpugnn_torch.baselines import BPOSDDecoder
+    from tpugnn_torch.baselines.bp import bp_posteriors
+    from tpugnn_torch.eval import ler_bp, ler_bp_osd
+    from tpugnn_torch.eval.hybrid import ler_all_columns
+    from tpugnn_torch.models.convert import (DETECTOR_D5_WEIGHTS, STREAM_D5_WEIGHTS,
+                                             load_decoder, read_columns, read_meta)
+    from tpugnn_torch.sampling import sample_batch
+    from tpugnn_torch.streaming import SlidingWindowDecoder, stream_ler
+    from tpugnn_torch.tanner import build_code
+
+    launches = {}
+    chunks = LER_SHOTS // B
+
+    # a. the monolithic detector decode
+    ref, meta = read_columns(DETECTOR_D5_WEIGHTS), read_meta(DETECTOR_D5_WEIGHTS)
+    if any(ref[k] != meta[k] for k in ("step", "source", "code", "model", "graph")) or \
+            ref["p"] != DETECTOR_P:
+        raise RuntimeError(f"the detector sidecar is not of these weights at p={DETECTOR_P}")
+    _, model, graph = load_decoder(DETECTOR_D5_WEIGHTS, device=dev)
+    reset_counts()
+    cols = ler_all_columns(model, graph, p=DETECTOR_P, shots=LER_SHOTS, batch=B,
+                           generator=torch.Generator(device=dev).manual_seed(2026),
+                           best_of=True, with_mwpm=True, with_uf_raw=True, device=dev)
+    launches["detector"] = launched = counts()
+    n = int(cols["shots"])
+    z_jax = {k: z_score(cols[k], n, ref["columns"][k], ref["shots"]) for k in ref["columns"]}
+    z_row = {k: z_score(cols[k], n, v, DETECTOR_ROW_SHOTS) for k, v in DETECTOR_ROW.items()}
+    dg = graph.to(dev)
+    with torch.inference_mode():
+        syn = sample_batch(torch.Generator(device=dev).manual_seed(42), dg, DETECTOR_P,
+                           B).syndrome
+        decode_ms = time_ms(lambda: model(dg, syn), warmup=1, iters=5)
+    k1 = detector_k1_check(model, graph, dev)
+    info["monolithic"] = dict(
+        weights=os.path.relpath(DETECTOR_D5_WEIGHTS, REPO), graph=graph.name,
+        m_pad=graph.n_checks_pad, n_pad=graph.n_qubits_pad, dc=graph.deg_max_check,
+        dq=graph.deg_max_qubit, p=DETECTOR_P, shots=n, batch=B,
+        columns={k: cols[k] for k in DETECTOR_ROW}, picked=cols["picked"],
+        syn_mismatch=cols["syn_mismatch"],
+        jax_f32=dict(shots=ref["shots"], seed=ref["seed"], columns=ref["columns"]),
+        z_vs_jax_f32=z_jax, row=dict(line="benchmarks/LER_DETECTOR.md:41",
+                                     shots=DETECTOR_ROW_SHOTS, columns=DETECTOR_ROW),
+        z_vs_row=z_row, within_2_stderr_of_row={k: abs(v) <= 2 for k, v in z_row.items()},
+        timing=cols["timing"], decode_ms=decode_ms, k1_vs_plain=k1, launches=launched)
+    gated = {**{k: z_jax[k] for k in DETECTOR_GNN_COLUMNS}, "uf": z_row["uf"],
+             "mwpm": z_row["mwpm"]}
+    if any(abs(v) > DETECTOR_Z for v in gated.values()):
+        raise RuntimeError(f"detector: a column is off its reference: {gated}")
+    if any(cols["syn_mismatch"].values()):
+        raise RuntimeError(f"detector: a cleanup column left syndromes: {cols['syn_mismatch']}")
+    if launched != {**dict.fromkeys(launched, 0), "fused_rounds": chunks}:
+        raise RuntimeError(f"detector: launched {launched}, not {chunks} K1 and nothing else")
+    del model
+    torch.cuda.empty_cache()
+
+    # b. BP and BP+OSD-0
+    for d, line, rate in BP_OSD_ROWS:
+        g = build_code("surface", d)
+        reset_counts()
+        osd = ler_bp_osd(g, p=BP_OSD_P, shots=LER_SHOTS, batch=B,
+                         generator=torch.Generator(device=dev).manual_seed(3100 + d),
+                         device=dev)
+        bp = ler_bp(g, p=BP_OSD_P, shots=LER_SHOTS, batch=B,
+                    generator=torch.Generator(device=dev).manual_seed(3100 + d), device=dev)
+        launched = counts()
+        dec = BPOSDDecoder(g, p=BP_OSD_P, device=dev)
+        dgb = g.to(dev)
+        with torch.inference_mode():
+            syn = sample_batch(torch.Generator(device=dev).manual_seed(3200 + d), dgb,
+                               BP_OSD_P, B).syndrome
+            bp_ms = time_ms(lambda: bp_posteriors(dgb, syn, BP_OSD_P), warmup=1, iters=5)
+        post = dec.posteriors(syn)
+        osd_ms = host_ms(lambda: dec.osd(*post))
+        z = z_score(osd["ler"], int(osd["shots"]), rate, REF_SHOTS)
+        info[f"bp_osd_d{d}"] = dict(
+            p=BP_OSD_P, shots=int(osd["shots"]), ler_bp_osd=osd["ler"],
+            syn_mismatch_rate=osd["syn_mismatch_rate"],
+            table=dict(line=f"benchmarks/LER_TABLE.md:{line}", shots=REF_SHOTS, ler=rate),
+            z_vs_table=z, ler_bp=bp["ler"], bp_syn_mismatch_rate=bp["syn_mismatch_rate"],
+            bp_ms_per_chunk=bp_ms, osd_host_ms_per_chunk=osd_ms, batch=B,
+            launches=launched)
+        if abs(z) > DETECTOR_Z or osd["syn_mismatch_rate"] != 0.0:
+            raise RuntimeError(f"BP+OSD d={d}: {info[f'bp_osd_d{d}']}")
+        if any(launched.values()):
+            raise RuntimeError(f"BP+OSD d={d} launched a kernel: {launched}")
+
+    # c. the streaming decoders
+    side, meta = read_columns(STREAM_D5_WEIGHTS), read_meta(STREAM_D5_WEIGHTS)
+    st = side["stream"]
+    if any(side[k] != meta[k] for k in ("step", "source", "code", "model", "graph")):
+        raise RuntimeError("the stream sidecar is not of these weights")
+    _, wmodel, _ = load_decoder(STREAM_D5_WEIGHTS, device=dev)
+    w, c, rounds = st["window"], st["commit"], st["rounds"]
+    gnn = dict(window=w, commit=c, model=wmodel, device=dev)
+    decoders = {
+        "gnn_stream": SlidingWindowDecoder.from_gnn("surface", 5, **gnn),
+        "gnn_uf_stream": SlidingWindowDecoder.from_gnn_cleanup("surface", 5, **gnn),
+        "gnn_dev_stream": SlidingWindowDecoder.from_gnn_device("surface", 5, **gnn),
+        "uf_stream": SlidingWindowDecoder.from_union_find("surface", 5, window=w, commit=c),
+        "uf_monolithic": SlidingWindowDecoder.from_union_find("surface", 5, window=rounds,
+                                                              commit=rounds),
+    }
+    stream = {}
+    reset_counts()
+    for name, dec in decoders.items():
+        r = stream_ler(dec, p=st["p"], rounds=rounds, shots=st["shots"], seed=st["seed"],
+                       batch=st["batch"])
+        jax_rate, row_rate = st["rates"][name], STREAM_ROW[name]
+        stream[name] = dict(
+            ler=r["ler"], jax_f32=jax_rate, row=row_rate,
+            fails=round(r["ler"] * st["shots"]), jax_f32_fails=round(jax_rate * st["shots"]),
+            z_vs_jax_f32=z_score(r["ler"], st["shots"], jax_rate, st["shots"]),
+            z_vs_row=z_score(r["ler"], st["shots"], row_rate, st["shots"]),
+            windows=r["windows"], ms_per_window=r["decode_seconds"] * 1e3 / r["windows"],
+            committed_rounds_per_s=st["shots"] * rounds / r["decode_seconds"])
+    launches["stream"] = launched = counts()
+    gnn_windows = sum(stream[k]["windows"] for k in ("gnn_stream", "gnn_uf_stream",
+                                                      "gnn_dev_stream"))
+    info["stream"] = dict(weights=os.path.relpath(STREAM_D5_WEIGHTS, REPO),
+                          **{k: st[k] for k in ("p", "window", "commit", "rounds", "seed",
+                                                "batch", "shots")},
+                          row="runs/stream_quality_w.json (d=5, p=0.02)", decoders=stream,
+                          launches=launched)
+    for name in ("uf_stream", "uf_monolithic"):
+        if stream[name]["ler"] != st["rates"][name]:
+            raise RuntimeError(f"stream: {name} {stream[name]} differs from the JAX rate "
+                               f"on the same streams")
+    for name in ("gnn_stream", "gnn_uf_stream", "gnn_dev_stream"):
+        if abs(stream[name]["fails"] - stream[name]["jax_f32_fails"]) > STREAM_FAIL_SLACK:
+            raise RuntimeError(f"stream: {name} fails more than {STREAM_FAIL_SLACK} shots "
+                               f"apart from JAX f32 on the same streams: {stream[name]}")
+    if launched != {**dict.fromkeys(launched, 0), "fused_rounds": gnn_windows}:
+        raise RuntimeError(f"stream: launched {launched}, not {gnn_windows} K1 (one per "
+                           f"GNN window) and nothing else")
+    return launches, k1
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(REPO, "tpugnn_torch")):
@@ -2180,6 +2440,10 @@ def main() -> int:
 
     with Phase("hybrid") as info:
         launches["hybrid"] = phase_hybrid(graph, dev, trained, ev, info)
+
+    with Phase("detector_and_stream") as info:
+        det_launches, det_k1 = phase_detector_and_stream(dev, info)
+        launches.update(det_launches)
 
     with Phase("timing") as info:
         b, rounds = B, 8
@@ -2560,6 +2824,7 @@ def main() -> int:
         library_ms=None, yardstick_ms=timing["yardstick_ms"],
         gpanels=variant("fused_rounds_gpanels", gp_checks, timing["fused_rounds_gpanels"]),
         padded_width=padded("k1", pw_checks),
+        detector_graph=det_k1,
     ), row(
         "fused_rounds_fwd_stash",
         source="tpugnn_torch/kernels/csrc/fused_rounds.cu",

@@ -9,7 +9,11 @@ weights (``v3_surface_d11/ema@40000``, f32, B=4096) with best-of (weight
 rule), GNN+MWPM and the raw union-find and MWPM baselines, one seeded
 generator per p, and holds each column against the table's row
 (``LER_TABLE.md:28`` and ``:29``, 1e6 shots each, taken on a TPU): the
-pooled two-sample z and whether it is within the 2-stderr criterion.
+pooled two-sample z and whether it is within the 2-stderr criterion.  The
+per-qubit head is held at |z| <= 4 to the JAX package's f32 rate at that p
+(``per_qubit_reference`` in the weights file's sidecar, 131,072 shots; the
+table's per-qubit rate is the TPU's one-bf16-pass GEMM rate), as
+``chip_smoke.py`` holds it at p=0.05; the script exits 1 when it is off.
 Prints one JSON line per row (columns, failures, z, picked candidates,
 syndrome mismatches, the host's and the device's seconds), then the card's
 name and power limit.  About 35 s a row on an H100 (245 forwards of 4096
@@ -36,6 +40,7 @@ TABLE = {
            "uf": 0.0001794, "mwpm": 0.0001036},
 }
 TABLE_SHOTS = 1_000_000
+QUBIT_Z = 4      # the per-qubit head's gate against the JAX f32 rate
 
 
 def z_score(rate: float, n: int, ref: float, ref_n: int) -> float:
@@ -61,9 +66,11 @@ def main(argv=None) -> int:
     sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False
     from tpugnn_torch.eval.hybrid import ler_all_columns
-    from tpugnn_torch.models.convert import load_decoder, read_meta
+    from tpugnn_torch.models.convert import load_decoder, read_columns, read_meta
 
     meta = read_meta()
+    jax_qubit = {r["p"]: r for r in read_columns()["per_qubit_reference"]["rows"]}
+    off = []
     _, model, graph = load_decoder(device="cuda")
     for p in args.p:
         ref = TABLE[p]
@@ -83,10 +90,19 @@ def main(argv=None) -> int:
                    within_2_stderr_of_table={k: abs(v) <= 2 for k, v in z.items()},
                    picked=cols["picked"], syn_mismatch=cols["syn_mismatch"],
                    timing=cols["timing"], seconds=time.perf_counter() - t0)
+        jq = jax_qubit[p]
+        row["qubit_jax_f32"] = dict(shots=jq["shots"], seed=jq["seed"], ler=jq["ler"],
+                                    z=z_score(cols["ler"], n, jq["ler"], jq["shots"]),
+                                    gate=QUBIT_Z)
+        if abs(row["qubit_jax_f32"]["z"]) > QUBIT_Z:
+            off.append(p)
         print(json.dumps(row), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip().splitlines()[0], flush=True)
+    if off:
+        print(f"the per-qubit head is off its JAX f32 rate at p={off}", file=sys.stderr)
+        return 1
     return 0
 
 

@@ -117,7 +117,10 @@ def test_kernel_probes_import_no_jax(script):
 HYBRID_MODULES = ["tpugnn_torch.utils.native", "tpugnn_torch.baselines",
                   "tpugnn_torch.baselines.union_find", "tpugnn_torch.baselines.mwpm",
                   "tpugnn_torch.baselines.device_repair", "tpugnn_torch.eval.baseline",
-                  "tpugnn_torch.eval.hybrid", "tpugnn_torch.serve.engine"]
+                  "tpugnn_torch.eval.hybrid", "tpugnn_torch.serve.engine",
+                  "tpugnn_torch.baselines.bp", "tpugnn_torch.baselines.osd",
+                  "tpugnn_torch.tanner.spacetime", "tpugnn_torch.streaming",
+                  "tpugnn_torch.streaming.window"]
 
 
 @pytest.mark.parametrize("module", HYBRID_MODULES)
@@ -137,3 +140,34 @@ def test_hybrid_modules_import_without_jax(module):
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_detector_entry_points_need_cuda_unless_asked_for_cpu(no_cuda):
+    """The detector-graph entry points default to the card and raise
+    without one; with device='cpu' they run the plain path."""
+    from tpugnn_torch.baselines import BPOSDDecoder
+    from tpugnn_torch.eval import ler_bp, ler_bp_osd
+    from tpugnn_torch.models.convert import DETECTOR_D5_WEIGHTS, STREAM_D5_WEIGHTS, load_decoder
+    from tpugnn_torch.streaming import SlidingWindowDecoder
+    from tpugnn_torch.tanner import build_code, build_spacetime_code
+
+    g = build_code("surface", 3)
+    gen = torch.Generator()
+    for path in (DETECTOR_D5_WEIGHTS, STREAM_D5_WEIGHTS):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            load_decoder(path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ler_bp(g, p=0.05, shots=1, batch=1, generator=gen)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ler_bp_osd(g, p=0.05, shots=1, batch=1, generator=gen)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BPOSDDecoder(g, p=0.05)
+    _, model, graph = load_decoder(STREAM_D5_WEIGHTS, device="cpu")
+    assert graph.name == build_spacetime_code("surface", 5, 5).name
+    for adapter in ("from_gnn", "from_gnn_device", "from_gnn_cleanup"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            getattr(SlidingWindowDecoder, adapter)("surface", 5, window=5, commit=1,
+                                                   model=model)
+        getattr(SlidingWindowDecoder, adapter)("surface", 5, window=5, commit=1,
+                                               model=model, device="cpu")
+    assert ler_bp(g, p=0.05, shots=2, batch=2, generator=gen, device="cpu")["shots"] == 2.0

@@ -1,10 +1,12 @@
-"""Monte-Carlo LER of the classical baseline decoders (union-find, MWPM).
+"""Monte-Carlo LER of the classical baseline decoders (union-find, MWPM, BP,
+BP+OSD-0).
 
-The port of ``tpugnn.eval.baseline`` (``ler_bp`` and ``ler_bp_osd`` are not
-ported yet).  Shots are sampled on the device from one ``torch.Generator``,
-drawn as :func:`tpugnn_torch.eval.ler.ler_monte_carlo` draws them, and
-copied to the host once per chunk for the native decoders; the failure
-check (residual syndrome and logical parity) runs in NumPy.
+The port of ``tpugnn.eval.baseline``.  Shots are sampled on the device from
+one ``torch.Generator``, drawn as :func:`tpugnn_torch.eval.ler.ler_monte_carlo`
+draws them.  For the host decoders (union-find, MWPM, the OSD of BP+OSD)
+they are copied to the host once per chunk and the failure check (residual
+syndrome and logical parity) runs in NumPy; BP alone stays on the device
+from sampling to the failure counts.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from tpugnn_torch.sampling.noise import sample_batch
 from tpugnn_torch.tanner.graph import TannerGraph
 from tpugnn_torch.utils.device import resolve_device
 
-__all__ = ["ler_union_find", "ler_mwpm"]
+__all__ = ["ler_union_find", "ler_mwpm", "ler_bp", "ler_bp_osd"]
 
 
 @torch.inference_mode()
@@ -72,3 +74,45 @@ def ler_mwpm(graph: TannerGraph, *, p: float, shots: int, batch: int = 4096,
     dec = MWPMDecoder(graph, p=p, force_python=force_python)
     return _ler_host(graph, dec, "mwpm", p=p, shots=shots, batch=batch,
                      generator=generator, device=device)
+
+
+@torch.inference_mode()
+def ler_bp(graph: TannerGraph, *, p: float, shots: int, batch: int = 4096, iters: int = 32,
+           alpha: float = 0.8, generator: torch.Generator, device="cuda") -> dict[str, float]:
+    """Monte-Carlo LER of min-sum BP, entirely on ``device``: sampling, the
+    decode and the residual-syndrome and logical-parity checks; the counts
+    are read once at the end."""
+    from tpugnn_torch.baselines.bp import bp_decode
+    from tpugnn_torch.eval.ler import count_failures
+
+    dg = graph.to(resolve_device(device))
+    fails = torch.zeros((), device=dg.qubit_mask.device)
+    syn_mismatch = torch.zeros_like(fails)
+    total = 0
+    for _ in range(max(1, (shots + batch - 1) // batch)):
+        b = sample_batch(generator, dg, p, batch)
+        ex_hat, ez_hat = bp_decode(dg, b.syndrome, p, iters=iters, alpha=alpha)
+        f = count_failures(dg, b, ex_hat, ez_hat, None)
+        fails += f["fail_qubit"].sum()
+        syn_mismatch += f["syn_mismatch"].sum()
+        total += batch
+    ler = float(fails) / total
+    return {
+        "ler": ler,
+        "ler_stderr": (max(ler * (1 - ler), 1e-12) / total) ** 0.5,
+        "syn_mismatch_rate": float(syn_mismatch) / total,
+        "shots": float(total),
+        "decoder": f"bp_minsum(iters={iters}, alpha={alpha})",
+    }
+
+
+def ler_bp_osd(graph: TannerGraph, *, p: float, shots: int, batch: int = 4096,
+               iters: int = 32, alpha: float = 0.8, generator: torch.Generator,
+               force_python: bool = False, device="cuda") -> dict[str, float]:
+    """Monte-Carlo LER of BP + OSD-0 (BP on ``device``, the OSD on the host)."""
+    from tpugnn_torch.baselines.osd import BPOSDDecoder
+
+    dec = BPOSDDecoder(graph, p=p, iters=iters, alpha=alpha, force_python=force_python,
+                       device=device)
+    return _ler_host(graph, dec, f"bp_osd0(iters={iters}, alpha={alpha})", p=p,
+                     shots=shots, batch=batch, generator=generator, device=device)

@@ -11,8 +11,10 @@ whose parameters keep the flax names and layouts (Dense kernels are
 keys, which ``state_dict_from_flat`` maps onto the module, plus a
 ``__meta__`` JSON record of the checkpoint step and config.
 ``load_decoder(path, backend=...)`` loads such a file into either layout,
-converting the rounds' parameters (``tpugnn_torch.models.fused_cell``).
-Reading needs NumPy only.
+converting the rounds' parameters (``tpugnn_torch.models.fused_cell``), on
+the graph the file names: the code graph of ``code``, or, where the record
+has a ``graph`` entry, the spacetime detector graph it describes
+(:func:`graph_of_meta`).  Reading needs NumPy only.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ from tpugnn_torch.configs import CodeConfig, ExperimentConfig, ModelConfig
 
 __all__ = ["flatten_tree", "state_dict_from_flat", "params_from_flax", "load_npz",
            "read_meta", "columns_path", "read_columns", "convert_flat_layout", "load_decoder",
-           "DEFAULT_WEIGHTS", "TORIC_D7_WEIGHTS"]
+           "graph_of_meta", "DEFAULT_WEIGHTS", "TORIC_D7_WEIGHTS", "DETECTOR_D5_WEIGHTS",
+           "STREAM_D5_WEIGHTS"]
 
 _ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                        "assets")
@@ -36,6 +39,12 @@ _ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 DEFAULT_WEIGHTS = os.path.join(_ASSETS, "surface_d11_h128_r14_ema40000.npz")
 # the trained d=7 toric code (runs/r2_toric_d7/ema, step 8000)
 TORIC_D7_WEIGHTS = os.path.join(_ASSETS, "toric_d7_h128_r10_ema8000.npz")
+# the phenomenological detector graph of surface d=5 over 5 rounds
+# (runs/spacetime_surface_d5_t5, step 4000), and its twin trained for
+# sliding windows with round-0 faults at twice the rate
+# (runs/spacetime_surface_d5_t5_w, step 4000)
+DETECTOR_D5_WEIGHTS = os.path.join(_ASSETS, "spacetime_surface_d5_t5_h96_r8_4000.npz")
+STREAM_D5_WEIGHTS = os.path.join(_ASSETS, "spacetime_surface_d5_t5_w_h96_r8_4000.npz")
 
 
 def flatten_tree(tree: dict, prefix: str = "") -> dict:
@@ -95,6 +104,26 @@ def load_npz(path: str = DEFAULT_WEIGHTS) -> tuple[ExperimentConfig, dict, int]:
     return cfg, flat, int(meta["step"])
 
 
+def graph_of_meta(meta: dict):
+    """The NumPy ``TannerGraph`` a weights file's ``__meta__`` record names:
+    ``build_code`` of its ``code`` entry, or, where it has a ``graph`` entry
+    of kind ``'spacetime'`` (``d_t``, ``sector``, ``meas_ratio``,
+    ``t0_scale``), that detector graph of the code's family and distance,
+    with the noise rates the weights were trained on."""
+    from tpugnn_torch.tanner import build_code, build_spacetime_code
+
+    code = meta["code"]
+    pads = dict(pad_nodes=code["pad_nodes"], pad_edges=code["pad_edges"])
+    g = meta.get("graph")
+    if g is None:
+        return build_code(code["family"], code["distance"], **pads)
+    if g.get("kind") != "spacetime":
+        raise ValueError(f"unknown graph kind in the weights file: {g}")
+    return build_spacetime_code(code["family"], code["distance"], g["d_t"],
+                                sector=g["sector"], meas_ratio=g["meas_ratio"],
+                                t0_scale=g["t0_scale"], **pads)
+
+
 def _layout(backend: str) -> str:
     return "fused" if backend == "fused" else "generic"
 
@@ -131,13 +160,13 @@ def convert_flat_layout(flat: dict, src_backend: str, dst_backend: str) -> dict:
 
 def load_decoder(path: str = DEFAULT_WEIGHTS, device="cuda", backend: str | None = None):
     """Entry point: ``(config, GNNDecoder on device, TannerGraph)`` from a
-    weights file.  The model is in eval mode.  ``backend`` (default: the
-    file's) picks the rounds: ``'fused'`` for the fused kernels K1/K2,
-    ``'segment'``, ``'dense'``, ``'ell'`` or ``'pallas'`` for the generic
-    engine (``'pallas'``: the kernels K3a/K3b); the parameters are converted
-    between the layouts."""
+    weights file, on the graph its record names (:func:`graph_of_meta`: the
+    code graph or a detector graph).  The model is in eval mode.
+    ``backend`` (default: the file's) picks the rounds: ``'fused'`` for the
+    fused kernels K1/K2, ``'segment'``, ``'dense'``, ``'ell'`` or
+    ``'pallas'`` for the generic engine (``'pallas'``: the kernels
+    K3a/K3b); the parameters are converted between the layouts."""
     from tpugnn_torch.models.decoder import GNNDecoder
-    from tpugnn_torch.tanner import build_code
     from tpugnn_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
@@ -145,8 +174,7 @@ def load_decoder(path: str = DEFAULT_WEIGHTS, device="cuda", backend: str | None
     if backend is not None:
         flat = convert_flat_layout(flat, cfg.model.backend, backend)
         cfg = cfg.replace(model=dataclasses.replace(cfg.model, backend=backend))
-    graph = build_code(cfg.code.family, cfg.code.distance,
-                       pad_nodes=cfg.code.pad_nodes, pad_edges=cfg.code.pad_edges)
+    graph = graph_of_meta(read_meta(path))
     model = GNNDecoder(cfg.model, k=graph.k)
     model.load_state_dict(state_dict_from_flat(flat))
     return cfg, model.to(dev).eval(), graph

@@ -40,11 +40,15 @@ def sample_depolarizing(generator: torch.Generator, graph: TannerGraph,
     One uniform draw u per qubit: u < p/3 -> X, p/3 <= u < 2p/3 -> Y,
     2p/3 <= u < p -> Z.  ``p`` is a float, or a [B, 1] tensor of per-shot
     rates.  ``graph`` holds tensors (``TannerGraph.to``) on the generator's
-    device.
+    device.  A graph with ``rate_scale`` (a detector graph) draws
+    single-sector bit flips instead: ex = u < p * rate_scale, ez = 0.
     """
     qm = graph.qubit_mask
     u = torch.rand((batch, graph.n_qubits_pad), generator=generator,
                    device=qm.device, dtype=torch.float32)
+    if graph.rate_scale is not None:
+        ex = (u < p * graph.rate_scale).float()
+        return ex * qm, torch.zeros_like(ex)
     ex = (u < 2.0 * p / 3.0).float()
     ez = ((u >= p / 3.0) & (u < p)).float()
     return ex * qm, ez * qm

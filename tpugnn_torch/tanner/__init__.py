@@ -1,6 +1,8 @@
-"""Code families -> padded Tanner graphs (surface, toric, repetition, Steane)."""
+"""Code families -> padded Tanner graphs (surface, toric, repetition, Steane),
+and the spacetime detector graphs of one sector."""
 
 from tpugnn_torch.tanner.graph import TannerGraph, build_tanner_graph
+from tpugnn_torch.tanner.spacetime import build_spacetime_code, spacetime_matrix
 from tpugnn_torch.tanner.repetition import build_repetition_code, repetition_code_checks
 from tpugnn_torch.tanner.steane import build_steane_code, steane_code_checks
 from tpugnn_torch.tanner.surface import build_surface_code, surface_code_checks
@@ -27,4 +29,5 @@ def build_code(family: str, distance: int, **kw) -> TannerGraph:
 __all__ = ["TannerGraph", "build_tanner_graph", "build_code",
            "build_surface_code", "build_toric_code", "build_repetition_code",
            "build_steane_code", "surface_code_checks", "toric_code_checks",
-           "repetition_code_checks", "steane_code_checks"]
+           "repetition_code_checks", "steane_code_checks",
+           "build_spacetime_code", "spacetime_matrix"]

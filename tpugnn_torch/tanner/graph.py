@@ -79,8 +79,10 @@ class TannerGraph:
     logicals_z: object      # f32[k, n_pad]
     pure_ex: object         # f32[n_pad, m_pad]
     pure_ez: object         # f32[n_pad, m_pad]
-    # per-qubit noise-rate multiplier of spacetime graphs, which are not
-    # ported yet: always None here
+    # None: depolarizing sampling at uniform rate p.  f32[n_pad]:
+    # single-sector bit-flip sampling at rate p * rate_scale[q] (spacetime
+    # detector graphs, whose "qubits" are fault locations with distinct
+    # data and measurement rates)
     rate_scale: object = None
 
     @property
@@ -113,8 +115,16 @@ def build_tanner_graph(
     name: str,
     pad_nodes: int = 8,
     pad_edges: int = 128,
+    logicals: tuple[np.ndarray, np.ndarray] | None = None,
+    rate_scale: np.ndarray | None = None,
 ) -> TannerGraph:
-    """Build the padded graph from a CSS pair ``hx`` [mx, n], ``hz`` [mz, n]."""
+    """Build the padded graph from a CSS pair ``hx`` [mx, n], ``hz`` [mz, n].
+
+    ``logicals=(lx, lz)`` replaces the derived logical operators (detector
+    graphs: the base code's logicals lifted over the fault locations);
+    ``rate_scale`` [n] attaches per-qubit noise-rate multipliers
+    (``TannerGraph.rate_scale``).
+    """
     hx = np.asarray(hx, dtype=np.uint8).reshape(-1, hx.shape[-1]) if hx.size else np.zeros((0, hz.shape[-1]), np.uint8)
     hz = np.asarray(hz, dtype=np.uint8).reshape(-1, hz.shape[-1]) if hz.size else np.zeros((0, hx.shape[-1]), np.uint8)
     mx, n = hx.shape
@@ -125,7 +135,13 @@ def build_tanner_graph(
     if mx and mz and ((hx @ hz.T) % 2).any():
         raise ValueError(f"{name}: Hx Hz^T != 0, not CSS")
 
-    lx, lz = f2.css_logicals(hx, hz)
+    if logicals is not None:
+        lx, lz = (np.asarray(v, np.uint8) for v in logicals)
+        if lx.shape != lz.shape or lx.shape[1] != n:
+            raise ValueError(f"{name}: logicals of shapes {lx.shape}, {lz.shape} "
+                             f"for {n} qubits")
+    else:
+        lx, lz = f2.css_logicals(hx, hz)
     k = lx.shape[0]
     t_ez = f2.solve_right_inverse(hx)
     t_ex = f2.solve_right_inverse(hz)
@@ -217,4 +233,6 @@ def build_tanner_graph(
         logicals_z=lz_pad,
         pure_ex=pure_ex,
         pure_ez=pure_ez,
+        rate_scale=(None if rate_scale is None
+                    else np.pad(np.asarray(rate_scale, np.float32), (0, n_pad - n))),
     )
