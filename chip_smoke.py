@@ -8,7 +8,8 @@ print one JSON line with their wall time:
 
   0 environment: torch, nvcc and the card's name and power limit
   1 build: the CUDA kernels from the sources in the checkout (one nvcc per
-    source, all started together -> .so)
+    source, all started together -> .so), and beside them the host
+    decoders' library from csrc/ (g++)
   2 kernel vs plain: the fused-rounds kernel against rounds_plain on the card
     at the main path's shapes, d=11, H=128, B=4096 (R=8 bf16 and R=14 f32),
     and at d=13 in bf16 (B=64, R=3: its 176-row sides run a whole 128-row
@@ -36,7 +37,7 @@ print one JSON line with their wall time:
     (logical head gated at |z| <= 4; per-qubit head reported, see below)
   4b checkpoints: every surface-code checkpoint of benchmarks/LER_TABLE.md
     (d=3, 5, 7, 9, 11, 13, 15; tpugnn_torch/assets/) through
-    DecodeEngine.from_npz and ler_monte_carlo at p=0.05 (65,536 shots,
+    DecodeEngine.from_npz and ler_monte_carlo at p=0.05 (32,768 shots,
     f32; d=11 is phase 4's run): each must launch K1 (at d=3 and d=5 on
     padded widths, at d=13 and d=15 its global-panel variant) and nothing
     else, both heads gated at |z| <= 4 against the JAX f32 rate in its
@@ -62,7 +63,7 @@ print one JSON line with their wall time:
     of its sidecar, raw union-find and MWPM within |z| <= 4 of
     benchmarks/LER_DETECTOR.md:41, no syndrome left, 16 K1 launches; K1
     held to its plain version on that graph (B=4096, R=8) and timed.
-    BP+OSD-0 at p=0.05 on 65,536 shots at d=11 and d=5 within |z| <= 4 of
+    BP+OSD-0 at p=0.05 on 32,768 shots at d=11 and d=5 within |z| <= 4 of
     LER_TABLE.md:26 and :14, no syndrome left; plain BP beside it, BP's ms
     a chunk on the card, the OSD's median on the host.  The window decoder
     (..._d5_t5_w_...) on the numpy streams of its sidecar, which are those
@@ -73,6 +74,29 @@ print one JSON line with their wall time:
     union-find cleanup, device repair) within 5 failing shots of the JAX
     f32 counts on the same streams, one K1 launch per GNN window; ms per
     window and committed rounds/s
+  4e circuit_and_cli: circuit-level detector graphs and the command line.
+    The five circuit checkpoints of benchmarks/LER_DETECTOR.md's [nll]
+    rows (circuit_surface_*.npz: d=3, 5 in both sectors and d=7, H=128,
+    R=8, bits) decoded in f32 at p=0.01 on 32,768 shots each, on the graph
+    their record names (d=3: M=16, N=56, Dc=10 in z and 11 in x; d=5:
+    64, 304, 14; d=7: 176, 920, 14): both heads within |z| <= 4 of the JAX
+    f32 rate in the weights file, the K1 variant the graph calls for (the global-panel one
+    at d=5 and d=7) once a chunk and nothing else, every head's z against
+    the table's row reported; d=5 z through ler_all_columns with the NLL
+    rule, every GNN column within |z| <= 4 of its sidecar's JAX f32
+    columns, raw union-find and MWPM of LER_DETECTOR.md:35, no syndrome
+    left; K1 on each graph held to its plain version (B=4096, R=8) and
+    timed beside its bound.  Then `python -m tpugnn_torch.cli train` through
+    its main: the circuit d=5 training config (bf16, B=4096, p-mix
+    0.004..0.015, K2a/K2b) for 20 steps, a finite, falling loss and one K2a
+    and one K2b launch a step; K2a/K2b on that graph against their plain
+    versions (B=64, R=3) and timed (B=4096, R=8), K1 in bf16 beside them;
+    one step through them
+    against their plain versions; bf16 K1, K2a and K2b refusing circuit d=7
+    before a launch; the CLI's default training (generic 'segment', d=5,
+    H=128, B=256) for 20 steps, a falling loss, one step's gradients on the
+    card against the CPU's; `cli eval` and `cli serve` on the d=5 weights
+    file with --cleanup mwpm
   5 timing: the bench config (d=11, B=4096, R=8, H=128, bf16) with CUDA
     events: the kernel's step and its TFLOP/s beside its bound and the f32
     CUDA-core floor, rounds_plain, and an index_select + index_add_ round
@@ -113,12 +137,12 @@ print one JSON line with their wall time:
     call over 8 back-to-back calls on compute-type states beside it), bound
     and achieved GB/s
   9 generic flagship: the trained d=11 weights on the generic engine
-    (load_decoder(backend='pallas'), f32, R=14): LER at p=0.05 on phase 4's
-    65,536 shots, both heads gated at |z| <= 4 against the JAX f32 rate;
+    (load_decoder(backend='pallas'), f32, R=14): LER at p=0.05 on 32,768 of
+    phase 4's shots, both heads gated at |z| <= 4 against the JAX f32 rate;
     per-shot decisions against phase 4's fused decode (>= 99.9% equal);
     2 R K3a launches per chunk and no K1; the forward's time and K3a's share
  10 toric d=7: the trained toric weights through the fused path (K1) and
-    the generic path (K3a), LER at p=0.05 on 65,536 shots, both heads gated
+    the generic path (K3a), LER at p=0.05 on 32,768 shots, both heads gated
     at |z| <= 4 against the JAX f32 rate and the logical head against
     benchmarks/LER_TORIC.md:18; then random-weight full-width generic
     forwards (d=11, H=128, B=4096, R=8) with aggr max (K3b) and mean (K3a)
@@ -138,17 +162,18 @@ print one JSON line with their wall time:
     shared memory of each raster; then the trained d=11 weights
     through PallasDecoder(schedule=('rollgather',)) (f32, R=14): K5 against
     the plain version, its f32 kernel's time beside its bound and the plain
-    version's (the kernel the main path launches), LER at p=0.05 on phase 4's 65,536 shots (both heads
-    gated at |z| <= 4 against the JAX f32 rate), per-shot decisions against
-    phase 4's fused decode (>= 99.9% equal), one K5 launch per chunk and no
-    K1, the forward's time; K5's global-panel variant at d=13 and d=15 in
-    f32 against the plain version (B=64, R=3) and timed (B=4096, R=14),
+    version's (the kernel the main path launches), LER at p=0.05 on 32,768 of
+    phase 4's shots (both heads gated at |z| <= 4 against the JAX f32 rate),
+    per-shot decisions against phase 4's fused decode (>= 99.9% equal), one
+    K5 launch per chunk and no K1, the forward's time; K5's global-panel
+    variant at d=13 and d=15 in f32 against the plain version (B=64, R=3) and timed (B=4096, R=14),
     K5 at widths 64 and 96 in both state types (d=11, B=64, R=3); and the
     refusal of a width-160 model by K5's and K1's wrappers, before a launch
 
 Phases 3 (each engine's requests), 4, 4b, 4c, 4d (the monolithic decode
-and the streams), 7, 9, 10 and 11 are the main paths; the launch counts of every kernel are reset before and read after
-each.  Then it prints the kernel
+and the streams), 4e (each circuit decode and each CLI run), 7, 9, 10 and
+11 are the main paths; the launch counts of every kernel are reset before
+and read after each.  Then it prints the kernel
 table as one JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.  Any
 failure raises and exits nonzero.  It exits nonzero without printing a result
@@ -172,7 +197,12 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PHASE_LIMIT_S = 180       # a phase that runs longer is taken for a hang
 D = 11                    # surface-code distance of the main path
 B = 4096                  # the main path's batch (serve microbatch, LER chunk)
-LER_SHOTS = 65536         # Monte-Carlo shots of each LER phase
+LER_SHOTS = 65536         # Monte-Carlo shots of the d=11 LER and hybrid phases
+# shots of the other LER runs: the checkpoint sweep but d=11, the generic,
+# toric and roll paths and BP+OSD-0 (half of LER_SHOTS, so that the cold
+# smoke stays within its 5 minutes; every gate on them is a z-score or a
+# share of shots)
+SWEEP_SHOTS = 32768
 
 # benchmarks/LER_TABLE.md:30, v3_surface_d11/ema@40000, p=0.05, 1e6 shots,
 # measured on a TPU.  The per-qubit head's rate depends on the GEMM
@@ -319,7 +349,7 @@ SERVE_MODES = (
     ("device", {}), ("best_of_device", {}),
 )
 # 4096-syndrome requests timed per cleanup engine
-SERVE_TIMED = 3
+SERVE_TIMED = 1
 # best_of_device's mean correction weight over best_of's (tests/test_serve.py:
 # test_best_of_device_not_heavier_than_full_best_of)
 BEST_OF_DEVICE_WEIGHT_RATIO = 1.25
@@ -350,6 +380,77 @@ STREAM_ROW = {"gnn_stream": 0.8134, "gnn_uf_stream": 0.0942, "gnn_dev_stream": 0
 # logits f32 rounding moves across 0
 STREAM_FAIL_SLACK = 5
 DETECTOR_Z = 4
+
+# The circuit_and_cli phase.  The circuit-level checkpoints behind
+# benchmarks/LER_DETECTOR.md's [nll] rows (H = MH = 128, R=8, bits, trained
+# in bf16 through the fused kernels; tpugnn_torch/assets/), each decoded in
+# f32 at p=0.01: (weights file, d = d_t, sector, the K1 variant its graph
+# calls for in f32, the line of the table's p=0.01 row, that row's GNN
+# hybrid, GNN+UF, GNN+MWPM, best-of, logical, per-qubit, union-find and MWPM
+# rates, 1e6 shots each, taken on a TPU).  The f32 gather panels of d=5
+# (304 + 64 rows) and d=7 (920 + 176) do not fit in shared memory.
+CIRCUIT_P = 0.01
+CIRCUIT_SHOTS = 32768
+CIRCUIT_ROW_SHOTS = 1_000_000
+_ROW = ("ler_hybrid", "gnn_uf", "gnn_mwpm", "gnn_best_of", "ler_logical", "ler", "uf", "mwpm")
+CIRCUIT_CHECKPOINTS = (
+    ("circuit_surface_d3_t3_h128_r8_ema24000.npz", 3, "z", "fused_rounds", 17,
+     dict(zip(_ROW, (0.02973, 0.03207, 0.03013, 0.03022, 0.02974, 0.1187, 0.03958, 0.02998)))),
+    ("circuit_surface_d5_t5_h128_r8_ema24000.npz", 5, "z", "fused_rounds_gpanels", 35,
+     dict(zip(_ROW, (0.0578, 0.07201, 0.06551, 0.05753, 0.05781, 0.6043, 0.1215, 0.05593)))),
+    ("circuit_surface_d3_t3_x_h128_r8_ema6000.npz", 3, "x", "fused_rounds", 7,
+     dict(zip(_ROW, (0.02912, 0.03089, 0.03022, 0.03025, 0.02909, 0.09584, 0.03875, 0.03014)))),
+    ("circuit_surface_d5_t5_x_h128_r8_ema8000.npz", 5, "x", "fused_rounds_gpanels", 25,
+     dict(zip(_ROW, (0.05938, 0.07549, 0.0703, 0.05799, 0.05941, 0.6394, 0.1169, 0.05613)))),
+    ("circuit_surface_d7_t7_h128_r8_ema2000.npz", 7, "z", "fused_rounds_gpanels", 43,
+     dict(zip(_ROW, (0.4253, 0.1584, 0.1435, 0.09086, 0.4253, 0.9624, 0.2235, 0.08001)))),
+)
+# the checkpoint whose every column runs (ler_all_columns, select_cost='nll',
+# as the table's [nll] rows were taken), gated against its sidecar's JAX f32
+# columns, the raw union-find and MWPM against the table's row
+CIRCUIT_COLUMNS = "circuit_surface_d5_t5_h128_r8_ema24000.npz"
+CIRCUIT_Z = 4
+# K1 on a circuit graph against the same rounds in f64: its max error there
+# within this many times the plain f32 version's.  Both are f32 rounding
+# carried through R trained rounds, largest in a few shots whose states grow
+# large (scripts/k1_precision_probe.py), so K1 against the plain version can
+# read far more than either's distance from f64 suggests.
+K1_F64_RATIO = 3
+# the circuit training config of scripts/tpu_queue_r4d.sh:59-63 (circuit
+# d=5 over 5 rounds, bf16 through K2a/K2b, batch 4096, p-mix 0.004..0.015,
+# bits head) through the CLI, and the CLI's default (generic) training at
+# d=5, CLI_TRAIN_STEPS steps each; CLI_LOSS_FALL bounds the mean loss of the
+# last 5 steps over that of the first 5 (a CPU run of the generic config
+# gave 0.36; the warmup of 100 steps keeps the learning rate small here)
+CLI_TRAIN_STEPS = 20
+CLI_LOSS_FALL = 0.9
+CIRCUIT_TRAIN_ARGS = ("train", "--noise", "circuit", "--dt", "5", "-d", "5", "--backend",
+                      "pallas", "--dtype", "bfloat16", "--hidden", "128", "--msg-hidden",
+                      "128", "--rounds", "8", "--batch", "4096", "--p-mix", "0.004", "0.015",
+                      "--qubit-head", "bits")
+# one step of the generic training on the card against the same step on the
+# CPU through the port: the relative L2 error of the whole gradient.
+# tests/test_torch_generic_train.py holds H=16, R=3, B=8 entry by entry to
+# 1e-5 of the largest gradient; at this config (H=128, R=8, B=256, f32, TF32
+# off) the card is not that steady against itself: two backward passes of
+# the same step (index_add_ adds by atomics, and a ReLU whose input sits at
+# 0 flips with the order) differ by up to 1e-4 of the largest entry and
+# 1.1e-5 to 6.5e-5 in relative L2, and the card against the CPU by 1.6e-5 to
+# 2.3e-4 in relative L2 (five batches on H100s).  The same step with TF32
+# products reads 7.1e-3 to 1.1e-2.  The bound sits between, near their
+# geometric middle.
+GENERIC_GRAD_REL = 2e-3
+# the same, leaf by leaf, so that a fault in one small leaf (a bias, a
+# LayerNorm scale) does not hide under the norm of the large ones: the worst
+# leaf's relative L2 error read 1.9e-4 to 2.8e-4 card against CPU and 2.5e-2
+# to 3.7e-2 with TF32 products (three batches on H100s).  The phase runs the
+# TF32 step as a control and requires this bound to reject it.
+GENERIC_LEAF_REL = 3e-3
+# the CLI's eval and serve on the d=5 circuit weights file
+CLI_EVAL_SHOTS = 8192
+CLI_WEIGHTS_ARGS = ("--noise", "circuit", "--dt", "5", "-d", "5", "--backend", "pallas",
+                    "--hidden", "128", "--msg-hidden", "128", "--rounds", "8",
+                    "--qubit-head", "bits", "-p", str(CIRCUIT_P), "--cleanup", "mwpm")
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak (NVIDIA data sheet, SXM)
 H100_F32_FLOPS = 67e12    # f32 outside the tensor cores
@@ -457,6 +558,34 @@ def rounds_bwd_flops(graph, h: int) -> float:
 def stash_bytes(graph, batch: int, rounds: int, h: int, itemsize: int) -> float:
     """The stash of the real rows: every round's input states."""
     return rounds * batch * (graph.n_checks + graph.n_qubits) * h * itemsize
+
+
+def train_kernel_bounds(graph, batch: int, rounds: int, h: int, k2a_ms: float,
+                        k2b_ms: float) -> dict:
+    """K2a's and K2b's bounds in bf16 on ``graph`` (B, R, width h): K2a the
+    forward's products at the tensor-core peak or its bytes with the stash;
+    K2b three times the forward's products (:func:`rounds_bwd_flops`) or its
+    bytes (the stash, the f32 cotangents in and out, the syndrome, the packed
+    weights and their f32 gradients); each with its TFLOP/s and f32
+    CUDA-core floor."""
+    t_ops_a = rounds_flops(graph, h) * batch * rounds / H100_BF16_FLOPS * 1e3
+    t_bytes_a = (rounds_bytes(graph, batch, h, 2)
+                 + stash_bytes(graph, batch, rounds, h, 2)) / H100_HBM_BPS * 1e3
+    rows = graph.n_checks + graph.n_qubits
+    t_ops_b = rounds_bwd_flops(graph, h) * batch * rounds / H100_BF16_FLOPS * 1e3
+    t_bytes_b = (stash_bytes(graph, batch, rounds, h, 2) + 2 * 2 * batch * rows * h * 4
+                 + 2 * batch * graph.n_checks * 4 + 10 * h * h * (2 * 2 + 4)
+                 + 2 * 14 * h * 4) / H100_HBM_BPS * 1e3
+    return dict(
+        k2a_bound_ms=max(t_ops_a, t_bytes_a),
+        k2a_bound_by="operations" if t_ops_a >= t_bytes_a else "bytes",
+        k2b_bound_ms=max(t_ops_b, t_bytes_b),
+        k2b_bound_by="operations" if t_ops_b >= t_bytes_b else "bytes",
+        k2a_bytes_ms=t_bytes_a, k2b_bytes_ms=t_bytes_b,
+        k2a_tflops=t_ops_a * 1e-3 * H100_BF16_FLOPS / (k2a_ms * 1e-3) / 1e12,
+        k2b_tflops=t_ops_b * 1e-3 * H100_BF16_FLOPS / (k2b_ms * 1e-3) / 1e12,
+        k2a_f32_core_ms=t_ops_a * H100_BF16_FLOPS / H100_F32_FLOPS,
+        k2b_f32_core_ms=t_ops_b * H100_BF16_FLOPS / H100_F32_FLOPS)
 
 
 def weight_leaves(w, mats_grad, vecs_grad):
@@ -692,8 +821,8 @@ def sddmm_vs_plain(args, compute: str, name: str, twice: bool) -> dict:
     return out
 
 
-def train_steps_vs_plain(state, cfg, dg, dev) -> dict:
-    """Phase 7's check that K2b trains: TRAIN_CHECK_STEPS train steps from
+def train_steps_vs_plain(state, cfg, dg, dev, steps: int = TRAIN_CHECK_STEPS) -> dict:
+    """Phase 7's check that K2b trains: ``steps`` train steps from
     the run's last state, through K2a/K2b (``kernels``), through their plain
     versions on the same CUDA tensors (``plain``), and through K2a/K2b with
     K2b's weight gradients replaced by zeros (``zero_wgrads``, what the check
@@ -711,7 +840,7 @@ def train_steps_vs_plain(state, cfg, dg, dev) -> dict:
     from tpugnn_torch.train.optim import make_optimizer
 
     gen = torch.Generator(device=dev).manual_seed(77)
-    batches = [sample_batch(gen, dg, 0.05, cfg.train.batch) for _ in range(TRAIN_CHECK_STEPS)]
+    batches = [sample_batch(gen, dg, 0.05, cfg.train.batch) for _ in range(steps)]
     start = {n: p.detach().clone() for n, p in state.model.named_parameters()}
     rounds_fn, bwd_cuda = dec.decoder_rounds, fb._bwd_cuda
 
@@ -995,7 +1124,7 @@ def phase_generic_flagship(graph, dg, dev, trained, info: dict, ell_times: dict)
 
     cfg, model, _ = load_decoder(backend="pallas", device="cuda")
     rounds = cfg.model.rounds
-    shots = LER_SHOTS
+    shots = SWEEP_SHOTS
     reset_counts()
     gen = torch.Generator(device=dev).manual_seed(2025)      # phase 4's shots
     t0 = time.perf_counter()
@@ -1019,8 +1148,8 @@ def phase_generic_flagship(graph, dg, dev, trained, info: dict, ell_times: dict)
             same += ((fg["fail_qubit"] == ff["fail_qubit"]) & (lg == lf).all(-1)).sum()
         agree = float(same) / (chunks * B)
         syn = sample_batch(gen, dg, 0.05, B).syndrome
-        fwd_ms = time_ms(lambda: model(dg, syn), warmup=2, iters=7)
-        fused_ms = time_ms(lambda: trained(dg, syn), warmup=2, iters=7)
+        fwd_ms = time_ms(lambda: model(dg, syn), warmup=1, iters=5)
+        fused_ms = time_ms(lambda: trained(dg, syn), warmup=1, iters=5)
         breakdown = profile_forward(model, dg, syn)
     info.update(shots=n, ler_logical=ev["ler_logical"], ler_qubit=ev["ler"],
                 ler_hybrid=ev["ler_hybrid"], z=z, ler_seconds=ler_s,
@@ -1061,7 +1190,7 @@ def phase_toric_and_random(graph, dg, dev, info: dict, ell_times: dict) -> dict:
     from tpugnn_torch.sampling import sample_batch
 
     launched = {}
-    shots = LER_SHOTS
+    shots = SWEEP_SHOTS
     ref = read_meta(TORIC_D7_WEIGHTS)["ler_reference"]
     for backend in ("fused", "pallas"):
         cfg, model, tgraph = load_decoder(TORIC_D7_WEIGHTS, device="cuda", backend=backend)
@@ -1322,11 +1451,11 @@ def phase_roll_gather(graph, dg, dev, trained, info: dict) -> tuple[dict, dict]:
     reset_counts()
     gen = torch.Generator(device=dev).manual_seed(2025)      # phase 4's shots
     t0 = time.perf_counter()
-    ev = ler_monte_carlo(pd, graph, p=0.05, shots=LER_SHOTS, batch=B, generator=gen,
+    ev = ler_monte_carlo(pd, graph, p=0.05, shots=SWEEP_SHOTS, batch=B, generator=gen,
                          device="cuda")
     ler_s = time.perf_counter() - t0
     launched = counts()
-    chunks = LER_SHOTS // B
+    chunks = SWEEP_SHOTS // B
     ref = read_meta()["ler_reference"]
     n = int(ev["shots"])
     z = {"logical_vs_jax_f32": z_score(ev["ler_logical"], n, ref["ler_logical"], ref["shots"]),
@@ -1341,8 +1470,8 @@ def phase_roll_gather(graph, dg, dev, trained, info: dict) -> tuple[dict, dict]:
             same += ((fr["fail_qubit"] == ff["fail_qubit"]) & (lr == lf).all(-1)).sum()
         agree = float(same) / (chunks * B)
         syn = sample_batch(gen, dg, 0.05, B).syndrome
-        fwd_ms = time_ms(lambda: pd(dg, syn), warmup=1, iters=5)
-        fused_ms = time_ms(lambda: trained(dg, syn), warmup=1, iters=5)
+        fwd_ms = time_ms(lambda: pd(dg, syn), warmup=1, iters=3)
+        fused_ms = time_ms(lambda: trained(dg, syn), warmup=1, iters=3)
         # a model wider than the kernels' 128 columns: refused by K5's and
         # K1's wrappers, with the limit named, before any launch
         w160 = fd.RoundWeights(*[torch.zeros((a.shape[0] if a.shape[0] == 1 else 160, 160),
@@ -1416,6 +1545,41 @@ def kernel_and_plain(kernel: str, g, ops, w, xc, xq, s, rounds: int, dtype: str,
     r_ops = rg.to_raster(xc, xq, s, rg.plan_for_graph(g), w, dtype)
     return (lambda: rg._roll_rounds_cuda(r_ops, rounds=rounds, slot_dtype=slot_dtype),
             lambda: rg.roll_rounds_plain(r_ops, rounds=rounds, slot_dtype=slot_dtype))
+
+
+def rounds_f64(xc, xq, syn, ops, w, rounds: int, keeps: list | None = None):
+    """The plain version's f32 rounds (``rounds_plain``) computed on f64
+    tensors with no rounding: ``(xc, xq)`` in f64.  ``keeps``, a list,
+    receives each round's ``(checks, qubits)`` dicts of what the adjoint
+    reads (the LayerNorm's ``inv`` among them)."""
+    from tpugnn_torch.kernels import fused_decoder as fd
+
+    mats, vecs = (t.double() for t in fd.pack_weights_f32(w))
+    src_c, mask_c, deg_c, src_q, mask_q, deg_q = ops
+    same = lambda t: t
+    xc, xq = xc.double(), xq.double()
+    synterm = syn.reshape(xc.shape[0], xc.shape[1], 1).double() * vecs[2]
+    for _ in range(rounds):
+        kc, kq = {}, {}
+        ys_c, ys_q = xq @ mats[7], xc @ mats[2]
+        xc, xq = (
+            fd._update(xc, ys_c, src_c, mask_c.double(), deg_c.double(), mats[0:5], vecs[0:7],
+                       synterm, same, keep=kc),
+            fd._update(xq, ys_q, src_q, mask_q.double(), deg_q.double(), mats[5:10], vecs[7:14],
+                       0.0, same, keep=kq),
+        )
+        if keeps is not None:
+            keeps.append((kc, kq))
+    return xc, xq
+
+
+def rounds_f64_chunked(xc, xq, syn, ops, w, rounds: int, chunk: int = 512):
+    """:func:`rounds_f64` ``chunk`` samples at a time."""
+    import torch
+
+    outs = [rounds_f64(xc[i:i + chunk], xq[i:i + chunk], syn[i:i + chunk], ops, w, rounds)
+            for i in range(0, xc.shape[0], chunk)]
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
 
 def held_to_plain(run, plain, want: str, dtype: str, what: str) -> dict:
@@ -1505,7 +1669,7 @@ def padded_width_timing(d: int, h: int, dev, seed: int) -> dict:
                                     f"{kernel} d={d} H={width} B={B} R={rounds} {dtype}")
                 out[f"{kernel}_max_abs_err_{dtype}_h{width}"] = res["max_abs_err"]
                 with torch.inference_mode():
-                    out[f"{kernel}_ms_{dtype}_h{width}"] = time_ms(run)
+                    out[f"{kernel}_ms_{dtype}_h{width}"] = time_ms(run, warmup=1, iters=5)
                 del run, plain
             peak = H100_F32_FLOPS if dtype == "float32" else H100_BF16_FLOPS
             itemsize = 4 if dtype == "float32" else 2
@@ -1960,8 +2124,8 @@ def phase_hybrid(graph, dev, trained, ev: dict, info: dict) -> dict:
 def phase_checkpoints(dev, d11: dict, info: dict) -> dict:
     """The `checkpoints` phase: every surface-code checkpoint of
     benchmarks/LER_TABLE.md (CHECKPOINTS) through DecodeEngine.from_npz on
-    the card and ler_monte_carlo at p=0.05 (LER_SHOTS shots, B=4096, f32);
-    d=11 takes phase 4's run (``d11``: its LER and launches).  Gates: each
+    the card and ler_monte_carlo at p=0.05 (SWEEP_SHOTS shots, B=4096, f32);
+    d=11 takes phase 4's run of LER_SHOTS (``d11``: its LER and launches).  Gates: each
     run launched the kernel its graph and dtype call for (K1, its
     global-panel variant at d=13 and d=15; narrower models on padded
     widths) and nothing else; both heads within |z| <= 4 of the JAX f32
@@ -2001,7 +2165,7 @@ def phase_checkpoints(dev, d11: dict, info: dict) -> dict:
             ev, launched, seed = d11["ev"], d11["launches"], 2025
         else:
             reset_counts()
-            ev = ler_monte_carlo(model, graph, p=0.05, shots=LER_SHOTS, batch=B,
+            ev = ler_monte_carlo(model, graph, p=0.05, shots=SWEEP_SHOTS, batch=B,
                                  generator=torch.Generator(device=dev).manual_seed(seed),
                                  device="cuda")
             launched = counts()
@@ -2025,8 +2189,8 @@ def phase_checkpoints(dev, d11: dict, info: dict) -> dict:
         with torch.inference_mode():
             syn = sample_batch(torch.Generator(device=dev).manual_seed(seed + 1), dgc, 0.05,
                                B).syndrome
-            res["decode_ms"] = time_ms(lambda: model(dgc, syn), warmup=1, iters=5)
-        chunks = LER_SHOTS // B
+            res["decode_ms"] = time_ms(lambda: model(dgc, syn), warmup=1, iters=3)
+        chunks = n // B
         others = {k: v for k, v in launched.items() if k != want and v}
         if launched[want] != chunks or others:
             raise RuntimeError(f"checkpoint d={d}: launched {launched}, expected {chunks} "
@@ -2057,17 +2221,22 @@ def phase_checkpoints(dev, d11: dict, info: dict) -> dict:
             raise RuntimeError(f"checkpoint d={d}: LER off the JAX f32 reference: {res}")
         del eng, model
         torch.cuda.empty_cache()
-    info.update(shots=LER_SHOTS, batch=B, p=0.05, min_shot_agreement=MIN_SHOT_AGREE)
+    info.update(shots=SWEEP_SHOTS, shots_d11=LER_SHOTS, batch=B, p=0.05,
+                min_shot_agreement=MIN_SHOT_AGREE)
     return total
 
 
-def detector_k1_check(model, graph, dev) -> dict:
-    """K1 on the detector graph (M=64, N=176, Dc=6, Dq=2, width 96 padded to
-    128, f32, R=8) at the monolithic decode's shapes (B=4096): the trained
-    model's embedded states of sampled shots, one call held to the plain
-    version (:func:`held_to_plain`: the shared-panel kernel, once), its
-    time, the plain version's and its bound (the f32 CUDA-core floor on the
-    real rows at the model's width)."""
+def detector_k1_check(model, graph, dev, p: float = DETECTOR_P,
+                      want: str = "fused_rounds", iters: int = 5, f64: bool = False) -> dict:
+    """K1 on a detector graph (phase 4d's: M=64, N=176, Dc=6, Dq=2, width 96
+    padded to 128, f32, R=8) at the monolithic decode's shapes (B=4096): the
+    trained model's embedded states of shots sampled at ``p``, one call held
+    to the plain version (:func:`held_to_plain`: ``want``, the shared-panel
+    kernel or its global-panel variant, once), its time, the plain
+    version's and its bound (the f32 CUDA-core floor on the real rows at the
+    model's width).  With ``f64``, both also against the same rounds in f64
+    (:func:`rounds_f64`): K1's max error there within K1_F64_RATIO times the
+    plain f32 version's."""
     import torch
 
     from tpugnn_torch.kernels import fused_decoder as fd
@@ -2076,18 +2245,25 @@ def detector_k1_check(model, graph, dev) -> dict:
     dg = graph.to(dev)
     cfg = model.cfg
     with torch.inference_mode():
-        syn = sample_batch(torch.Generator(device=dev).manual_seed(41), dg, DETECTOR_P,
-                           B).syndrome
+        syn = sample_batch(torch.Generator(device=dev).manual_seed(41), dg, p, B).syndrome
         xc, xq, s_pm = model.embed(dg, syn)
         xq = xq.contiguous()
         w = fd.RoundWeights(*[t.detach() for t in model.rounds.round_weights()])
     ops = fd.make_operators(dg)
     run, plain = kernel_and_plain("k1", graph, ops, w, xc, xq, s_pm[..., None], cfg.rounds,
                                   cfg.dtype)
-    res = held_to_plain(run, plain, "fused_rounds", cfg.dtype,
-                        f"K1 on the detector graph {graph.name}")
+    res = held_to_plain(run, plain, want, cfg.dtype, f"K1 on the detector graph {graph.name}")
+    if f64:
+        with torch.inference_mode():
+            exact = rounds_f64_chunked(xc, xq, s_pm[..., None], ops, w, cfg.rounds)
+            k_max, _ = raster_errors(*run(), *exact)
+            p_max, _ = raster_errors(*plain(), *exact)
+        res.update(k1_vs_f64_max=k_max, plain_vs_f64_max=p_max, f64_ratio_bound=K1_F64_RATIO)
+        if not k_max <= K1_F64_RATIO * p_max:
+            raise RuntimeError(f"K1 on {graph.name} lies further from the f64 rounds than the "
+                               f"plain f32 version does: {res}")
     with torch.inference_mode():
-        ms = time_ms(run, warmup=1, iters=5)
+        ms = time_ms(run, warmup=1, iters=iters)
         plain_ms = time_ms(plain, warmup=0, iters=1)
     flops = rounds_flops(graph, cfg.hidden) * B * cfg.rounds
     b_ms, b_by = bound(rounds_bytes(graph, B, cfg.hidden, 4), flops, H100_F32_FLOPS)
@@ -2110,7 +2286,7 @@ def phase_detector_and_stream(dev, info: dict) -> tuple[dict, dict]:
        z against the row reported; K1 held to its plain version on the
        graph and timed (:func:`detector_k1_check`); the decode ms of one
        4096-shot forward.
-    b. ler_bp_osd at p=0.05 on LER_SHOTS shots at d=11 and d=5, each within
+    b. ler_bp_osd at p=0.05 on SWEEP_SHOTS shots at d=11 and d=5, each within
        |z| <= DETECTOR_Z of LER_TABLE.md:26 / :14 with no syndrome mismatch,
        and no kernel launch; ler_bp beside it (rate and syndrome mismatch
        rate); BP's ms per 4096-shot chunk on the card and the OSD's host ms
@@ -2186,10 +2362,10 @@ def phase_detector_and_stream(dev, info: dict) -> tuple[dict, dict]:
     for d, line, rate in BP_OSD_ROWS:
         g = build_code("surface", d)
         reset_counts()
-        osd = ler_bp_osd(g, p=BP_OSD_P, shots=LER_SHOTS, batch=B,
+        osd = ler_bp_osd(g, p=BP_OSD_P, shots=SWEEP_SHOTS, batch=B,
                          generator=torch.Generator(device=dev).manual_seed(3100 + d),
                          device=dev)
-        bp = ler_bp(g, p=BP_OSD_P, shots=LER_SHOTS, batch=B,
+        bp = ler_bp(g, p=BP_OSD_P, shots=SWEEP_SHOTS, batch=B,
                     generator=torch.Generator(device=dev).manual_seed(3100 + d), device=dev)
         launched = counts()
         dec = BPOSDDecoder(g, p=BP_OSD_P, device=dev)
@@ -2264,6 +2440,472 @@ def phase_detector_and_stream(dev, info: dict) -> tuple[dict, dict]:
     return launches, k1
 
 
+def circuit_decode(dev, info: dict) -> tuple[dict, dict]:
+    """Part (a) of the circuit_and_cli phase: every checkpoint of
+    CIRCUIT_CHECKPOINTS from its weights file (load_decoder builds the
+    circuit graph its record names) decoded on the card in f32 at
+    CIRCUIT_P on CIRCUIT_SHOTS shots (B=4096): both heads within |z| <=
+    CIRCUIT_Z of the JAX f32 rate in the weights file, the K1 variant its
+    graph calls for launched once a chunk and nothing else, every head's z
+    against the table's row reported.  CIRCUIT_COLUMNS runs
+    ler_all_columns with the NLL rule instead (its plain columns are
+    ler_monte_carlo's on the same shots): every GNN column within |z| <=
+    CIRCUIT_Z of the sidecar's JAX f32 columns, the raw union-find and MWPM
+    of the table's row, no syndrome left.  On each graph K1 held to its
+    plain version at B=4096, R=8 and both to the rounds in f64, and timed
+    beside its bound (:func:`detector_k1_check`), and one 4096-shot forward
+    timed.  Returns
+    ``(launches by checkpoint, K1's check by graph)``."""
+    import torch
+
+    from tpugnn_torch.eval import ler_monte_carlo
+    from tpugnn_torch.eval.hybrid import ler_all_columns
+    from tpugnn_torch.models.convert import load_decoder, read_columns, read_meta
+    from tpugnn_torch.sampling import sample_batch
+
+    launches, k1 = {}, {}
+    chunks = CIRCUIT_SHOTS // B
+    for fname, d, sector, want, line, row in CIRCUIT_CHECKPOINTS:
+        path = os.path.join(REPO, "tpugnn_torch", "assets", fname)
+        meta = read_meta(path)
+        ref = meta["ler_reference"]
+        if meta["graph"] != {"kind": "circuit", "d_t": d, "sector": sector} or \
+                ref["p"] != CIRCUIT_P:
+            raise RuntimeError(f"{fname}: graph {meta['graph']}, reference at p={ref['p']}")
+        _, model, graph = load_decoder(path, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(4000 + 10 * d + (sector == "x"))
+        columns = fname == CIRCUIT_COLUMNS
+        reset_counts()
+        if columns:
+            ev = ler_all_columns(model, graph, p=CIRCUIT_P, shots=CIRCUIT_SHOTS, batch=B,
+                                 generator=gen, best_of=True, with_mwpm=True,
+                                 with_uf_raw=True, select_cost="nll", device=dev)
+        else:
+            ev = ler_monte_carlo(model, graph, p=CIRCUIT_P, shots=CIRCUIT_SHOTS, batch=B,
+                                 generator=gen, device=dev)
+        name = f"d{d}{sector}"
+        launches[f"circuit_{name}"] = launched = counts()
+        n = int(ev["shots"])
+        z_jax = {k: z_score(ev[k], n, ref[k], ref["shots"])
+                 for k in ("ler_logical", "ler_hybrid", "ler")}
+        z_row = {k: z_score(ev[k], n, v, CIRCUIT_ROW_SHOTS) for k, v in row.items() if k in ev}
+        dg = graph.to(dev)
+        with torch.inference_mode():
+            syn = sample_batch(torch.Generator(device=dev).manual_seed(43), dg, CIRCUIT_P,
+                               B).syndrome
+            decode_ms = time_ms(lambda: model(dg, syn), warmup=1, iters=2)
+        k1[graph.name] = detector_k1_check(model, graph, dev, p=CIRCUIT_P, want=want, iters=3,
+                                           f64=True)
+        res = dict(
+            weights=os.path.relpath(path, REPO), graph=graph.name, m_pad=graph.n_checks_pad,
+            n_pad=graph.n_qubits_pad, dc=graph.deg_max_check, dq=graph.deg_max_qubit,
+            step=meta["step"], p=CIRCUIT_P, shots=n,
+            rates={k: ev[k] for k in row if k in ev},
+            jax_f32=dict(shots=ref["shots"], **{k: ref[k] for k in z_jax}), z_vs_jax_f32=z_jax,
+            row=dict(line=f"benchmarks/LER_DETECTOR.md:{line}", shots=CIRCUIT_ROW_SHOTS, **row),
+            z_vs_row=z_row, within_2_stderr_of_row={k: abs(v) <= 2 for k, v in z_row.items()},
+            kernel=want, launches=launched, decode_ms=decode_ms,
+            k1_ms=k1[graph.name]["ms"], k1_bound_ms=k1[graph.name]["bound_ms"])
+        if abs(z_jax["ler_logical"]) > CIRCUIT_Z or abs(z_jax["ler"]) > CIRCUIT_Z:
+            raise RuntimeError(f"circuit {name}: a head is off its JAX f32 rate: {res}")
+        if launched != {**dict.fromkeys(launched, 0), want: chunks}:
+            raise RuntimeError(f"circuit {name}: launched {launched}, not {chunks} {want} "
+                               f"and nothing else")
+        if columns:
+            side = read_columns(path)
+            if any(side[k] != meta[k] for k in ("step", "source", "code", "model", "graph")) \
+                    or side["p"] != CIRCUIT_P or side["select_cost"] != "nll":
+                raise RuntimeError(f"{fname}: the sidecar is not of these weights at "
+                                   f"p={CIRCUIT_P} with the NLL rule")
+            z_cols = {k: z_score(ev[k], n, v, side["shots"]) for k, v in side["columns"].items()}
+            res.update(columns_jax_f32=dict(shots=side["shots"], **side["columns"]),
+                       z_columns_vs_jax_f32=z_cols, picked=ev["picked"],
+                       syn_mismatch=ev["syn_mismatch"], timing=ev["timing"])
+            gated = {**{k: z_cols[k] for k in DETECTOR_GNN_COLUMNS}, "uf": z_row["uf"],
+                     "mwpm": z_row["mwpm"]}
+            if any(abs(v) > CIRCUIT_Z for v in gated.values()):
+                raise RuntimeError(f"circuit {name}: a column is off its reference: {gated}")
+            if any(ev["syn_mismatch"].values()):
+                raise RuntimeError(f"circuit {name}: a cleanup column left syndromes: "
+                                   f"{ev['syn_mismatch']}")
+        info[name] = res
+        del model
+        torch.cuda.empty_cache()
+    return launches, k1
+
+
+class StepRecorder:
+    """Wraps ``tpugnn_torch.train.loop.train_step`` while a CLI run trains:
+    per step the loss, the kernel launches inside the step and a CUDA event
+    after it (on a card), and the last step's model, optimizer, graph and
+    config."""
+
+    def __init__(self):
+        self.losses, self.launches, self.events = [], [], []
+        self.last = None
+
+    def __enter__(self):
+        from tpugnn_torch.kernels import fused_decoder as fd
+        from tpugnn_torch.train import loop
+
+        self._orig = orig = loop.train_step
+
+        def step(model, optimizer, graph, batch, cfg):
+            before = fd.launch_counts()
+            metrics = orig(model, optimizer, graph, batch, cfg)
+            after = fd.launch_counts()
+            if graph.check_mask.device.type == "cuda":
+                import torch
+
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                self.events.append(ev)
+            self.losses.append(metrics["loss"])
+            self.launches.append({k: after[k] - before[k] for k in after})
+            self.last = (model, optimizer, graph, cfg)
+            return metrics
+
+        loop.train_step = step
+        return self
+
+    def __exit__(self, *exc):
+        from tpugnn_torch.train import loop
+
+        loop.train_step = self._orig
+        return False
+
+    def summary(self) -> dict:
+        losses = [float(v) for v in self.losses]
+        first5, last5 = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+        step_ms = [self.events[i - 1].elapsed_time(self.events[i])
+                   for i in range(2, len(self.events))]
+        return dict(steps=len(losses), losses=losses, loss_first5=first5, loss_last5=last5,
+                    loss_ratio=last5 / first5, loss_fall_bound=CLI_LOSS_FALL,
+                    step_ms_median=statistics.median(step_ms) if step_ms else None)
+
+
+def run_cli(argv: list[str]) -> list[dict]:
+    """``tpugnn_torch.cli.main(argv)`` with its stdout captured: its JSON
+    lines, parsed; the rest goes to stderr.  Raises on a nonzero return."""
+    import contextlib
+    import io
+
+    from tpugnn_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        if not line.startswith("{"):
+            log(line)
+    if rc != 0:
+        raise RuntimeError(f"cli {argv[0]} returned {rc}")
+    return [json.loads(line) for line in lines if line.startswith("{")]
+
+
+def gate_training(what: str, summary: dict) -> None:
+    losses = summary["losses"]
+    if len(losses) != CLI_TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise RuntimeError(f"{what}: {len(losses)} steps, losses {losses}")
+    if not summary["loss_last5"] < CLI_LOSS_FALL * summary["loss_first5"]:
+        raise RuntimeError(f"{what}: the loss did not fall: {summary['loss_first5']} -> "
+                           f"{summary['loss_last5']}")
+
+
+def circuit_train_kernels(model, dg, dev) -> dict:
+    """K2a and K2b on the circuit d=5 graph (M=64, N=304, Dc=14, Dq=2) in
+    bf16: at B=64, R=3 on the trained weights K2a's outputs equal K1's, its
+    outputs and stash are within the bf16 tolerances of the plain versions
+    and K2b's gradients (every leaf) within TOL_GRAD_REL_BF16; at the
+    training shapes (B=4096, R=8) each timed beside its plain version and
+    its bound, and K1 in bf16 on the same states held to its plain version
+    and timed; and bf16 K1, K2a and K2b refuse the circuit d=7 graph (its
+    bf16 panels alone take 280,576 B of shared memory) before a launch.
+    ``dg`` is the graph on the card."""
+    import torch
+
+    from tpugnn_torch.kernels import fused_backward as fb
+    from tpugnn_torch.kernels import fused_decoder as fd
+    from tpugnn_torch.kernels._build import load_library
+    from tpugnn_torch.tanner import build_circuit_code
+
+    h, rounds, dt = model.cfg.hidden, model.cfg.rounds, "bfloat16"
+    w = fd.RoundWeights(*[t.detach() for t in model.rounds.round_weights()])
+    mats32, vecs32 = fd.pack_weights_f32(w)
+    graph = dg
+    ops = fd.make_operators(dg)
+    idx_c, idx_q = fd._slot_tables(ops[0], ops[1], ops[3], ops[4])
+    gen = torch.Generator(device=dev).manual_seed(16)
+    xc, xq, s = random_states(dg, D13_BATCH, h, gen)
+    cot_c = torch.randn(xc.shape, generator=gen, device=dev)
+    cot_q = torch.randn(xq.shape, generator=gen, device=dev)
+    r3 = D13_ROUNDS
+    with torch.no_grad():
+        k1c, k1q = fd.decoder_rounds(xc, xq, s, ops, w, r3, dt)
+        kc, kq, sc, sq = fb._fwd_stash_cuda(xc, xq, s, ops, mats32, vecs32, r3, dt)
+        pc, pq, psc, psq = fb.rounds_fwd_stash_plain(xc, xq, s, ops, mats32, vecs32,
+                                                     rounds=r3, state_dtype=dt)
+        kg = fb._bwd_cuda(sc, sq, s, ops, mats32, vecs32, cot_c, cot_q, dt)
+        pg = fb.rounds_vjp_plain(sc, sq, s, ops, mats32, vecs32, cot_c, cot_q, state_dtype=dt)
+        torch.cuda.synchronize()
+        same_as_k1 = bool(torch.equal(kc, k1c) and torch.equal(kq, k1q))
+        out_diff = torch.cat([(kc - pc).abs().flatten(), (kq - pq).abs().flatten()])
+        st_diff = torch.cat([(sc.float() - psc.float()).abs().flatten(),
+                             (sq.float() - psq.float()).abs().flatten()])
+        finite = all(bool(torch.isfinite(t).all()) for t in (kc, kq, *kg))
+    rels = grad_errors(w, kg, pg)
+    worst = max(rels, key=rels.get)
+    k_leaves, p_leaves = weight_leaves(w, kg[3], kg[4]), weight_leaves(w, pg[3], pg[4])
+    grad_max = max(float((a - b).abs().max()) for a, b in zip(
+        list(kg[:3]) + list(k_leaves.values()), list(pg[:3]) + list(p_leaves.values())))
+    res = dict(graph=graph.name, m_pad=graph.n_checks_pad, n_pad=graph.n_qubits_pad,
+               dc=graph.deg_max_check, dq=graph.deg_max_qubit, batch=D13_BATCH, rounds=r3,
+               k2a_equals_k1=same_as_k1, k2a_vs_plain_max=float(out_diff.max()),
+               k2a_vs_plain_mean=float(out_diff.mean()),
+               stash_vs_plain_max=float(st_diff.max()),
+               stash_vs_plain_mean=float(st_diff.mean()), k2b_max_abs_err=grad_max,
+               k2b_worst_rel=rels[worst], k2b_worst_leaf=worst, tol_rel=TOL_GRAD_REL_BF16,
+               tol_max=TOL_BF16_MAX, tol_mean=TOL_BF16_MEAN,
+               slots=(idx_c.shape[1], idx_q.shape[1]),
+               k2b_smem_bytes=load_library("fused_backward").fused_rounds_bwd_smem_bytes(
+                   fd._DTYPE_CODE[torch.bfloat16], graph.n_checks_pad, graph.n_qubits_pad,
+                   idx_c.shape[1], idx_q.shape[1]))
+    if not finite or not same_as_k1:
+        raise RuntimeError(f"circuit K2a/K2b non-finite or K2a differs from K1: {res}")
+    if (res["k2a_vs_plain_max"] > TOL_BF16_MAX or res["k2a_vs_plain_mean"] > TOL_BF16_MEAN
+            or res["stash_vs_plain_max"] > TOL_BF16_MAX
+            or res["stash_vs_plain_mean"] > TOL_BF16_MEAN or rels[worst] > TOL_GRAD_REL_BF16):
+        raise RuntimeError(f"circuit K2a or K2b disagrees with its plain version: {res}")
+    del kc, kq, sc, sq, pc, pq, psc, psq, kg, pg, out_diff, st_diff
+    torch.cuda.empty_cache()
+
+    xc, xq, s = random_states(dg, B, h, gen)
+    cot_c = torch.randn(xc.shape, generator=gen, device=dev)
+    cot_q = torch.randn(xq.shape, generator=gen, device=dev)
+    with torch.no_grad():
+        k2a_ms = time_ms(lambda: fb._fwd_stash_cuda(xc, xq, s, ops, mats32, vecs32, rounds, dt),
+                         warmup=1, iters=5)
+        _, _, sc, sq = fb._fwd_stash_cuda(xc, xq, s, ops, mats32, vecs32, rounds, dt)
+        k2b_ms = time_ms(lambda: fb._bwd_cuda(sc, sq, s, ops, mats32, vecs32, cot_c, cot_q, dt),
+                         warmup=1, iters=5)
+        plain_fwd_ms = time_ms(lambda: fb.rounds_fwd_stash_plain(
+            xc, xq, s, ops, mats32, vecs32, rounds=rounds, state_dtype=dt), warmup=0, iters=1)
+        plain_bwd_ms = time_ms(lambda: fb.rounds_vjp_plain(
+            sc, sq, s, ops, mats32, vecs32, cot_c, cot_q, state_dtype=dt), warmup=0, iters=1)
+    res.update(timed_batch=B, timed_rounds=rounds, k2a_ms=k2a_ms, k2b_ms=k2b_ms,
+               plain_fwd_stash_ms=plain_fwd_ms, plain_vjp_ms=plain_bwd_ms,
+               **train_kernel_bounds(graph, B, rounds, h, k2a_ms, k2b_ms))
+    del sc, sq, cot_c, cot_q
+    torch.cuda.empty_cache()
+    # K1 in bf16 on the same states, as the training run's evaluation runs it
+    run, plain = kernel_and_plain("k1", graph, ops, w, xc, xq, s, rounds, dt)
+    k1 = held_to_plain(run, plain, "fused_rounds", dt, f"K1 bf16 on {graph.name}")
+    with torch.inference_mode():
+        k1_ms = time_ms(run, warmup=1, iters=5)
+        k1_plain_ms = time_ms(plain, warmup=0, iters=1)
+    b_ms, b_by = bound(rounds_bytes(graph, B, h, 2), rounds_flops(graph, h) * B * rounds,
+                       H100_BF16_FLOPS)
+    res["k1_bfloat16"] = dict(batch=B, rounds=rounds, ms=k1_ms, plain_ms=k1_plain_ms,
+                              bound_ms=b_ms, bound_by=b_by, **k1)
+    del xc, xq, s, run, plain
+    torch.cuda.empty_cache()
+
+    # bf16 refuses circuit d=7 in all three kernels, before a launch
+    g7 = build_circuit_code("surface", 7, 7)
+    dg7 = g7.to(dev)
+    ops7 = fd.make_operators(dg7)
+    xc7, xq7, s7 = random_states(dg7, 2, h, gen)
+    refusals = {}
+    reset_counts()
+    with torch.no_grad():
+        for kernel, call in (
+                ("k1", lambda: fd.decoder_rounds(xc7, xq7, s7, ops7, w, 1, dt)),
+                ("k2a", lambda: fb._fwd_stash_cuda(xc7, xq7, s7, ops7, mats32, vecs32, 1, dt)),
+                ("k2b", lambda: fb._bwd_cuda(
+                    xc7.to(torch.bfloat16)[None], xq7.to(torch.bfloat16)[None], s7, ops7,
+                    mats32, vecs32, xc7, xq7, dt))):
+            try:
+                call()
+                refusals[kernel] = None
+            except ValueError as e:
+                refusals[kernel] = str(e)
+    res["d7_bfloat16_refusals"] = refusals
+    if any(v is None for v in refusals.values()) or any(counts().values()):
+        raise RuntimeError(f"bf16 on the circuit d=7 graph: {refusals}, launched {counts()}")
+    return res
+
+
+def phase_circuit_and_cli(dev, info: dict) -> tuple[dict, dict, dict]:
+    """The `circuit_and_cli` phase: circuit-level detector graphs and the
+    command line on the card.
+
+    a. :func:`circuit_decode`: the five circuit checkpoints in f32 at
+       CIRCUIT_P, d=5 z through every column with the NLL rule.
+    b. ``python -m tpugnn_torch.cli`` train on the circuit training config
+       (CIRCUIT_TRAIN_ARGS) for CLI_TRAIN_STEPS steps through the CLI's
+       ``main``: a finite, falling loss, one K2a and one K2b launch and no
+       K1 a step, the median step ms; then :func:`circuit_train_kernels`
+       on the trained weights, and one train step from the run's last state
+       through K2a/K2b and through their plain versions on the same CUDA
+       tensors (:func:`train_steps_vs_plain`), each parameter leaf's change
+       within TRAIN_STEP_REL.
+    c. cli train at the CLI's defaults on the surface code at d=5 (generic
+       'segment' backend, H=128, R=8, batch 256, f32): a finite, falling
+       loss and no kernel launch; one step's gradients on the card against
+       the same step on the CPU through the port, within GENERIC_GRAD_REL
+       in relative L2 and every leaf within GENERIC_LEAF_REL; the same step
+       with TF32 products, which this leaf gate must reject.
+    d. cli eval (CLI_EVAL_SHOTS shots) and cli serve (a 4096-shot demo
+       request) on the d=5 circuit weights file with --cleanup mwpm: their
+       JSON lines; the logical head and GNN+MWPM within |z| <= CIRCUIT_Z of
+       the JAX f32 references; only the global-panel K1 launched.
+    Returns ``(launches by path, K1's check by circuit graph, K2a/K2b on
+    the circuit graph)``."""
+    import copy
+    import types
+
+    import torch
+
+    t0 = time.perf_counter()
+    launches, k1 = circuit_decode(dev, info)
+    part_s = {"decode": time.perf_counter() - t0}
+
+    # b. circuit training through the CLI, K2a/K2b
+    argv = [*CIRCUIT_TRAIN_ARGS, "--steps", str(CLI_TRAIN_STEPS), "--eval-every",
+            str(CLI_TRAIN_STEPS)]
+    reset_counts()
+    with StepRecorder() as rec:
+        row = run_cli(argv)[-1]
+    launches["cli_train_circuit"] = counts()
+    summary = rec.summary()
+    model, optimizer, dg, cfg = rec.last
+    per_step = rec.launches
+    info["cli_train_circuit"] = dict(argv=argv, last_line=row, launches=launches[
+        "cli_train_circuit"], **summary)
+    gate_training("cli train (circuit, pallas)", summary)
+    if any(c != {**dict.fromkeys(c, 0), "fused_rounds_fwd_stash": 1, "fused_rounds_bwd": 1}
+           for c in per_step):
+        raise RuntimeError(f"cli train (circuit): a step did not launch K2a and K2b once "
+                           f"each and nothing else: {per_step}")
+    k2 = circuit_train_kernels(model, dg, dev)
+    state = types.SimpleNamespace(model=model, optimizer=optimizer)
+    errs = train_steps_vs_plain(state, cfg, dg, dev, steps=1)
+    worst = max(errs["kernels"][0].items(), key=lambda kv: kv[1])
+    least = min(((n, v) for n, v in errs["zero_wgrads"][0].items() if n.startswith("rounds.")),
+                key=lambda kv: kv[1])
+    k2["step_vs_plain"] = dict(bound=TRAIN_STEP_REL, kernels_worst=dict(leaf=worst[0],
+                                                                         rel=worst[1]),
+                               zero_wgrads_least=dict(leaf=least[0], rel=least[1]))
+    k2["step_ms_median"] = summary["step_ms_median"]
+    info["cli_train_circuit"]["kernels"] = k2
+    if worst[1] > TRAIN_STEP_REL:
+        raise RuntimeError(f"cli train (circuit): a step through K2a/K2b moves the "
+                           f"parameters otherwise than the plain versions: {k2}")
+    del model, optimizer, state, rec
+    torch.cuda.empty_cache()
+    part_s["train_circuit"] = time.perf_counter() - t0 - sum(part_s.values())
+
+    # c. generic training through the CLI at its defaults, d=5
+    argv = ["train", "-d", "5", "--steps", str(CLI_TRAIN_STEPS), "--eval-every",
+            str(CLI_TRAIN_STEPS)]
+    reset_counts()
+    with StepRecorder() as rec:
+        row = run_cli(argv)[-1]
+    launches["cli_train_generic"] = counts()
+    summary = rec.summary()
+    model, _, dg, cfg = rec.last
+    info["cli_train_generic"] = dict(argv=argv, last_line=row, backend=model.cfg.backend,
+                                     launches=launches["cli_train_generic"], **summary)
+    gate_training("cli train (generic)", summary)
+    if model.cfg.backend != "segment" or any(launches["cli_train_generic"].values()):
+        raise RuntimeError(f"cli train (generic): {model.cfg.backend}, launched "
+                           f"{launches['cli_train_generic']}")
+    from tpugnn_torch.sampling import sample_batch
+    from tpugnn_torch.tanner import build_code
+    from tpugnn_torch.train import loss_fn
+
+    batch = sample_batch(torch.Generator(device=dev).manual_seed(78), dg, cfg.code.p,
+                         cfg.train.batch)
+    graphs = {"cuda": dg, "cuda_again": dg, "cuda_tf32": dg,
+              "cpu": build_code(cfg.code.family, cfg.code.distance).to("cpu")}
+    grads = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    for run, g in graphs.items():
+        where = run.split("_")[0]
+        m = copy.deepcopy(model).to(where)
+        b = type(batch)(*[t.to(where) for t in batch])
+        torch.backends.cuda.matmul.allow_tf32 = run == "cuda_tf32"
+        try:
+            total, _ = loss_fn(m, g, b, cfg)
+            total.backward()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        grads[run] = {n: p.grad.detach().cpu() for n, p in m.named_parameters()}
+    vec = {run: torch.cat([g[n].flatten() for n in sorted(g)]) for run, g in grads.items()}
+    gmax = float(vec["cpu"].abs().max())
+    rel = float((vec["cuda"] - vec["cpu"]).norm() / vec["cpu"].norm())
+
+    def worst_leaf(run: str) -> dict:
+        """The parameter leaf whose gradient lies furthest from the CPU's in
+        relative L2 (a leaf whose CPU gradient is 0 must be 0)."""
+        def leaf_rel(n):
+            diff, ref = float((grads[run][n] - grads["cpu"][n]).norm()), float(
+                grads["cpu"][n].norm())
+            return diff / ref if ref > 0 else (0.0 if diff == 0 else math.inf)
+        leaf = max(grads["cpu"], key=leaf_rel)
+        return dict(leaf=leaf, rel=leaf_rel(leaf))
+
+    leaf, leaf_tf32 = worst_leaf("cuda"), worst_leaf("cuda_tf32")
+    info["cli_train_generic"]["grad_vs_cpu"] = dict(
+        rel_l2=rel, bound=GENERIC_GRAD_REL, worst_leaf=leaf, leaf_bound=GENERIC_LEAF_REL,
+        max_abs_share=float((vec["cuda"] - vec["cpu"]).abs().max()) / gmax,
+        card_vs_card_rel_l2=float((vec["cuda_again"] - vec["cuda"]).norm()
+                                  / vec["cuda"].norm()),
+        card_vs_card_max_abs_share=float((vec["cuda_again"] - vec["cuda"]).abs().max()) / gmax,
+        tf32_rel_l2=float((vec["cuda_tf32"] - vec["cpu"]).norm() / vec["cpu"].norm()),
+        tf32_worst_leaf=leaf_tf32)
+    if not leaf_tf32["rel"] > GENERIC_LEAF_REL:
+        raise RuntimeError(f"cli train (generic): the leaf gate does not reject the TF32 "
+                           f"step: {info['cli_train_generic']['grad_vs_cpu']}")
+    if not (rel <= GENERIC_GRAD_REL and leaf["rel"] <= GENERIC_LEAF_REL):
+        raise RuntimeError(f"cli train (generic): the card's gradients differ from the "
+                           f"CPU's: {info['cli_train_generic']['grad_vs_cpu']}")
+    del model, rec, grads
+    torch.cuda.empty_cache()
+    part_s["train_generic"] = time.perf_counter() - t0 - sum(part_s.values())
+
+    # d. eval and serve on the d=5 circuit weights file
+    from tpugnn_torch.models.convert import read_columns, read_meta
+
+    path = os.path.join(REPO, "tpugnn_torch", "assets", CIRCUIT_COLUMNS)
+    ref, side = read_meta(path)["ler_reference"], read_columns(path)
+    reset_counts()
+    ev = run_cli(["eval", *CLI_WEIGHTS_ARGS, "--shots", str(CLI_EVAL_SHOTS),
+                  "--checkpoint-dir", path])[-1]
+    launches["cli_eval"] = counts()
+    reset_counts()
+    served = run_cli(["serve", *CLI_WEIGHTS_ARGS, "--max-batch", str(B),
+                      "--checkpoint-dir", path])[-1]
+    launches["cli_serve"] = counts()
+    n = int(ev["shots"])
+    z = dict(ler_logical=z_score(ev["ler_logical"], n, ref["ler_logical"], ref["shots"]),
+             gnn_mwpm_ler=z_score(ev["gnn_mwpm_ler"], n, side["columns"]["gnn_mwpm"],
+                                  side["shots"]))
+    info["cli_weights"] = dict(weights=os.path.relpath(path, REPO), eval=ev, serve=served,
+                               z_vs_jax_f32=z, launches_eval=launches["cli_eval"],
+                               launches_serve=launches["cli_serve"])
+    if any(abs(v) > CIRCUIT_Z for v in z.values()) or served["shots"] != B:
+        raise RuntimeError(f"cli eval/serve on the circuit weights: {info['cli_weights']}")
+    for path_name in ("cli_eval", "cli_serve"):
+        c = launches[path_name]
+        if c["fused_rounds_gpanels"] < 1 or sum(c.values()) != c["fused_rounds_gpanels"]:
+            raise RuntimeError(f"{path_name}: launched {c}, not the global-panel K1 alone")
+    part_s["eval_serve"] = time.perf_counter() - t0 - sum(part_s.values())
+    info["part_seconds"] = part_s
+    return launches, k1, k2
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(REPO, "tpugnn_torch")):
@@ -2301,12 +2943,31 @@ def main() -> int:
                     device=kind, nvidia_smi=smi, device_count=torch.cuda.device_count())
 
     with Phase("build") as info:
+        import threading
+
+        from tpugnn_torch.utils import native
+
         t0 = time.perf_counter()
+        host = {}
+
+        def build_host():       # the host decoders' g++ build, beside nvcc's
+            try:
+                native.load()
+                host["seconds"] = round(time.perf_counter() - t0, 3)
+            except Exception as e:      # raised below, in this thread
+                host["error"] = e
+
+        host_thread = threading.Thread(target=build_host)
+        host_thread.start()
         built = build_libraries()       # one nvcc per source, all at once
+        host_thread.join()
+        if "error" in host:
+            raise host["error"]
         for name, (path, seconds, build_log) in built.items():
             log(build_log)
             info[name] = dict(library=os.path.relpath(path, REPO), cold=seconds > 0,
                               build_seconds=round(seconds, 3))
+        info["host_library_seconds"] = host["seconds"]
         info["wall_seconds"] = round(time.perf_counter() - t0, 3)
 
     graph = build_code("surface", D)
@@ -2445,6 +3106,10 @@ def main() -> int:
         det_launches, det_k1 = phase_detector_and_stream(dev, info)
         launches.update(det_launches)
 
+    with Phase("circuit_and_cli") as info:
+        circ_launches, circ_k1, circ_k2 = phase_circuit_and_cli(dev, info)
+        launches.update(circ_launches)
+
     with Phase("timing") as info:
         b, rounds = B, 8
         gen = torch.Generator(device=dev).manual_seed(5)
@@ -2458,8 +3123,9 @@ def main() -> int:
         with torch.inference_mode():
             k_ms = time_ms(lambda: fd.decoder_rounds(xc, xq, s, ops, w, rounds, "bfloat16"))
             p_ms = time_ms(lambda: fd.rounds_plain(xc, xq, s, ops, w, rounds=rounds,
-                                                   state_dtype="bfloat16"))
-            y_ms = time_ms(lambda: yardstick_rounds(xc, xq, s, dg, w, rounds, torch.bfloat16))
+                                                   state_dtype="bfloat16"), warmup=1, iters=3)
+            y_ms = time_ms(lambda: yardstick_rounds(xc, xq, s, dg, w, rounds, torch.bfloat16),
+                           warmup=1, iters=5)
         flops = rounds_flops(graph, h) * b * rounds
         nbytes = rounds_bytes(graph, b, h, 2)
         t_ops, t_bytes = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_HBM_BPS * 1e3
@@ -2480,8 +3146,9 @@ def main() -> int:
         xc, xq, s = random_states(dg, b, h, gen)
         r_t = trained.cfg.rounds
         with torch.inference_mode():
-            fwd_ms = time_ms(lambda: trained(dg, syn))
-            rk_ms = time_ms(lambda: fd.decoder_rounds(xc, xq, s, ops, wt, r_t, "float32"))
+            fwd_ms = time_ms(lambda: trained(dg, syn), warmup=1, iters=5)
+            rk_ms = time_ms(lambda: fd.decoder_rounds(xc, xq, s, ops, wt, r_t, "float32"),
+                            warmup=1, iters=5)
         flops_t = rounds_flops(graph, h) * b * r_t
         info.update(trained_forward_ms=fwd_ms, trained_kernel_ms=rk_ms,
                     trained_gflop=flops_t / 1e9,
@@ -2706,10 +3373,10 @@ def main() -> int:
                                                   cot_q, "bfloat16"), warmup=2, iters=7)
             plain_fwd_ms = time_ms(lambda: fb.rounds_fwd_stash_plain(
                 xc, xq, s, ops, mats32, vecs32, rounds=rounds, state_dtype="bfloat16"),
-                warmup=1, iters=3)
+                warmup=0, iters=1)
             plain_bwd_ms = time_ms(lambda: fb.rounds_vjp_plain(
                 sc, sq, s, ops, mats32, vecs32, cot_c, cot_q, state_dtype="bfloat16"),
-                warmup=1, iters=3)
+                warmup=0, iters=1)
         del sc, sq
         torch.cuda.empty_cache()
         leaves = fd.RoundWeights(*[t.clone().requires_grad_(True) for t in w])
@@ -2734,26 +3401,10 @@ def main() -> int:
             y_step_ms = time_ms(lambda: y_step(y_rounds), warmup=1, iters=3)
         y_peak_gb = torch.cuda.max_memory_allocated() / 1e9
         y_fwd_ms = time_ms(lambda: y_forward(y_rounds), warmup=1, iters=3)
-        t_ops_a = rounds_flops(graph, h) * B * rounds / H100_BF16_FLOPS * 1e3
-        t_bytes_a = (rounds_bytes(graph, B, h, 2)
-                     + stash_bytes(graph, B, rounds, h, 2)) / H100_HBM_BPS * 1e3
-        rows = graph.n_checks + graph.n_qubits
-        t_ops_b = rounds_bwd_flops(graph, h) * B * rounds / H100_BF16_FLOPS * 1e3
-        t_bytes_b = (stash_bytes(graph, B, rounds, h, 2) + 2 * 2 * B * rows * h * 4
-                     + 2 * B * graph.n_checks * 4 + 10 * h * h * (2 * 2 + 4)
-                     + 2 * 14 * h * 4) / H100_HBM_BPS * 1e3
         info.update(
             k2a_ms=k2a_ms, k2b_ms=k2b_ms, plain_fwd_stash_ms=plain_fwd_ms,
             plain_vjp_ms=plain_bwd_ms,
-            k2a_bound_ms=max(t_ops_a, t_bytes_a),
-            k2a_bound_by="operations" if t_ops_a >= t_bytes_a else "bytes",
-            k2b_bound_ms=max(t_ops_b, t_bytes_b),
-            k2b_bound_by="operations" if t_ops_b >= t_bytes_b else "bytes",
-            k2a_bytes_ms=t_bytes_a, k2b_bytes_ms=t_bytes_b,
-            k2a_tflops=t_ops_a * 1e-3 * H100_BF16_FLOPS / (k2a_ms * 1e-3) / 1e12,
-            k2b_tflops=t_ops_b * 1e-3 * H100_BF16_FLOPS / (k2b_ms * 1e-3) / 1e12,
-            k2a_f32_core_ms=t_ops_a * H100_BF16_FLOPS / H100_F32_FLOPS,
-            k2b_f32_core_ms=t_ops_b * H100_BF16_FLOPS / H100_F32_FLOPS,
+            **train_kernel_bounds(graph, B, rounds, h, k2a_ms, k2b_ms),
             rounds_share_of_step=(k2a_ms + k2b_ms) / statistics.median(step_ms),
             yardstick_rounds=y_rounds, yardstick_step_ms=y_step_ms,
             yardstick_fwd_ms=y_fwd_ms, yardstick_bwd_ms=y_step_ms - y_fwd_ms,
@@ -2824,7 +3475,8 @@ def main() -> int:
         library_ms=None, yardstick_ms=timing["yardstick_ms"],
         gpanels=variant("fused_rounds_gpanels", gp_checks, timing["fused_rounds_gpanels"]),
         padded_width=padded("k1", pw_checks),
-        detector_graph=det_k1,
+        detector_graph=det_k1, circuit_graphs=circ_k1,
+        circuit_d5_bfloat16={"graph": circ_k2["graph"], **circ_k2["k1_bfloat16"]},
     ), row(
         "fused_rounds_fwd_stash",
         source="tpugnn_torch/kernels/csrc/fused_rounds.cu",
@@ -2834,6 +3486,9 @@ def main() -> int:
         ms=train_timing["k2a_ms"], plain_ms=train_timing["plain_fwd_stash_ms"],
         bound_ms=train_timing["k2a_bound_ms"], bound_by=train_timing["k2a_bound_by"],
         library_ms=None, yardstick_ms=train_timing["yardstick_fwd_ms"],
+        circuit_d5={k: circ_k2[k] for k in (
+            "graph", "k2a_ms", "plain_fwd_stash_ms", "k2a_bound_ms", "k2a_bound_by",
+            "k2a_vs_plain_max", "stash_vs_plain_max", "timed_batch", "timed_rounds")},
     ), row(
         "fused_rounds_bwd",
         source="tpugnn_torch/kernels/csrc/fused_backward.cu",
@@ -2844,6 +3499,10 @@ def main() -> int:
         ms=train_timing["k2b_ms"], plain_ms=train_timing["plain_vjp_ms"],
         bound_ms=train_timing["k2b_bound_ms"], bound_by=train_timing["k2b_bound_by"],
         library_ms=None, yardstick_ms=train_timing["yardstick_bwd_ms"],
+        circuit_d5={k: circ_k2[k] for k in (
+            "graph", "k2b_ms", "plain_vjp_ms", "k2b_bound_ms", "k2b_bound_by",
+            "k2b_max_abs_err", "k2b_worst_rel", "k2b_smem_bytes", "timed_batch",
+            "timed_rounds")},
     ), row(
         "ell_sum", source="tpugnn_torch/kernels/csrc/spmm.cu",
         replaces="tpugnn/kernels/spmm.py:79", **new_kernels["ell_sum"],

@@ -46,6 +46,20 @@ builds it.  Its columns run on that graph (at p=0.02, 131,072 shots, about
         --columns-shots 131072 --ler-seed 0 \
         --out tpugnn_torch/assets/spacetime_surface_d5_t5_h96_r8_4000.npz
 
+A circuit-level checkpoint (``benchmarks/train_quality_circuit.py``: the
+detector graph of ``--d-t`` rounds of one sector under circuit-level noise,
+``tpugnn.tanner.circuit``) takes ``--noise circuit`` and ``--sector z|x``;
+the record then names that graph (``graph``: ``kind`` ``'circuit'``,
+``d_t``, ``sector``).  Its columns are taken with ``--select-cost nll``, as
+``benchmarks/LER_DETECTOR.md``'s ``[nll]`` rows were (about 2 minutes at
+d=3, 10 at d=5 and 60 at d=7 for 131,072 shots of both references):
+
+    JAX_PLATFORMS=cpu python scripts/export_torch_weights.py \
+        --ckpt runs/circuit_surface_d5_t5_h128c/ema --distance 5 --hidden 128 \
+        --rounds 8 --head bits --noise circuit --d-t 5 --sector z --ler-p 0.01 \
+        --ler-shots 131072 --columns-shots 131072 --select-cost nll --ler-seed 0 \
+        --out tpugnn_torch/assets/circuit_surface_d5_t5_h128_r8_ema24000.npz
+
 With ``--stream-shots N`` it decodes ``tpugnn.streaming.stream_ler``'s
 streams (numpy ``default_rng``, so the port draws the same ones) at the
 settings of ``runs/stream_quality_w.json``'s rows (``STREAM``: window
@@ -99,15 +113,23 @@ def main(argv=None) -> int:
     ap.add_argument("--ler-shots", type=int, default=0,
                     help="shots of the JAX f32 reference LER (0: none)")
     ap.add_argument("--ler-seed", type=int, default=0)
+    ap.add_argument("--ler-batch", type=int, default=2048,
+                    help="batch of the reference LER and of --qubit-ps")
     ap.add_argument("--columns-shots", type=int, default=0,
                     help="shots of the JAX f32 hybrid columns (0: none)")
     ap.add_argument("--columns-batch", type=int, default=2048)
     ap.add_argument("--columns-only", action="store_true",
                     help="write the columns sidecar and not the weights file")
-    ap.add_argument("--noise", default="code", choices=("code", "phenomenological"),
+    ap.add_argument("--noise", default="code",
+                    choices=("code", "phenomenological", "circuit"),
                     help="code: the code graph; phenomenological: the spacetime "
-                         "detector graph of --d-t rounds")
+                         "detector graph of --d-t rounds; circuit: the circuit-level "
+                         "detector graph of --d-t rounds of --sector")
     ap.add_argument("--d-t", type=int, default=1)
+    ap.add_argument("--sector", default="z", choices=("z", "x"),
+                    help="CSS sector of the circuit-level detector graph")
+    ap.add_argument("--select-cost", default="weight", choices=("weight", "nll"),
+                    help="best-of selection rule of the columns")
     ap.add_argument("--t0-scale", type=float, default=1.0,
                     help="round-0 data-fault rate of the detector graph, in units of p")
     ap.add_argument("--stream-shots", type=int, default=0,
@@ -141,6 +163,12 @@ def main(argv=None) -> int:
                                      t0_scale=args.t0_scale)
         graph_meta = {"kind": "spacetime", "d_t": args.d_t, "sector": "z",
                       "meas_ratio": 1.0, "t0_scale": args.t0_scale}
+    elif args.noise == "circuit":
+        from tpugnn.tanner.circuit import build_circuit_code
+
+        graph = build_circuit_code(args.family, args.distance, args.d_t,
+                                   sector=args.sector)
+        graph_meta = {"kind": "circuit", "d_t": args.d_t, "sector": args.sector}
     else:
         graph = build_code(cfg.code.family, cfg.code.distance)
     with tempfile.TemporaryDirectory() as tmp:
@@ -169,7 +197,7 @@ def main(argv=None) -> int:
         from tpugnn.eval import ler_monte_carlo
 
         ev = ler_monte_carlo(model.apply, restored.params, graph, p=args.ler_p,
-                             shots=args.ler_shots, batch=2048,
+                             shots=args.ler_shots, batch=args.ler_batch,
                              key=jax.random.PRNGKey(args.ler_seed))
         meta["ler_reference"] = {
             "p": args.ler_p, "shots": int(ev["shots"]), "seed": args.ler_seed,
@@ -206,10 +234,10 @@ def write_columns(args, model, params, graph, meta) -> None:
     cols = ler_all_columns(model.apply, params, graph, p=args.ler_p,
                            shots=args.columns_shots, batch=args.columns_batch,
                            key=jax.random.PRNGKey(args.ler_seed), best_of=True,
-                           with_mwpm=True, with_uf_raw=True, select_cost="weight")
+                           with_mwpm=True, with_uf_raw=True, select_cost=args.select_cost)
     out = {"p": args.ler_p, "shots": int(cols["shots"]),
            "seed": args.ler_seed, "batch": args.columns_batch,
-           "select_cost": "weight",
+           "select_cost": args.select_cost,
            "columns": {k: cols[k] for k in ("ler", "ler_logical", "ler_hybrid", "gnn_uf",
                                             "gnn_mwpm", "gnn_best_of", "uf", "mwpm")},
            "picked": cols["picked"],
@@ -252,7 +280,7 @@ def write_qubit_rates(args, model, params, graph, meta) -> None:
     for p in args.qubit_ps:
         t0 = time.perf_counter()
         ev = ler_monte_carlo(model.apply, params, graph, p=p, shots=QUBIT_SHOTS,
-                             batch=2048, key=jax.random.PRNGKey(args.ler_seed))
+                             batch=args.ler_batch, key=jax.random.PRNGKey(args.ler_seed))
         rows.append({"p": p, "shots": int(ev["shots"]), "seed": args.ler_seed,
                      "ler": ev["ler"], "ler_logical": ev["ler_logical"],
                      "ler_hybrid": ev["ler_hybrid"],

@@ -97,8 +97,13 @@ def test_flagship_training_config_with_pallas_trains_the_fused_layout():
     assert state.step == 1 and model.cfg.backend == "fused"
     assert isinstance(model.rounds, FusedRounds)
     assert np.isfinite(history[-1]["loss"])
-    with pytest.raises(ValueError, match="generic"):
-        train(ExperimentConfig(train=TrainConfig(steps=1)), device="cpu")
+    # the generic backends train the generic layout (tpugnn/train/loop.py:97-113)
+    _, generic, _, history = train(
+        ExperimentConfig(model=ModelConfig(hidden=8, msg_hidden=8, rounds=1),
+                         train=TrainConfig(steps=1, batch=2, eval_shots=4)),
+        device="cpu", log=lambda s: None)
+    assert generic.cfg.backend == "segment" and isinstance(generic.rounds, RoundCell)
+    assert np.isfinite(history[-1]["loss"])
 
 
 def test_lecun_normal_is_flax_lecun_normal():

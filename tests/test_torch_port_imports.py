@@ -171,3 +171,52 @@ def test_detector_entry_points_need_cuda_unless_asked_for_cpu(no_cuda):
         getattr(SlidingWindowDecoder, adapter)("surface", 5, window=5, commit=1,
                                                model=model, device="cpu")
     assert ler_bp(g, p=0.05, shots=2, batch=2, generator=gen, device="cpu")["shots"] == 2.0
+
+
+CIRCUIT_AND_CLI_MODULES = ["tpugnn_torch.tanner.circuit", "tpugnn_torch.cli",
+                           "tpugnn_torch.utils.metrics", "tpugnn_torch.utils.timing",
+                           "tpugnn_torch.utils.hostidle"]
+
+
+@pytest.mark.parametrize("module", CIRCUIT_AND_CLI_MODULES)
+def test_circuit_and_cli_modules_import_without_jax(module):
+    """The circuit graphs, the CLI and the utils import where neither JAX
+    nor tpugnn can be imported, and importing them builds nothing."""
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tpugnn', 'networkx'):\n"
+            "    sys.modules[m] = None\n"
+            f"import {module}\n"
+            "from tpugnn_torch.kernels import _build\n"
+            "assert _build.load_library.cache_info().currsize == 0\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert os.path.join(REPO, *module.split(".")) + ".py" in _port_files()
+
+
+def test_cli_and_generic_train_need_cuda_unless_asked_for_cpu(no_cuda, tmp_path):
+    """The CLI and generic training default to the card and raise without
+    one, before they build, sample or write anything."""
+    from tpugnn_torch import cli
+    from tpugnn_torch.configs import ExperimentConfig, ModelConfig, TrainConfig
+    from tpugnn_torch.models.convert import load_decoder
+    from tpugnn_torch.tanner import build_code
+    from tpugnn_torch.train import init_state, train
+
+    ck = str(tmp_path / "c")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["train", "--steps", "1", "--checkpoint-dir", ck])
+    cfg = ExperimentConfig(model=ModelConfig(backend="segment"),
+                           train=TrainConfig(steps=1, checkpoint_dir=ck))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_state(cfg, build_code("surface", 3))
+    assert not (tmp_path / "c").exists()
+    path = os.path.join(REPO, "tpugnn_torch", "assets",
+                        "circuit_surface_d3_t3_h128_r8_ema24000.npz")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_decoder(path)

@@ -40,8 +40,9 @@ class ModelConfig:
     # ell | pallas: the generic message-passing engine (pallas through the
     # ELL-aggregation kernels K3a/K3b).  train() maps pallas to fused.
     backend: str = "segment"
-    # jax.checkpoint of each round in the JAX package; changes nothing here,
-    # since the port's training keeps only the stash of round inputs (K2a)
+    # recompute each round in the backward (torch.utils.checkpoint) on the
+    # generic engine; the fused layout keeps only the stash of round inputs
+    # (K2a) and ignores it
     remat: bool = False
     readout: str = "both"           # per_qubit | logical | both
     qubit_head: str = "bits"        # bits (ex, ez sigmoids) | pauli4 (I/X/Z/Y)

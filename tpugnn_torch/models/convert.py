@@ -13,8 +13,8 @@ keys, which ``state_dict_from_flat`` maps onto the module, plus a
 ``load_decoder(path, backend=...)`` loads such a file into either layout,
 converting the rounds' parameters (``tpugnn_torch.models.fused_cell``), on
 the graph the file names: the code graph of ``code``, or, where the record
-has a ``graph`` entry, the spacetime detector graph it describes
-(:func:`graph_of_meta`).  Reading needs NumPy only.
+has a ``graph`` entry, the detector graph it describes, phenomenological
+or circuit-level (:func:`graph_of_meta`).  Reading needs NumPy only.
 """
 
 from __future__ import annotations
@@ -106,17 +106,21 @@ def load_npz(path: str = DEFAULT_WEIGHTS) -> tuple[ExperimentConfig, dict, int]:
 
 def graph_of_meta(meta: dict):
     """The NumPy ``TannerGraph`` a weights file's ``__meta__`` record names:
-    ``build_code`` of its ``code`` entry, or, where it has a ``graph`` entry
-    of kind ``'spacetime'`` (``d_t``, ``sector``, ``meas_ratio``,
-    ``t0_scale``), that detector graph of the code's family and distance,
-    with the noise rates the weights were trained on."""
-    from tpugnn_torch.tanner import build_code, build_spacetime_code
+    ``build_code`` of its ``code`` entry, or, where it has a ``graph`` entry,
+    that detector graph of the code's family and distance: of kind
+    ``'spacetime'`` (``d_t``, ``sector``, ``meas_ratio``, ``t0_scale``) with
+    the noise rates the weights were trained on, or of kind ``'circuit'``
+    (``d_t``, ``sector``), the circuit-level graph of ``tanner/circuit.py``."""
+    from tpugnn_torch.tanner import build_circuit_code, build_code, build_spacetime_code
 
     code = meta["code"]
     pads = dict(pad_nodes=code["pad_nodes"], pad_edges=code["pad_edges"])
     g = meta.get("graph")
     if g is None:
         return build_code(code["family"], code["distance"], **pads)
+    if g.get("kind") == "circuit":
+        return build_circuit_code(code["family"], code["distance"], g["d_t"],
+                                  sector=g["sector"], **pads)
     if g.get("kind") != "spacetime":
         raise ValueError(f"unknown graph kind in the weights file: {g}")
     return build_spacetime_code(code["family"], code["distance"], g["d_t"],

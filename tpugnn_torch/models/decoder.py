@@ -15,7 +15,9 @@ rounds, as in the JAX package:
   :mod:`tpugnn_torch.mp`, whose ``'pallas'`` aggregation is the kernels K3a
   and K3b (``tpugnn_torch/kernels/spmm.py``).  Embed, rounds and the
   pooled sums run in ``cfg.dtype`` as flax's ``dtype=`` runs them (operands
-  cast to it, LayerNorm statistics in f32); the heads in f32.  The edge MLPs
+  cast to it, LayerNorm statistics in f32); the heads in f32.  It trains
+  under autograd (``'pallas'`` excepted: K3a/K3b have no backward), with
+  ``cfg.remat`` recomputing each round in the backward.  The edge MLPs
   are ``torch.matmul``: keep ``torch.backends.cuda.matmul.allow_tf32`` off
   (PyTorch's default) to stay at the JAX package's f32.
 
@@ -31,6 +33,7 @@ from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tpugnn_torch.configs import ModelConfig
 from tpugnn_torch.kernels.fused_decoder import (
@@ -358,7 +361,14 @@ class GNNDecoder(nn.Module):
                                       self.rounds.round_weights(), cfg.rounds, cfg.dtype)
         else:
             state = NodeStates(check=x_c, qubit=x_q)
+            # remat (tpugnn/models/decoder.py:168-171): each round's
+            # activations are recomputed in the backward, not kept
+            remat = cfg.remat and torch.is_grad_enabled()
             for r in range(cfg.rounds):
-                state = self.rounds(graph, state, s_pm[..., None], r)
+                if remat:
+                    state = checkpoint(self.rounds, graph, state, s_pm[..., None], r,
+                                       use_reentrant=False, preserve_rng_state=False)
+                else:
+                    state = self.rounds(graph, state, s_pm[..., None], r)
             x_c, x_q = state
         return self.readout(graph, x_c, x_q)

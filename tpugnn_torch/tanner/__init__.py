@@ -1,6 +1,7 @@
 """Code families -> padded Tanner graphs (surface, toric, repetition, Steane),
-and the spacetime detector graphs of one sector."""
+and the detector graphs of one sector (phenomenological and circuit-level)."""
 
+from tpugnn_torch.tanner.circuit import build_circuit_code
 from tpugnn_torch.tanner.graph import TannerGraph, build_tanner_graph
 from tpugnn_torch.tanner.spacetime import build_spacetime_code, spacetime_matrix
 from tpugnn_torch.tanner.repetition import build_repetition_code, repetition_code_checks
@@ -30,4 +31,4 @@ __all__ = ["TannerGraph", "build_tanner_graph", "build_code",
            "build_surface_code", "build_toric_code", "build_repetition_code",
            "build_steane_code", "surface_code_checks", "toric_code_checks",
            "repetition_code_checks", "steane_code_checks",
-           "build_spacetime_code", "spacetime_matrix"]
+           "build_spacetime_code", "spacetime_matrix", "build_circuit_code"]

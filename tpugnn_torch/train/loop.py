@@ -2,9 +2,14 @@
 
 One step samples a batch on the device from an explicit
 ``torch.Generator``, runs the decoder, the loss and the backward, and applies
-the optimizer.  The rounds' forward and backward are the kernels K2a and K2b
-on a card (:class:`~tpugnn_torch.kernels.fused_backward.FusedRoundsFn`);
-embed, heads and loss are plain PyTorch in f32.  The loop adds an EMA of the
+the optimizer.  ``backend='pallas'`` (or ``'fused'``) trains the fused
+layout: the rounds' forward and backward are the kernels K2a and K2b on a
+card (:class:`~tpugnn_torch.kernels.fused_backward.FusedRoundsFn`), embed,
+heads and loss plain PyTorch in f32.  ``'segment'``, ``'dense'`` and
+``'ell'`` train the generic ``RoundCell`` on the message-passing engine under
+autograd, as the JAX package trains its flax module directly
+(``tpugnn/train/loop.py:97-113``); ``remat`` recomputes each round in the
+backward (``torch.utils.checkpoint``).  The loop adds an EMA of the
 parameters, Monte-Carlo evaluation every ``eval_every`` steps through
 :func:`~tpugnn_torch.eval.ler.ler_monte_carlo`, checkpoints, and a warm
 start from ``init_from``.
@@ -12,10 +17,9 @@ start from ``init_from``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
-import json
-import os
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -30,9 +34,11 @@ from tpugnn_torch.tanner import build_code
 from tpugnn_torch.train.checkpoint import CheckpointManager
 from tpugnn_torch.train.optim import OptaxAdamW, make_optimizer
 from tpugnn_torch.utils.device import resolve_device
+from tpugnn_torch.utils.metrics import MetricLogger, profile
+from tpugnn_torch.utils.timing import hard_sync
 
 __all__ = ["TrainState", "loss_fn", "train_step", "ema_update", "init_params_from",
-           "train"]
+           "train_model_config", "init_state", "train"]
 
 
 @dataclass
@@ -116,6 +122,37 @@ def init_params_from(path: str) -> dict:
     return donor["model"]
 
 
+def train_model_config(cfg: ExperimentConfig):
+    """The model config a run trains: ``backend='pallas'`` trains the fused
+    layout through the kernels K2a/K2b (``'fused'``), as
+    ``tpugnn/train/loop.py:97-113`` maps it; ``'fused'``, ``'segment'``,
+    ``'dense'`` and ``'ell'`` train as they are.  The generic engine's
+    ``'pallas'`` aggregation (K3a/K3b) has no backward, nor has the JAX
+    package's, so no backend reaches it here."""
+    mcfg = cfg.model
+    if mcfg.backend == "pallas":
+        return dataclasses.replace(mcfg, backend="fused")
+    if mcfg.backend not in ("fused", "segment", "dense", "ell"):
+        raise ValueError(f"train() takes backend 'pallas', 'fused', 'segment', 'dense' "
+                         f"or 'ell', not {mcfg.backend!r}")
+    return mcfg
+
+
+def init_state(cfg: ExperimentConfig, graph, device="cuda") -> TrainState:
+    """A fresh run's state (``tpugnn/train/loop.py:116-131``): the model of
+    :func:`train_model_config` with random weights drawn from
+    ``cfg.train.seed``, on ``device``; the optimizer; the sampling generator
+    on ``device``, seeded with ``cfg.train.seed``; step 0."""
+    dev = resolve_device(device)
+    t = cfg.train
+    model = GNNDecoder(train_model_config(cfg), k=graph.k)
+    model.init_random(torch.Generator().manual_seed(t.seed))
+    model = model.to(dev)
+    generator = torch.Generator(device=dev).manual_seed(t.seed)
+    return TrainState(model=model, optimizer=make_optimizer(cfg, model.parameters()),
+                      generator=generator, step=0)
+
+
 def _payload(state: TrainState) -> dict:
     out = {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
            "generator": state.generator.get_state()}
@@ -133,29 +170,18 @@ def train(cfg: ExperimentConfig, *, device="cuda", graph=None, log=print,
     ``callback(step, metrics)``, when given, is called after every step with
     the step's metrics as tensors on the device.
 
-    ``cfg.model.backend`` is ``'fused'`` or ``'pallas'``, which trains the
-    fused layout through the fused kernels, as ``tpugnn/train/loop.py:97-113``
-    maps it; the returned model is then a ``'fused'`` one.  Training through
-    the generic backends is not ported."""
+    ``cfg.model.backend`` picks the layout (:func:`train_model_config`):
+    ``'pallas'`` trains the fused layout through the fused kernels, and the
+    returned model is then a ``'fused'`` one; ``'segment'``, ``'dense'`` and
+    ``'ell'`` train the generic model under autograd."""
     dev = resolve_device(device)
     t = cfg.train
-    mcfg = cfg.model
-    if mcfg.backend == "pallas":
-        mcfg = dataclasses.replace(mcfg, backend="fused")
-    if mcfg.backend != "fused":
-        raise ValueError(f"train() trains the fused layout (backend 'fused' or "
-                         f"'pallas'), not backend={cfg.model.backend!r}: training "
-                         f"through the generic engine is not ported")
     if graph is None:
         graph = build_code(cfg.code.family, cfg.code.distance,
                            pad_nodes=cfg.code.pad_nodes, pad_edges=cfg.code.pad_edges)
     dg = graph.to(dev)
-    model = GNNDecoder(mcfg, k=graph.k)
-    model.init_random(torch.Generator().manual_seed(t.seed))
-    model = model.to(dev)
-    generator = torch.Generator(device=dev).manual_seed(t.seed)
-    optimizer = make_optimizer(cfg, model.parameters())
-    state = TrainState(model=model, optimizer=optimizer, generator=generator, step=0)
+    state = init_state(cfg, graph, dev)
+    model, optimizer, generator = state.model, state.optimizer, state.generator
 
     ckpt = CheckpointManager(t.checkpoint_dir) if t.checkpoint_dir else None
     restored = ckpt.restore_latest() if ckpt is not None else None
@@ -174,25 +200,20 @@ def train(cfg: ExperimentConfig, *, device="cuda", graph=None, log=print,
             state.ema.load_state_dict(restored["ema"])
 
     history = []
-    profiler = None
+    profiling = contextlib.ExitStack()     # the trace of steps 10..14
+    jl = MetricLogger(t.metrics_jsonl, stdout=False) if t.metrics_jsonl else None
     for i in range(state.step, t.steps):
         if t.profile_dir and i == 10:
-            activities = [torch.profiler.ProfilerActivity.CPU]
-            if dev.type == "cuda":
-                activities.append(torch.profiler.ProfilerActivity.CUDA)
-            profiler = torch.profiler.profile(activities=activities)
-            profiler.start()
+            profiling.enter_context(profile(t.profile_dir))
         p = training_rate(generator, cfg.code.p, t.batch, i, t.p_curriculum, t.p_mix)
         batch = sample_batch(generator, dg, p, t.batch)
         metrics = train_step(model, optimizer, dg, batch, cfg)
         state.step = i + 1
         if state.ema is not None:
             ema_update(state.ema, model, float(t.ema_decay))
-        if profiler is not None and i == 14:
-            profiler.stop()
-            os.makedirs(t.profile_dir, exist_ok=True)
-            profiler.export_chrome_trace(os.path.join(t.profile_dir, "trace.json"))
-            profiler = None
+        if t.profile_dir and i == 14:
+            hard_sync(metrics["loss"])
+            profiling.close()
         if callback is not None:
             callback(i + 1, metrics)
         if (i + 1) % max(1, t.eval_every) == 0 or i + 1 == t.steps:
@@ -211,13 +232,15 @@ def train(cfg: ExperimentConfig, *, device="cuda", graph=None, log=print,
                         m[extra + suffix] = ev[extra]
             m["step"] = i + 1
             history.append(m)
-            if t.metrics_jsonl:
-                with open(t.metrics_jsonl, "a") as f:
-                    f.write(json.dumps(m) + "\n")
+            if jl is not None:
+                jl.log(m)
             log(f"step {i + 1}: loss={m['loss']:.4f} ler={m['ler']:.4f}"
                 + (f" ler_logical={m['ler_logical']:.4f}" if "ler_logical" in m else ""))
         if ckpt is not None and (i + 1) % t.checkpoint_every == 0:
             ckpt.save(i + 1, _payload(state))
+    profiling.close()       # a run that ends before step 14 keeps what it traced
     if ckpt is not None and ckpt.latest_step() != state.step:
         ckpt.save(state.step, _payload(state))
+    if jl is not None:
+        jl.close()
     return state, model, graph, history
