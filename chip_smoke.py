@@ -97,6 +97,31 @@ print one JSON line with their wall time:
     H=128, B=256) for 20 steps, a falling loss, one step's gradients on the
     card against the CPU's; `cli eval` and `cli serve` on the d=5 weights
     file with --cleanup mwpm
+  4f dist: graph- and data-parallel decoding and training on
+    torch.distributed (tpugnn_torch/dist/) on the one card, each part in
+    turn, so that nothing else runs on the card beside it.  (a) NCCL at
+    world size 1 in this process: the d=15 weights' sharded apply at P=1
+    against the unsharded generic forward (1e-4).  (b) The d=15 checkpoint
+    (surface_d15_h128_r14_ema8000.npz, generic 'segment' rounds, f32)
+    sharded over P=4 gloo ranks that time-share the card, their exchanges
+    staged through the host: ler_monte_carlo of make_sharded_apply at
+    p=0.05 on 8,192 shots (chunks of 1024), both heads within |z| <= 4 of the
+    JAX f32 rate in the weights file, >= 99.9% of the shots decided as the
+    unsharded generic path and as K1 (global panels) on the same shots, the
+    logits within 1e-3 of the generic path's; the ring and gather exchanges
+    against alltoall (a chunk's exchange buffers bit for bit, the logits of
+    the first 128 shots within 1e-4, index_add_ deterministic) and the bf16
+    and int8 wires against f32 on those shots (>= 99.5% of per-qubit
+    decisions).  (c) make_sharded_train_step on a data=2 x graph=2
+    mesh at the CLI's generic defaults (surface d=5, H=128, R=8, B=256,
+    f32): its first gradients against the unsharded step on the card (phase
+    4e's 2e-3 whole and 3e-3 worst leaf), a finite, falling loss over 10
+    steps, and two int8 steps that move the parameters by more than 0.3 of
+    two f32 steps'.  (d) dryrun(4): every rank prints the same loss.  (e)
+    Reported, labelled as ranks time-sharing one card: the sharded, the
+    unsharded generic and K1's ms a chunk, the exchange's bytes and ms a
+    round for each halo mode and wire type, and the bytes staged through
+    the host
   5 timing: the bench config (d=11, B=4096, R=8, H=128, bf16) with CUDA
     events: the kernel's step and its TFLOP/s beside its bound and the f32
     CUDA-core floor, rounds_plain, and an index_select + index_add_ round
@@ -171,8 +196,9 @@ print one JSON line with their wall time:
     refusal of a width-160 model by K5's and K1's wrappers, before a launch
 
 Phases 3 (each engine's requests), 4, 4b, 4c, 4d (the monolithic decode
-and the streams), 4e (each circuit decode and each CLI run), 7, 9, 10 and
-11 are the main paths; the launch counts of every kernel are reset before
+and the streams), 4e (each circuit decode and each CLI run), 4f (the K1
+reference decodes beside the sharded ones, which launch no kernel), 7, 9,
+10 and 11 are the main paths; the launch counts of every kernel are reset before
 and read after each.  Then it prints the kernel
 table as one JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.  Any
@@ -451,6 +477,50 @@ CLI_EVAL_SHOTS = 8192
 CLI_WEIGHTS_ARGS = ("--noise", "circuit", "--dt", "5", "-d", "5", "--backend", "pallas",
                     "--hidden", "128", "--msg-hidden", "128", "--rounds", "8",
                     "--qubit-head", "bits", "-p", str(CIRCUIT_P), "--cleanup", "mwpm")
+
+# The dist phase (4f): graph- and data-parallel decoding and training on
+# torch.distributed.  One card: NCCL at world size 1 in this process, and P
+# gloo ranks time-sharing the card, their exchanges staged through the host
+# (NCCL takes one rank per card).  The d=15 checkpoint (LER_TABLE.md:37's,
+# f32) on the generic rounds, P=4 shards of a graph padded for them, at
+# p=0.05 on DIST_SHOTS shots in chunks of DIST_CHUNK.
+DIST_WEIGHTS = "surface_d15_h128_r14_ema8000.npz"
+DIST_D = 15
+DIST_P = 4
+DIST_SHOTS = 8192
+DIST_CHUNK = 1024
+# shots of the first chunk on which the halo modes and wire types are held
+# to alltoall's f32, with index_add_ deterministic (its CUDA path sorts the
+# indices, so these forwards cost a multiple of an atomic one; the exchange
+# buffers, bytes and times are those of a whole chunk)
+DIST_CHECK = 128
+DIST_SEED = 2031
+DIST_Z = 4
+# the sharded forward against the unsharded generic one on the card: the same
+# f32 function, each sum split at the shard boundaries (interior and boundary
+# edges summed apart), through 14 trained rounds; and the sharded per-shot
+# decisions against the unsharded generic and K1 paths
+DIST_LOGIT_TOL = 1e-3
+DIST_SHOT_AGREE = 0.999
+# ring and gather against alltoall on one chunk: the same slices moved
+# otherwise, the same sums (gather: all edges summed in one segment sum)
+DIST_MODE_TOL = 1e-4
+# bf16 and int8 wires against the f32 wire: per-qubit decisions (argmax of
+# the pauli4 head over real qubits)
+DIST_WIRE_AGREE = 0.995
+# NCCL at world size 1: the sharded apply of one shard against the model
+DIST_NCCL_TOL = 1e-4
+# the sharded train step: mesh data=2 x graph=2, the CLI's generic defaults
+# (surface d=5, H=128, R=8, B=256, segment, f32); gradients of its first step
+# against the unsharded step on the card, with phase 4e's bounds
+# (GENERIC_GRAD_REL, GENERIC_LEAF_REL); DIST_TRAIN_STEPS steps, a finite
+# loss whose mean over the last 3 is below that over the first 3; two int8
+# steps move the parameters by more than DIST_INT8_MOVE of two f32 steps'
+DIST_TRAIN_STEPS = 10
+DIST_TRAIN_SEED = 79
+DIST_INT8_MOVE = 0.3
+# a launch of phase 4f's ranks (or dryrun) that outlasts DIST_TIMEOUT_S fails
+DIST_TIMEOUT_S = 600
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak (NVIDIA data sheet, SXM)
 H100_F32_FLOPS = 67e12    # f32 outside the tensor cores
@@ -1148,8 +1218,8 @@ def phase_generic_flagship(graph, dg, dev, trained, info: dict, ell_times: dict)
             same += ((fg["fail_qubit"] == ff["fail_qubit"]) & (lg == lf).all(-1)).sum()
         agree = float(same) / (chunks * B)
         syn = sample_batch(gen, dg, 0.05, B).syndrome
-        fwd_ms = time_ms(lambda: model(dg, syn), warmup=1, iters=5)
-        fused_ms = time_ms(lambda: trained(dg, syn), warmup=1, iters=5)
+        fwd_ms = time_ms(lambda: model(dg, syn), warmup=1, iters=3)
+        fused_ms = time_ms(lambda: trained(dg, syn), warmup=1, iters=3)
         breakdown = profile_forward(model, dg, syn)
     info.update(shots=n, ler_logical=ev["ler_logical"], ler_qubit=ev["ler"],
                 ler_hybrid=ev["ler_hybrid"], z=z, ler_seconds=ler_s,
@@ -1362,7 +1432,7 @@ def phase_roll_gather(graph, dg, dev, trained, info: dict) -> tuple[dict, dict]:
                 xc, xq, s, plan, w, rounds=rounds, state_dtype="bfloat16", slot_dtype=slot),
                 warmup=2, iters=10)
             p_ms = time_ms(lambda: rg.roll_rounds_plain(r_ops, rounds=rounds, slot_dtype=slot),
-                           warmup=0, iters=3)
+                           warmup=0, iters=1)
             bench[slot] = dict(max_abs_err=max_err, mean_abs_err=mean_err,
                                vs_k1_real_rows_max=k1_max, vs_k1_real_rows_mean=k1_mean,
                                repeatable=repeatable, kernel_ms=k_ms,
@@ -1440,7 +1510,7 @@ def phase_roll_gather(graph, dg, dev, trained, info: dict) -> tuple[dict, dict]:
         # the kernel the main path launches: f32 on FMA loops
         f32_ms = time_ms(lambda: rg._roll_rounds_cuda(t_ops_r, rounds=r_t), warmup=1, iters=5)
         f32_plain_ms = time_ms(lambda: rg.roll_rounds_plain(t_ops_r, rounds=r_t),
-                               warmup=0, iters=2)
+                               warmup=0, iters=1)
         del t_ops_r
     f32_flops = rounds_flops(graph, h) * B * r_t
     f32_ops_ms = f32_flops / H100_F32_FLOPS * 1e3
@@ -1669,7 +1739,7 @@ def padded_width_timing(d: int, h: int, dev, seed: int) -> dict:
                                     f"{kernel} d={d} H={width} B={B} R={rounds} {dtype}")
                 out[f"{kernel}_max_abs_err_{dtype}_h{width}"] = res["max_abs_err"]
                 with torch.inference_mode():
-                    out[f"{kernel}_ms_{dtype}_h{width}"] = time_ms(run, warmup=1, iters=5)
+                    out[f"{kernel}_ms_{dtype}_h{width}"] = time_ms(run, warmup=1, iters=3)
                 del run, plain
             peak = H100_F32_FLOPS if dtype == "float32" else H100_BF16_FLOPS
             itemsize = 4 if dtype == "float32" else 2
@@ -2906,6 +2976,407 @@ def phase_circuit_and_cli(dev, info: dict) -> tuple[dict, dict, dict]:
     return launches, k1, k2
 
 
+class _Recorder:
+    """A sharded apply that keeps each chunk's logits on the host and its
+    host-clock ms (every rank's apply ends in the same all-gather)."""
+
+    def __init__(self, apply, keep: bool):
+        self.apply, self.keep, self.q, self.l, self.ms = apply, keep, [], [], []
+
+    def __call__(self, graph, syn):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.apply(graph, syn)
+        torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        if self.keep:
+            self.q.append(out.qubit_logits.cpu())
+            self.l.append(out.logical_logits.cpu())
+        return out
+
+    def to(self, device):
+        self.apply.to(device)
+        return self
+
+
+def dist_ranks(weights: str) -> dict:
+    """One of the DIST_P gloo ranks of phase 4f, all on the one card: (b)
+    the d=15 decode sharded DIST_P ways through ler_monte_carlo, each
+    chunk timed; the halo modes and wire types on its first DIST_CHECK
+    shots and a chunk's exchange buffers; a round's exchange by mode and
+    wire type, its bytes and ms; and (c) the sharded train step on a 2 x 2
+    mesh.  Returns this rank's numbers (rank 0: the logits too)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tpugnn_torch.configs import (CodeConfig, ExperimentConfig, MeshConfig, ModelConfig,
+                                      TrainConfig)
+    from tpugnn_torch.dist import (exchange, make_mesh, make_sharded_apply,
+                                   make_sharded_train_step, partition_graph)
+    from tpugnn_torch.eval import ler_monte_carlo
+    from tpugnn_torch.models.convert import load_decoder
+    from tpugnn_torch.sampling import sample_batch
+    from tpugnn_torch.tanner import build_code
+    from tpugnn_torch.train import init_state
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    me = dist.get_rank()
+    out = {"rank": me, "backend": dist.get_backend()}
+    t_start = time.perf_counter()
+    part_s = {}
+
+    def lap(name):
+        part_s[name] = time.perf_counter() - t_start - sum(part_s.values())
+
+    def sync_ms(fn) -> float:
+        """Host-clock ms of one call of ``fn`` on every rank at once (a call
+        before it has warmed the path up)."""
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    # b. the d=15 decode, sharded
+    _, model, _ = load_decoder(weights, device=dev, backend="segment")
+    graph = build_code("surface", DIST_D, pad_nodes=8 * DIST_P)
+    dg = graph.to(dev)
+    mesh = make_mesh(MeshConfig(data=1, graph=DIST_P))
+    wires = (("alltoall", "float32"), ("ring", "float32"), ("gather", "float32"),
+             ("alltoall", "bfloat16"), ("alltoall", "int8"))
+    pgs = {k: partition_graph(graph, DIST_P, halo=k[0], halo_dtype=k[1]) for k in wires}
+    applies = {k: make_sharded_apply(model, mesh, pg, device=dev) for k, pg in pgs.items()}
+    rec = _Recorder(applies[wires[0]], keep=me == 0)
+    lap("setup")
+    exchange.reset_counts()
+    ev = ler_monte_carlo(rec, graph, p=0.05, shots=DIST_SHOTS, batch=DIST_CHUNK,
+                         generator=torch.Generator(device=dev).manual_seed(DIST_SEED),
+                         device=dev)
+    torch.cuda.synchronize()
+    lap("decode")
+    # a chunk's ms: the median over the pass's chunks but the first
+    out.update(ler=ev, ler_counts=exchange.counts(), chunk_ms=statistics.median(rec.ms[1:]))
+    if me == 0:
+        out["qubit_logits"] = torch.cat(rec.q).numpy()
+        out["logical_logits"] = torch.cat(rec.l).numpy()
+    del rec
+
+    # the halo modes on the first DIST_CHECK shots, with index_add_
+    # deterministic, so that equal exchange buffers give equal logits; beside
+    # them the same path twice with atomics (their noise), and the wire types
+    # (gated on decisions) with atomics
+    syn = sample_batch(torch.Generator(device=dev).manual_seed(DIST_SEED), dg, 0.05,
+                       DIST_CHUNK).syndrome
+    chk = syn[:DIST_CHECK]
+    view = applies[wires[0]].view
+    g, mb = view.rank, view.n_checks_pad
+    with torch.inference_mode():
+        again = applies[wires[0]](None, chk).qubit_logits
+        if me == 0:
+            out["atomics_max_abs_err"] = float(
+                (again.cpu() - torch.from_numpy(out["qubit_logits"][:DIST_CHECK])).abs().max())
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            logits = {k: applies[k](None, chk) for k in wires[:3]}
+        finally:
+            torch.use_deterministic_algorithms(False)
+        lap("modes")
+        logits.update({k: applies[k](None, chk) for k in wires[3:]})
+        ref = logits[wires[0]]
+        out["modes_max_abs_err"] = {
+            k[0]: max(float((logits[k].qubit_logits - ref.qubit_logits).abs().max()),
+                      float((logits[k].logical_logits - ref.logical_logits).abs().max()))
+            for k in wires[1:3]}
+        n = graph.n_qubits
+        dec = lambda o: o.qubit_logits[:, :n].argmax(-1)
+        out["wire_agree"] = {w: float((dec(logits[(h, w)]) == dec(ref)).float().mean())
+                             for h, w in wires[3:]}
+        del again, logits, ref
+        lap("wires")
+        # a round's exchange buffers (states of a 1024-shot chunk): ring and
+        # alltoall equal, and equal to the rows the send tables pick from
+        # the all-gathered blocks
+        xc, xq, _ = model.embed(view, syn[:, g * mb:(g + 1) * mb])
+        c_a, q_a = exchange.halo_exchange(view, xc, xq)
+        c_r, q_r = exchange.halo_exchange(applies[wires[1]].view, xc, xq)
+        pg = pgs[wires[0]]
+
+        def from_blocks(x, send_idx, send_mask, block):
+            """What each peer sends this rank, picked from the gathered blocks."""
+            rows = send_idx[:, g, :].astype("int64") + block * np.arange(DIST_P)[:, None]
+            rows = torch.from_numpy(rows.reshape(-1)).to(dev)
+            mask = torch.from_numpy(send_mask[:, g, :].reshape(-1)).to(dev)
+            return exchange.gather_rows(x, view.group).index_select(-2, rows) * mask[:, None]
+
+        out["buffers_equal"] = {
+            "ring": bool(torch.equal(c_a, c_r) and torch.equal(q_a, q_r)),
+            "gather": bool(torch.equal(from_blocks(xq, pg.qsend_idx, pg.qsend_mask, pg.nb), q_a)
+                           and torch.equal(from_blocks(xc, pg.csend_idx, pg.csend_mask, pg.mb),
+                                           c_a))}
+        del c_a, q_a, c_r, q_r
+    torch.cuda.empty_cache()
+    lap("buffers")
+
+    # e. a round's exchanges (bytes a rank sends its peers, and ms) by mode
+    # and wire type, the counted call warming each up for the timed one
+    with torch.inference_mode():
+        per_round = {}
+        for k in wires:
+            v = applies[k].view
+
+            def round_exchange(v=v):
+                if v.halo == "gather":
+                    exchange.gather_rows(xq, v.group)
+                    exchange.gather_rows(xc, v.group)
+                else:
+                    exchange.halo_exchange(v, xc, xq)
+            exchange.reset_counts()
+            round_exchange()
+            sent = exchange.counts()
+            per_round[f"{k[0]}_{k[1]}"] = dict(halo_bytes=sent["halo_bytes"],
+                                                staged_bytes=sent["staged_bytes"],
+                                                ms=sync_ms(round_exchange))
+        out["per_round"] = per_round
+    del applies, model, xc, xq, syn
+    torch.cuda.empty_cache()
+    lap("exchange_timing")
+
+    # c. the sharded train step, mesh 2 x 2, the CLI's generic defaults at d=5
+    tcfg = ExperimentConfig(code=CodeConfig(family="surface", distance=5, p=0.05),
+                            model=ModelConfig(), train=TrainConfig())
+    g5 = build_code("surface", 5, pad_nodes=16)
+    dg5 = g5.to(dev)
+    mesh22 = make_mesh(MeshConfig(data=2, graph=2))
+    train = {}
+    for wire, steps in (("float32", DIST_TRAIN_STEPS), ("int8", 2)):
+        state = init_state(tcfg, g5, dev)
+        start = [p.detach().clone() for p in state.model.parameters()]
+        step = make_sharded_train_step(tcfg, state.model, mesh22, g5,
+                                       partition_graph(g5, 2, halo_dtype=wire),
+                                       state.optimizer, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(DIST_TRAIN_SEED)
+        losses, step_ms, moved = [], [], None
+        for i in range(steps):
+            batch = sample_batch(gen, dg5, tcfg.code.p, tcfg.train.batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(batch)["loss"]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0 and wire == "float32" and me == 0:
+                out["grads"] = {k: p.grad.detach().cpu()
+                                for k, p in state.model.named_parameters()}
+            if i == 1:
+                moved = sum(float((p.detach() - q).abs().sum())
+                            for p, q in zip(state.model.parameters(), start))
+        train[wire] = dict(losses=losses, step_ms=step_ms, moved_after_2=moved)
+        del state, step, start
+    out["train"] = train
+    lap("train")
+    out["part_seconds"] = part_s
+    return out
+
+
+def phase_dist(dev, info: dict, card: str) -> dict:
+    """Phase 4f: the port's dist/ on one card.  (a) NCCL at world size 1 in
+    this process; (b) the d=15 decode of the DIST_P gloo ranks sharing the
+    card (dist_ranks), held to the JAX f32 rate, and to the unsharded
+    generic and K1 paths on the same shots, decoded here first; the halo
+    modes and wire types; (c) the 2 x 2 sharded train step against the
+    unsharded one; (d) dryrun(DIST_P).  Returns the launches of the K1
+    reference decodes."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from tpugnn_torch.configs import CodeConfig, ExperimentConfig, MeshConfig, ModelConfig
+    from tpugnn_torch.configs import TrainConfig
+    from tpugnn_torch.dist import (dryrun, exchange, make_mesh, make_sharded_apply,
+                                   partition_graph)
+    from tpugnn_torch.dist.multihost import initialize, launch
+    from tpugnn_torch.eval import count_failures, decode_corrections
+    from tpugnn_torch.models.convert import load_decoder, read_meta
+    from tpugnn_torch.sampling import sample_batch
+    from tpugnn_torch.tanner import build_code
+    from tpugnn_torch.train import init_state, loss_fn
+
+    weights = os.path.join(REPO, "tpugnn_torch", "assets", DIST_WEIGHTS)
+    label = f"{DIST_P} ranks time-sharing one {card}, gloo staged through the host"
+    t0 = time.perf_counter()
+    part_s = {}
+    torch.cuda.empty_cache()
+
+    # a. NCCL at world size 1, in this process, on the graph padded for the
+    # ranks (the references below use it too)
+    graph = build_code("surface", DIST_D, pad_nodes=8 * DIST_P)
+    dg = graph.to(dev)
+    store = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    exchange.reset_counts()
+    initialize("file://" + os.path.join(store, "store"), 1, 0, device="cuda")
+    try:
+        backend = dist.get_backend()
+        _, model, _ = load_decoder(weights, device="cuda", backend="segment")
+        apply = make_sharded_apply(model, make_mesh(MeshConfig(data=1, graph=1)),
+                                   partition_graph(graph, 1), device=dev)
+        syn = sample_batch(torch.Generator(device=dev).manual_seed(DIST_SEED), dg, 0.05,
+                           DIST_CHUNK).syndrome
+        with torch.inference_mode():
+            got, want = apply(None, syn), model(dg, syn)
+            err = max(float((got.qubit_logits - want.qubit_logits).abs().max()),
+                      float((got.logical_logits - want.logical_logits).abs().max()))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    nccl_counts = exchange.counts()
+    info["nccl_world1"] = dict(backend=backend, batch=DIST_CHUNK, max_abs_err=err,
+                               tol=DIST_NCCL_TOL, exchanges=nccl_counts)
+    if backend != "nccl" or not err <= DIST_NCCL_TOL or nccl_counts["staged_bytes"]:
+        raise RuntimeError(f"dist (a): NCCL at world size 1: {info['nccl_world1']}")
+    part_s["nccl_world1"] = time.perf_counter() - t0
+
+    # b. the references on the ranks' shots: unsharded generic, and K1
+    _, fused, _ = load_decoder(weights, device="cuda")
+    gen = torch.Generator(device=dev).manual_seed(DIST_SEED)
+    chunks = DIST_SHOTS // DIST_CHUNK
+    batches, generic, k1 = [], [], []
+    reset_counts()
+    with torch.inference_mode():
+        for _ in range(chunks):
+            b = sample_batch(gen, dg, 0.05, DIST_CHUNK)
+            batches.append(b)
+            generic.append(model(dg, b.syndrome))
+            k1.append(shot_decisions(fused, dg, b))
+    launched = counts()
+    with torch.inference_mode():
+        syn = batches[0].syndrome
+        generic_ms = time_ms(lambda: model(dg, syn), warmup=1, iters=3)
+        k1_ms = time_ms(lambda: fused(dg, syn), warmup=1, iters=3)
+    # c. the unsharded step's gradients on the card
+    tcfg = ExperimentConfig(code=CodeConfig(family="surface", distance=5, p=0.05),
+                            model=ModelConfig(), train=TrainConfig())
+    g5 = build_code("surface", 5, pad_nodes=16)
+    dg5 = g5.to(dev)
+    state = init_state(tcfg, g5, dev)
+    total, _ = loss_fn(state.model, dg5, sample_batch(
+        torch.Generator(device=dev).manual_seed(DIST_TRAIN_SEED), dg5, tcfg.code.p,
+        tcfg.train.batch), tcfg)
+    total.backward()
+    ref_grads = {k: p.grad.detach().cpu() for k, p in state.model.named_parameters()}
+    del state, total
+    torch.cuda.synchronize()
+    part_s["references"] = time.perf_counter() - t0 - sum(part_s.values())
+
+    # the ranks, then dryrun, each alone on the card
+    torch.cuda.empty_cache()
+    results = launch(dist_ranks, DIST_P, args=(weights,), device="cuda", backend="gloo",
+                     timeout=DIST_TIMEOUT_S, echo=False)
+    part_s["ranks"] = time.perf_counter() - t0 - sum(part_s.values())
+    dry_loss = dryrun(DIST_P, device="cuda", backend="gloo", timeout=DIST_TIMEOUT_S)
+    part_s["dryrun"] = time.perf_counter() - t0 - sum(part_s.values())
+
+    r0 = results[0]
+    ql, lgl = torch.from_numpy(r0["qubit_logits"]), torch.from_numpy(r0["logical_logits"])
+    same_generic = same_k1 = 0
+    logit_err = 0.0
+    with torch.inference_mode():
+        for i, (b, og, (fk, lk)) in enumerate(zip(batches, generic, k1)):
+            q = ql[i * DIST_CHUNK:(i + 1) * DIST_CHUNK].to(dev)
+            lg = lgl[i * DIST_CHUNK:(i + 1) * DIST_CHUNK].to(dev)
+            fs = count_failures(dg, b, *decode_corrections(q), lg)
+            fg = count_failures(dg, b, *decode_corrections(og.qubit_logits), og.logical_logits)
+            same_generic += int(((fs["fail_qubit"] == fg["fail_qubit"])
+                                 & ((lg > 0) == (og.logical_logits > 0)).all(-1)).sum())
+            same_k1 += int(((fs["fail_qubit"] == fk["fail_qubit"])
+                            & ((lg > 0) == lk).all(-1)).sum())
+            logit_err = max(logit_err, float((q - og.qubit_logits).abs().max()),
+                            float((lg - og.logical_logits).abs().max()))
+    del batches, generic, k1, model, fused
+    torch.cuda.empty_cache()
+    ev, ref = r0["ler"], read_meta(weights)["ler_reference"]
+    n = int(ev["shots"])
+    z = {"logical_vs_jax_f32": z_score(ev["ler_logical"], n, ref["ler_logical"], ref["shots"]),
+         "qubit_vs_jax_f32": z_score(ev["ler"], n, ref["ler"], ref["shots"])}
+    staged_per_chunk = r0["ler_counts"]["staged_bytes"] / chunks
+    info["decode"] = dict(
+        weights=DIST_WEIGHTS, shards=DIST_P, halo="alltoall", wire="float32", p=0.05,
+        shots=n, chunk=DIST_CHUNK, ler_qubit=ev["ler"], ler_logical=ev["ler_logical"],
+        ler_hybrid=ev["ler_hybrid"], z=z, jax_f32=dict(shots=ref["shots"], ler=ref["ler"],
+                                                       ler_logical=ref["ler_logical"]),
+        shot_agreement_generic=same_generic / n, shot_agreement_k1=same_k1 / n,
+        min_shot_agreement=DIST_SHOT_AGREE, logits_max_abs_err_vs_generic=logit_err,
+        logit_tol=DIST_LOGIT_TOL, check_shots=DIST_CHECK,
+        modes_max_abs_err=r0["modes_max_abs_err"], mode_tol=DIST_MODE_TOL,
+        atomics_max_abs_err=r0["atomics_max_abs_err"], buffers_equal=r0["buffers_equal"],
+        wire_agree=r0["wire_agree"], min_wire_agree=DIST_WIRE_AGREE,
+        launches=launched)
+    info["numbers"] = dict(
+        on=label, chunk=DIST_CHUNK, sharded_chunk_ms=r0["chunk_ms"],
+        unsharded_generic_ms=generic_ms, k1_ms=k1_ms,
+        exchange_per_round=r0["per_round"], staged_bytes_per_chunk=staged_per_chunk,
+        halo_bytes_per_chunk=r0["ler_counts"]["halo_bytes"] / chunks)
+    if any(abs(v) > DIST_Z for v in z.values()):
+        raise RuntimeError(f"dist (b): the sharded LER is off the JAX f32 rate: {z}")
+    if any(r["ler"] != ev for r in results):
+        raise RuntimeError("dist (b): the ranks' LER results differ")
+    if min(same_generic, same_k1) / n < DIST_SHOT_AGREE or logit_err > DIST_LOGIT_TOL:
+        raise RuntimeError(f"dist (b): the sharded decode departs from the unsharded one: "
+                           f"{info['decode']}")
+    if (max(r0["modes_max_abs_err"].values()) > DIST_MODE_TOL
+            or not all(r0["buffers_equal"].values())
+            or min(r0["wire_agree"].values()) < DIST_WIRE_AGREE):
+        raise RuntimeError(f"dist (b): halo modes or wire types disagree: {info['decode']}")
+    if launched["fused_rounds_gpanels"] != chunks or sum(launched.values()) != chunks:
+        raise RuntimeError(f"dist (b): the K1 reference launched {launched}")
+    bytes_of = {k: v["halo_bytes"] for k, v in r0["per_round"].items()}
+    if not (bytes_of["alltoall_float32"] == bytes_of["ring_float32"]
+            and bytes_of["alltoall_bfloat16"] * 2 == bytes_of["alltoall_float32"]
+            and 3.5 * bytes_of["alltoall_int8"] < bytes_of["alltoall_float32"]
+            and staged_per_chunk > 0):
+        raise RuntimeError(f"dist (b): halo bytes {bytes_of}, staged {staged_per_chunk}")
+
+    # c. the sharded train step
+    tr = r0["train"]
+    grads = r0["grads"]
+    vec = lambda gs: torch.cat([gs[k].flatten() for k in sorted(gs)])
+    rel = float((vec(grads) - vec(ref_grads)).norm() / vec(ref_grads).norm())
+
+    def leaf_rel(k):
+        d, r = float((grads[k] - ref_grads[k]).norm()), float(ref_grads[k].norm())
+        return d / r if r > 0 else (0.0 if d == 0 else math.inf)
+    leaf = max(ref_grads, key=leaf_rel)
+    losses = tr["float32"]["losses"]
+    info["train"] = dict(
+        mesh="data=2 x graph=2", config="surface d=5, H=128, R=8, B=256, segment, f32",
+        losses=losses, int8_losses=tr["int8"]["losses"],
+        step_ms_median=statistics.median(tr["float32"]["step_ms"][1:]),
+        grad_rel_l2=rel, grad_bound=GENERIC_GRAD_REL,
+        worst_leaf=dict(leaf=leaf, rel=leaf_rel(leaf)), leaf_bound=GENERIC_LEAF_REL,
+        moved_after_2_f32=tr["float32"]["moved_after_2"],
+        moved_after_2_int8=tr["int8"]["moved_after_2"], int8_move_bound=DIST_INT8_MOVE)
+    if not (rel <= GENERIC_GRAD_REL and leaf_rel(leaf) <= GENERIC_LEAF_REL):
+        raise RuntimeError(f"dist (c): sharded gradients differ from the unsharded step's: "
+                           f"{info['train']}")
+    if (not all(map(math.isfinite, losses + tr["int8"]["losses"]))
+            or not statistics.mean(losses[-3:]) < statistics.mean(losses[:3])
+            or any(r["train"]["float32"]["losses"] != losses for r in results)):
+        raise RuntimeError(f"dist (c): the sharded training loss: {info['train']}")
+    if not tr["int8"]["moved_after_2"] > DIST_INT8_MOVE * tr["float32"]["moved_after_2"]:
+        raise RuntimeError(f"dist (c): int8 steps do not move the parameters: {info['train']}")
+
+    # d. dryrun
+    info["dryrun"] = dict(ranks=DIST_P, loss=dry_loss)
+    if not math.isfinite(dry_loss):
+        raise RuntimeError(f"dist (d): dryrun({DIST_P}) loss {dry_loss}")
+    part_s["checks"] = time.perf_counter() - t0 - sum(part_s.values())
+    info["part_seconds"] = part_s
+    info["rank0_part_seconds"] = r0["part_seconds"]
+    return {"dist": launched}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(REPO, "tpugnn_torch")):
@@ -3109,6 +3580,9 @@ def main() -> int:
     with Phase("circuit_and_cli") as info:
         circ_launches, circ_k1, circ_k2 = phase_circuit_and_cli(dev, info)
         launches.update(circ_launches)
+
+    with Phase("dist") as info:
+        launches.update(phase_dist(dev, info, smi))
 
     with Phase("timing") as info:
         b, rounds = B, 8

@@ -103,7 +103,8 @@ def test_build_is_lazy():
 
 
 @pytest.mark.parametrize("script", ["_probe_common.py", "k2b_probe.py", "k4_probe.py",
-                                    "k5_probe.py", "smoke_turns.py", "ler_rows_card.py"])
+                                    "k5_probe.py", "smoke_turns.py", "ler_rows_card.py",
+                                    "dist_startup_probe.py"])
 def test_kernel_probes_import_no_jax(script):
     """The kernel probes run on the card's machine, which has no JAX."""
     with open(os.path.join(REPO, "scripts", script)) as f:
@@ -220,3 +221,62 @@ def test_cli_and_generic_train_need_cuda_unless_asked_for_cpu(no_cuda, tmp_path)
                         "circuit_surface_d3_t3_h128_r8_ema24000.npz")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         load_decoder(path)
+
+
+DIST_MODULES = ["tpugnn_torch.dist", "tpugnn_torch.dist.mesh", "tpugnn_torch.dist.partition",
+                "tpugnn_torch.dist.exchange", "tpugnn_torch.dist.api",
+                "tpugnn_torch.dist.multihost"]
+
+
+@pytest.mark.parametrize("module", DIST_MODULES)
+def test_dist_modules_import_without_jax(module):
+    """The distributed modules import where neither JAX nor tpugnn can be
+    imported, join no process group and build nothing."""
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tpugnn', 'networkx'):\n"
+            "    sys.modules[m] = None\n"
+            f"import {module}\n"
+            "import torch.distributed as dist\n"
+            "from tpugnn_torch.kernels import _build\n"
+            "assert not dist.is_initialized()\n"
+            "assert _build.load_library.cache_info().currsize == 0\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    path = os.path.join(REPO, *module.split("."))
+    assert (path + ".py" in _port_files()) or (os.path.join(path, "__init__.py")
+                                               in _port_files())
+
+
+def test_dist_entry_points_need_cuda_unless_asked_for_cpu(no_cuda):
+    """dryrun, launch, initialize, the sharded apply and train step and the
+    data-parallel engine default to the card and raise without one, before
+    they start a rank or join a group."""
+    import torch.distributed as dist
+
+    from tpugnn_torch.configs import ExperimentConfig, ModelConfig
+    from tpugnn_torch.dist import (build_partitioned_code, dryrun, make_sharded_apply,
+                                   make_sharded_train_step)
+    from tpugnn_torch.dist.multihost import initialize, launch
+    from tpugnn_torch.models import GNNDecoder
+    from tpugnn_torch.serve import DecodeEngine
+
+    graph, pg = build_partitioned_code("surface", 3, 2)
+    cfg = ExperimentConfig(model=ModelConfig(hidden=8, msg_hidden=8, rounds=2))
+    model = GNNDecoder(cfg.model, k=graph.k)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun(2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch(print, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        initialize("file:///nonexistent/store", 1, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_sharded_apply(model, None, pg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_sharded_train_step(cfg, model, None, graph, pg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DecodeEngine(cfg, model, graph, max_batch=8, data_parallel=2)
+    assert not dist.is_initialized()

@@ -1,3 +1,9 @@
-from tpugnn_torch.configs.config import CodeConfig, ExperimentConfig, ModelConfig, TrainConfig
+from tpugnn_torch.configs.config import (
+    CodeConfig,
+    ExperimentConfig,
+    MeshConfig,
+    ModelConfig,
+    TrainConfig,
+)
 
-__all__ = ["CodeConfig", "ExperimentConfig", "ModelConfig", "TrainConfig"]
+__all__ = ["CodeConfig", "ExperimentConfig", "MeshConfig", "ModelConfig", "TrainConfig"]

@@ -1,8 +1,7 @@
 """Config dataclasses of the decoder and its training (the JAX package's).
 
 Plain frozen dataclasses with the same names, fields and defaults as
-``tpugnn.configs.config``; the mesh config (and ``ExperimentConfig.mesh``)
-is left out until the port runs on several cards.
+``tpugnn.configs.config``.
 """
 
 from __future__ import annotations
@@ -11,7 +10,7 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
-__all__ = ["CodeConfig", "ModelConfig", "TrainConfig", "ExperimentConfig"]
+__all__ = ["CodeConfig", "ModelConfig", "TrainConfig", "MeshConfig", "ExperimentConfig"]
 
 
 @dataclass(frozen=True)
@@ -80,10 +79,22 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Layout of the ranks (``tpugnn.configs.config.MeshConfig``): ``data``
+    shards the syndrome batch, ``graph`` edge-partitions the Tanner graph
+    (:mod:`tpugnn_torch.dist`)."""
+
+    data: int = 1
+    graph: int = 1
+    axis_names: Tuple[str, str] = ("data", "graph")
+
+
+@dataclass(frozen=True)
 class ExperimentConfig:
     code: CodeConfig = CodeConfig()
     model: ModelConfig = ModelConfig()
     train: TrainConfig = TrainConfig()
+    mesh: MeshConfig = MeshConfig()
 
     def replace(self, **kw) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)

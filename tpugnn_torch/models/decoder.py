@@ -42,7 +42,7 @@ from tpugnn_torch.kernels.fused_decoder import (
     decoder_rounds,
     make_operators,
 )
-from tpugnn_torch.mp import BACKENDS, AGGREGATIONS, NodeStates, bipartite_round
+from tpugnn_torch.mp import BACKENDS, AGGREGATIONS, NodeStates, bipartite_round, global_node_sum
 from tpugnn_torch.tanner.graph import POS_F
 
 __all__ = ["GNNDecoder", "DecoderOutput", "FusedRounds", "RoundCell", "lecun_normal_"]
@@ -344,8 +344,9 @@ class GNNDecoder(nn.Module):
         if cfg.readout in ("per_qubit", "both"):
             qubit_logits = self.head_qubit(x_q.float())
         if cfg.readout in ("logical", "both"):
-            qsum = (x_q * graph.qubit_mask[:, None]).sum(-2) / graph.n_qubits
-            csum = (x_c * graph.check_mask[:, None]).sum(-2) / graph.n_checks
+            # summed over the shards too on a partitioned view
+            qsum = global_node_sum(graph, x_q, which="qubit") / graph.n_qubits
+            csum = global_node_sum(graph, x_c, which="check") / graph.n_checks
             pooled = torch.cat([qsum, csum], dim=-1)
             logical_logits = _mlp2(pooled, self.head_logical_d0, self.head_logical_d1)
         if qubit_logits is None:
@@ -355,6 +356,12 @@ class GNNDecoder(nn.Module):
 
     def forward(self, graph, syndrome: torch.Tensor) -> DecoderOutput:
         cfg = self.cfg
+        if cfg.backend in ("fused", "pallas") and getattr(graph, "partitioned", False):
+            raise ValueError(
+                f"backend={cfg.backend!r} has no partitioned rounds: a shard's view runs "
+                "the generic rounds ('segment'); convert fused weights with "
+                "tpugnn_torch.models.fused_cell.convert_fused_round_params "
+                "(load_decoder(..., backend='segment') does so)")
         x_c, x_q, s_pm = self.embed(graph, syndrome)
         if cfg.backend == "fused":
             x_c, x_q = decoder_rounds(x_c, x_q, s_pm[..., None], make_operators(graph),

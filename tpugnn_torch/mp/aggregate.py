@@ -1,8 +1,7 @@
 """Gather and scatter-aggregate backends of Tanner-graph message passing.
 
-The port of ``tpugnn.mp.aggregate`` (without the mesh ``psum``).  The same
-four interchangeable backends, each the same function up to f32 summation
-order:
+The port of ``tpugnn.mp.aggregate``.  The same four interchangeable
+backends, each the same function up to f32 summation order:
 
 ``segment``  ``index_select`` gathers; ``index_add_`` sums into rows
              (``scatter_reduce('amax')`` for max);
@@ -112,9 +111,17 @@ def _aggregate(graph, msg: torch.Tensor, *, to: str, backend: str,
 
 
 def global_node_sum(graph, x: torch.Tensor, *, which: str) -> torch.Tensor:
-    """Masked sum of node features over the real nodes: [..., rows, F] -> [..., F]."""
+    """Masked sum of node features over the real nodes: [..., rows, F] -> [..., F].
+
+    On a shard's view the partial sums are then summed over its ``graph``
+    process group (autograd-aware), so every shard sees the whole pool."""
     mask = graph.check_mask if which == "check" else graph.qubit_mask
-    return (x * mask[:, None]).sum(-2)
+    out = (x * mask[:, None]).sum(-2)
+    if getattr(graph, "partitioned", False):
+        from tpugnn_torch.dist.exchange import all_reduce_sum
+
+        out = all_reduce_sum(out, graph.group)
+    return out
 
 
 def aggregate_to_checks(graph, msg: torch.Tensor, *, backend: str = "segment",

@@ -1,9 +1,11 @@
-"""Functional message-passing engine (the port of ``tpugnn.mp.propagate``,
-without the routes to the multi-device halo exchange).
+"""Functional message-passing engine (the port of ``tpugnn.mp.propagate``).
 
 :func:`propagate` runs one direction (collect -> message -> aggregate ->
 update); :func:`bipartite_round` one full round, both directions reading the
-pre-round states, with the endpoint gather shared between them.
+pre-round states, with the endpoint gather shared between them.  On a
+shard's :class:`~tpugnn_torch.dist.partition.LocalGraphView` both route to
+the halo exchange of :mod:`tpugnn_torch.dist.exchange` (``backend`` is then
+not used), so the calling model runs unchanged on one rank or on several.
 """
 
 from __future__ import annotations
@@ -43,6 +45,11 @@ def propagate(graph, x_check: torch.Tensor, x_qubit: torch.Tensor,
     when given."""
     if to not in ("check", "qubit"):
         raise ValueError(f"to must be 'check' or 'qubit', got {to!r}")
+    if getattr(graph, "partitioned", False):
+        from tpugnn_torch.dist.exchange import sharded_propagate
+
+        return sharded_propagate(graph, x_check, x_qubit, message_fn, to=to,
+                                 edge_attr=edge_attr, aggr=aggr, update_fn=update_fn)
     xc_e, xq_e = gather_endpoints(graph, x_check, x_qubit, backend=backend)
     msg = message_fn(xc_e, xq_e, edge_attr)
     if to == "check":
@@ -62,6 +69,13 @@ def bipartite_round(graph, state: NodeStates, *, message_to_qubit: MessageFn,
                     aggr: str = "sum", backend: str = "segment") -> NodeStates:
     """One round: both message directions and both node updates (Jacobi:
     both directions read the pre-round states)."""
+    if getattr(graph, "partitioned", False):
+        from tpugnn_torch.dist.exchange import sharded_bipartite_round
+
+        return sharded_bipartite_round(
+            graph, state, message_to_qubit=message_to_qubit,
+            message_to_check=message_to_check, update_check=update_check,
+            update_qubit=update_qubit, edge_attr=edge_attr, aggr=aggr)
     xc_e, xq_e = gather_endpoints(graph, state.check, state.qubit, backend=backend)
     m_q = message_to_qubit(xc_e, xq_e, edge_attr)
     m_c = message_to_check(xc_e, xq_e, edge_attr)

@@ -35,6 +35,14 @@ The port of ``tpugnn.serve.engine.DecodeEngine``::
   chunks ahead.  Each worker has its own cleanup decoders.  ``timing``
   sums each chunk's host-tail ms and its span on the device.
 
+``data_parallel=N`` (N > 1) replicates the model on ``cuda:0`` ..
+``cuda:N-1`` and splits every chunk's forward N ways, each share launched on
+its card (the cards run at once), the outputs gathered on the engine's
+device: no collectives, as GSPMD partitions the JAX engine's decode
+(``tpugnn/serve/engine.py:309-333``).  With ``device='cpu'`` the N shares
+run on the CPU, one after another.  It raises when there are fewer devices
+(on the CPU: cores) than N, or when N does not divide ``max_batch``.
+
 The model is any :class:`~tpugnn_torch.models.decoder.GNNDecoder`: a
 ``'fused'`` one runs its rounds in K1, a generic one (``load_decoder(...,
 backend='pallas')``) runs the message-passing engine, as
@@ -45,6 +53,7 @@ down.
 
 from __future__ import annotations
 
+import copy
 import os
 import threading
 import time
@@ -110,7 +119,7 @@ class DecodeEngine:
                  graph: TannerGraph | None = None, *, max_batch: int = 4096,
                  cleanup: str | None = None, cleanup_tau: float | None = None,
                  lazy: bool = False, wire_pack: bool = True, pp_workers: int = 2,
-                 select_cost: str = "weight", device="cuda"):
+                 select_cost: str = "weight", device="cuda", data_parallel: int | None = None):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         # lazy best-of serving: the raw-MWPM candidate is computed only for
@@ -139,6 +148,7 @@ class DecodeEngine:
         self._dgraph = self.graph.to(self.device)
         self.model = model.to(self.device).eval()
         self.max_batch = max_batch
+        self._replicas = self._replicate(int(data_parallel or 1))
         g = self.graph
         n = g.n_qubits
         self._hx = np.asarray(g.h_syn_ez)[: g.n_checks, :n].astype(np.uint8)
@@ -193,13 +203,43 @@ class DecodeEngine:
 
     # --- the device program -------------------------------------------------
 
+    def _replicate(self, n: int) -> list:
+        """[(model, graph)] of each data-parallel share; [] for one share."""
+        if n <= 1:
+            return []
+        dev = self.device
+        have = torch.cuda.device_count() if dev.type == "cuda" else (os.cpu_count() or 1)
+        if have < n:
+            raise ValueError(f"data_parallel={n} but only {have} devices")
+        if self.max_batch % n:
+            raise ValueError("max_batch must divide by data_parallel")
+        if dev.type != "cuda":
+            return [(self.model, self._dgraph)] * n
+        here = next(self.model.parameters()).device
+        cards = [torch.device("cuda", i) for i in range(n)]
+        return [(self.model if d == here else copy.deepcopy(self.model).to(d), self.graph.to(d))
+                for d in cards]
+
+    def _forward(self, syn: torch.Tensor):
+        """The model on a chunk: whole, or split over the data-parallel
+        replicas, each share launched on its card's current stream (the
+        cards run at once), and gathered on the engine's device."""
+        if not self._replicas:
+            return self.model(self._dgraph, syn)
+        share = syn.shape[0] // len(self._replicas)
+        outs = [model(graph, syn[i * share:(i + 1) * share].to(graph.edge_mask.device,
+                                                                non_blocking=True))
+                for i, (model, graph) in enumerate(self._replicas)]
+        cat = lambda ts: None if ts[0] is None else torch.cat([t.to(syn.device) for t in ts])
+        return type(outs[0])(*[cat([o[j] for o in outs]) for j in range(len(outs[0]))])
+
     @torch.inference_mode()
     def _program(self, syn: torch.Tensor) -> dict:
         """One chunk's device work: [B, m_pad] f32 syndromes -> ``bits``
         (uint8 0/1 [B, rows, 2]) and the mode's side tensors."""
         dg, cleanup, tau = self._dgraph, self.cleanup, self.cleanup_tau
         u8 = lambda x: x.to(torch.uint8)
-        out = self.model(dg, syn)
+        out = self._forward(syn)
         if cleanup is None:
             ex, ez = decode_corrections(out.qubit_logits)
             return {"bits": u8(torch.stack([ex, ez], dim=-1))}

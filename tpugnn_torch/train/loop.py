@@ -37,7 +37,7 @@ from tpugnn_torch.utils.device import resolve_device
 from tpugnn_torch.utils.metrics import MetricLogger, profile
 from tpugnn_torch.utils.timing import hard_sync
 
-__all__ = ["TrainState", "loss_fn", "train_step", "ema_update", "init_params_from",
+__all__ = ["TrainState", "loss_fn", "loss_terms", "train_step", "ema_update", "init_params_from",
            "train_model_config", "init_state", "train"]
 
 
@@ -61,9 +61,18 @@ def loss_fn(model: GNNDecoder, graph, batch: SyndromeBatch, cfg: ExperimentConfi
     mean BCE of its class bits.  ``graph`` holds tensors on the model's
     device.  Returns ``(total, metrics)``; the metrics are tensors."""
     out = model(graph, batch.syndrome)
+    qm = (torch.arange(graph.n_qubits_pad, device=batch.ex.device) < graph.n_qubits).float()
+    return loss_terms(out, batch, qm, graph.n_qubits, cfg)
+
+
+def loss_terms(out, batch: SyndromeBatch, qm: torch.Tensor, n: int, cfg: ExperimentConfig,
+               logical_share: float = 1.0):
+    """:func:`loss_fn`'s terms on a decoder output: ``qm`` masks the real
+    qubits of ``batch``'s columns, ``n`` is the code's real qubit count.  A
+    shard of a partitioned graph passes its own qubit columns and
+    ``logical_share = 1 / shards``, so that the shards' losses sum to the
+    whole graph's (:mod:`tpugnn_torch.dist.api`)."""
     b = batch.syndrome.shape[0]
-    n = graph.n_qubits
-    qm = (torch.arange(graph.n_qubits_pad, device=batch.ex.device) < n).float()
     total = torch.zeros((), device=batch.ex.device)
     metrics = {}
     if out.qubit_logits is not None and cfg.train.loss_qubit_weight:
@@ -85,6 +94,8 @@ def loss_fn(model: GNNDecoder, graph, batch: SyndromeBatch, cfg: ExperimentConfi
         metrics["acc_qubit"] = acc
     if out.logical_logits is not None and cfg.train.loss_logical_weight:
         ll = F.binary_cross_entropy_with_logits(out.logical_logits, batch.class_bits)
+        if logical_share != 1.0:
+            ll = ll * logical_share
         total = total + cfg.train.loss_logical_weight * ll
         metrics["loss_logical"] = ll
     metrics["loss"] = total
