@@ -17,7 +17,12 @@ print one JSON line with their wall time:
     f32 (B=64, R=3), where the gather panels do not fit in shared memory,
     through K1's global-panel variant; models of width 64 and 96 (d=11,
     B=64, R=3, both state types) on the kernel's 128 columns, zero-padded;
-    each case must launch the kernel its graph, width and type call for
+    each case must launch the kernel its graph, width and type call for.
+    In f32 (d=11, R=14) the kernel and the plain version are also held to
+    the same rounds in f64 (rounds_f64), the kernel's max error there gated
+    at TOL_F32; and cuobjdump -sass must find HMMA (TF32) instructions in
+    both f32 K1 instantiations (shared and global panels; each takes every
+    width): the f32 path runs on tensor cores (3xTF32)
   3 serve: a DecodeEngine on the trained d=11 weights answers requests of
     1, 1000 and 5000 syndromes; outputs equal the model's direct decode;
     then an engine per cleanup mode (uf, mwpm, best_of with both cost
@@ -117,7 +122,9 @@ print one JSON line with their wall time:
     f32): its first gradients against the unsharded step on the card (phase
     4e's 2e-3 whole and 3e-3 worst leaf), a finite, falling loss over 10
     steps, and two int8 steps that move the parameters by more than 0.3 of
-    two f32 steps'.  (d) dryrun(4): every rank prints the same loss.  (e)
+    two f32 steps'.  (d) dryrun's body (one sharded train step at d=5,
+    H=16) on the same 4 ranks, not a second launch: every rank's loss the
+    same, within dryrun's own 1e-6 relative test.  (e)
     Reported, labelled as ranks time-sharing one card: the sharded, the
     unsharded generic and K1's ms a chunk, the exchange's bytes and ms a
     round for each halo mode and wire type, and the bytes staged through
@@ -125,12 +132,17 @@ print one JSON line with their wall time:
   5 timing: the bench config (d=11, B=4096, R=8, H=128, bf16) with CUDA
     events: the kernel's step and its TFLOP/s beside its bound and the f32
     CUDA-core floor, rounds_plain, and an index_select + index_add_ round
-    loop as the yardstick; K1's global-panel variant at d=13 and d=15
-    (B=4096, R=14, f32) against its plain version, with its time, the
-    plain version's and its bound; K1 and K5 at d=3 with H=64 and at d=5
-    with H=96 (padded) beside a 128-wide model on the same graph
+    loop as the yardstick; the trained config's f32 K1 (B=4096, R=14) and
+    K1's global-panel variant at d=13 and d=15 (B=4096, R=14, f32) against
+    its plain version, with its time, the plain version's and its bound;
+    K1 and K5 at d=3 with H=64 and at d=5 with H=96 (padded) beside a
+    128-wide model on the same graph.  Every f32 K1 time (here and in
+    phases 4d and 4e) has its 3xTF32 floor beside the f32 CUDA-core one:
+    three TF32 products for each f32 one at 495 TFLOP/s
   6 training kernels vs plain: at the flagship training shapes (d=11, H=128,
-    R=14, B=4096) in bf16 and in f32, K2a's outputs against K1's, its stash
+    R=14, B=4096) in bf16 and in f32, K2a's outputs against K1's (bf16: the
+    same kernel, bit-equal; f32: K2a's FMA kernel against K1's 3xTF32 one,
+    within TOL_K2A_VS_K1_F32), its stash
     against rounds_fwd_stash_plain, and K2b's gradients (states, syndrome and
     every weight leaf) against rounds_vjp_plain, with stated tolerances; K2b
     twice on the same inputs, bit-equal; the same checks at d=13 in bf16
@@ -213,6 +225,7 @@ import faulthandler
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -259,8 +272,13 @@ TOL_BF16_MEAN = 1e-2
 MIN_AGREE_F32 = 0.999
 MIN_AGREE_BF16 = 0.99
 
-# K2a against K1: the same kernel code with a flag that adds the stash
-# copies, so the same arithmetic in the same order; outputs must be equal.
+# K2a against K1: in bf16 the same kernel code with a flag that adds the
+# stash copies, so the same arithmetic in the same order; outputs must be
+# equal.  In f32 K2a keeps the FMA loops and K1 forms each product as three
+# TF32 ones: the two read 2.6e-6 to 7.9e-6 apart at d=11, R=14 over six
+# seeds (scripts/f32_k2a_seeds.py), while a single TF32 pass lands 4.4e-3
+# from plain there, so 1e-4 tells the split from one pass.
+TOL_K2A_VS_K1_F32 = 1e-4
 # K2b against rounds_vjp_plain, fed the same stash: each gradient leaf (dxc,
 # dxq, dsyn, the 25 weight leaves) as a relative L2 error.  f32: summation
 # order alone, through 14 rounds of LayerNorm adjoint, ~1e-6; bound 1e-4.
@@ -519,11 +537,12 @@ DIST_NCCL_TOL = 1e-4
 DIST_TRAIN_STEPS = 10
 DIST_TRAIN_SEED = 79
 DIST_INT8_MOVE = 0.3
-# a launch of phase 4f's ranks (or dryrun) that outlasts DIST_TIMEOUT_S fails
+# a launch of phase 4f's ranks that outlasts DIST_TIMEOUT_S fails
 DIST_TIMEOUT_S = 600
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak (NVIDIA data sheet, SXM)
 H100_F32_FLOPS = 67e12    # f32 outside the tensor cores
+H100_TF32_FLOPS = 495e12  # dense TF32 tensor-core peak: f32 K1 forms 3 TF32 products each
 H100_HBM_BPS = 3.35e12
 
 
@@ -802,6 +821,27 @@ def counts() -> dict:
 
     return {**fd.launch_counts(), **spmm.launch_counts(), **sddmm.launch_counts(),
             **roll_gather.launch_counts()}
+
+
+def tf32x3_floor_ms(flops: float) -> float:
+    """The least time of ``flops`` f32 operations done as 3xTF32 (three TF32
+    products for each f32 one) at the TF32 tensor-core peak, in ms."""
+    return 3 * flops / H100_TF32_FLOPS * 1e3
+
+
+_TF32X3_KERNEL = re.compile(r"fused_rounds_tf32x3_kernelILb([01])E")
+
+
+def f32_k1_hmma(mma: dict) -> dict:
+    """The HMMA count of each f32 K1 instantiation in ``mma``
+    (:func:`sass_mma_counts` of the fused_rounds library), by its panels:
+    ``shared`` or ``gpanels``."""
+    out = {}
+    for name, count in mma.items():
+        m = _TF32X3_KERNEL.search(name)
+        if m:
+            out["gpanels" if m.group(1) == "1" else "shared"] = count
+    return out
 
 
 def bound(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
@@ -1697,8 +1737,9 @@ def gpanels_timing(kernel: str, d: int, dev, seed: int) -> dict:
     ('roll_rounds_gpanels') at the trained configs' shapes (B=4096,
     R=TRAINED_ROUNDS, random full-width weights): one call held to the plain
     version (:func:`held_to_plain`), the variant's time, the plain
-    version's, and the bound: the f32 CUDA-core floor on the graph's real
-    rows (its bytes term is smaller)."""
+    version's, and the bound on the graph's real rows: K1's products at
+    three TF32 products each on the tensor cores (``f32_core_ms`` beside it,
+    the same products on the CUDA cores), K5's at the f32 CUDA-core peak."""
     import torch
 
     r, h = TRAINED_ROUNDS, 128
@@ -1710,11 +1751,19 @@ def gpanels_timing(kernel: str, d: int, dev, seed: int) -> dict:
         ms = time_ms(run, warmup=1, iters=3)
         plain_ms = time_ms(plain, warmup=0, iters=1)
     flops = rounds_flops(g, h) * B * r
-    b_ms, b_by = bound(rounds_bytes(g, B, h, 4), flops, H100_F32_FLOPS)
+    nbytes = rounds_bytes(g, B, h, 4)
+    if kernel == "fused_rounds_gpanels":    # K1's products run as 3xTF32
+        b_ms, b_by = bound(nbytes, 3 * flops, H100_TF32_FLOPS)
+    else:
+        b_ms, b_by = bound(nbytes, flops, H100_F32_FLOPS)
     torch.cuda.empty_cache()
-    return dict(d=d, batch=B, rounds=r, dtype="float32", real_rows=g.n_checks + g.n_qubits,
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                tflops=flops / (ms * 1e-3) / 1e12, **res)
+    out = dict(d=d, batch=B, rounds=r, dtype="float32", real_rows=g.n_checks + g.n_qubits,
+               ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               tflops=flops / (ms * 1e-3) / 1e12, **res)
+    if kernel == "fused_rounds_gpanels":
+        out.update(tf32x3_floor_ms=tf32x3_floor_ms(flops),
+                   f32_core_ms=flops / H100_F32_FLOPS * 1e3)
+    return out
 
 
 def padded_width_timing(d: int, h: int, dev, seed: int) -> dict:
@@ -1741,11 +1790,18 @@ def padded_width_timing(d: int, h: int, dev, seed: int) -> dict:
                 with torch.inference_mode():
                     out[f"{kernel}_ms_{dtype}_h{width}"] = time_ms(run, warmup=1, iters=3)
                 del run, plain
-            peak = H100_F32_FLOPS if dtype == "float32" else H100_BF16_FLOPS
             itemsize = 4 if dtype == "float32" else 2
-            out[f"bound_ms_{dtype}_h{width}"] = bound(
-                rounds_bytes(g, B, width, itemsize), rounds_flops(g, width) * B * rounds,
-                peak)[0]
+            flops = rounds_flops(g, width) * B * rounds
+            nbytes = rounds_bytes(g, B, width, itemsize)
+            if dtype == "float32":    # K1's products run as 3xTF32, K5's as FMA
+                out[f"k1_bound_ms_{dtype}_h{width}"] = bound(
+                    nbytes, 3 * flops, H100_TF32_FLOPS)[0]
+                out[f"k1_f32_core_ms_{dtype}_h{width}"] = flops / H100_F32_FLOPS * 1e3
+                out[f"k5_bound_ms_{dtype}_h{width}"] = bound(nbytes, flops, H100_F32_FLOPS)[0]
+            else:
+                for kernel in ("k1", "k5"):
+                    out[f"{kernel}_bound_ms_{dtype}_h{width}"] = bound(
+                        nbytes, flops, H100_BF16_FLOPS)[0]
     return out
 
 
@@ -1847,24 +1903,21 @@ def width_train_config(dtype: str, steps: int):
                           eval_every=1000, eval_shots=1024, seed=0, p_mix=(0.01, 0.05)))
 
 
-def train_width_check(dtype: str, dg, dev) -> dict:
+def width_case(dtype: str, dev, seed: int = 70) -> dict:
     """K2a/K2b for a model of width 64 (states and packs zero-padded to 128
-    outside the autograd Function): (1) on a random case (d=11, B=64, R=3)
-    the outputs and every gradient leaf (both states and the 25 round-weight
-    leaves, at width 64) through the kernels against the plain versions at
-    width 64, gated as at 128; (2) TRAIN_CHECK_STEPS train steps from the
-    state of a WIDTH_TRAIN_STEPS-step run through K2a/K2b and through the
-    plain versions (train_steps_vs_plain), each parameter's change gated at
-    TRAIN_STEP_REL."""
+    outside the autograd Function) on a random case (d=11, B=64, R=3, made
+    from ``seed``): the outputs and every gradient leaf (both states and the
+    25 round-weight leaves, at width 64) through the kernels against the
+    plain versions at width 64, with the launches and the tolerances of the
+    width-128 checks; gates nothing (:func:`train_width_check` does)."""
     import torch
 
     from tpugnn_torch.kernels import fused_backward as fb
     from tpugnn_torch.kernels import fused_decoder as fd
-    from tpugnn_torch.train import train
 
     h = 64
-    _, _, ops, w, xc, xq, s, gen = random_round_case(D, D13_BATCH, D13_ROUNDS, dtype, 70, dev,
-                                                     h=h)
+    _, _, ops, w, xc, xq, s, gen = random_round_case(D, D13_BATCH, D13_ROUNDS, dtype, seed,
+                                                     dev, h=h)
     cot_c = torch.randn(xc.shape, generator=gen, device=dev)
     cot_q = torch.randn(xq.shape, generator=gen, device=dev)
 
@@ -1890,14 +1943,31 @@ def train_width_check(dtype: str, dg, dev) -> dict:
     max_err, mean_err = raster_errors(kc, kq, pc, pq)
     tol_max, tol_mean = rounds_tols(dtype)
     tol_rel = TOL_GRAD_REL_F32 if dtype == "float32" else TOL_GRAD_REL_BF16
-    out = dict(width=h, batch=D13_BATCH, rounds=D13_ROUNDS, launches=launched,
-               k2a_vs_plain_max=max_err, k2a_vs_plain_mean=mean_err, k2b_worst_rel=rels[worst],
-               k2b_worst_leaf=worst, k2b_rel=rels, tol_max=tol_max, tol_mean=tol_mean,
-               tol_rel=tol_rel, grads_at_model_width=shapes)
+    return dict(width=h, batch=D13_BATCH, rounds=D13_ROUNDS, launches=launched,
+                k2a_vs_plain_max=max_err, k2a_vs_plain_mean=mean_err,
+                k2b_worst_rel=rels[worst], k2b_worst_leaf=worst, k2b_rel=rels,
+                tol_max=tol_max, tol_mean=tol_mean, tol_rel=tol_rel,
+                grads_at_model_width=shapes)
+
+
+def train_width_check(dtype: str, dg, dev) -> dict:
+    """K2a/K2b for a model of width 64: (1) :func:`width_case`, gated as at
+    128; (2) TRAIN_CHECK_STEPS train steps from the state of a
+    WIDTH_TRAIN_STEPS-step run through K2a/K2b and through the plain
+    versions (train_steps_vs_plain), each parameter's change gated at
+    TRAIN_STEP_REL."""
+    import torch
+
+    from tpugnn_torch.train import train
+
+    out = width_case(dtype, dev)
+    launched = out["launches"]
     want = {"fused_rounds_fwd_stash": 1, "fused_rounds_bwd": 1}
     if any(launched[k] != v for k, v in want.items()) or sum(launched.values()) != 2:
         raise RuntimeError(f"H=64 {dtype}: launched {launched}, not one K2a and one K2b")
-    if not shapes or max_err > tol_max or mean_err > tol_mean or rels[worst] > tol_rel:
+    if (not out["grads_at_model_width"] or out["k2a_vs_plain_max"] > out["tol_max"]
+            or out["k2a_vs_plain_mean"] > out["tol_mean"]
+            or out["k2b_worst_rel"] > out["tol_rel"]):
         raise RuntimeError(f"H=64 {dtype}: K2a/K2b disagree with the plain versions: {out}")
 
     cfg = width_train_config(dtype, WIDTH_TRAIN_STEPS)
@@ -2336,11 +2406,13 @@ def detector_k1_check(model, graph, dev, p: float = DETECTOR_P,
         ms = time_ms(run, warmup=1, iters=iters)
         plain_ms = time_ms(plain, warmup=0, iters=1)
     flops = rounds_flops(graph, cfg.hidden) * B * cfg.rounds
-    b_ms, b_by = bound(rounds_bytes(graph, B, cfg.hidden, 4), flops, H100_F32_FLOPS)
+    # f32 K1 forms three TF32 products for each f32 one
+    b_ms, b_by = bound(rounds_bytes(graph, B, cfg.hidden, 4), 3 * flops, H100_TF32_FLOPS)
     return dict(graph=graph.name, m_pad=graph.n_checks_pad, n_pad=graph.n_qubits_pad,
                 dc=graph.deg_max_check, dq=graph.deg_max_qubit, width=cfg.hidden,
                 batch=B, rounds=cfg.rounds, dtype=cfg.dtype, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, **res)
+                bound_ms=b_ms, bound_by=b_by, tf32x3_floor_ms=tf32x3_floor_ms(flops),
+                f32_core_ms=flops / H100_F32_FLOPS * 1e3, **res)
 
 
 def phase_detector_and_stream(dev, info: dict) -> tuple[dict, dict]:
@@ -2575,7 +2647,9 @@ def circuit_decode(dev, info: dict) -> tuple[dict, dict]:
             row=dict(line=f"benchmarks/LER_DETECTOR.md:{line}", shots=CIRCUIT_ROW_SHOTS, **row),
             z_vs_row=z_row, within_2_stderr_of_row={k: abs(v) <= 2 for k, v in z_row.items()},
             kernel=want, launches=launched, decode_ms=decode_ms,
-            k1_ms=k1[graph.name]["ms"], k1_bound_ms=k1[graph.name]["bound_ms"])
+            k1_ms=k1[graph.name]["ms"], k1_bound_ms=k1[graph.name]["bound_ms"],
+            k1_tf32x3_floor_ms=k1[graph.name]["tf32x3_floor_ms"],
+            k1_f32_core_ms=k1[graph.name]["f32_core_ms"])
         if abs(z_jax["ler_logical"]) > CIRCUIT_Z or abs(z_jax["ler"]) > CIRCUIT_Z:
             raise RuntimeError(f"circuit {name}: a head is off its JAX f32 rate: {res}")
         if launched != {**dict.fromkeys(launched, 0), want: chunks}:
@@ -3006,8 +3080,9 @@ def dist_ranks(weights: str) -> dict:
     the d=15 decode sharded DIST_P ways through ler_monte_carlo, each
     chunk timed; the halo modes and wire types on its first DIST_CHECK
     shots and a chunk's exchange buffers; a round's exchange by mode and
-    wire type, its bytes and ms; and (c) the sharded train step on a 2 x 2
-    mesh.  Returns this rank's numbers (rank 0: the logits too)."""
+    wire type, its bytes and ms; (c) the sharded train step on a 2 x 2
+    mesh; and (d) dryrun's sharded step on its small mesh.  Returns this
+    rank's numbers (rank 0: the logits too)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -3176,6 +3251,13 @@ def dist_ranks(weights: str) -> dict:
         del state, step, start
     out["train"] = train
     lap("train")
+
+    # d. dryrun's body (one sharded train step on its small mesh, at dryrun's
+    # defaults) on these ranks, so that the phase starts no second set
+    from tpugnn_torch.dist.api import _dryrun_rank
+
+    out["dryrun_loss"] = _dryrun_rank(DIST_P, 5, "surface", 16, 2, "alltoall", "cuda")
+    lap("dryrun")
     out["part_seconds"] = part_s
     return out
 
@@ -3186,8 +3268,8 @@ def phase_dist(dev, info: dict, card: str) -> dict:
     card (dist_ranks), held to the JAX f32 rate, and to the unsharded
     generic and K1 paths on the same shots, decoded here first; the halo
     modes and wire types; (c) the 2 x 2 sharded train step against the
-    unsharded one; (d) dryrun(DIST_P).  Returns the launches of the K1
-    reference decodes."""
+    unsharded one; (d) dryrun's step on the same ranks.  Returns the
+    launches of the K1 reference decodes."""
     import tempfile
 
     import torch
@@ -3195,8 +3277,7 @@ def phase_dist(dev, info: dict, card: str) -> dict:
 
     from tpugnn_torch.configs import CodeConfig, ExperimentConfig, MeshConfig, ModelConfig
     from tpugnn_torch.configs import TrainConfig
-    from tpugnn_torch.dist import (dryrun, exchange, make_mesh, make_sharded_apply,
-                                   partition_graph)
+    from tpugnn_torch.dist import exchange, make_mesh, make_sharded_apply, partition_graph
     from tpugnn_torch.dist.multihost import initialize, launch
     from tpugnn_torch.eval import count_failures, decode_corrections
     from tpugnn_torch.models.convert import load_decoder, read_meta
@@ -3270,13 +3351,11 @@ def phase_dist(dev, info: dict, card: str) -> dict:
     torch.cuda.synchronize()
     part_s["references"] = time.perf_counter() - t0 - sum(part_s.values())
 
-    # the ranks, then dryrun, each alone on the card
+    # the ranks, alone on the card
     torch.cuda.empty_cache()
     results = launch(dist_ranks, DIST_P, args=(weights,), device="cuda", backend="gloo",
                      timeout=DIST_TIMEOUT_S, echo=False)
     part_s["ranks"] = time.perf_counter() - t0 - sum(part_s.values())
-    dry_loss = dryrun(DIST_P, device="cuda", backend="gloo", timeout=DIST_TIMEOUT_S)
-    part_s["dryrun"] = time.perf_counter() - t0 - sum(part_s.values())
 
     r0 = results[0]
     ql, lgl = torch.from_numpy(r0["qubit_logits"]), torch.from_numpy(r0["logical_logits"])
@@ -3367,10 +3446,12 @@ def phase_dist(dev, info: dict, card: str) -> dict:
     if not tr["int8"]["moved_after_2"] > DIST_INT8_MOVE * tr["float32"]["moved_after_2"]:
         raise RuntimeError(f"dist (c): int8 steps do not move the parameters: {info['train']}")
 
-    # d. dryrun
-    info["dryrun"] = dict(ranks=DIST_P, loss=dry_loss)
-    if not math.isfinite(dry_loss):
-        raise RuntimeError(f"dist (d): dryrun({DIST_P}) loss {dry_loss}")
+    # d. dryrun's step: the same loss on every rank, within dryrun's own test
+    dry = [r["dryrun_loss"] for r in results]
+    info["dryrun"] = dict(ranks=DIST_P, losses=dry, loss=dry[0])
+    if (not all(map(math.isfinite, dry))
+            or max(dry) - min(dry) > 1e-6 * max(1.0, abs(dry[0]))):
+        raise RuntimeError(f"dist (d): the dry-run step's losses differ: {dry}")
     part_s["checks"] = time.perf_counter() - t0 - sum(part_s.values())
     info["part_seconds"] = part_s
     info["rank0_part_seconds"] = r0["part_seconds"]
@@ -3473,11 +3554,19 @@ def main() -> int:
             info[dtype] = dict(rounds=rounds, max_abs_err=max_err, mean_abs_err=mean_err,
                                agree=agree, tol_max=tol_max, tol_mean=tol_mean,
                                min_agree=min_agree)
+            if dtype == "float32":   # both against the same rounds in f64
+                with torch.inference_mode():
+                    exact = rounds_f64_chunked(xc, xq, s, ops, w, rounds)
+                    info[dtype].update(kernel_vs_f64_max=raster_errors(kc, kq, *exact)[0],
+                                       plain_vs_f64_max=raster_errors(pc, pq, *exact)[0],
+                                       tol_vs_f64=TOL_F32)
+                del exact
             if not finite:
                 raise RuntimeError(f"{dtype}: kernel produced non-finite states")
-            if max_err > tol_max or mean_err > tol_mean or agree < min_agree:
+            if (max_err > tol_max or mean_err > tol_mean or agree < min_agree
+                    or info[dtype].get("kernel_vs_f64_max", 0.0) > TOL_F32):
                 raise RuntimeError(f"{dtype} R={rounds}: kernel disagrees with "
-                                   f"rounds_plain: {info[dtype]}")
+                                   f"rounds_plain or the f64 rounds: {info[dtype]}")
         # the yardstick's function, checked once in f32 against the plain version
         with torch.inference_mode():
             yc, yq = yardstick_rounds(xc, xq, s, dg, w, 14, torch.float32)
@@ -3496,6 +3585,13 @@ def main() -> int:
             f"h{hw}_{dt}": rounds_vs_plain("k1", D, hw, dt, 40 + hw, dev, "fused_rounds")
             for hw in (64, 96) for dt in ("bfloat16", "float32")}
         gp_checks, pw_checks = info["gpanels_float32"], info["padded_widths"]
+        # every f32 K1 instantiation runs its products on tensor cores
+        f32_hmma = f32_k1_hmma(sass_mma_counts(build_libraries(["fused_rounds"])
+                                               ["fused_rounds"][0]))
+        info["f32_sass_hmma"] = f32_hmma
+        if not all(f32_hmma.get(k, 0) > 0 for k in ("shared", "gpanels")):
+            raise RuntimeError(f"an f32 K1 kernel has no HMMA instruction: {f32_hmma}")
+        k1_f32_check = dict(info["float32"], sass_hmma=f32_hmma)
 
     launches = {}
     with Phase("serve") as info:
@@ -3626,8 +3722,10 @@ def main() -> int:
         flops_t = rounds_flops(graph, h) * b * r_t
         info.update(trained_forward_ms=fwd_ms, trained_kernel_ms=rk_ms,
                     trained_gflop=flops_t / 1e9,
-                    trained_bound_ms=max(flops_t / H100_F32_FLOPS,
-                                         rounds_bytes(graph, b, h, 4) / H100_HBM_BPS) * 1e3,
+                    trained_bound_ms=bound(rounds_bytes(graph, b, h, 4), 3 * flops_t,
+                                           H100_TF32_FLOPS)[0],
+                    trained_f32_core_ms=flops_t / H100_F32_FLOPS * 1e3,
+                    trained_tf32x3_floor_ms=tf32x3_floor_ms(flops_t),
                     trained_kernel_share=rk_ms / fwd_ms,
                     trained_edges_per_s=b * graph.n_edges * r_t / (fwd_ms / 1e3))
         # K1's global-panel variant at the trained checkpoints' shapes, and
@@ -3670,7 +3768,11 @@ def main() -> int:
                 torch.cuda.synchronize()
                 repeatable = all(torch.equal(a_, b_) for a_, b_ in zip(kg, again))
                 del again
-                same_as_k1 = bool(torch.equal(kc, k1c) and torch.equal(kq, k1q))
+                # bf16 K2a is K1 with its stash flag, equal bit for bit; f32 K2a
+                # is the FMA kernel and K1 3xTF32 (TOL_K2A_VS_K1_F32)
+                k2a_vs_k1 = raster_errors(kc, kq, k1c, k1q)[0]
+                same_as_k1 = (k2a_vs_k1 <= TOL_K2A_VS_K1_F32 if dtype == "float32"
+                              else bool(torch.equal(kc, k1c) and torch.equal(kq, k1q)))
                 out_diff = torch.cat([(kc - pc).abs().flatten(), (kq - pq).abs().flatten()])
                 st_max, st_sum, st_n = 0.0, 0.0, 0
                 for r in range(rounds):
@@ -3688,7 +3790,8 @@ def main() -> int:
                 list(kg[:3]) + list(k_leaves.values()), list(pg[:3]) + list(p_leaves.values())))
             worst = max(rels, key=rels.get)
             info[dtype] = dict(
-                rounds=rounds, batch=B, k2a_equals_k1=same_as_k1, k2b_repeatable=repeatable,
+                rounds=rounds, batch=B, k2a_equals_k1=same_as_k1, k2a_vs_k1_max=k2a_vs_k1,
+                k2b_repeatable=repeatable,
                 k2a_vs_plain_max=float(out_diff.max()), k2a_vs_plain_mean=float(out_diff.mean()),
                 stash_vs_plain_max=st_max, stash_vs_plain_mean=st_sum / st_n,
                 k2b_max_abs_err=grad_max, k2b_worst_rel=rels[worst], k2b_worst_leaf=worst,
@@ -3697,7 +3800,7 @@ def main() -> int:
             if not finite:
                 raise RuntimeError(f"{dtype}: K2a/K2b produced non-finite values")
             if not same_as_k1:
-                raise RuntimeError(f"{dtype}: K2a's outputs differ from K1's")
+                raise RuntimeError(f"{dtype}: K2a's outputs differ from K1's: {k2a_vs_k1}")
             if not repeatable:
                 raise RuntimeError(f"{dtype}: K2b's gradients differ between two runs on "
                                    f"the same inputs")
@@ -3919,7 +4022,8 @@ def main() -> int:
                     max_abs_err=max(max(v["max_abs_err"] for v in checks.values()),
                                     max(v["max_abs_err"] for v in timings.values())),
                     **{d: {k: t[k] for k in ("batch", "rounds", "real_rows", "ms", "plain_ms",
-                                             "bound_ms", "bound_by", "tflops")}
+                                             "bound_ms", "bound_by", "tflops",
+                                             "tf32x3_floor_ms", "f32_core_ms") if k in t}
                        for d, t in timings.items()})
 
     def padded(kernel: str, checks: dict) -> dict:
@@ -3935,8 +4039,8 @@ def main() -> int:
                         if k.startswith(f"{kernel}_max_abs_err_{dtype}")])
         return dict(
             max_abs_err=worst("bfloat16"), max_abs_err_f32=worst("float32"),
-            **{case: {k.replace(f"{kernel}_", ""): v for k, v in t.items()
-                      if k.startswith(f"{kernel}_") or k.startswith("bound_ms")}
+            **{case: {k.replace(f"{kernel}_", "", 1): v for k, v in t.items()
+                      if k.startswith(f"{kernel}_")}
                for case, t in cases.items()})
 
     emit({"kernels": [row(
@@ -3947,6 +4051,12 @@ def main() -> int:
         ms=timing["kernel_ms"], plain_ms=timing["plain_ms"],
         bound_ms=timing["bound_ms"], bound_by=timing["bound_by"],
         library_ms=None, yardstick_ms=timing["yardstick_ms"],
+        f32_trained=dict(batch=B, rounds=TRAINED_ROUNDS, ms=timing["trained_kernel_ms"],
+                         bound_ms=timing["trained_bound_ms"],
+                         f32_core_ms=timing["trained_f32_core_ms"],
+                         tf32x3_floor_ms=timing["trained_tf32x3_floor_ms"],
+                         **{k: k1_f32_check[k] for k in ("max_abs_err", "kernel_vs_f64_max",
+                                                         "plain_vs_f64_max", "sass_hmma")}),
         gpanels=variant("fused_rounds_gpanels", gp_checks, timing["fused_rounds_gpanels"]),
         padded_width=padded("k1", pw_checks),
         detector_graph=det_k1, circuit_graphs=circ_k1,

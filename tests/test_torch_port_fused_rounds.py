@@ -226,6 +226,9 @@ class _StubLibrary:
     def fused_rounds_smem_bytes(self, *args):
         return 0
 
+    def fused_rounds_stash_smem_bytes(self, *args):
+        return 0
+
     def __getattr__(self, entry):
         def launch(*args):
             raise _Launched(entry)

@@ -282,16 +282,22 @@ def _align16(x):
     return (x + 15) & ~15
 
 
-def _k1_smem(code, m, n, dc, dq, gpanels=False):
-    """fused_rounds_smem_bytes / fused_rounds_gpanels_smem_bytes as
-    csrc/fused_rounds.cu computes them: f32 panels, two 32-row f32 chunk
-    buffers and a 16-row slab of three matrices; bf16 swizzled panels,
-    128-row chunk buffers and a double buffer of 64-row slabs (32-row
-    where 64 do not fit); the slot tables."""
+def _k1_smem(code, m, n, dc, dq, gpanels=False, stash=False):
+    """fused_rounds_smem_bytes / fused_rounds_gpanels_smem_bytes /
+    fused_rounds_stash_smem_bytes as csrc/fused_rounds.cu computes them.
+    f32 K1: panels, one 128-row f32 chunk buffer (row stride 132) and
+    16-row slabs of split TF32 weights (1 KB a row: two beside shared
+    panels, three beside global ones), its slot tables read from global
+    memory.  f32 K2a (the FMA kernel): panels, two 32-row f32 chunk buffers,
+    a 16-row slab of three matrices and the slot tables.  bf16 (both):
+    swizzled panels, 128-row chunk buffers, a double buffer of 64-row slabs
+    (32-row where 64 do not fit) and the slot tables."""
     tables = _align16(m * dc * 4) + _align16(n * dq * 4)
     if code == 0:
         panels = 0 if gpanels else _align16(n * 512) + _align16(m * 512)
-        return panels + 2 * _align16(32 * 132 * 4) + _align16(16 * 3 * 128 * 4) + tables
+        if stash:
+            return panels + 2 * _align16(32 * 132 * 4) + _align16(16 * 3 * 128 * 4) + tables
+        return panels + 128 * 132 * 4 + (3 if gpanels else 2) * 16 * 1024
     bf = lambda sr: _align16(n * 256) + _align16(m * 256) + 2 * 128 * 136 * 2 + 2 * sr * 272
     return (bf(64) if bf(64) + tables <= fd.SMEM_LIMIT else bf(32)) + tables
 
@@ -308,6 +314,9 @@ class _K1Library:
 
     def fused_rounds_gpanels_smem_bytes(self, m, n, dc, dq):
         return _k1_smem(0, m, n, dc, dq, gpanels=True)
+
+    def fused_rounds_stash_smem_bytes(self, code, m, n, dc, dq):
+        return _k1_smem(code, m, n, dc, dq, stash=True)
 
     def __getattr__(self, entry):
         def launch(*args):
@@ -332,15 +341,18 @@ def k1_library(monkeypatch):
 
 def test_stub_sizes_shared_memory_as_the_card():
     """The stub's sizes are those csrc/fused_rounds.cu computes on the
-    card: f32 193,536 B at d=11 (fits), 244,224 at d=13 and 303,360 at d=15
-    (over SMEM_LIMIT); bf16, and f32 without the panels, fit through d=15."""
+    card: f32 K1 231,424 B at d=11 (fits), 280,576 at d=13 and 337,920 at
+    d=15 (over SMEM_LIMIT); f32 K2a 193,536 B at d=11, 244,224 at d=13 and
+    303,360 at d=15; bf16, and f32 K1 without the panels, fit through d=15."""
     sizes = {}
     for d in (11, 13, 15):
         g = build_code("surface", d).to("cpu")
         src_c, _, _, src_q, _, _ = fd.make_operators(g)
         args = (g.n_checks_pad, g.n_qubits_pad, src_c.shape[1], src_q.shape[1])
-        sizes[d] = (_k1_smem(0, *args), _k1_smem(1, *args), _k1_smem(0, *args, gpanels=True))
-    assert [sizes[d][0] for d in (11, 13, 15)] == [193536, 244224, 303360]
+        sizes[d] = (_k1_smem(0, *args), _k1_smem(1, *args), _k1_smem(0, *args, gpanels=True),
+                    _k1_smem(0, *args, stash=True))
+    assert [sizes[d][0] for d in (11, 13, 15)] == [231424, 280576, 337920]
+    assert [sizes[d][3] for d in (11, 13, 15)] == [193536, 244224, 303360]
     assert all(s[1] <= fd.SMEM_LIMIT and s[2] <= fd.SMEM_LIMIT for s in sizes.values())
 
 
@@ -390,6 +402,49 @@ def test_k1_wrapper_pads_narrow_models(h, k1_library):
     ((name, a),) = k1_library.calls
     assert name == "fused_rounds_launch" and a[16] == h
     assert out_c.shape[-1] == h and out_q.shape[-1] == h
+
+
+@pytest.mark.parametrize("d,batch,per_block", [(3, 8, 8), (3, 12, 4), (5, 8, 4), (5, 2, 2),
+                                                (7, 8, 2), (9, 8, 1), (3, 7, 1)])
+def test_k1_wrapper_stacks_small_graphs(d, batch, per_block, k1_library):
+    """f32 K1 runs a small graph's samples per_block to a block, as one
+    graph of per_block times the rows (each side within one 128-row chunk,
+    per_block a power of two dividing the batch)."""
+    g, args = _k1_call(d, 128, "float32", batch=batch)
+    fd._rounds_cuda(*args)
+    ((name, a),) = k1_library.calls
+    m, n = g.n_checks_pad, g.n_qubits_pad
+    assert fd.samples_per_block(batch, m, n) == per_block
+    assert name == "fused_rounds_launch"
+    assert a[10:13] == (batch // per_block, m * per_block, n * per_block)
+
+
+def test_stacked_slot_tables_give_the_same_rounds():
+    """The rounds on s samples laid end to end as one graph (their states
+    viewed [B / s, s * rows, H], the slot tables stacked) equal the rounds
+    sample by sample: what f32 K1 computes on a stacked block."""
+    g = build_code("surface", 3).to("cpu")
+    m, n = g.n_checks_pad, g.n_qubits_pad
+    w = fd.RoundWeights(**{k: torch.from_numpy(v) for k, v in _weights(32, 3).items()})
+    rng = np.random.default_rng(5)
+    b, s = 8, 4
+    xc = torch.from_numpy(rng.standard_normal((b, m, 32)).astype(np.float32))
+    xq = torch.from_numpy(rng.standard_normal((b, n, 32)).astype(np.float32))
+    syn = torch.from_numpy(np.sign(rng.standard_normal((b, m, 1))).astype(np.float32))
+    ops = fd.make_operators(g)
+    idx_c, idx_q = fd._slot_tables(ops[0], ops[1], ops[3], ops[4])
+
+    def operators(idx):
+        mask = (idx >= 0).float()
+        return idx.clamp(min=0).long(), mask, mask.sum(1)
+
+    stacked = (*operators(fd.stack_slot_tables(idx_c, n, s)),
+               *operators(fd.stack_slot_tables(idx_q, m, s)))
+    want = fd.rounds_plain(xc, xq, syn, ops, w, rounds=3)
+    got = fd.rounds_plain(xc.reshape(b // s, s * m, 32), xq.reshape(b // s, s * n, 32),
+                          syn.reshape(b // s, s * m, 1), stacked, w, rounds=3)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_.reshape(w_.shape), w_, atol=1e-6, rtol=1e-6)
 
 
 def test_k2a_keeps_its_shared_memory_check(k1_library):

@@ -39,6 +39,7 @@ _SIGNATURES = {
     "fused_rounds": {
         "fused_rounds_smem_bytes": ([_I] * 5, ctypes.c_longlong),
         "fused_rounds_gpanels_smem_bytes": ([_I] * 4, ctypes.c_longlong),
+        "fused_rounds_stash_smem_bytes": ([_I] * 5, ctypes.c_longlong),
         "fused_rounds_launch": ([_I] + [_P] * 9 + [_I] * 7 + [_P], _I),
         "fused_rounds_gpanels_launch": ([_P] * 10 + [_I] * 8 + [_P], _I),
         "fused_rounds_stash_launch": ([_I] + [_P] * 11 + [_I] * 7 + [_P], _I),
@@ -110,17 +111,26 @@ def build_libraries(names=None) -> dict:
                     continue
                 tmp = f"{lib}.{os.getpid()}.tmp"
                 cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, SOURCES[n])]
-                procs[n] = (cmd, tmp, subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-            failed = []
-            for n, (cmd, tmp, proc) in procs.items():
-                log = proc.communicate()[0]
-                seconds = time.perf_counter() - t0
-                if proc.returncode != 0:
-                    failed.append(f"{' '.join(cmd)} ({proc.returncode}):\n{log}")
-                    continue
-                os.replace(tmp, out[n][0])
-                out[n] = (out[n][0], seconds, log)
+                log = open(f"{tmp}.log", "w+")   # a file: a full pipe would stall nvcc
+                procs[n] = (cmd, tmp, log, subprocess.Popen(
+                    cmd, stdout=log, stderr=subprocess.STDOUT, text=True))
+            failed, running = [], dict(procs)
+            while running:     # each library's own seconds, as its nvcc ends
+                for n, (cmd, tmp, log, proc) in list(running.items()):
+                    if proc.poll() is None:
+                        continue
+                    seconds = time.perf_counter() - t0
+                    del running[n]
+                    log.seek(0)
+                    text = log.read()
+                    log.close()
+                    os.remove(f"{tmp}.log")
+                    if proc.returncode != 0:
+                        failed.append(f"{' '.join(cmd)} ({proc.returncode}):\n{text}")
+                        continue
+                    os.replace(tmp, out[n][0])
+                    out[n] = (out[n][0], seconds, text)
+                time.sleep(0.05)
             if failed:
                 raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
             return out

@@ -1,65 +1,94 @@
 // R weight-tied message rounds of the GNN decoder in one launch (Hopper).
 //
 // K1 replaces the TPU kernel tpugnn/kernels/fused_decoder.py::decoder_rounds_tiled
-// (pl.pallas_call at :637, body _make_kernel at :187).  K2a, the same kernel
-// with its STASH flag, replaces the forward-with-stash kernel of training,
+// (pl.pallas_call at :637, body _make_kernel at :187).  K2a replaces the
+// forward-with-stash kernel of training,
 // tpugnn/kernels/fused_backward.py::make_kernel_vjp_rounds._fwd (pl.pallas_call
-// at :575, body _make_fwd_kernel at :233): at the start of every round it
-// also copies the round's input states to the stash [R, B, rows, H], the
-// only residuals the backward (fused_backward.cu) reads.  The function is the
+// at :575, body _make_fwd_kernel at :233): the same rounds, and at the start
+// of every round a copy of the round's input states to the stash [R, B,
+// rows, H], the only residuals the backward (fused_backward.cu) reads.  In
+// bf16 K2a is K1's kernel with its STASH flag; in f32 it is the FMA kernel
+// fma:: below.  The function is the
 // one tpugnn_torch/kernels/fused_decoder.py::rounds_plain computes; read that
 // docstring for the math.  The TPU schedule is not copied: the slot gather
 // reads source rows by index from shared memory instead of the one-hot
 // incidence GEMM, and the layout is the batch layout [B, rows, H].
 //
 // Design: one block of 256 threads per sample; all R rounds loop inside the
-// block.  Per round:
-//   A  ys_c = rnd(x_q @ ws_c) for all qubit rows      -> shared panel [N, H]
-//   B  check rows: x @ [wd_c|uc_x|ws_q] (ws_q part -> shared panel ys_q
-//      [M, H]), slot gather-sum over ys_c, folded aggregation GEMM, update
-//      MLP, residual, LayerNorm; the new rows overwrite the state
-//   C  qubit rows, the same against ys_q
-// The states live in the output tensors (global memory; a block's 2 x 128 x
-// 128 panel pair stays in L2) and are rewritten in place chunk by chunk; the
-// two gather panels and the chunk buffers are in shared memory.
-//
-// Two instantiations:
-//   bf16 states (the bench config, training): the tensor-core path, tcp::
-//     below.  Every operand of every product is a bf16 value (states, hs and
-//     hc are rounded, the packed matrices stored in bf16), so
-//     mma.sync.m16n8k16 bf16 with f32 accumulation forms the same products
-//     as the plain version; only the f32 summation order differs.  Chunks
-//     are a whole side of 128 rows (8 warps x 16 rows), so each weight
-//     matrix is staged once per side and round (320 KB a sample-round at
-//     d=11 instead of 1.31 MB through 32-row chunks), double-buffered with
-//     cp.async behind 4 barriers per product (rounds_mma.cuh).  A side of
-//     more rows (d=13: 176) runs a second, ragged chunk.
-//   f32 states (the trained decode, serve, LER): 32-row chunks, each warp 4
-//     rows and each lane 4 columns, f32 FMA loops over a 16-deep slab
-//     (gemm_chunk, rounds_common.cuh).  Where the two f32 gather panels do
-//     not fit in shared memory beside the chunk buffers (d=13: 244,224 B,
-//     d=15: 303,360 B of a block's 232,448), its GP variant keeps them in a
-//     per-block global scratch [grid][N + M][H], read through L1/L2 with
-//     plain loads (not ld.global.nc: every round rewrites them), on a
-//     persistent grid of one block per SM, so the resident blocks' panels
-//     (230 KB a block at d=15, 30 MB in all) stay in the 50 MB L2.  The
-//     arithmetic is the shared-panel kernel's, in the same order.
+// block.  Per round, with whole-side chunks of 128 rows (8 warps x 16 rows;
+// a side of more rows runs a second, ragged chunk), one product (one weight
+// matrix) at a time, each accumulator m16 x n128 per warp:
+//   A  ys_c = rnd(x_q @ ws_c)                         -> gather panel [N, H]
+//   B  check chunk: ys_q = rnd(x @ ws_q) -> panel [M, H]; ydb = x @ wd + b0
+//      and the slot gather-sum over ys_c; pre = hs @ wf + x @ ux (the second
+//      product accumulates into the first's registers, so no two
+//      accumulators are ever live); hc @ w1, the residual and LayerNorm (a
+//      row is one quad of lanes: two shuffles); the new rows overwrite the
+//      state
+//   C  qubit chunk: the same against ys_q, without ys_q and the syndrome
+//      term
+// The states live in the output tensors (global memory; a block's panel
+// pair stays in L2) and are rewritten in place chunk by chunk.  Each product
+// streams its weights once per chunk, so each matrix is staged once a side
+// and round.  Two state types:
+//   bf16 (the bench config, training): tcp:: below.  Every operand of every
+//     product is a bf16 value (states, hs and hc are rounded, the packed
+//     matrices stored in bf16), so mma.sync.m16n8k16 bf16 with f32
+//     accumulation forms the same products as the plain version; only the
+//     f32 summation order differs.  Swizzled bf16 panels and two bf16
+//     chunk buffers in shared memory; 64-row weight slabs (32 where shared
+//     memory is short), double-buffered with cp.async (rounds_mma.cuh, tc).
+//   f32 (the trained decode, serve, LER, the detector, stream and circuit
+//     graphs): t3p:: below.  Every product runs as three TF32 products on
+//     mma.sync.m16n8k8 (3xTF32, rounds_mma.cuh, tf32): both operands split
+//     into hi and lo TF32 halves, a slab's products summed apart and added to
+//     the f32 running sum.  That stays near f32 accuracy but not at it: the
+//     tensor cores' f32 accumulation truncates, and on an H100 the kernel's
+//     distance from the rounds in f64 is 1.1 times plain f32's at d=11 and up
+//     to 2.2 times on circuit d=5 (chip_smoke.py gates it at 3); everything else
+//     (gather-sum, relu, biases, degree and syndrome terms, residual,
+//     LayerNorm) is f32 on the CUDA cores.  The wrapper splits the weights
+//     once a call (tf32_split_pack: hi/lo pairs in fragment order, 128 KB a
+//     matrix), because a split in registers would be repeated by every warp;
+//     the states are split in registers.  Shared memory decides the rest.  The
+//     f32 panels [N + M][128] take 131,072 B at d=11 (M = N = 128 padded
+//     rows), so only ONE f32 chunk buffer fits beside them ([128][132],
+//     67,584 B): it holds the A operand of each product in turn (x, then hs,
+//     then x again, reloaded from the state, then hc), and the residual reads
+//     x from the state too (L2), which leaves the registers to the products
+//     (the kernel is latency-bound at 255 registers a thread).  The split
+//     weights stream through two 16-row slabs (32 KB, one ahead, one barrier
+//     and one sum a slab), and the slot tables are read from global memory
+//     (L1): 231,424 B at d=11 of the 232,448 a block may use.  Where the
+//     panels do not fit (d=13: 280,576 B, d=15, circuit d=5 and d=7), the GP
+//     variant keeps them in a per-block global scratch [grid][N + M][H], read
+//     through L1/L2 with plain loads (not ld.global.nc: every round rewrites
+//     them), on a persistent grid of one block per SM, so the resident
+//     blocks' panels (237 KB a block at d=15, 31 MB in all) stay in the 50 MB
+//     L2; its weights stream through three 16-row slabs (48 KB, two ahead).
+//     The arithmetic is the shared-panel kernel's, in the same order.  A
+//     small graph's samples run several to a block (the wrapper stacks them
+//     as one graph: samples_per_block).  scripts/k1_f32_probe.py times copies
+//     of this kernel with parts cut out or changed.
 //
 // Width.  The kernels are built for H = 128 columns; a model of width
 // h < 128 runs on states and packs zero-padded to 128 (the wrapper pads).
 // Every padded column stays exactly 0 through a round (zero weight rows and
 // columns, zero biases, relu(0) = 0, LayerNorm scale and bias 0), so only
 // the LayerNorm sees the width: its mean and variance are taken over the
-// first `width` columns, and the centred value is 0 on the others.  That
-// masking is compiled in only for width < 128 (MASK): at 128 the kernels
-// run the unmasked LayerNorm.
+// first `width` columns, and the centred value is 0 on the others.  The bf16
+// kernels and K2a's f32 one compile that masking in only for width < 128
+// (MASK): at 128 they run the unmasked LayerNorm.  The f32 K1 kernel tests
+// the width at run time.
 //
 // Bounds on an H100 at d=11, H=128: 39.7 MFLOP per sample and round on the
 // 241 real rows with the folded weights; HBM traffic is only the states in
 // and out.  So the work is bound by operations: at B=4096, R=8 1.30 TFLOP,
-// 1.32 ms at the bf16 tensor-core peak (989 TFLOP/s) and 19.4 ms at the f32
-// CUDA-core peak (67 TFLOP/s), the floor of the f32 path and of any FMA
-// design.  One block per SM by shared memory.
+// 1.32 ms at the bf16 tensor-core peak (989 TFLOP/s).  In f32 the floor of
+// an FMA design is the f32 CUDA-core peak (67 TFLOP/s: 19.4 ms at R=8, 33.99
+// at the trained R=14); the 3xTF32 design does three TF32 products for each
+// f32 one at 495 TFLOP/s, a floor of 13.80 ms at R=14.  One block per SM by
+// shared memory.
 
 #include "rounds_common.cuh"
 #include "rounds_mma.cuh"
@@ -67,6 +96,14 @@
 namespace {
 
 using namespace rounds;
+
+// ---------------------------------------------------------------------------
+// K2a's f32 path: 32-row chunks, each warp 4 rows and each lane 4 columns,
+// f32 FMA loops over a 16-deep slab (gemm_chunk, rounds_common.cuh), both
+// gather panels in shared memory (193,536 B at d=11).  Its floor is the f32
+// CUDA-core peak.  K1's f32 launches run t3p:: below instead; this kernel
+// has no global-panel variant, so K2a refuses f32 graphs past d=11.
+namespace fma {
 
 template <typename T>
 struct Smem {
@@ -79,14 +116,11 @@ struct Smem {
   int* idx_q;   // [N][Dq]
 };
 
-// GP: the gather panels are in global memory, not in the block's share
-template <typename T, bool GP = false>
+template <typename T>
 __host__ __device__ inline size_t smem_bytes(int M, int N, int Dc, int Dq) {
   size_t s = 0;
-  if (!GP) {
-    s += align16(size_t(N) * H * sizeof(T));
-    s += align16(size_t(M) * H * sizeof(T));
-  }
+  s += align16(size_t(N) * H * sizeof(T));
+  s += align16(size_t(M) * H * sizeof(T));
   s += 2 * align16(size_t(CH) * XLD * sizeof(float));
   s += align16(size_t(KS) * 3 * H * sizeof(T));
   s += align16(size_t(M) * Dc * sizeof(int));
@@ -94,18 +128,12 @@ __host__ __device__ inline size_t smem_bytes(int M, int N, int Dc, int Dq) {
   return s;
 }
 
-// panels: the block's global panels [N + M][H] (GP), or nullptr
-template <typename T, bool GP>
-__device__ Smem<T> carve(unsigned char* base, int M, int N, int Dc, int Dq, T* panels) {
+template <typename T>
+__device__ Smem<T> carve(unsigned char* base, int M, int N, int Dc, int Dq) {
   Smem<T> s;
   size_t o = 0;
-  if (GP) {
-    s.ys_c = panels;
-    s.ys_q = panels + size_t(N) * H;
-  } else {
-    s.ys_c = reinterpret_cast<T*>(base + o);   o += align16(size_t(N) * H * sizeof(T));
-    s.ys_q = reinterpret_cast<T*>(base + o);   o += align16(size_t(M) * H * sizeof(T));
-  }
+  s.ys_c = reinterpret_cast<T*>(base + o);     o += align16(size_t(N) * H * sizeof(T));
+  s.ys_q = reinterpret_cast<T*>(base + o);     o += align16(size_t(M) * H * sizeof(T));
   s.xs = reinterpret_cast<float*>(base + o);   o += align16(size_t(CH) * XLD * sizeof(float));
   s.hs = reinterpret_cast<float*>(base + o);   o += align16(size_t(CH) * XLD * sizeof(float));
   s.wsl = reinterpret_cast<T*>(base + o);      o += align16(size_t(KS) * 3 * H * sizeof(T));
@@ -228,18 +256,16 @@ __device__ void update_rows(const T* x_src, T* x_dst, int rows,
   }
 }
 
-// One block per sample (grid = B), or with GP a persistent grid whose
-// blocks walk the samples, each with its own panels in `panels`.
-template <typename T, bool STASH, bool GP, bool MASK>
+// One block per sample (grid = B).
+template <typename T, bool MASK>
 __global__ void __launch_bounds__(THREADS, 1)
-fused_rounds_kernel(const T* xc_in, const T* xq_in, const float* __restrict__ syn,
+fused_rounds_stash_kernel(const T* xc_in, const T* xq_in, const float* __restrict__ syn,
                     const int* __restrict__ idx_c, const int* __restrict__ idx_q,
                     const T* __restrict__ mats, const float* __restrict__ vecs,
-                    T* xc_out, T* xq_out, T* stash_c, T* stash_q, T* panels,
+                    T* xc_out, T* xq_out, T* stash_c, T* stash_q,
                     int B, int M, int N, int Dc, int Dq, int R, int width) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem<T> s = carve<T, GP>(smem_raw, M, N, Dc, Dq,
-                                 GP ? panels + size_t(blockIdx.x) * (M + N) * H : nullptr);
+  const Smem<T> s = carve<T>(smem_raw, M, N, Dc, Dq);
   for (int e = threadIdx.x; e < M * Dc; e += THREADS) s.idx_c[e] = idx_c[e];
   for (int e = threadIdx.x; e < N * Dq; e += THREADS) s.idx_q[e] = idx_q[e];
   const T* wc = mats;                       // check direction's 5 matrices
@@ -253,7 +279,7 @@ fused_rounds_kernel(const T* xc_in, const T* xq_in, const float* __restrict__ sy
       // round 0 reads the inputs; later rounds the states rewritten in place
       const T* xc_src = round == 0 ? xc_in + b * size_t(M) * H : xc;
       const T* xq_src = round == 0 ? xq_in + b * size_t(N) * H : xq;
-      if (STASH) {  // read before project_rows' first barrier, rewritten after it
+      {  // the stash: read before project_rows' first barrier, rewritten after it
         const size_t sb = size_t(round) * B + b;
         block_copy16(stash_c + sb * M * H, xc_src, size_t(M) * H * sizeof(T) / 16);
         block_copy16(stash_q + sb * N * H, xq_src, size_t(N) * H * sizeof(T) / 16);
@@ -270,18 +296,12 @@ fused_rounds_kernel(const T* xc_in, const T* xq_in, const float* __restrict__ sy
   }
 }
 
+}  // namespace fma
+
 // ---------------------------------------------------------------------------
-// The bf16 path on tensor cores (rounds_mma.cuh).  Per round, with whole-side
-// chunks of 128 rows (a second, ragged chunk for larger sides), one product
-// (one weight matrix) at a time, each accumulator m16 x n128 per warp:
-//   A  ys_c = rnd(x_q @ ws_c)
-//   B  check chunk: ys_q = rnd(x @ ws_q); ydb = x @ wd + b0 and the slot
-//      gather-sum; pre = hs @ wf + x @ ux (the second product accumulates
-//      into the first's registers, so no two accumulators are ever live);
-//      hc @ w1, the residual and LayerNorm (a row is one quad: two shuffles)
-//   C  qubit chunk: the same without ys_q and the syndrome term
-// Each product streams its weights once per chunk: 10 matrices, 320 KB of
-// bf16 per sample-round at d=11, two 64-row slabs each.
+// The bf16 path on tensor cores (rounds_mma.cuh, tc); the round as the
+// header describes it.  Each product streams its weights once per chunk: 10
+// matrices, 320 KB of bf16 per sample-round at d=11, two 64-row slabs each.
 namespace tcp {
 
 using namespace rounds::tc;
@@ -507,6 +527,251 @@ fused_rounds_tc_kernel(const bf16* xc_in, const bf16* xq_in, const float* __rest
 
 }  // namespace tcp
 
+// ---------------------------------------------------------------------------
+// The f32 path on tensor cores (3xTF32, rounds_mma.cuh).  The same round as
+// tcp, with f32 panels and one f32 chunk buffer; see the header.
+namespace t3p {
+
+using namespace rounds::tf32;
+using tc::ld_vec2;
+using tc::mask_columns;
+using tc::quad_sum;
+
+// the weight ring: shared panels (SP) and global panels (GP)
+constexpr int SP_SR = 16, SP_NS = 2;
+constexpr int GP_SR = 16, GP_NS = 3;
+
+template <bool GP>
+__host__ __device__ inline size_t smem_bytes(int M, int N) {
+  size_t s = 0;
+  if (!GP) {
+    s += align16(size_t(N) * H * sizeof(float));
+    s += align16(size_t(M) * H * sizeof(float));
+  }
+  s += CHUNK_BYTES;
+  s += GP ? ring_bytes(GP_SR, GP_NS) : ring_bytes(SP_SR, SP_NS);
+  return s;
+}
+
+struct Smem {
+  float* ys_c;   // [N][H] swizzled, gathered by check rows
+  float* ys_q;   // [M][H] swizzled, gathered by qubit rows
+  float* xs;     // [CR][LDX] the chunk's A operand
+  float* ring;   // [NS][SR / 8][KSTEP] weight slabs
+};
+
+// panels: the block's global panels [N + M][H] (GP), or nullptr
+template <bool GP>
+__device__ Smem carve(unsigned char* base, int M, int N, float* panels) {
+  Smem s;
+  size_t o = 0;
+  if (GP) {
+    s.ys_c = panels;
+    s.ys_q = panels + size_t(N) * H;
+  } else {
+    s.ys_c = reinterpret_cast<float*>(base + o);  o += align16(size_t(N) * H * sizeof(float));
+    s.ys_q = reinterpret_cast<float*>(base + o);  o += align16(size_t(M) * H * sizeof(float));
+  }
+  s.xs = reinterpret_cast<float*>(base + o);      o += CHUNK_BYTES;
+  s.ring = reinterpret_cast<float*>(base + o);
+  return s;
+}
+
+// Phases B (CHECK) and C: rows [0, rows) of state x_src updated into x_dst
+// (which may alias it); CHECK also writes ys_out = x @ ws and adds the
+// syndrome term.  W is the direction's five split matrices; `after` is the
+// product that follows the last chunk.  The LayerNorm runs over the first
+// `width` columns (a test, not a template flag: it costs a compare a row,
+// and two fewer instantiations build faster).
+template <int SR, int NS, bool CHECK>
+__device__ void update_rows(const float* x_src, float* x_dst, int rows, const float* ys_src,
+                            float* ys_out, const int* idx, int D, const float* syn,
+                            const float* __restrict__ W, const float* __restrict__ vec,
+                            float* xs, Ring<SR, NS>& rg, const float* after, int width) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  float* xa = xs + 16 * warp * LDX;
+  const float* wd = W + M_WD * MAT;
+  const float* ux = W + M_UX * MAT;
+  const float* ws = W + M_WS * MAT;
+  const float* wf = W + M_WF * MAT;
+  const float* w1 = W + M_W1 * MAT;
+  const float* first = CHECK ? ws : wd;
+
+  for (int row0 = 0; row0 < rows; row0 += CR) {
+    const int r0 = row0 + 16 * warp;
+    const int n = max(0, min(16, rows - r0));
+    const bool active = n > 0;
+    load_rows_warp(xa, x_src + size_t(r0) * H, n);
+    float acc[NT][4];
+
+    if (CHECK) {   // the other direction's gather source
+      mma_pass<SR, NS>(xa, ws, rg, wd, acc, active);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + g + 8 * h;
+        if (r < rows) {
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+            st2(ys_out + swz(r, 8 * j + 2 * t), acc[j][2 * h], acc[j][2 * h + 1]);
+        }
+      }
+    }
+
+    // ydb = x @ wd + b0, then the slot gather-sum over the source panel;
+    // hs replaces x in the chunk buffer
+    mma_pass<SR, NS>(xa, wd, rg, wf, acc, active);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float2 b0 = ld_vec2(vec, V_B0, 8 * j + 2 * t);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        acc[j][2 * h] += b0.x;
+        acc[j][2 * h + 1] += b0.y;
+      }
+    }
+    float deg[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + g + 8 * h;
+      float hsum[NT][2];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) hsum[j][0] = hsum[j][1] = 0.f;
+      deg[h] = 0.f;
+      if (r < rows) {
+        for (int k = 0; k < D; ++k) {
+          const int src = __ldg(idx + r * D + k);
+          if (src < 0) continue;
+          deg[h] += 1.f;
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const float2 y = ld2(ys_src + swz(src, 8 * j + 2 * t));
+            hsum[j][0] += fmaxf(y.x + acc[j][2 * h], 0.f);
+            hsum[j][1] += fmaxf(y.y + acc[j][2 * h + 1], 0.f);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        st2(xa + (g + 8 * h) * LDX + 8 * j + 2 * t, hsum[j][0], hsum[j][1]);
+    }
+    __syncwarp();
+
+    // update-MLP pre-activation: hs @ (wo @ ua), then x again from the
+    // state (its rows are rewritten only below) and + x @ ux, + ...
+    mma_pass<SR, NS>(xa, wf, rg, ux, acc, active);
+    load_rows_warp(xa, x_src + size_t(r0) * H, n);
+    mma_pass<SR, NS, true>(xa, ux, rg, w1, acc, active);
+    float sv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + g + 8 * h;
+      sv[h] = (CHECK && r < rows) ? syn[r] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int c = 8 * j + 2 * t;
+      const float2 boa = ld_vec2(vec, V_BOA, c), ub0 = ld_vec2(vec, V_UB0, c);
+      float2 ucs = make_float2(0.f, 0.f);
+      if (CHECK) ucs = ld_vec2(vec, V_UCS, c);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float p0 = acc[j][2 * h] + deg[h] * boa.x + ub0.x;
+        float p1 = acc[j][2 * h + 1] + deg[h] * boa.y + ub0.y;
+        if (CHECK) {
+          p0 += sv[h] * ucs.x;
+          p1 += sv[h] * ucs.y;
+        }
+        st2(xa + (g + 8 * h) * LDX + c, fmaxf(p0, 0.f), fmaxf(p1, 0.f));
+      }
+    }
+    __syncwarp();
+
+    // update output, residual (x from the state: each thread reads the
+    // entries it writes), LayerNorm (two-pass, eps 1e-6, over the first
+    // `width` columns); the rows go straight to the state
+    mma_pass<SR, NS>(xa, w1, rg, row0 + CR < rows ? first : after, acc, active);
+    const float inv_w = 1.f / width;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + g + 8 * h;
+      const float* xrow = x_src + size_t(r < rows ? r : 0) * H + 2 * t;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float2 ub1 = ld_vec2(vec, V_UB1, 8 * j + 2 * t);
+        const float2 x = r < rows ? ld2(xrow + 8 * j) : make_float2(0.f, 0.f);
+        acc[j][2 * h] += x.x + ub1.x;
+        acc[j][2 * h + 1] += x.y + ub1.y;
+        sum += acc[j][2 * h] + acc[j][2 * h + 1];
+      }
+      const float mu = quad_sum(sum) * inv_w;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        acc[j][2 * h] -= mu;
+        acc[j][2 * h + 1] -= mu;
+      }
+      if (width < H) mask_columns(acc, h, t, width);
+      float sq = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        sq += acc[j][2 * h] * acc[j][2 * h] + acc[j][2 * h + 1] * acc[j][2 * h + 1];
+      const float rs = rsqrtf(quad_sum(sq) * inv_w + 1e-6f);
+      if (r < rows) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int c = 8 * j + 2 * t;
+          const float2 lns = ld_vec2(vec, V_LNS, c), lnb = ld_vec2(vec, V_LNB, c);
+          st2(x_dst + size_t(r) * H + c, acc[j][2 * h] * rs * lns.x + lnb.x,
+              acc[j][2 * h + 1] * rs * lns.y + lnb.y);
+        }
+      }
+    }
+  }
+}
+
+// One block per sample (grid = B), or with GP a persistent grid whose
+// blocks walk the samples, each with its own panels in `panels`.  mats is
+// the split pack (tf32_split_pack): 10 matrices of MAT floats.
+template <bool GP>
+__global__ void __launch_bounds__(THREADS, 1)
+fused_rounds_tf32x3_kernel(const float* xc_in, const float* xq_in, const float* __restrict__ syn,
+                           const int* __restrict__ idx_c, const int* __restrict__ idx_q,
+                           const float* __restrict__ mats, const float* __restrict__ vecs,
+                           float* xc_out, float* xq_out, float* panels, int B, int M, int N,
+                           int Dc, int Dq, int R, int width) {
+  constexpr int SR = GP ? GP_SR : SP_SR, NS = GP ? GP_NS : SP_NS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Smem s = carve<GP>(smem_raw, M, N,
+                           GP ? panels + size_t(blockIdx.x) * (M + N) * H : nullptr);
+  const float* wc = mats;                       // check direction's 5 matrices
+  const float* wq = mats + size_t(NMAT) * MAT;  // qubit direction's 5 matrices
+  const float* proj = wq + size_t(M_WS) * MAT;  // ys_c = x_q @ ws_c
+  Ring<SR, NS> rg{s.ring, 0};
+  prime(rg, proj);
+
+  for (size_t b = blockIdx.x; b < size_t(B); b += gridDim.x) {
+    const float* syn_b = syn + b * M;
+    float* xc = xc_out + b * size_t(M) * H;
+    float* xq = xq_out + b * size_t(N) * H;
+    for (int round = 0; round < R; ++round) {
+      // round 0 reads the inputs; later rounds the states rewritten in place
+      const float* xc_src = round == 0 ? xc_in + b * size_t(M) * H : xc;
+      const float* xq_src = round == 0 ? xq_in + b * size_t(N) * H : xq;
+      project_rows(xq_src, N, proj, s.ys_c, s.xs, rg, wc + size_t(M_WS) * MAT);
+      update_rows<SR, NS, true>(xc_src, xc, M, s.ys_c, s.ys_q, idx_c, Dc, syn_b, wc,
+                                      vecs, s.xs, rg, wq + size_t(M_WD) * MAT, width);
+      const bool more = round + 1 < R || b + gridDim.x < size_t(B);
+      update_rows<SR, NS, false>(xq_src, xq, N, s.ys_q, nullptr, idx_q, Dq, nullptr,
+                                       wq, vecs + NVEC * H, s.xs, rg, more ? proj : nullptr,
+                                       width);
+      __syncthreads();   // the round's state writes are visible to the next round
+    }
+  }
+}
+
+}  // namespace t3p
+
 // The slab rows of the bf16 kernel for a graph: 64 where that fits in shared
 // memory, else 32; 0 where neither does.
 int tc_slab_rows(int M, int N, int Dc, int Dq) {
@@ -515,8 +780,10 @@ int tc_slab_rows(int M, int N, int Dc, int Dq) {
   return 0;
 }
 
-size_t smem_for(int dtype, int M, int N, int Dc, int Dq) {
-  if (dtype == 0) return smem_bytes<float>(M, N, Dc, Dq);
+// K1 (stash false) or K2a (stash true)
+size_t smem_for(int dtype, bool stash, int M, int N, int Dc, int Dq) {
+  if (dtype == 0)
+    return stash ? fma::smem_bytes<float>(M, N, Dc, Dq) : t3p::smem_bytes<false>(M, N);
   return tc_slab_rows(M, N, Dc, Dq) == 32 ? tcp::smem_bytes<32>(M, N, Dc, Dq)
                                           : tcp::smem_bytes<64>(M, N, Dc, Dq);
 }
@@ -549,15 +816,22 @@ int launch_dtype(int dtype, const void* xc_in, const void* xq_in, const void* sy
   const int* iq = static_cast<const int*>(idx_q);
   const float* v = static_cast<const float*>(vecs);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = smem_for(dtype, M, N, Dc, Dq);
+  const size_t smem = smem_for(dtype, STASH, M, N, Dc, Dq);
   const bool mask = width < H;
-  if (dtype == 0)
-    return launch_kernel(mask ? fused_rounds_kernel<float, STASH, false, true>
-                              : fused_rounds_kernel<float, STASH, false, false>, B, smem, st,
-                         static_cast<const float*>(xc_in), static_cast<const float*>(xq_in),
-                         s, ic, iq, static_cast<const float*>(mats), v,
-                         static_cast<float*>(xc_out), static_cast<float*>(xq_out),
-                         static_cast<float*>(stash_c), static_cast<float*>(stash_q),
+  const float* xci32 = static_cast<const float*>(xc_in);
+  const float* xqi32 = static_cast<const float*>(xq_in);
+  const float* mt32 = static_cast<const float*>(mats);
+  float* xco32 = static_cast<float*>(xc_out);
+  float* xqo32 = static_cast<float*>(xq_out);
+  if (dtype == 0 && STASH)   // mats [10, 128, 128] f32
+    return launch_kernel(mask ? fma::fused_rounds_stash_kernel<float, true>
+                              : fma::fused_rounds_stash_kernel<float, false>, B, smem, st,
+                         xci32, xqi32, s, ic, iq, mt32, v, xco32, xqo32,
+                         static_cast<float*>(stash_c), static_cast<float*>(stash_q), B, M, N,
+                         Dc, Dq, R, width);
+  if (dtype == 0)   // mats: the split pack
+    return launch_kernel(t3p::fused_rounds_tf32x3_kernel<false>, B, smem, st,
+                         xci32, xqi32, s, ic, iq, mt32, v, xco32, xqo32,
                          static_cast<float*>(nullptr), B, M, N, Dc, Dq, R, width);
   if (dtype != 1) return int(cudaErrorInvalidValue);
   typedef __nv_bfloat16 bf;
@@ -588,19 +862,26 @@ int launch_dtype(int dtype, const void* xc_in, const void* xq_in, const void* sy
 
 extern "C" {
 
-// Shared memory one block needs; dtype 0 = float32 states, 1 = bfloat16.
+// Shared memory one block of K1 needs; dtype 0 = float32 states, 1 = bfloat16.
 long long fused_rounds_smem_bytes(int dtype, int M, int N, int Dc, int Dq) {
-  return (long long)smem_for(dtype, M, N, Dc, Dq);
+  return (long long)smem_for(dtype, false, M, N, Dc, Dq);
+}
+
+// Shared memory one block of K2a (fused_rounds_stash_launch) needs.
+long long fused_rounds_stash_smem_bytes(int dtype, int M, int N, int Dc, int Dq) {
+  return (long long)smem_for(dtype, true, M, N, Dc, Dq);
 }
 
 // Shared memory one block of the f32 global-panel variant needs.
 long long fused_rounds_gpanels_smem_bytes(int M, int N, int Dc, int Dq) {
-  return (long long)smem_bytes<float, true>(M, N, Dc, Dq);
+  return (long long)t3p::smem_bytes<true>(M, N);
 }
 
 // xc_in/xq_in/xc_out/xq_out: [B, M|N, 128] in the state type; syn [B, M] f32;
 // idx_c [M, Dc], idx_q [N, Dq] int32 (-1 = masked slot); mats [10, 128, 128]
-// in the state type; vecs [14, 128] f32; width (<= 128): the model's width,
+// in bf16, or for f32 states the same matrices split into TF32 halves in
+// fragment order (fused_decoder.py::tf32_split_pack); vecs [14, 128] f32;
+// width (<= 128): the model's width,
 // the columns past it zero in every operand.  Returns cudaGetLastError()
 // after the launch (0 on success).
 int fused_rounds_launch(int dtype, const void* xc_in, const void* xq_in,
@@ -615,7 +896,7 @@ int fused_rounds_launch(int dtype, const void* xc_in, const void* xq_in,
 
 // The f32 global-panel variant of fused_rounds_launch: `grid` blocks walk the
 // samples, block i with its two panels in panels[i] ([grid][N + M][128] f32
-// scratch).
+// scratch); mats the split pack.
 int fused_rounds_gpanels_launch(const void* xc_in, const void* xq_in, const void* syn,
                                 const void* idx_c, const void* idx_q, const void* mats,
                                 const void* vecs, void* xc_out, void* xq_out, void* panels,
@@ -623,20 +904,19 @@ int fused_rounds_gpanels_launch(const void* xc_in, const void* xq_in, const void
                                 int grid, void* stream) {
   if (bad_shape(B, M, N, Dc, Dq, R, width) || grid <= 0 || panels == nullptr)
     return int(cudaErrorInvalidValue);
-  return launch_kernel(width < H ? fused_rounds_kernel<float, false, true, true>
-                                 : fused_rounds_kernel<float, false, true, false>, grid,
-                       smem_bytes<float, true>(M, N, Dc, Dq),
+  return launch_kernel(t3p::fused_rounds_tf32x3_kernel<true>, grid,
+                       t3p::smem_bytes<true>(M, N),
                        static_cast<cudaStream_t>(stream), static_cast<const float*>(xc_in),
                        static_cast<const float*>(xq_in), static_cast<const float*>(syn),
                        static_cast<const int*>(idx_c), static_cast<const int*>(idx_q),
                        static_cast<const float*>(mats), static_cast<const float*>(vecs),
                        static_cast<float*>(xc_out), static_cast<float*>(xq_out),
-                       static_cast<float*>(nullptr), static_cast<float*>(nullptr),
                        static_cast<float*>(panels), B, M, N, Dc, Dq, R, width);
 }
 
 // K2a: as fused_rounds_launch, and every round's input states go to
-// stash_c [R, B, M, 128] and stash_q [R, B, N, 128] in the state type.
+// stash_c [R, B, M, 128] and stash_q [R, B, N, 128] in the state type; for
+// f32 states mats [10, 128, 128] f32 (not split: the FMA kernel).
 int fused_rounds_stash_launch(int dtype, const void* xc_in, const void* xq_in,
                               const void* syn, const void* idx_c, const void* idx_q,
                               const void* mats, const void* vecs, void* xc_out,

@@ -170,7 +170,7 @@ def _fwd_stash_cuda(xc, xq, syn, operators, mats32, vecs32, rounds, state_dtype,
     dt = fd.STATE_DTYPES[state_dtype]
     fd.check_width(width)
     lib = load_library("fused_rounds")
-    a = fd._cuda_operands(lib, xc, xq, syn, operators, mats32, rounds, dt, gpanels=False)
+    a = fd._cuda_operands(lib, xc, xq, syn, operators, mats32, rounds, dt, stash=True)
     mats, vecs = fd.cast_packs(mats32, vecs32, dt)
     b, m, n, h = a.b, a.m, a.n, xc.shape[2]
     stash_c = torch.empty((rounds, b, m, h), dtype=dt, device=xc.device)

@@ -10,7 +10,11 @@ LayerNorm) on node states in the batch layout ``[B, rows, H]``:
   ``csrc/fused_rounds.cu`` (built by ``_build.py``), which replaces the TPU
   kernel ``decoder_rounds_tiled`` (``pl.pallas_call`` at
   ``tpugnn/kernels/fused_decoder.py:637``).  It launches or raises; there is
-  no fallback;
+  no fallback.  Its products run on tensor cores: bf16 states on bf16
+  ``mma.sync``, f32 states as three TF32 products of operands split into
+  TF32 halves ("3xTF32", near f32 accuracy; the wrapper splits the weights,
+  :func:`tf32_split_pack`, and stacks a small graph's samples into one
+  block, :func:`samples_per_block`);
 * a call that autograd must differentiate goes to
   :class:`~tpugnn_torch.kernels.fused_backward.FusedRoundsFn` instead (the
   kernels K2a and K2b on a card, their plain versions on the CPU).
@@ -39,8 +43,9 @@ columns (``width=h`` in the plain versions; 0 on the rest).  The padding is
 exact, as the JAX package's ``pad_msg_width`` is
 (``tpugnn/kernels/fused_decoder.py:127-142``).  With f32 states, a graph
 whose two gather panels do not fit in a block's shared memory beside the
-chunk buffers (d=13, d=15) runs K1's variant with the panels in global
-memory (``fused_rounds_gpanels`` in :func:`launch_counts`).
+chunk buffer and the weight ring (d=13, d=15, the circuit d=5 and d=7
+graphs) runs K1's variant with the panels in global memory
+(``fused_rounds_gpanels`` in :func:`launch_counts`).
 """
 
 from __future__ import annotations
@@ -54,13 +59,15 @@ import torch.nn.functional as F
 
 __all__ = ["RoundWeights", "make_operators", "pack_weights", "pack_weights_f32",
            "cast_packs", "pad_packs", "pad_states", "check_width", "rounds_plain",
-           "decoder_rounds", "launch_counts", "reset_launch_counts",
+           "decoder_rounds", "launch_counts", "reset_launch_counts", "tf32_round",
+           "tf32_split_pack", "samples_per_block", "stack_slot_tables",
            "STATE_DTYPES", "SMEM_LIMIT", "WIDTH"]
 
 STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448  # dynamic shared memory one block may use on Hopper
 WIDTH = 128          # the columns the rounds kernels are built for
+CHUNK_ROWS = 128     # rows of one f32 K1 chunk (tc::CR in csrc/rounds_mma.cuh)
 
 # launches of the CUDA kernels in this process: K1 (decoder_rounds without
 # grad; its f32 variant with the gather panels in global memory apart), K2a
@@ -203,6 +210,49 @@ def pack_weights(w: RoundWeights, dtype: torch.dtype):
     """``(mats, vecs)`` of :func:`pack_weights_f32` as the kernels and the
     plain versions read them (:func:`cast_packs`)."""
     return cast_packs(*pack_weights_f32(w), dtype)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 as the f32 kernels' ``cvt.rna.tf32.f32``
+    does: to the nearest value with 10 explicit mantissa bits, ties away
+    from zero (half an ulp added to the magnitude's bits, the low 13
+    cleared).  The kernels split each operand ``x`` of a product into
+    ``hi = tf32_round(x)`` and ``lo = tf32_round(x - hi)``."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split_pack(mats: torch.Tensor) -> torch.Tensor:
+    """The f32 weight pack as the f32 rounds kernels read it: each matrix
+    ``w`` [128 (k), 128 (n)] split into ``hi = tf32_round(w)`` and ``lo =
+    tf32_round(w - hi)``, laid out in the B-fragment order of
+    ``mma.m16n8k8`` so that a lane reads its four values of a k-step and
+    n-tile with one 16-byte load: ``[10, k-step s, n-tile j, g, t, (hi,
+    lo), (row 8s + t, row 8s + t + 4)]`` for column ``8j + g``, lane ``4g +
+    t``.  ``hi + lo`` is ``w`` to within 2^-21 of ``|w|``."""
+    m = mats.float()
+    hi = tf32_round(m)
+    lo = tf32_round(m - hi)
+    frag = lambda w: w.reshape(-1, WIDTH // 8, 2, 4, WIDTH // 8, 8).permute(0, 1, 4, 5, 3, 2)
+    return torch.stack([frag(hi), frag(lo)], -2).contiguous()
+
+
+def samples_per_block(b: int, m: int, n: int) -> int:
+    """How many samples one block of f32 K1 takes: the largest power of two
+    ``s`` dividing ``b`` whose ``s`` samples' check and qubit rows each fit
+    in one 128-row chunk.  A small graph's side (d=3: 16 rows) would
+    otherwise keep one warp of eight busy while every weight streams."""
+    s = 1
+    while b % (2 * s) == 0 and 2 * s * max(m, n) <= CHUNK_ROWS:
+        s *= 2
+    return s
+
+
+def stack_slot_tables(idx: torch.Tensor, src_rows: int, s: int) -> torch.Tensor:
+    """The slot table [rows, D] of ``s`` samples laid end to end as one
+    graph [s * rows, D]: sample ``i``'s sources shifted by ``i * src_rows``,
+    masked slots (-1) kept."""
+    return torch.cat([torch.where(idx >= 0, idx + i * src_rows, idx) for i in range(s)])
 
 
 def ln_mean(t: torch.Tensor, width: int | None) -> torch.Tensor:
@@ -348,11 +398,12 @@ class _CudaOperands(NamedTuple):
 
 
 def _cuda_operands(lib, xc, xq, syn, operators, mats, rounds, dt, *,
-                   gpanels: bool) -> _CudaOperands:
-    """Checks a call of the forward kernels (K1, K2a) on states and packs
-    padded to ``WIDTH`` and prepares its operands; raises on anything the
-    kernels do not take.  With ``gpanels`` (K1) an f32 graph whose gather
-    panels do not fit in shared memory takes the global-panel variant."""
+                   stash: bool) -> _CudaOperands:
+    """Checks a call of the forward kernels (K1, or K2a with ``stash``) on
+    states and packs padded to ``WIDTH`` and prepares its operands; raises
+    on anything the kernels do not take.  For K1 an f32 graph whose gather
+    panels do not fit in shared memory takes the global-panel variant; K2a
+    has none."""
     src_c, mask_c, _, src_q, mask_q, _ = operators
     b, m, h = xc.shape
     n = xq.shape[1]
@@ -371,8 +422,9 @@ def _cuda_operands(lib, xc, xq, syn, operators, mats, rounds, dt, *,
         if t.device != dev:
             raise ValueError(f"all operands must be on {dev}, got {t.device}")
     code = _DTYPE_CODE[dt]
-    smem = lib.fused_rounds_smem_bytes(code, m, n, dc, dq)
-    gpanels = gpanels and code == 0 and smem > SMEM_LIMIT
+    smem = (lib.fused_rounds_stash_smem_bytes if stash else lib.fused_rounds_smem_bytes)(
+        code, m, n, dc, dq)
+    gpanels = not stash and code == 0 and smem > SMEM_LIMIT
     if gpanels:
         smem = lib.fused_rounds_gpanels_smem_bytes(m, n, dc, dq)
     if smem > SMEM_LIMIT:
@@ -404,12 +456,22 @@ def _rounds_cuda(xc, xq, syn, operators, weights, rounds, state_dtype):
     lib = load_library("fused_rounds")
     mats, vecs = pad_packs(mats, vecs)
     xc, xq = pad_states(xc, xq)
-    a = _cuda_operands(lib, xc, xq, syn, operators, mats, rounds, dt, gpanels=True)
+    a = _cuda_operands(lib, xc, xq, syn, operators, mats, rounds, dt, stash=False)
+    # f32: the weights split into TF32 halves; a small graph's samples
+    # stacked, s to a block, as one graph of s times the rows
+    s = 1
+    idx_c, idx_q = a.idx_c, a.idx_q
+    if a.code == 0:
+        mats = tf32_split_pack(mats)
+        if not a.gpanels:
+            s = samples_per_block(a.b, a.m, a.n)
+            idx_c = stack_slot_tables(idx_c, a.n, s)
+            idx_q = stack_slot_tables(idx_q, a.m, s)
     out_c = torch.empty_like(a.xc)
     out_q = torch.empty_like(a.xq)
     with _cuda_stream(xc.device) as stream:
-        ptrs = (a.xc.data_ptr(), a.xq.data_ptr(), a.syn.data_ptr(), a.idx_c.data_ptr(),
-                a.idx_q.data_ptr(), mats.data_ptr(), vecs.data_ptr(), out_c.data_ptr(),
+        ptrs = (a.xc.data_ptr(), a.xq.data_ptr(), a.syn.data_ptr(), idx_c.data_ptr(),
+                idx_q.data_ptr(), mats.data_ptr(), vecs.data_ptr(), out_c.data_ptr(),
                 out_q.data_ptr())
         if a.gpanels:   # a persistent grid of one block per SM, each its own panels
             grid = min(a.b, torch.cuda.get_device_properties(xc.device).multi_processor_count)
@@ -418,8 +480,8 @@ def _rounds_cuda(xc, xq, syn, operators, weights, rounds, state_dtype):
             err = lib.fused_rounds_gpanels_launch(*ptrs, panels.data_ptr(), a.b, a.m, a.n,
                                                   a.dc, a.dq, rounds, h, grid, stream)
         else:
-            err = lib.fused_rounds_launch(a.code, *ptrs, a.b, a.m, a.n, a.dc, a.dq, rounds,
-                                          h, stream)
+            err = lib.fused_rounds_launch(a.code, *ptrs, a.b // s, a.m * s, a.n * s, a.dc,
+                                          a.dq, rounds, h, stream)
     name = "fused_rounds_gpanels" if a.gpanels else "fused_rounds"
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

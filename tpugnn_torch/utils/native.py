@@ -85,7 +85,8 @@ def library_path(cxx: str) -> str:
 
 def _build(cxx: str, lib: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+    # its own lock: under the kernels' one it would wait for every nvcc
+    with open(os.path.join(BUILD_DIR, ".lock_host"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             if os.path.exists(lib):
