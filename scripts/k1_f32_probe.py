@@ -180,10 +180,10 @@ def emit(obj) -> None:
 
 def flags(name: str) -> str:
     """An f32 K1 instantiation's panel placement from its mangled name,
-    ``shared`` or ``gpanels`` (as chip_smoke.f32_k1_hmma)."""
+    ``shared`` or ``gpanels`` (``stash`` for K2a's; as chip_smoke.f32_hmma)."""
     import chip_smoke as cs
 
-    return next(iter(cs.f32_k1_hmma({name: 0})), name)
+    return next(iter(cs.f32_hmma({name: 0})), name)
 
 
 def inline_header(src: str, header: str) -> str:

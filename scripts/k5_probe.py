@@ -1,12 +1,30 @@
 #!/usr/bin/env python3
-"""Where K5's bf16 time goes, on one NVIDIA card.
+"""Where K5's time goes, on one NVIDIA card.
 
-    python3 scripts/k5_probe.py [--parent OLD_roll_gather.cu]
+    python3 scripts/k5_probe.py [--parent OLD_roll_gather.cu] [--f32-only]
 
-K5 (``tpugnn_torch/kernels/csrc/roll_gather.cu``, bf16 states) at the bench
-config (surface d=11, B=4096, R=8, H=128, seeded random weights and states),
-with f32 slots and with ``slot16``, against copies of its source that change
-one thing, each printed as one JSON line:
+K5 (``tpugnn_torch/kernels/csrc/roll_gather.cu``) against copies of its
+source that change one thing, each printed as one JSON line.  With f32
+states (the trained decode's shape: surface d=11, B=4096, R=14, H=128,
+seeded random weights and states; the 3xTF32 kernel):
+
+  f32       K5's time as built (9 warps, 144-row chunks, two 16-row slabs
+            of split weights, a fresh sum every two k-steps, the gather
+            panel in shared memory) in turns with copies: ``warps8`` (8
+            warps: d=11's raster side as a 128-row chunk and a 16-row one),
+            ``ns3`` (three slabs), ``sr32`` (two 32-row slabs, so one fresh
+            sum every four k-steps: fewer barriers and adds, less
+            precision), and the
+            kernel as built with its panel in global memory (``gpanels``,
+            the wrapper's shared-memory limit lowered); each one's max
+            distance from ``roll_rounds_plain``; the registers and spills
+            ``ptxas`` reports for each f32 kernel; and one block's clock
+            cycles per stage (A, B, A', C of a round) from a copy with
+            ``clock64()`` probes.
+
+With bf16 states (skipped with ``--f32-only``), at the bench config
+(surface d=11, B=4096, R=8, H=128, seeded random weights and states), with
+f32 slots and with ``slot16``:
 
   variants  K5's time as built (9 warps, 144-row chunks), beside copies
             with 8 warps, so d=11's raster side runs as a 128-row chunk and
@@ -27,8 +45,8 @@ one thing, each printed as one JSON line:
 
 The copies (the unchanged source among them) are built by
 ``_probe_common.py`` and loaded in place of the library; the registers and
-spills ``ptxas`` reports for each bf16 kernel are printed with them.
-Imports nothing of JAX.
+spills ``ptxas`` reports for each bf16 kernel are printed with them.  Last
+it prints the card's name and power limit.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -56,6 +74,24 @@ NO_TAIL = [
      "    project_rows_tc<SR, NTH>(xq_src, min(L, 16 * NWARP), proj,"),
 ]
 VARIANTS = {"warps8": WARPS8, "warps8_no_tail": WARPS8 + NO_TAIL}
+
+# the f32 kernel's copies: its shape constants, one thing changed each
+F32_SHAPE = "constexpr int NWARP = 9, SR = 16, NS = 2;"
+F32_VARIANTS = {
+    "f32_warps8": [(F32_SHAPE, "constexpr int NWARP = 8, SR = 16, NS = 2;")],
+    "f32_ns3": [(F32_SHAPE, "constexpr int NWARP = 9, SR = 16, NS = 3;")],
+    "f32_sr32": [(F32_SHAPE, "constexpr int NWARP = 9, SR = 32, NS = 2;")],
+}
+# probe points of the f32 kernel's round loop
+F32_PROBES = [
+    ("      float* nxt = (R - 1 - round) % 2 == 0 ? xc : other;\n",
+     "loop top (launch gap, discarded)"),
+    ("                                wc + size_t(M_WD) * MAT);\n", "A projection x_q @ ws_c"),
+    ("                         s.xs, rg, proj_q, width);\n", "B check cells"),
+    ("      project_rows<SR, NS, NTH>(cur, rows, proj_q, s.panel, s.xs, rg, wq + size_t(M_WD) * MAT);\n",
+     "A' projection x_c @ ws_q"),
+    ("                          more ? proj_c : nullptr, width);\n", "C qubit cells"),
+]
 
 # Probe points of the `probe` measurement: (text in the round loop of the
 # bf16 kernel, stage that ends there)
@@ -142,6 +178,57 @@ def parent_comparison(libs: dict, ops, rounds: int, card: str) -> None:
     emit({"parent": out, "card": card})
 
 
+def f32_measurements(libs: dict, logs: dict, card: str) -> None:
+    """The ``f32`` line: the f32 kernel as built and its copies, in turns,
+    on the trained decode's shape; their distances from the plain version,
+    registers and spills, and one block's cycles per stage."""
+    import contextlib
+
+    import torch
+
+    import chip_smoke as cs
+    from tpugnn_torch.kernels import roll_gather as rg
+    from tpugnn_torch.kernels._build import load_library
+
+    rounds = cs.TRAINED_ROUNDS
+    graph, _, _, w, xc, xq, s, _ = cs.random_round_case(11, cs.B, rounds, "float32", 6,
+                                                        torch.device("cuda", 0))
+    flops = cs.rounds_flops(graph, 128) * cs.B * rounds
+    names = ("as_built", *F32_VARIANTS)
+
+    @contextlib.contextmanager
+    def global_panel():
+        old = rg.SMEM_LIMIT
+        rg.SMEM_LIMIT = load_library(LIBRARY).roll_rounds_gpanels_smem_bytes(ops.xc.shape[1])
+        try:
+            yield
+        finally:
+            rg.SMEM_LIMIT = old
+
+    with torch.inference_mode():
+        ops = rg.to_raster(xc, xq, s, rg.plan_for_graph(graph), w, "float32")
+        call = lambda: rg._roll_rounds_cuda(ops, rounds=rounds)
+        errors = {k: v[0] for k, v in versus_plain(libs, names, ops, rounds, "float32").items()}
+        t = in_turns(libs, names, call)
+        with global_panel():
+            before = rg.launch_counts()["roll_rounds_gpanels"]
+            kc, kq = with_library(LIBRARY, libs["as_built"], call)
+            pc, pq = rg.roll_rounds_plain(ops, rounds=rounds)
+            torch.cuda.synchronize()
+            if rg.launch_counts()["roll_rounds_gpanels"] != before + 1:
+                raise RuntimeError("the global-panel kernel was not launched")
+            errors["gpanels"] = cs.raster_errors(kc, kq, pc, pq)[0]
+            del kc, kq, pc, pq
+            t["gpanels"] = in_turns(libs, ("as_built",), call)["as_built"]
+        cycles = stage_cycles(libs["f32_clock"], F32_PROBES,
+                              lambda: with_library(LIBRARY, libs["f32_clock"], call))
+    emit({"f32": {k: dict(ms=v, tflops=[flops / (x * 1e-3) / 1e12 for x in v],
+                          max_abs_err=errors[k]) for k, v in t.items()},
+          "f32_resources": {name: kernel_resources(logs[name], "roll_rounds_tf32x3")
+                            for name in (*names, "f32_clock")},
+          "f32_probe": cycles, "card": card})
+
+
 def main() -> int:
     import torch
 
@@ -150,18 +237,28 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="another version of roll_gather.cu to time against")
+    ap.add_argument("--f32-only", action="store_true", help="only the f32 kernel's copies")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("k5_probe.py runs on an NVIDIA card", file=sys.stderr)
         return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
     src = open(SOURCE).read()
     card = cs.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
-    texts = {"as_built": src, **{name: replaced(src, pairs) for name, pairs in VARIANTS.items()},
-             "clock": with_probes(src, PROBES, " " * 4),
-             "clock_warps8": with_probes(replaced(src, WARPS8), PROBES, " " * 4)}
+    texts = {"as_built": src,
+             **{name: replaced(src, pairs) for name, pairs in F32_VARIANTS.items()},
+             "f32_clock": with_probes(src, F32_PROBES, " " * 6)}
+    if not args.f32_only:
+        texts.update({name: replaced(src, pairs) for name, pairs in VARIANTS.items()})
+        texts.update(clock=with_probes(src, PROBES, " " * 4),
+                     clock_warps8=with_probes(replaced(src, WARPS8), PROBES, " " * 4))
     if args.parent:
         texts["parent"] = open(args.parent).read()
     libs, logs = build_copies(LIBRARY, texts)
+    f32_measurements(libs, logs, card)
+    if args.f32_only:
+        print(card)
+        return 0
     resources = {name: kernel_resources(log, "roll_rounds_tc_kernel")
                  for name, log in logs.items()}
 
@@ -205,6 +302,7 @@ def main() -> int:
     emit({"probe": probes, "card": card})
     if args.parent:
         parent_comparison(libs, ops, rounds, card)
+    print(card)
     return 0
 
 

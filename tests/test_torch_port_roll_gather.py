@@ -415,7 +415,7 @@ def test_cuda_wrapper_launches_k5(state_dtype, slot_dtype, code, slot16, stub_li
     assert out_c.shape == (2, plan.l_pad, 128) and out_c.dtype == ops.xc.dtype
     (args,) = stub_library.calls
     # (dtype code, slot16, xc, xq, syn, bits, degbo, mats, vecs, out_c, out_q,
-    #  offs, B, l_pad, R, stream)
+    #  offs, B, l_pad, R, width, samples a block, scratch, grid, stream)
     assert args[:2] == (code, slot16) and args[12:16] == (2, plan.l_pad, 3, 128)
     assert list(args[11]) == list(plan.offs_c + plan.offs_q)
     assert rg.launch_counts() == {"roll_rounds": 1, "roll_rounds_gpanels": 0}
@@ -464,28 +464,31 @@ def test_cuda_wrapper_checks_and_raises(stub_library, monkeypatch):
 
 
 # What roll_rounds_smem_bytes returns on the card, (dtype code, l_pad) ->
-# bytes (chip_smoke.py phase 11 prints it): f32 panels and 32-row chunks on
-# FMA loops; bf16 swizzled panels, tensor-core chunk buffers and a double
-# buffer of 64-row weight slabs (32-row at d=15, where 64 do not fit), for
-# 144-row chunks of 9 warps.
-_SMEM_ON_THE_CARD = {(0, 144): 206112, (1, 144): 187168, (0, 200): 263568,
-                     (1, 200): 215952, (0, 256): 321024, (1, 256): 227328,
-                     ("gp", 200): 58768, ("gp", 256): 58880}
+# bytes (chip_smoke.py phase 11 prints it): f32 (3xTF32) one swizzled f32
+# gather panel, a 144-row f32 chunk buffer of 9 warps and two 16-row slabs
+# of split weights, its global-panel variant the same without the panel;
+# bf16 swizzled panels, tensor-core chunk buffers and a double buffer of
+# 64-row weight slabs (32-row at d=15, where 64 do not fit), for 144-row
+# chunks of 9 warps.  Each with the slot bits.
+_SMEM_ON_THE_CARD = {(0, 144): 182816, (1, 144): 187168, (0, 200): 211600,
+                     (1, 200): 215952, (0, 256): 240384, (1, 256): 227328,
+                     ("gp", 144): 109088, ("gp", 200): 109200, ("gp", 256): 109312}
 
 
 @pytest.mark.parametrize("d,state_dtype,slot_dtype,fits", [
     (11, "float32", "float32", True), (11, "bfloat16", "float32", True),
-    (11, "bfloat16", "bfloat16", True), (13, "float32", "float32", False),
+    (11, "bfloat16", "bfloat16", True), (13, "float32", "float32", True),
     (13, "bfloat16", "float32", True), (13, "bfloat16", "bfloat16", True),
     (15, "float32", "float32", False), (15, "bfloat16", "float32", True)])
 def test_cuda_wrapper_sizes_the_block_by_state_dtype(d, state_dtype, slot_dtype, fits,
                                                      stub_library):
     """The wrapper asks the library for the block's shared memory with the
     states' dtype code and the raster's length and launches the shared-panel
-    kernel where that fits (bf16 up to d=15 on the tensor-core kernel);
-    where it does not (f32 from d=13) it asks for the global-panel
-    variant's and launches that, on a persistent grid of one block per SM
-    with [grid, 2 l_pad, 128] f32 panels."""
+    kernel where that fits (bf16 up to d=15 on the tensor-core kernel, f32
+    up to d=13); where it does not (f32 at d=15) it asks for the
+    global-panel variant's and launches that, on a persistent grid of one
+    block per SM with an f32 scratch [grid, 2 l_pad, 128] (the check
+    states' second buffer and the panel)."""
     stub_library.smem = lambda code, l_pad: _SMEM_ON_THE_CARD[(code, l_pad)]
     stub_library.gpanels_smem = lambda code, l_pad: _SMEM_ON_THE_CARD[(code, l_pad)]
     plan, ops = _ops(d, state_dtype)
@@ -494,7 +497,9 @@ def test_cuda_wrapper_sizes_the_block_by_state_dtype(d, state_dtype, slot_dtype,
     if fits:
         (args,) = stub_library.calls
         assert args[:2] == (code, int(slot_dtype == "bfloat16"))
-        assert args[12:16] == (2, plan.l_pad, 2, 128)
+        # (..., B, l_pad, R, width, samples a block, scratch, grid, stream)
+        assert args[12:17] == (2, plan.l_pad, 2, 128, 1)
+        assert args[18] == (2 if state_dtype == "float32" else 0)
         assert rg.launch_counts() == {"roll_rounds": 1, "roll_rounds_gpanels": 0}
         assert stub_library.queries == [(code, plan.l_pad)]
     else:

@@ -285,18 +285,16 @@ def _align16(x):
 def _k1_smem(code, m, n, dc, dq, gpanels=False, stash=False):
     """fused_rounds_smem_bytes / fused_rounds_gpanels_smem_bytes /
     fused_rounds_stash_smem_bytes as csrc/fused_rounds.cu computes them.
-    f32 K1: panels, one 128-row f32 chunk buffer (row stride 132) and
-    16-row slabs of split TF32 weights (1 KB a row: two beside shared
-    panels, three beside global ones), its slot tables read from global
-    memory.  f32 K2a (the FMA kernel): panels, two 32-row f32 chunk buffers,
-    a 16-row slab of three matrices and the slot tables.  bf16 (both):
-    swizzled panels, 128-row chunk buffers, a double buffer of 64-row slabs
-    (32-row where 64 do not fit) and the slot tables."""
+    f32 K1 and K2a (one kernel, its stash flag aside): panels, one 128-row
+    f32 chunk buffer (row stride 132) and 16-row slabs of split TF32
+    weights (1 KB a row: two beside shared panels, three beside global
+    ones), its slot tables read from global memory; K2a has no global-panel
+    variant.  bf16 (both): swizzled panels, 128-row chunk buffers, a double
+    buffer of 64-row slabs (32-row where 64 do not fit) and the slot
+    tables."""
     tables = _align16(m * dc * 4) + _align16(n * dq * 4)
     if code == 0:
         panels = 0 if gpanels else _align16(n * 512) + _align16(m * 512)
-        if stash:
-            return panels + 2 * _align16(32 * 132 * 4) + _align16(16 * 3 * 128 * 4) + tables
         return panels + 128 * 132 * 4 + (3 if gpanels else 2) * 16 * 1024
     bf = lambda sr: _align16(n * 256) + _align16(m * 256) + 2 * 128 * 136 * 2 + 2 * sr * 272
     return (bf(64) if bf(64) + tables <= fd.SMEM_LIMIT else bf(32)) + tables
@@ -342,8 +340,8 @@ def k1_library(monkeypatch):
 def test_stub_sizes_shared_memory_as_the_card():
     """The stub's sizes are those csrc/fused_rounds.cu computes on the
     card: f32 K1 231,424 B at d=11 (fits), 280,576 at d=13 and 337,920 at
-    d=15 (over SMEM_LIMIT); f32 K2a 193,536 B at d=11, 244,224 at d=13 and
-    303,360 at d=15; bf16, and f32 K1 without the panels, fit through d=15."""
+    d=15 (over SMEM_LIMIT); f32 K2a the same (K1's kernel); bf16, and f32
+    K1 without the panels, fit through d=15."""
     sizes = {}
     for d in (11, 13, 15):
         g = build_code("surface", d).to("cpu")
@@ -352,7 +350,7 @@ def test_stub_sizes_shared_memory_as_the_card():
         sizes[d] = (_k1_smem(0, *args), _k1_smem(1, *args), _k1_smem(0, *args, gpanels=True),
                     _k1_smem(0, *args, stash=True))
     assert [sizes[d][0] for d in (11, 13, 15)] == [231424, 280576, 337920]
-    assert [sizes[d][3] for d in (11, 13, 15)] == [193536, 244224, 303360]
+    assert [sizes[d][3] for d in (11, 13, 15)] == [231424, 280576, 337920]
     assert all(s[1] <= fd.SMEM_LIMIT and s[2] <= fd.SMEM_LIMIT for s in sizes.values())
 
 

@@ -22,8 +22,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.overrides import TorchFunctionMode
 
+from tests.tf32x3_emulation import Tf32x3Products, round_weights, split_matrices
 from tpugnn.kernels import fused_decoder as jfd
 from tpugnn.tanner import build_code as jax_build_code
 from tpugnn_torch.kernels import fused_decoder as fd
@@ -68,12 +68,6 @@ def test_tf32_round_is_cvt_rna():
     assert torch.equal(fd.tf32_round(tie), want)
 
 
-def _split_matrices(pack):
-    """hi and lo [10, 128 (k), 128 (n)] back out of the fragment-ordered pack."""
-    p = pack.reshape(10, 16, 16, 8, 4, 2, 2)            # s, j, g, t, (hi, lo), (k, k + 4)
-    return p.permute(5, 0, 1, 6, 4, 2, 3).reshape(2, 10, 128, 128)
-
-
 def test_split_pack_as_the_wrapper_makes_it():
     """The pack f32 K1 reads holds hi = tf32(w) and lo = tf32(w - hi) of
     every entry of every matrix, and read in the
@@ -85,7 +79,7 @@ def test_split_pack_as_the_wrapper_makes_it():
     pack = fd.tf32_split_pack(mats)
     assert pack.dtype == torch.float32 and pack.is_contiguous()
     assert pack.numel() == 2 * mats.numel()
-    hi, lo = _split_matrices(pack)
+    hi, lo = split_matrices(pack)
     assert torch.equal(hi, fd.tf32_round(mats))
     assert torch.equal(lo, fd.tf32_round(mats - hi))
     err = (mats.double() - hi.double() - lo.double()).abs()
@@ -112,46 +106,6 @@ def test_split_pack_as_the_wrapper_makes_it():
     assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
 
 
-_PRODUCTS = {torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__}
-
-
-class _Tf32x3Products(TorchFunctionMode):
-    """Computes every f32 matrix product as the kernels do: both operands
-    split into TF32 halves, a_lo w_hi + a_hi w_lo + a_hi w_hi in f32; with
-    ``passes=1`` as one TF32 product, a_hi w_hi."""
-
-    def __init__(self, passes: int = 3):
-        super().__init__()
-        self.passes = passes
-        self.count = 0
-
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        if func in _PRODUCTS and all(isinstance(a, torch.Tensor) and a.dtype == torch.float32
-                                     for a in args[:2]):
-            self.count += 1
-            a, w = args[:2]
-            ah, wh = fd.tf32_round(a), fd.tf32_round(w)
-            if self.passes == 1:
-                return torch.matmul(ah, wh)
-            al, wl = fd.tf32_round(a - ah), fd.tf32_round(w - wh)
-            return torch.matmul(al, wh) + torch.matmul(ah, wl) + torch.matmul(ah, wh)
-        return func(*args, **kwargs)
-
-
-def _weights(h, seed):
-    rng = np.random.default_rng(seed)
-    out = {}
-    for f in fd.RoundWeights._fields:
-        if f in ("b0_c", "bo_c", "b0_q", "bo_q", "uc_s", "uc_b0", "uc_b1", "uq_b0", "uq_b1",
-                 "lnc_scale", "lnc_bias", "lnq_scale", "lnq_bias"):
-            w = rng.standard_normal((1, h)) * 0.2 + (1.0 if f.endswith("scale") else 0.0)
-        else:
-            w = rng.standard_normal((h, h)) / np.sqrt(h)
-        out[f] = w.astype(np.float32)
-    return out
-
-
 @pytest.mark.parametrize("d,h,rounds,batch", [(5, 128, 14, 32), (3, 64, 14, 64)])
 def test_split_products_match_rounds_xla(d, h, rounds, batch):
     """The rounds with every f32 product split three ways (on states and
@@ -162,7 +116,7 @@ def test_split_products_match_rounds_xla(d, h, rounds, batch):
     TOL_F32."""
     jg = jax_build_code("surface", d)
     tg = build_code("surface", d).to("cpu")
-    w = _weights(h, seed=70 + d)
+    w = round_weights(h, seed=70 + d)
     rng = np.random.default_rng(80 + d)
     xc = rng.standard_normal((batch, jg.n_checks_pad, h)).astype(np.float32)
     xq = rng.standard_normal((batch, jg.n_qubits_pad, h)).astype(np.float32)
@@ -180,7 +134,7 @@ def test_split_products_match_rounds_xla(d, h, rounds, batch):
     ops = fd.make_operators(tg)
 
     def rounds_as(passes):
-        mode = _Tf32x3Products(passes)
+        mode = Tf32x3Products(passes)
         with torch.no_grad(), mode:
             out = fd.rounds_packed(xc_p, xq_p, torch.from_numpy(syn), ops, mats, vecs,
                                    rounds=rounds, dtype=torch.float32,

@@ -62,7 +62,7 @@ _SIGNATURES = {
     "roll_gather": {
         "roll_rounds_smem_bytes": ([_I] * 2, ctypes.c_longlong),
         "roll_rounds_gpanels_smem_bytes": ([_I], ctypes.c_longlong),
-        "roll_rounds_launch": ([_I] * 2 + [_P] * 10 + [_I] * 4 + [_P], _I),
+        "roll_rounds_launch": ([_I] * 2 + [_P] * 10 + [_I] * 5 + [_P, _I, _P], _I),
         "roll_rounds_gpanels_launch": ([_P] * 11 + [_I] * 5 + [_P], _I),
     },
 }

@@ -4,11 +4,10 @@
 // (pl.pallas_call at :637, body _make_kernel at :187).  K2a replaces the
 // forward-with-stash kernel of training,
 // tpugnn/kernels/fused_backward.py::make_kernel_vjp_rounds._fwd (pl.pallas_call
-// at :575, body _make_fwd_kernel at :233): the same rounds, and at the start
-// of every round a copy of the round's input states to the stash [R, B,
-// rows, H], the only residuals the backward (fused_backward.cu) reads.  In
-// bf16 K2a is K1's kernel with its STASH flag; in f32 it is the FMA kernel
-// fma:: below.  The function is the
+// at :575, body _make_fwd_kernel at :233): the same rounds, and every round's
+// input states in the stash [R, B, rows, H], the only residuals the backward
+// (fused_backward.cu) reads.  K2a is K1's kernel with its STASH flag, in
+// both state types, so its outputs equal K1's bit for bit.  The function is the
 // one tpugnn_torch/kernels/fused_decoder.py::rounds_plain computes; read that
 // docstring for the math.  The TPU schedule is not copied: the slot gather
 // reads source rows by index from shared memory instead of the one-hot
@@ -69,7 +68,11 @@
 //     The arithmetic is the shared-panel kernel's, in the same order.  A
 //     small graph's samples run several to a block (the wrapper stacks them
 //     as one graph: samples_per_block).  scripts/k1_f32_probe.py times copies
-//     of this kernel with parts cut out or changed.
+//     of this kernel with parts cut out or changed.  K2a's instantiation
+//     (shared panels only: f32 training past d=11 is refused) copies round
+//     0's inputs to the stash and stores every later entry from the
+//     LayerNorm epilogue of the round before, beside the state (streaming
+//     stores, no reads); bf16 K2a copies each round's inputs at its start.
 //
 // Width.  The kernels are built for H = 128 columns; a model of width
 // h < 128 runs on states and packs zero-padded to 128 (the wrapper pads).
@@ -77,9 +80,8 @@
 // columns, zero biases, relu(0) = 0, LayerNorm scale and bias 0), so only
 // the LayerNorm sees the width: its mean and variance are taken over the
 // first `width` columns, and the centred value is 0 on the others.  The bf16
-// kernels and K2a's f32 one compile that masking in only for width < 128
-// (MASK): at 128 they run the unmasked LayerNorm.  The f32 K1 kernel tests
-// the width at run time.
+// kernels compile that masking in only for width < 128 (MASK): at 128 they
+// run the unmasked LayerNorm.  The f32 kernels test the width at run time.
 //
 // Bounds on an H100 at d=11, H=128: 39.7 MFLOP per sample and round on the
 // 241 real rows with the folded weights; HBM traffic is only the states in
@@ -96,207 +98,6 @@
 namespace {
 
 using namespace rounds;
-
-// ---------------------------------------------------------------------------
-// K2a's f32 path: 32-row chunks, each warp 4 rows and each lane 4 columns,
-// f32 FMA loops over a 16-deep slab (gemm_chunk, rounds_common.cuh), both
-// gather panels in shared memory (193,536 B at d=11).  Its floor is the f32
-// CUDA-core peak.  K1's f32 launches run t3p:: below instead; this kernel
-// has no global-panel variant, so K2a refuses f32 graphs past d=11.
-namespace fma {
-
-template <typename T>
-struct Smem {
-  T* ys_c;      // [N][H] qubit-row projections, gathered by check rows
-  T* ys_q;      // [M][H] check-row projections, gathered by qubit rows
-  float* xs;    // [CH][XLD] state chunk (GEMM A operand, residual)
-  float* hs;    // [CH][XLD] slot sum, then update hidden (GEMM A operand)
-  T* wsl;       // [KS][3*H] staged weight slab
-  int* idx_c;   // [M][Dc] source qubit per slot, -1 for a masked slot
-  int* idx_q;   // [N][Dq]
-};
-
-template <typename T>
-__host__ __device__ inline size_t smem_bytes(int M, int N, int Dc, int Dq) {
-  size_t s = 0;
-  s += align16(size_t(N) * H * sizeof(T));
-  s += align16(size_t(M) * H * sizeof(T));
-  s += 2 * align16(size_t(CH) * XLD * sizeof(float));
-  s += align16(size_t(KS) * 3 * H * sizeof(T));
-  s += align16(size_t(M) * Dc * sizeof(int));
-  s += align16(size_t(N) * Dq * sizeof(int));
-  return s;
-}
-
-template <typename T>
-__device__ Smem<T> carve(unsigned char* base, int M, int N, int Dc, int Dq) {
-  Smem<T> s;
-  size_t o = 0;
-  s.ys_c = reinterpret_cast<T*>(base + o);     o += align16(size_t(N) * H * sizeof(T));
-  s.ys_q = reinterpret_cast<T*>(base + o);     o += align16(size_t(M) * H * sizeof(T));
-  s.xs = reinterpret_cast<float*>(base + o);   o += align16(size_t(CH) * XLD * sizeof(float));
-  s.hs = reinterpret_cast<float*>(base + o);   o += align16(size_t(CH) * XLD * sizeof(float));
-  s.wsl = reinterpret_cast<T*>(base + o);      o += align16(size_t(KS) * 3 * H * sizeof(T));
-  s.idx_c = reinterpret_cast<int*>(base + o);  o += align16(size_t(M) * Dc * sizeof(int));
-  s.idx_q = reinterpret_cast<int*>(base + o);
-  return s;
-}
-
-// Phases B and C: update rows [0, rows) of state x in place (reading the
-// state from x_src, writing it to x_dst, which may alias).  NW = 3 also
-// writes the projection x @ W[M_WS] into ys_out (the other direction's
-// gather source); SYN adds the syndrome term.  With MASK the LayerNorm runs
-// over the first `width` columns.
-template <typename T, int NW, bool SYN, bool MASK>
-__device__ void update_rows(const T* x_src, T* x_dst, int rows,
-                            const T* ys_src, T* ys_out, const int* idx, int D,
-                            const float* syn, const T* __restrict__ W,
-                            const float* __restrict__ vec, const Smem<T>& s, int width) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int c0 = lane * 4;
-  float b0[4], boa[4], ucs[4], ub0[4], ub1[4], lns[4], lnb[4];
-  load4(vec + V_B0 * H + c0, b0);
-  load4(vec + V_BOA * H + c0, boa);
-  load4(vec + V_UCS * H + c0, ucs);
-  load4(vec + V_UB0 * H + c0, ub0);
-  load4(vec + V_UB1 * H + c0, ub1);
-  load4(vec + V_LNS * H + c0, lns);
-  load4(vec + V_LNB * H + c0, lnb);
-  const T tag{};
-
-  for (int row0 = 0; row0 < rows; row0 += CH) {
-    __syncthreads();  // the previous chunk's readers of xs / hs are done
-    load_chunk(x_src, row0, rows, s.xs);
-
-    // [x @ wd | x @ ux | x @ ws]
-    float acc[NW][4][4];
-    gemm_chunk<T, NW>(s.xs, W, s.wsl, acc);
-
-    // slot gather-sum over the source panel
-    float deg[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int lr = warp * 4 + i, r = row0 + lr;
-      float h4[4] = {0.f, 0.f, 0.f, 0.f};
-      deg[i] = 0.f;
-      if (r < rows) {
-        if (NW == 3) {
-          float p[4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) p[j] = acc[NW - 1][i][j];
-          store4(ys_out + size_t(r) * H + c0, p);
-        }
-        float ydb[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) ydb[j] = acc[M_WD][i][j] + b0[j];
-        for (int k = 0; k < D; ++k) {
-          const int src = idx[r * D + k];
-          if (src < 0) continue;
-          deg[i] += 1.f;
-          float y[4];
-          load4(ys_src + size_t(src) * H + c0, y);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) h4[j] += fmaxf(y[j] + ydb[j], 0.f);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) h4[j] = rnd(h4[j], tag);
-      store4(s.hs + lr * XLD + c0, h4);
-    }
-
-    // folded aggregation GEMM, update-MLP pre-activation
-    float agg[1][4][4];
-    gemm_chunk<T, 1>(s.hs, W + size_t(M_WF) * H * H, s.wsl, agg);
-    __syncthreads();  // every warp has read hs before it is overwritten
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int lr = warp * 4 + i, r = row0 + lr;
-      const float sv = (SYN && r < rows) ? syn[r] : 0.f;
-      float hc[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float pre = acc[M_UX][i][j] + agg[0][i][j] + deg[i] * boa[j] + ub0[j];
-        if (SYN) pre += sv * ucs[j];
-        hc[j] = rnd(fmaxf(pre, 0.f), tag);
-      }
-      store4(s.hs + lr * XLD + c0, hc);
-    }
-
-    // update output GEMM, residual, LayerNorm (two-pass, eps 1e-6, over
-    // the first `width` columns; a padded column's v is 0)
-    gemm_chunk<T, 1>(s.hs, W + size_t(M_W1) * H * H, s.wsl, agg);
-    const float inv_w = MASK ? 1.f / width : 1.f / H;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int lr = warp * 4 + i, r = row0 + lr;
-      float v[4];
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        v[j] = s.xs[lr * XLD + c0 + j] + agg[0][i][j] + ub1[j];
-        sum += v[j];
-      }
-      const float mu = warp_sum(sum) * inv_w;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] -= mu;
-      if (MASK) {   // a narrower model's padded columns
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (c0 + j >= width) v[j] = 0.f;
-      }
-      float sq = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sq += v[j] * v[j];
-      const float rs = rsqrtf(warp_sum(sq) * inv_w + 1e-6f);
-      float o[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) o[j] = v[j] * rs * lns[j] + lnb[j];
-      if (r < rows) store4(x_dst + size_t(r) * H + c0, o);
-    }
-  }
-}
-
-// One block per sample (grid = B).
-template <typename T, bool MASK>
-__global__ void __launch_bounds__(THREADS, 1)
-fused_rounds_stash_kernel(const T* xc_in, const T* xq_in, const float* __restrict__ syn,
-                    const int* __restrict__ idx_c, const int* __restrict__ idx_q,
-                    const T* __restrict__ mats, const float* __restrict__ vecs,
-                    T* xc_out, T* xq_out, T* stash_c, T* stash_q,
-                    int B, int M, int N, int Dc, int Dq, int R, int width) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem<T> s = carve<T>(smem_raw, M, N, Dc, Dq);
-  for (int e = threadIdx.x; e < M * Dc; e += THREADS) s.idx_c[e] = idx_c[e];
-  for (int e = threadIdx.x; e < N * Dq; e += THREADS) s.idx_q[e] = idx_q[e];
-  const T* wc = mats;                       // check direction's 5 matrices
-  const T* wq = mats + size_t(NMAT) * H * H;  // qubit direction's 5 matrices
-
-  for (size_t b = blockIdx.x; b < size_t(B); b += gridDim.x) {
-    const float* syn_b = syn + b * M;
-    T* xc = xc_out + b * size_t(M) * H;
-    T* xq = xq_out + b * size_t(N) * H;
-    for (int round = 0; round < R; ++round) {
-      // round 0 reads the inputs; later rounds the states rewritten in place
-      const T* xc_src = round == 0 ? xc_in + b * size_t(M) * H : xc;
-      const T* xq_src = round == 0 ? xq_in + b * size_t(N) * H : xq;
-      {  // the stash: read before project_rows' first barrier, rewritten after it
-        const size_t sb = size_t(round) * B + b;
-        block_copy16(stash_c + sb * M * H, xc_src, size_t(M) * H * sizeof(T) / 16);
-        block_copy16(stash_q + sb * N * H, xq_src, size_t(N) * H * sizeof(T) / 16);
-      }
-      project_rows<T>(xq_src, N, wq + size_t(M_WS) * H * H, s.ys_c, s.xs, s.wsl);
-      __syncthreads();
-      update_rows<T, 3, true, MASK>(xc_src, xc, M, s.ys_c, s.ys_q, s.idx_c, Dc, syn_b,
-                                    wc, vecs, s, width);
-      __syncthreads();
-      update_rows<T, 2, false, MASK>(xq_src, xq, N, s.ys_q, nullptr, s.idx_q, Dq, nullptr,
-                                     wq, vecs + NVEC * H, s, width);
-      __syncthreads();
-    }
-  }
-}
-
-}  // namespace fma
 
 // ---------------------------------------------------------------------------
 // The bf16 path on tensor cores (rounds_mma.cuh, tc); the round as the
@@ -582,12 +383,15 @@ __device__ Smem carve(unsigned char* base, int M, int N, float* panels) {
 // syndrome term.  W is the direction's five split matrices; `after` is the
 // product that follows the last chunk.  The LayerNorm runs over the first
 // `width` columns (a test, not a template flag: it costs a compare a row,
-// and two fewer instantiations build faster).
-template <int SR, int NS, bool CHECK>
+// and two fewer instantiations build faster).  With STASH the new rows go
+// to `stash` too (the next round's stash entry, or nullptr after the last
+// round), with streaming stores.
+template <int SR, int NS, bool CHECK, bool STASH = false>
 __device__ void update_rows(const float* x_src, float* x_dst, int rows, const float* ys_src,
                             float* ys_out, const int* idx, int D, const float* syn,
                             const float* __restrict__ W, const float* __restrict__ vec,
-                            float* xs, Ring<SR, NS>& rg, const float* after, int width) {
+                            float* xs, Ring<SR, NS>& rg, const float* after, int width,
+                            float* stash = nullptr) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   float* xa = xs + 16 * warp * LDX;
@@ -722,8 +526,11 @@ __device__ void update_rows(const float* x_src, float* x_dst, int rows, const fl
         for (int j = 0; j < NT; ++j) {
           const int c = 8 * j + 2 * t;
           const float2 lns = ld_vec2(vec, V_LNS, c), lnb = ld_vec2(vec, V_LNB, c);
-          st2(x_dst + size_t(r) * H + c, acc[j][2 * h] * rs * lns.x + lnb.x,
-              acc[j][2 * h + 1] * rs * lns.y + lnb.y);
+          const float2 o = make_float2(acc[j][2 * h] * rs * lns.x + lnb.x,
+                                       acc[j][2 * h + 1] * rs * lns.y + lnb.y);
+          st2(x_dst + size_t(r) * H + c, o.x, o.y);
+          if (STASH && stash != nullptr)
+            __stcs(reinterpret_cast<float2*>(stash + size_t(r) * H + c), o);
         }
       }
     }
@@ -733,13 +540,14 @@ __device__ void update_rows(const float* x_src, float* x_dst, int rows, const fl
 // One block per sample (grid = B), or with GP a persistent grid whose
 // blocks walk the samples, each with its own panels in `panels`.  mats is
 // the split pack (tf32_split_pack): 10 matrices of MAT floats.
-template <bool GP>
+template <bool GP, bool STASH>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_rounds_tf32x3_kernel(const float* xc_in, const float* xq_in, const float* __restrict__ syn,
                            const int* __restrict__ idx_c, const int* __restrict__ idx_q,
                            const float* __restrict__ mats, const float* __restrict__ vecs,
-                           float* xc_out, float* xq_out, float* panels, int B, int M, int N,
-                           int Dc, int Dq, int R, int width) {
+                           float* xc_out, float* xq_out, float* stash_c, float* stash_q,
+                           float* panels, int B, int M, int N, int Dc, int Dq, int R,
+                           int width) {
   constexpr int SR = GP ? GP_SR : SP_SR, NS = GP ? GP_NS : SP_NS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Smem s = carve<GP>(smem_raw, M, N,
@@ -758,13 +566,27 @@ fused_rounds_tf32x3_kernel(const float* xc_in, const float* xq_in, const float* 
       // round 0 reads the inputs; later rounds the states rewritten in place
       const float* xc_src = round == 0 ? xc_in + b * size_t(M) * H : xc;
       const float* xq_src = round == 0 ? xq_in + b * size_t(N) * H : xq;
+      // the stash: round 0's entry copied from the inputs, each later one
+      // stored with the rows of the round before it
+      float *next_c = nullptr, *next_q = nullptr;
+      if (STASH) {
+        if (round == 0) {
+          block_copy16(stash_c + b * M * H, xc_src, size_t(M) * H * sizeof(float) / 16);
+          block_copy16(stash_q + b * N * H, xq_src, size_t(N) * H * sizeof(float) / 16);
+        }
+        if (round + 1 < R) {
+          const size_t sb = size_t(round + 1) * B + b;
+          next_c = stash_c + sb * M * H;
+          next_q = stash_q + sb * N * H;
+        }
+      }
       project_rows(xq_src, N, proj, s.ys_c, s.xs, rg, wc + size_t(M_WS) * MAT);
-      update_rows<SR, NS, true>(xc_src, xc, M, s.ys_c, s.ys_q, idx_c, Dc, syn_b, wc,
-                                      vecs, s.xs, rg, wq + size_t(M_WD) * MAT, width);
+      update_rows<SR, NS, true, STASH>(xc_src, xc, M, s.ys_c, s.ys_q, idx_c, Dc, syn_b, wc,
+                                       vecs, s.xs, rg, wq + size_t(M_WD) * MAT, width, next_c);
       const bool more = round + 1 < R || b + gridDim.x < size_t(B);
-      update_rows<SR, NS, false>(xq_src, xq, N, s.ys_q, nullptr, idx_q, Dq, nullptr,
-                                       wq, vecs + NVEC * H, s.xs, rg, more ? proj : nullptr,
-                                       width);
+      update_rows<SR, NS, false, STASH>(xq_src, xq, N, s.ys_q, nullptr, idx_q, Dq, nullptr,
+                                        wq, vecs + NVEC * H, s.xs, rg, more ? proj : nullptr,
+                                        width, next_q);
       __syncthreads();   // the round's state writes are visible to the next round
     }
   }
@@ -780,10 +602,9 @@ int tc_slab_rows(int M, int N, int Dc, int Dq) {
   return 0;
 }
 
-// K1 (stash false) or K2a (stash true)
-size_t smem_for(int dtype, bool stash, int M, int N, int Dc, int Dq) {
-  if (dtype == 0)
-    return stash ? fma::smem_bytes<float>(M, N, Dc, Dq) : t3p::smem_bytes<false>(M, N);
+// K1 and K2a (the same kernel, its stash flag aside)
+size_t smem_for(int dtype, int M, int N, int Dc, int Dq) {
+  if (dtype == 0) return t3p::smem_bytes<false>(M, N);
   return tc_slab_rows(M, N, Dc, Dq) == 32 ? tcp::smem_bytes<32>(M, N, Dc, Dq)
                                           : tcp::smem_bytes<64>(M, N, Dc, Dq);
 }
@@ -816,22 +637,17 @@ int launch_dtype(int dtype, const void* xc_in, const void* xq_in, const void* sy
   const int* iq = static_cast<const int*>(idx_q);
   const float* v = static_cast<const float*>(vecs);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = smem_for(dtype, STASH, M, N, Dc, Dq);
-  const bool mask = width < H;
+  const size_t smem = smem_for(dtype, M, N, Dc, Dq);
+  const bool mask = width < H;   // the bf16 kernels' LayerNorm flag
   const float* xci32 = static_cast<const float*>(xc_in);
   const float* xqi32 = static_cast<const float*>(xq_in);
   const float* mt32 = static_cast<const float*>(mats);
   float* xco32 = static_cast<float*>(xc_out);
   float* xqo32 = static_cast<float*>(xq_out);
-  if (dtype == 0 && STASH)   // mats [10, 128, 128] f32
-    return launch_kernel(mask ? fma::fused_rounds_stash_kernel<float, true>
-                              : fma::fused_rounds_stash_kernel<float, false>, B, smem, st,
-                         xci32, xqi32, s, ic, iq, mt32, v, xco32, xqo32,
-                         static_cast<float*>(stash_c), static_cast<float*>(stash_q), B, M, N,
-                         Dc, Dq, R, width);
   if (dtype == 0)   // mats: the split pack
-    return launch_kernel(t3p::fused_rounds_tf32x3_kernel<false>, B, smem, st,
+    return launch_kernel(t3p::fused_rounds_tf32x3_kernel<false, STASH>, B, smem, st,
                          xci32, xqi32, s, ic, iq, mt32, v, xco32, xqo32,
+                         static_cast<float*>(stash_c), static_cast<float*>(stash_q),
                          static_cast<float*>(nullptr), B, M, N, Dc, Dq, R, width);
   if (dtype != 1) return int(cudaErrorInvalidValue);
   typedef __nv_bfloat16 bf;
@@ -864,12 +680,12 @@ extern "C" {
 
 // Shared memory one block of K1 needs; dtype 0 = float32 states, 1 = bfloat16.
 long long fused_rounds_smem_bytes(int dtype, int M, int N, int Dc, int Dq) {
-  return (long long)smem_for(dtype, false, M, N, Dc, Dq);
+  return (long long)smem_for(dtype, M, N, Dc, Dq);
 }
 
 // Shared memory one block of K2a (fused_rounds_stash_launch) needs.
 long long fused_rounds_stash_smem_bytes(int dtype, int M, int N, int Dc, int Dq) {
-  return (long long)smem_for(dtype, true, M, N, Dc, Dq);
+  return (long long)smem_for(dtype, M, N, Dc, Dq);
 }
 
 // Shared memory one block of the f32 global-panel variant needs.
@@ -904,19 +720,22 @@ int fused_rounds_gpanels_launch(const void* xc_in, const void* xq_in, const void
                                 int grid, void* stream) {
   if (bad_shape(B, M, N, Dc, Dq, R, width) || grid <= 0 || panels == nullptr)
     return int(cudaErrorInvalidValue);
-  return launch_kernel(t3p::fused_rounds_tf32x3_kernel<true>, grid,
+  return launch_kernel(t3p::fused_rounds_tf32x3_kernel<true, false>, grid,
                        t3p::smem_bytes<true>(M, N),
                        static_cast<cudaStream_t>(stream), static_cast<const float*>(xc_in),
                        static_cast<const float*>(xq_in), static_cast<const float*>(syn),
                        static_cast<const int*>(idx_c), static_cast<const int*>(idx_q),
                        static_cast<const float*>(mats), static_cast<const float*>(vecs),
                        static_cast<float*>(xc_out), static_cast<float*>(xq_out),
+                       static_cast<float*>(nullptr), static_cast<float*>(nullptr),
                        static_cast<float*>(panels), B, M, N, Dc, Dq, R, width);
 }
 
 // K2a: as fused_rounds_launch, and every round's input states go to
 // stash_c [R, B, M, 128] and stash_q [R, B, N, 128] in the state type; for
-// f32 states mats [10, 128, 128] f32 (not split: the FMA kernel).
+// f32 states mats the split pack.  B samples of M and N rows may be s
+// samples stacked as one graph of s M and s N rows (B / s blocks): the stash
+// [R, B / s, s M, 128] is the same memory as [R, B, M, 128].
 int fused_rounds_stash_launch(int dtype, const void* xc_in, const void* xq_in,
                               const void* syn, const void* idx_c, const void* idx_q,
                               const void* mats, const void* vecs, void* xc_out,

@@ -24,33 +24,54 @@
 // every add, as the JAX kernel's bf16 slot type does (an f32 add then one
 // rounding to bf16 is the bf16 add: 24 >= 2 * 8 + 2 bits).
 //
-// Two instantiations:
-//   bf16 states (the bench config's pallas_roll and pallas_roll16): the
-//     tensor-core path, tcr:: below, on K1's routine (rounds_mma.cuh).  Every
-//     operand of every product is a bf16 value (states, the slot sum and the
-//     update hidden are rounded, the packed matrices stored in bf16), so
-//     mma.sync.m16n8k16 bf16 with f32 accumulation forms the products of the
-//     plain version; only the f32 summation order differs.  A block has 9
-//     warps, so a chunk is 144 rows: d=11's whole raster side (a 128-row
-//     chunk of 8 warps would leave a 16-row tail that one warp works through
-//     behind every slab barrier); larger rasters run a second, ragged chunk
-//     (d=13: 144 + 56, d=15: 144 + 112, with 32-row weight slabs).
-//   f32 states (the trained roll decode): 32-row chunks of f32 FMA loops
-//     (gemm_chunk, rounds_common.cuh).  From d=13 the two f32 panels do not
-//     fit in shared memory (l_pad 200: 263,568 B); there its GP variant
-//     keeps them in a per-block global scratch [grid][2 L][H] on a
-//     persistent grid of one block per SM, as K1's (fused_rounds.cu).
+// Two instantiations, both on tensor cores:
+//   bf16 states (the bench config's pallas_roll and pallas_roll16): tcr::
+//     below, on K1's routine (rounds_mma.cuh, tc).  Every operand of every
+//     product is a bf16 value (states, the slot sum and the update hidden
+//     are rounded, the packed matrices stored in bf16), so mma.sync.m16n8k16
+//     bf16 with f32 accumulation forms the products of the plain version;
+//     only the f32 summation order differs.  A block has 9 warps, so a chunk
+//     is 144 rows: d=11's whole raster side (a 128-row chunk of 8 warps
+//     would leave a 16-row tail that one warp works through behind every
+//     slab barrier); larger rasters run a second, ragged chunk (d=13: 144 +
+//     56, d=15: 144 + 112, with 32-row weight slabs).
+//   f32 states (the trained roll decode): t3r:: below, every product as
+//     three TF32 products of operands split into TF32 halves (3xTF32,
+//     rounds_mma.cuh, tf32: the wrapper splits the weights once a call,
+//     fused_decoder.py::tf32_split_pack), a slab's products summed apart and
+//     added to the f32 running sum; everything else f32 on the CUDA cores.
+//     9 warps and 144-row chunks as in bf16, two 16-row slabs of split
+//     weights (32 KB).  Both f32 panels [144][128] (147,456 B at d=11) and a
+//     144-row f32 chunk buffer (76,032 B) leave no room for the slabs, so the
+//     kernel keeps ONE gather panel: the check states ping-pong between the
+//     output and a per-block global scratch, so that the old x_c is still
+//     there to project ys_q after the check cells are updated.  SP keeps that
+//     panel in shared memory, 182,816 B at d=11 and 211,600 at d=13 with the
+//     slot bits; at d=15 (240,384 B) the GP variant keeps it in the scratch
+//     too (109,312 B), read through L1/L2 with plain loads.  Both run on a
+//     persistent grid of one block per SM; SP stacks a small raster's
+//     samples in one block.  ptxas: 168 registers a thread (the cap of 9
+//     warps: three on one SM sub-partition), 12 B spilled (SP) and 60 B
+//     (GP).  Measured on an H100 at d=11, B=4096, R=14 on the trained
+//     weights (chip_smoke.py phase 11): 78.5 ms; the kernel's real rows are
+//     4.0e-4 from the rounds in f64, the plain f32 version's 4.2e-4.
+//     scripts/k5_probe.py times copies with one thing changed: 8 warps
+//     (a 16-row second chunk: 99 ms), three slabs (78), 32-row slabs with
+//     one sum every four k-steps (76, less precise), the panel in global
+//     memory (93), against 78-81 as built.
 //
 // Width: as K1's.  States and packs come zero-padded to 128 columns, and
-// with MASK (compiled in only for width < 128) the LayerNorm runs over the
-// model's first `width` columns.
+// the LayerNorm runs over the model's first `width` columns (bf16: with
+// MASK, compiled in only for width < 128; f32: a run-time test).
 //
 // Bounds on an H100 at d=11, H=128: the work is K1's (the raster's 288 rows
 // against the graph's 241 real ones are this design's overhead), 39.7 MFLOP
 // per sample and round on the real rows; HBM traffic is the states in and
 // out, so it is bound by operations: at B=4096, R=8 1.32 ms at the bf16
-// tensor-core peak and 19.4 ms at the f32 CUDA-core peak.  One block per SM
-// by shared memory (bf16 at d=11 about 187 KB, f32 about 206 KB).
+// tensor-core peak; at the trained R=14 in f32 13.80 ms as 3xTF32 (three
+// TF32 products an f32 one at 495 TFLOP/s) and 33.99 ms at the f32
+// CUDA-core peak.  One block per SM by shared memory (bf16 at d=11 187,168
+// B).
 
 #include "rounds_common.cuh"
 #include "rounds_mma.cuh"
@@ -69,194 +90,6 @@ struct Offsets {
 __device__ __forceinline__ int wrap(int r, int o, int L) {
   const int src = r + o;
   return src < 0 ? src + L : (src >= L ? src - L : src);
-}
-
-// ---------------------------------------------------------------------------
-// The f32 path: 32-row chunks, each warp 4 rows and each lane 4 columns, f32
-// FMA loops over a 16-deep slab.
-
-struct Smem {
-  float* ys_c;           // [L][H] qubit-cell projections, read by check cells
-  float* ys_q;           // [L][H] check-cell projections, read by qubit cells
-  float* xs;             // [CH][XLD] state chunk (GEMM A operand, residual)
-  float* hs;             // [CH][XLD] slot sum, then update hidden (GEMM A operand)
-  float* wsl;            // [KS][3*H] staged weight slab
-  unsigned char* bits;   // [2][L] slot-mask bits: check cells, then qubit cells
-};
-
-// GP: the gather panels are in global memory, not in the block's share
-template <bool GP = false>
-__host__ __device__ inline size_t smem_bytes(int L) {
-  return (GP ? 0 : 2 * align16(size_t(L) * H * sizeof(float))) +
-         2 * align16(size_t(CH) * XLD * sizeof(float)) +
-         align16(size_t(KS) * 3 * H * sizeof(float)) + align16(size_t(2) * L);
-}
-
-// panels: the block's global panels [2 L][H] (GP), or nullptr
-template <bool GP>
-__device__ Smem carve(unsigned char* base, int L, float* panels) {
-  Smem s;
-  size_t o = 0;
-  if (GP) {
-    s.ys_c = panels;
-    s.ys_q = panels + size_t(L) * H;
-  } else {
-    s.ys_c = reinterpret_cast<float*>(base + o); o += align16(size_t(L) * H * sizeof(float));
-    s.ys_q = reinterpret_cast<float*>(base + o); o += align16(size_t(L) * H * sizeof(float));
-  }
-  s.xs = reinterpret_cast<float*>(base + o);   o += align16(size_t(CH) * XLD * sizeof(float));
-  s.hs = reinterpret_cast<float*>(base + o);   o += align16(size_t(CH) * XLD * sizeof(float));
-  s.wsl = reinterpret_cast<float*>(base + o);  o += align16(size_t(KS) * 3 * H * sizeof(float));
-  s.bits = base + o;
-  return s;
-}
-
-// Phases B and C: update cells [0, L) of state x in place (reading the state
-// from x_src, writing it to x_dst, which may alias).  NW = 3 also writes the
-// projection x @ W[M_WS] into ys_out (the other side's gather source); SYN
-// adds the syndrome term syn * uc_s.
-template <int NW, bool SYN, bool MASK>
-__device__ void update_cells(const float* x_src, float* x_dst, int L, const float* ys_src,
-                             float* ys_out, const unsigned char* bits, Offsets offs,
-                             const float* syn, const float* __restrict__ degbo,
-                             const float* __restrict__ W, const float* __restrict__ vec,
-                             const Smem& s, int width) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int c0 = lane * 4;
-  float b0[4], ucs[4], ub0[4], ub1[4], lns[4], lnb[4];
-  load4(vec + V_B0 * H + c0, b0);
-  load4(vec + V_UCS * H + c0, ucs);
-  load4(vec + V_UB0 * H + c0, ub0);
-  load4(vec + V_UB1 * H + c0, ub1);
-  load4(vec + V_LNS * H + c0, lns);
-  load4(vec + V_LNB * H + c0, lnb);
-
-  for (int row0 = 0; row0 < L; row0 += CH) {
-    __syncthreads();  // the previous chunk's readers of xs / hs are done
-    load_chunk(x_src, row0, L, s.xs);
-
-    // [x @ wd | x @ ux | x @ ws]
-    float acc[NW][4][4];
-    gemm_chunk<float, NW>(s.xs, W, s.wsl, acc);
-
-    // four-slot rotation sum over the source panel, in offs order
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int lr = warp * 4 + i, r = row0 + lr;
-      float h4[4] = {0.f, 0.f, 0.f, 0.f};
-      if (r < L) {
-        if (NW == 3) {
-          float p[4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) p[j] = acc[NW - 1][i][j];
-          store4(ys_out + size_t(r) * H + c0, p);
-        }
-        float ydb[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) ydb[j] = acc[M_WD][i][j] + b0[j];
-        const unsigned m = bits[r];
-#pragma unroll
-        for (int k = 0; k < SLOTS; ++k) {
-          if (!((m >> k) & 1u)) continue;   // a masked slot adds exactly 0
-          float y[4];
-          load4(ys_src + size_t(wrap(r, offs.o[k], L)) * H + c0, y);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) h4[j] += fmaxf(y[j] + ydb[j], 0.f);
-        }
-      }
-      store4(s.hs + lr * XLD + c0, h4);
-    }
-
-    // folded aggregation GEMM, update-MLP pre-activation
-    float agg[1][4][4];
-    gemm_chunk<float, 1>(s.hs, W + size_t(M_WF) * H * H, s.wsl, agg);
-    __syncthreads();  // every warp has read hs before it is overwritten
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int lr = warp * 4 + i, r = row0 + lr;
-      float db[4] = {0.f, 0.f, 0.f, 0.f};
-      if (r < L) load4(degbo + size_t(r) * H + c0, db);
-      const float sv = (SYN && r < L) ? syn[r] : 0.f;
-      float hc[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float pre = acc[M_UX][i][j] + (agg[0][i][j] + db[j]);
-        if (SYN) pre += __fmul_rn(sv, ucs[j]);
-        pre += ub0[j];
-        hc[j] = fmaxf(pre, 0.f);
-      }
-      store4(s.hs + lr * XLD + c0, hc);
-    }
-
-    // update output GEMM, residual, LayerNorm (two-pass, eps 1e-6, over
-    // the first `width` columns; a padded column's v is 0)
-    gemm_chunk<float, 1>(s.hs, W + size_t(M_W1) * H * H, s.wsl, agg);
-    const float inv_w = MASK ? 1.f / width : 1.f / H;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int lr = warp * 4 + i, r = row0 + lr;
-      float v[4];
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        v[j] = s.xs[lr * XLD + c0 + j] + agg[0][i][j] + ub1[j];
-        sum += v[j];
-      }
-      const float mu = warp_sum(sum) * inv_w;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] -= mu;
-      if (MASK) {   // a narrower model's padded columns
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (c0 + j >= width) v[j] = 0.f;
-      }
-      float sq = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sq += v[j] * v[j];
-      const float rs = rsqrtf(warp_sum(sq) * inv_w + 1e-6f);
-      float o[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) o[j] = v[j] * rs * lns[j] + lnb[j];
-      if (r < L) store4(x_dst + size_t(r) * H + c0, o);
-    }
-  }
-}
-
-// One block per sample (grid = B), or with GP a persistent grid whose
-// blocks walk the samples, each with its own panels in `panels`.
-template <bool GP, bool MASK>
-__global__ void __launch_bounds__(THREADS, 1)
-roll_rounds_kernel(const float* xc_in, const float* xq_in, const float* __restrict__ syn,
-                   const int* __restrict__ maskbits, const float* __restrict__ degbo,
-                   const float* __restrict__ mats, const float* __restrict__ vecs,
-                   float* xc_out, float* xq_out, Offsets offs_c, Offsets offs_q, int L,
-                   int R, int width, float* panels, int B) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem s = carve<GP>(smem_raw, L,
-                           GP ? panels + size_t(blockIdx.x) * 2 * L * H : nullptr);
-  for (int e = threadIdx.x; e < 2 * L; e += THREADS)
-    s.bits[e] = static_cast<unsigned char>(maskbits[e]);
-  const float* wc = mats;                         // check side's 5 matrices
-  const float* wq = mats + size_t(NMAT) * H * H;  // qubit side's 5 matrices
-
-  for (size_t b = blockIdx.x; b < size_t(B); b += gridDim.x) {
-    const float* syn_b = syn + b * L;
-    float* xc = xc_out + b * size_t(L) * H;
-    float* xq = xq_out + b * size_t(L) * H;
-    for (int round = 0; round < R; ++round) {
-      // round 0 reads the inputs; later rounds the states rewritten in place
-      const float* xc_src = round == 0 ? xc_in + b * size_t(L) * H : xc;
-      const float* xq_src = round == 0 ? xq_in + b * size_t(L) * H : xq;
-      project_rows<float>(xq_src, L, wq + size_t(M_WS) * H * H, s.ys_c, s.xs, s.wsl);
-      __syncthreads();
-      update_cells<3, true, MASK>(xc_src, xc, L, s.ys_c, s.ys_q, s.bits, offs_c, syn_b, degbo, wc,
-                            vecs, s, width);
-      __syncthreads();
-      update_cells<2, false, MASK>(xq_src, xq, L, s.ys_q, nullptr, s.bits + L, offs_q, nullptr,
-                             degbo + size_t(L) * H, wq, vecs + NVEC * H, s, width);
-      __syncthreads();
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -516,6 +349,268 @@ roll_rounds_tc_kernel(const bf16* xc_in, const bf16* xq_in, const float* __restr
 
 }  // namespace tcr
 
+// ---------------------------------------------------------------------------
+// The f32 path on tensor cores (3xTF32, rounds_mma.cuh, tf32): K1's t3p::
+// round on the raster, each product as three TF32 products of operands
+// split into hi and lo halves, a slab's products summed apart and added to
+// the f32 running sum; the slot sum, relu, biases, degree and syndrome
+// terms, residual and LayerNorm in f32 on the CUDA cores.  9 warps, chunks
+// of 144 rows (d=11's raster side in one), two 16-row slabs of split
+// weights.  One f32 chunk buffer holds each product's A operand in turn (x,
+// the slot sum hs, x again from the state, the update hidden hc); the
+// residual reads x from the state.  ONE gather panel, the source of the
+// side being updated:
+//   A   P = x_q @ ws_c
+//   B   check cells from x_c (cur) into the other state buffer (nxt), the
+//       slot sum over P: the old x_c stays readable
+//   A'  P = x_c (cur) @ ws_q
+//   C   qubit cells in place, the slot sum over P
+// x_c ping-pongs between the output and a per-block scratch, arranged so
+// that the last round writes the output.  P lives in shared memory (SP) or,
+// where it does not fit, in the per-block scratch too (GP); the arithmetic
+// is the same.  A persistent grid of blocks walks the samples; with SP a
+// small raster's samples run S to a block, as one raster of S L rows, each
+// sample's slot sources wrapping within its own L cells.
+namespace t3r {
+
+using namespace rounds::tf32;
+using tc::ld_vec2;
+using tc::mask_columns;
+using tc::quad_sum;
+
+// warps, weight slab rows, ring depth
+constexpr int NWARP = 9, SR = 16, NS = 2;
+constexpr int NTH = 32 * NWARP, CRN = 16 * NWARP;   // 144-row chunks
+constexpr size_t CHUNK = size_t(CRN) * LDX * sizeof(float);
+
+// rows: the block's raster rows (S samples of L cells)
+template <bool GP>
+__host__ __device__ inline size_t smem_bytes(int rows, int L) {
+  return (GP ? 0 : align16(size_t(rows) * H * sizeof(float))) + CHUNK + ring_bytes(SR, NS) +
+         align16(size_t(2) * L);
+}
+
+struct Smem {
+  float* panel;          // [rows][H] swizzled, the gather source
+  float* xs;             // [CRN][LDX] the chunk's A operand
+  float* ring;           // [NS][SR / 8][KSTEP] weight slabs
+  unsigned char* bits;   // [2][L] slot-mask bits: check cells, then qubit cells
+};
+
+// gp_panel: the block's global panel [rows][H] (GP), or nullptr
+template <bool GP>
+__device__ Smem carve(unsigned char* base, int rows, float* gp_panel) {
+  Smem s;
+  size_t o = 0;
+  if (GP) {
+    s.panel = gp_panel;
+  } else {
+    s.panel = reinterpret_cast<float*>(base + o);  o += align16(size_t(rows) * H * sizeof(float));
+  }
+  s.xs = reinterpret_cast<float*>(base + o);       o += CHUNK;
+  s.ring = reinterpret_cast<float*>(base + o);     o += ring_bytes(SR, NS);
+  s.bits = base + o;
+  return s;
+}
+
+template <bool ACC = false>
+__device__ __forceinline__ void pass(const float* A, const float* __restrict__ W,
+                                     Ring<SR, NS>& rg, const float* next, float (&acc)[NT][4],
+                                     bool active) {
+  mma_pass<SR, NS, ACC, NTH>(A, W, rg, next, acc, active);
+}
+
+// Phases B (CHECK) and C: rows [0, rows) (S samples of L cells) of state
+// x_src updated into x_dst (which may alias it), the slot sum over the
+// panel ys; CHECK adds the syndrome term.  W is the side's five split
+// matrices (ws unused); `after` is the product that follows the last chunk.
+template <bool CHECK>
+__device__ void update_cells(const float* x_src, float* x_dst, int rows, int L, const float* ys,
+                             const unsigned char* bits, Offsets offs, const float* syn,
+                             const float* __restrict__ degbo, const float* __restrict__ W,
+                             const float* __restrict__ vec, float* xs, Ring<SR, NS>& rg,
+                             const float* after, int width) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  float* xa = xs + 16 * warp * LDX;
+  const float* wd = W + M_WD * MAT;
+  const float* ux = W + M_UX * MAT;
+  const float* wf = W + M_WF * MAT;
+  const float* w1 = W + M_W1 * MAT;
+
+  for (int row0 = 0; row0 < rows; row0 += CRN) {
+    const int r0 = row0 + 16 * warp;
+    const int n = max(0, min(16, rows - r0));
+    const bool active = n > 0;
+    load_rows_warp(xa, x_src + size_t(r0) * H, n);
+    float acc[NT][4];
+
+    // ydb = x @ wd + b0, then the four-slot sum over the panel in offs
+    // order (a masked slot adds exactly 0); hs replaces x in the chunk buffer
+    pass(xa, wd, rg, wf, acc, active);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float2 b0 = ld_vec2(vec, V_B0, 8 * j + 2 * t);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        acc[j][2 * h] += b0.x;
+        acc[j][2 * h + 1] += b0.y;
+      }
+    }
+    int cell[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + g + 8 * h;
+      const int base = r < rows ? r / L * L : 0;   // the row's sample
+      cell[h] = r < rows ? r - base : L - 1;       // a row past the last reads the last cell
+      float hsum[NT][2];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) hsum[j][0] = hsum[j][1] = 0.f;
+      if (r < rows) {
+        const unsigned m = bits[cell[h]];
+#pragma unroll
+        for (int k = 0; k < SLOTS; ++k) {
+          if (!((m >> k) & 1u)) continue;
+          const int src = base + wrap(cell[h], offs.o[k], L);
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const float2 y = ld2(ys + swz(src, 8 * j + 2 * t));
+            hsum[j][0] += fmaxf(y.x + acc[j][2 * h], 0.f);
+            hsum[j][1] += fmaxf(y.y + acc[j][2 * h + 1], 0.f);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        st2(xa + (g + 8 * h) * LDX + 8 * j + 2 * t, hsum[j][0], hsum[j][1]);
+    }
+    __syncwarp();
+
+    // update-MLP pre-activation: hs @ (wo @ ua), then x again from the
+    // state and + x @ ux, + (deg * bo) @ ua + syn * uc_s + ub0
+    pass(xa, wf, rg, ux, acc, active);
+    load_rows_warp(xa, x_src + size_t(r0) * H, n);
+    pass<true>(xa, ux, rg, w1, acc, active);
+    float sv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + g + 8 * h;
+      sv[h] = (CHECK && r < rows) ? syn[r] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int c = 8 * j + 2 * t;
+      const float2 ub0 = ld_vec2(vec, V_UB0, c);
+      float2 ucs = make_float2(0.f, 0.f);
+      if (CHECK) ucs = ld_vec2(vec, V_UCS, c);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 db = ld_vec2(degbo, cell[h], c);
+        float p0 = acc[j][2 * h] + db.x;
+        float p1 = acc[j][2 * h + 1] + db.y;
+        if (CHECK) {
+          p0 += __fmul_rn(sv[h], ucs.x);
+          p1 += __fmul_rn(sv[h], ucs.y);
+        }
+        st2(xa + (g + 8 * h) * LDX + c, fmaxf(p0 + ub0.x, 0.f), fmaxf(p1 + ub0.y, 0.f));
+      }
+    }
+    __syncwarp();
+
+    // update output, residual (x from the state: each thread reads the
+    // entries it writes), LayerNorm (two-pass, eps 1e-6, over the first
+    // `width` columns); the rows go straight to the state
+    pass(xa, w1, rg, row0 + CRN < rows ? wd : after, acc, active);
+    const float inv_w = 1.f / width;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + g + 8 * h;
+      const float* xrow = x_src + size_t(r < rows ? r : 0) * H + 2 * t;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float2 ub1 = ld_vec2(vec, V_UB1, 8 * j + 2 * t);
+        const float2 x = r < rows ? ld2(xrow + 8 * j) : make_float2(0.f, 0.f);
+        acc[j][2 * h] += x.x + ub1.x;
+        acc[j][2 * h + 1] += x.y + ub1.y;
+        sum += acc[j][2 * h] + acc[j][2 * h + 1];
+      }
+      const float mu = quad_sum(sum) * inv_w;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        acc[j][2 * h] -= mu;
+        acc[j][2 * h + 1] -= mu;
+      }
+      if (width < H) mask_columns(acc, h, t, width);
+      float sq = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        sq += acc[j][2 * h] * acc[j][2 * h] + acc[j][2 * h + 1] * acc[j][2 * h + 1];
+      const float rs = rsqrtf(quad_sum(sq) * inv_w + 1e-6f);
+      if (r < rows) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int c = 8 * j + 2 * t;
+          const float2 lns = ld_vec2(vec, V_LNS, c), lnb = ld_vec2(vec, V_LNB, c);
+          st2(x_dst + size_t(r) * H + c, acc[j][2 * h] * rs * lns.x + lnb.x,
+              acc[j][2 * h + 1] * rs * lns.y + lnb.y);
+        }
+      }
+    }
+  }
+}
+
+// B stacked samples of S L rows (the states [B][S L][H], syn [B][S L]) on a
+// persistent grid; block i's scratch is scratch[i]: [rows][H] f32 for the
+// check states' other buffer, and with GP the panel [rows][H] after it.
+// mats is the split pack (fused_decoder.py::tf32_split_pack).
+template <bool GP>
+__global__ void __launch_bounds__(NTH, 1)
+roll_rounds_tf32x3_kernel(const float* xc_in, const float* xq_in, const float* __restrict__ syn,
+                          const int* __restrict__ maskbits, const float* __restrict__ degbo,
+                          const float* __restrict__ mats, const float* __restrict__ vecs,
+                          float* xc_out, float* xq_out, Offsets offs_c, Offsets offs_q, int L,
+                          int R, int width, float* scratch, int B, int S) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int rows = S * L;
+  float* other = scratch + size_t(blockIdx.x) * (GP ? 2 : 1) * rows * H;
+  const Smem s = carve<GP>(smem_raw, rows, GP ? other + size_t(rows) * H : nullptr);
+  for (int e = threadIdx.x; e < 2 * L; e += NTH)
+    s.bits[e] = static_cast<unsigned char>(maskbits[e]);
+  const float* wc = mats;                         // check side's 5 matrices
+  const float* wq = mats + size_t(NMAT) * MAT;    // qubit side's 5 matrices
+  const float* proj_c = wq + size_t(M_WS) * MAT;  // P = x_q @ ws_c
+  const float* proj_q = wc + size_t(M_WS) * MAT;  // P = x_c @ ws_q
+  Ring<SR, NS> rg{s.ring, 0};
+  prime<SR, NS, NTH>(rg, proj_c);
+
+  for (size_t b = blockIdx.x; b < size_t(B); b += gridDim.x) {
+    const float* syn_b = syn + b * rows;
+    float* xc = xc_out + b * size_t(rows) * H;
+    float* xq = xq_out + b * size_t(rows) * H;
+    const float* cur = xc_in + b * size_t(rows) * H;   // the round's check states
+    for (int round = 0; round < R; ++round) {
+      // round 0 reads the inputs; the qubit states are rewritten in place,
+      // the check states into the other buffer, the output in the last round
+      const float* xq_src = round == 0 ? xq_in + b * size_t(rows) * H : xq;
+      float* nxt = (R - 1 - round) % 2 == 0 ? xc : other;
+      project_rows<SR, NS, NTH>(xq_src, rows, proj_c, s.panel, s.xs, rg,
+                                wc + size_t(M_WD) * MAT);
+      update_cells<true>(cur, nxt, rows, L, s.panel, s.bits, offs_c, syn_b, degbo, wc, vecs,
+                         s.xs, rg, proj_q, width);
+      project_rows<SR, NS, NTH>(cur, rows, proj_q, s.panel, s.xs, rg, wq + size_t(M_WD) * MAT);
+      const bool more = round + 1 < R || b + gridDim.x < size_t(B);
+      update_cells<false>(xq_src, xq, rows, L, s.panel, s.bits + L, offs_q, nullptr,
+                          degbo + size_t(L) * H, wq, vecs + NVEC * H, s.xs, rg,
+                          more ? proj_c : nullptr, width);
+      __syncthreads();   // the round's state writes are visible to the next round
+      cur = nxt;
+    }
+  }
+}
+
+}  // namespace t3r
+
 // Warps of the bf16 kernel: d=11's raster side (144 cells) is one chunk.
 constexpr int TC_WARPS = 9;
 
@@ -525,8 +620,9 @@ int tc_slab_rows(int L) {
   return tcr::smem_bytes<64, TC_WARPS>(L) <= tc::SMEM_LIMIT ? 64 : 32;
 }
 
-size_t smem_for(int dtype, int L) {
-  if (dtype == 0) return smem_bytes(L);
+// one block's shared memory; f32: S samples of L cells (S L rows) a block
+size_t smem_for(int dtype, int L, int S = 1) {
+  if (dtype == 0) return t3r::smem_bytes<false>(S * L, L);
   return tc_slab_rows(L) == 64 ? tcr::smem_bytes<64, TC_WARPS>(L)
                                : tcr::smem_bytes<32, TC_WARPS>(L);
 }
@@ -547,7 +643,7 @@ struct Launch {
   cudaStream_t stream;
 };
 
-// `extra`: the arguments past `width` (the f32 kernel's panels and B).
+// `extra`: the arguments past `width` (the f32 kernel's scratch, B and S).
 template <typename T, typename K, typename... Extra>
 int launch_kernel(K kernel, int threads, size_t smem, const Launch& a, Extra... extra) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -589,46 +685,58 @@ int prepare(Launch& a, const void* offs) {
 
 extern "C" {
 
-// Shared memory one block needs; dtype 0 = float32 states, 1 = bfloat16.
+// Shared memory one block needs for one sample of L cells; dtype 0 =
+// float32 states, 1 = bfloat16.  f32 samples stacked S to a block (S L <=
+// 144) need no more than one sample of 144 cells, which fits.
 long long roll_rounds_smem_bytes(int dtype, int L) {
   return (long long)smem_for(dtype, L);
 }
 
 // Shared memory one block of the f32 global-panel variant needs.
 long long roll_rounds_gpanels_smem_bytes(int L) {
-  return (long long)smem_bytes<true>(L);
+  return (long long)t3r::smem_bytes<true>(L, L);
 }
 
 // xc_in/xq_in/xc_out/xq_out: [B, L, 128] raster states in the state type;
 // syn [B, L] f32; maskbits [2, L] int32 (bit k: slot k of the cell is real;
 // check cells, then qubit cells); degbo [2, L, 128] f32; mats [10, 128, 128]
-// in the state type; vecs [14, 128] f32 (row 2 the unrounded uc_s); offs, a
-// host array of 8 ints: the four check-side offsets, then the four qubit-side
-// ones.  slot16 (bf16 states only) rounds the slot stage to bf16.  width
-// (<= 128): the model's width, the columns past it zero in every operand.
+// in bf16, or for f32 states the same matrices split into TF32 halves in
+// fragment order (fused_decoder.py::tf32_split_pack); vecs [14, 128] f32
+// (row 2 the unrounded uc_s); offs, a host array of 8 ints: the four
+// check-side offsets, then the four qubit-side ones.  slot16 (bf16 states
+// only) rounds the slot stage to bf16.  width (<= 128): the model's width,
+// the columns past it zero in every operand.  f32 only: `samples` samples
+// a block (dividing B, samples * L <= 144), a persistent grid of `grid`
+// blocks and their scratch [grid][samples L][128] f32 (bf16: 1, 0, null).
 // Returns cudaGetLastError() after the launch (0 on success).
 int roll_rounds_launch(int dtype, int slot16, const void* xc_in, const void* xq_in,
                        const void* syn, const void* maskbits, const void* degbo,
                        const void* mats, const void* vecs, void* xc_out, void* xq_out,
-                       const void* offs, int B, int L, int R, int width, void* stream) {
+                       const void* offs, int B, int L, int R, int width, int samples,
+                       void* scratch, int grid, void* stream) {
   Launch a{xc_in, xq_in, static_cast<const float*>(syn), static_cast<const int*>(maskbits),
            static_cast<const float*>(degbo), mats, static_cast<const float*>(vecs), xc_out,
-           xq_out, {}, {}, B, L, R, width, B, nullptr, static_cast<cudaStream_t>(stream)};
+           xq_out, {}, {}, B, L, R, width, B, static_cast<float*>(scratch),
+           static_cast<cudaStream_t>(stream)};
   if (int err = prepare(a, offs)) return err;
+  if (dtype == 0) {
+    if (samples < 1 || B % samples != 0 || (samples > 1 && samples * L > t3r::CRN) ||
+        grid <= 0 || scratch == nullptr)
+      return int(cudaErrorInvalidValue);
+    a.grid = grid;
+    return launch_kernel<float>(t3r::roll_rounds_tf32x3_kernel<false>, t3r::NTH,
+                                smem_for(0, L, samples), a, a.panels, B / samples, samples);
+  }
   const size_t smem = smem_for(dtype, L);
   const bool mask = width < H;
-  if (dtype == 0)
-    return launch_kernel<float>(mask ? roll_rounds_kernel<false, true>
-                                     : roll_rounds_kernel<false, false>, THREADS, smem, a,
-                                a.panels, a.B);
   if (dtype != 1) return int(cudaErrorInvalidValue);
   if (mask) return slot16 ? launch_tc<true, true>(smem, a) : launch_tc<false, true>(smem, a);
   return slot16 ? launch_tc<true, false>(smem, a) : launch_tc<false, false>(smem, a);
 }
 
 // The f32 global-panel variant of roll_rounds_launch: `grid` blocks walk the
-// samples, block i with its two panels in panels[i] ([grid][2 L][128] f32
-// scratch).
+// samples, block i with its scratch in panels[i] ([grid][2 L][128] f32: the
+// check states' other buffer, then the gather panel); mats the split pack.
 int roll_rounds_gpanels_launch(const void* xc_in, const void* xq_in, const void* syn,
                                const void* maskbits, const void* degbo, const void* mats,
                                const void* vecs, void* xc_out, void* xq_out, void* panels,
@@ -640,9 +748,8 @@ int roll_rounds_gpanels_launch(const void* xc_in, const void* xq_in, const void*
            static_cast<cudaStream_t>(stream)};
   if (int err = prepare(a, offs)) return err;
   if (grid <= 0 || panels == nullptr) return int(cudaErrorInvalidValue);
-  return launch_kernel<float>(width < H ? roll_rounds_kernel<true, true>
-                                         : roll_rounds_kernel<true, false>, THREADS,
-                              smem_bytes<true>(L), a, a.panels, a.B);
+  return launch_kernel<float>(t3r::roll_rounds_tf32x3_kernel<true>, t3r::NTH,
+                              t3r::smem_bytes<true>(L, L), a, a.panels, a.B, 1);
 }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
 // Device helpers shared by the rounds kernels (fused_rounds.cu: K1 and
-// K2a; fused_backward.cu: K2b; roll_gather.cu: K5).  One block of 256
-// threads works on one sample at a time; a warp owns 4 rows of a 32-row
-// chunk and each lane 4 of the 128 columns, so a row reduction is one warp
-// reduction.
+// K2a; fused_backward.cu: K2b; roll_gather.cu: K5): the layout constants,
+// and the f32 FMA loops of K2b's f32 kernel (the only f32 kernel not on
+// tensor cores), where one block of 256 threads works on one sample at a
+// time; a warp owns 4 rows of a 32-row chunk and each lane 4 of the 128
+// columns, so a row reduction is one warp reduction.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,7 +1,7 @@
 // Tensor-core chunk GEMMs of the rounds kernels: bf16 (namespace tc;
 // fused_rounds.cu: K1 and K2a; fused_backward.cu: K2b; roll_gather.cu: K5)
-// and f32 as three TF32 products (namespace tf32, below; K1).  The other
-// f32 kernels (K2a, K2b, K5) keep the FMA loops of rounds_common.cuh.
+// and f32 as three TF32 products (namespace tf32, below; K1, K2a and K5).
+// Only K2b's f32 kernel keeps the FMA loops of rounds_common.cuh.
 //
 // A chunk is a whole side of up to CR = 128 rows: each of the 8 warps owns
 // 16 rows and all 128 columns of a product, as one m16 x n128 f32
@@ -281,7 +281,9 @@ __device__ __noinline__ void project_rows_tc(const bf16* x, int rows, const bf16
 // (scripts/k1_f32_probe.py, wsplit_regs), though it halves the bytes.  A
 // split matrix takes 128 KB; the weights stream through a ring of NS slabs
 // of SR rows (k) in shared memory, copied with cp.async NS - 1 slabs ahead,
-// behind one block barrier per slab.
+// behind one block barrier per slab.  The block-wide routines take the
+// block's thread count NTH (THREADS by default; K5's f32 kernel runs 9
+// warps, so its chunks are 144 rows).
 namespace tf32 {
 
 using tc::CR;
@@ -329,19 +331,19 @@ struct Ring {
 
 // Copy slab s (rows [s SR, (s + 1) SR)) of the split matrix W into dst, the
 // whole block, as one cp.async group (a slab is contiguous in the pack).
-template <int SR>
+template <int SR, int NTH = THREADS>
 __device__ __forceinline__ void issue_slab(float* dst, const float* W, int s) {
   constexpr int UNITS = SR / 8 * KSTEP / 4;   // 16-byte units
   const float* src = W + size_t(s) * (SR / 8) * KSTEP;
-  for (int u = threadIdx.x; u < UNITS; u += THREADS) cp_async16(dst + 4 * u, src + 4 * u);
+  for (int u = threadIdx.x; u < UNITS; u += NTH) cp_async16(dst + 4 * u, src + 4 * u);
   cp_async_commit();
 }
 
 // Start the stream with the first NS - 1 slabs of W.
-template <int SR, int NS>
+template <int SR, int NS, int NTH = THREADS>
 __device__ __forceinline__ void prime(Ring<SR, NS>& rg, const float* W) {
 #pragma unroll
-  for (int s = 0; s < NS - 1; ++s) issue_slab<SR>(rg.buffer(s), W, s);
+  for (int s = 0; s < NS - 1; ++s) issue_slab<SR, NTH>(rg.buffer(s), W, s);
   rg.head = 0;
 }
 
@@ -352,7 +354,7 @@ __device__ __forceinline__ void prime(Ring<SR, NS>& rg, const float* W) {
 // leaves exactly the NS - 2 newest pending.  Every thread of the block calls
 // this; warps with no rows in the chunk pass active = false and only take
 // part in the copies and barriers.
-template <int SR, int NS, bool ACC = false>
+template <int SR, int NS, bool ACC = false, int NTH = THREADS>
 __device__ __forceinline__ void mma_pass(const float* A, const float* __restrict__ W,
                                          Ring<SR, NS>& rg, const float* next,
                                          float (&acc)[NT][4], bool active) {
@@ -368,8 +370,8 @@ __device__ __forceinline__ void mma_pass(const float* A, const float* __restrict
     const int fill = rg.head == 0 ? NS - 1 : rg.head - 1;   // slab s - 1's buffer
     rg.head = rg.head + 1 == NS ? 0 : rg.head + 1;
     const int ahead = s + NS - 1;
-    if (ahead < NSL) issue_slab<SR>(rg.buffer(fill), W, ahead);
-    else if (next != nullptr) issue_slab<SR>(rg.buffer(fill), next, ahead - NSL);
+    if (ahead < NSL) issue_slab<SR, NTH>(rg.buffer(fill), W, ahead);
+    else if (next != nullptr) issue_slab<SR, NTH>(rg.buffer(fill), next, ahead - NSL);
     else cp_async_commit();
     if (active) {
       constexpr int KK = SR / 8;   // k-steps of the slab, summed in one c
@@ -431,22 +433,24 @@ __device__ __forceinline__ void load_rows_warp(float* dst, const float* src, int
   __syncwarp();
 }
 
-// panel[r] = x[r] @ W for rows [0, rows), through the chunk buffer xs, into
-// a swizzled panel; then the first slabs of `after` are in flight.
-template <int SR, int NS>
+// panel[r] = x[r] @ W for rows [0, rows), through the chunk buffer xs (NTH
+// / 2 rows), into a swizzled panel; then the first slabs of `after` are in
+// flight.
+template <int SR, int NS, int NTH = THREADS>
 __device__ __noinline__ void project_rows(const float* x, int rows, const float* __restrict__ W,
                                           float* panel, float* xs, Ring<SR, NS>& rgref,
                                           const float* after) {
   Ring<SR, NS> rg = rgref;   // in registers: the asm's memory clobbers would reload it
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
+  constexpr int CRN = NTH / 32 * 16;
   float* xa = xs + 16 * warp * LDX;
-  for (int row0 = 0; row0 < rows; row0 += CR) {
+  for (int row0 = 0; row0 < rows; row0 += CRN) {
     const int r0 = row0 + 16 * warp;
     const int n = max(0, min(16, rows - r0));
     load_rows_warp(xa, x + size_t(r0) * H, n);
     float acc[NT][4];
-    mma_pass<SR, NS>(xa, W, rg, row0 + CR < rows ? W : after, acc, n > 0);
+    mma_pass<SR, NS, false, NTH>(xa, W, rg, row0 + CRN < rows ? W : after, acc, n > 0);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = r0 + g + 8 * h;

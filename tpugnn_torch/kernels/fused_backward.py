@@ -164,7 +164,11 @@ def rounds_vjp_plain(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq,
 def _fwd_stash_cuda(xc, xq, syn, operators, mats32, vecs32, rounds, state_dtype,
                     width=fd.WIDTH):
     """K2a: the fused-rounds kernel with its stash flag, on operands padded
-    to ``fd.WIDTH`` columns; ``width`` is the model's."""
+    to ``fd.WIDTH`` columns; ``width`` is the model's.  With f32 states it
+    is K1's 3xTF32 kernel: the weights go in split into TF32 halves
+    (``fd.tf32_split_pack``) and a small graph's samples stacked, as one
+    graph of ``s`` times the rows (``fd.samples_per_block``), which leaves
+    the stash's layout [R, B, rows, H] as it is."""
     from tpugnn_torch.kernels._build import load_library
 
     dt = fd.STATE_DTYPES[state_dtype]
@@ -173,6 +177,12 @@ def _fwd_stash_cuda(xc, xq, syn, operators, mats32, vecs32, rounds, state_dtype,
     a = fd._cuda_operands(lib, xc, xq, syn, operators, mats32, rounds, dt, stash=True)
     mats, vecs = fd.cast_packs(mats32, vecs32, dt)
     b, m, n, h = a.b, a.m, a.n, xc.shape[2]
+    s, idx_c, idx_q = 1, a.idx_c, a.idx_q
+    if a.code == 0:
+        mats = fd.tf32_split_pack(mats)
+        s = fd.samples_per_block(b, m, n)
+        idx_c = fd.stack_slot_tables(idx_c, n, s)
+        idx_q = fd.stack_slot_tables(idx_q, m, s)
     stash_c = torch.empty((rounds, b, m, h), dtype=dt, device=xc.device)
     stash_q = torch.empty((rounds, b, n, h), dtype=dt, device=xc.device)
     out_c = torch.empty((b, m, h), dtype=dt, device=xc.device)
@@ -180,9 +190,9 @@ def _fwd_stash_cuda(xc, xq, syn, operators, mats32, vecs32, rounds, state_dtype,
     with fd._cuda_stream(xc.device) as stream:
         err = lib.fused_rounds_stash_launch(
             a.code, a.xc.data_ptr(), a.xq.data_ptr(), a.syn.data_ptr(),
-            a.idx_c.data_ptr(), a.idx_q.data_ptr(), mats.data_ptr(), vecs.data_ptr(),
+            idx_c.data_ptr(), idx_q.data_ptr(), mats.data_ptr(), vecs.data_ptr(),
             out_c.data_ptr(), out_q.data_ptr(), stash_c.data_ptr(), stash_q.data_ptr(),
-            b, m, n, a.dc, a.dq, rounds, width, stream)
+            b // s, m * s, n * s, a.dc, a.dq, rounds, width, stream)
     if err != 0:
         raise RuntimeError(f"fused_rounds_fwd_stash kernel launch failed: CUDA error {err}")
     fd._LAUNCHES["fused_rounds_fwd_stash"] += 1

@@ -237,13 +237,14 @@ def tf32_split_pack(mats: torch.Tensor) -> torch.Tensor:
     return torch.stack([frag(hi), frag(lo)], -2).contiguous()
 
 
-def samples_per_block(b: int, m: int, n: int) -> int:
-    """How many samples one block of f32 K1 takes: the largest power of two
-    ``s`` dividing ``b`` whose ``s`` samples' check and qubit rows each fit
-    in one 128-row chunk.  A small graph's side (d=3: 16 rows) would
-    otherwise keep one warp of eight busy while every weight streams."""
+def samples_per_block(b: int, m: int, n: int, chunk_rows: int = CHUNK_ROWS) -> int:
+    """How many samples one block of the f32 shared-panel kernels takes: the
+    largest power of two ``s`` dividing ``b`` whose ``s`` samples' check and
+    qubit rows each fit in one chunk of ``chunk_rows`` rows (K1 and K2a:
+    128; K5: 144).  A small graph's side (d=3: 16 rows) would otherwise
+    keep one warp of eight busy while every weight streams."""
     s = 1
-    while b % (2 * s) == 0 and 2 * s * max(m, n) <= CHUNK_ROWS:
+    while b % (2 * s) == 0 and 2 * s * max(m, n) <= chunk_rows:
         s *= 2
     return s
 

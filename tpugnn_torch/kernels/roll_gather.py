@@ -20,10 +20,15 @@ rounds there on every cell, empty cells included, and permutes back
 * a tensor on a CUDA device goes to the hand-written kernel
   ``csrc/roll_gather.cu``, which replaces the TPU kernel
   ``decoder_rounds_roll`` (``pl.pallas_call`` at
-  ``tpugnn/kernels/roll_gather.py:364``): with bf16 states its products run
-  on the tensor cores (``mma.sync``, K1's routine in ``csrc/rounds_mma.cuh``),
-  with f32 states on f32 FMA loops.  It launches or raises; there is no
-  fallback to the plain version, to the other instantiation or to K1.
+  ``tpugnn/kernels/roll_gather.py:364``).  Its products run on the tensor
+  cores (``mma.sync``, K1's routines in ``csrc/rounds_mma.cuh``): with bf16
+  states in bf16, with f32 states as three TF32 products of operands split
+  into TF32 halves ("3xTF32", near f32 accuracy; the wrapper splits the
+  weights, :func:`~tpugnn_torch.kernels.fused_decoder.tf32_split_pack`, and
+  stacks a small raster's samples into one block,
+  :func:`~tpugnn_torch.kernels.fused_decoder.samples_per_block`).  It
+  launches or raises; there is no fallback to the plain version, to the
+  other instantiation or to K1.
 
 It is inference only, as in the JAX package: a call that autograd would have
 to differentiate raises.
@@ -31,8 +36,8 @@ to differentiate raises.
 As K1's, the kernel is built for 128 columns: a narrower model's raster
 operands are zero-padded to 128 (:func:`pad_raster`) and its LayerNorm runs
 over the model's ``width`` columns.  With f32 states a raster whose gather
-panels do not fit in shared memory (from d=13) runs the kernel's variant
-with the panels in global memory (``roll_rounds_gpanels``).
+panel does not fit in shared memory (d=15) runs the kernel's variant with
+the panel in global memory (``roll_rounds_gpanels``).
 
 One round, per side (checks shown; qubits alike without the syndrome term),
 with ``rnd`` rounding to the state type ``cdt`` and ``sdt`` the slot type
@@ -75,6 +80,8 @@ from tpugnn_torch.kernels.fused_decoder import (
     pack_weights_f32,
     pad_packs,
     pad_states,
+    samples_per_block,
+    tf32_split_pack,
 )
 
 __all__ = ["RollPlan", "RasterOperands", "raster_plan", "plan_for_graph", "rotate",
@@ -82,6 +89,7 @@ __all__ = ["RollPlan", "RasterOperands", "raster_plan", "plan_for_graph", "rotat
            "decoder_rounds_roll", "launch_counts", "reset_launch_counts", "SLOT_DTYPES"]
 
 SLOT_DTYPES = ("float32", "bfloat16")
+F32_CHUNK_ROWS = 144   # rows of one f32 K5 chunk (9 warps; t3r::CRN in csrc/roll_gather.cu)
 
 # launches of the CUDA kernel in this process: K5, its f32 variant with the
 # gather panels in global memory apart
@@ -391,8 +399,12 @@ def _mask_bits(masks: torch.Tensor) -> torch.Tensor:
 def _roll_rounds_cuda(ops: RasterOperands, *, rounds: int, slot_dtype: str = "float32"):
     """Launches K5 on raster operands on a card; returns ``(xc, xq)``
     [B, l_pad, H] in the state type.  A model narrower than 128 runs on
-    operands padded to 128 (:func:`pad_raster`).  Raises on what the kernel
-    does not take."""
+    operands padded to 128 (:func:`pad_raster`).  With f32 states the
+    weights go in split into TF32 halves (:func:`tf32_split_pack`), a
+    persistent grid of one block per SM walks the samples with an f32
+    scratch a block (the check states' second buffer; with global panels
+    the panel too), and the shared-panel kernel takes ``samples_per_block``
+    samples a block.  Raises on what the kernel does not take."""
     from tpugnn_torch.kernels._build import load_library
 
     dt = ops.xc.dtype
@@ -433,19 +445,27 @@ def _roll_rounds_cuda(ops: RasterOperands, *, rounds: int, slot_dtype: str = "fl
     syn = ops.syn.float().contiguous()
     degbo, mats = ops.degbo.float().contiguous(), ops.mats.contiguous()
     vecs = ops.vecs.float().contiguous()
+    s, grid, scratch = 1, 0, None
+    if code == 0:
+        mats = tf32_split_pack(mats)
+        if not gpanels:
+            s = samples_per_block(b, l_pad, l_pad, F32_CHUNK_ROWS)
+        grid = min(b // s, torch.cuda.get_device_properties(dev).multi_processor_count)
+        # per block: the check states' second buffer, and the global panel
+        scratch = torch.empty((grid, (2 if gpanels else 1) * s * l_pad, WIDTH),
+                              dtype=torch.float32, device=dev)
     out_c, out_q = torch.empty_like(xc), torch.empty_like(xq)
     with _cuda_stream(dev) as stream:
         ptrs = (xc.data_ptr(), xq.data_ptr(), syn.data_ptr(), bits.data_ptr(),
                 degbo.data_ptr(), mats.data_ptr(), vecs.data_ptr(), out_c.data_ptr(),
                 out_q.data_ptr())
-        if gpanels:     # a persistent grid of one block per SM, each its own panels
-            grid = min(b, torch.cuda.get_device_properties(dev).multi_processor_count)
-            panels = torch.empty((grid, 2 * l_pad, WIDTH), dtype=torch.float32, device=dev)
-            err = lib.roll_rounds_gpanels_launch(*ptrs, panels.data_ptr(), offs, b, l_pad,
+        if gpanels:
+            err = lib.roll_rounds_gpanels_launch(*ptrs, scratch.data_ptr(), offs, b, l_pad,
                                                  rounds, h, grid, stream)
         else:
-            err = lib.roll_rounds_launch(code, int(slot16), *ptrs, offs, b, l_pad, rounds,
-                                         h, stream)
+            err = lib.roll_rounds_launch(code, int(slot16), *ptrs, offs, b, l_pad, rounds, h,
+                                         s, scratch if scratch is None else scratch.data_ptr(),
+                                         grid, stream)
     name = "roll_rounds_gpanels" if gpanels else "roll_rounds"
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
