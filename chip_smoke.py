@@ -552,7 +552,7 @@ DIST_TIMEOUT_S = 600
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak (NVIDIA data sheet, SXM)
 H100_F32_FLOPS = 67e12    # f32 outside the tensor cores
-H100_TF32_FLOPS = 495e12  # dense TF32 tensor-core peak: f32 K1, K2a, K5 form 3 TF32 products each
+H100_TF32_FLOPS = 495e12  # dense TF32 tensor-core peak: every f32 rounds kernel forms 3 TF32 products
 H100_HBM_BPS = 3.35e12
 
 
@@ -665,10 +665,9 @@ def train_kernel_bounds(graph, batch: int, rounds: int, h: int, k2a_ms: float,
     K2a the forward's products at the tensor-core peak (bf16; f32 as
     3xTF32, three TF32 products each) or its bytes with the stash; K2b
     three times the forward's products (:func:`rounds_bwd_flops`) at the
-    bf16 tensor-core peak (bf16) or the f32 CUDA-core peak (f32: its FMA
-    loops), or its bytes (the stash, the f32 cotangents in and out, the
-    syndrome, the packed weights and their f32 gradients); each with its
-    TFLOP/s and f32 CUDA-core floor."""
+    tensor-core peak (bf16; f32 as 3xTF32), or its bytes (the stash, the
+    f32 cotangents in and out, the syndrome, the packed weights and their
+    f32 gradients); each with its TFLOP/s and f32 CUDA-core floor."""
     f32 = dtype == "float32"
     item = 4 if f32 else 2
     flops_a = rounds_flops(graph, h) * batch * rounds
@@ -677,7 +676,7 @@ def train_kernel_bounds(graph, batch: int, rounds: int, h: int, k2a_ms: float,
     t_bytes_a = (rounds_bytes(graph, batch, h, item)
                  + stash_bytes(graph, batch, rounds, h, item)) / H100_HBM_BPS * 1e3
     rows = graph.n_checks + graph.n_qubits
-    t_ops_b = flops_b / (H100_F32_FLOPS if f32 else H100_BF16_FLOPS) * 1e3
+    t_ops_b = (3 * flops_b / H100_TF32_FLOPS if f32 else flops_b / H100_BF16_FLOPS) * 1e3
     t_bytes_b = (stash_bytes(graph, batch, rounds, h, item) + 2 * 2 * batch * rows * h * 4
                  + 2 * batch * graph.n_checks * 4 + 10 * h * h * (2 * item + 4)
                  + 2 * 14 * h * 4) / H100_HBM_BPS * 1e3
@@ -762,6 +761,42 @@ def yardstick_rounds(xc, xq, syn, dg, w, rounds: int, dtype):
                          W["lnq_scale"].reshape(-1), W["lnq_bias"].reshape(-1), 1e-6),
         )
     return xc.float(), xq.float()
+
+
+def yardstick_training_times(xc, xq, syn, dg, w, cot_c, cot_q, rounds: int, dtype) -> dict:
+    """The autograd yardstick of the training rounds: :func:`yardstick_rounds`
+    in ``dtype`` under autograd, its forward alone and a step (the forward
+    and the backward of the cotangents' inner product), by CUDA events at
+    ``rounds`` rounds, or at 8 (then 4) where the card runs out of memory;
+    ``yardstick_rounds`` says which ran."""
+    import torch
+
+    leaves = type(w)(*[t.clone().requires_grad_(True) for t in w])
+    xcg, xqg = xc.clone().requires_grad_(True), xq.clone().requires_grad_(True)
+
+    def y_forward(r):
+        with torch.enable_grad():
+            return yardstick_rounds(xcg, xqg, syn, dg, leaves, r, dtype)
+
+    def y_step(r):
+        yc, yq = y_forward(r)
+        with torch.enable_grad():
+            ((yc * cot_c).sum() + (yq * cot_q).sum()).backward()
+
+    for r in dict.fromkeys((rounds, 8, 4)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            step_ms = time_ms(lambda: y_step(r), warmup=1, iters=3)
+            break
+        except torch.cuda.OutOfMemoryError:
+            continue
+    else:
+        raise RuntimeError(f"the {dtype} yardstick does not fit the card at 4 rounds")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fwd_ms = time_ms(lambda: y_forward(r), warmup=1, iters=3)
+    return dict(yardstick_rounds=r, yardstick_step_ms=step_ms, yardstick_fwd_ms=fwd_ms,
+                yardstick_bwd_ms=step_ms - fwd_ms, yardstick_peak_gb=peak_gb)
 
 
 def random_states(dg, batch: int, h: int, gen):
@@ -860,6 +895,12 @@ def f32_hmma(mma: dict) -> dict:
             out["stash" if m.group(2) == "1" else
                 "gpanels" if m.group(1) == "1" else "shared"] = count
     return out
+
+
+def k2b_f32_hmma(mma: dict) -> int:
+    """The HMMA count of the f32 K2b kernel (its device functions included)
+    in ``mma`` (:func:`sass_mma_counts` of the fused_backward_tf32 library)."""
+    return sum(c for name, c in mma.items() if "fused_rounds_bwd_tf32x3_kernel" in name)
 
 
 def bound(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
@@ -1880,7 +1921,7 @@ def rounds_kernel_times() -> dict:
     from tpugnn_torch.kernels import fused_backward as fb
     from tpugnn_torch.kernels import fused_decoder as fd
     from tpugnn_torch.kernels import roll_gather as rg
-    from tpugnn_torch.kernels._build import build_libraries, load_library
+    from tpugnn_torch.kernels._build import SOURCES, build_libraries, load_library
 
     @contextlib.contextmanager
     def smem_limit(module, limit):
@@ -1898,7 +1939,8 @@ def rounds_kernel_times() -> dict:
             raise RuntimeError(f"{name} was not launched")
 
     t0 = time.perf_counter()
-    build_libraries(["fused_rounds", "fused_backward", "roll_gather"])
+    build_libraries([n for n in ("fused_rounds", "fused_backward", "fused_backward_tf32",
+                                 "roll_gather") if n in SOURCES])
     out = dict(build_seconds=round(time.perf_counter() - t0, 1))
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2896,8 +2938,7 @@ def circuit_train_kernels(model, dg, dev) -> dict:
                tol_max=TOL_BF16_MAX, tol_mean=TOL_BF16_MEAN,
                slots=(idx_c.shape[1], idx_q.shape[1]),
                k2b_smem_bytes=load_library("fused_backward").fused_rounds_bwd_smem_bytes(
-                   fd._DTYPE_CODE[torch.bfloat16], graph.n_checks_pad, graph.n_qubits_pad,
-                   idx_c.shape[1], idx_q.shape[1]))
+                   graph.n_checks_pad, graph.n_qubits_pad, idx_c.shape[1], idx_q.shape[1]))
     if not finite or not same_as_k1:
         raise RuntimeError(f"circuit K2a/K2b non-finite or K2a differs from K1: {res}")
     if (res["k2a_vs_plain_max"] > TOL_BF16_MAX or res["k2a_vs_plain_mean"] > TOL_BF16_MEAN
@@ -3903,10 +3944,27 @@ def main() -> int:
                         xc, xq, s, ops, mats32, vecs32, rounds, dtype), warmup=1, iters=5)
                     k2b_ms = time_ms(lambda: fb._bwd_cuda(
                         sc, sq, s, ops, mats32, vecs32, cot_c, cot_q, dtype), warmup=1, iters=3)
+                    plain_fwd_ms = time_ms(lambda: fb.rounds_fwd_stash_plain(
+                        xc, xq, s, ops, mats32, vecs32, rounds=rounds, state_dtype=dtype),
+                        warmup=0, iters=1)
+                    plain_bwd_ms = time_ms(lambda: fb.rounds_vjp_plain(
+                        sc, sq, s, ops, mats32, vecs32, cot_c, cot_q, state_dtype=dtype),
+                        warmup=0, iters=1)
+                del sc, sq
+                # every product of the f32 K2b kernel on the tensor cores
+                k2b_mma = sass_mma_counts(build_libraries(["fused_backward_tf32"])
+                                          ["fused_backward_tf32"][0])
                 info[dtype].update(
-                    k2a_ms=k2a_ms, k2b_ms=k2b_ms, stash_gb=stash_bytes(graph, B, rounds, h, 4) / 1e9,
-                    **train_kernel_bounds(graph, B, rounds, h, k2a_ms, k2b_ms, dtype))
-            del sc, sq
+                    k2a_ms=k2a_ms, k2b_ms=k2b_ms, plain_fwd_stash_ms=plain_fwd_ms,
+                    plain_vjp_ms=plain_bwd_ms, k2b_sass_hmma=k2b_f32_hmma(k2b_mma),
+                    stash_gb=stash_bytes(graph, B, rounds, h, 4) / 1e9,
+                    **train_kernel_bounds(graph, B, rounds, h, k2a_ms, k2b_ms, dtype),
+                    **yardstick_training_times(xc, xq, s, dg, w, cot_c, cot_q, rounds,
+                                               torch.float32))
+                if info[dtype]["k2b_sass_hmma"] == 0:
+                    raise RuntimeError(f"the f32 K2b kernel has no HMMA instruction: {k2b_mma}")
+            else:
+                del sc, sq
             torch.cuda.empty_cache()
 
         # d=13 in bf16 (a ragged second chunk per side): K2a equal to K1, its
@@ -4050,37 +4108,12 @@ def main() -> int:
                 sc, sq, s, ops, mats32, vecs32, cot_c, cot_q, state_dtype="bfloat16"),
                 warmup=0, iters=1)
         del sc, sq
-        torch.cuda.empty_cache()
-        leaves = fd.RoundWeights(*[t.clone().requires_grad_(True) for t in w])
-        xcg, xqg = xc.clone().requires_grad_(True), xq.clone().requires_grad_(True)
-
-        def y_forward(r):
-            with torch.enable_grad():
-                return yardstick_rounds(xcg, xqg, s, dg, leaves, r, torch.bfloat16)
-
-        def y_step(r):
-            yc, yq = y_forward(r)
-            with torch.enable_grad():
-                ((yc * cot_c).sum() + (yq * cot_q).sum()).backward()
-
-        y_rounds = rounds
-        torch.cuda.reset_peak_memory_stats()
-        try:
-            y_step_ms = time_ms(lambda: y_step(y_rounds), warmup=1, iters=3)
-        except torch.cuda.OutOfMemoryError:
-            y_rounds = 8            # R=14 at B=4096 does not fit on this card
-            torch.cuda.empty_cache()
-            y_step_ms = time_ms(lambda: y_step(y_rounds), warmup=1, iters=3)
-        y_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        y_fwd_ms = time_ms(lambda: y_forward(y_rounds), warmup=1, iters=3)
+        yard = yardstick_training_times(xc, xq, s, dg, w, cot_c, cot_q, rounds, torch.bfloat16)
         info.update(
             k2a_ms=k2a_ms, k2b_ms=k2b_ms, plain_fwd_stash_ms=plain_fwd_ms,
             plain_vjp_ms=plain_bwd_ms,
             **train_kernel_bounds(graph, B, rounds, h, k2a_ms, k2b_ms),
-            rounds_share_of_step=(k2a_ms + k2b_ms) / statistics.median(step_ms),
-            yardstick_rounds=y_rounds, yardstick_step_ms=y_step_ms,
-            yardstick_fwd_ms=y_fwd_ms, yardstick_bwd_ms=y_step_ms - y_fwd_ms,
-            yardstick_peak_gb=y_peak_gb)
+            rounds_share_of_step=(k2a_ms + k2b_ms) / statistics.median(step_ms), **yard)
         train_timing = dict(info)
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
@@ -4167,9 +4200,11 @@ def main() -> int:
         library_ms=None, yardstick_ms=train_timing["yardstick_fwd_ms"],
         f32=dict(batch=B, rounds=train_errs["float32"]["rounds"], sass_hmma=f32_mma_k1["stash"],
                  equals_k1=train_errs["float32"]["k2a_equals_k1"],
+                 plain_ms=train_errs["float32"]["plain_fwd_stash_ms"],
+                 yardstick_ms=train_errs["float32"]["yardstick_fwd_ms"],
                  **{k: train_errs["float32"][k] for k in (
                      "k2a_ms", "k2a_bound_ms", "k2a_bound_by", "k2a_f32_core_ms",
-                     "k2a_tflops", "stash_gb")}),
+                     "k2a_tflops", "stash_gb", "yardstick_rounds")}),
         circuit_d5={k: circ_k2[k] for k in (
             "graph", "k2a_ms", "plain_fwd_stash_ms", "k2a_bound_ms", "k2a_bound_by",
             "k2a_vs_plain_max", "stash_vs_plain_max", "timed_batch", "timed_rounds")},
@@ -4183,9 +4218,15 @@ def main() -> int:
         ms=train_timing["k2b_ms"], plain_ms=train_timing["plain_vjp_ms"],
         bound_ms=train_timing["k2b_bound_ms"], bound_by=train_timing["k2b_bound_by"],
         library_ms=None, yardstick_ms=train_timing["yardstick_bwd_ms"],
-        f32=dict(batch=B, rounds=train_errs["float32"]["rounds"],
+        f32=dict(source="tpugnn_torch/kernels/csrc/fused_backward_tf32.cu",
+                 batch=B, rounds=train_errs["float32"]["rounds"],
+                 sass_hmma=train_errs["float32"]["k2b_sass_hmma"],
+                 f32_core_ms=train_errs["float32"]["k2b_f32_core_ms"],
+                 plain_ms=train_errs["float32"]["plain_vjp_ms"],
+                 yardstick_ms=train_errs["float32"]["yardstick_bwd_ms"],
                  **{k: train_errs["float32"][k] for k in (
-                     "k2b_ms", "k2b_bound_ms", "k2b_bound_by", "k2b_tflops")}),
+                     "k2b_ms", "k2b_bound_ms", "k2b_bound_by", "k2b_tflops", "k2b_worst_rel",
+                     "k2b_repeatable", "yardstick_rounds")}),
         circuit_d5={k: circ_k2[k] for k in (
             "graph", "k2b_ms", "plain_vjp_ms", "k2b_bound_ms", "k2b_bound_by",
             "k2b_max_abs_err", "k2b_worst_rel", "k2b_smem_bytes", "timed_batch",

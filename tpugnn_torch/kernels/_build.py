@@ -28,12 +28,20 @@ _CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 # library name -> source
 SOURCES = {"fused_rounds": "fused_rounds.cu", "fused_backward": "fused_backward.cu",
-           "spmm": "spmm.cu", "sddmm": "sddmm.cu", "roll_gather": "roll_gather.cu"}
-HEADERS = ("rounds_common.cuh", "rounds_mma.cuh")
+           "fused_backward_tf32": "fused_backward_tf32.cu", "spmm": "spmm.cu",
+           "sddmm": "sddmm.cu", "roll_gather": "roll_gather.cu"}
+HEADERS = ("rounds_common.cuh", "rounds_mma.cuh", "backward_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-lineinfo", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# K2b's two libraries (bf16 and f32 states) share their C entry points' names;
+# the f32 launch takes five more pointers
+_BACKWARD = {
+    "fused_rounds_bwd_smem_bytes": ([_I] * 4, ctypes.c_longlong),
+    "fused_rounds_bwd_tile": ([], _I),
+    "fused_rounds_bwd_scratch_bytes": ([_I] * 4, ctypes.c_longlong),
+}
 # C entry points per library: name -> (argument types, result type)
 _SIGNATURES = {
     "fused_rounds": {
@@ -44,12 +52,10 @@ _SIGNATURES = {
         "fused_rounds_gpanels_launch": ([_P] * 10 + [_I] * 8 + [_P], _I),
         "fused_rounds_stash_launch": ([_I] + [_P] * 11 + [_I] * 7 + [_P], _I),
     },
-    "fused_backward": {
-        "fused_rounds_bwd_smem_bytes": ([_I] * 5, ctypes.c_longlong),
-        "fused_rounds_bwd_tile": ([_I], _I),
-        "fused_rounds_bwd_scratch_bytes": ([_I] * 5, ctypes.c_longlong),
-        "fused_rounds_bwd_launch": ([_I] + [_P] * 17 + [_I] * 8 + [_P], _I),
-    },
+    "fused_backward": {**_BACKWARD,
+                       "fused_rounds_bwd_launch": ([_P] * 17 + [_I] * 8 + [_P], _I)},
+    "fused_backward_tf32": {**_BACKWARD,
+                            "fused_rounds_bwd_launch": ([_P] * 22 + [_I] * 8 + [_P], _I)},
     "spmm": {
         "ell_aggregate_launch": ([_I, _I] + [_P] * 3 + [_I] * 5 + [_P], _I),
     },

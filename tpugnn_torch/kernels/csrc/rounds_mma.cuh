@@ -1,7 +1,7 @@
 // Tensor-core chunk GEMMs of the rounds kernels: bf16 (namespace tc;
 // fused_rounds.cu: K1 and K2a; fused_backward.cu: K2b; roll_gather.cu: K5)
-// and f32 as three TF32 products (namespace tf32, below; K1, K2a and K5).
-// Only K2b's f32 kernel keeps the FMA loops of rounds_common.cuh.
+// and f32 as three TF32 products (namespace tf32, below; K1, K2a, K5 and,
+// in fused_backward_tf32.cu, K2b).
 //
 // A chunk is a whole side of up to CR = 128 rows: each of the 8 warps owns
 // 16 rows and all 128 columns of a product, as one m16 x n128 f32

@@ -16,9 +16,12 @@ gradients of ``wo @ ua`` and ``bo @ ua`` into ``wo``, ``ua`` and ``bo``:
 * backward: the rounds in reverse.  Each replays its forward from the stash
   and chains the adjoint through the LayerNorm, the residual MLP, the relu
   masks, the folded aggregation, the slot gather and the wide projections.
-  Weight gradients are summed over the batch.  On a CUDA tensor this is
-  ``csrc/fused_backward.cu`` (K2b, replacing ``_bwd``'s ``pl.pallas_call`` at
-  ``:624``); on a CPU tensor, :func:`rounds_vjp_plain`.
+  Weight gradients are summed over the batch.  On a CUDA tensor this is K2b,
+  replacing ``_bwd``'s ``pl.pallas_call`` at ``:624``:
+  ``csrc/fused_backward.cu`` with bf16 states, ``csrc/fused_backward_tf32.cu``
+  with f32 states (every product as three TF32 products on the tensor
+  cores, as f32 K1, K2a and K5 form theirs); on a CPU tensor,
+  :func:`rounds_vjp_plain`.
 
 A model narrower than the kernels' 128 columns trains on states and packs
 zero-padded outside the autograd Function (:func:`padded_rounds`, with
@@ -199,15 +202,26 @@ def _fwd_stash_cuda(xc, xq, syn, operators, mats32, vecs32, rounds, state_dtype,
     return out_c.float(), out_q.float(), stash_c, stash_q
 
 
+# K2b's library by state type: bf16 and f32 (3xTF32) states build apart
+_BWD_LIBRARY = {torch.bfloat16: "fused_backward", torch.float32: "fused_backward_tf32"}
+
+
 def _bwd_cuda(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq, state_dtype,
               width=fd.WIDTH):
     """K2b: the reverse round walk, then the fixed-order sum of the blocks'
     weight-gradient partials (two launches, counted as one call), on
-    operands padded to ``fd.WIDTH`` columns; ``width`` is the model's."""
+    operands padded to ``fd.WIDTH`` columns; ``width`` is the model's.  With
+    f32 states the kernel forms every product as three TF32 products: the
+    matrices and their transposes go in split into TF32 halves in fragment
+    order (``fd.tf32_split_pack``).  It takes again, as this module's plain
+    version computes them, the relu decisions of its replay that fall within
+    the rounding of its products: for that it reads the matrices and their
+    transposes in f32, the L2 norm of each stash row and the largest column
+    norm of each matrix."""
     from tpugnn_torch.kernels._build import load_library
 
     dt = fd.STATE_DTYPES[state_dtype]
-    lib = load_library("fused_backward")
+    lib = load_library(_BWD_LIBRARY[dt])
     rounds, b, m, h = stash_c.shape
     n = stash_q.shape[2]
     dev = stash_c.device
@@ -221,21 +235,25 @@ def _bwd_cuda(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq, state_
         raise ValueError("operators do not match the stash's rows or device")
     idx_c, idx_q = fd._slot_tables(src_c, mask_c, src_q, mask_q)
     dc, dq = idx_c.shape[1], idx_q.shape[1]
-    code = fd._DTYPE_CODE[dt]
-    smem = lib.fused_rounds_bwd_smem_bytes(code, m, n, dc, dq)
+    smem = lib.fused_rounds_bwd_smem_bytes(m, n, dc, dq)
     if smem > fd.SMEM_LIMIT:
         raise ValueError(f"graph too large for the fused backward kernel: needs "
                          f"{smem} B of shared memory per block (M={m}, N={n}), "
                          f"limit {fd.SMEM_LIMIT}")
     mats, vecs = fd.cast_packs(mats32, vecs32, dt)
     mats_t = mats.transpose(1, 2).contiguous()
+    ties = ()
+    if dt == torch.float32:
+        norms = [torch.linalg.vector_norm(x, dim=-1) for x in (stash_c, stash_q)]
+        ties = (mats, mats_t, *norms, torch.linalg.vector_norm(mats, dim=1).amax(-1))
+        mats, mats_t = fd.tf32_split_pack(mats), fd.tf32_split_pack(mats_t)
     ucs32 = vecs32[2].detach().float().contiguous()
-    tiles = -(-b // lib.fused_rounds_bwd_tile(code))  # a block takes a tile of samples
+    tiles = -(-b // lib.fused_rounds_bwd_tile())   # a block takes a tile of samples
     grid = min(tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
     g_c = dxc.float().contiguous().clone()          # rewritten in place
     g_q = dxq.float().contiguous().clone()
     dsyn = torch.zeros((b, m), dtype=torch.float32, device=dev)
-    scratch = torch.empty(grid * lib.fused_rounds_bwd_scratch_bytes(code, m, n, dc, dq),
+    scratch = torch.empty(grid * lib.fused_rounds_bwd_scratch_bytes(m, n, dc, dq),
                           dtype=torch.uint8, device=dev)
     part_mats = torch.zeros((grid, 10, h, h), dtype=torch.float32, device=dev)
     part_vecs = torch.zeros((grid, 8, 14, h), dtype=torch.float32, device=dev)
@@ -244,9 +262,9 @@ def _bwd_cuda(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq, state_
     syn2 = syn.reshape(b, m).float().contiguous()
     with fd._cuda_stream(dev) as stream:
         err = lib.fused_rounds_bwd_launch(
-            code, stash_c.data_ptr(), stash_q.data_ptr(), syn2.data_ptr(),
+            stash_c.data_ptr(), stash_q.data_ptr(), syn2.data_ptr(),
             idx_c.data_ptr(), idx_q.data_ptr(), mats.data_ptr(), mats_t.data_ptr(),
-            vecs.data_ptr(), ucs32.data_ptr(),
+            *(t.data_ptr() for t in ties), vecs.data_ptr(), ucs32.data_ptr(),
             g_c.data_ptr(), g_q.data_ptr(), dsyn.data_ptr(), scratch.data_ptr(),
             part_mats.data_ptr(), part_vecs.data_ptr(), dmats.data_ptr(),
             dvecs.data_ptr(), b, m, n, dc, dq, rounds, width, grid, stream)
