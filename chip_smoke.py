@@ -96,14 +96,29 @@ print one JSON line with their wall time:
     timed beside its bound.  Then `python -m tpugnn_torch.cli train` through
     its main: the circuit d=5 training config (bf16, B=4096, p-mix
     0.004..0.015, K2a/K2b) for 20 steps, a finite, falling loss and one K2a
-    and one K2b launch a step; K2a/K2b on that graph against their plain
-    versions (B=64, R=3) and timed (B=4096, R=8), K1 in bf16 beside them;
-    one step through them
-    against their plain versions; bf16 K1, K2a and K2b refusing circuit d=7
-    before a launch; the CLI's default training (generic 'segment', d=5,
+    and one K2b launch a step; K1, K2a and K2b in bf16 on that graph (their
+    shared-panel kernels) against their plain versions (B=64, R=3) and
+    timed (B=4096, R=8); one step through them against their plain
+    versions; the CLI's default training (generic 'segment', d=5,
     H=128, B=256) for 20 steps, a falling loss, one step's gradients on the
     card against the CPU's; `cli eval` and `cli serve` on the d=5 weights
     file with --cleanup mwpm
+  4g circuit_d7_bfloat16: the circuit d=7 checkpoint in bf16, the state
+    type it was trained in; its bf16 gather panels do not fit in shared
+    memory, so K1, K2a and K2b run their global-panel variants.  On the
+    trained weights (B=64, R=3) each variant against its plain version (K2a
+    equal to K1, K2b every leaf and twice bit-equal); the global-panel K1
+    and K2a forced on the d=11 graph (B=300, more samples than SMs) bit-equal
+    to the shared-panel kernels; K1, K2a and K2b timed at B=4096, R=8 beside
+    their bounds and plain versions; `cli eval --dtype bfloat16` on the
+    weights file at p=0.01 on 32,768 shots, both heads within |z| <= 4 of
+    the JAX f32 rate in the file, its z against LER_DETECTOR.md:43
+    reported, the global-panel K1 once a chunk and nothing else;
+    DecodeEngine.from_npz(dtype='bfloat16') serving a request; `cli train`
+    at the checkpoint's settings (scripts/tpu_queue_r5a.sh:104-108: bf16,
+    B=4096, p-mix 0.004..0.015, lr 1e-3, EMA 0.999) for 10 steps, a finite,
+    falling loss and one global-panel K2a and K2b launch a step; HMMA in
+    every bf16 global-panel instantiation
   4f dist: graph- and data-parallel decoding and training on
     torch.distributed (tpugnn_torch/dist/) on the one card, each part in
     turn, so that nothing else runs on the card beside it.  (a) NCCL at
@@ -220,7 +235,8 @@ print one JSON line with their wall time:
     refusal of a width-160 model by K5's and K1's wrappers, before a launch
 
 Phases 3 (each engine's requests), 4, 4b, 4c, 4d (the monolithic decode
-and the streams), 4e (each circuit decode and each CLI run), 4f (the K1
+and the streams), 4e (each circuit decode and each CLI run), 4g (the CLI's
+eval and train and the engine's request), 4f (the K1
 reference decodes beside the sharded ones, which launch no kernel), 7, 9,
 10 and 11 are the main paths; the launch counts of every kernel are reset before
 and read after each.  Then it prints the kernel
@@ -233,7 +249,9 @@ nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import faulthandler
+import functools
 import json
 import math
 import os
@@ -281,6 +299,16 @@ TOL_F32 = 1e-3
 # later rounds.  Max 0.25 (16 ulp at |x| = 4) and mean 1e-2 bound that drift.
 TOL_BF16_MAX = 0.25
 TOL_BF16_MEAN = 1e-2
+# bf16 K1 on a trained checkpoint at the training shapes (B=4096, R=8): over
+# 8 trained rounds a bf16 rounding flip grows to several tenths in a few
+# entries (on an H100, circuit d=7: 0.40 and 0.61 in two runs, 25 of its 575
+# M entries past TOL_BF16_MAX; the unchanged shared-panel kernel on the
+# circuit d=5 checkpoint 0.56), while the kernel and the plain version lie
+# equally far from the same rounds in f64 (3.04 and 3.04 at most, means equal
+# to four digits).  There each of the kernel's max and mean distance from the
+# f64 rounds is held to BF16_F64_RATIO times the plain version's: a wrong
+# gather or a wrong sample moves the kernel far past the plain version.
+BF16_F64_RATIO = 1.25
 # share of real qubits whose argmax correction under a random pauli4 head
 # must agree between kernel and plain
 MIN_AGREE_F32 = 0.999
@@ -505,6 +533,32 @@ CLI_EVAL_SHOTS = 8192
 CLI_WEIGHTS_ARGS = ("--noise", "circuit", "--dt", "5", "-d", "5", "--backend", "pallas",
                     "--hidden", "128", "--msg-hidden", "128", "--rounds", "8",
                     "--qubit-head", "bits", "-p", str(CIRCUIT_P), "--cleanup", "mwpm")
+
+# Phase 4g: the circuit d=7 checkpoint (LER_DETECTOR.md:43's row) in bf16,
+# the state type scripts/tpu_queue_r5a.sh:104-108 trained it in through the
+# Pallas kernels.  Its bf16 gather panels (920 + 176 rows, 280,576 B) do not
+# fit in a block's shared memory, so K1, K2a and K2b run their global-panel
+# variants.  `cli eval` decodes it at CIRCUIT_P on CIRCUIT_SHOTS shots (both
+# heads gated at |z| <= CIRCUIT_Z against the JAX f32 rate in the weights
+# file); `cli train` runs the checkpoint's training settings (bf16, B=4096,
+# H=128, R=8, p-mix 0.004..0.015, lr 1e-3, EMA 0.999) from a seeded random
+# init for D7_TRAIN_STEPS steps: a finite loss whose mean over the last 5
+# steps is below CLI_LOSS_FALL of the first 5's (the circuit d=5 run fell to
+# 0.68 of it by step 10 on an H100).  D7_GP_BATCH: the d=11 comparison of
+# the two panel placements runs more samples than the card has SMs, so the
+# global-panel variant's persistent blocks walk several samples each.
+D7_WEIGHTS = "circuit_surface_d7_t7_h128_r8_ema2000.npz"
+D7_ROW_LINE = 43
+D7_ARGS = ("--noise", "circuit", "--dt", "7", "-d", "7", "--backend", "pallas", "--dtype",
+           "bfloat16", "--hidden", "128", "--msg-hidden", "128", "--rounds", "8")
+D7_EVAL_ARGS = ("eval", *D7_ARGS, "--qubit-head", "bits", "-p", str(CIRCUIT_P), "--shots",
+                str(CIRCUIT_SHOTS))
+D7_TRAIN_ARGS = ("train", *D7_ARGS, "--batch", "4096", "--p-mix", "0.004", "0.015", "--lr",
+                 "0.001", "--ema", "0.999")
+D7_TRAIN_STEPS = 10
+D7_GP_BATCH = 300
+D7_GPANELS = ("fused_rounds_gpanels", "fused_rounds_fwd_stash_gpanels",
+              "fused_rounds_bwd_gpanels")
 
 # The dist phase (4f): graph- and data-parallel decoding and training on
 # torch.distributed.  One card: NCCL at world size 1 in this process, and P
@@ -1456,9 +1510,10 @@ def raster_errors(kc, kq, pc, pq) -> tuple[float, float]:
     return float(diff.max()), float(diff.mean())
 
 
+@functools.lru_cache(maxsize=None)
 def sass_mma_counts(library: str) -> dict:
     """HMMA instructions per kernel of a built library, from cuobjdump -sass
-    beside nvcc."""
+    beside nvcc (once a library file)."""
     from tpugnn_torch.kernels._build import nvcc_path
 
     tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
@@ -1914,22 +1969,12 @@ def rounds_kernel_times() -> dict:
       ``k5_f32``, taken by lowering the shared-memory limit the wrappers
       compare against to the variant's need at d=11, so that the call runs
       the main path's wrapper code and launches the variant once."""
-    import contextlib
-
     import torch
 
     from tpugnn_torch.kernels import fused_backward as fb
     from tpugnn_torch.kernels import fused_decoder as fd
     from tpugnn_torch.kernels import roll_gather as rg
     from tpugnn_torch.kernels._build import SOURCES, build_libraries, load_library
-
-    @contextlib.contextmanager
-    def smem_limit(module, limit):
-        old, module.SMEM_LIMIT = module.SMEM_LIMIT, limit
-        try:
-            yield
-        finally:
-            module.SMEM_LIMIT = old
 
     def launched_once(name, fn):
         before = counts()[name]
@@ -1957,10 +2002,7 @@ def rounds_kernel_times() -> dict:
         out["k1_f32"] = time_ms(k1, warmup=2, iters=7)
         out["k5_f32"] = time_ms(k5, warmup=2, iters=7)
         if "fused_rounds_gpanels" in fd.launch_counts():
-            lib = load_library("fused_rounds")
-            src_c, src_q = ops[0], ops[3]
-            need = lib.fused_rounds_gpanels_smem_bytes(src_c.shape[0], src_q.shape[0],
-                                                       src_c.shape[1], src_q.shape[1])
+            need = gpanels_smem(load_library("fused_rounds"), 0, ops)
             with smem_limit(fd, need):
                 launched_once("fused_rounds_gpanels", k1)
                 out["k1_f32_gpanels"] = time_ms(k1, warmup=2, iters=7)
@@ -2873,52 +2915,57 @@ def run_cli(argv: list[str]) -> list[dict]:
     return [json.loads(line) for line in lines if line.startswith("{")]
 
 
-def gate_training(what: str, summary: dict) -> None:
+def gate_training(what: str, summary: dict, steps: int = CLI_TRAIN_STEPS) -> None:
     losses = summary["losses"]
-    if len(losses) != CLI_TRAIN_STEPS or not all(map(math.isfinite, losses)):
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
         raise RuntimeError(f"{what}: {len(losses)} steps, losses {losses}")
     if not summary["loss_last5"] < CLI_LOSS_FALL * summary["loss_first5"]:
         raise RuntimeError(f"{what}: the loss did not fall: {summary['loss_first5']} -> "
                            f"{summary['loss_last5']}")
 
 
-def circuit_train_kernels(model, dg, dev) -> dict:
-    """K2a and K2b on the circuit d=5 graph (M=64, N=304, Dc=14, Dq=2) in
-    bf16: at B=64, R=3 on the trained weights K2a's outputs equal K1's, its
-    outputs and stash are within the bf16 tolerances of the plain versions
-    and K2b's gradients (every leaf) within TOL_GRAD_REL_BF16; at the
-    training shapes (B=4096, R=8) each timed beside its plain version and
-    its bound, and K1 in bf16 on the same states held to its plain version
-    and timed; and bf16 K1, K2a and K2b refuse the circuit d=7 graph (its
-    bf16 panels alone take 280,576 B of shared memory) before a launch.
-    ``dg`` is the graph on the card."""
+def train_kernels_vs_plain(graph, dg, w, gen, want: tuple[str, str, str]) -> dict:
+    """bf16 K1, K2a and K2b on ``graph`` (``dg`` on the card) with round
+    weights ``w`` at B=D13_BATCH, R=D13_ROUNDS on random states: each call
+    must launch the kernel ``want`` names for it (K1, K2a, K2b) once and
+    nothing else; K2a's outputs equal K1's, its outputs and stash are within
+    the bf16 tolerances of the plain versions, K2b's gradients (every leaf)
+    within TOL_GRAD_REL_BF16 of rounds_vjp_plain fed the same stash, and a
+    second K2b call equals the first.  Raises otherwise; returns the
+    errors."""
     import torch
 
     from tpugnn_torch.kernels import fused_backward as fb
     from tpugnn_torch.kernels import fused_decoder as fd
-    from tpugnn_torch.kernels._build import load_library
-    from tpugnn_torch.tanner import build_circuit_code
 
-    h, rounds, dt = model.cfg.hidden, model.cfg.rounds, "bfloat16"
-    w = fd.RoundWeights(*[t.detach() for t in model.rounds.round_weights()])
+    dt, h, r3 = "bfloat16", w.wd_c.shape[0], D13_ROUNDS
     mats32, vecs32 = fd.pack_weights_f32(w)
-    graph = dg
     ops = fd.make_operators(dg)
-    idx_c, idx_q = fd._slot_tables(ops[0], ops[1], ops[3], ops[4])
-    gen = torch.Generator(device=dev).manual_seed(16)
+    dev = dg.check_mask.device
     xc, xq, s = random_states(dg, D13_BATCH, h, gen)
     cot_c = torch.randn(xc.shape, generator=gen, device=dev)
     cot_q = torch.randn(xq.shape, generator=gen, device=dev)
-    r3 = D13_ROUNDS
+    launched = {}
     with torch.no_grad():
-        k1c, k1q = fd.decoder_rounds(xc, xq, s, ops, w, r3, dt)
-        kc, kq, sc, sq = fb._fwd_stash_cuda(xc, xq, s, ops, mats32, vecs32, r3, dt)
+        calls = (("k1", lambda: fd.decoder_rounds(xc, xq, s, ops, w, r3, dt)),
+                 ("k2a", lambda: fb._fwd_stash_cuda(xc, xq, s, ops, mats32, vecs32, r3, dt)),
+                 ("k2b", lambda: fb._bwd_cuda(sc, sq, s, ops, mats32, vecs32, cot_c, cot_q,
+                                              dt)))
+        outs = {}
+        for (kernel, call), name in zip(calls, want):
+            reset_counts()
+            outs[kernel] = call()
+            launched[kernel] = counts()
+            if kernel == "k2a":
+                sc, sq = outs[kernel][2:]
+        again = fb._bwd_cuda(sc, sq, s, ops, mats32, vecs32, cot_c, cot_q, dt)
+        (k1c, k1q), (kc, kq, _, _), kg = outs["k1"], outs["k2a"], outs["k2b"]
         pc, pq, psc, psq = fb.rounds_fwd_stash_plain(xc, xq, s, ops, mats32, vecs32,
                                                      rounds=r3, state_dtype=dt)
-        kg = fb._bwd_cuda(sc, sq, s, ops, mats32, vecs32, cot_c, cot_q, dt)
         pg = fb.rounds_vjp_plain(sc, sq, s, ops, mats32, vecs32, cot_c, cot_q, state_dtype=dt)
         torch.cuda.synchronize()
         same_as_k1 = bool(torch.equal(kc, k1c) and torch.equal(kq, k1q))
+        repeatable = all(torch.equal(a, b) for a, b in zip(kg, again))
         out_diff = torch.cat([(kc - pc).abs().flatten(), (kq - pq).abs().flatten()])
         st_diff = torch.cat([(sc.float() - psc.float()).abs().flatten(),
                              (sq.float() - psq.float()).abs().flatten()])
@@ -2930,77 +2977,150 @@ def circuit_train_kernels(model, dg, dev) -> dict:
         list(kg[:3]) + list(k_leaves.values()), list(pg[:3]) + list(p_leaves.values())))
     res = dict(graph=graph.name, m_pad=graph.n_checks_pad, n_pad=graph.n_qubits_pad,
                dc=graph.deg_max_check, dq=graph.deg_max_qubit, batch=D13_BATCH, rounds=r3,
-               k2a_equals_k1=same_as_k1, k2a_vs_plain_max=float(out_diff.max()),
-               k2a_vs_plain_mean=float(out_diff.mean()),
+               kernels=dict(zip(("k1", "k2a", "k2b"), want)), launched=launched,
+               k2a_equals_k1=same_as_k1, k2b_repeatable=repeatable,
+               k2a_vs_plain_max=float(out_diff.max()), k2a_vs_plain_mean=float(out_diff.mean()),
                stash_vs_plain_max=float(st_diff.max()),
                stash_vs_plain_mean=float(st_diff.mean()), k2b_max_abs_err=grad_max,
                k2b_worst_rel=rels[worst], k2b_worst_leaf=worst, tol_rel=TOL_GRAD_REL_BF16,
-               tol_max=TOL_BF16_MAX, tol_mean=TOL_BF16_MEAN,
-               slots=(idx_c.shape[1], idx_q.shape[1]),
-               k2b_smem_bytes=load_library("fused_backward").fused_rounds_bwd_smem_bytes(
-                   graph.n_checks_pad, graph.n_qubits_pad, idx_c.shape[1], idx_q.shape[1]))
-    if not finite or not same_as_k1:
-        raise RuntimeError(f"circuit K2a/K2b non-finite or K2a differs from K1: {res}")
+               tol_max=TOL_BF16_MAX, tol_mean=TOL_BF16_MEAN)
+    for kernel, name in zip(("k1", "k2a", "k2b"), want):
+        if launched[kernel] != {**dict.fromkeys(launched[kernel], 0), name: 1}:
+            raise RuntimeError(f"{graph.name}: {kernel} launched {launched[kernel]}, not one "
+                               f"{name}")
+    if not finite or not same_as_k1 or not repeatable:
+        raise RuntimeError(f"{graph.name} K2a/K2b non-finite, K2a differs from K1 or K2b "
+                           f"from itself: {res}")
     if (res["k2a_vs_plain_max"] > TOL_BF16_MAX or res["k2a_vs_plain_mean"] > TOL_BF16_MEAN
             or res["stash_vs_plain_max"] > TOL_BF16_MAX
             or res["stash_vs_plain_mean"] > TOL_BF16_MEAN or rels[worst] > TOL_GRAD_REL_BF16):
-        raise RuntimeError(f"circuit K2a or K2b disagrees with its plain version: {res}")
-    del kc, kq, sc, sq, pc, pq, psc, psq, kg, pg, out_diff, st_diff
+        raise RuntimeError(f"{graph.name}: K2a or K2b disagrees with its plain version: {res}")
+    del outs, again, kc, kq, sc, sq, pc, pq, psc, psq, kg, pg, out_diff, st_diff
     torch.cuda.empty_cache()
+    return res
 
+
+def held_to_f64(run, plain, ops, w, xc, xq, s, rounds: int, want: str, what: str) -> dict:
+    """One untimed bf16 K1 call ``run`` against its plain version ``plain``
+    and both against the same rounds in f64: it must launch ``want`` once
+    and nothing else, be finite, and its max and mean distance from the f64
+    rounds within BF16_F64_RATIO of the plain version's.  Raises otherwise;
+    returns the distances, its distance from the plain version beside."""
+    import torch
+
+    with torch.inference_mode():
+        reset_counts()
+        kc, kq = run()
+        launched = counts()
+        pc, pq = plain()
+        ec, eq = (t.float() for t in rounds_f64_chunked(xc, xq, s, ops, w, rounds))
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(kc).all() and torch.isfinite(kq).all())
+        res = dict(kernel=want, max_abs_err=raster_errors(kc, kq, pc, pq)[0],
+                   mean_abs_err=raster_errors(kc, kq, pc, pq)[1])
+        (res["vs_f64_max"], res["vs_f64_mean"]), (res["plain_vs_f64_max"],
+                                                  res["plain_vs_f64_mean"]) = (
+            raster_errors(kc, kq, ec, eq), raster_errors(pc, pq, ec, eq))
+    res["f64_ratio_bound"] = BF16_F64_RATIO
+    if launched[want] != 1 or sum(launched.values()) != 1:
+        raise RuntimeError(f"{what}: launched {launched}, not one {want}")
+    if not finite or any(res[f"vs_f64_{k}"] > BF16_F64_RATIO * res[f"plain_vs_f64_{k}"]
+                         for k in ("max", "mean")):
+        raise RuntimeError(f"{what} is further from the f64 rounds than its plain version: "
+                           f"{res}")
+    return res
+
+
+def train_kernels_timed(graph, dg, w, gen, rounds: int, k1: str, f64: bool = False,
+                        plain_calls: int = 1) -> dict:
+    """bf16 K1, K2a and K2b on ``graph`` at the training shapes (B,
+    ``rounds``) on random states: K1 (the kernel ``k1``, as the training
+    run's evaluation runs it) held to its plain version (with ``f64``, both
+    to the rounds in f64: :func:`held_to_f64`) and timed beside its bound,
+    then K2a and K2b each timed beside its plain version and its bound.
+    Each plain version of K2a and K2b is timed as ``plain_calls`` calls on
+    equal slices of the batch between the same two events: on circuit d=7
+    the plain adjoint of all 4096 samples in one call peaks near 69 GB, and
+    after the smoke's earlier phases the card's allocator could not place
+    it (two runs out of memory with 24 GB of its cache fragmented)."""
+    import torch
+
+    from tpugnn_torch.kernels import fused_backward as fb
+    from tpugnn_torch.kernels import fused_decoder as fd
+
+    dt, h = "bfloat16", w.wd_c.shape[0]
+    mats32, vecs32 = fd.pack_weights_f32(w)
+    ops = fd.make_operators(dg)
+    dev = dg.check_mask.device
     xc, xq, s = random_states(dg, B, h, gen)
     cot_c = torch.randn(xc.shape, generator=gen, device=dev)
     cot_q = torch.randn(xq.shape, generator=gen, device=dev)
+    run, plain = kernel_and_plain("k1", graph, ops, w, xc, xq, s, rounds, dt)
+    what = f"K1 bf16 on {graph.name}, B={B}, R={rounds}"
+    k1_check = (held_to_f64(run, plain, ops, w, xc, xq, s, rounds, k1, what) if f64
+                else held_to_plain(run, plain, k1, dt, what))
+    with torch.inference_mode():
+        k1_ms = time_ms(run, warmup=1, iters=5)
+        k1_plain_ms = time_ms(plain, warmup=0, iters=1)
+    b_ms, b_by = bound(rounds_bytes(graph, B, h, 2), rounds_flops(graph, h) * B * rounds,
+                       H100_BF16_FLOPS)
+    del run, plain
+    torch.cuda.empty_cache()
     with torch.no_grad():
         k2a_ms = time_ms(lambda: fb._fwd_stash_cuda(xc, xq, s, ops, mats32, vecs32, rounds, dt),
                          warmup=1, iters=5)
         _, _, sc, sq = fb._fwd_stash_cuda(xc, xq, s, ops, mats32, vecs32, rounds, dt)
         k2b_ms = time_ms(lambda: fb._bwd_cuda(sc, sq, s, ops, mats32, vecs32, cot_c, cot_q, dt),
                          warmup=1, iters=5)
-        plain_fwd_ms = time_ms(lambda: fb.rounds_fwd_stash_plain(
-            xc, xq, s, ops, mats32, vecs32, rounds=rounds, state_dtype=dt), warmup=0, iters=1)
-        plain_bwd_ms = time_ms(lambda: fb.rounds_vjp_plain(
-            sc, sq, s, ops, mats32, vecs32, cot_c, cot_q, state_dtype=dt), warmup=0, iters=1)
-    res.update(timed_batch=B, timed_rounds=rounds, k2a_ms=k2a_ms, k2b_ms=k2b_ms,
-               plain_fwd_stash_ms=plain_fwd_ms, plain_vjp_ms=plain_bwd_ms,
-               **train_kernel_bounds(graph, B, rounds, h, k2a_ms, k2b_ms))
-    del sc, sq, cot_c, cot_q
-    torch.cuda.empty_cache()
-    # K1 in bf16 on the same states, as the training run's evaluation runs it
-    run, plain = kernel_and_plain("k1", graph, ops, w, xc, xq, s, rounds, dt)
-    k1 = held_to_plain(run, plain, "fused_rounds", dt, f"K1 bf16 on {graph.name}")
-    with torch.inference_mode():
-        k1_ms = time_ms(run, warmup=1, iters=5)
-        k1_plain_ms = time_ms(plain, warmup=0, iters=1)
-    b_ms, b_by = bound(rounds_bytes(graph, B, h, 2), rounds_flops(graph, h) * B * rounds,
-                       H100_BF16_FLOPS)
-    res["k1_bfloat16"] = dict(batch=B, rounds=rounds, ms=k1_ms, plain_ms=k1_plain_ms,
-                              bound_ms=b_ms, bound_by=b_by, **k1)
-    del xc, xq, s, run, plain
-    torch.cuda.empty_cache()
+        parts = [slice(i * B // plain_calls, (i + 1) * B // plain_calls)
+                 for i in range(plain_calls)]
 
-    # bf16 refuses circuit d=7 in all three kernels, before a launch
-    g7 = build_circuit_code("surface", 7, 7)
-    dg7 = g7.to(dev)
-    ops7 = fd.make_operators(dg7)
-    xc7, xq7, s7 = random_states(dg7, 2, h, gen)
-    refusals = {}
-    reset_counts()
-    with torch.no_grad():
-        for kernel, call in (
-                ("k1", lambda: fd.decoder_rounds(xc7, xq7, s7, ops7, w, 1, dt)),
-                ("k2a", lambda: fb._fwd_stash_cuda(xc7, xq7, s7, ops7, mats32, vecs32, 1, dt)),
-                ("k2b", lambda: fb._bwd_cuda(
-                    xc7.to(torch.bfloat16)[None], xq7.to(torch.bfloat16)[None], s7, ops7,
-                    mats32, vecs32, xc7, xq7, dt))):
-            try:
-                call()
-                refusals[kernel] = None
-            except ValueError as e:
-                refusals[kernel] = str(e)
-    res["d7_bfloat16_refusals"] = refusals
-    if any(v is None for v in refusals.values()) or any(counts().values()):
-        raise RuntimeError(f"bf16 on the circuit d=7 graph: {refusals}, launched {counts()}")
+        def plain_fwd():
+            for p in parts:
+                fb.rounds_fwd_stash_plain(xc[p], xq[p], s[p], ops, mats32, vecs32,
+                                          rounds=rounds, state_dtype=dt)
+
+        def plain_bwd():
+            for p in parts:
+                fb.rounds_vjp_plain(sc[:, p], sq[:, p], s[p], ops, mats32, vecs32, cot_c[p],
+                                    cot_q[p], state_dtype=dt)
+
+        plain_fwd_ms = time_ms(plain_fwd, warmup=0, iters=1)
+        del xc, xq
+        torch.cuda.empty_cache()
+        plain_bwd_ms = time_ms(plain_bwd, warmup=0, iters=1)
+    res = dict(timed_batch=B, timed_rounds=rounds, k2a_ms=k2a_ms, k2b_ms=k2b_ms,
+               plain_fwd_stash_ms=plain_fwd_ms, plain_vjp_ms=plain_bwd_ms,
+               plain_calls=plain_calls,
+               stash_gb=stash_bytes(graph, B, rounds, h, 2) / 1e9,
+               **train_kernel_bounds(graph, B, rounds, h, k2a_ms, k2b_ms),
+               k1_bfloat16=dict(batch=B, rounds=rounds, ms=k1_ms, plain_ms=k1_plain_ms,
+                                bound_ms=b_ms, bound_by=b_by, **k1_check))
+    del sc, sq, s, cot_c, cot_q
+    torch.cuda.empty_cache()
+    return res
+
+
+def circuit_train_kernels(model, dg, dev) -> dict:
+    """K2a and K2b on the circuit d=5 graph (M=64, N=304, Dc=14, Dq=2) in
+    bf16, on the trained weights: their shared-panel kernels against the
+    plain versions (:func:`train_kernels_vs_plain`, B=64, R=3) and timed at
+    the training shapes (:func:`train_kernels_timed`, B=4096, R=8), K1 in
+    bf16 beside them, and K2b's shared memory.  ``dg`` is the graph on the
+    card."""
+    import torch
+
+    from tpugnn_torch.kernels import fused_decoder as fd
+    from tpugnn_torch.kernels._build import load_library
+
+    w = fd.RoundWeights(*[t.detach() for t in model.rounds.round_weights()])
+    gen = torch.Generator(device=dev).manual_seed(16)
+    res = train_kernels_vs_plain(dg, dg, w, gen, ("fused_rounds", "fused_rounds_fwd_stash",
+                                                 "fused_rounds_bwd"))
+    ops = fd.make_operators(dg)
+    res["k2b_smem_bytes"] = load_library("fused_backward").fused_rounds_bwd_smem_bytes(
+        dg.n_checks_pad, dg.n_qubits_pad, ops[0].shape[1], ops[3].shape[1])
+    res.update(train_kernels_timed(dg, dg, w, gen, model.cfg.rounds, "fused_rounds"))
     return res
 
 
@@ -3014,7 +3134,8 @@ def phase_circuit_and_cli(dev, info: dict) -> tuple[dict, dict, dict]:
        (CIRCUIT_TRAIN_ARGS) for CLI_TRAIN_STEPS steps through the CLI's
        ``main``: a finite, falling loss, one K2a and one K2b launch and no
        K1 a step, the median step ms; then :func:`circuit_train_kernels`
-       on the trained weights, and one train step from the run's last state
+       on the trained weights (the shared-panel K1, K2a and K2b), and one
+       train step from the run's last state
        through K2a/K2b and through their plain versions on the same CUDA
        tensors (:func:`train_steps_vs_plain`), each parameter leaf's change
        within TRAIN_STEP_REL.
@@ -3172,6 +3293,215 @@ def phase_circuit_and_cli(dev, info: dict) -> tuple[dict, dict, dict]:
     part_s["eval_serve"] = time.perf_counter() - t0 - sum(part_s.values())
     info["part_seconds"] = part_s
     return launches, k1, k2
+
+
+@contextlib.contextmanager
+def smem_limit(module, limit):
+    """The shared-memory limit a wrapper module compares against, set to
+    ``limit`` inside the block: a graph that needs more takes the module's
+    global-panel variant."""
+    old, module.SMEM_LIMIT = module.SMEM_LIMIT, limit
+    try:
+        yield
+    finally:
+        module.SMEM_LIMIT = old
+
+
+def gpanels_smem(lib, code: int, ops) -> int:
+    """The global-panel K1's shared memory on the graph of ``ops``, state
+    type ``code`` (a library whose entry point takes no type is f32's)."""
+    from tpugnn_torch.kernels import _build
+
+    typed = len(_build._SIGNATURES["fused_rounds"]["fused_rounds_gpanels_smem_bytes"][0]) == 5
+    args = (ops[0].shape[0], ops[3].shape[0], ops[0].shape[1], ops[3].shape[1])
+    return lib.fused_rounds_gpanels_smem_bytes(*((code,) if typed else ()), *args)
+
+
+def bf16_gpanel_hmma(lib_fwd: str, lib_bwd: str) -> dict:
+    """HMMA instructions (cuobjdump -sass) of the bf16 global-panel kernels
+    by instantiation: K1 and K2a (fused_rounds.cu,
+    tcp::fused_rounds_tc_kernel<STASH, SR, MASK, true>) and K2b
+    (fused_backward.cu, tcb::fused_rounds_bwd_tc_kernel<SR, MASK, true>)."""
+    fwd, bwd = sass_mma_counts(lib_fwd), sass_mma_counts(lib_bwd)
+    k1 = re.compile(r"fused_rounds_tc_kernelILb([01])ELi(\d+)ELb([01])ELb1E")
+    k2b = re.compile(r"fused_rounds_bwd_tc_kernelILi(\d+)ELb([01])ELb1E")
+    out = {"k1": {}, "k2a": {}, "k2b": {}}
+    for name, c in fwd.items():
+        m = k1.search(name)
+        if m:
+            out["k2a" if m.group(1) == "1" else "k1"][f"sr{m.group(2)}_mask{m.group(3)}"] = c
+    for name, c in bwd.items():
+        m = k2b.search(name)
+        if m:
+            out["k2b"][f"sr{m.group(1)}_mask{m.group(2)}"] = c
+    return out
+
+
+def phase_circuit_d7_bfloat16(dev, info: dict) -> dict:
+    """Phase 4g: the circuit d=7 checkpoint in bf16 on K1's, K2a's and K2b's
+    global-panel variants.
+
+    a. On the trained weights (M=176, N=920, Dc=14, Dq=2; B=64, R=3): each
+       variant launched once and nothing else, K2a equal to K1, both and
+       K2a's stash within the bf16 tolerances of the plain versions, K2b's
+       gradients (every leaf) within TOL_GRAD_REL_BF16 and equal across two
+       calls (:func:`train_kernels_vs_plain`).
+    b. The d=11 graph (random weights, B=D7_GP_BATCH, R=3): K1 and K2a with
+       their panels in global memory, forced by lowering the wrappers'
+       shared-memory limit to the variant's need, against the shared-panel
+       kernels on the same inputs: outputs and stash bit for bit (the same
+       arithmetic in the same order), on a persistent grid of 132 blocks
+       that walk 300 samples.
+    c. K1, K2a and K2b timed at B=4096, R=8 on the trained weights beside
+       their bounds and their plain versions (:func:`train_kernels_timed`).
+    d. ``cli eval`` in bf16 on the weights file at CIRCUIT_P on
+       CIRCUIT_SHOTS shots: both heads within |z| <= CIRCUIT_Z of the JAX
+       f32 rate in the file, the z against LER_DETECTOR.md:43 reported, the
+       global-panel K1 launched once a chunk and nothing else; and
+       ``DecodeEngine.from_npz(dtype='bfloat16')`` serving a 4096-syndrome
+       request with one such launch.
+    e. ``cli train`` at the checkpoint's settings (D7_TRAIN_ARGS) for
+       D7_TRAIN_STEPS steps: a finite, falling loss, one global-panel K2a
+       and one K2b launch a step and nothing else, the median step ms.
+    f. cuobjdump -sass: HMMA in every bf16 global-panel instantiation.
+    Returns the launches by path; ``info`` gets every number."""
+    import numpy as np
+    import torch
+
+    from tpugnn_torch.kernels import fused_backward as fb
+    from tpugnn_torch.kernels import fused_decoder as fd
+    from tpugnn_torch.kernels._build import build_libraries, load_library
+    from tpugnn_torch.models.convert import load_decoder, read_meta
+    from tpugnn_torch.sampling import sample_batch
+    from tpugnn_torch.serve import DecodeEngine
+
+    dt, t0, part_s, launches = "bfloat16", time.perf_counter(), {}, {}
+
+    def lap(name):
+        part_s[name] = time.perf_counter() - t0 - sum(part_s.values())
+
+    torch.cuda.empty_cache()    # the plain adjoint at B=4096 below peaks near 69 GB
+    path = os.path.join(REPO, "tpugnn_torch", "assets", D7_WEIGHTS)
+    _, model, graph = load_decoder(path, device=dev, dtype=dt)
+    dg = graph.to(dev)
+    w = fd.RoundWeights(*[t.detach() for t in model.rounds.round_weights()])
+    gen = torch.Generator(device=dev).manual_seed(72)
+    info["checks"] = train_kernels_vs_plain(graph, dg, w, gen, D7_GPANELS)
+    lap("checks")
+
+    # b. the two panel placements on the d=11 graph, the same inputs
+    g11, _, ops11, w11, xc, xq, s, _ = random_round_case(D, D7_GP_BATCH, D13_ROUNDS, dt, 73,
+                                                         dev)
+    mats32, vecs32 = fd.pack_weights_f32(w11)
+    need = gpanels_smem(load_library("fused_rounds"), 1, ops11)
+    runs = {}
+    with torch.no_grad():
+        for where in ("shared", "global"):
+            with contextlib.ExitStack() as stack:
+                if where == "global":
+                    stack.enter_context(smem_limit(fd, need))
+                reset_counts()
+                k1 = fd.decoder_rounds(xc, xq, s, ops11, w11, D13_ROUNDS, dt)
+                k2a = fb._fwd_stash_cuda(xc, xq, s, ops11, mats32, vecs32, D13_ROUNDS, dt)
+                runs[where] = (k1, k2a, counts())
+        torch.cuda.synchronize()
+    (k1s, k2as, cs), (k1g, k2ag, cg) = runs["shared"], runs["global"]
+    want = {"shared": ("fused_rounds", "fused_rounds_fwd_stash"),
+            "global": ("fused_rounds_gpanels", "fused_rounds_fwd_stash_gpanels")}
+    for where, (_, _, c) in runs.items():
+        if c != {**dict.fromkeys(c, 0), **dict.fromkeys(want[where], 1)}:
+            raise RuntimeError(f"d=11 bf16 {where} panels: launched {c}, not {want[where]}")
+    equal = dict(k1=all(torch.equal(a, b) for a, b in zip(k1s, k1g)),
+                 k2a=all(torch.equal(a, b) for a, b in zip(k2as, k2ag)))
+    info["d11_placements"] = dict(
+        batch=D7_GP_BATCH, rounds=D13_ROUNDS, gpanels_smem_bytes=need, bit_equal=equal,
+        k1_max_abs_diff=raster_errors(*k1s, *k1g)[0],
+        grid=min(D7_GP_BATCH, torch.cuda.get_device_properties(dev).multi_processor_count))
+    if not all(equal.values()):
+        raise RuntimeError(f"d=11 bf16: the global-panel kernels differ from the shared-panel "
+                           f"ones: {info['d11_placements']}")
+    del runs, k1s, k2as, k1g, k2ag, xc, xq, s
+    torch.cuda.empty_cache()
+    lap("placements")
+
+    # c. the training shapes
+    info["timed"] = train_kernels_timed(graph, dg, w, gen, model.cfg.rounds, D7_GPANELS[0],
+                                        f64=True, plain_calls=2)
+    del model
+    torch.cuda.empty_cache()
+    lap("timed")
+
+    # d. cli eval and DecodeEngine on the weights file in bf16
+    meta = read_meta(path)
+    ref = meta["ler_reference"]
+    reset_counts()
+    ev = run_cli([*D7_EVAL_ARGS, "--checkpoint-dir", path])[-1]
+    launches["cli_eval_d7_bf16"] = launched = counts()
+    n = int(ev["shots"])
+    row = dict(CIRCUIT_CHECKPOINTS[-1][-1])
+    z_jax = {k: z_score(ev[k], n, ref[k], ref["shots"]) for k in ("ler_logical", "ler")}
+    z_row = {k: z_score(ev[k], n, row[k], CIRCUIT_ROW_SHOTS) for k in ("ler_logical", "ler")}
+    chunks = CIRCUIT_SHOTS // B
+    info["cli_eval"] = dict(
+        argv=[*D7_EVAL_ARGS, "--checkpoint-dir", os.path.relpath(path, REPO)], row=ev,
+        jax_f32=dict(shots=ref["shots"], **{k: ref[k] for k in z_jax}), z_vs_jax_f32=z_jax,
+        table_row=dict(line=f"benchmarks/LER_DETECTOR.md:{D7_ROW_LINE}",
+                       shots=CIRCUIT_ROW_SHOTS, **{k: row[k] for k in z_row}),
+        z_vs_row=z_row, launches=launched)
+    if any(abs(v) > CIRCUIT_Z for v in z_jax.values()):
+        raise RuntimeError(f"cli eval bf16 on circuit d=7: a head is off its JAX f32 rate: "
+                           f"{info['cli_eval']}")
+    if launched != {**dict.fromkeys(launched, 0), D7_GPANELS[0]: chunks}:
+        raise RuntimeError(f"cli eval bf16 on circuit d=7: launched {launched}, not {chunks} "
+                           f"{D7_GPANELS[0]} and nothing else")
+    with DecodeEngine.from_npz(path, device="cuda", dtype=dt, max_batch=B) as eng:
+        syn = sample_batch(torch.Generator(device=dev).manual_seed(74), dg, CIRCUIT_P,
+                           B).syndrome[:, :graph.n_checks].to(torch.uint8).cpu().numpy()
+        reset_counts()
+        t1 = time.perf_counter()
+        corr = eng.decode(syn)
+        serve_ms = (time.perf_counter() - t1) * 1e3
+        launches["serve_d7_bf16"] = launched = counts()
+        dtype_served = eng.model.cfg.dtype
+    info["serve"] = dict(shots=B, request_ms=serve_ms, model_dtype=dtype_served,
+                         launches=launched)
+    if (corr.shape != (B, graph.n_qubits, 2) or corr.dtype != np.uint8 or dtype_served != dt
+            or launched != {**dict.fromkeys(launched, 0), D7_GPANELS[0]: 1}):
+        raise RuntimeError(f"DecodeEngine bf16 on circuit d=7: {corr.shape} {corr.dtype} "
+                           f"{info['serve']}")
+    torch.cuda.empty_cache()
+    lap("eval_serve")
+
+    # e. cli train at the checkpoint's settings
+    argv = [*D7_TRAIN_ARGS, "--steps", str(D7_TRAIN_STEPS), "--eval-every",
+            str(D7_TRAIN_STEPS)]
+    reset_counts()
+    with StepRecorder() as rec:
+        last = run_cli(argv)[-1]
+    launches["cli_train_d7_bf16"] = counts()
+    summary = rec.summary()
+    per_step = rec.launches
+    info["cli_train"] = dict(argv=argv, last_line=last, launches=launches["cli_train_d7_bf16"],
+                             **summary)
+    del rec
+    torch.cuda.empty_cache()
+    gate_training("cli train (circuit d=7, bf16)", summary, D7_TRAIN_STEPS)
+    step_want = {D7_GPANELS[1]: 1, D7_GPANELS[2]: 1}
+    if any(c != {**dict.fromkeys(c, 0), **step_want} for c in per_step):
+        raise RuntimeError(f"cli train (circuit d=7): a step did not launch the global-panel "
+                           f"K2a and K2b once each and nothing else: {per_step}")
+    lap("train")
+
+    # f. the new instantiations on the tensor cores
+    built = build_libraries(["fused_rounds", "fused_backward"])
+    hmma = bf16_gpanel_hmma(built["fused_rounds"][0], built["fused_backward"][0])
+    info["sass_hmma"] = hmma
+    if not (len(hmma["k1"]) == len(hmma["k2a"]) == 2 and len(hmma["k2b"]) == 4) or not all(
+            c > 0 for k in ("k1", "k2a", "k2b") for c in hmma[k].values()):
+        raise RuntimeError(f"a bf16 global-panel kernel is missing or has no HMMA: {hmma}")
+    lap("sass")
+    info["part_seconds"] = part_s
+    return launches
 
 
 class _Recorder:
@@ -3804,6 +4134,10 @@ def main() -> int:
         circ_launches, circ_k1, circ_k2 = phase_circuit_and_cli(dev, info)
         launches.update(circ_launches)
 
+    with Phase("circuit_d7_bfloat16") as info:
+        launches.update(phase_circuit_d7_bfloat16(dev, info))
+        d7 = dict(info)
+
     with Phase("dist") as info:
         launches.update(phase_dist(dev, info, smi))
 
@@ -4059,8 +4393,8 @@ def main() -> int:
                     step_ms_median=statistics.median(step_ms), step_ms=step_ms)
         if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
             raise RuntimeError(f"train: {len(losses)} steps, losses {losses}")
-        if any(c != {"fused_rounds": 0, "fused_rounds_gpanels": 0, "fused_rounds_fwd_stash": 1,
-                     "fused_rounds_bwd": 1} for c in per_step):
+        if any(c != {**dict.fromkeys(c, 0), "fused_rounds_fwd_stash": 1, "fused_rounds_bwd": 1}
+               for c in per_step):
             raise RuntimeError(f"train: a step did not launch K2a and K2b once each "
                                f"(and K1 never): {per_step}")
         if not last5 < LOSS_FALL * first5:
@@ -4133,8 +4467,11 @@ def main() -> int:
         roll_info = dict(info)
     del trained
 
-    def by_path(kernel):
-        return {p: c[kernel] for p, c in launches.items() if c[kernel]}
+    def by_path(kernel, bf16_d7: bool | None = None):
+        """Launches of ``kernel`` by path; with ``bf16_d7`` only (True) or
+        all but (False) phase 4g's paths (circuit d=7 in bf16)."""
+        return {p: c[kernel] for p, c in launches.items() if c[kernel] and (
+            bf16_d7 is None or p.endswith("_d7_bf16") == bf16_d7)}
 
     def row(name, **kw):
         paths = by_path(name)
@@ -4142,10 +4479,10 @@ def main() -> int:
                 "launches_by_path": paths, **kw}
 
     def variant(name, checks: dict, timings: dict) -> dict:
-        """A global-panel variant's fields: its launches, its max error
+        """An f32 global-panel variant's fields: its launches, its max error
         against the plain version (B=64, R=3 and at the timed shapes), and
         per graph its time, the plain version's and its bound."""
-        paths = by_path(name)
+        paths = by_path(name, bf16_d7=False)
         return dict(name=name, launches=sum(paths.values()), launches_by_path=paths,
                     max_abs_err=max(max(v["max_abs_err"] for v in checks.values()),
                                     max(v["max_abs_err"] for v in timings.values())),
@@ -4153,6 +4490,20 @@ def main() -> int:
                                              "bound_ms", "bound_by", "tflops",
                                              "tf32x3_floor_ms", "f32_core_ms") if k in t}
                        for d, t in timings.items()})
+
+    def gpanels_bf16(k: int, source: str, replaces: str, **kw) -> dict:
+        """The bf16 global-panel variant of K1 (k=0), K2a (1) or K2b (2) on
+        the circuit d=7 checkpoint (phase 4g): its launches there, its
+        error against the plain version (B=64, R=3; K1 also at B=4096),
+        its time at B=4096, R=8 beside its plain version's and its bound,
+        and its HMMA count."""
+        name, t, c = D7_GPANELS[k], d7["timed"], d7["checks"]
+        paths = by_path(name, bf16_d7=True)
+        tag = ("k1", "k2a", "k2b")[k]
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=sum(paths.values()), launches_by_path=paths,
+                    graph=c["graph"], batch=t["timed_batch"], rounds=t["timed_rounds"],
+                    library_ms=None, sass_hmma=d7["sass_hmma"][tag], **kw)
 
     def padded(kernel: str, checks: dict) -> dict:
         """The padded widths' fields: max errors against the plain version by
@@ -4189,6 +4540,16 @@ def main() -> int:
         padded_width=padded("k1", pw_checks),
         detector_graph=det_k1, circuit_graphs=circ_k1,
         circuit_d5_bfloat16={"graph": circ_k2["graph"], **circ_k2["k1_bfloat16"]},
+        gpanels_bfloat16=gpanels_bf16(
+            0, "tpugnn_torch/kernels/csrc/fused_rounds.cu", "tpugnn/kernels/fused_decoder.py:637",
+            max_abs_err=d7["checks"]["k2a_vs_plain_max"],   # B=64: K2a's, bit-equal to K1
+            b4096={k: d7["timed"]["k1_bfloat16"][k] for k in (
+                "max_abs_err", "mean_abs_err", "vs_f64_max", "vs_f64_mean", "plain_vs_f64_max",
+                "plain_vs_f64_mean", "f64_ratio_bound")},
+            ms=d7["timed"]["k1_bfloat16"]["ms"], plain_ms=d7["timed"]["k1_bfloat16"]["plain_ms"],
+            bound_ms=d7["timed"]["k1_bfloat16"]["bound_ms"],
+            bound_by=d7["timed"]["k1_bfloat16"]["bound_by"],
+            d11_bit_equal_to_shared=d7["d11_placements"]["bit_equal"]["k1"]),
     ), row(
         "fused_rounds_fwd_stash",
         source="tpugnn_torch/kernels/csrc/fused_rounds.cu",
@@ -4208,6 +4569,13 @@ def main() -> int:
         circuit_d5={k: circ_k2[k] for k in (
             "graph", "k2a_ms", "plain_fwd_stash_ms", "k2a_bound_ms", "k2a_bound_by",
             "k2a_vs_plain_max", "stash_vs_plain_max", "timed_batch", "timed_rounds")},
+        gpanels_bfloat16=gpanels_bf16(
+            1, "tpugnn_torch/kernels/csrc/fused_rounds.cu", "tpugnn/kernels/fused_backward.py:575",
+            max_abs_err=max(d7["checks"]["k2a_vs_plain_max"], d7["checks"]["stash_vs_plain_max"]),
+            ms=d7["timed"]["k2a_ms"], plain_ms=d7["timed"]["plain_fwd_stash_ms"],
+            bound_ms=d7["timed"]["k2a_bound_ms"], bound_by=d7["timed"]["k2a_bound_by"],
+            equals_k1=d7["checks"]["k2a_equals_k1"],
+            d11_bit_equal_to_shared=d7["d11_placements"]["bit_equal"]["k2a"]),
     ), row(
         "fused_rounds_bwd",
         source="tpugnn_torch/kernels/csrc/fused_backward.cu",
@@ -4231,6 +4599,12 @@ def main() -> int:
             "graph", "k2b_ms", "plain_vjp_ms", "k2b_bound_ms", "k2b_bound_by",
             "k2b_max_abs_err", "k2b_worst_rel", "k2b_smem_bytes", "timed_batch",
             "timed_rounds")},
+        gpanels_bfloat16=gpanels_bf16(
+            2, "tpugnn_torch/kernels/csrc/fused_backward.cu",
+            "tpugnn/kernels/fused_backward.py:624", max_abs_err=d7["checks"]["k2b_max_abs_err"],
+            max_rel_err=d7["checks"]["k2b_worst_rel"], ms=d7["timed"]["k2b_ms"],
+            plain_ms=d7["timed"]["plain_vjp_ms"], bound_ms=d7["timed"]["k2b_bound_ms"],
+            bound_by=d7["timed"]["k2b_bound_by"], repeatable=d7["checks"]["k2b_repeatable"]),
     ), row(
         "ell_sum", source="tpugnn_torch/kernels/csrc/spmm.cu",
         replaces="tpugnn/kernels/spmm.py:79", **new_kernels["ell_sum"],

@@ -204,15 +204,11 @@ def in_turns(libs: dict, order, call) -> dict:
 def gp_call(lib, ops, call):
     """call() with the wrappers' shared-memory limit at the global-panel
     variant's need, so that K1 launches that variant."""
+    import chip_smoke as cs
     from tpugnn_torch.kernels import fused_decoder as fd
 
-    need = lib.fused_rounds_gpanels_smem_bytes(ops[0].shape[0], ops[3].shape[0],
-                                               ops[0].shape[1], ops[3].shape[1])
-    old, fd.SMEM_LIMIT = fd.SMEM_LIMIT, need
-    try:
+    with cs.smem_limit(fd, cs.gpanels_smem(lib, 0, ops)):
         return call()
-    finally:
-        fd.SMEM_LIMIT = old
 
 
 def graph_checks(libs: dict) -> dict:

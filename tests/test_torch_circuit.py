@@ -495,6 +495,32 @@ def test_ler_all_columns_nll_on_the_circuit_weights():
         assert cols[k] < 0.1, (k, cols[k])
 
 
+def test_weights_file_decodes_in_the_state_type_asked_for():
+    """load_decoder and DecodeEngine.from_npz with dtype='bfloat16' (the
+    state type the circuit checkpoints were trained in) load the file's
+    parameters into a model whose rounds store bf16 states: its logits move
+    off the f32 model's, and its decisions agree with them on at least 99%
+    of the entries (chip_smoke.py's MIN_AGREE_BF16)."""
+    path = os.path.join(ASSETS, CIRCUIT_FILES[0][0])
+    _, m32, g = load_decoder(path, device="cpu")
+    cfg, m16, _ = load_decoder(path, device="cpu", dtype="bfloat16")
+    assert cfg.model.dtype == "bfloat16" and m16.cfg.dtype == "bfloat16"
+    for (k, a), (_, b) in zip(m32.state_dict().items(), m16.state_dict().items()):
+        assert torch.equal(a, b), k
+    dg = g.to("cpu")
+    syn = torch.from_numpy(_circuit_syndromes(g, 3, bsz=256, p=0.01).astype(np.float32))
+    with torch.no_grad():
+        o32, o16 = m32(dg, syn), m16(dg, syn)
+    for f in ("qubit_logits", "logical_logits"):
+        a, b = getattr(o32, f), getattr(o16, f)
+        assert not torch.equal(a, b), f
+        assert ((a > 0) == (b > 0)).float().mean() >= 0.99, f
+    with DecodeEngine.from_npz(path, device="cpu", dtype="bfloat16", max_batch=64) as eng:
+        assert eng.model.cfg.dtype == "bfloat16"
+        corr = eng.decode(syn[:64, :g.n_checks].to(torch.uint8).numpy())
+    assert corr.shape == (64, g.n_qubits, 2)
+
+
 def test_decode_engine_serves_a_circuit_graph():
     """DecodeEngine with cleanup='mwpm' on the d=3 circuit weights: every
     correction reproduces its syndrome, and the first equals the

@@ -84,6 +84,16 @@ def test_json_keys_equal_the_jax_cli(tmp_path, capsys, cmd, extra):
     assert keys[0] == keys[1]
 
 
+def test_ema_flag(capsys):
+    """--ema DECAY sets the training config's EMA decay, and the train's
+    evaluation reports the EMA beside the live parameters."""
+    assert cli.build_config(cli._parser().parse_args(["train", "--ema", "0.999"])
+                            ).train.ema_decay == 0.999
+    assert cli.build_config(cli._parser().parse_args(["train"])).train.ema_decay is None
+    row = _run(capsys, "train", *TINY, "--ema", "0.9")[-1]
+    assert {"loss", "ler", "ler_ema"} <= set(row)
+
+
 def test_spacetime_flags(capsys):
     rows = _run(capsys, "train", "--family", "repetition", "-d", "3",
                 "--hidden", "8", "--msg-hidden", "8", "--rounds", "2",

@@ -18,9 +18,10 @@ import torch
 from tpugnn.kernels import fused_decoder as jfd
 from tpugnn.kernels.fused_backward import kernel_trained_rounds
 from tpugnn.tanner import build_code as jax_build_code
+from tpugnn.tanner.circuit import build_circuit_code as jax_circuit
 from tpugnn_torch.kernels import fused_backward as fb
 from tpugnn_torch.kernels import fused_decoder as fd
-from tpugnn_torch.tanner import build_code
+from tpugnn_torch.tanner import build_circuit_code, build_code
 
 torch.set_num_threads(1)
 
@@ -158,6 +159,24 @@ def test_vjp_plain_matches_jax_kernel_vjp_on_lopsided_graph():
     ref = _jax_grads(jfd.make_operators(jgraph), w, inputs, 2, "float32")
     got = _torch_grads(fd.make_operators(tgraph), w, inputs, 2, "float32")
     _compare(got, ref, "float32")
+
+
+def test_vjp_plain_matches_jax_kernel_vjp_on_circuit_d3_in_bf16():
+    """The training path of the circuit checkpoints (trained in bf16 through
+    the JAX package's kernels): on the circuit d=3 graph (M=16, N=56, Dc=10,
+    Dq=2; slots that read the dump node), H=32, B=2, R=2, the port's plain
+    bf16 gradients against JAX's kernel VJP in interpret mode, each leaf
+    within BF16_REL."""
+    jg = jax_circuit("surface", 3, 3)
+    tg = build_circuit_code("surface", 3, 3).to("cpu")
+    assert (jg.n_checks_pad, jg.n_qubits_pad, jg.deg_max_check, jg.deg_max_qubit) == (
+        16, 56, 10, 2)
+    w = _weights(32, seed=61)
+    inputs = _inputs(jg.n_checks_pad, jg.n_qubits_pad, 32, 2, seed=62,
+                     check_mask=np.asarray(jg.check_mask))
+    ref = _jax_grads(jfd.make_operators(jg), w, inputs, 2, "bfloat16")
+    got = _torch_grads(fd.make_operators(tg), w, inputs, 2, "bfloat16")
+    _compare(got, ref, "bfloat16")
 
 
 def _small(d=3, h=16, b=3, seed=0):

@@ -229,6 +229,9 @@ class _StubLibrary:
     def fused_rounds_stash_smem_bytes(self, *args):
         return 0
 
+    def fused_rounds_bwd_smem_bytes(self, *args):    # K2b's, asked before K2a launches
+        return 0
+
     def __getattr__(self, entry):
         def launch(*args):
             raise _Launched(entry)

@@ -104,7 +104,8 @@ def test_build_is_lazy():
 
 @pytest.mark.parametrize("script", ["_probe_common.py", "k2b_probe.py", "k4_probe.py",
                                     "k5_probe.py", "smoke_turns.py", "ler_rows_card.py",
-                                    "dist_startup_probe.py", "k1_f32_probe.py", "k2b_ties.py"])
+                                    "dist_startup_probe.py", "k1_f32_probe.py", "k2b_ties.py",
+                                    "k2b_gp_probe.py"])
 def test_kernel_probes_import_no_jax(script):
     """The kernel probes run on the card's machine, which has no JAX."""
     with open(os.path.join(REPO, "scripts", script)) as f:

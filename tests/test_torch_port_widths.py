@@ -32,7 +32,7 @@ from tpugnn_torch.kernels import roll_gather as rg
 from tpugnn_torch.models import GNNDecoder
 from tpugnn_torch.models import decoder as dec
 from tpugnn_torch.sampling import sample_batch
-from tpugnn_torch.tanner import build_code
+from tpugnn_torch.tanner import build_circuit_code, build_code
 from tpugnn_torch.train.loop import train_step
 from tpugnn_torch.train.optim import make_optimizer
 
@@ -288,16 +288,51 @@ def _k1_smem(code, m, n, dc, dq, gpanels=False, stash=False):
     f32 K1 and K2a (one kernel, its stash flag aside): panels, one 128-row
     f32 chunk buffer (row stride 132) and 16-row slabs of split TF32
     weights (1 KB a row: two beside shared panels, three beside global
-    ones), its slot tables read from global memory; K2a has no global-panel
-    variant.  bf16 (both): swizzled panels, 128-row chunk buffers, a double
-    buffer of 64-row slabs (32-row where 64 do not fit) and the slot
+    ones), its slot tables read from global memory; f32 K2a has no
+    global-panel variant.  bf16 (both): swizzled panels (none with
+    gpanels), 128-row chunk buffers, a double buffer of 64-row slabs
+    (32-row where only those fit beside shared panels) and the slot
     tables."""
     tables = _align16(m * dc * 4) + _align16(n * dq * 4)
     if code == 0:
         panels = 0 if gpanels else _align16(n * 512) + _align16(m * 512)
         return panels + 128 * 132 * 4 + (3 if gpanels else 2) * 16 * 1024
+    if gpanels:
+        return 2 * 128 * 136 * 2 + 2 * 64 * 272 + tables
     bf = lambda sr: _align16(n * 256) + _align16(m * 256) + 2 * 128 * 136 * 2 + 2 * sr * 272
-    return (bf(64) if bf(64) + tables <= fd.SMEM_LIMIT else bf(32)) + tables
+    fits = lambda sr: bf(sr) + tables <= 232448
+    return (bf(32) if fits(32) and not fits(64) else bf(64)) + tables
+
+
+def _k2b_layout(m, n, dc, dq):
+    """The layout of bf16 K2b that csrc/fused_backward.cu's tc_layout picks,
+    ``(slab rows, masks in shared memory, panels in the scratch, bytes)``:
+    the first to fit of 64-row slabs and the slot masks in shared memory,
+    32-row slabs and the masks, 64-row slabs, 32-row slabs beside shared
+    panels, then with the panels in the scratch 64-row slabs and the masks,
+    64-row slabs, 32-row slabs and the masks, 32-row slabs; slab rows 0 and
+    the last one's bytes where none fits.  The work area holds the panels
+    (shared only) and two chunk buffers, or S5's staging (4 x 3 x 32 rows)
+    where that is more; then the slab ring, the slot and readers tables."""
+    stage = 4 * 3 * 32 * 272
+    tables = (_align16(m * dc * 4) + _align16(n * dq * 4) + _align16((n + 1 + m * dc) * 4)
+              + _align16((m + 1 + n * dq) * 4))
+    order = [(64, True, False), (32, True, False), (64, False, False), (32, False, False),
+             (64, True, True), (64, False, True), (32, True, True), (32, False, True)]
+    for sr, live, gp in order:
+        work = max(2 * 128 * 272 + (0 if gp else _align16(n * 256) + _align16(m * 256)), stage)
+        size = work + (16 * (m * dc + n * dq) if live else 0) + 2 * sr * 272 + tables
+        if size <= 232448:
+            return sr, live, gp, size
+    return 0, False, True, size
+
+
+def _k2b_scratch(m, n, dc, dq, gp):
+    """fused_rounds_bwd_scratch_bytes: with gp the panels, then the slot
+    masks, one sample's rnd(dhs) and the tile's (8 samples') six bf16
+    residual arrays a direction."""
+    return ((m + n) * 256 if gp else 0) + 16 * (m * dc + n * dq) + (m + n) * 256 \
+        + 6 * 8 * (m + n) * 256
 
 
 class _K1Library:
@@ -310,8 +345,8 @@ class _K1Library:
     def fused_rounds_smem_bytes(self, code, m, n, dc, dq):
         return _k1_smem(code, m, n, dc, dq)
 
-    def fused_rounds_gpanels_smem_bytes(self, m, n, dc, dq):
-        return _k1_smem(0, m, n, dc, dq, gpanels=True)
+    def fused_rounds_gpanels_smem_bytes(self, code, m, n, dc, dq):
+        return _k1_smem(code, m, n, dc, dq, gpanels=True)
 
     def fused_rounds_stash_smem_bytes(self, code, m, n, dc, dq):
         return _k1_smem(code, m, n, dc, dq, stash=True)
@@ -337,6 +372,48 @@ def k1_library(monkeypatch):
     return lib
 
 
+class _K2bLibrary:
+    """bf16 K2b's library as far as a launch (csrc/fused_backward.cu's
+    entry points, sized by :func:`_k2b_layout`): records each launch."""
+
+    def __init__(self):
+        self.calls = []
+
+    def fused_rounds_bwd_smem_bytes(self, m, n, dc, dq):
+        return _k2b_layout(m, n, dc, dq)[3]
+
+    def fused_rounds_bwd_tile(self):
+        return 8
+
+    def fused_rounds_bwd_scratch_bytes(self, m, n, dc, dq):
+        return _k2b_scratch(m, n, dc, dq, _k2b_layout(m, n, dc, dq)[2])
+
+    def fused_rounds_bwd_gpanels(self, m, n, dc, dq):
+        return int(_k2b_layout(m, n, dc, dq)[2])
+
+    def fused_rounds_bwd_launch(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.fixture
+def k2b_library(k1_library, monkeypatch):
+    """The stub K2b library beside the stub fused-rounds one."""
+    from tpugnn_torch.kernels import _build
+
+    lib = _K2bLibrary()
+    libs = {"fused_rounds": k1_library, "fused_backward": lib}
+    monkeypatch.setattr(_build, "load_library",
+                        lambda name: libs[name] if name in libs else pytest.fail(f"loaded {name}"))
+    return lib
+
+
+def _slot_args(g):
+    """(M, N, Dc, Dq) of a graph's padded slot tables."""
+    src_c, _, _, src_q, _, _ = fd.make_operators(g.to("cpu"))
+    return g.n_checks_pad, g.n_qubits_pad, src_c.shape[1], src_q.shape[1]
+
+
 def test_stub_sizes_shared_memory_as_the_card():
     """The stub's sizes are those csrc/fused_rounds.cu computes on the
     card: f32 K1 231,424 B at d=11 (fits), 280,576 at d=13 and 337,920 at
@@ -344,9 +421,7 @@ def test_stub_sizes_shared_memory_as_the_card():
     K1 without the panels, fit through d=15."""
     sizes = {}
     for d in (11, 13, 15):
-        g = build_code("surface", d).to("cpu")
-        src_c, _, _, src_q, _, _ = fd.make_operators(g)
-        args = (g.n_checks_pad, g.n_qubits_pad, src_c.shape[1], src_q.shape[1])
+        args = _slot_args(build_code("surface", d))
         sizes[d] = (_k1_smem(0, *args), _k1_smem(1, *args), _k1_smem(0, *args, gpanels=True),
                     _k1_smem(0, *args, stash=True))
     assert [sizes[d][0] for d in (11, 13, 15)] == [231424, 280576, 337920]
@@ -354,33 +429,69 @@ def test_stub_sizes_shared_memory_as_the_card():
     assert all(s[1] <= fd.SMEM_LIMIT and s[2] <= fd.SMEM_LIMIT for s in sizes.values())
 
 
-def _k1_call(d, h, dtype, batch=2):
-    g = build_code("surface", d).to("cpu")
+def test_stub_sizes_circuit_d7_in_bf16_as_the_card():
+    """bf16 on the circuit d=7 graph (M=176, N=920, Dc=14, Dq=2), as
+    csrc/fused_rounds.cu and csrc/fused_backward.cu size it: K1 and K2a
+    402,240 B with their panels in shared memory, 121,664 with them in
+    global memory; K2b over the limit in every shared-panel layout (the
+    last tried, 32-row slabs and the slot masks in the scratch, 406,464 B)
+    and 178,112 in the first global one that fits (64-row slabs, the masks
+    in the scratch; 64-row slabs with the masks in shared memory would take
+    246,976, 32-row slabs with them 229,568).  The shared-panel layouts the
+    card measured keep their bytes: K2b 195,616 at d=11 and 218,848 on
+    circuit d=5."""
+    args = _slot_args(build_circuit_code("surface", 7, 7))
+    assert args == (176, 920, 14, 2)
+    assert _k1_smem(1, *args) == 402240 and _k1_smem(1, *args, gpanels=True) == 121664
+    m, n, dc, dq = args
+    stage, slab32, masks = 4 * 3 * 32 * 272, 2 * 32 * 272, 16 * (m * dc + n * dq)
+    tables = (_align16(m * dc * 4) + _align16(n * dq * 4) + _align16((n + 1 + m * dc) * 4)
+              + _align16((m + 1 + n * dq) * 4))
+    assert _align16(n * 256) + _align16(m * 256) + 2 * 128 * 272 + slab32 + tables == 406464
+    assert _k2b_layout(*args) == (64, False, True, 178112)
+    assert stage + 2 * slab32 + masks + tables == 246976
+    assert stage + slab32 + masks + tables == 229568
+    assert _k2b_layout(*_slot_args(build_code("surface", 11)))[:3] == (64, True, False)
+    assert _k2b_layout(*_slot_args(build_code("surface", 11)))[3] == 195616
+    assert _k2b_layout(*_slot_args(build_circuit_code("surface", 5, 5))) == (
+        32, True, False, 218848)
+
+
+def _k1_call(d, h, dtype, batch=2, circuit=False):
+    """A K1 call on the surface code of distance d (with ``circuit``, its
+    circuit-level graph over d rounds) on zero states of width h."""
+    g = (build_circuit_code("surface", d, d) if circuit else build_code("surface", d)).to("cpu")
     w = fd.RoundWeights(**{k: torch.from_numpy(v) for k, v in _weights(h, 0).items()})
     xc = torch.zeros((batch, g.n_checks_pad, h))
     xq = torch.zeros((batch, g.n_qubits_pad, h))
     return g, (xc, xq, xc[..., :1], fd.make_operators(g), w, 2, dtype)
 
 
-@pytest.mark.parametrize("d,dtype,entry", [
-    (11, "float32", "fused_rounds_launch"),
-    (13, "float32", "fused_rounds_gpanels_launch"),
-    (15, "float32", "fused_rounds_gpanels_launch"),
-    (13, "bfloat16", "fused_rounds_launch"),
-    (15, "bfloat16", "fused_rounds_launch")])
-def test_k1_wrapper_picks_the_panel_route(d, dtype, entry, k1_library):
-    """f32 graphs whose panels overflow shared memory (d=13, d=15) take the
-    global-panel variant on a persistent grid of min(B, SMs) blocks; d <= 11
-    keeps the shared-panel kernel, and bf16 never takes the variant.  Each
-    call is counted under its kernel's name."""
-    g, args = _k1_call(d, 128, dtype, batch=200)
+@pytest.mark.parametrize("d,dtype,entry,circuit", [
+    (11, "float32", "fused_rounds_launch", False),
+    (13, "float32", "fused_rounds_gpanels_launch", False),
+    (15, "float32", "fused_rounds_gpanels_launch", False),
+    (13, "bfloat16", "fused_rounds_launch", False),
+    (15, "bfloat16", "fused_rounds_launch", False),
+    (5, "bfloat16", "fused_rounds_launch", True),
+    (7, "bfloat16", "fused_rounds_gpanels_launch", True),
+    (7, "float32", "fused_rounds_gpanels_launch", True)])
+def test_k1_wrapper_picks_the_panel_route(d, dtype, entry, circuit, k1_library):
+    """Graphs whose panels overflow shared memory take the global-panel
+    variant on a persistent grid of min(B, SMs) blocks, its panels in the
+    state type: in f32 d=13, d=15 and circuit d=7, in bf16 circuit d=7
+    alone; the rest keep the shared-panel kernel.  Each call is counted
+    under its kernel's name."""
+    g, args = _k1_call(d, 128, dtype, batch=200, circuit=circuit)
     out_c, out_q = fd._rounds_cuda(*args)
     ((name, a),) = k1_library.calls
     assert name == entry and out_c.shape == args[0].shape
     m, n = g.n_checks_pad, g.n_qubits_pad
+    code = 0 if dtype == "float32" else 1
     if entry == "fused_rounds_gpanels_launch":
-        # (9 operand pointers, panels, B, M, N, Dc, Dq, R, width, grid, stream)
-        assert a[10:13] == (200, m, n) and a[15:18] == (2, 128, 132)
+        # (dtype code, 9 operand pointers, panels, B, M, N, Dc, Dq, R, width,
+        # grid, stream)
+        assert a[0] == code and a[11:14] == (200, m, n) and a[16:19] == (2, 128, 132)
         assert fd.launch_counts()["fused_rounds_gpanels"] == 1
         assert fd.launch_counts()["fused_rounds"] == 0
     else:
@@ -446,13 +557,92 @@ def test_stacked_slot_tables_give_the_same_rounds():
 
 
 def test_k2a_keeps_its_shared_memory_check(k1_library):
-    """K2a (the stash flag) has no global-panel variant: f32 at d=13 is
+    """f32 K2a (the stash flag) has no global-panel variant: f32 at d=13 is
     refused before a launch, as before."""
     g, args = _k1_call(13, 128, "float32")
     mats32, vecs32 = fd.pack_weights_f32(args[4])
     with pytest.raises(ValueError, match="shared memory"):
         fb._fwd_stash_cuda(args[0], args[1], args[2], args[3], mats32, vecs32, 2, "float32")
     assert not k1_library.calls
+
+
+@pytest.mark.parametrize("batch", [8, 200])
+def test_bf16_k2a_takes_global_panels_on_circuit_d7(batch, k1_library):
+    """bf16 K2a on the circuit d=7 graph launches its global-panel variant
+    on min(B, SMs) blocks, with bf16 panels, and writes the stash [R, B,
+    rows, 128] indexed by the whole batch B (not by the grid)."""
+    g, args = _k1_call(7, 128, "bfloat16", batch=batch, circuit=True)
+    mats32, vecs32 = fd.pack_weights_f32(args[4])
+    _, _, sc, sq = fb._fwd_stash_cuda(*args[:4], mats32, vecs32, 3, "bfloat16")
+    ((name, a),) = k1_library.calls
+    m, n = g.n_checks_pad, g.n_qubits_pad
+    # (dtype code, 9 operand pointers, stash_c, stash_q, panels, B, M, N, Dc,
+    # Dq, R, width, grid, stream)
+    assert name == "fused_rounds_stash_gpanels_launch" and a[0] == 1
+    assert a[10:12] == (sc.data_ptr(), sq.data_ptr())
+    assert a[13:16] == (batch, m, n) and a[18:21] == (3, 128, min(batch, 132))
+    assert tuple(sc.shape) == (3, batch, m, 128) and tuple(sq.shape) == (3, batch, n, 128)
+    assert sc.dtype == torch.bfloat16
+    assert fd.launch_counts()["fused_rounds_fwd_stash_gpanels"] == 1
+    assert fd.launch_counts()["fused_rounds_fwd_stash"] == 0
+
+
+@pytest.mark.parametrize("d,circuit,entry", [
+    (11, False, "fused_rounds_bwd"), (5, True, "fused_rounds_bwd"),
+    (7, True, "fused_rounds_bwd_gpanels")])
+def test_bf16_k2b_takes_the_scratch_panel_layout(d, circuit, entry, k2b_library):
+    """bf16 K2b keeps its shared-panel layouts wherever one fits (d=11,
+    circuit d=5) and on circuit d=7 launches the layout with its panels in
+    the scratch, counted apart; the scratch it is handed has room for the
+    panels of each of its blocks."""
+    batch = 20
+    g, args = _k1_call(d, 128, "bfloat16", batch=batch, circuit=circuit)
+    mats32, vecs32 = fd.pack_weights_f32(args[4])
+    m, n = g.n_checks_pad, g.n_qubits_pad
+    sc = torch.zeros((2, batch, m, 128), dtype=torch.bfloat16)
+    sq = torch.zeros((2, batch, n, 128), dtype=torch.bfloat16)
+    fb._bwd_cuda(sc, sq, args[2], args[3], mats32, vecs32, args[0], args[1], "bfloat16")
+    (a,) = k2b_library.calls
+    grid = 3      # ceil(20 / 8) tiles, one block each
+    # (stash_c, stash_q, syn, idx_c, idx_q, mats, mats_t, vecs, ucs32, dxc, dxq,
+    # dsyn, scratch, part_mats, part_vecs, dmats, dvecs, B, M, N, Dc, Dq, R,
+    # width, grid, stream)
+    args4 = _slot_args(g)
+    assert a[17:25] == (batch, *args4, 2, 128, grid)
+    gp = entry == "fused_rounds_bwd_gpanels"
+    assert _k2b_layout(*args4)[2] == gp
+    assert k2b_library.fused_rounds_bwd_scratch_bytes(*args4) == _k2b_scratch(*args4, gp)
+    other = "fused_rounds_bwd" if gp else "fused_rounds_bwd_gpanels"
+    assert fd.launch_counts()[entry] == 1 and fd.launch_counts()[other] == 0
+
+
+def test_bf16_training_on_circuit_d7_launches_both_global_variants(k1_library, k2b_library):
+    """A training step's rounds in bf16 on the circuit d=7 graph go through
+    K2a's and K2b's global-panel variants, one launch each."""
+    _, args = _k1_call(7, 128, "bfloat16", batch=4, circuit=True)
+    w = fd.RoundWeights(*[t.clone().requires_grad_(True) for t in args[4]])
+    out_c, out_q = fb.trained_rounds(*args[:4], w, 2, "bfloat16", kernels=True)
+    (out_c.sum() + out_q.sum()).backward()
+    assert [name for name, _ in k1_library.calls] == ["fused_rounds_stash_gpanels_launch"]
+    assert len(k2b_library.calls) == 1
+    c = fd.launch_counts()
+    assert c["fused_rounds_fwd_stash_gpanels"] == 1 and c["fused_rounds_bwd_gpanels"] == 1
+    assert c["fused_rounds_fwd_stash"] == c["fused_rounds_bwd"] == 0
+
+
+def test_training_raises_before_k2a_where_k2b_does_not_fit(k1_library, k2b_library,
+                                                          monkeypatch):
+    """Where K2a fits and K2b does not (here: a limit of 150,000 B, between
+    K2a's 121,664 and K2b's 178,112 on circuit d=7), a training call raises
+    before any launch, so no step runs a forward that its backward cannot
+    follow."""
+    monkeypatch.setattr(fd, "SMEM_LIMIT", 150000)
+    _, args = _k1_call(7, 128, "bfloat16", batch=4, circuit=True)
+    w = fd.RoundWeights(*[t.clone().requires_grad_(True) for t in args[4]])
+    with pytest.raises(ValueError, match="fused backward kernel"):
+        fb.trained_rounds(*args[:4], w, 2, "bfloat16", kernels=True)
+    assert not k1_library.calls and not k2b_library.calls
+    assert not any(fd.launch_counts().values())
 
 
 @pytest.mark.parametrize("entry", ["k1", "k5", "k2"])

@@ -53,6 +53,9 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--batch", type=int, default=256)
     p.add_argument("--steps", type=int, default=2000)
     p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--ema", type=float, default=None, metavar="DECAY",
+                   help="keep an EMA of the parameters with this decay (evaluated "
+                        "beside the live ones)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--eval-every", type=int, default=500)
     p.add_argument("--eval-shots", type=int, default=4096)
@@ -97,6 +100,7 @@ def build_config(args: argparse.Namespace) -> ExperimentConfig:
             batch=args.batch,
             steps=args.steps,
             lr=args.lr,
+            ema_decay=args.ema,
             seed=args.seed,
             eval_every=args.eval_every,
             eval_shots=args.eval_shots,

@@ -46,13 +46,15 @@ _BACKWARD = {
 _SIGNATURES = {
     "fused_rounds": {
         "fused_rounds_smem_bytes": ([_I] * 5, ctypes.c_longlong),
-        "fused_rounds_gpanels_smem_bytes": ([_I] * 4, ctypes.c_longlong),
+        "fused_rounds_gpanels_smem_bytes": ([_I] * 5, ctypes.c_longlong),
         "fused_rounds_stash_smem_bytes": ([_I] * 5, ctypes.c_longlong),
         "fused_rounds_launch": ([_I] + [_P] * 9 + [_I] * 7 + [_P], _I),
-        "fused_rounds_gpanels_launch": ([_P] * 10 + [_I] * 8 + [_P], _I),
+        "fused_rounds_gpanels_launch": ([_I] + [_P] * 10 + [_I] * 8 + [_P], _I),
         "fused_rounds_stash_launch": ([_I] + [_P] * 11 + [_I] * 7 + [_P], _I),
+        "fused_rounds_stash_gpanels_launch": ([_I] + [_P] * 12 + [_I] * 8 + [_P], _I),
     },
     "fused_backward": {**_BACKWARD,
+                       "fused_rounds_bwd_gpanels": ([_I] * 4, _I),
                        "fused_rounds_bwd_launch": ([_P] * 17 + [_I] * 8 + [_P], _I)},
     "fused_backward_tf32": {**_BACKWARD,
                             "fused_rounds_bwd_launch": ([_P] * 22 + [_I] * 8 + [_P], _I)},

@@ -46,7 +46,18 @@
 // slab, the slot and readers tables and the slot masks in shared memory
 // (195,616 B); rnd(dhs) in the gathered panel once S2 no longer reads it;
 // the running state cotangents in the dxc/dxq outputs; the tile's residuals
-// in its bf16 scratch (3 MB a block).
+// in its bf16 scratch (3 MB a block).  Where no layout with the panels in
+// shared memory fits (circuit d=7: 920 + 176 rows, 280,576 B of bf16 panels
+// alone), the GP layouts keep the two swizzled panels at the head of the
+// block's scratch instead, read and written through the same generic loads
+// and stores; S5's staging (104,448 B) then overlays only the chunk buffers.
+// There 64-row slabs come before the slot masks: at circuit d=7 64-row
+// slabs with the masks in the scratch (178,112 B) took 391-393 ms against
+// 437 for 32-row slabs with the masks in shared memory (229,568 B; B=4096,
+// R=8, H100, scripts/k2b_gp_probe.py).  The panels (37 MB over 132 blocks) fit
+// in the 50 MB L2 and the residuals streamed through the same scratch (13.8
+// MB a block at circuit d=7) do not, yet storing those with evict-first
+// hints bought nothing measurable: they do not push the panels out.
 //
 // Width: as the forward's (fused_rounds.cu).  The stash and the packs come
 // zero-padded to 128 columns, and the LayerNorm runs over the model's first
@@ -105,18 +116,20 @@ constexpr int NSTAGE = 4;   // staged chunks in flight or in use: 3 loading ahea
 // S5 stages the rows of up to three arrays over the panels and chunk buffers
 constexpr size_t STAGE_BYTES = size_t(NSTAGE) * 3 * RS * LDB * sizeof(bf16);
 
-// The panels and the two chunk buffers, or S5's staging where that is more.
-__host__ __device__ inline size_t work_bytes(int M, int N) {
-  const size_t w = align16(size_t(N) * H * sizeof(bf16)) +
-                   align16(size_t(M) * H * sizeof(bf16)) + 2 * CHUNK_BYTES;
+// The panels (not with gp: they are in the scratch) and the two chunk
+// buffers, or S5's staging where that is more.
+__host__ __device__ inline size_t work_bytes(int M, int N, bool gp) {
+  size_t w = 2 * CHUNK_BYTES;
+  if (!gp) w += align16(size_t(N) * H * sizeof(bf16)) + align16(size_t(M) * H * sizeof(bf16));
   return w > STAGE_BYTES ? w : STAGE_BYTES;
 }
 
 // live: the slot masks of both directions in shared memory (else in the
-// scratch)
+// scratch); gp: the gather panels in the scratch (else in shared memory)
 template <int SR>
-__host__ __device__ inline size_t smem_bytes(int M, int N, int Dc, int Dq, bool live) {
-  size_t s = work_bytes(M, N);
+__host__ __device__ inline size_t smem_bytes(int M, int N, int Dc, int Dq, bool live,
+                                             bool gp) {
+  size_t s = work_bytes(M, N, gp);
   if (live) s += 16 * size_t(M * Dc + N * Dq);
   s += slab_bytes(SR);
   s += align16(size_t(M) * Dc * sizeof(int));
@@ -127,24 +140,30 @@ __host__ __device__ inline size_t smem_bytes(int M, int N, int Dc, int Dq, bool 
 }
 
 struct Smem {
-  bf16* ys_c;   // [N][H] swizzled, gathered by check rows; S5's staging
-  bf16* ys_q;   //   starts here and spans the panels and chunk buffers
+  bf16* ys_c;   // [N][H] swizzled, gathered by check rows
+  bf16* ys_q;   // [M][H] swizzled, gathered by qubit rows
   bf16* xs;     // [CR][LDB] chunk buffer (A operand)
   bf16* hs;     // [CR][LDB] chunk buffer
+  bf16* stage;  // S5's staging: the start of the panels and chunk buffers
   bf16* slab;   // [2][SR][LDB] weight slabs
   int *idx_c, *idx_q, *off_c, *lst_c, *off_q, *lst_q;
   uint32_t* live;   // [M * Dc + N * Dq][4] slot masks, or nullptr
 };
 
-template <int SR>
+// With GP the panels are left to the caller (the block's scratch).
+template <int SR, bool GP>
 __device__ Smem carve(unsigned char* base, int M, int N, int Dc, int Dq, bool live) {
   Smem s;
   size_t o = 0;
-  s.ys_c = reinterpret_cast<bf16*>(base + o);  o += align16(size_t(N) * H * sizeof(bf16));
-  s.ys_q = reinterpret_cast<bf16*>(base + o);  o += align16(size_t(M) * H * sizeof(bf16));
+  s.stage = reinterpret_cast<bf16*>(base);
+  s.ys_c = s.ys_q = nullptr;
+  if (!GP) {
+    s.ys_c = reinterpret_cast<bf16*>(base + o);  o += align16(size_t(N) * H * sizeof(bf16));
+    s.ys_q = reinterpret_cast<bf16*>(base + o);  o += align16(size_t(M) * H * sizeof(bf16));
+  }
   s.xs = reinterpret_cast<bf16*>(base + o);    o += CHUNK_BYTES;
   s.hs = reinterpret_cast<bf16*>(base + o);
-  o = work_bytes(M, N);
+  o = work_bytes(M, N, GP);
   s.slab = reinterpret_cast<bf16*>(base + o);  o += slab_bytes(SR);
   s.idx_c = reinterpret_cast<int*>(base + o);  o += align16(size_t(M) * Dc * sizeof(int));
   s.idx_q = reinterpret_cast<int*>(base + o);  o += align16(size_t(N) * Dq * sizeof(int));
@@ -156,11 +175,12 @@ __device__ Smem carve(unsigned char* base, int M, int N, int Dc, int Dq, bool li
   return s;
 }
 
-// Bytes of scratch one block needs: the slot masks and the rounded dhs of
-// one sample, and the tile's six bf16 residual arrays per direction.
-__host__ __device__ inline size_t scratch_bytes(int M, int N, int Dc, int Dq) {
-  return 16 * size_t(M * Dc + N * Dq) + size_t(M + N) * H * sizeof(bf16) +
-         6 * size_t(TILE) * (M + N) * H * sizeof(bf16);
+// Bytes of scratch one block needs: with gp the two gather panels, then the
+// slot masks and the rounded dhs of one sample, and the tile's six bf16
+// residual arrays per direction.
+__host__ __device__ inline size_t scratch_bytes(int M, int N, int Dc, int Dq, bool gp) {
+  return (gp ? size_t(M + N) * H * sizeof(bf16) : 0) + 16 * size_t(M * Dc + N * Dq) +
+         size_t(M + N) * H * sizeof(bf16) + 6 * size_t(TILE) * (M + N) * H * sizeof(bf16);
 }
 
 // One direction of a round over the tile.  Arrays marked [tile] hold the
@@ -174,7 +194,8 @@ struct Dir {
   const int* idx;     // [rows][D] (shared)
   const int* off;     // readers table of the gather (shared): the slots
   const int* lst;     //   r * D + k that read source row s are lst[off[s] .. off[s+1])
-  const bf16* ys;     // [src_rows][H] gathered panel (shared, swizzled)
+  const bf16* ys;     // [src_rows][H] gathered panel (swizzled; shared, or with GP
+                      //   the block's scratch)
   const bf16* W;      // the direction's 5 matrices
   const bf16* WT;     // their transposes
   const float* vec;   // the direction's 7 vectors
@@ -708,23 +729,23 @@ __device__ void weight_grads(const Dir& d, int n, const Smem& s) {
     const bf16* const arr[3] = {d.x, d.dydb, d.dys};
     const int ia[2] = {0, 0}, ib[2] = {1, 2};
     float* const dw[2] = {pm + size_t(M_WD) * HH, pm + size_t(M_WS) * HH};
-    wgrad<3, 2>(arr, ia, ib, dw, n, s.ys_c);
+    wgrad<3, 2>(arr, ia, ib, dw, n, s.stage);
   }
   {
     const bf16* const arr[3] = {d.x, d.hs, d.dt};
     const int ia[2] = {0, 1}, ib[2] = {2, 2};
     float* const dw[2] = {pm + size_t(M_UX) * HH, pm + size_t(M_WF) * HH};
-    wgrad<3, 2>(arr, ia, ib, dw, n, s.ys_c);
+    wgrad<3, 2>(arr, ia, ib, dw, n, s.stage);
   }
   {
     const bf16* const arr[2] = {d.hc, d.dpre};
     const int ia[1] = {0}, ib[1] = {1};
     float* const dw[1] = {pm + size_t(M_W1) * HH};
-    wgrad<2, 1>(arr, ia, ib, dw, n, s.ys_c);
+    wgrad<2, 1>(arr, ia, ib, dw, n, s.stage);
   }
 }
 
-template <int SR, bool MASK>
+template <int SR, bool MASK, bool GP>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_rounds_bwd_tc_kernel(const bf16* __restrict__ stash_c, const bf16* __restrict__ stash_q,
                            const float* __restrict__ syn, const int* __restrict__ idx_c,
@@ -735,15 +756,19 @@ fused_rounds_bwd_tc_kernel(const bf16* __restrict__ stash_c, const bf16* __restr
                            float* part_vecs, int B, int M, int N, int Dc, int Dq, int R,
                            int live_smem, int width) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem s = carve<SR>(smem_raw, M, N, Dc, Dq, live_smem != 0);
+  Smem s = carve<SR, GP>(smem_raw, M, N, Dc, Dq, live_smem != 0);
   for (int e = threadIdx.x; e < M * Dc; e += THREADS) s.idx_c[e] = idx_c[e];
   for (int e = threadIdx.x; e < N * Dq; e += THREADS) s.idx_q[e] = idx_q[e];
   __syncthreads();
   build_readers(s.idx_c, M, Dc, N, s.off_c, s.lst_c, true);
   build_readers(s.idx_q, N, Dq, M, s.off_q, s.lst_q, true);
 
-  unsigned char* sc = scratch + size_t(blockIdx.x) * scratch_bytes(M, N, Dc, Dq);
+  unsigned char* sc = scratch + size_t(blockIdx.x) * scratch_bytes(M, N, Dc, Dq, GP);
   auto take = [&](size_t bytes) { unsigned char* p = sc; sc += bytes; return p; };
+  if (GP) {
+    s.ys_c = reinterpret_cast<bf16*>(take(size_t(N) * H * sizeof(bf16)));
+    s.ys_q = reinterpret_cast<bf16*>(take(size_t(M) * H * sizeof(bf16)));
+  }
   auto tile = [&](int rows) {
     return reinterpret_cast<bf16*>(take(size_t(TILE) * rows * H * sizeof(bf16)));
   };
@@ -816,22 +841,43 @@ fused_rounds_bwd_tc_kernel(const bf16* __restrict__ stash_c, const bf16* __restr
 
 }  // namespace tcb
 
-// The bf16 kernel's layout for a graph, the first that fits in shared
-// memory of: 64-row slabs and the slot masks in shared memory, 32-row slabs
-// and the masks, 64-row slabs, 32-row slabs.  Returns 2 * slab rows + masks,
-// or 0 where none fits.
-int tc_layout(int M, int N, int Dc, int Dq) {
-  for (int live = 1; live >= 0; --live) {
-    if (tcb::smem_bytes<64>(M, N, Dc, Dq, live) <= tc::SMEM_LIMIT) return 128 + live;
-    if (tcb::smem_bytes<32>(M, N, Dc, Dq, live) <= tc::SMEM_LIMIT) return 64 + live;
-  }
-  return 0;
+// Where a block of the bf16 kernel keeps what: its slab rows (0 where no
+// layout fits), the slot masks in shared memory (live) and the gather panels
+// in the scratch (gp).
+struct Layout {
+  int sr;
+  bool live, gp;
+};
+
+size_t layout_bytes(int M, int N, int Dc, int Dq, Layout l) {
+  return l.sr == 64 ? tcb::smem_bytes<64>(M, N, Dc, Dq, l.live, l.gp)
+                    : tcb::smem_bytes<32>(M, N, Dc, Dq, l.live, l.gp);
 }
 
+// The layouts in the order they are tried: the panels in shared memory with
+// 64-row slabs and the slot masks in shared memory, 32-row slabs and the
+// masks, 64-row slabs, 32-row slabs; then the panels in the scratch with
+// 64-row slabs and the masks, 64-row slabs, 32-row slabs and the masks,
+// 32-row slabs.
+constexpr Layout LAYOUTS[] = {{64, true, false}, {32, true, false}, {64, false, false},
+                              {32, false, false}, {64, true, true}, {64, false, true},
+                              {32, true, true}, {32, false, true}};
+
+// The first layout that fits in shared memory; sr = 0 and the last one where
+// none does.
+Layout tc_layout(int M, int N, int Dc, int Dq) {
+  for (const Layout& l : LAYOUTS)
+    if (layout_bytes(M, N, Dc, Dq, l) <= tc::SMEM_LIMIT) return l;
+  Layout none = LAYOUTS[sizeof(LAYOUTS) / sizeof(LAYOUTS[0]) - 1];
+  none.sr = 0;
+  return none;
+}
+
+// Shared memory of the layout chosen, or of the last one tried where none fits.
 size_t smem_for(int M, int N, int Dc, int Dq) {
-  const int lay = tc_layout(M, N, Dc, Dq);
-  return lay >= 128 ? tcb::smem_bytes<64>(M, N, Dc, Dq, lay & 1)
-                    : tcb::smem_bytes<32>(M, N, Dc, Dq, lay & 1);
+  Layout l = tc_layout(M, N, Dc, Dq);
+  if (l.sr == 0) l.sr = 32;
+  return layout_bytes(M, N, Dc, Dq, l);
 }
 
 }  // namespace
@@ -848,7 +894,12 @@ int fused_rounds_bwd_tile() { return tcb::TILE; }
 
 // Bytes of scratch one block needs.
 long long fused_rounds_bwd_scratch_bytes(int M, int N, int Dc, int Dq) {
-  return (long long)tcb::scratch_bytes(M, N, Dc, Dq);
+  return (long long)tcb::scratch_bytes(M, N, Dc, Dq, tc_layout(M, N, Dc, Dq).gp);
+}
+
+// 1 where the layout keeps the gather panels in the scratch (the GP kernel).
+int fused_rounds_bwd_gpanels(int M, int N, int Dc, int Dq) {
+  return tc_layout(M, N, Dc, Dq).gp ? 1 : 0;
 }
 
 // stash_c [R, B, M, 128], stash_q [R, B, N, 128] bf16 (K2a's); syn [B, M]
@@ -873,24 +924,32 @@ int fused_rounds_bwd_launch(const void* stash_c, const void* stash_q, const void
       width <= 0 || width > H)
     return int(cudaErrorInvalidValue);
   typedef __nv_bfloat16 bf;
-  const int lay = tc_layout(M, N, Dc, Dq);
-  if (lay == 0) return int(cudaErrorInvalidValue);
+  const Layout lay = tc_layout(M, N, Dc, Dq);
+  if (lay.sr == 0) return int(cudaErrorInvalidValue);
   const bool mask = width < H;
-  auto kernel = lay >= 128 ? (mask ? tcb::fused_rounds_bwd_tc_kernel<64, true>
-                                   : tcb::fused_rounds_bwd_tc_kernel<64, false>)
-                           : (mask ? tcb::fused_rounds_bwd_tc_kernel<32, true>
-                                   : tcb::fused_rounds_bwd_tc_kernel<32, false>);
+  decltype(&tcb::fused_rounds_bwd_tc_kernel<64, false, false>) kernel;
+  if (lay.gp)
+    kernel = lay.sr == 64 ? (mask ? tcb::fused_rounds_bwd_tc_kernel<64, true, true>
+                                  : tcb::fused_rounds_bwd_tc_kernel<64, false, true>)
+                          : (mask ? tcb::fused_rounds_bwd_tc_kernel<32, true, true>
+                                  : tcb::fused_rounds_bwd_tc_kernel<32, false, true>);
+  else
+    kernel = lay.sr == 64 ? (mask ? tcb::fused_rounds_bwd_tc_kernel<64, true, false>
+                                  : tcb::fused_rounds_bwd_tc_kernel<64, false, false>)
+                          : (mask ? tcb::fused_rounds_bwd_tc_kernel<32, true, false>
+                                  : tcb::fused_rounds_bwd_tc_kernel<32, false, false>);
   float* pm = static_cast<float*>(part_mats);
   float* pv = static_cast<float*>(part_vecs);
   return launch_adjoint(
-      kernel, grid, smem_for(M, N, Dc, Dq), static_cast<cudaStream_t>(stream), pm, pv,
+      kernel, grid, layout_bytes(M, N, Dc, Dq, lay), static_cast<cudaStream_t>(stream), pm, pv,
       static_cast<float*>(dmats), static_cast<float*>(dvecs), static_cast<const bf*>(stash_c),
       static_cast<const bf*>(stash_q), static_cast<const float*>(syn),
       static_cast<const int*>(idx_c), static_cast<const int*>(idx_q),
       static_cast<const bf*>(mats), static_cast<const bf*>(mats_t),
       static_cast<const float*>(vecs), static_cast<const float*>(ucs32),
       static_cast<float*>(dxc), static_cast<float*>(dxq), static_cast<float*>(dsyn),
-      static_cast<unsigned char*>(scratch), pm, pv, B, M, N, Dc, Dq, R, lay & 1, width);
+      static_cast<unsigned char*>(scratch), pm, pv, B, M, N, Dc, Dq, R, lay.live ? 1 : 0,
+      width);
 }
 
 }  // extern "C"

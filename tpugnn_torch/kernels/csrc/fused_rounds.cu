@@ -73,6 +73,15 @@
 //     0's inputs to the stash and stores every later entry from the
 //     LayerNorm epilogue of the round before, beside the state (streaming
 //     stores, no reads); bf16 K2a copies each round's inputs at its start.
+//   Global panels in bf16 (K1 and K2a).  Where the bf16 panels do not fit
+//     (circuit d=7: 920 + 176 rows, 280,576 B of panels alone), the GP
+//     variant of tcp:: keeps them swizzled in the same per-block global
+//     scratch [grid][N + M][H] on a persistent grid of one block per SM
+//     (132 blocks: 37 MB of panels, inside the 50 MB L2), read and written
+//     through the same generic loads and stores; the chunk buffers, the
+//     64-row slab ring and the slot tables stay in shared memory (121,664 B
+//     at circuit d=7).  The arithmetic and its order are the shared-panel
+//     kernel's, so the two agree bit for bit.
 //
 // Width.  The kernels are built for H = 128 columns; a model of width
 // h < 128 runs on states and packs zero-padded to 128 (the wrapper pads).
@@ -107,11 +116,14 @@ namespace tcp {
 
 using namespace rounds::tc;
 
-template <int SR>
+// GP: the gather panels in global memory (the block's slice of a scratch)
+template <int SR, bool GP = false>
 __host__ __device__ inline size_t smem_bytes(int M, int N, int Dc, int Dq) {
   size_t s = 0;
-  s += align16(size_t(N) * H * sizeof(bf16));
-  s += align16(size_t(M) * H * sizeof(bf16));
+  if (!GP) {
+    s += align16(size_t(N) * H * sizeof(bf16));
+    s += align16(size_t(M) * H * sizeof(bf16));
+  }
   s += 2 * CHUNK_BYTES;
   s += slab_bytes(SR);
   s += align16(size_t(M) * Dc * sizeof(int));
@@ -129,12 +141,18 @@ struct Smem {
   int* idx_q;
 };
 
-template <int SR>
-__device__ Smem carve(unsigned char* base, int M, int N, int Dc) {
+// panels: the block's global panels [N + M][H] (GP), or nullptr
+template <int SR, bool GP>
+__device__ Smem carve(unsigned char* base, int M, int N, int Dc, bf16* panels) {
   Smem s;
   size_t o = 0;
-  s.ys_c = reinterpret_cast<bf16*>(base + o);  o += align16(size_t(N) * H * sizeof(bf16));
-  s.ys_q = reinterpret_cast<bf16*>(base + o);  o += align16(size_t(M) * H * sizeof(bf16));
+  if (GP) {
+    s.ys_c = panels;
+    s.ys_q = panels + size_t(N) * H;
+  } else {
+    s.ys_c = reinterpret_cast<bf16*>(base + o);  o += align16(size_t(N) * H * sizeof(bf16));
+    s.ys_q = reinterpret_cast<bf16*>(base + o);  o += align16(size_t(M) * H * sizeof(bf16));
+  }
   s.xs = reinterpret_cast<bf16*>(base + o);    o += CHUNK_BYTES;
   s.hs = reinterpret_cast<bf16*>(base + o);    o += CHUNK_BYTES;
   s.slab = reinterpret_cast<bf16*>(base + o);  o += slab_bytes(SR);
@@ -288,41 +306,46 @@ __device__ void update_rows_tc(const bf16* x_src, bf16* x_dst, int rows, const b
   }
 }
 
-template <bool STASH, int SR, bool MASK>
+// One block per sample (grid = B), or with GP a persistent grid whose
+// blocks walk the samples, each with its own panels in `panels`.
+template <bool STASH, int SR, bool MASK, bool GP>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_rounds_tc_kernel(const bf16* xc_in, const bf16* xq_in, const float* __restrict__ syn,
                        const int* __restrict__ idx_c, const int* __restrict__ idx_q,
                        const bf16* __restrict__ mats, const float* __restrict__ vecs,
                        bf16* xc_out, bf16* xq_out, bf16* stash_c, bf16* stash_q,
-                       int M, int N, int Dc, int Dq, int R, int width) {
+                       bf16* panels, int B, int M, int N, int Dc, int Dq, int R, int width) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem s = carve<SR>(smem_raw, M, N, Dc);
-  const size_t b = blockIdx.x;
+  const Smem s = carve<SR, GP>(smem_raw, M, N, Dc,
+                               GP ? panels + size_t(blockIdx.x) * (M + N) * H : nullptr);
   for (int e = threadIdx.x; e < M * Dc; e += THREADS) s.idx_c[e] = idx_c[e];
   for (int e = threadIdx.x; e < N * Dq; e += THREADS) s.idx_q[e] = idx_q[e];
-  const float* syn_b = syn + b * M;
-  bf16* xc = xc_out + b * size_t(M) * H;
-  bf16* xq = xq_out + b * size_t(N) * H;
   const bf16* wc = mats;
   const bf16* wq = mats + size_t(NMAT) * HH;
   const bf16* proj = wq + size_t(M_WS) * HH;   // ys_c = rnd(x_q @ ws_c)
   Slabs<SR> sl{s.slab, 0};
   prime(sl, proj);
 
-  for (int round = 0; round < R; ++round) {
-    const bf16* xc_src = round == 0 ? xc_in + b * size_t(M) * H : xc;
-    const bf16* xq_src = round == 0 ? xq_in + b * size_t(N) * H : xq;
-    if (STASH) {  // read before the first barrier of the round, rewritten after it
-      const size_t sb = size_t(round) * gridDim.x + b;
-      block_copy16(stash_c + sb * M * H, xc_src, size_t(M) * H * sizeof(bf16) / 16);
-      block_copy16(stash_q + sb * N * H, xq_src, size_t(N) * H * sizeof(bf16) / 16);
+  for (size_t b = blockIdx.x; b < size_t(B); b += gridDim.x) {
+    const float* syn_b = syn + b * M;
+    bf16* xc = xc_out + b * size_t(M) * H;
+    bf16* xq = xq_out + b * size_t(N) * H;
+    for (int round = 0; round < R; ++round) {
+      const bf16* xc_src = round == 0 ? xc_in + b * size_t(M) * H : xc;
+      const bf16* xq_src = round == 0 ? xq_in + b * size_t(N) * H : xq;
+      if (STASH) {  // read before the first barrier of the round, rewritten after it
+        const size_t sb = size_t(round) * B + b;
+        block_copy16(stash_c + sb * M * H, xc_src, size_t(M) * H * sizeof(bf16) / 16);
+        block_copy16(stash_q + sb * N * H, xq_src, size_t(N) * H * sizeof(bf16) / 16);
+      }
+      project_rows_tc<SR>(xq_src, N, proj, s.ys_c, s.xs, sl, wc + size_t(M_WS) * HH);
+      update_rows_tc<SR, true, MASK>(xc_src, xc, M, s.ys_c, s.ys_q, s.idx_c, Dc, syn_b, wc,
+                                     vecs, s, sl, wq + size_t(M_WD) * HH, width);
+      const bool more = round + 1 < R || b + gridDim.x < size_t(B);
+      update_rows_tc<SR, false, MASK>(xq_src, xq, N, s.ys_q, nullptr, s.idx_q, Dq, nullptr, wq,
+                                      vecs + NVEC * H, s, sl, more ? proj : nullptr, width);
+      __syncthreads();   // the round's state writes are visible to the next round
     }
-    project_rows_tc<SR>(xq_src, N, proj, s.ys_c, s.xs, sl, wc + size_t(M_WS) * HH);
-    update_rows_tc<SR, true, MASK>(xc_src, xc, M, s.ys_c, s.ys_q, s.idx_c, Dc, syn_b, wc, vecs,
-                             s, sl, wq + size_t(M_WD) * HH, width);
-    update_rows_tc<SR, false, MASK>(xq_src, xq, N, s.ys_q, nullptr, s.idx_q, Dq, nullptr, wq,
-                              vecs + NVEC * H, s, sl, round + 1 < R ? proj : nullptr, width);
-    __syncthreads();   // the round's state writes are visible to the next round
   }
 }
 
@@ -595,18 +618,25 @@ fused_rounds_tf32x3_kernel(const float* xc_in, const float* xq_in, const float* 
 }  // namespace t3p
 
 // The slab rows of the bf16 kernel for a graph: 64 where that fits in shared
-// memory, else 32; 0 where neither does.
-int tc_slab_rows(int M, int N, int Dc, int Dq) {
+// memory, else 32; 0 where neither does.  The global-panel variant (GP) is
+// built with 64-row slabs only: 32 would only matter past 32,000 slots.
+int tc_slab_rows(int M, int N, int Dc, int Dq, bool gp) {
+  if (gp) return tcp::smem_bytes<64, true>(M, N, Dc, Dq) <= tc::SMEM_LIMIT ? 64 : 0;
   if (tcp::smem_bytes<64>(M, N, Dc, Dq) <= tc::SMEM_LIMIT) return 64;
   if (tcp::smem_bytes<32>(M, N, Dc, Dq) <= tc::SMEM_LIMIT) return 32;
   return 0;
 }
 
-// K1 and K2a (the same kernel, its stash flag aside)
+// K1 and K2a (the same kernel, its stash flag aside), shared panels
 size_t smem_for(int dtype, int M, int N, int Dc, int Dq) {
   if (dtype == 0) return t3p::smem_bytes<false>(M, N);
-  return tc_slab_rows(M, N, Dc, Dq) == 32 ? tcp::smem_bytes<32>(M, N, Dc, Dq)
-                                          : tcp::smem_bytes<64>(M, N, Dc, Dq);
+  return tc_slab_rows(M, N, Dc, Dq, false) == 32 ? tcp::smem_bytes<32>(M, N, Dc, Dq)
+                                                 : tcp::smem_bytes<64>(M, N, Dc, Dq);
+}
+
+// the same with the panels in global memory
+size_t gp_smem_for(int dtype, int M, int N, int Dc, int Dq) {
+  return dtype == 0 ? t3p::smem_bytes<true>(M, N) : tcp::smem_bytes<64, true>(M, N, Dc, Dq);
 }
 
 template <typename K, typename... Args>
@@ -623,32 +653,43 @@ bool bad_shape(int B, int M, int N, int Dc, int Dq, int R, int width) {
          width > H;
 }
 
+// K1 (K2a with STASH) in a state type; panels (a [grid][N + M][128] scratch
+// in the state type) selects the global-panel variant on `grid` blocks, else
+// the grid is B.  f32 K2a has no global-panel instantiation.
 template <bool STASH>
 int launch_dtype(int dtype, const void* xc_in, const void* xq_in, const void* syn,
                  const void* idx_c, const void* idx_q, const void* mats,
                  const void* vecs, void* xc_out, void* xq_out, void* stash_c,
-                 void* stash_q, int B, int M, int N, int Dc, int Dq, int R, int width,
-                 void* stream) {
-  if (bad_shape(B, M, N, Dc, Dq, R, width)) return int(cudaErrorInvalidValue);
+                 void* stash_q, void* panels, int B, int M, int N, int Dc, int Dq, int R,
+                 int width, int grid, void* stream) {
+  const bool gp = panels != nullptr;
+  if (bad_shape(B, M, N, Dc, Dq, R, width) || (gp && grid <= 0))
+    return int(cudaErrorInvalidValue);
   if (STASH && (stash_c == nullptr || stash_q == nullptr))
     return int(cudaErrorInvalidValue);
+  if (!gp) grid = B;
   const float* s = static_cast<const float*>(syn);
   const int* ic = static_cast<const int*>(idx_c);
   const int* iq = static_cast<const int*>(idx_q);
   const float* v = static_cast<const float*>(vecs);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = smem_for(dtype, M, N, Dc, Dq);
+  const size_t smem = gp ? gp_smem_for(dtype, M, N, Dc, Dq) : smem_for(dtype, M, N, Dc, Dq);
   const bool mask = width < H;   // the bf16 kernels' LayerNorm flag
-  const float* xci32 = static_cast<const float*>(xc_in);
-  const float* xqi32 = static_cast<const float*>(xq_in);
-  const float* mt32 = static_cast<const float*>(mats);
-  float* xco32 = static_cast<float*>(xc_out);
-  float* xqo32 = static_cast<float*>(xq_out);
-  if (dtype == 0)   // mats: the split pack
-    return launch_kernel(t3p::fused_rounds_tf32x3_kernel<false, STASH>, B, smem, st,
-                         xci32, xqi32, s, ic, iq, mt32, v, xco32, xqo32,
-                         static_cast<float*>(stash_c), static_cast<float*>(stash_q),
-                         static_cast<float*>(nullptr), B, M, N, Dc, Dq, R, width);
+  if (dtype == 0) {   // mats: the split pack
+    const float* xci = static_cast<const float*>(xc_in);
+    const float* xqi = static_cast<const float*>(xq_in);
+    const float* mt = static_cast<const float*>(mats);
+    float* xco = static_cast<float*>(xc_out);
+    float* xqo = static_cast<float*>(xq_out);
+    float* sc = static_cast<float*>(stash_c);
+    float* sq = static_cast<float*>(stash_q);
+    float* pn = static_cast<float*>(panels);
+    if (gp && STASH) return int(cudaErrorInvalidValue);
+    return launch_kernel(gp ? t3p::fused_rounds_tf32x3_kernel<true, false>
+                            : t3p::fused_rounds_tf32x3_kernel<false, STASH>, grid, smem, st,
+                         xci, xqi, s, ic, iq, mt, v, xco, xqo, sc, sq, pn, B, M, N, Dc, Dq, R,
+                         width);
+  }
   if (dtype != 1) return int(cudaErrorInvalidValue);
   typedef __nv_bfloat16 bf;
   const bf* xci = static_cast<const bf*>(xc_in);
@@ -658,20 +699,24 @@ int launch_dtype(int dtype, const void* xc_in, const void* xq_in, const void* sy
   bf* xqo = static_cast<bf*>(xq_out);
   bf* sc = static_cast<bf*>(stash_c);
   bf* sq = static_cast<bf*>(stash_q);
-  switch (tc_slab_rows(M, N, Dc, Dq)) {
+  bf* pn = static_cast<bf*>(panels);
+  decltype(&tcp::fused_rounds_tc_kernel<STASH, 64, false, false>) kernel;
+  switch (tc_slab_rows(M, N, Dc, Dq, gp)) {
     case 64:
-      return launch_kernel(mask ? tcp::fused_rounds_tc_kernel<STASH, 64, true>
-                                : tcp::fused_rounds_tc_kernel<STASH, 64, false>, B, smem, st,
-                           xci, xqi, s, ic, iq, mt, v, xco, xqo, sc, sq, M, N, Dc, Dq, R,
-                           width);
+      kernel = gp ? (mask ? tcp::fused_rounds_tc_kernel<STASH, 64, true, true>
+                          : tcp::fused_rounds_tc_kernel<STASH, 64, false, true>)
+                  : (mask ? tcp::fused_rounds_tc_kernel<STASH, 64, true, false>
+                          : tcp::fused_rounds_tc_kernel<STASH, 64, false, false>);
+      break;
     case 32:
-      return launch_kernel(mask ? tcp::fused_rounds_tc_kernel<STASH, 32, true>
-                                : tcp::fused_rounds_tc_kernel<STASH, 32, false>, B, smem, st,
-                           xci, xqi, s, ic, iq, mt, v, xco, xqo, sc, sq, M, N, Dc, Dq, R,
-                           width);
+      kernel = mask ? tcp::fused_rounds_tc_kernel<STASH, 32, true, false>
+                    : tcp::fused_rounds_tc_kernel<STASH, 32, false, false>;
+      break;
     default:
       return int(cudaErrorInvalidValue);
   }
+  return launch_kernel(kernel, grid, smem, st, xci, xqi, s, ic, iq, mt, v, xco, xqo, sc, sq, pn,
+                       B, M, N, Dc, Dq, R, width);
 }
 
 }  // namespace
@@ -688,9 +733,9 @@ long long fused_rounds_stash_smem_bytes(int dtype, int M, int N, int Dc, int Dq)
   return (long long)smem_for(dtype, M, N, Dc, Dq);
 }
 
-// Shared memory one block of the f32 global-panel variant needs.
-long long fused_rounds_gpanels_smem_bytes(int M, int N, int Dc, int Dq) {
-  return (long long)t3p::smem_bytes<true>(M, N);
+// Shared memory one block of the global-panel variant needs (K1, and bf16 K2a).
+long long fused_rounds_gpanels_smem_bytes(int dtype, int M, int N, int Dc, int Dq) {
+  return (long long)gp_smem_for(dtype, M, N, Dc, Dq);
 }
 
 // xc_in/xq_in/xc_out/xq_out: [B, M|N, 128] in the state type; syn [B, M] f32;
@@ -706,29 +751,22 @@ int fused_rounds_launch(int dtype, const void* xc_in, const void* xq_in,
                         void* xq_out, int B, int M, int N, int Dc, int Dq, int R,
                         int width, void* stream) {
   return launch_dtype<false>(dtype, xc_in, xq_in, syn, idx_c, idx_q, mats, vecs,
-                             xc_out, xq_out, nullptr, nullptr, B, M, N, Dc, Dq, R,
-                             width, stream);
+                             xc_out, xq_out, nullptr, nullptr, nullptr, B, M, N, Dc, Dq, R,
+                             width, 0, stream);
 }
 
-// The f32 global-panel variant of fused_rounds_launch: `grid` blocks walk the
-// samples, block i with its two panels in panels[i] ([grid][N + M][128] f32
-// scratch); mats the split pack.
-int fused_rounds_gpanels_launch(const void* xc_in, const void* xq_in, const void* syn,
-                                const void* idx_c, const void* idx_q, const void* mats,
-                                const void* vecs, void* xc_out, void* xq_out, void* panels,
-                                int B, int M, int N, int Dc, int Dq, int R, int width,
-                                int grid, void* stream) {
-  if (bad_shape(B, M, N, Dc, Dq, R, width) || grid <= 0 || panels == nullptr)
-    return int(cudaErrorInvalidValue);
-  return launch_kernel(t3p::fused_rounds_tf32x3_kernel<true, false>, grid,
-                       t3p::smem_bytes<true>(M, N),
-                       static_cast<cudaStream_t>(stream), static_cast<const float*>(xc_in),
-                       static_cast<const float*>(xq_in), static_cast<const float*>(syn),
-                       static_cast<const int*>(idx_c), static_cast<const int*>(idx_q),
-                       static_cast<const float*>(mats), static_cast<const float*>(vecs),
-                       static_cast<float*>(xc_out), static_cast<float*>(xq_out),
-                       static_cast<float*>(nullptr), static_cast<float*>(nullptr),
-                       static_cast<float*>(panels), B, M, N, Dc, Dq, R, width);
+// The global-panel variant of fused_rounds_launch: `grid` blocks walk the
+// samples, block i with its two panels in panels[i] ([grid][N + M][128]
+// scratch in the state type).
+int fused_rounds_gpanels_launch(int dtype, const void* xc_in, const void* xq_in,
+                                const void* syn, const void* idx_c, const void* idx_q,
+                                const void* mats, const void* vecs, void* xc_out, void* xq_out,
+                                void* panels, int B, int M, int N, int Dc, int Dq, int R,
+                                int width, int grid, void* stream) {
+  if (panels == nullptr) return int(cudaErrorInvalidValue);
+  return launch_dtype<false>(dtype, xc_in, xq_in, syn, idx_c, idx_q, mats, vecs,
+                             xc_out, xq_out, nullptr, nullptr, panels, B, M, N, Dc, Dq, R,
+                             width, grid, stream);
 }
 
 // K2a: as fused_rounds_launch, and every round's input states go to
@@ -743,8 +781,22 @@ int fused_rounds_stash_launch(int dtype, const void* xc_in, const void* xq_in,
                               int M, int N, int Dc, int Dq, int R, int width,
                               void* stream) {
   return launch_dtype<true>(dtype, xc_in, xq_in, syn, idx_c, idx_q, mats, vecs,
-                            xc_out, xq_out, stash_c, stash_q, B, M, N, Dc, Dq, R,
-                            width, stream);
+                            xc_out, xq_out, stash_c, stash_q, nullptr, B, M, N, Dc, Dq, R,
+                            width, 0, stream);
+}
+
+// K2a's global-panel variant (bf16 states only): as fused_rounds_stash_launch
+// on `grid` blocks with their panels in `panels`, as fused_rounds_gpanels_launch.
+int fused_rounds_stash_gpanels_launch(int dtype, const void* xc_in, const void* xq_in,
+                                      const void* syn, const void* idx_c, const void* idx_q,
+                                      const void* mats, const void* vecs, void* xc_out,
+                                      void* xq_out, void* stash_c, void* stash_q,
+                                      void* panels, int B, int M, int N, int Dc, int Dq,
+                                      int R, int width, int grid, void* stream) {
+  if (panels == nullptr) return int(cudaErrorInvalidValue);
+  return launch_dtype<true>(dtype, xc_in, xq_in, syn, idx_c, idx_q, mats, vecs,
+                            xc_out, xq_out, stash_c, stash_q, panels, B, M, N, Dc, Dq, R,
+                            width, grid, stream);
 }
 
 }  // extern "C"

@@ -171,7 +171,10 @@ def _fwd_stash_cuda(xc, xq, syn, operators, mats32, vecs32, rounds, state_dtype,
     is K1's 3xTF32 kernel: the weights go in split into TF32 halves
     (``fd.tf32_split_pack``) and a small graph's samples stacked, as one
     graph of ``s`` times the rows (``fd.samples_per_block``), which leaves
-    the stash's layout [R, B, rows, H] as it is."""
+    the stash's layout [R, B, rows, H] as it is.  With bf16 states a graph
+    whose gather panels do not fit in shared memory runs the global-panel
+    variant (``fused_rounds_fwd_stash_gpanels``) on a persistent grid; its
+    stash is laid out as the shared-panel kernel's."""
     from tpugnn_torch.kernels._build import load_library
 
     dt = fd.STATE_DTYPES[state_dtype]
@@ -190,20 +193,45 @@ def _fwd_stash_cuda(xc, xq, syn, operators, mats32, vecs32, rounds, state_dtype,
     stash_q = torch.empty((rounds, b, n, h), dtype=dt, device=xc.device)
     out_c = torch.empty((b, m, h), dtype=dt, device=xc.device)
     out_q = torch.empty((b, n, h), dtype=dt, device=xc.device)
+    ptrs = (a.xc.data_ptr(), a.xq.data_ptr(), a.syn.data_ptr(), idx_c.data_ptr(),
+            idx_q.data_ptr(), mats.data_ptr(), vecs.data_ptr(), out_c.data_ptr(),
+            out_q.data_ptr(), stash_c.data_ptr(), stash_q.data_ptr())
     with fd._cuda_stream(xc.device) as stream:
-        err = lib.fused_rounds_stash_launch(
-            a.code, a.xc.data_ptr(), a.xq.data_ptr(), a.syn.data_ptr(),
-            idx_c.data_ptr(), idx_q.data_ptr(), mats.data_ptr(), vecs.data_ptr(),
-            out_c.data_ptr(), out_q.data_ptr(), stash_c.data_ptr(), stash_q.data_ptr(),
-            b // s, m * s, n * s, a.dc, a.dq, rounds, width, stream)
+        if a.gpanels:
+            grid, panels = fd._gpanel_scratch(a, dt, xc.device)
+            err = lib.fused_rounds_stash_gpanels_launch(a.code, *ptrs, panels.data_ptr(), b, m,
+                                                        n, a.dc, a.dq, rounds, width, grid,
+                                                        stream)
+        else:
+            err = lib.fused_rounds_stash_launch(a.code, *ptrs, b // s, m * s, n * s, a.dc,
+                                                a.dq, rounds, width, stream)
+    name = "fused_rounds_fwd_stash_gpanels" if a.gpanels else "fused_rounds_fwd_stash"
     if err != 0:
-        raise RuntimeError(f"fused_rounds_fwd_stash kernel launch failed: CUDA error {err}")
-    fd._LAUNCHES["fused_rounds_fwd_stash"] += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    fd._LAUNCHES[name] += 1
     return out_c.float(), out_q.float(), stash_c, stash_q
 
 
 # K2b's library by state type: bf16 and f32 (3xTF32) states build apart
 _BWD_LIBRARY = {torch.bfloat16: "fused_backward", torch.float32: "fused_backward_tf32"}
+
+
+def _bwd_library(dt: torch.dtype, operators):
+    """K2b's library for the state type, after checking that a block of it
+    fits in shared memory on the graph of ``operators``: ``(library,
+    idx_c, idx_q)``, the slot tables."""
+    from tpugnn_torch.kernels._build import load_library
+
+    lib = load_library(_BWD_LIBRARY[dt])
+    src_c, mask_c, _, src_q, mask_q, _ = operators
+    idx_c, idx_q = fd._slot_tables(src_c, mask_c, src_q, mask_q)
+    m, n, dc, dq = idx_c.shape[0], idx_q.shape[0], idx_c.shape[1], idx_q.shape[1]
+    smem = lib.fused_rounds_bwd_smem_bytes(m, n, dc, dq)
+    if smem > fd.SMEM_LIMIT:
+        raise ValueError(f"graph too large for the fused backward kernel: needs "
+                         f"{smem} B of shared memory per block (M={m}, N={n}), "
+                         f"limit {fd.SMEM_LIMIT}")
+    return lib, idx_c, idx_q
 
 
 def _bwd_cuda(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq, state_dtype,
@@ -217,15 +245,14 @@ def _bwd_cuda(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq, state_
     version computes them, the relu decisions of its replay that fall within
     the rounding of its products: for that it reads the matrices and their
     transposes in f32, the L2 norm of each stash row and the largest column
-    norm of each matrix."""
-    from tpugnn_torch.kernels._build import load_library
-
+    norm of each matrix.  With bf16 states a graph whose gather panels do not
+    fit in shared memory runs the layout that keeps them in the scratch
+    (``fused_rounds_bwd_gpanels``)."""
     dt = fd.STATE_DTYPES[state_dtype]
-    lib = load_library(_BWD_LIBRARY[dt])
     rounds, b, m, h = stash_c.shape
     n = stash_q.shape[2]
     dev = stash_c.device
-    src_c, mask_c, _, src_q, mask_q, _ = operators
+    src_c, src_q = operators[0], operators[3]
     fd.check_width(width)
     if h != fd.WIDTH or stash_c.dtype != dt or stash_q.shape[:2] != stash_c.shape[:2]:
         raise ValueError(f"the backward kernel takes the stash of K2a, padded to "
@@ -233,13 +260,8 @@ def _bwd_cuda(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq, state_
                          f"and {tuple(stash_q.shape)}")
     if src_c.shape[0] != m or src_q.shape[0] != n or src_c.device != dev:
         raise ValueError("operators do not match the stash's rows or device")
-    idx_c, idx_q = fd._slot_tables(src_c, mask_c, src_q, mask_q)
+    lib, idx_c, idx_q = _bwd_library(dt, operators)
     dc, dq = idx_c.shape[1], idx_q.shape[1]
-    smem = lib.fused_rounds_bwd_smem_bytes(m, n, dc, dq)
-    if smem > fd.SMEM_LIMIT:
-        raise ValueError(f"graph too large for the fused backward kernel: needs "
-                         f"{smem} B of shared memory per block (M={m}, N={n}), "
-                         f"limit {fd.SMEM_LIMIT}")
     mats, vecs = fd.cast_packs(mats32, vecs32, dt)
     mats_t = mats.transpose(1, 2).contiguous()
     ties = ()
@@ -268,9 +290,11 @@ def _bwd_cuda(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq, state_
             g_c.data_ptr(), g_q.data_ptr(), dsyn.data_ptr(), scratch.data_ptr(),
             part_mats.data_ptr(), part_vecs.data_ptr(), dmats.data_ptr(),
             dvecs.data_ptr(), b, m, n, dc, dq, rounds, width, grid, stream)
+    gp = dt == torch.bfloat16 and lib.fused_rounds_bwd_gpanels(m, n, dc, dq) == 1
+    name = "fused_rounds_bwd_gpanels" if gp else "fused_rounds_bwd"
     if err != 0:
-        raise RuntimeError(f"fused_rounds_bwd kernel launch failed: CUDA error {err}")
-    fd._LAUNCHES["fused_rounds_bwd"] += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    fd._LAUNCHES[name] += 1
     return g_c, g_q, dsyn.reshape(syn.shape), dmats, dvecs
 
 
@@ -288,6 +312,8 @@ class FusedRoundsFn(torch.autograd.Function):
     def forward(ctx, xc, xq, syn, mats32, vecs32, operators, rounds, state_dtype,
                 kernels, width):
         if kernels:
+            # K2b must take the graph before K2a runs: a step launches both or neither
+            _bwd_library(fd.STATE_DTYPES[state_dtype], operators)
             outs = _fwd_stash_cuda(xc, xq, syn, operators, mats32, vecs32, rounds,
                                    state_dtype, width)
         else:

@@ -41,11 +41,11 @@ The kernels are built for ``WIDTH`` = 128 columns.  A model of width
 round, and the LayerNorm takes its mean and variance over the first ``h``
 columns (``width=h`` in the plain versions; 0 on the rest).  The padding is
 exact, as the JAX package's ``pad_msg_width`` is
-(``tpugnn/kernels/fused_decoder.py:127-142``).  With f32 states, a graph
-whose two gather panels do not fit in a block's shared memory beside the
-chunk buffer and the weight ring (d=13, d=15, the circuit d=5 and d=7
-graphs) runs K1's variant with the panels in global memory
-(``fused_rounds_gpanels`` in :func:`launch_counts`).
+(``tpugnn/kernels/fused_decoder.py:127-142``).  A graph whose two gather
+panels do not fit in a block's shared memory beside the chunk buffers and
+the weight ring runs K1's variant with the panels in global memory
+(``fused_rounds_gpanels`` in :func:`launch_counts`): with f32 states d=13,
+d=15 and the circuit d=5 and d=7 graphs, with bf16 states circuit d=7.
 """
 
 from __future__ import annotations
@@ -70,10 +70,11 @@ WIDTH = 128          # the columns the rounds kernels are built for
 CHUNK_ROWS = 128     # rows of one f32 K1 chunk (tc::CR in csrc/rounds_mma.cuh)
 
 # launches of the CUDA kernels in this process: K1 (decoder_rounds without
-# grad; its f32 variant with the gather panels in global memory apart), K2a
-# and K2b (kernels/fused_backward.py)
+# grad), K2a and K2b (kernels/fused_backward.py), each with its variant that
+# keeps the gather panels in global memory apart
 _LAUNCHES = {"fused_rounds": 0, "fused_rounds_gpanels": 0, "fused_rounds_fwd_stash": 0,
-             "fused_rounds_bwd": 0}
+             "fused_rounds_fwd_stash_gpanels": 0, "fused_rounds_bwd": 0,
+             "fused_rounds_bwd_gpanels": 0}
 
 
 def launch_counts() -> dict:
@@ -385,7 +386,7 @@ def _slot_tables(src_c, mask_c, src_q, mask_q):
 
 class _CudaOperands(NamedTuple):
     code: int
-    gpanels: bool         # the f32 variant with the gather panels in global memory
+    gpanels: bool         # the variant with the gather panels in global memory
     b: int
     m: int
     n: int
@@ -402,9 +403,10 @@ def _cuda_operands(lib, xc, xq, syn, operators, mats, rounds, dt, *,
                    stash: bool) -> _CudaOperands:
     """Checks a call of the forward kernels (K1, or K2a with ``stash``) on
     states and packs padded to ``WIDTH`` and prepares its operands; raises
-    on anything the kernels do not take.  For K1 an f32 graph whose gather
-    panels do not fit in shared memory takes the global-panel variant; K2a
-    has none."""
+    on anything the kernels do not take.  A graph whose gather panels do not
+    fit in shared memory takes the global-panel variant: K1 in both state
+    types, K2a with bf16 states (f32 K2a has none: f32 training past shared
+    memory is refused, as f32 K2b has no such layout)."""
     src_c, mask_c, _, src_q, mask_q, _ = operators
     b, m, h = xc.shape
     n = xq.shape[1]
@@ -425,9 +427,9 @@ def _cuda_operands(lib, xc, xq, syn, operators, mats, rounds, dt, *,
     code = _DTYPE_CODE[dt]
     smem = (lib.fused_rounds_stash_smem_bytes if stash else lib.fused_rounds_smem_bytes)(
         code, m, n, dc, dq)
-    gpanels = not stash and code == 0 and smem > SMEM_LIMIT
+    gpanels = smem > SMEM_LIMIT and (not stash or code == 1)
     if gpanels:
-        smem = lib.fused_rounds_gpanels_smem_bytes(m, n, dc, dq)
+        smem = lib.fused_rounds_gpanels_smem_bytes(code, m, n, dc, dq)
     if smem > SMEM_LIMIT:
         raise ValueError(f"graph too large for the fused-rounds kernel: needs "
                          f"{smem} B of shared memory per block (M={m}, N={n}"
@@ -438,6 +440,13 @@ def _cuda_operands(lib, xc, xq, syn, operators, mats, rounds, dt, *,
                          xq.detach().to(dt).contiguous(),
                          syn.detach().reshape(b, m).to(torch.float32).contiguous(),
                          idx_c, idx_q)
+
+
+def _gpanel_scratch(a: _CudaOperands, dt: torch.dtype, dev):
+    """The global-panel variant's grid, a persistent one of one block per SM
+    (at most B), and its panels: each block's [N + M, WIDTH] in ``dt``."""
+    grid = min(a.b, torch.cuda.get_device_properties(dev).multi_processor_count)
+    return grid, torch.empty((grid, a.m + a.n, WIDTH), dtype=dt, device=dev)
 
 
 def _rounds_cuda(xc, xq, syn, operators, weights, rounds, state_dtype):
@@ -474,12 +483,10 @@ def _rounds_cuda(xc, xq, syn, operators, weights, rounds, state_dtype):
         ptrs = (a.xc.data_ptr(), a.xq.data_ptr(), a.syn.data_ptr(), idx_c.data_ptr(),
                 idx_q.data_ptr(), mats.data_ptr(), vecs.data_ptr(), out_c.data_ptr(),
                 out_q.data_ptr())
-        if a.gpanels:   # a persistent grid of one block per SM, each its own panels
-            grid = min(a.b, torch.cuda.get_device_properties(xc.device).multi_processor_count)
-            panels = torch.empty((grid, a.m + a.n, WIDTH), dtype=torch.float32,
-                                 device=xc.device)
-            err = lib.fused_rounds_gpanels_launch(*ptrs, panels.data_ptr(), a.b, a.m, a.n,
-                                                  a.dc, a.dq, rounds, h, grid, stream)
+        if a.gpanels:
+            grid, panels = _gpanel_scratch(a, dt, xc.device)
+            err = lib.fused_rounds_gpanels_launch(a.code, *ptrs, panels.data_ptr(), a.b, a.m,
+                                                  a.n, a.dc, a.dq, rounds, h, grid, stream)
         else:
             err = lib.fused_rounds_launch(a.code, *ptrs, a.b // s, a.m * s, a.n * s, a.dc,
                                           a.dq, rounds, h, stream)

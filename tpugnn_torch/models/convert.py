@@ -162,14 +162,18 @@ def convert_flat_layout(flat: dict, src_backend: str, dst_backend: str) -> dict:
     return out
 
 
-def load_decoder(path: str = DEFAULT_WEIGHTS, device="cuda", backend: str | None = None):
+def load_decoder(path: str = DEFAULT_WEIGHTS, device="cuda", backend: str | None = None,
+                 dtype: str | None = None):
     """Entry point: ``(config, GNNDecoder on device, TannerGraph)`` from a
     weights file, on the graph its record names (:func:`graph_of_meta`: the
     code graph or a detector graph).  The model is in eval mode.
     ``backend`` (default: the file's) picks the rounds: ``'fused'`` for the
     fused kernels K1/K2, ``'segment'``, ``'dense'``, ``'ell'`` or
     ``'pallas'`` for the generic engine (``'pallas'``: the kernels
-    K3a/K3b); the parameters are converted between the layouts."""
+    K3a/K3b); the parameters are converted between the layouts.  ``dtype``
+    (default: the file's) is the state type of the rounds, as ``--dtype``
+    sets it: a checkpoint trained in bf16 decodes in bf16 with
+    ``'bfloat16'``."""
     from tpugnn_torch.models.decoder import GNNDecoder
     from tpugnn_torch.utils.device import resolve_device
 
@@ -178,6 +182,8 @@ def load_decoder(path: str = DEFAULT_WEIGHTS, device="cuda", backend: str | None
     if backend is not None:
         flat = convert_flat_layout(flat, cfg.model.backend, backend)
         cfg = cfg.replace(model=dataclasses.replace(cfg.model, backend=backend))
+    if dtype is not None:
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, dtype=dtype))
     graph = graph_of_meta(read_meta(path))
     model = GNNDecoder(cfg.model, k=graph.k)
     model.load_state_dict(state_dict_from_flat(flat))

@@ -177,9 +177,9 @@ class DecodeEngine:
         self.reset_timing()
 
     @classmethod
-    def from_npz(cls, path: str = DEFAULT_WEIGHTS, *, device="cuda",
+    def from_npz(cls, path: str = DEFAULT_WEIGHTS, *, device="cuda", dtype: str | None = None,
                  **kw) -> "DecodeEngine":
-        cfg, model, graph = load_decoder(path, device=device)
+        cfg, model, graph = load_decoder(path, device=device, dtype=dtype)
         return cls(cfg, model, graph, device=device, **kw)
 
     def close(self) -> None:
