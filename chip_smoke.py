@@ -21,8 +21,8 @@ print one JSON line with their wall time:
     In f32 (d=11, R=14) the kernel and the plain version are also held to
     the same rounds in f64 (rounds_f64), the kernel's max error there gated
     at TOL_F32; and cuobjdump -sass must find HMMA (TF32) instructions in
-    every f32 instantiation of the library (K1's shared and global panels,
-    each taking every width, and K2a's): the f32 path runs on tensor cores
+    every f32 instantiation of the library (K1's and K2a's shared and global
+    panels, each taking every width): the f32 path runs on tensor cores
     (3xTF32)
   3 serve: a DecodeEngine on the trained d=11 weights answers requests of
     1, 1000 and 5000 syndromes; outputs equal the model's direct decode;
@@ -172,6 +172,24 @@ print one JSON line with their wall time:
     relu that K2a's rounding flips decides a whole autograd path; and two
     train steps from a 10-step run through K2a/K2b against the plain
     versions
+  6b f32_training_past_smem: f32 training where the f32 gather panels do
+    not fit in shared memory.  At d=13 (B=64, R=3) K1's, K2a's and K2b's
+    global-panel variants each once: K2a equal to K1, its outputs and stash
+    within TOL_F32 of rounds_fwd_stash_plain, K2b's every leaf within
+    TOL_GRAD_REL_F32 of rounds_vjp_plain on the same stash and twice
+    bit-equal; on d=11 (B=1060: 133 tiles of 8 on 132 SMs, the last
+    ragged) K2a with its panels forced into global memory and K2b in its
+    scratch-panel layout (force_gpanels) bit-equal to the shared-panel
+    kernels; K2a and K2b timed at d=13, B=4096, R=14 beside their 3xTF32
+    bounds and plain versions; `cli train` on the circuit d=5 graph in f32
+    (B=512, 10 steps): a finite, falling loss, one global-panel K2a and K2b
+    launch a step, one step against the plain versions (TRAIN_STEP_REL)
+  6c fused_configs: the fused backend at H=64, MH=96 (K1 against
+    rounds_plain in both state types; K2a/K2b and two train steps against
+    the plain versions in f32; the model's decode, one K1 launch, against
+    its plain rounds) and with per-round weights (d=5, R=3: the forward
+    launches K1 R times, the backward K2a and K2b R times each; against
+    the plain rounds)
   7 train: train() on the flagship training config from a seeded random
     init, TRAIN_STEPS steps in two calls with a checkpoint resume between
     them; gates a finite, falling loss, one K2a and one K2b launch and no K1
@@ -237,7 +255,8 @@ print one JSON line with their wall time:
 Phases 3 (each engine's requests), 4, 4b, 4c, 4d (the monolithic decode
 and the streams), 4e (each circuit decode and each CLI run), 4g (the CLI's
 eval and train and the engine's request), 4f (the K1
-reference decodes beside the sharded ones, which launch no kernel), 7, 9,
+reference decodes beside the sharded ones, which launch no kernel), 6b (the
+CLI's f32 circuit training), 6c (each model's decode and backward), 7, 9,
 10 and 11 are the main paths; the launch counts of every kernel are reset before
 and read after each.  Then it prints the kernel
 table as one JSON line, the card's name and power limit, and last
@@ -560,6 +579,25 @@ D7_GP_BATCH = 300
 D7_GPANELS = ("fused_rounds_gpanels", "fused_rounds_fwd_stash_gpanels",
               "fused_rounds_bwd_gpanels")
 
+# Phase 6b: f32 training where the f32 gather panels do not fit in shared
+# memory (surface d=13, circuit d=5 and d=7), on K2a's global-panel variant
+# and K2b's layout with its panels in the scratch (the same counters as the
+# bf16 variants').  F32_GP_BATCH: the two placements are compared on d=11 at
+# more tiles of 8 samples than the card has SMs (133 on 132 SMs, the last
+# one ragged), so K2b's persistent blocks walk two tiles and K2a's global
+# variant eight samples a block.  The circuit d=5 training config of
+# CIRCUIT_TRAIN_ARGS in f32 at batch 512 for CIRCUIT_F32_TRAIN_STEPS steps
+# through the CLI, gated as the bf16 run is (gate_training).
+F32_GP_BATCH = 1060
+CIRCUIT_F32_TRAIN_ARGS = (*CIRCUIT_TRAIN_ARGS, "--dtype", "float32", "--batch", "512")
+CIRCUIT_F32_TRAIN_STEPS = 10
+# Phase 6c: the fused backend's msg_hidden != hidden (H=64, MH=96: the packs
+# padded to 96 and on to the kernels' 128, the LayerNorm over 64) and its
+# per-round weights (weight_tied=False: R calls of one round, a round's
+# weights each; d=5, H=128, R=3)
+MH_WIDTH = 96
+UNTIED_D = 5
+
 # The dist phase (4f): graph- and data-parallel decoding and training on
 # torch.distributed.  One card: NCCL at world size 1 in this process, and P
 # gloo ranks time-sharing the card, their exchanges staged through the host
@@ -869,10 +907,11 @@ def random_states(dg, batch: int, h: int, gen):
 
 
 def random_round_case(d: int, batch: int, rounds: int, dtype: str, seed: int, dev,
-                      h: int = 128):
+                      h: int = 128, mh: int | None = None):
     """A surface code of distance d on the card, seeded random round weights
-    of width H = MH = h (the full width by default) and random states:
-    ``(graph, dg, ops, w, xc, xq, syn, gen)``."""
+    of width H = h (the full width by default) and message width MH = mh
+    (h by default) and random states: ``(graph, dg, ops, w, xc, xq, syn,
+    gen)``."""
     import torch
 
     from tpugnn_torch.configs import ModelConfig
@@ -883,8 +922,8 @@ def random_round_case(d: int, batch: int, rounds: int, dtype: str, seed: int, de
     graph = build_code("surface", d)
     dg = graph.to(dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    model = GNNDecoder(ModelConfig(hidden=h, msg_hidden=h, rounds=rounds, backend="fused",
-                                   qubit_head="pauli4", dtype=dtype), k=1)
+    model = GNNDecoder(ModelConfig(hidden=h, msg_hidden=mh or h, rounds=rounds,
+                                   backend="fused", qubit_head="pauli4", dtype=dtype), k=1)
     model.init_random(torch.Generator().manual_seed(seed + 1), bias_std=0.1)
     w = fd.RoundWeights(*[t.detach() for t in model.to(dev).rounds.round_weights()])
     xc, xq, syn = random_states(dg, batch, h, gen)
@@ -941,20 +980,52 @@ def f32_hmma(mma: dict) -> dict:
     """The HMMA count of each f32 (3xTF32) kernel in ``mma``
     (:func:`sass_mma_counts` of the fused_rounds or the roll_gather
     library), by instantiation: ``shared`` or ``gpanels`` by its panels (K1,
-    K5), ``stash`` for K1's with the stash flag (K2a)."""
+    K5), ``stash`` and ``stash_gpanels`` for K1's with the stash flag
+    (K2a)."""
     out = {}
     for name, count in mma.items():
         m = _TF32X3_KERNEL.search(name)
         if m:
-            out["stash" if m.group(2) == "1" else
-                "gpanels" if m.group(1) == "1" else "shared"] = count
+            out[("stash_" if m.group(2) == "1" else "") + ("gpanels" if m.group(1) == "1"
+                                                           else "shared")] = count
+    if "stash_shared" in out:
+        out["stash"] = out.pop("stash_shared")
     return out
 
 
-def k2b_f32_hmma(mma: dict) -> int:
+def ptxas_usage(build_log: str, pattern: str) -> dict:
+    """Registers and spill bytes of each function whose name matches
+    ``pattern``, from a library's build log (nvcc -Xptxas -v)."""
+    out, name = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'|Function properties for (\S+)", line)
+        if m:
+            name = m.group(1) or m.group(2)
+            continue
+        if name is None or not re.search(pattern, name):
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(name, {}).update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m[1])
+    return out
+
+
+_K2B_TF32X3_KERNEL = re.compile(r"fused_rounds_bwd_tf32x3_kernelILb([01])E")
+
+
+def k2b_f32_hmma(mma: dict) -> dict:
     """The HMMA count of the f32 K2b kernel (its device functions included)
-    in ``mma`` (:func:`sass_mma_counts` of the fused_backward_tf32 library)."""
-    return sum(c for name, c in mma.items() if "fused_rounds_bwd_tf32x3_kernel" in name)
+    in ``mma`` (:func:`sass_mma_counts` of the fused_backward_tf32 library)
+    by layout: ``shared`` or ``gpanels`` by where its panels are."""
+    out = {}
+    for name, count in mma.items():
+        m = _K2B_TF32X3_KERNEL.search(name)
+        if m:
+            out["gpanels" if m.group(1) == "1" else "shared"] = count
+    return out
 
 
 def bound(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
@@ -1859,17 +1930,18 @@ def held_to_plain(run, plain, want: str, dtype: str, what: str) -> dict:
 
 
 def rounds_vs_plain(kernel: str, d: int, h: int, dtype: str, seed: int, dev, want: str,
-                    slot_dtype: str = "float32") -> dict:
-    """K1 ('k1') or K5 ('k5') on a random case of width ``h`` (d, B=64,
-    R=3) held to its plain version at that width (:func:`held_to_plain`):
-    it must launch ``want`` (the shared-panel kernel or its global-panel
-    variant)."""
+                    slot_dtype: str = "float32", mh: int | None = None) -> dict:
+    """K1 ('k1') or K5 ('k5') on a random case of width ``h`` and message
+    width ``mh`` (h by default; d, B=64, R=3) held to its plain version at
+    that width (:func:`held_to_plain`): it must launch ``want`` (the
+    shared-panel kernel or its global-panel variant)."""
     g, _, ops, w, xc, xq, s, _ = random_round_case(d, D13_BATCH, D13_ROUNDS, dtype, seed, dev,
-                                                   h=h)
+                                                   h=h, mh=mh)
     run, plain = kernel_and_plain(kernel, g, ops, w, xc, xq, s, D13_ROUNDS, dtype, slot_dtype)
     res = held_to_plain(run, plain, want, dtype,
-                        f"{kernel} d={d} H={h} {dtype} slots {slot_dtype}")
-    return dict(d=d, width=h, dtype=dtype, batch=D13_BATCH, rounds=D13_ROUNDS, **res)
+                        f"{kernel} d={d} H={h} MH={mh or h} {dtype} slots {slot_dtype}")
+    return dict(d=d, width=h, msg_width=mh or h, dtype=dtype, batch=D13_BATCH,
+                rounds=D13_ROUNDS, **res)
 
 
 def k5_f32_kernel(d: int) -> str:
@@ -1968,7 +2040,13 @@ def rounds_kernel_times() -> dict:
       the f32 global-panel variants on the same inputs as ``k1_f32`` and
       ``k5_f32``, taken by lowering the shared-memory limit the wrappers
       compare against to the variant's need at d=11, so that the call runs
-      the main path's wrapper code and launches the variant once."""
+      the main path's wrapper code and launches the variant once;
+    * ``k2a_f32_gpanels``, ``k2b_f32_gpanels`` (where the checkout has
+      them): f32 K2a's global-panel variant (the same limit lowered) and
+      K2b's scratch-panel layout (``force_gpanels``) on the inputs of
+      ``k2a_f32`` and ``k2b_f32``."""
+    import inspect
+
     import torch
 
     from tpugnn_torch.kernels import fused_backward as fb
@@ -2023,28 +2101,40 @@ def rounds_kernel_times() -> dict:
             _, _, sc, sq = fb._fwd_stash_cuda(xc, xq, s, ops, mats32, vecs32, r, dtype)
             out[f"k2b_{tag}"] = time_ms(lambda: fb._bwd_cuda(
                 sc, sq, s, ops, mats32, vecs32, cot_c, cot_q, dtype), warmup=1, iters=3)
+            if dtype == "float32" and "force_gpanels" in inspect.signature(
+                    fb._bwd_cuda).parameters:
+                k2a = lambda: fb._fwd_stash_cuda(xc, xq, s, ops, mats32, vecs32, r, dtype)
+                with smem_limit(fd, gpanels_smem(load_library("fused_rounds"), 0, ops)):
+                    launched_once("fused_rounds_fwd_stash_gpanels", k2a)
+                    out["k2a_f32_gpanels"] = time_ms(k2a, warmup=2, iters=7)
+                k2b = lambda: fb._bwd_cuda(sc, sq, s, ops, mats32, vecs32, cot_c, cot_q, dtype,
+                                           force_gpanels=True)
+                launched_once("fused_rounds_bwd_gpanels", k2b)
+                out["k2b_f32_gpanels"] = time_ms(k2b, warmup=1, iters=3)
             del sc, sq
         torch.cuda.empty_cache()
     return out
 
 
-def width_train_config(dtype: str, steps: int):
+def width_train_config(dtype: str, steps: int, mh: int = 64):
     """A width-64 model trained through K2a/K2b (zero-padded to 128): the
-    flagship training recipe at d=11 with H = MH = 64, R=3, batch 256."""
+    flagship training recipe at d=11 with H = 64, MH = ``mh`` (64 by
+    default), R=3, batch 256."""
     from tpugnn_torch.configs import CodeConfig, ExperimentConfig, ModelConfig, TrainConfig
 
     return ExperimentConfig(
         code=CodeConfig(family="surface", distance=D, p=0.05),
-        model=ModelConfig(hidden=64, msg_hidden=64, rounds=D13_ROUNDS, backend="fused",
+        model=ModelConfig(hidden=64, msg_hidden=mh, rounds=D13_ROUNDS, backend="fused",
                           readout="both", qubit_head="pauli4", dtype=dtype),
         train=TrainConfig(batch=256, steps=steps, lr=1e-3, warmup_steps=200,
                           eval_every=1000, eval_shots=1024, seed=0, p_mix=(0.01, 0.05)))
 
 
-def width_case(dtype: str, dev, seed: int = 70) -> dict:
-    """K2a/K2b for a model of width 64 (states and packs zero-padded to 128
-    outside the autograd Function) on a random case (d=11, B=64, R=3, made
-    from ``seed``), with the launches and the tolerances of the width-128
+def width_case(dtype: str, dev, seed: int = 70, mh: int = 64) -> dict:
+    """K2a/K2b for a model of width 64 and message width ``mh`` (states and
+    packs zero-padded to 128 outside the autograd Function; with mh > 64
+    the packs at mh first) on a random case (d=11, B=64, R=3, made from
+    ``seed``), with the launches and the tolerances of the width-128
     checks; gates nothing (:func:`train_width_check` does):
 
     * the whole path: the outputs and every gradient leaf (both states and
@@ -2062,7 +2152,8 @@ def width_case(dtype: str, dev, seed: int = 70) -> dict:
 
     h = 64
     _, _, ops, w, xc, xq, s, gen = random_round_case(D, D13_BATCH, D13_ROUNDS, dtype, seed,
-                                                     dev, h=h)
+                                                     dev, h=h, mh=mh)
+    wid = fd.pack_width(w)
     cot_c = torch.randn(xc.shape, generator=gen, device=dev)
     cot_q = torch.randn(xq.shape, generator=gen, device=dev)
 
@@ -2089,21 +2180,22 @@ def width_case(dtype: str, dev, seed: int = 70) -> dict:
 
     # both backward versions read the kernel's stash, on the padded operands
     # as padded_rounds hands them over; the gradients sliced to width 64
+    # (the packs' to their width)
     mats32, vecs32 = fd.pad_packs(*fd.pack_weights_f32(w))
     xcp, xqp, ccp, cqp = fd.pad_states(xc, xq, cot_c, cot_q)
     with torch.no_grad():
         _, _, sc, sq = fb._fwd_stash_cuda(xcp, xqp, s, ops, mats32, vecs32, D13_ROUNDS,
                                           dtype, h)
-        kg_s = fb._bwd_cuda(sc, sq, s, ops, mats32, vecs32, ccp, cqp, dtype, h)
+        kg_s = fb._bwd_cuda(sc, sq, s, ops, mats32, vecs32, ccp, cqp, dtype, h, mh)
         pg_s = fb.rounds_vjp_plain(sc, sq, s, ops, mats32, vecs32, ccp, cqp,
                                    state_dtype=dtype, width=h)
         torch.cuda.synchronize()
-    at_h = lambda g: (g[0][..., :h], g[1][..., :h], g[2], g[3][:, :h, :h], g[4][:, :h])
+    at_h = lambda g: (g[0][..., :h], g[1][..., :h], g[2], g[3][:, :wid, :wid], g[4][:, :wid])
     rels = grad_errors(w, at_h(kg_s), at_h(pg_s))
     worst = max(rels, key=rels.get)
     tol_max, tol_mean = rounds_tols(dtype)
     tol_rel = TOL_GRAD_REL_F32 if dtype == "float32" else TOL_GRAD_REL_BF16
-    return dict(width=h, batch=D13_BATCH, rounds=D13_ROUNDS, launches=launched,
+    return dict(width=h, msg_width=mh, batch=D13_BATCH, rounds=D13_ROUNDS, launches=launched,
                 k2a_vs_plain_max=max_err, k2a_vs_plain_mean=mean_err,
                 k2b_worst_rel=rels[worst], k2b_worst_leaf=worst, k2b_rel=rels,
                 whole_path_worst_rel=whole[whole_worst], whole_path_worst_leaf=whole_worst,
@@ -2111,8 +2203,9 @@ def width_case(dtype: str, dev, seed: int = 70) -> dict:
                 grads_at_model_width=shapes)
 
 
-def train_width_check(dtype: str, dg, dev) -> dict:
-    """K2a/K2b for a model of width 64: (1) :func:`width_case`, gated as at
+def train_width_check(dtype: str, dg, dev, mh: int = 64) -> dict:
+    """K2a/K2b for a model of width 64 and message width ``mh``: (1)
+    :func:`width_case`, gated as at
     128: K2a's outputs against the plain version's, K2b's gradient leaves
     against ``rounds_vjp_plain`` on K2a's stash; in bf16 the whole path's
     leaves too (in f32 reported only: a relu that K2a's 3xTF32 rounding
@@ -2124,18 +2217,19 @@ def train_width_check(dtype: str, dg, dev) -> dict:
 
     from tpugnn_torch.train import train
 
-    out = width_case(dtype, dev)
+    out = width_case(dtype, dev, mh=mh)
+    what = f"H=64 MH={mh} {dtype}"
     launched = out["launches"]
     want = {"fused_rounds_fwd_stash": 1, "fused_rounds_bwd": 1}
     if any(launched[k] != v for k, v in want.items()) or sum(launched.values()) != 2:
-        raise RuntimeError(f"H=64 {dtype}: launched {launched}, not one K2a and one K2b")
+        raise RuntimeError(f"{what}: launched {launched}, not one K2a and one K2b")
     if (not out["grads_at_model_width"] or out["k2a_vs_plain_max"] > out["tol_max"]
             or out["k2a_vs_plain_mean"] > out["tol_mean"]
             or out["k2b_worst_rel"] > out["tol_rel"]
             or (dtype == "bfloat16" and out["whole_path_worst_rel"] > out["tol_rel"])):
-        raise RuntimeError(f"H=64 {dtype}: K2a/K2b disagree with the plain versions: {out}")
+        raise RuntimeError(f"{what}: K2a/K2b disagree with the plain versions: {out}")
 
-    cfg = width_train_config(dtype, WIDTH_TRAIN_STEPS)
+    cfg = width_train_config(dtype, WIDTH_TRAIN_STEPS, mh)
     state, _, _, _ = train(cfg, device="cuda", log=lambda msg: None)
     step_errs = train_steps_vs_plain(state, cfg, dg, dev)
     k_worst = [max(e.items(), key=lambda kv: kv[1]) for e in step_errs["kernels"]]
@@ -2146,7 +2240,7 @@ def train_width_check(dtype: str, dg, dev) -> dict:
             min(((n, v) for n, v in e.items() if n.startswith("rounds.")), key=lambda kv: kv[1])
             for e in step_errs["zero_wgrads"])])
     if any(v > TRAIN_STEP_REL for _, v in k_worst):
-        raise RuntimeError(f"H=64 {dtype}: steps through K2a/K2b move the parameters "
+        raise RuntimeError(f"{what}: steps through K2a/K2b move the parameters "
                            f"otherwise than their plain versions: {out['steps_vs_plain']}")
     del state
     torch.cuda.empty_cache()
@@ -2924,21 +3018,25 @@ def gate_training(what: str, summary: dict, steps: int = CLI_TRAIN_STEPS) -> Non
                            f"{summary['loss_last5']}")
 
 
-def train_kernels_vs_plain(graph, dg, w, gen, want: tuple[str, str, str]) -> dict:
-    """bf16 K1, K2a and K2b on ``graph`` (``dg`` on the card) with round
-    weights ``w`` at B=D13_BATCH, R=D13_ROUNDS on random states: each call
-    must launch the kernel ``want`` names for it (K1, K2a, K2b) once and
-    nothing else; K2a's outputs equal K1's, its outputs and stash are within
-    the bf16 tolerances of the plain versions, K2b's gradients (every leaf)
-    within TOL_GRAD_REL_BF16 of rounds_vjp_plain fed the same stash, and a
-    second K2b call equals the first.  Raises otherwise; returns the
-    errors."""
+def train_kernels_vs_plain(graph, dg, w, gen, want: tuple[str, str, str],
+                           dt: str = "bfloat16") -> dict:
+    """K1, K2a and K2b in state type ``dt`` on ``graph`` (``dg`` on the
+    card) with round weights ``w`` at B=D13_BATCH, R=D13_ROUNDS on random
+    states: each call must launch the kernel ``want`` names for it (K1,
+    K2a, K2b) once and nothing else; K2a's outputs equal K1's, its outputs
+    and stash are within the state type's tolerances of the plain versions
+    (bf16: TOL_BF16_MAX and TOL_BF16_MEAN; f32: TOL_F32), K2b's gradients
+    (every leaf) within TOL_GRAD_REL_BF16 (f32: TOL_GRAD_REL_F32) of
+    rounds_vjp_plain fed the same stash, and a second K2b call equals the
+    first.  Raises otherwise; returns the errors."""
     import torch
 
     from tpugnn_torch.kernels import fused_backward as fb
     from tpugnn_torch.kernels import fused_decoder as fd
 
-    dt, h, r3 = "bfloat16", w.wd_c.shape[0], D13_ROUNDS
+    h, r3 = w.wd_c.shape[0], D13_ROUNDS
+    tol_max, tol_mean, tol_rel = ((TOL_F32, TOL_F32, TOL_GRAD_REL_F32) if dt == "float32"
+                                  else (TOL_BF16_MAX, TOL_BF16_MEAN, TOL_GRAD_REL_BF16))
     mats32, vecs32 = fd.pack_weights_f32(w)
     ops = fd.make_operators(dg)
     dev = dg.check_mask.device
@@ -2982,8 +3080,8 @@ def train_kernels_vs_plain(graph, dg, w, gen, want: tuple[str, str, str]) -> dic
                k2a_vs_plain_max=float(out_diff.max()), k2a_vs_plain_mean=float(out_diff.mean()),
                stash_vs_plain_max=float(st_diff.max()),
                stash_vs_plain_mean=float(st_diff.mean()), k2b_max_abs_err=grad_max,
-               k2b_worst_rel=rels[worst], k2b_worst_leaf=worst, tol_rel=TOL_GRAD_REL_BF16,
-               tol_max=TOL_BF16_MAX, tol_mean=TOL_BF16_MEAN)
+               k2b_worst_rel=rels[worst], k2b_worst_leaf=worst, state_dtype=dt, tol_rel=tol_rel,
+               tol_max=tol_max, tol_mean=tol_mean)
     for kernel, name in zip(("k1", "k2a", "k2b"), want):
         if launched[kernel] != {**dict.fromkeys(launched[kernel], 0), name: 1}:
             raise RuntimeError(f"{graph.name}: {kernel} launched {launched[kernel]}, not one "
@@ -2991,9 +3089,9 @@ def train_kernels_vs_plain(graph, dg, w, gen, want: tuple[str, str, str]) -> dic
     if not finite or not same_as_k1 or not repeatable:
         raise RuntimeError(f"{graph.name} K2a/K2b non-finite, K2a differs from K1 or K2b "
                            f"from itself: {res}")
-    if (res["k2a_vs_plain_max"] > TOL_BF16_MAX or res["k2a_vs_plain_mean"] > TOL_BF16_MEAN
-            or res["stash_vs_plain_max"] > TOL_BF16_MAX
-            or res["stash_vs_plain_mean"] > TOL_BF16_MEAN or rels[worst] > TOL_GRAD_REL_BF16):
+    if (res["k2a_vs_plain_max"] > tol_max or res["k2a_vs_plain_mean"] > tol_mean
+            or res["stash_vs_plain_max"] > tol_max
+            or res["stash_vs_plain_mean"] > tol_mean or rels[worst] > tol_rel):
         raise RuntimeError(f"{graph.name}: K2a or K2b disagrees with its plain version: {res}")
     del outs, again, kc, kq, sc, sq, pc, pq, psc, psq, kg, pg, out_diff, st_diff
     torch.cuda.empty_cache()
@@ -3031,41 +3129,46 @@ def held_to_f64(run, plain, ops, w, xc, xq, s, rounds: int, want: str, what: str
     return res
 
 
-def train_kernels_timed(graph, dg, w, gen, rounds: int, k1: str, f64: bool = False,
-                        plain_calls: int = 1) -> dict:
-    """bf16 K1, K2a and K2b on ``graph`` at the training shapes (B,
-    ``rounds``) on random states: K1 (the kernel ``k1``, as the training
-    run's evaluation runs it) held to its plain version (with ``f64``, both
-    to the rounds in f64: :func:`held_to_f64`) and timed beside its bound,
-    then K2a and K2b each timed beside its plain version and its bound.
-    Each plain version of K2a and K2b is timed as ``plain_calls`` calls on
-    equal slices of the batch between the same two events: on circuit d=7
-    the plain adjoint of all 4096 samples in one call peaks near 69 GB, and
-    after the smoke's earlier phases the card's allocator could not place
-    it (two runs out of memory with 24 GB of its cache fragmented)."""
+def train_kernels_timed(graph, dg, w, gen, rounds: int, k1: str | None, f64: bool = False,
+                        plain_calls: int = 1, dt: str = "bfloat16") -> dict:
+    """K1, K2a and K2b in state type ``dt`` (bf16 by default) on ``graph``
+    at the training shapes (B, ``rounds``) on random states: K1 (the kernel
+    ``k1``, as the training run's evaluation runs it; none where ``k1`` is
+    None) held to its plain version (with ``f64``, both to the rounds in
+    f64: :func:`held_to_f64`) and timed beside its bound, then K2a and K2b
+    each timed beside its plain version and its bound.  Each plain version
+    of K2a and K2b is timed as ``plain_calls`` calls on equal slices of the
+    batch between the same two events: on circuit d=7 the plain adjoint of
+    all 4096 samples in one call peaks near 69 GB, and after the smoke's
+    earlier phases the card's allocator could not place it (two runs out of
+    memory with 24 GB of its cache fragmented)."""
     import torch
 
     from tpugnn_torch.kernels import fused_backward as fb
     from tpugnn_torch.kernels import fused_decoder as fd
 
-    dt, h = "bfloat16", w.wd_c.shape[0]
+    h = w.wd_c.shape[0]
     mats32, vecs32 = fd.pack_weights_f32(w)
     ops = fd.make_operators(dg)
     dev = dg.check_mask.device
     xc, xq, s = random_states(dg, B, h, gen)
     cot_c = torch.randn(xc.shape, generator=gen, device=dev)
     cot_q = torch.randn(xq.shape, generator=gen, device=dev)
-    run, plain = kernel_and_plain("k1", graph, ops, w, xc, xq, s, rounds, dt)
-    what = f"K1 bf16 on {graph.name}, B={B}, R={rounds}"
-    k1_check = (held_to_f64(run, plain, ops, w, xc, xq, s, rounds, k1, what) if f64
-                else held_to_plain(run, plain, k1, dt, what))
-    with torch.inference_mode():
-        k1_ms = time_ms(run, warmup=1, iters=5)
-        k1_plain_ms = time_ms(plain, warmup=0, iters=1)
-    b_ms, b_by = bound(rounds_bytes(graph, B, h, 2), rounds_flops(graph, h) * B * rounds,
-                       H100_BF16_FLOPS)
-    del run, plain
-    torch.cuda.empty_cache()
+    k1_res = {}
+    if k1 is not None:
+        run, plain = kernel_and_plain("k1", graph, ops, w, xc, xq, s, rounds, dt)
+        what = f"K1 {dt} on {graph.name}, B={B}, R={rounds}"
+        k1_check = (held_to_f64(run, plain, ops, w, xc, xq, s, rounds, k1, what) if f64
+                    else held_to_plain(run, plain, k1, dt, what))
+        with torch.inference_mode():
+            k1_ms = time_ms(run, warmup=1, iters=5)
+            k1_plain_ms = time_ms(plain, warmup=0, iters=1)
+        b_ms, b_by = bound(rounds_bytes(graph, B, h, 2), rounds_flops(graph, h) * B * rounds,
+                           H100_BF16_FLOPS)
+        k1_res[f"k1_{dt}"] = dict(batch=B, rounds=rounds, ms=k1_ms, plain_ms=k1_plain_ms,
+                                  bound_ms=b_ms, bound_by=b_by, **k1_check)
+        del run, plain
+        torch.cuda.empty_cache()
     with torch.no_grad():
         k2a_ms = time_ms(lambda: fb._fwd_stash_cuda(xc, xq, s, ops, mats32, vecs32, rounds, dt),
                          warmup=1, iters=5)
@@ -3089,13 +3192,12 @@ def train_kernels_timed(graph, dg, w, gen, rounds: int, k1: str, f64: bool = Fal
         del xc, xq
         torch.cuda.empty_cache()
         plain_bwd_ms = time_ms(plain_bwd, warmup=0, iters=1)
+    item = 4 if dt == "float32" else 2
     res = dict(timed_batch=B, timed_rounds=rounds, k2a_ms=k2a_ms, k2b_ms=k2b_ms,
                plain_fwd_stash_ms=plain_fwd_ms, plain_vjp_ms=plain_bwd_ms,
                plain_calls=plain_calls,
-               stash_gb=stash_bytes(graph, B, rounds, h, 2) / 1e9,
-               **train_kernel_bounds(graph, B, rounds, h, k2a_ms, k2b_ms),
-               k1_bfloat16=dict(batch=B, rounds=rounds, ms=k1_ms, plain_ms=k1_plain_ms,
-                                bound_ms=b_ms, bound_by=b_by, **k1_check))
+               stash_gb=stash_bytes(graph, B, rounds, h, item) / 1e9,
+               **train_kernel_bounds(graph, B, rounds, h, k2a_ms, k2b_ms, dt), **k1_res)
     del sc, sq, s, cot_c, cot_q
     torch.cuda.empty_cache()
     return res
@@ -3501,6 +3603,265 @@ def phase_circuit_d7_bfloat16(dev, info: dict) -> dict:
         raise RuntimeError(f"a bf16 global-panel kernel is missing or has no HMMA: {hmma}")
     lap("sass")
     info["part_seconds"] = part_s
+    return launches
+
+
+def phase_f32_training_past_smem(dev, info: dict) -> dict:
+    """Phase 6b: f32 training where the gather panels do not fit in shared
+    memory, through K2a's global-panel variant and K2b's layout with its
+    panels in the scratch.
+
+    a. d=13 (random weights, B=64, R=3): K1's, K2a's and K2b's global-panel
+       variants each launched once and nothing else, K2a equal to K1, its
+       outputs and stash within TOL_F32 of rounds_fwd_stash_plain, K2b's
+       gradients (every leaf) within TOL_GRAD_REL_F32 of rounds_vjp_plain
+       fed the same stash, and a second K2b call equal to the first
+       (:func:`train_kernels_vs_plain`).
+    b. The d=11 graph (random weights, B=F32_GP_BATCH, R=3), where both
+       placements fit: K2a with its panels forced into global memory (the
+       wrappers' shared-memory limit lowered to the variant's need) and K2b
+       in its scratch-panel layout (``force_gpanels``), each against the
+       shared-panel kernel on the same inputs, bit for bit: only where the
+       panels live differs, not an operation or its order.
+    c. K2a and K2b timed at d=13, B=4096, R=TRAINED_ROUNDS beside their
+       3xTF32 bounds and their plain versions (two half-batch calls each).
+    d. ``cli train`` on the circuit d=5 graph in f32
+       (CIRCUIT_F32_TRAIN_ARGS) for CIRCUIT_F32_TRAIN_STEPS steps: a finite,
+       falling loss, one global-panel K2a and one K2b launch a step and
+       nothing else; one step from its last state through the kernels and
+       through their plain versions (:func:`train_steps_vs_plain`), every
+       parameter leaf's change within TRAIN_STEP_REL.
+    Returns the launches by path; ``info`` gets every number."""
+    import types
+
+    import torch
+
+    from tpugnn_torch.kernels import fused_backward as fb
+    from tpugnn_torch.kernels import fused_decoder as fd
+    from tpugnn_torch.kernels._build import load_library
+
+    dt, t0, part_s, launches = "float32", time.perf_counter(), {}, {}
+
+    def lap(name):
+        part_s[name] = time.perf_counter() - t0 - sum(part_s.values())
+
+    # a. d=13 on the three global-panel variants
+    g13, dg13, _, w13, _, _, _, gen = random_round_case(13, D13_BATCH, D13_ROUNDS, dt, 17, dev)
+    info["d13"] = train_kernels_vs_plain(g13, dg13, w13, gen, D7_GPANELS, dt)
+    lap("d13_checks")
+
+    # b. the two placements on the d=11 graph, the same inputs
+    _, _, ops11, w11, xc, xq, s, gen11 = random_round_case(D, F32_GP_BATCH, D13_ROUNDS, dt,
+                                                           18, dev)
+    cot_c = torch.randn(xc.shape, generator=gen11, device=dev)
+    cot_q = torch.randn(xq.shape, generator=gen11, device=dev)
+    mats32, vecs32 = fd.pack_weights_f32(w11)
+    need = gpanels_smem(load_library("fused_rounds"), 0, ops11)
+    runs, stash = {}, None
+    with torch.no_grad():
+        for where in ("shared", "global"):
+            reset_counts()
+            with smem_limit(fd, need) if where == "global" else contextlib.nullcontext():
+                k2a = fb._fwd_stash_cuda(xc, xq, s, ops11, mats32, vecs32, D13_ROUNDS, dt)
+            if stash is None:   # both K2b layouts read the shared-panel K2a's stash
+                stash = k2a[2:]
+            k2b = fb._bwd_cuda(*stash, s, ops11, mats32, vecs32, cot_c, cot_q, dt,
+                               force_gpanels=where == "global")
+            runs[where] = (k2a, k2b, counts())
+        torch.cuda.synchronize()
+    want = {"shared": ("fused_rounds_fwd_stash", "fused_rounds_bwd"),
+            "global": ("fused_rounds_fwd_stash_gpanels", "fused_rounds_bwd_gpanels")}
+    for where, (_, _, c) in runs.items():
+        if c != {**dict.fromkeys(c, 0), **dict.fromkeys(want[where], 1)}:
+            raise RuntimeError(f"d=11 f32 {where} panels: launched {c}, not {want[where]}")
+    (k2as, k2bs, _), (k2ag, k2bg, _) = runs["shared"], runs["global"]
+    equal = dict(k2a=all(torch.equal(a, b) for a, b in zip(k2as, k2ag)),
+                 k2b=all(torch.equal(a, b) for a, b in zip(k2bs, k2bg)))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    info["d11_placements"] = dict(
+        batch=F32_GP_BATCH, rounds=D13_ROUNDS, k2a_gpanels_smem_bytes=need, bit_equal=equal,
+        k2a_max_abs_diff=raster_errors(*k2as[:2], *k2ag[:2])[0],
+        k2b_max_abs_diff=max(float((a - b).abs().max()) for a, b in zip(k2bs, k2bg)),
+        k2a_grid=min(F32_GP_BATCH, sms), k2b_tiles=-(-F32_GP_BATCH // 8),
+        k2b_grid=min(-(-F32_GP_BATCH // 8), sms))
+    if not all(equal.values()):
+        raise RuntimeError(f"d=11 f32: the global-panel kernels differ from the shared-panel "
+                           f"ones: {info['d11_placements']}")
+    del runs, stash, k2as, k2bs, k2ag, k2bg, xc, xq, s, cot_c, cot_q
+    torch.cuda.empty_cache()
+    lap("placements")
+
+    # c. the training shapes at d=13
+    info["timed"] = train_kernels_timed(g13, dg13, w13, gen, TRAINED_ROUNDS, None,
+                                        plain_calls=2, dt=dt)
+    torch.cuda.empty_cache()
+    lap("timed")
+
+    # d. circuit d=5 training in f32 through the CLI
+    argv = [*CIRCUIT_F32_TRAIN_ARGS, "--steps", str(CIRCUIT_F32_TRAIN_STEPS), "--eval-every",
+            str(CIRCUIT_F32_TRAIN_STEPS)]
+    reset_counts()
+    with StepRecorder() as rec:
+        row = run_cli(argv)[-1]
+    launches["cli_train_circuit_f32"] = counts()
+    summary = rec.summary()
+    model, optimizer, dg, cfg = rec.last
+    info["cli_train_circuit"] = dict(argv=argv, last_line=row,
+                                     launches=launches["cli_train_circuit_f32"], **summary)
+    gate_training("cli train (circuit d=5, f32)", summary, CIRCUIT_F32_TRAIN_STEPS)
+    step_want = {D7_GPANELS[1]: 1, D7_GPANELS[2]: 1}
+    if any(c != {**dict.fromkeys(c, 0), **step_want} for c in rec.launches):
+        raise RuntimeError(f"cli train (circuit d=5, f32): a step did not launch the "
+                           f"global-panel K2a and K2b once each and nothing else: "
+                           f"{rec.launches}")
+    errs = train_steps_vs_plain(types.SimpleNamespace(model=model, optimizer=optimizer), cfg,
+                                dg, dev, steps=1)
+    worst = max(errs["kernels"][0].items(), key=lambda kv: kv[1])
+    least = min(((n, v) for n, v in errs["zero_wgrads"][0].items() if n.startswith("rounds.")),
+                key=lambda kv: kv[1])
+    info["cli_train_circuit"]["step_vs_plain"] = dict(
+        bound=TRAIN_STEP_REL, kernels_worst=dict(leaf=worst[0], rel=worst[1]),
+        zero_wgrads_least=dict(leaf=least[0], rel=least[1]))
+    if worst[1] > TRAIN_STEP_REL:
+        raise RuntimeError(f"cli train (circuit d=5, f32): a step through K2a/K2b moves the "
+                           f"parameters otherwise than the plain versions: "
+                           f"{info['cli_train_circuit']['step_vs_plain']}")
+    del model, optimizer, rec
+    torch.cuda.empty_cache()
+    lap("circuit_train")
+    info["part_seconds"] = part_s
+    return launches
+
+
+def phase_fused_configs(dev, info: dict) -> dict:
+    """Phase 6c: the fused backend's msg_hidden != hidden and per-round
+    weights on the kernels.
+
+    a. H=64, MH=MH_WIDTH (d=11): K1 against rounds_plain in both state
+       types (B=64, R=3, :func:`rounds_vs_plain`); in f32 K2a/K2b gated as
+       the width-64 check is, and two train steps from a 10-step run
+       through K2a/K2b against their plain versions
+       (:func:`train_width_check`); the model's decode of 64 syndromes at
+       p=0.05 launching K1 once and nothing else, its per-qubit argmax on
+       real qubits within MIN_AGREE_F32 of the same model on the plain
+       rounds, its logits' distance reported.
+    b. weight_tied=False (surface d=UNTIED_D, H=128, R=3, f32, B=64): the
+       model's forward launches K1 R times and nothing else, its argmax as
+       in (a); one backward of a random functional of its logits through
+       K2a/K2b, R launches of each and nothing else, every gradient leaf's
+       distance from the plain versions' reported (a relu that K2a's 3xTF32
+       rounding flips decides a whole autograd path, as at width 64).
+    Returns the launches by path; ``info`` gets every number."""
+    import torch
+
+    from tpugnn_torch.configs import ModelConfig
+    from tpugnn_torch.kernels import fused_decoder as fd
+    from tpugnn_torch.models import GNNDecoder
+    from tpugnn_torch.models import decoder as dec
+    from tpugnn_torch.sampling import sample_batch
+    from tpugnn_torch.tanner import build_code
+
+    launches = {}
+    rounds_fn = dec.decoder_rounds
+
+    def plain_rounds(xc, xq, syn, ops, w, rounds, state_dtype):
+        if torch.is_grad_enabled():
+            from tpugnn_torch.kernels import fused_backward as fb
+
+            return fb.trained_rounds(xc, xq, syn, ops, w, rounds, state_dtype, kernels=False)
+        return fd.rounds_plain(xc, xq, syn, ops, w, rounds=rounds, state_dtype=state_dtype)
+
+    def both(model, dg, syn, path, grad):
+        """The model on the kernels (launches counted under ``path``) and on
+        the plain rounds, with grad (a backward of a random functional of
+        the logits) or without: ``(kernel out, plain out, kernel grads,
+        plain grads)``."""
+        outs, grads = [], []
+        for kernels in (True, False):
+            model.zero_grad(set_to_none=True)
+            dec.decoder_rounds = rounds_fn if kernels else plain_rounds
+            try:
+                reset_counts()
+                with torch.set_grad_enabled(grad):
+                    out = model(dg, syn)
+                    if grad:
+                        g = torch.Generator(device=dev).manual_seed(81)
+                        loss = sum((t * torch.randn(t.shape, generator=g, device=dev)).sum()
+                                   for t in (out.qubit_logits, out.logical_logits))
+                        loss.backward()
+                if kernels:
+                    launches[path] = counts()
+            finally:
+                dec.decoder_rounds = rounds_fn
+            outs.append(out)
+            grads.append({n: p.grad.detach().clone() for n, p in model.named_parameters()}
+                         if grad else None)
+        torch.cuda.synchronize()
+        return (*outs, *grads)
+
+    def agreement(k, p, dg):
+        real = dg.qubit_mask > 0
+        same = (k.qubit_logits.argmax(-1) == p.qubit_logits.argmax(-1))[:, real]
+        return dict(agree=float(same.float().mean()),
+                    qubit_logits_max_abs_err=float((k.qubit_logits - p.qubit_logits).abs().max()),
+                    logical_logits_max_abs_err=float(
+                        (k.logical_logits - p.logical_logits).abs().max()))
+
+    # a. msg_hidden != hidden
+    info["mh_k1"] = {dt: rounds_vs_plain("k1", D, 64, dt, 90, dev, "fused_rounds", mh=MH_WIDTH)
+                     for dt in ("float32", "bfloat16")}
+    info["mh_train"] = train_width_check("float32", build_code("surface", D).to(dev), dev,
+                                         mh=MH_WIDTH)
+    g11 = build_code("surface", D)
+    dg11 = g11.to(dev)
+    model = GNNDecoder(ModelConfig(hidden=64, msg_hidden=MH_WIDTH, rounds=D13_ROUNDS,
+                                   backend="fused", qubit_head="pauli4"), k=g11.k)
+    model.init_random(torch.Generator().manual_seed(91), bias_std=0.1)
+    model.to(dev)
+    syn = sample_batch(torch.Generator(device=dev).manual_seed(92), dg11, 0.05,
+                       D13_BATCH).syndrome
+    k_out, p_out, _, _ = both(model, dg11, syn, "fused_mh_decode", grad=False)
+    info["mh_decode"] = dict(hidden=64, msg_hidden=MH_WIDTH, batch=D13_BATCH,
+                             rounds=D13_ROUNDS, launches=launches["fused_mh_decode"],
+                             min_agree=MIN_AGREE_F32, **agreement(k_out, p_out, dg11))
+    if launches["fused_mh_decode"] != {**dict.fromkeys(launches["fused_mh_decode"], 0),
+                                       "fused_rounds": 1}:
+        raise RuntimeError(f"H=64 MH={MH_WIDTH} decode: launched "
+                           f"{launches['fused_mh_decode']}, not one K1")
+    if not info["mh_decode"]["agree"] >= MIN_AGREE_F32:
+        raise RuntimeError(f"H=64 MH={MH_WIDTH} decode disagrees with its plain version: "
+                           f"{info['mh_decode']}")
+
+    # b. per-round weights
+    g5 = build_code("surface", UNTIED_D)
+    dg5 = g5.to(dev)
+    model = GNNDecoder(ModelConfig(hidden=128, msg_hidden=128, rounds=D13_ROUNDS,
+                                   backend="fused", qubit_head="pauli4", weight_tied=False),
+                       k=g5.k)
+    model.init_random(torch.Generator().manual_seed(93), bias_std=0.1)
+    model.to(dev)
+    syn = sample_batch(torch.Generator(device=dev).manual_seed(94), dg5, 0.05,
+                       D13_BATCH).syndrome
+    k_out, p_out, _, _ = both(model, dg5, syn, "fused_untied_decode", grad=False)
+    _, _, k_grads, p_grads = both(model, dg5, syn, "fused_untied_train", grad=True)
+    rels = {n: rel_err(k_grads[n], p_grads[n]) for n in p_grads}
+    worst = max(rels, key=rels.get)
+    info["untied"] = dict(d=UNTIED_D, hidden=128, rounds=D13_ROUNDS, batch=D13_BATCH,
+                          launches_decode=launches["fused_untied_decode"],
+                          launches_train=launches["fused_untied_train"],
+                          min_agree=MIN_AGREE_F32, **agreement(k_out, p_out, dg5),
+                          grad_worst_rel=rels[worst], grad_worst_leaf=worst)
+    want = {"decode": {"fused_rounds": D13_ROUNDS},
+            "train": {"fused_rounds_fwd_stash": D13_ROUNDS, "fused_rounds_bwd": D13_ROUNDS}}
+    for what, w in want.items():
+        c = launches[f"fused_untied_{what}"]
+        if c != {**dict.fromkeys(c, 0), **w}:
+            raise RuntimeError(f"per-round weights, {what}: launched {c}, not {w}")
+    if not info["untied"]["agree"] >= MIN_AGREE_F32:
+        raise RuntimeError(f"per-round weights: the decode disagrees with its plain version: "
+                           f"{info['untied']}")
+    del model
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -3973,6 +4334,11 @@ def main() -> int:
             log(build_log)
             info[name] = dict(library=os.path.relpath(path, REPO), cold=seconds > 0,
                               build_seconds=round(seconds, 3))
+        # the f32 rounds kernels' registers and spills (K1, K2a and K2b in
+        # both placements; their device functions apart)
+        info["f32_ptxas"] = {
+            **ptxas_usage(built["fused_rounds"][2], "tf32x3_kernel"),
+            **ptxas_usage(built["fused_backward_tf32"][2], "t3b")}
         info["host_library_seconds"] = host["seconds"]
         info["wall_seconds"] = round(time.perf_counter() - t0, 3)
 
@@ -4039,12 +4405,13 @@ def main() -> int:
             f"h{hw}_{dt}": rounds_vs_plain("k1", D, hw, dt, 40 + hw, dev, "fused_rounds")
             for hw in (64, 96) for dt in ("bfloat16", "float32")}
         gp_checks, pw_checks = info["gpanels_float32"], info["padded_widths"]
-        # every f32 instantiation of the library (K1's two placements and
-        # K2a's) runs its products on tensor cores
+        # every f32 instantiation of the library (K1's and K2a's two
+        # placements) runs its products on tensor cores
         f32_mma = f32_hmma(sass_mma_counts(build_libraries(["fused_rounds"])
                                            ["fused_rounds"][0]))
         info["f32_sass_hmma"] = f32_mma
-        if not all(f32_mma.get(k, 0) > 0 for k in ("shared", "gpanels", "stash")):
+        if not all(f32_mma.get(k, 0) > 0
+                   for k in ("shared", "gpanels", "stash", "stash_gpanels")):
             raise RuntimeError(f"an f32 K1 or K2a kernel has no HMMA instruction: {f32_mma}")
         k1_f32_check = dict(info["float32"], sass_hmma={k: f32_mma[k]
                                                        for k in ("shared", "gpanels")})
@@ -4295,8 +4662,9 @@ def main() -> int:
                     **train_kernel_bounds(graph, B, rounds, h, k2a_ms, k2b_ms, dtype),
                     **yardstick_training_times(xc, xq, s, dg, w, cot_c, cot_q, rounds,
                                                torch.float32))
-                if info[dtype]["k2b_sass_hmma"] == 0:
-                    raise RuntimeError(f"the f32 K2b kernel has no HMMA instruction: {k2b_mma}")
+                if not all(info[dtype]["k2b_sass_hmma"].get(k, 0) > 0
+                           for k in ("shared", "gpanels")):
+                    raise RuntimeError(f"an f32 K2b kernel has no HMMA instruction: {k2b_mma}")
             else:
                 del sc, sq
             torch.cuda.empty_cache()
@@ -4341,6 +4709,13 @@ def main() -> int:
         del kc, kq, sc, sq, pc, pq, psc, psq, kg, pg, out_diff, st_diff
         # a model of width 64 trains through K2a/K2b on padded operands
         info["width64"] = {dt: train_width_check(dt, dg, dev) for dt in ("bfloat16", "float32")}
+
+    with Phase("f32_training_past_smem") as info:
+        launches.update(phase_f32_training_past_smem(dev, info))
+        f32gp = dict(info)
+
+    with Phase("fused_configs") as info:
+        launches.update(phase_fused_configs(dev, info))
 
     with Phase("train") as info:
         import tempfile
@@ -4505,6 +4880,28 @@ def main() -> int:
                     graph=c["graph"], batch=t["timed_batch"], rounds=t["timed_rounds"],
                     library_ms=None, sass_hmma=d7["sass_hmma"][tag], **kw)
 
+    def gpanels_f32(k: int, **kw) -> dict:
+        """The f32 global-panel variant of K2a (k=1) or K2b (2): its
+        launches outside the bf16 circuit d=7 paths, its error against the
+        plain version (d=13, B=64, R=3), its time at d=13, B=4096,
+        R=TRAINED_ROUNDS beside its plain version's and its 3xTF32 bound,
+        and its placement check on d=11."""
+        name, t = D7_GPANELS[k], f32gp["timed"]
+        tag = ("k1", "k2a", "k2b")[k]
+        paths = by_path(name, bf16_d7=False)
+        return dict(name=name, route="cuda", source=(
+            "tpugnn_torch/kernels/csrc/fused_rounds.cu" if k == 1 else
+            "tpugnn_torch/kernels/csrc/fused_backward_tf32.cu"),
+            replaces=("tpugnn/kernels/fused_backward.py:575" if k == 1 else
+                      "tpugnn/kernels/fused_backward.py:624"),
+            launches=sum(paths.values()), launches_by_path=paths, graph="surface d=13",
+            batch=t["timed_batch"], rounds=t["timed_rounds"], ms=t[f"{tag}_ms"],
+            plain_ms=t["plain_fwd_stash_ms" if k == 1 else "plain_vjp_ms"],
+            plain_calls=t["plain_calls"], bound_ms=t[f"{tag}_bound_ms"],
+            bound_by=t[f"{tag}_bound_by"], f32_core_ms=t[f"{tag}_f32_core_ms"],
+            tflops=t[f"{tag}_tflops"], library_ms=None,
+            d11_bit_equal_to_shared=f32gp["d11_placements"]["bit_equal"][tag], **kw)
+
     def padded(kernel: str, checks: dict) -> dict:
         """The padded widths' fields: max errors against the plain version by
         state type (H=64 and 96 at d=11, B=64, R=3, and every timed case) and
@@ -4576,6 +4973,10 @@ def main() -> int:
             bound_ms=d7["timed"]["k2a_bound_ms"], bound_by=d7["timed"]["k2a_bound_by"],
             equals_k1=d7["checks"]["k2a_equals_k1"],
             d11_bit_equal_to_shared=d7["d11_placements"]["bit_equal"]["k2a"]),
+        gpanels_float32=gpanels_f32(
+            1, max_abs_err=max(f32gp["d13"]["k2a_vs_plain_max"],
+                               f32gp["d13"]["stash_vs_plain_max"]),
+            sass_hmma=f32_mma_k1["stash_gpanels"], equals_k1=f32gp["d13"]["k2a_equals_k1"]),
     ), row(
         "fused_rounds_bwd",
         source="tpugnn_torch/kernels/csrc/fused_backward.cu",
@@ -4588,7 +4989,7 @@ def main() -> int:
         library_ms=None, yardstick_ms=train_timing["yardstick_bwd_ms"],
         f32=dict(source="tpugnn_torch/kernels/csrc/fused_backward_tf32.cu",
                  batch=B, rounds=train_errs["float32"]["rounds"],
-                 sass_hmma=train_errs["float32"]["k2b_sass_hmma"],
+                 sass_hmma=train_errs["float32"]["k2b_sass_hmma"]["shared"],
                  f32_core_ms=train_errs["float32"]["k2b_f32_core_ms"],
                  plain_ms=train_errs["float32"]["plain_vjp_ms"],
                  yardstick_ms=train_errs["float32"]["yardstick_bwd_ms"],
@@ -4605,6 +5006,11 @@ def main() -> int:
             max_rel_err=d7["checks"]["k2b_worst_rel"], ms=d7["timed"]["k2b_ms"],
             plain_ms=d7["timed"]["plain_vjp_ms"], bound_ms=d7["timed"]["k2b_bound_ms"],
             bound_by=d7["timed"]["k2b_bound_by"], repeatable=d7["checks"]["k2b_repeatable"]),
+        gpanels_float32=gpanels_f32(
+            2, max_abs_err=f32gp["d13"]["k2b_max_abs_err"],
+            max_rel_err=f32gp["d13"]["k2b_worst_rel"],
+            sass_hmma=train_errs["float32"]["k2b_sass_hmma"]["gpanels"],
+            repeatable=f32gp["d13"]["k2b_repeatable"]),
     ), row(
         "ell_sum", source="tpugnn_torch/kernels/csrc/spmm.cu",
         replaces="tpugnn/kernels/spmm.py:79", **new_kernels["ell_sum"],

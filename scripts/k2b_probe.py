@@ -81,8 +81,8 @@ KERNELS = {
                         ("    if (__any_sync(0xffffffffu, (tunc[0] | tunc[1]) != 0u)) {",
                          "    if (false) {")],
             "s3": [("        gather_adjoint(c, i);\n        gather_adjoint(q, i);\n", "")],
-            "s5": [("      weight_grads(c, nt * M, s.ys_c);     // starts with a barrier\n"
-                    "      weight_grads(q, nt * N, s.ys_c);\n", "")],
+            "s5": [("      weight_grads(c, nt * M, s.stage);     // starts with a barrier\n"
+                    "      weight_grads(q, nt * N, s.stage);\n", "")],
         },
         probes=[
             ("        const int b = b0 + i;\n", "loop top (launch gap, discarded)"),
@@ -92,7 +92,7 @@ KERNELS = {
              "c.WT + size_t(M_WD) * MAT);\n", "S2 qubit rows"),
             ("        gather_adjoint(q, i);\n", "S3"),
             ("        state_cotangent(q, i, s.xs, rg, proj_q);\n", "S4"),
-            ("      weight_grads(q, nt * N, s.ys_c);\n", "S5"),
+            ("      weight_grads(q, nt * N, s.stage);\n", "S5"),
         ]),
 }
 

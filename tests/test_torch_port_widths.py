@@ -288,8 +288,8 @@ def _k1_smem(code, m, n, dc, dq, gpanels=False, stash=False):
     f32 K1 and K2a (one kernel, its stash flag aside): panels, one 128-row
     f32 chunk buffer (row stride 132) and 16-row slabs of split TF32
     weights (1 KB a row: two beside shared panels, three beside global
-    ones), its slot tables read from global memory; f32 K2a has no
-    global-panel variant.  bf16 (both): swizzled panels (none with
+    ones), its slot tables read from global memory.  bf16 (both): swizzled
+    panels (none with
     gpanels), 128-row chunk buffers, a double buffer of 64-row slabs
     (32-row where only those fit beside shared panels) and the slot
     tables."""
@@ -325,6 +325,28 @@ def _k2b_layout(m, n, dc, dq):
         if size <= 232448:
             return sr, live, gp, size
     return 0, False, True, size
+
+
+def _k2b_f32_layout(m, n, dc, dq):
+    """f32 K2b's layout as csrc/fused_backward_tf32.cu picks and sizes it,
+    ``(panels in the scratch, shared memory, scratch, scratch with the
+    panels in it)``: the f32 panels and one 128-row chunk buffer (row
+    stride 132), or S5's staging (three arrays x three 32-row chunks, row
+    stride 136) where that is more, and two 16-row slabs of split weights;
+    the panels move to the head of the block's scratch where that does not
+    fit, leaving the chunk buffer under the staging.  The scratch: the
+    readers tables, the slot masks and ties, one sample's dhs, a row of hs
+    a warp and the tile's (8 samples') six f32 residual arrays a
+    direction."""
+    panels = _align16(n * 512) + _align16(m * 512)
+    chunk, stage, ring = 128 * 132 * 4, 3 * 3 * 32 * 136 * 4, 2 * 16 * 1024
+    shared = max(panels + chunk, stage) + ring
+    gp = shared > 232448
+    tables = _align16((n + 1 + m * dc) * 4) + _align16((m + 1 + n * dq) * 4)
+    scratch = tables + 2 * 16 * (m * dc + n * dq) + (m + n) * 512 + 8 * 512 \
+        + 6 * 8 * (m + n) * 512
+    return (gp, max(chunk, stage) + ring if gp else shared,
+            scratch + (panels if gp else 0), scratch + panels)
 
 
 def _k2b_scratch(m, n, dc, dq, gp):
@@ -394,6 +416,50 @@ class _K2bLibrary:
     def fused_rounds_bwd_launch(self, *args):
         self.calls.append(args)
         return 0
+
+
+class _K2bF32Library:
+    """f32 K2b's library as far as a launch (csrc/fused_backward_tf32.cu's
+    entry points, sized by :func:`_k2b_f32_layout`): records each launch
+    and each scratch size handed out."""
+
+    def __init__(self):
+        self.calls, self.scratch = [], []
+
+    def fused_rounds_bwd_smem_bytes(self, m, n, dc, dq):
+        return _k2b_f32_layout(m, n, dc, dq)[1]
+
+    def fused_rounds_bwd_tile(self):
+        return 8
+
+    def fused_rounds_bwd_scratch_bytes(self, m, n, dc, dq):
+        self.scratch.append(_k2b_f32_layout(m, n, dc, dq)[2])
+        return self.scratch[-1]
+
+    def fused_rounds_bwd_gpanels_scratch_bytes(self, m, n, dc, dq):
+        self.scratch.append(_k2b_f32_layout(m, n, dc, dq)[3])
+        return self.scratch[-1]
+
+    def fused_rounds_bwd_gpanels(self, m, n, dc, dq):
+        return int(_k2b_f32_layout(m, n, dc, dq)[0])
+
+    def __getattr__(self, entry):
+        def launch(*args):
+            self.calls.append((entry, args))
+            return 0
+        return launch
+
+
+@pytest.fixture
+def k2b_f32_library(k1_library, monkeypatch):
+    """The stub f32 K2b library beside the stub fused-rounds one."""
+    from tpugnn_torch.kernels import _build
+
+    lib = _K2bF32Library()
+    libs = {"fused_rounds": k1_library, "fused_backward_tf32": lib}
+    monkeypatch.setattr(_build, "load_library",
+                        lambda name: libs[name] if name in libs else pytest.fail(f"loaded {name}"))
+    return lib
 
 
 @pytest.fixture
@@ -556,14 +622,145 @@ def test_stacked_slot_tables_give_the_same_rounds():
         torch.testing.assert_close(g_.reshape(w_.shape), w_, atol=1e-6, rtol=1e-6)
 
 
-def test_k2a_keeps_its_shared_memory_check(k1_library):
-    """f32 K2a (the stash flag) has no global-panel variant: f32 at d=13 is
-    refused before a launch, as before."""
+def test_k2a_keeps_its_shared_memory_check(k1_library, monkeypatch):
+    """f32 K2a at d=13 takes its global-panel variant (one f32 chunk buffer
+    and three weight slabs, 116,736 B), and where even that does not fit
+    (here: a limit of 100,000 B) it is refused before a launch."""
     g, args = _k1_call(13, 128, "float32")
     mats32, vecs32 = fd.pack_weights_f32(args[4])
+    fb._fwd_stash_cuda(args[0], args[1], args[2], args[3], mats32, vecs32, 2, "float32")
+    assert [name for name, _ in k1_library.calls] == ["fused_rounds_stash_gpanels_launch"]
+    assert _k1_smem(0, *_slot_args(g), gpanels=True) == 116736
+    k1_library.calls.clear()
+    monkeypatch.setattr(fd, "SMEM_LIMIT", 100000)
     with pytest.raises(ValueError, match="shared memory"):
         fb._fwd_stash_cuda(args[0], args[1], args[2], args[3], mats32, vecs32, 2, "float32")
     assert not k1_library.calls
+
+
+@pytest.mark.parametrize("d,circuit,batch", [(13, False, 8), (13, False, 200), (5, True, 20),
+                                             (7, True, 20)])
+def test_f32_k2a_takes_global_panels_past_shared_memory(d, circuit, batch, k1_library):
+    """f32 K2a on surface d=13 and the circuit d=5 and d=7 graphs launches
+    its global-panel variant: dtype code 0, the split pack, the slot tables
+    of one sample (no stacking: one sample a block at a time) on min(B,
+    SMs) blocks of a persistent grid with f32 panels, and the stash [R, B,
+    rows, 128] indexed by the whole batch."""
+    g, args = _k1_call(d, 128, "float32", batch=batch, circuit=circuit)
+    mats32, vecs32 = fd.pack_weights_f32(args[4])
+    _, _, sc, sq = fb._fwd_stash_cuda(*args[:4], mats32, vecs32, 3, "float32")
+    ((name, a),) = k1_library.calls
+    m, n, dc, dq = _slot_args(g)
+    # (dtype code, 9 operand pointers, stash_c, stash_q, panels, B, M, N, Dc,
+    # Dq, R, width, grid, stream)
+    assert name == "fused_rounds_stash_gpanels_launch" and a[0] == 0
+    assert a[10:12] == (sc.data_ptr(), sq.data_ptr())
+    assert a[13:21] == (batch, m, n, dc, dq, 3, 128, min(batch, 132))
+    assert tuple(sc.shape) == (3, batch, m, 128) and sc.dtype == torch.float32
+    assert tuple(sq.shape) == (3, batch, n, 128)
+    assert fd.launch_counts()["fused_rounds_fwd_stash_gpanels"] == 1
+    assert fd.launch_counts()["fused_rounds_fwd_stash"] == 0
+
+
+def test_stub_sizes_f32_k2b_as_the_card():
+    """f32 K2b's sizes as csrc/fused_backward_tf32.cu computes them: its
+    panels in shared memory 231,424 B at d=11 (the layout it keeps) and
+    280,576 at d=13 (over the limit); with them in the scratch 189,440 B on
+    every graph (S5's staging and the slabs), taken at d=13 and on the
+    circuit d=5 and d=7 graphs, whose scratch grows by their panels, (M +
+    N) x 512 B."""
+    cases = {"d11": _slot_args(build_code("surface", 11)),
+             "d13": _slot_args(build_code("surface", 13)),
+             "c5": _slot_args(build_circuit_code("surface", 5, 5)),
+             "c7": _slot_args(build_circuit_code("surface", 7, 7))}
+    lay = {k: _k2b_f32_layout(*v) for k, v in cases.items()}
+    assert lay["d11"][:2] == (False, 231424)
+    m, n = cases["d13"][:2]
+    assert (m, n) == (176, 176) and (m + n) * 512 + 128 * 132 * 4 + 2 * 16 * 1024 == 280576
+    for k in ("d13", "c5", "c7"):
+        assert lay[k][:2] == (True, 189440)
+        m, n = cases[k][:2]
+        assert lay[k][2] - (lay[k][3] - (m + n) * 512) == (m + n) * 512
+    assert lay["d11"][3] - lay["d11"][2] == 256 * 512
+
+
+@pytest.mark.parametrize("d,circuit,entry", [
+    (11, False, "fused_rounds_bwd"), (13, False, "fused_rounds_bwd_gpanels"),
+    (5, True, "fused_rounds_bwd_gpanels"), (7, True, "fused_rounds_bwd_gpanels")])
+def test_f32_k2b_takes_the_scratch_panel_layout(d, circuit, entry, k2b_f32_library):
+    """f32 K2b keeps its shared-panel layout where it fits (d=11) and on
+    d=13 and the circuit d=5 and d=7 graphs takes the layout with its
+    panels in the scratch, counted apart, through the library's own
+    launch; the scratch it is handed has room for every block's panels."""
+    batch = 20
+    g, args = _k1_call(d, 128, "float32", batch=batch, circuit=circuit)
+    mats32, vecs32 = fd.pack_weights_f32(args[4])
+    m, n = g.n_checks_pad, g.n_qubits_pad
+    sc = torch.zeros((2, batch, m, 128))
+    sq = torch.zeros((2, batch, n, 128))
+    fb._bwd_cuda(sc, sq, args[2], args[3], mats32, vecs32, args[0], args[1], "float32")
+    ((name, a),) = k2b_f32_library.calls
+    args4 = _slot_args(g)
+    # (stash_c, stash_q, syn, idx_c, idx_q, mats, mats_t, mats32, mats32_t, xn_c,
+    #  xn_q, wn, vecs, ucs32, dxc, dxq, dsyn, scratch, part_mats, part_vecs,
+    #  dmats, dvecs, B, M, N, Dc, Dq, R, width, msg_width, grid, stream)
+    assert name == "fused_rounds_bwd_launch" and a[22:31] == (batch, *args4, 2, 128, 128, 3)
+    gp, _, scratch, scratch_gp = _k2b_f32_layout(*args4)
+    assert gp == (entry == "fused_rounds_bwd_gpanels")
+    assert k2b_f32_library.scratch == [scratch_gp if gp else scratch]
+    other = "fused_rounds_bwd" if gp else "fused_rounds_bwd_gpanels"
+    assert fd.launch_counts()[entry] == 1 and fd.launch_counts()[other] == 0
+
+
+def test_f32_k2b_launches_its_global_layout_on_request(k2b_f32_library):
+    """``force_gpanels`` launches f32 K2b's global layout where the shared
+    one fits too (d=11: the placements' comparison on the card), with the
+    scratch of that layout, counted as it; bf16 K2b takes no such request."""
+    g, args = _k1_call(11, 128, "float32", batch=4)
+    mats32, vecs32 = fd.pack_weights_f32(args[4])
+    m, n = g.n_checks_pad, g.n_qubits_pad
+    sc, sq = torch.zeros((2, 4, m, 128)), torch.zeros((2, 4, n, 128))
+    fb._bwd_cuda(sc, sq, args[2], args[3], mats32, vecs32, args[0], args[1], "float32",
+                 force_gpanels=True)
+    ((name, a),) = k2b_f32_library.calls
+    assert name == "fused_rounds_bwd_gpanels_launch" and len(a) == 32
+    assert k2b_f32_library.scratch == [_k2b_f32_layout(*_slot_args(g))[3]]
+    assert fd.launch_counts()["fused_rounds_bwd_gpanels"] == 1
+    with pytest.raises(ValueError, match="f32"):
+        fb._bwd_cuda(sc.bfloat16(), sq.bfloat16(), args[2], args[3], mats32, vecs32, args[0],
+                     args[1], "bfloat16", force_gpanels=True)
+    assert len(k2b_f32_library.calls) == 1
+
+
+@pytest.mark.parametrize("d,circuit", [(13, False), (5, True), (7, True)])
+def test_f32_training_past_shared_memory_launches_both_global_variants(
+        d, circuit, k1_library, k2b_f32_library):
+    """A training step's rounds in f32 on surface d=13 and the circuit d=5
+    and d=7 graphs go through K2a's and K2b's global-panel variants, one
+    launch each, with no ValueError."""
+    _, args = _k1_call(d, 128, "float32", batch=4, circuit=circuit)
+    w = fd.RoundWeights(*[t.clone().requires_grad_(True) for t in args[4]])
+    out_c, out_q = fb.trained_rounds(*args[:4], w, 2, "float32", kernels=True)
+    (out_c.sum() + out_q.sum()).backward()
+    assert [name for name, _ in k1_library.calls] == ["fused_rounds_stash_gpanels_launch"]
+    assert [name for name, _ in k2b_f32_library.calls] == ["fused_rounds_bwd_launch"]
+    c = fd.launch_counts()
+    assert c["fused_rounds_fwd_stash_gpanels"] == 1 and c["fused_rounds_bwd_gpanels"] == 1
+    assert c["fused_rounds_fwd_stash"] == c["fused_rounds_bwd"] == 0
+
+
+def test_f32_training_raises_before_k2a_where_k2b_does_not_fit(k1_library, k2b_f32_library,
+                                                               monkeypatch):
+    """The f32 twin of the bf16 test below: where K2a fits and K2b does not
+    (a limit of 150,000 B, between f32 K2a's global 116,736 and K2b's
+    global 189,440 at d=13), a training call raises before any launch."""
+    monkeypatch.setattr(fd, "SMEM_LIMIT", 150000)
+    _, args = _k1_call(13, 128, "float32", batch=4)
+    w = fd.RoundWeights(*[t.clone().requires_grad_(True) for t in args[4]])
+    with pytest.raises(ValueError, match="fused backward kernel"):
+        fb.trained_rounds(*args[:4], w, 2, "float32", kernels=True)
+    assert not k1_library.calls and not k2b_f32_library.calls
+    assert not any(fd.launch_counts().values())
 
 
 @pytest.mark.parametrize("batch", [8, 200])
@@ -663,15 +860,39 @@ def test_wrappers_refuse_widths_above_128(entry, k1_library, monkeypatch):
     assert not k1_library.calls
 
 
-def test_msg_hidden_other_than_hidden_is_refused():
-    """The fused layout needs msg_hidden == hidden, as the plain versions do."""
-    w = _weights(32, 0)
-    for f in ("wd_c", "ws_c", "wd_q", "ws_q"):
-        w[f] = w[f][:, :16]
-    for f in ("wo_c", "wo_q"):
-        w[f] = w[f][:16]
-    for f in ("b0_c", "b0_q"):
-        w[f] = w[f][:, :16]
-    tw = fd.RoundWeights(**{k: torch.from_numpy(v) for k, v in w.items()})
-    with pytest.raises(ValueError, match="msg_hidden == hidden"):
-        fd.pack_weights_f32(tw)
+def _msg_weights(h, mh, seed=0):
+    """Round weights of width h and message width mh (tensors)."""
+    w = _weights(max(h, mh), seed)
+    msg_in = ("wd_c", "ws_c", "wd_q", "ws_q")
+    out = {}
+    for k, v in w.items():
+        if k in msg_in:
+            v = v[:h, :mh]
+        elif k in ("b0_c", "b0_q"):
+            v = v[:, :mh]
+        elif k in ("wo_c", "wo_q"):
+            v = v[:mh, :h]
+        else:
+            v = v[:v.shape[0] if v.shape[0] == 1 else h, :h]
+        out[k] = torch.from_numpy(np.ascontiguousarray(v))
+    return fd.RoundWeights(**out)
+
+
+def test_msg_hidden_other_than_hidden_is_refused(k1_library):
+    """msg_hidden may differ from hidden, packed at the larger width (K1's
+    wrapper launches a model of H=32, MH=96 with the LayerNorm over 32 and
+    returns width 32, and MH < H packs at H); past 128 it is refused with
+    the width refusal, before a library call."""
+    g = build_code("surface", 5).to("cpu")
+    xc = torch.zeros((2, g.n_checks_pad, 32))
+    xq = torch.zeros((2, g.n_qubits_pad, 32))
+    call = lambda mh: fd._rounds_cuda(xc, xq, xc[..., :1], fd.make_operators(g),
+                                      _msg_weights(32, mh), 2, "float32")
+    out_c, out_q = call(96)
+    ((name, a),) = k1_library.calls
+    assert name == "fused_rounds_launch" and a[16] == 32 and out_c.shape[-1] == 32
+    assert fd.pack_weights_f32(_msg_weights(32, 16))[0].shape == (10, 32, 32)
+    k1_library.calls.clear()
+    with pytest.raises(ValueError, match="at most 128"):
+        call(160)
+    assert not k1_library.calls

@@ -102,13 +102,16 @@ def test_split_adjoint_matches_jax_kernel_vjp(d, h, rounds, batch):
     assert worst3 <= 1.0 < worst1, (worst3, worst1)
 
 
-def _k2b_f32_smem(m, n):
-    """fused_rounds_bwd_smem_bytes(m, n, dc, dq) of the f32 library as
-    csrc/fused_backward_tf32.cu computes it: the two f32 panels and a
-    128-row f32 chunk buffer (row stride 132), or S5's staging (three
-    arrays x three 32-row chunks, row stride 136) where that is more, and
-    two 16-row slabs of split weights (1 KB a row)."""
-    work = max(n * 512 + m * 512 + 128 * 132 * 4, 3 * 3 * 32 * 136 * 4)
+def _k2b_f32_smem(m, n, gpanels=False):
+    """Shared memory of the f32 library's layouts as
+    csrc/fused_backward_tf32.cu computes it: the two f32 panels (none with
+    ``gpanels``: they are in the scratch) and a 128-row f32 chunk buffer
+    (row stride 132), or S5's staging (three arrays x three 32-row chunks,
+    row stride 136) where that is more, and two 16-row slabs of split
+    weights (1 KB a row).  fused_rounds_bwd_smem_bytes is the shared-panel
+    layout's where that fits, else the other's."""
+    panels = 0 if gpanels else n * 512 + m * 512
+    work = max(panels + 128 * 132 * 4, 3 * 3 * 32 * 136 * 4)
     return work + 2 * 16 * 1024
 
 
@@ -120,8 +123,13 @@ class _K2bLibrary:
         self.name = name
         self.calls = []
 
+    def _gp(self, m, n):
+        return self.name == "fused_backward_tf32" and _k2b_f32_smem(m, n) > fd.SMEM_LIMIT
+
     def fused_rounds_bwd_smem_bytes(self, m, n, dc, dq):
-        return _k2b_f32_smem(m, n) if self.name == "fused_backward_tf32" else 0
+        if self.name != "fused_backward_tf32":
+            return 0
+        return _k2b_f32_smem(m, n, self._gp(m, n))
 
     def fused_rounds_bwd_tile(self):
         return 8
@@ -129,8 +137,8 @@ class _K2bLibrary:
     def fused_rounds_bwd_scratch_bytes(self, m, n, dc, dq):
         return 16
 
-    def fused_rounds_bwd_gpanels(self, m, n, dc, dq):   # the bf16 library's
-        return 0
+    def fused_rounds_bwd_gpanels(self, m, n, dc, dq):
+        return int(self._gp(m, n))
 
     def __getattr__(self, entry):
         def launch(*args):
@@ -197,8 +205,8 @@ def test_f32_k2b_wrapper_passes_both_split_packs(d, batch, k2b_library):
     ((entry, args),) = libs["fused_backward_tf32"].calls
     # (stash_c, stash_q, syn, idx_c, idx_q, mats, mats_t, mats32, mats32_t, xn_c,
     #  xn_q, wn, vecs, ucs32, dxc, dxq, dsyn, scratch, part_mats, part_vecs,
-    #  dmats, dvecs, B, M, N, Dc, Dq, R, width, grid, stream)
-    assert entry == "fused_rounds_bwd_launch" and len(args) == 31
+    #  dmats, dvecs, B, M, N, Dc, Dq, R, width, msg_width, grid, stream)
+    assert entry == "fused_rounds_bwd_launch" and len(args) == 32
     pack, pack_t = packs.split
     assert (args[5], args[6]) == (pack.data_ptr(), pack_t.data_ptr())
     (mats,) = packs.cast
@@ -209,7 +217,7 @@ def test_f32_k2b_wrapper_passes_both_split_packs(d, batch, k2b_library):
         hi, lo = split_matrices(p)
         assert torch.equal(hi, fd.tf32_round(want))
         assert torch.equal(lo, fd.tf32_round(want - hi))
-    assert args[22:30] == (batch, m, n, ops[0].shape[1], ops[3].shape[1], 3, 128,
+    assert args[22:31] == (batch, m, n, ops[0].shape[1], ops[3].shape[1], 3, 128, 128,
                            min(-(-batch // 8), SMS))
     assert fd.launch_counts()["fused_rounds_bwd"] == 1
 
@@ -243,12 +251,21 @@ def test_f32_k2b_fits_every_surface_graph_through_d11(d):
         assert smem == 231424
 
 
-def test_f32_k2b_refuses_d13_before_a_launch(k2b_library):
-    """d=13's f32 panels do not fit beside the chunk buffer: the wrapper
-    raises before any launch."""
+def test_f32_k2b_refuses_d13_before_a_launch(k2b_library, monkeypatch):
+    """d=13's f32 panels do not fit beside the chunk buffer (280,576 B), so
+    K2b takes its layout with the panels in the scratch (189,440 B) and
+    launches; where even that does not fit (here: a limit of 150,000 B) the
+    wrapper raises before any launch."""
     libs, _ = k2b_library
     g = build_code("surface", 13)
-    assert _k2b_f32_smem(g.n_checks_pad, g.n_qubits_pad) > fd.SMEM_LIMIT
+    assert _k2b_f32_smem(g.n_checks_pad, g.n_qubits_pad) == 280576 > fd.SMEM_LIMIT
+    assert _k2b_f32_smem(g.n_checks_pad, g.n_qubits_pad, gpanels=True) == 189440
+    _bwd(13, 2, 2, "float32")
+    ((entry, args),) = libs["fused_backward_tf32"].calls
+    assert entry == "fused_rounds_bwd_launch"
+    assert fd.launch_counts()["fused_rounds_bwd_gpanels"] == 1
+    libs["fused_backward_tf32"].calls.clear()
+    monkeypatch.setattr(fd, "SMEM_LIMIT", 150000)
     with pytest.raises(ValueError, match="graph too large for the fused backward kernel"):
         _bwd(13, 2, 2, "float32")
     assert not libs["fused_backward_tf32"].calls

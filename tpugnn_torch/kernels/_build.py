@@ -36,12 +36,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # K2b's two libraries (bf16 and f32 states) share their C entry points' names;
-# the f32 launch takes five more pointers
+# the f32 launches take five more pointers and the message width
 _BACKWARD = {
     "fused_rounds_bwd_smem_bytes": ([_I] * 4, ctypes.c_longlong),
     "fused_rounds_bwd_tile": ([], _I),
     "fused_rounds_bwd_scratch_bytes": ([_I] * 4, ctypes.c_longlong),
+    "fused_rounds_bwd_gpanels": ([_I] * 4, _I),
 }
+_F32_BWD_LAUNCH = ([_P] * 22 + [_I] * 9 + [_P], _I)
 # C entry points per library: name -> (argument types, result type)
 _SIGNATURES = {
     "fused_rounds": {
@@ -54,10 +56,12 @@ _SIGNATURES = {
         "fused_rounds_stash_gpanels_launch": ([_I] + [_P] * 12 + [_I] * 8 + [_P], _I),
     },
     "fused_backward": {**_BACKWARD,
-                       "fused_rounds_bwd_gpanels": ([_I] * 4, _I),
                        "fused_rounds_bwd_launch": ([_P] * 17 + [_I] * 8 + [_P], _I)},
     "fused_backward_tf32": {**_BACKWARD,
-                            "fused_rounds_bwd_launch": ([_P] * 22 + [_I] * 8 + [_P], _I)},
+                            "fused_rounds_bwd_gpanels_scratch_bytes": ([_I] * 4,
+                                                                       ctypes.c_longlong),
+                            "fused_rounds_bwd_launch": _F32_BWD_LAUNCH,
+                            "fused_rounds_bwd_gpanels_launch": _F32_BWD_LAUNCH},
     "spmm": {
         "ell_aggregate_launch": ([_I, _I] + [_P] * 3 + [_I] * 5 + [_P], _I),
     },

@@ -58,11 +58,13 @@
 // row summed as the plain version sums it (hs_exact_row, the warp
 // together) and two more (fix_t).  Only the masks change; the values stay
 // the tensor cores'.  A narrower model's padded columns, exactly 0 on both
-// sides, hold no tie.  At d=11 on random weights about 1.5 slot masks and
-// 0.4 rows of t a sample and round fall in the band, 5% of the time (the
-// rows of t nearly all of it); the gradients came out the same for z bands
-// from 16 times wider to 4 times narrower and t bands up to 64 times wider
-// (scripts/k2b_probe.py counts the ties).
+// sides, hold no tie: t's past the model's width, the slot relus' past its
+// message width (msg_width; a model with msg_hidden != hidden runs on packs
+// padded to the larger, then to 128).  At d=11 on random weights about 1.5
+// slot masks and 0.4 rows of t a sample and round fall in the band, 5% of
+// the time (the rows of t nearly all of it); the gradients came out the same
+// for z bands from 16 times wider to 4 times narrower and t bands up to 64
+// times wider (scripts/k2b_probe.py counts the ties).
 //
 // Shared memory at d=11 (M = N = 128 padded rows): the f32 panels (131,072
 // B), one f32 chunk buffer (128 x 132 floats, 67,584 B) and the two slabs
@@ -75,6 +77,16 @@
 // arrays x three 32-row chunks, 156,672 B) overlays the panels and the
 // chunk buffer.
 //
+// Where the panels do not fit (d=13: 280,576 B; the circuit d=5 and d=7
+// graphs), the GP layout keeps them at the head of the block's scratch
+// slice ((M + N) x 512 B more of it), swizzled as in shared memory, and
+// shared memory holds the chunk buffer under S5's staging and the ring:
+// 189,440 B whatever the graph.  Only where the panels live changes, not
+// an operation or its order, so the two layouts give the same bits where
+// both fit.  Every graph that fits keeps its panels in shared memory:
+// gathers from global memory cost the forward kernels 10-27% where both
+// fit, though on an H100 at d=11 this layout measured no slower.
+//
 // The residual scratch: six f32 arrays a direction and sample of the tile,
 // 6.3 MB a block at d=11 with a tile of 8, written in S2-S4 and read in S4
 // and S5; a tile of 8 loads and stores each block's 640 KB partial once per
@@ -82,7 +94,8 @@
 //
 // Width: the LayerNorm and its adjoint run over the first `width` columns
 // (a test at run time, as in f32 K1); the padded columns of the stash and
-// the packs are zero, and no cotangent reaches one.
+// the packs are zero, and no cotangent reaches one.  The message lanes are
+// the first `msg_width` columns of the slot gathers.
 //
 // Bounds on an H100 at d=11, H=128, per sample and round: the replay's 10
 // products, the adjoint's 10 and the 10 weight-gradient products, 30
@@ -127,29 +140,44 @@ __host__ __device__ inline size_t panel_bytes(int rows) {
   return align16(size_t(rows) * H * sizeof(float));
 }
 
-// The panels and the chunk buffer, or S5's staging where that is more.
+// The panels (but with GP, whose panels are in the scratch) and the chunk
+// buffer, or S5's staging where that is more.
+template <bool GP>
 __host__ __device__ inline size_t work_bytes(int M, int N) {
-  const size_t w = panel_bytes(N) + panel_bytes(M) + CHUNK_BYTES;
+  const size_t w = (GP ? 0 : panel_bytes(N) + panel_bytes(M)) + CHUNK_BYTES;
   return w > STAGE_BYTES ? w : STAGE_BYTES;
 }
 
+template <bool GP>
 __host__ __device__ inline size_t smem_bytes(int M, int N) {
-  return work_bytes(M, N) + ring_bytes(SR, NS);
+  return work_bytes<GP>(M, N) + ring_bytes(SR, NS);
 }
 
 struct Smem {
-  float* ys_c;   // [N][H] swizzled, gathered by check rows; S5's staging
-  float* ys_q;   //   starts here and spans the panels and the chunk buffer
+  float* ys_c;   // [N][H] swizzled, gathered by check rows
+  float* ys_q;   // [M][H] swizzled, gathered by qubit rows
   float* xs;     // [CR][LDX] the chunk's A operand
+  float* stage;  // S5's staging, from the start: over the panels (but with
+                 //   GP) and the chunk buffer
   float* ring;   // [NS][SR / 8][KSTEP] weight slabs
 };
 
-__device__ Smem carve(unsigned char* base, int M, int N) {
+// panels: with GP the block's panels [N + M][H] in its scratch slice
+template <bool GP>
+__device__ Smem carve(unsigned char* base, int M, int N, float* panels) {
   Smem s;
-  s.ys_c = reinterpret_cast<float*>(base);
-  s.ys_q = reinterpret_cast<float*>(base + panel_bytes(N));
-  s.xs = reinterpret_cast<float*>(base + panel_bytes(N) + panel_bytes(M));
-  s.ring = reinterpret_cast<float*>(base + work_bytes(M, N));
+  size_t o = 0;
+  if (GP) {
+    s.ys_c = panels;
+    s.ys_q = panels + size_t(N) * H;
+  } else {
+    s.ys_c = reinterpret_cast<float*>(base);
+    s.ys_q = reinterpret_cast<float*>(base + panel_bytes(N));
+    o = panel_bytes(N) + panel_bytes(M);
+  }
+  s.xs = reinterpret_cast<float*>(base + o);
+  s.stage = reinterpret_cast<float*>(base);
+  s.ring = reinterpret_cast<float*>(base + work_bytes<GP>(M, N));
   return s;
 }
 
@@ -159,11 +187,12 @@ __host__ __device__ inline size_t table_bytes(int M, int N, int Dc, int Dq) {
          align16(size_t(M + 1 + N * Dq) * sizeof(int));
 }
 
-// Bytes of scratch one block needs: the readers tables, the slot masks,
-// slot ties and dhs of one sample, a row of hs a warp, and the tile's six
-// f32 residual arrays per direction.
-__host__ __device__ inline size_t scratch_bytes(int M, int N, int Dc, int Dq) {
-  return table_bytes(M, N, Dc, Dq) + 2 * 16 * size_t(M * Dc + N * Dq) +
+// Bytes of scratch one block needs: with GP the panels, then the readers
+// tables, the slot masks, slot ties and dhs of one sample, a row of hs a
+// warp, and the tile's six f32 residual arrays per direction.
+__host__ __device__ inline size_t scratch_bytes(int M, int N, int Dc, int Dq, bool gp) {
+  return (gp ? panel_bytes(N) + panel_bytes(M) : 0) + table_bytes(M, N, Dc, Dq) +
+         2 * 16 * size_t(M * Dc + N * Dq) +
          size_t(M + N) * H * sizeof(float) + size_t(WARPS) * H * sizeof(float) +
          6 * size_t(TILE) * (M + N) * H * sizeof(float);
 }
@@ -176,10 +205,11 @@ struct Dir {
   float* g;           // [tile] state cotangent, rewritten in place
   int rows, D, src_rows;
   int width;          // the LayerNorm's columns
+  int msg_width;      // the message lanes: the slot relus' columns
   const int* idx;     // [rows][D] slot table (global)
   const int* off;     // readers table of the gather (scratch): the slots
   const int* lst;     //   r * D + k that read source row s are lst[off[s] .. off[s+1])
-  const float* ys;    // [src_rows][H] gathered panel (shared, swizzled)
+  const float* ys;    // [src_rows][H] gathered panel (swizzled; with GP global)
   const float* W;     // the direction's 5 split matrices
   const float* WT;    // their transposes, split
   const float* vec;   // the direction's 7 vectors
@@ -392,13 +422,16 @@ __device__ __noinline__ void replay_adjoint(const Dir& dref, int i, const float*
   const float* wft = d.WT + size_t(M_WF) * MAT;
   const float* w1t = d.WT + size_t(M_W1) * MAT;
   const float inv_w = 1.f / d.width;
-  // this lane's columns within the model's width, bits as live's: a
-  // narrower model's padded columns are 0 here and in the plain version, so
-  // they hold no tie
-  uint32_t cols = 0u;
+  // this lane's columns within the model's width (t) and message width
+  // (the slot relus), bits as live's: a narrower model's padded columns are
+  // 0 here and in the plain version, so they hold no tie
+  uint32_t cols = 0u, zcols = 0u;
 #pragma unroll
-  for (int b = 0; b < 32; ++b)
-    cols |= (8 * (b >> 1) + 2 * t + (b & 1) < d.width ? 1u : 0u) << b;
+  for (int b = 0; b < 32; ++b) {
+    const int c = 8 * (b >> 1) + 2 * t + (b & 1);
+    cols |= (c < d.width ? 1u : 0u) << b;
+    zcols |= (c < d.msg_width ? 1u : 0u) << b;
+  }
 
   for (int row0 = 0; row0 < rows; row0 += CR) {
     const int r0 = row0 + 16 * warp;
@@ -457,7 +490,7 @@ __device__ __noinline__ void replay_adjoint(const Dir& dref, int i, const float*
                 unc |= (fabsf(y.x + acc[j][2 * h]) < band ? 1u : 0u) << (2 * j);
                 unc |= (fabsf(y.y + acc[j][2 * h + 1]) < band ? 1u : 0u) << (2 * j + 1);
               }
-              unc &= cols;
+              unc &= zcols;
               if (unc != 0u) {
                 d.unc[e] = unc;
                 ties = true;
@@ -944,7 +977,8 @@ __device__ void weight_grads(const Dir& d, int n, float* stage) {
 // their transposes, 10 matrices of MAT floats each; for the ties mats32 and
 // mats32_t the matrices and their transposes in f32, xn_c [R, B, M] and
 // xn_q [R, B, N] the L2 norms of the stash's rows, wn [10] the largest
-// column norm of each matrix.
+// column norm of each matrix.  GP: the panels in the scratch.
+template <bool GP>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_rounds_bwd_tf32x3_kernel(const float* __restrict__ stash_c,
                                const float* __restrict__ stash_q, const float* __restrict__ syn,
@@ -956,11 +990,13 @@ fused_rounds_bwd_tf32x3_kernel(const float* __restrict__ stash_c,
                                const float* __restrict__ vecs, const float* __restrict__ ucs32,
                                float* dxc, float* dxq, float* dsyn, unsigned char* scratch,
                                float* part_mats, float* part_vecs, int B, int M, int N, int Dc,
-                               int Dq, int R, int width) {
+                               int Dq, int R, int width, int msg_width) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem s = carve(smem_raw, M, N);
-  unsigned char* sc = scratch + size_t(blockIdx.x) * scratch_bytes(M, N, Dc, Dq);
+  unsigned char* sc = scratch + size_t(blockIdx.x) * scratch_bytes(M, N, Dc, Dq, GP);
   auto take = [&](size_t bytes) { unsigned char* p = sc; sc += bytes; return p; };
+  float* panels =
+      GP ? reinterpret_cast<float*>(take(panel_bytes(N) + panel_bytes(M))) : nullptr;
+  const Smem s = carve<GP>(smem_raw, M, N, panels);
   auto tile = [&](int rows) {
     return reinterpret_cast<float*>(take(size_t(TILE) * rows * H * sizeof(float)));
   };
@@ -971,6 +1007,7 @@ fused_rounds_bwd_tf32x3_kernel(const float* __restrict__ stash_c,
 
   Dir c, q;
   c.width = q.width = width;
+  c.msg_width = q.msg_width = msg_width;
   c.rows = M; c.D = Dc; c.src_rows = N;
   c.idx = idx_c; c.off = off_c; c.lst = off_c + N + 1; c.ys = s.ys_c;
   c.W = mats; c.WT = mats_t; c.vec = vecs;
@@ -1041,29 +1078,73 @@ fused_rounds_bwd_tf32x3_kernel(const float* __restrict__ stash_c,
         state_cotangent(c, i, s.xs, rg, q.WT + size_t(M_WD) * MAT);
         state_cotangent(q, i, s.xs, rg, proj_q);
       }
-      weight_grads(c, nt * M, s.ys_c);     // starts with a barrier
-      weight_grads(q, nt * N, s.ys_c);
+      weight_grads(c, nt * M, s.stage);     // starts with a barrier
+      weight_grads(q, nt * N, s.stage);
     }
   }
   cp_async_wait_all();
 }
 
 }  // namespace t3b
+
+// The layout of a graph: the panels in the scratch (GP) only where they do
+// not fit in shared memory.
+bool gp_layout(int M, int N) { return t3b::smem_bytes<false>(M, N) > tc::SMEM_LIMIT; }
+
+int launch(bool gp, const void* stash_c, const void* stash_q, const void* syn,
+           const void* idx_c, const void* idx_q, const void* mats, const void* mats_t,
+           const void* mats32, const void* mats32_t, const void* xn_c, const void* xn_q,
+           const void* wn, const void* vecs, const void* ucs32, void* dxc, void* dxq,
+           void* dsyn, void* scratch, void* part_mats, void* part_vecs, void* dmats,
+           void* dvecs, int B, int M, int N, int Dc, int Dq, int R, int width, int msg_width,
+           int grid, void* stream) {
+  if (B <= 0 || M <= 0 || N <= 0 || Dc <= 0 || Dq <= 0 || R <= 0 || grid <= 0 ||
+      width <= 0 || width > H || msg_width <= 0 || msg_width > H)
+    return int(cudaErrorInvalidValue);
+  const size_t smem = gp ? t3b::smem_bytes<true>(M, N) : t3b::smem_bytes<false>(M, N);
+  if (smem > tc::SMEM_LIMIT) return int(cudaErrorInvalidValue);
+  float* pm = static_cast<float*>(part_mats);
+  float* pv = static_cast<float*>(part_vecs);
+  auto* kernel = gp ? &t3b::fused_rounds_bwd_tf32x3_kernel<true>
+                    : &t3b::fused_rounds_bwd_tf32x3_kernel<false>;
+  return launch_adjoint(
+      kernel, grid, smem, static_cast<cudaStream_t>(stream), pm, pv, static_cast<float*>(dmats),
+      static_cast<float*>(dvecs), static_cast<const float*>(stash_c),
+      static_cast<const float*>(stash_q), static_cast<const float*>(syn),
+      static_cast<const int*>(idx_c), static_cast<const int*>(idx_q),
+      static_cast<const float*>(mats), static_cast<const float*>(mats_t),
+      static_cast<const float*>(mats32), static_cast<const float*>(mats32_t),
+      static_cast<const float*>(xn_c), static_cast<const float*>(xn_q),
+      static_cast<const float*>(wn), static_cast<const float*>(vecs),
+      static_cast<const float*>(ucs32), static_cast<float*>(dxc), static_cast<float*>(dxq),
+      static_cast<float*>(dsyn), static_cast<unsigned char*>(scratch), pm, pv, B, M, N, Dc,
+      Dq, R, width, msg_width);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory one block needs.
+// Shared memory one block of the layout the graph takes needs.
 long long fused_rounds_bwd_smem_bytes(int M, int N, int Dc, int Dq) {
-  return (long long)t3b::smem_bytes(M, N);
+  return (long long)(gp_layout(M, N) ? t3b::smem_bytes<true>(M, N)
+                                     : t3b::smem_bytes<false>(M, N));
 }
 
 // Samples a block takes at a time.
 int fused_rounds_bwd_tile() { return t3b::TILE; }
 
-// Bytes of scratch one block needs.
+// Bytes of scratch one block of the layout the graph takes needs.
 long long fused_rounds_bwd_scratch_bytes(int M, int N, int Dc, int Dq) {
-  return (long long)t3b::scratch_bytes(M, N, Dc, Dq);
+  return (long long)t3b::scratch_bytes(M, N, Dc, Dq, gp_layout(M, N));
+}
+
+// 1 where the graph takes the layout with the panels in the scratch.
+int fused_rounds_bwd_gpanels(int M, int N, int Dc, int Dq) { return gp_layout(M, N) ? 1 : 0; }
+
+// Bytes of scratch one block of that layout needs on any graph.
+long long fused_rounds_bwd_gpanels_scratch_bytes(int M, int N, int Dc, int Dq) {
+  return (long long)t3b::scratch_bytes(M, N, Dc, Dq, true);
 }
 
 // As fused_backward.cu's fused_rounds_bwd_launch, for f32 states: stash_c
@@ -1072,8 +1153,10 @@ long long fused_rounds_bwd_scratch_bytes(int M, int N, int Dc, int Dq) {
 // transposes; for the ties mats32 and mats32_t the matrices [10, 128, 128]
 // and their transposes in f32, xn_c [R, B, M] and xn_q [R, B, N] the L2
 // norms of the stash's rows and wn [10] the largest column norm of each
-// matrix.  Returns the first launch error
-// (0 on success).
+// matrix; scratch grid x fused_rounds_bwd_scratch_bytes; msg_width (<=
+// 128) the model's message width, the slot gathers' columns past it zero.
+// The layout is the graph's (fused_rounds_bwd_gpanels).  Returns the first
+// launch error (0 on success).
 int fused_rounds_bwd_launch(const void* stash_c, const void* stash_q, const void* syn,
                             const void* idx_c, const void* idx_q, const void* mats,
                             const void* mats_t, const void* mats32, const void* mats32_t,
@@ -1081,27 +1164,27 @@ int fused_rounds_bwd_launch(const void* stash_c, const void* stash_q, const void
                             const void* vecs, const void* ucs32, void* dxc, void* dxq,
                             void* dsyn, void* scratch, void* part_mats, void* part_vecs,
                             void* dmats, void* dvecs, int B, int M, int N, int Dc, int Dq,
-                            int R, int width, int grid, void* stream) {
-  if (B <= 0 || M <= 0 || N <= 0 || Dc <= 0 || Dq <= 0 || R <= 0 || grid <= 0 ||
-      width <= 0 || width > H)
-    return int(cudaErrorInvalidValue);
-  const size_t smem = t3b::smem_bytes(M, N);
-  if (smem > tc::SMEM_LIMIT) return int(cudaErrorInvalidValue);
-  float* pm = static_cast<float*>(part_mats);
-  float* pv = static_cast<float*>(part_vecs);
-  return launch_adjoint(
-      t3b::fused_rounds_bwd_tf32x3_kernel, grid, smem, static_cast<cudaStream_t>(stream), pm,
-      pv, static_cast<float*>(dmats), static_cast<float*>(dvecs),
-      static_cast<const float*>(stash_c), static_cast<const float*>(stash_q),
-      static_cast<const float*>(syn), static_cast<const int*>(idx_c),
-      static_cast<const int*>(idx_q), static_cast<const float*>(mats),
-      static_cast<const float*>(mats_t), static_cast<const float*>(mats32),
-      static_cast<const float*>(mats32_t), static_cast<const float*>(xn_c),
-      static_cast<const float*>(xn_q), static_cast<const float*>(wn),
-      static_cast<const float*>(vecs),
-      static_cast<const float*>(ucs32), static_cast<float*>(dxc), static_cast<float*>(dxq),
-      static_cast<float*>(dsyn), static_cast<unsigned char*>(scratch), pm, pv, B, M, N, Dc,
-      Dq, R, width);
+                            int R, int width, int msg_width, int grid, void* stream) {
+  return launch(gp_layout(M, N), stash_c, stash_q, syn, idx_c, idx_q, mats, mats_t, mats32,
+                mats32_t, xn_c, xn_q, wn, vecs, ucs32, dxc, dxq, dsyn, scratch, part_mats,
+                part_vecs, dmats, dvecs, B, M, N, Dc, Dq, R, width, msg_width, grid, stream);
+}
+
+// fused_rounds_bwd_launch in the layout with the panels in the scratch on
+// any graph (scratch: grid x fused_rounds_bwd_gpanels_scratch_bytes), to
+// hold it to the shared-panel layout where both fit.
+int fused_rounds_bwd_gpanels_launch(const void* stash_c, const void* stash_q, const void* syn,
+                                    const void* idx_c, const void* idx_q, const void* mats,
+                                    const void* mats_t, const void* mats32,
+                                    const void* mats32_t, const void* xn_c, const void* xn_q,
+                                    const void* wn, const void* vecs, const void* ucs32,
+                                    void* dxc, void* dxq, void* dsyn, void* scratch,
+                                    void* part_mats, void* part_vecs, void* dmats, void* dvecs,
+                                    int B, int M, int N, int Dc, int Dq, int R, int width,
+                                    int msg_width, int grid, void* stream) {
+  return launch(true, stash_c, stash_q, syn, idx_c, idx_q, mats, mats_t, mats32, mats32_t,
+                xn_c, xn_q, wn, vecs, ucs32, dxc, dxq, dsyn, scratch, part_mats, part_vecs,
+                dmats, dvecs, B, M, N, Dc, Dq, R, width, msg_width, grid, stream);
 }
 
 }  // extern "C"

@@ -68,9 +68,10 @@
 //     The arithmetic is the shared-panel kernel's, in the same order.  A
 //     small graph's samples run several to a block (the wrapper stacks them
 //     as one graph: samples_per_block).  scripts/k1_f32_probe.py times copies
-//     of this kernel with parts cut out or changed.  K2a's instantiation
-//     (shared panels only: f32 training past d=11 is refused) copies round
-//     0's inputs to the stash and stores every later entry from the
+//     of this kernel with parts cut out or changed.  K2a's instantiations
+//     (both placements; with global panels one sample a block at a time, its
+//     stash indexed by (round, sample) as the shared-panel kernel's) copy
+//     round 0's inputs to the stash and store every later entry from the
 //     LayerNorm epilogue of the round before, beside the state (streaming
 //     stores, no reads); bf16 K2a copies each round's inputs at its start.
 //   Global panels in bf16 (K1 and K2a).  Where the bf16 panels do not fit
@@ -655,7 +656,7 @@ bool bad_shape(int B, int M, int N, int Dc, int Dq, int R, int width) {
 
 // K1 (K2a with STASH) in a state type; panels (a [grid][N + M][128] scratch
 // in the state type) selects the global-panel variant on `grid` blocks, else
-// the grid is B.  f32 K2a has no global-panel instantiation.
+// the grid is B.
 template <bool STASH>
 int launch_dtype(int dtype, const void* xc_in, const void* xq_in, const void* syn,
                  const void* idx_c, const void* idx_q, const void* mats,
@@ -684,8 +685,7 @@ int launch_dtype(int dtype, const void* xc_in, const void* xq_in, const void* sy
     float* sc = static_cast<float*>(stash_c);
     float* sq = static_cast<float*>(stash_q);
     float* pn = static_cast<float*>(panels);
-    if (gp && STASH) return int(cudaErrorInvalidValue);
-    return launch_kernel(gp ? t3p::fused_rounds_tf32x3_kernel<true, false>
+    return launch_kernel(gp ? t3p::fused_rounds_tf32x3_kernel<true, STASH>
                             : t3p::fused_rounds_tf32x3_kernel<false, STASH>, grid, smem, st,
                          xci, xqi, s, ic, iq, mt, v, xco, xqo, sc, sq, pn, B, M, N, Dc, Dq, R,
                          width);
@@ -733,7 +733,7 @@ long long fused_rounds_stash_smem_bytes(int dtype, int M, int N, int Dc, int Dq)
   return (long long)smem_for(dtype, M, N, Dc, Dq);
 }
 
-// Shared memory one block of the global-panel variant needs (K1, and bf16 K2a).
+// Shared memory one block of the global-panel variant needs (K1 and K2a).
 long long fused_rounds_gpanels_smem_bytes(int dtype, int M, int N, int Dc, int Dq) {
   return (long long)gp_smem_for(dtype, M, N, Dc, Dq);
 }
@@ -785,8 +785,9 @@ int fused_rounds_stash_launch(int dtype, const void* xc_in, const void* xq_in,
                             width, 0, stream);
 }
 
-// K2a's global-panel variant (bf16 states only): as fused_rounds_stash_launch
-// on `grid` blocks with their panels in `panels`, as fused_rounds_gpanels_launch.
+// K2a's global-panel variant: as fused_rounds_stash_launch on `grid` blocks
+// with their panels in `panels`, as fused_rounds_gpanels_launch; its stash is
+// laid out as the shared-panel kernel's, one sample a block at a time.
 int fused_rounds_stash_gpanels_launch(int dtype, const void* xc_in, const void* xq_in,
                                       const void* syn, const void* idx_c, const void* idx_q,
                                       const void* mats, const void* vecs, void* xc_out,

@@ -169,12 +169,13 @@ def _fwd_stash_cuda(xc, xq, syn, operators, mats32, vecs32, rounds, state_dtype,
     """K2a: the fused-rounds kernel with its stash flag, on operands padded
     to ``fd.WIDTH`` columns; ``width`` is the model's.  With f32 states it
     is K1's 3xTF32 kernel: the weights go in split into TF32 halves
-    (``fd.tf32_split_pack``) and a small graph's samples stacked, as one
-    graph of ``s`` times the rows (``fd.samples_per_block``), which leaves
-    the stash's layout [R, B, rows, H] as it is.  With bf16 states a graph
-    whose gather panels do not fit in shared memory runs the global-panel
-    variant (``fused_rounds_fwd_stash_gpanels``) on a persistent grid; its
-    stash is laid out as the shared-panel kernel's."""
+    (``fd.tf32_split_pack``) and, with the panels in shared memory, a small
+    graph's samples stacked, as one graph of ``s`` times the rows
+    (``fd.samples_per_block``), which leaves the stash's layout [R, B,
+    rows, H] as it is.  In both state types a graph whose gather panels do
+    not fit in shared memory runs the global-panel variant
+    (``fused_rounds_fwd_stash_gpanels``) on a persistent grid, one sample
+    at a time; its stash is laid out as the shared-panel kernel's."""
     from tpugnn_torch.kernels._build import load_library
 
     dt = fd.STATE_DTYPES[state_dtype]
@@ -186,9 +187,10 @@ def _fwd_stash_cuda(xc, xq, syn, operators, mats32, vecs32, rounds, state_dtype,
     s, idx_c, idx_q = 1, a.idx_c, a.idx_q
     if a.code == 0:
         mats = fd.tf32_split_pack(mats)
-        s = fd.samples_per_block(b, m, n)
-        idx_c = fd.stack_slot_tables(idx_c, n, s)
-        idx_q = fd.stack_slot_tables(idx_q, m, s)
+        if not a.gpanels:
+            s = fd.samples_per_block(b, m, n)
+            idx_c = fd.stack_slot_tables(idx_c, n, s)
+            idx_q = fd.stack_slot_tables(idx_q, m, s)
     stash_c = torch.empty((rounds, b, m, h), dtype=dt, device=xc.device)
     stash_q = torch.empty((rounds, b, n, h), dtype=dt, device=xc.device)
     out_c = torch.empty((b, m, h), dtype=dt, device=xc.device)
@@ -217,9 +219,9 @@ _BWD_LIBRARY = {torch.bfloat16: "fused_backward", torch.float32: "fused_backward
 
 
 def _bwd_library(dt: torch.dtype, operators):
-    """K2b's library for the state type, after checking that a block of it
-    fits in shared memory on the graph of ``operators``: ``(library,
-    idx_c, idx_q)``, the slot tables."""
+    """K2b's library for the state type, after checking that a block of the
+    layout it takes on the graph of ``operators`` fits in shared memory:
+    ``(library, idx_c, idx_q)``, the slot tables."""
     from tpugnn_torch.kernels._build import load_library
 
     lib = load_library(_BWD_LIBRARY[dt])
@@ -235,7 +237,7 @@ def _bwd_library(dt: torch.dtype, operators):
 
 
 def _bwd_cuda(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq, state_dtype,
-              width=fd.WIDTH):
+              width=fd.WIDTH, msg_width: int | None = None, force_gpanels: bool = False):
     """K2b: the reverse round walk, then the fixed-order sum of the blocks'
     weight-gradient partials (two launches, counted as one call), on
     operands padded to ``fd.WIDTH`` columns; ``width`` is the model's.  With
@@ -245,9 +247,13 @@ def _bwd_cuda(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq, state_
     version computes them, the relu decisions of its replay that fall within
     the rounding of its products: for that it reads the matrices and their
     transposes in f32, the L2 norm of each stash row and the largest column
-    norm of each matrix.  With bf16 states a graph whose gather panels do not
-    fit in shared memory runs the layout that keeps them in the scratch
-    (``fused_rounds_bwd_gpanels``)."""
+    norm of each matrix, and ``msg_width``, the model's message width
+    (``width`` by default): the slot relus past it are 0 on both sides and
+    hold no tie.  In both state types a graph whose gather panels
+    do not fit in shared memory runs the layout that keeps them in the
+    scratch (``fused_rounds_bwd_gpanels``); with f32 states
+    ``force_gpanels`` launches that layout on any graph (to compare the two
+    placements where both fit)."""
     dt = fd.STATE_DTYPES[state_dtype]
     rounds, b, m, h = stash_c.shape
     n = stash_q.shape[2]
@@ -260,12 +266,21 @@ def _bwd_cuda(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq, state_
                          f"and {tuple(stash_q.shape)}")
     if src_c.shape[0] != m or src_q.shape[0] != n or src_c.device != dev:
         raise ValueError("operators do not match the stash's rows or device")
+    if force_gpanels and dt != torch.float32:
+        raise ValueError("only the f32 K2b library launches its global layout on request")
     lib, idx_c, idx_q = _bwd_library(dt, operators)
     dc, dq = idx_c.shape[1], idx_q.shape[1]
+    if force_gpanels:
+        gpanels, launch = True, lib.fused_rounds_bwd_gpanels_launch
+        scratch_bytes = lib.fused_rounds_bwd_gpanels_scratch_bytes
+    else:
+        gpanels = lib.fused_rounds_bwd_gpanels(m, n, dc, dq) == 1
+        launch, scratch_bytes = lib.fused_rounds_bwd_launch, lib.fused_rounds_bwd_scratch_bytes
     mats, vecs = fd.cast_packs(mats32, vecs32, dt)
     mats_t = mats.transpose(1, 2).contiguous()
-    ties = ()
+    ties, widths = (), (width,)
     if dt == torch.float32:
+        widths = (width, msg_width or width)
         norms = [torch.linalg.vector_norm(x, dim=-1) for x in (stash_c, stash_q)]
         ties = (mats, mats_t, *norms, torch.linalg.vector_norm(mats, dim=1).amax(-1))
         mats, mats_t = fd.tf32_split_pack(mats), fd.tf32_split_pack(mats_t)
@@ -275,23 +290,21 @@ def _bwd_cuda(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq, state_
     g_c = dxc.float().contiguous().clone()          # rewritten in place
     g_q = dxq.float().contiguous().clone()
     dsyn = torch.zeros((b, m), dtype=torch.float32, device=dev)
-    scratch = torch.empty(grid * lib.fused_rounds_bwd_scratch_bytes(m, n, dc, dq),
-                          dtype=torch.uint8, device=dev)
+    scratch = torch.empty(grid * scratch_bytes(m, n, dc, dq), dtype=torch.uint8, device=dev)
     part_mats = torch.zeros((grid, 10, h, h), dtype=torch.float32, device=dev)
     part_vecs = torch.zeros((grid, 8, 14, h), dtype=torch.float32, device=dev)
     dmats = torch.empty((10, h, h), dtype=torch.float32, device=dev)
     dvecs = torch.empty((14, h), dtype=torch.float32, device=dev)
     syn2 = syn.reshape(b, m).float().contiguous()
     with fd._cuda_stream(dev) as stream:
-        err = lib.fused_rounds_bwd_launch(
+        err = launch(
             stash_c.data_ptr(), stash_q.data_ptr(), syn2.data_ptr(),
             idx_c.data_ptr(), idx_q.data_ptr(), mats.data_ptr(), mats_t.data_ptr(),
             *(t.data_ptr() for t in ties), vecs.data_ptr(), ucs32.data_ptr(),
             g_c.data_ptr(), g_q.data_ptr(), dsyn.data_ptr(), scratch.data_ptr(),
             part_mats.data_ptr(), part_vecs.data_ptr(), dmats.data_ptr(),
-            dvecs.data_ptr(), b, m, n, dc, dq, rounds, width, grid, stream)
-    gp = dt == torch.bfloat16 and lib.fused_rounds_bwd_gpanels(m, n, dc, dq) == 1
-    name = "fused_rounds_bwd_gpanels" if gp else "fused_rounds_bwd"
+            dvecs.data_ptr(), b, m, n, dc, dq, rounds, *widths, grid, stream)
+    name = "fused_rounds_bwd_gpanels" if gpanels else "fused_rounds_bwd"
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     fd._LAUNCHES[name] += 1
@@ -303,14 +316,15 @@ class FusedRoundsFn(torch.autograd.Function):
     of ``make_kernel_vjp_rounds``).
 
     ``apply(xc, xq, syn, mats32, vecs32, operators, rounds, state_dtype,
-    kernels, width)``: ``kernels`` selects K2a/K2b (CUDA tensors) or the
-    plain versions (CPU tensors); the caller decides it from the device.
-    ``width`` is the model's width on operands padded past it (the
-    LayerNorm's columns), or None where they are not."""
+    kernels, width, msg_width)``: ``kernels`` selects K2a/K2b (CUDA tensors)
+    or the plain versions (CPU tensors); the caller decides it from the
+    device.  ``width`` is the model's width on operands padded past it (the
+    LayerNorm's columns), or None where they are not; ``msg_width`` its
+    message width (K2b's ties; None: ``width``)."""
 
     @staticmethod
     def forward(ctx, xc, xq, syn, mats32, vecs32, operators, rounds, state_dtype,
-                kernels, width):
+                kernels, width, msg_width):
         if kernels:
             # K2b must take the graph before K2a runs: a step launches both or neither
             _bwd_library(fd.STATE_DTYPES[state_dtype], operators)
@@ -326,6 +340,7 @@ class FusedRoundsFn(torch.autograd.Function):
         ctx.state_dtype = state_dtype
         ctx.kernels = kernels
         ctx.width = width
+        ctx.msg_width = msg_width
         return xc_o, xq_o
 
     @staticmethod
@@ -338,24 +353,28 @@ class FusedRoundsFn(torch.autograd.Function):
             dxq = torch.zeros(stash_q.shape[1:], device=stash_q.device)
         args = (stash_c, stash_q, syn, ctx.operators, mats32, vecs32, dxc, dxq)
         if ctx.kernels:
-            grads = _bwd_cuda(*args, ctx.state_dtype, ctx.width)
+            grads = _bwd_cuda(*args, ctx.state_dtype, ctx.width, ctx.msg_width)
         else:
             grads = rounds_vjp_plain(*args, state_dtype=ctx.state_dtype, width=ctx.width)
-        return (*grads, None, None, None, None, None)
+        return (*grads, None, None, None, None, None, None)
 
 
 def padded_rounds(xc, xq, syn, operators, mats32, vecs32, rounds: int,
-                  state_dtype: str = "float32", *, kernels: bool):
-    """:class:`FusedRoundsFn` on the kernels' ``fd.WIDTH`` columns: the
-    states and f32 packs go in zero-padded (``F.pad``, so autograd slices
-    their gradients back to the model's width) and the outputs come back
-    sliced to it."""
-    h = mats32.shape[-1]
-    fd.check_width(h)
-    mats32, vecs32 = fd.pad_packs(mats32, vecs32)
-    xc, xq = fd.pad_states(xc, xq)
+                  state_dtype: str = "float32", *, kernels: bool, width: int = fd.WIDTH,
+                  msg_width: int | None = None):
+    """:class:`FusedRoundsFn` on ``width`` columns (the kernels' ``fd.WIDTH``
+    by default): the states and f32 packs go in zero-padded (``F.pad``, so
+    autograd slices their gradients back to their own widths), the
+    LayerNorm runs over the states' width (the model's) and the outputs come
+    back sliced to it.  ``msg_width``: the model's message width (the
+    packs' by default)."""
+    h = xc.shape[-1]
+    fd.check_width(mats32.shape[-1])
+    msg_width = msg_width or mats32.shape[-1]
+    mats32, vecs32 = fd.pad_packs(mats32, vecs32, width)
+    xc, xq = fd.pad_states(xc, xq, width=width)
     xc_o, xq_o = FusedRoundsFn.apply(xc, xq, syn, mats32, vecs32, operators, rounds,
-                                     state_dtype, kernels, h)
+                                     state_dtype, kernels, h, msg_width)
     return xc_o[..., :h], xq_o[..., :h]
 
 
@@ -363,10 +382,15 @@ def trained_rounds(xc, xq, syn, operators, weights, rounds: int,
                    state_dtype: str = "float32", *, kernels: bool):
     """The differentiable rounds: packs the weights in f32 (autograd records
     the packing) and calls :class:`FusedRoundsFn`, for the kernels through
-    :func:`padded_rounds`."""
+    :func:`padded_rounds`; on the plain versions through it too where
+    ``msg_hidden > hidden`` (the states padded to the packs' width)."""
     mats32, vecs32 = fd.pack_weights_f32(weights)
+    mh = weights.wd_c.shape[1]
     if kernels:
         return padded_rounds(xc, xq, syn, operators, mats32, vecs32, rounds, state_dtype,
-                             kernels=True)
+                             kernels=True, msg_width=mh)
+    if mats32.shape[-1] != xc.shape[-1]:
+        return padded_rounds(xc, xq, syn, operators, mats32, vecs32, rounds, state_dtype,
+                             kernels=False, width=mats32.shape[-1], msg_width=mh)
     return FusedRoundsFn.apply(xc, xq, syn, mats32, vecs32, operators, rounds,
-                               state_dtype, kernels, None)
+                               state_dtype, kernels, None, None)

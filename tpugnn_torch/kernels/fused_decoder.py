@@ -41,11 +41,16 @@ The kernels are built for ``WIDTH`` = 128 columns.  A model of width
 round, and the LayerNorm takes its mean and variance over the first ``h``
 columns (``width=h`` in the plain versions; 0 on the rest).  The padding is
 exact, as the JAX package's ``pad_msg_width`` is
-(``tpugnn/kernels/fused_decoder.py:127-142``).  A graph whose two gather
+(``tpugnn/kernels/fused_decoder.py:127-142``).  A model whose ``msg_hidden``
+differs from its ``hidden`` packs at the larger of the two
+(:func:`pack_weights_f32`), its states padded to that width as well where
+``msg_hidden`` is the larger, the LayerNorm still over ``hidden``; both at
+most 128 (:func:`check_width`).  A graph whose two gather
 panels do not fit in a block's shared memory beside the chunk buffers and
 the weight ring runs K1's variant with the panels in global memory
 (``fused_rounds_gpanels`` in :func:`launch_counts`): with f32 states d=13,
-d=15 and the circuit d=5 and d=7 graphs, with bf16 states circuit d=7.
+d=15 and the circuit d=5 and d=7 graphs, with bf16 states circuit d=7; K2a
+(``fused_backward.py``) likewise.
 """
 
 from __future__ import annotations
@@ -57,7 +62,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["RoundWeights", "make_operators", "pack_weights", "pack_weights_f32",
+__all__ = ["RoundWeights", "make_operators", "pack_weights", "pack_weights_f32", "pack_width",
            "cast_packs", "pad_packs", "pad_states", "check_width", "rounds_plain",
            "decoder_rounds", "launch_counts", "reset_launch_counts", "tf32_round",
            "tf32_split_pack", "samples_per_block", "stack_slot_tables",
@@ -138,30 +143,41 @@ def make_operators(graph) -> tuple:
     return (src_c, mask_c, mask_c.sum(1), src_q, mask_q, mask_q.sum(1))
 
 
+def pack_width(w: RoundWeights) -> int:
+    """The packs' width: ``max(hidden, msg_hidden)``."""
+    return max(w.uc_x.shape[0], w.wd_c.shape[1])
+
+
 def pack_weights_f32(w: RoundWeights):
     """The kernels' two weight operands in f32, differentiable in ``w``.
 
-    ``mats`` [10, H, H] in the order
+    ``mats`` [10, W, W] in the order
     ``wd_c, uc_x, ws_q, wo_c@uc_a, uc_w1, wd_q, uq_x, ws_c, wo_q@uq_a, uq_w1``
     (each direction's five: dst projection, state term, the projection that
     feeds the OTHER direction's gather, folded aggregation, update output);
-    ``vecs`` [14, H]: ``b0, bo@ua, uc_s, ub0, ub1, ln_scale, ln_bias`` for
+    ``vecs`` [14, W]: ``b0, bo@ua, uc_s, ub0, ub1, ln_scale, ln_bias`` for
     checks, then the same for qubits with a zero row for the syndrome.
+    ``W = max(hidden, msg_hidden)`` (:func:`pack_width`): every matrix and
+    vector is zero-padded to it.  That is exact, as the JAX package's
+    ``pad_msg_width`` (``tpugnn/kernels/fused_decoder.py:127``) is: a padded
+    message lane carries relu(0 + 0) = 0 and meets a zero row of ``wo``, a
+    padded state column stays 0 (its LayerNorm scale and bias are 0), and
+    the LayerNorm runs over the model's ``hidden`` columns (``width``).
     Training differentiates through this packing, as the JAX package's
     ``kernel_trained_rounds_tiled`` does, so the fold's gradients un-fold
     into ``wo``, ``ua`` and ``bo`` by autograd.
     """
     f32 = torch.float32
-    h = w.wd_c.shape[0]
-    mh = w.wd_c.shape[1]
-    if mh != h:
-        raise ValueError(f"fused rounds need msg_hidden == hidden, got {mh} != {h}")
+    wid = pack_width(w)
     f = lambda a: a.to(f32)
-    mats = torch.stack([
+    # padded only where narrower: a pad is one more kernel launch a call
+    sq = lambda a: a if a.shape == (wid, wid) else F.pad(
+        a, (0, wid - a.shape[1], 0, wid - a.shape[0]))
+    mats = torch.stack([sq(a) for a in (
         f(w.wd_c), f(w.uc_x), f(w.ws_q), f(w.wo_c) @ f(w.uc_a), f(w.uc_w1),
-        f(w.wd_q), f(w.uq_x), f(w.ws_c), f(w.wo_q) @ f(w.uq_a), f(w.uq_w1),
-    ])
-    row = lambda a: f(a).reshape(-1)
+        f(w.wd_q), f(w.uq_x), f(w.ws_c), f(w.wo_q) @ f(w.uq_a), f(w.uq_w1))])
+    row = lambda a: (f(a).reshape(-1) if a.numel() == wid
+                     else F.pad(f(a).reshape(-1), (0, wid - a.numel())))
     vecs = torch.stack([
         row(w.b0_c), row(f(w.bo_c) @ f(w.uc_a)), row(w.uc_s), row(w.uc_b0),
         row(w.uc_b1), row(w.lnc_scale), row(w.lnc_bias),
@@ -201,9 +217,10 @@ def pad_states(*xs: torch.Tensor, width: int = WIDTH):
 
 
 def check_width(h: int) -> None:
-    """Raises unless the kernels take a model of width ``h``."""
+    """Raises unless the kernels take packs of width ``h``
+    (:func:`pack_width`)."""
     if not 1 <= h <= WIDTH:
-        raise ValueError(f"the rounds kernels take hidden = msg_hidden of at most "
+        raise ValueError(f"the rounds kernels take hidden and msg_hidden of at most "
                          f"{WIDTH}, got {h}")
 
 
@@ -334,11 +351,17 @@ def rounds_plain(xc, xq, syn, operators, weights: RoundWeights, *, rounds: int,
 
     ``xc`` [B, M, H], ``xq`` [B, N, H], ``syn`` [B, M, 1] (or [B, M]).
     States are stored in ``state_dtype`` and rounded at the same points as
-    the kernel; every product and sum runs in f32.
+    the kernel; every product and sum runs in f32.  Where ``msg_hidden >
+    hidden`` the states run zero-padded to the packs' width, the LayerNorm
+    over their first H columns.
     """
     dt = STATE_DTYPES[state_dtype]
     mats, vecs = pack_weights(weights, dt)
-    return rounds_packed(xc, xq, syn, operators, mats, vecs, rounds=rounds, dtype=dt)
+    h, wid = xc.shape[-1], mats.shape[-1]
+    xc, xq = pad_states(xc, xq, width=wid)
+    xc, xq = rounds_packed(xc, xq, syn, operators, mats, vecs, rounds=rounds, dtype=dt,
+                           width=h if wid > h else None)
+    return xc[..., :h], xq[..., :h]
 
 
 def _needs_grad(xc, xq, syn, weights) -> bool:
@@ -404,9 +427,8 @@ def _cuda_operands(lib, xc, xq, syn, operators, mats, rounds, dt, *,
     """Checks a call of the forward kernels (K1, or K2a with ``stash``) on
     states and packs padded to ``WIDTH`` and prepares its operands; raises
     on anything the kernels do not take.  A graph whose gather panels do not
-    fit in shared memory takes the global-panel variant: K1 in both state
-    types, K2a with bf16 states (f32 K2a has none: f32 training past shared
-    memory is refused, as f32 K2b has no such layout)."""
+    fit in shared memory takes the global-panel variant, K1's and K2a's, in
+    both state types."""
     src_c, mask_c, _, src_q, mask_q, _ = operators
     b, m, h = xc.shape
     n = xq.shape[1]
@@ -427,7 +449,7 @@ def _cuda_operands(lib, xc, xq, syn, operators, mats, rounds, dt, *,
     code = _DTYPE_CODE[dt]
     smem = (lib.fused_rounds_stash_smem_bytes if stash else lib.fused_rounds_smem_bytes)(
         code, m, n, dc, dq)
-    gpanels = smem > SMEM_LIMIT and (not stash or code == 1)
+    gpanels = smem > SMEM_LIMIT
     if gpanels:
         smem = lib.fused_rounds_gpanels_smem_bytes(code, m, n, dc, dq)
     if smem > SMEM_LIMIT:
@@ -459,10 +481,10 @@ def _rounds_cuda(xc, xq, syn, operators, weights, rounds, state_dtype):
                               kernels=True)
     dt = STATE_DTYPES[state_dtype]
     mats, vecs = pack_weights(weights, dt)
-    h = mats.shape[-1]
-    check_width(h)
-    if xc.shape[-1] != h:
-        raise ValueError(f"states of width {xc.shape[-1]}, weights of width {h}")
+    check_width(mats.shape[-1])
+    h = xc.shape[-1]   # the model's width, the LayerNorm's columns
+    if h != weights.uc_x.shape[0]:
+        raise ValueError(f"states of width {h}, weights of width {weights.uc_x.shape[0]}")
     lib = load_library("fused_rounds")
     mats, vecs = pad_packs(mats, vecs)
     xc, xq = pad_states(xc, xq)

@@ -35,7 +35,9 @@ to differentiate raises.
 
 As K1's, the kernel is built for 128 columns: a narrower model's raster
 operands are zero-padded to 128 (:func:`pad_raster`) and its LayerNorm runs
-over the model's ``width`` columns.  With f32 states a raster whose gather
+over the model's ``width`` columns; a model with ``msg_hidden > hidden``
+runs on states padded to the packs' width first (:func:`decoder_rounds_roll`).
+With f32 states a raster whose gather
 panel does not fit in shared memory (d=15) runs the kernel's variant with
 the panel in global memory (``roll_rounds_gpanels``).
 
@@ -386,7 +388,12 @@ def decoder_rounds_roll(xc, xq, syn, plan: RollPlan, weights: RoundWeights, *,
     else:
         raise ValueError(f"decoder_rounds_roll runs on cpu or cuda, not {xc.device}")
     ops = to_raster(xc, xq, syn, plan, weights, state_dtype)
-    return from_raster(*run(ops, rounds=rounds, slot_dtype=slot_dtype), plan)
+    h, wid = xc.shape[-1], ops.mats.shape[-1]
+    width = None
+    if wid > h:   # msg_hidden > hidden: the states run padded to the packs' width
+        ops, width = pad_raster(ops, wid), h
+    out_c, out_q = run(ops, rounds=rounds, slot_dtype=slot_dtype, width=width)
+    return from_raster(out_c[..., :h], out_q[..., :h], plan)
 
 
 def _mask_bits(masks: torch.Tensor) -> torch.Tensor:
@@ -396,10 +403,13 @@ def _mask_bits(masks: torch.Tensor) -> torch.Tensor:
     return ((masks > 0).int() * weight[None, :, None]).sum(1).to(torch.int32).contiguous()
 
 
-def _roll_rounds_cuda(ops: RasterOperands, *, rounds: int, slot_dtype: str = "float32"):
+def _roll_rounds_cuda(ops: RasterOperands, *, rounds: int, slot_dtype: str = "float32",
+                      width: int | None = None):
     """Launches K5 on raster operands on a card; returns ``(xc, xq)``
     [B, l_pad, H] in the state type.  A model narrower than 128 runs on
-    operands padded to 128 (:func:`pad_raster`).  With f32 states the
+    operands padded to 128 (:func:`pad_raster`); ``width``, the
+    LayerNorm's columns where the operands are already padded past the
+    model's width (None: all ``H``).  With f32 states the
     weights go in split into TF32 halves (:func:`tf32_split_pack`), a
     persistent grid of one block per SM walks the samples with an f32
     scratch a block (the check states' second buffer; with global panels
@@ -438,6 +448,7 @@ def _roll_rounds_cuda(ops: RasterOperands, *, rounds: int, slot_dtype: str = "fl
                          f"of shared memory per block (l_pad={l_pad}, {dt} states"
                          f"{', gather panels in global memory' if gpanels else ''}), "
                          f"limit {SMEM_LIMIT}")
+    ln_width = h if width is None else width
     ops = pad_raster(ops)
     bits = _mask_bits(ops.masks)
     offs = (ctypes.c_int * 8)(*ops.offs_c, *ops.offs_q)
@@ -461,10 +472,11 @@ def _roll_rounds_cuda(ops: RasterOperands, *, rounds: int, slot_dtype: str = "fl
                 out_q.data_ptr())
         if gpanels:
             err = lib.roll_rounds_gpanels_launch(*ptrs, scratch.data_ptr(), offs, b, l_pad,
-                                                 rounds, h, grid, stream)
+                                                 rounds, ln_width, grid, stream)
         else:
-            err = lib.roll_rounds_launch(code, int(slot16), *ptrs, offs, b, l_pad, rounds, h,
-                                         s, scratch if scratch is None else scratch.data_ptr(),
+            err = lib.roll_rounds_launch(code, int(slot16), *ptrs, offs, b, l_pad, rounds,
+                                         ln_width, s,
+                                         scratch if scratch is None else scratch.data_ptr(),
                                          grid, stream)
     name = "roll_rounds_gpanels" if gpanels else "roll_rounds"
     if err != 0:

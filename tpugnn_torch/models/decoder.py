@@ -7,9 +7,12 @@ rounds, as in the JAX package:
   PallasDecoder`` runs it.  Embed and readout are plain PyTorch GEMMs in
   f32, and the round loop is one call of
   :func:`tpugnn_torch.kernels.fused_decoder.decoder_rounds` (K1 on a card,
-  the plain version on the CPU) with states stored in ``cfg.dtype``.  Under
-  autograd the same call trains through the kernels K2a and K2b
-  (``tpugnn_torch/kernels/fused_backward.py``).
+  the plain version on the CPU) with states stored in ``cfg.dtype``; with
+  ``weight_tied=False`` R calls of one round, each on its round's weights
+  (flax scans ``FusedRoundCell`` so, ``tpugnn/models/decoder.py:162-184``).
+  Under autograd the same calls train through the kernels K2a and K2b
+  (``tpugnn_torch/kernels/fused_backward.py``).  ``msg_hidden`` may differ
+  from ``hidden``: the kernels' packs are zero-padded to the larger.
 * ``'segment'``, ``'dense'``, ``'ell'``, ``'pallas'``: the generic
   :class:`RoundCell` (flax ``RoundCell``) on the message-passing engine
   :mod:`tpugnn_torch.mp`, whose ``'pallas'`` aggregation is the kernels K3a
@@ -95,13 +98,13 @@ class Dense(nn.Module):
 class _Message(nn.Module):
     """One direction's message parameters (flax ``_FusedMessage``)."""
 
-    def __init__(self, h: int, mh: int):
+    def __init__(self, h: int, mh: int, stack: tuple = ()):
         super().__init__()
-        self.w_dst = nn.Parameter(torch.empty(h, mh))
-        self.w_src = nn.Parameter(torch.empty(h, mh))
-        self.b0 = nn.Parameter(torch.zeros(mh))
-        self.w_out = nn.Parameter(torch.empty(mh, h))
-        self.b_out = nn.Parameter(torch.zeros(h))
+        self.w_dst = nn.Parameter(torch.empty(*stack, h, mh))
+        self.w_src = nn.Parameter(torch.empty(*stack, h, mh))
+        self.b0 = nn.Parameter(torch.zeros(*stack, mh))
+        self.w_out = nn.Parameter(torch.empty(*stack, mh, h))
+        self.b_out = nn.Parameter(torch.zeros(*stack, h))
 
 
 class _LayerNormParams(nn.Module):
@@ -125,37 +128,58 @@ class _LayerNormParams(nn.Module):
 
 
 class FusedRounds(nn.Module):
-    """Parameters of the weight-tied round (flax ``FusedRoundCell``)."""
+    """Parameters of the rounds (flax ``FusedRoundCell``): one set shared by
+    every round, or with ``rounds`` (``weight_tied=False``) one set per
+    round, every leaf stacked [R, ...] as ``nn.scan`` stores it."""
 
-    def __init__(self, h: int, mh: int):
+    def __init__(self, h: int, mh: int, rounds: Optional[int] = None):
         super().__init__()
-        self.msg_to_check = _Message(h, mh)
-        self.msg_to_qubit = _Message(h, mh)
-        self.update_check_d0 = Dense(2 * h + 1, h)   # [state | agg | syndrome]
-        self.update_check_d1 = Dense(h, h)
-        self.update_qubit_d0 = Dense(2 * h, h)       # [state | agg]
-        self.update_qubit_d1 = Dense(h, h)
-        self.ln_check = _LayerNormParams(h)
-        self.ln_qubit = _LayerNormParams(h)
+        st = () if rounds is None else (rounds,)
+        self.stacked = rounds is not None
+        self.msg_to_check = _Message(h, mh, st)
+        self.msg_to_qubit = _Message(h, mh, st)
+        self.update_check_d0 = Dense(2 * h + 1, h, st)   # [state | agg | syndrome]
+        self.update_check_d1 = Dense(h, h, st)
+        self.update_qubit_d0 = Dense(2 * h, h, st)       # [state | agg]
+        self.update_qubit_d1 = Dense(h, h, st)
+        self.ln_check = _LayerNormParams(h, st)
+        self.ln_qubit = _LayerNormParams(h, st)
 
-    def round_weights(self) -> RoundWeights:
-        """Kernel layout (``tpugnn.models.pallas_decoder.roundweights_from_flax``)."""
+    def round_weights(self, r: Optional[int] = None) -> RoundWeights:
+        """Kernel layout (``tpugnn.models.pallas_decoder.roundweights_from_flax``)
+        of round ``r``'s weights (per-round weights need ``r``; shared ones
+        are every round's)."""
+        if self.stacked and r is None:
+            raise ValueError("per-round weights: round_weights(r) takes the round")
+        at = (lambda t: t[r]) if self.stacked else (lambda t: t)
         mc, mq = self.msg_to_check, self.msg_to_qubit
-        h = mc.w_dst.shape[0]
-        r2 = lambda v: v.reshape(1, -1)
-        k0c = self.update_check_d0.kernel
-        k0q = self.update_qubit_d0.kernel
+        h = mc.w_dst.shape[-2]
+        r2 = lambda v: at(v).reshape(1, -1)
+        k0c = at(self.update_check_d0.kernel)
+        k0q = at(self.update_qubit_d0.kernel)
         return RoundWeights(
-            wd_c=mc.w_dst, ws_c=mc.w_src, b0_c=r2(mc.b0), wo_c=mc.w_out, bo_c=r2(mc.b_out),
-            wd_q=mq.w_dst, ws_q=mq.w_src, b0_q=r2(mq.b0), wo_q=mq.w_out, bo_q=r2(mq.b_out),
+            wd_c=at(mc.w_dst), ws_c=at(mc.w_src), b0_c=r2(mc.b0), wo_c=at(mc.w_out),
+            bo_c=r2(mc.b_out),
+            wd_q=at(mq.w_dst), ws_q=at(mq.w_src), b0_q=r2(mq.b0), wo_q=at(mq.w_out),
+            bo_q=r2(mq.b_out),
             uc_x=k0c[:h], uc_a=k0c[h:2 * h], uc_s=k0c[2 * h:],
-            uc_b0=r2(self.update_check_d0.bias), uc_w1=self.update_check_d1.kernel,
+            uc_b0=r2(self.update_check_d0.bias), uc_w1=at(self.update_check_d1.kernel),
             uc_b1=r2(self.update_check_d1.bias),
             uq_x=k0q[:h], uq_a=k0q[h:], uq_b0=r2(self.update_qubit_d0.bias),
-            uq_w1=self.update_qubit_d1.kernel, uq_b1=r2(self.update_qubit_d1.bias),
+            uq_w1=at(self.update_qubit_d1.kernel), uq_b1=r2(self.update_qubit_d1.bias),
             lnc_scale=r2(self.ln_check.scale), lnc_bias=r2(self.ln_check.bias),
             lnq_scale=r2(self.ln_qubit.scale), lnq_bias=r2(self.ln_qubit.bias),
         )
+
+    def run(self, rounds_fn, x_c, x_q, syn, rounds: int):
+        """The R rounds through ``rounds_fn(x_c, x_q, syn, weights, n)``,
+        which runs ``n`` rounds on one set of weights: one call of all R on
+        shared weights, or R calls of one round, each on its round's."""
+        if not self.stacked:
+            return rounds_fn(x_c, x_q, syn, self.round_weights(), rounds)
+        for r in range(rounds):
+            x_c, x_q = rounds_fn(x_c, x_q, syn, self.round_weights(r), 1)
+        return x_c, x_q
 
 
 def _mlp2(x, d0: Dense, d1: Dense, dtype: Optional[torch.dtype] = None,
@@ -269,11 +293,12 @@ class GNNDecoder(nn.Module):
             raise ValueError(f"unknown update {cfg.update!r}; have mlp|gru")
         h = cfg.hidden
         if cfg.backend == "fused":
-            if not cfg.weight_tied or cfg.aggr != "sum" or cfg.update != "mlp":
-                raise ValueError("backend='fused' runs weight-tied rounds with "
-                                 "aggr='sum' and update='mlp' (use a generic "
-                                 f"backend, {BACKENDS}, for the others)")
-            rounds = FusedRounds(h, cfg.msg_hidden)
+            if cfg.aggr != "sum" or cfg.update != "mlp":
+                raise ValueError("backend='fused' runs rounds with aggr='sum' and "
+                                 "update='mlp' (use a generic backend, "
+                                 f"{BACKENDS}, for the others)")
+            rounds = FusedRounds(h, cfg.msg_hidden,
+                                 None if cfg.weight_tied else cfg.rounds)
         elif cfg.backend in BACKENDS:
             rounds = RoundCell(cfg)
         else:
@@ -364,8 +389,10 @@ class GNNDecoder(nn.Module):
                 "(load_decoder(..., backend='segment') does so)")
         x_c, x_q, s_pm = self.embed(graph, syndrome)
         if cfg.backend == "fused":
-            x_c, x_q = decoder_rounds(x_c, x_q, s_pm[..., None], make_operators(graph),
-                                      self.rounds.round_weights(), cfg.rounds, cfg.dtype)
+            ops = make_operators(graph)
+            x_c, x_q = self.rounds.run(
+                lambda xc, xq, syn, w, n: decoder_rounds(xc, xq, syn, ops, w, n, cfg.dtype),
+                x_c, x_q, s_pm[..., None], cfg.rounds)
         else:
             state = NodeStates(check=x_c, qubit=x_q)
             # remat (tpugnn/models/decoder.py:168-171): each round's

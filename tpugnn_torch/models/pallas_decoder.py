@@ -46,6 +46,10 @@ class PallasDecoder(nn.Module):
         if model.cfg.backend != "fused":
             raise ValueError("PallasDecoder runs a fused-layout model (backend='fused'), "
                              f"got backend={model.cfg.backend!r}")
+        if not model.cfg.weight_tied:
+            # tpugnn/models/pallas_decoder.py:66 refuses them too; the
+            # model itself runs them, a round's weights at a time
+            raise ValueError("PallasDecoder supports weight-tied rounds only")
         schedule = tuple(schedule or ())
         unknown = [s for s in schedule if s not in SCHEDULE_NAMES]
         if unknown:

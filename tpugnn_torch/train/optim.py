@@ -39,7 +39,7 @@ def warmup_cosine_decay(count: int, *, peak: float, warmup_steps: int,
     return float(f(peak) * ((f(1.0) - f(alpha)) * cosine + f(alpha)))
 
 
-class OptaxAdamW(torch.optim.Optimizer):
+class OptaxAdamW:
     """Global-norm clip, then AdamW with a learning-rate schedule, as optax
     chains them.  Per step, over all parameters with a gradient:
 
@@ -47,13 +47,50 @@ class OptaxAdamW(torch.optim.Optimizer):
     * mu <- b1 mu + (1 - b1) g, nu <- b2 nu + (1 - b2) g^2, count += 1;
     * u <- mu / (1 - b1^count) / (sqrt(nu / (1 - b2^count)) + eps) + wd p;
     * p <- p - lr(count - 1) u.
+
+    One parameter group; ``zero_grad``, ``state_dict`` and
+    ``load_state_dict`` keep ``torch.optim.Optimizer``'s interface and
+    checkpoint format.  It does not derive from that class: its first
+    construction in a process imports ``torch._dynamo`` (about 2 s), which
+    every training run and rank would pay.
     """
 
     def __init__(self, params, schedule, *, max_norm: float = 1.0, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 1e-4):
-        super().__init__(params, dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
-                                      max_norm=max_norm, count=0))
+        self.param_groups = [dict(params=list(params), b1=b1, b2=b2, eps=eps,
+                                  weight_decay=weight_decay, max_norm=max_norm, count=0)]
+        self.state: dict = {}    # parameter -> {"mu", "nu"}
         self.schedule = schedule
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        for p in self.param_groups[0]["params"]:
+            if set_to_none:
+                p.grad = None
+            elif p.grad is not None:
+                p.grad.zero_()
+
+    def state_dict(self) -> dict:
+        """``{"state": {index: {"mu", "nu"}}, "param_groups": [hyperparameters
+        and "params": indices]}``, as ``torch.optim.Optimizer`` writes it."""
+        group = self.param_groups[0]
+        index = {id(p): i for i, p in enumerate(group["params"])}
+        return {"state": {index[id(p)]: dict(st) for p, st in self.state.items()},
+                "param_groups": [{**{k: v for k, v in group.items() if k != "params"},
+                                  "params": list(range(len(group["params"])))}]}
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """Restores :meth:`state_dict`'s output (moments onto each
+        parameter's device and type, the hyperparameters and count)."""
+        (saved,) = state_dict["param_groups"]
+        params = self.param_groups[0]["params"]
+        if len(saved["params"]) != len(params):
+            raise ValueError(f"the state holds {len(saved['params'])} parameters, the "
+                             f"optimizer {len(params)}")
+        self.param_groups = [{**{k: v for k, v in saved.items() if k != "params"},
+                              "params": params}]
+        self.state = {params[i]: {k: v.to(device=params[i].device, dtype=params[i].dtype)
+                                  for k, v in st.items()}
+                      for i, st in state_dict["state"].items()}
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -78,7 +115,7 @@ class OptaxAdamW(torch.optim.Optimizer):
                 if p.grad is None:
                     continue
                 g = torch.where(g_norm < max_norm, p.grad, p.grad / g_norm * max_norm)
-                st = self.state[p]
+                st = self.state.setdefault(p, {})
                 if not st:
                     st["mu"] = torch.zeros_like(p)
                     st["nu"] = torch.zeros_like(p)
