@@ -270,7 +270,6 @@ from __future__ import annotations
 
 import contextlib
 import faulthandler
-import functools
 import json
 import math
 import os
@@ -597,17 +596,37 @@ CIRCUIT_F32_TRAIN_STEPS = 10
 # weights each; d=5, H=128, R=3)
 MH_WIDTH = 96
 UNTIED_D = 5
+# Phase 6d: widths above 128 on the wide kernels (csrc/wide_rounds.cu): K1,
+# K2a, K2b and K5 at H = MH = WIDE_H against their plain versions (d=11 and
+# circuit d=5, B=D13_BATCH, R=D13_ROUNDS; the bf16 states held as the
+# 128-column ones are), two training steps of a WIDE_H model on surface
+# WIDE_TRAIN_D through the kernels against the plain versions, the circuit
+# training config through the CLI at WIDE_H for WIDE_CLI_STEPS steps, bf16
+# K5 past shared memory (surface K5_GP_D, global panels; its placement
+# check on d=11 at D7_GP_BATCH), and one timed call of each wide kernel at
+# d=11, B=WIDE_TIMING_BATCH, R=WIDE_TIMING_ROUNDS beside its plain version,
+# its bound and the 128-column kernel at H=128 on the same inputs.
+WIDE_H = 256
+WIDE_TRAIN_D = 5
+WIDE_CLI_STEPS = 10
+WIDE_CLI_ARGS = (*CIRCUIT_TRAIN_ARGS, "--hidden", str(WIDE_H), "--msg-hidden", str(WIDE_H))
+WIDE_TIMING_BATCH = 4096
+WIDE_TIMING_ROUNDS = 8
+WIDE_NAMES = ("fused_rounds_wide", "fused_rounds_fwd_stash_wide", "fused_rounds_bwd_wide")
+K5_GP_D = 17
 
 # The dist phase (4f): graph- and data-parallel decoding and training on
 # torch.distributed.  One card: NCCL at world size 1 in this process, and P
 # gloo ranks time-sharing the card, their exchanges staged through the host
 # (NCCL takes one rank per card).  The d=15 checkpoint (LER_TABLE.md:37's,
 # f32) on the generic rounds, P=4 shards of a graph padded for them, at
-# p=0.05 on DIST_SHOTS shots in chunks of DIST_CHUNK.
+# p=0.05 on DIST_SHOTS shots in chunks of DIST_CHUNK (8192 until the wide
+# kernels' phase needed room within the smoke's 400 s: a sharded chunk takes
+# about 3 s of ranks time-sharing the card)
 DIST_WEIGHTS = "surface_d15_h128_r14_ema8000.npz"
 DIST_D = 15
 DIST_P = 4
-DIST_SHOTS = 8192
+DIST_SHOTS = 4096
 DIST_CHUNK = 1024
 # shots of the first chunk on which the halo modes and wire types are held
 # to alltoall's f32, with index_add_ deterministic (its CUDA path sorts the
@@ -907,11 +926,11 @@ def random_states(dg, batch: int, h: int, gen):
 
 
 def random_round_case(d: int, batch: int, rounds: int, dtype: str, seed: int, dev,
-                      h: int = 128, mh: int | None = None):
-    """A surface code of distance d on the card, seeded random round weights
-    of width H = h (the full width by default) and message width MH = mh
-    (h by default) and random states: ``(graph, dg, ops, w, xc, xq, syn,
-    gen)``."""
+                      h: int = 128, mh: int | None = None, graph=None):
+    """A surface code of distance d (or ``graph``) on the card, seeded random
+    round weights of width H = h (the full width by default) and message
+    width MH = mh (h by default) and random states: ``(graph, dg, ops, w,
+    xc, xq, syn, gen)``."""
     import torch
 
     from tpugnn_torch.configs import ModelConfig
@@ -919,7 +938,7 @@ def random_round_case(d: int, batch: int, rounds: int, dtype: str, seed: int, de
     from tpugnn_torch.models import GNNDecoder
     from tpugnn_torch.tanner import build_code
 
-    graph = build_code("surface", d)
+    graph = graph if graph is not None else build_code("surface", d)
     dg = graph.to(dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
     model = GNNDecoder(ModelConfig(hidden=h, msg_hidden=mh or h, rounds=rounds,
@@ -978,7 +997,7 @@ _TF32X3_KERNEL = re.compile(r"(?:fused|roll)_rounds_tf32x3_kernelILb([01])E(?:Lb
 
 def f32_hmma(mma: dict) -> dict:
     """The HMMA count of each f32 (3xTF32) kernel in ``mma``
-    (:func:`sass_mma_counts` of the fused_rounds or the roll_gather
+    (:func:`sass_mma_counts` of the fused_rounds_tf32 or the roll_gather
     library), by instantiation: ``shared`` or ``gpanels`` by its panels (K1,
     K5), ``stash`` and ``stash_gpanels`` for K1's with the stash flag
     (K2a)."""
@@ -1115,14 +1134,22 @@ def sddmm_vs_plain(args, compute: str, name: str, twice: bool) -> dict:
     return out
 
 
-def train_steps_vs_plain(state, cfg, dg, dev, steps: int = TRAIN_CHECK_STEPS) -> dict:
+def train_steps_vs_plain(state, cfg, dg, dev, steps: int = TRAIN_CHECK_STEPS,
+                         seed: int = 77, witness: bool = False, extra: dict | None = None
+                         ) -> dict:
     """Phase 7's check that K2b trains: ``steps`` train steps from
     the run's last state, through K2a/K2b (``kernels``), through their plain
     versions on the same CUDA tensors (``plain``), and through K2a/K2b with
     K2b's weight gradients replaced by zeros (``zero_wgrads``, what the check
-    must catch), on the same batches.  Returns each variant's relative L2
-    error against ``plain`` of every parameter leaf's change from the start,
-    after every step."""
+    must catch), on the same batches (drawn from ``seed``).  Returns each
+    variant's relative L2 error against ``plain`` of every parameter leaf's
+    change from the start, after every step.  With ``witness`` (a bf16
+    model) the same steps also run through the plain versions with f32
+    states (``f32_states``): ``vs_f32`` then holds every variant's errors
+    against those, and ``grads`` the first step's gradients' errors
+    (``kernels`` against ``plain``; each of the two against
+    ``f32_states``).  ``extra``: more variants, name -> a context manager
+    factory under which the plain versions run (reported as the others)."""
     import copy
 
     import torch
@@ -1133,7 +1160,7 @@ def train_steps_vs_plain(state, cfg, dg, dev, steps: int = TRAIN_CHECK_STEPS) ->
     from tpugnn_torch.train.loop import train_step
     from tpugnn_torch.train.optim import make_optimizer
 
-    gen = torch.Generator(device=dev).manual_seed(77)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     batches = [sample_batch(gen, dg, 0.05, cfg.train.batch) for _ in range(steps)]
     start = {n: p.detach().clone() for n, p in state.model.named_parameters()}
     rounds_fn, bwd_cuda = dec.decoder_rounds, fb._bwd_cuda
@@ -1141,30 +1168,52 @@ def train_steps_vs_plain(state, cfg, dg, dev, steps: int = TRAIN_CHECK_STEPS) ->
     def plain_rounds(xc, xq, syn, ops, weights, rounds, state_dtype):
         return fb.trained_rounds(xc, xq, syn, ops, weights, rounds, state_dtype, kernels=False)
 
+    def f32_rounds(xc, xq, syn, ops, weights, rounds, state_dtype):
+        return fb.trained_rounds(xc, xq, syn, ops, weights, rounds, "float32", kernels=False)
+
     def zero_wgrads(*args):
         g_c, g_q, dsyn, dmats, dvecs = bwd_cuda(*args)
         return g_c, g_q, dsyn, torch.zeros_like(dmats), torch.zeros_like(dvecs)
 
-    deltas = {}
-    for variant in ("kernels", "plain", "zero_wgrads"):
+    extra = extra or {}
+    deltas, grads = {}, {}
+    for variant in (("kernels", "plain", "zero_wgrads") + (("f32_states",) if witness else ())
+                    + tuple(extra)):
         model = copy.deepcopy(state.model)
         opt = make_optimizer(cfg, model.parameters())
         opt.load_state_dict(copy.deepcopy(state.optimizer.state_dict()))
-        if variant == "plain":
+        if variant == "plain" or variant in extra:
             dec.decoder_rounds = plain_rounds
+        elif variant == "f32_states":
+            dec.decoder_rounds = f32_rounds
         elif variant == "zero_wgrads":
             fb._bwd_cuda = zero_wgrads
         try:
             deltas[variant] = []
             for batch in batches:
-                train_step(model, opt, dg, batch, cfg)
+                with extra[variant]() if variant in extra else contextlib.nullcontext():
+                    train_step(model, opt, dg, batch, cfg)
+                if not deltas[variant]:
+                    grads[variant] = {n: p.grad.detach().clone()
+                                      for n, p in model.named_parameters() if p.grad is not None}
                 deltas[variant].append({n: p.detach() - start[n]
                                         for n, p in model.named_parameters()})
         finally:
             dec.decoder_rounds, fb._bwd_cuda = rounds_fn, bwd_cuda
         del model, opt
-    return {v: [{n: rel_err(d[n], p[n]) for n in d} for d, p in zip(deltas[v], deltas["plain"])]
-            for v in ("kernels", "zero_wgrads")}
+
+    def errors(a, b):
+        return [{n: rel_err(x[n], y[n]) for n in x} for x, y in zip(deltas[a], deltas[b])]
+
+    out = {v: errors(v, "plain") for v in ("kernels", "zero_wgrads", *extra)}
+    if witness:
+        out["vs_f32"] = {v: errors(v, "f32_states")
+                         for v in ("kernels", "plain", "zero_wgrads", *extra)}
+        out["grads"] = {f"{a}_vs_{b}": {n: rel_err(grads[a][n], grads[b][n]) for n in grads[a]}
+                        for a, b in (("kernels", "plain"), ("kernels", "f32_states"),
+                                     ("plain", "f32_states"),
+                                     *((v, "plain") for v in extra))}
+    return out
 
 
 def phase_spmm_sddmm(graph, dg, dev, info: dict) -> dict:
@@ -1581,10 +1630,32 @@ def raster_errors(kc, kq, pc, pq) -> tuple[float, float]:
     return float(diff.max()), float(diff.mean())
 
 
-@functools.lru_cache(maxsize=None)
+# cuobjdump's HMMA counts by library file: futures, started by prefetch_sass
+_SASS: dict = {}
+
+
+def prefetch_sass(libraries) -> None:
+    """Starts the HMMA count of each library (cuobjdump -sass, seconds for
+    the larger ones) in a thread of its own, so that the phases that check
+    HMMA find the counts ready instead of waiting on the disassembly."""
+    import concurrent.futures
+
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=len(libraries))
+    for library in libraries:
+        _SASS.setdefault(library, pool.submit(_sass_counts, library))
+    pool.shutdown(wait=False)
+
+
 def sass_mma_counts(library: str) -> dict:
     """HMMA instructions per kernel of a built library, from cuobjdump -sass
-    beside nvcc (once a library file)."""
+    beside nvcc (once a library file; :func:`prefetch_sass` may have started
+    it)."""
+    if library not in _SASS:
+        prefetch_sass([library])
+    return _SASS[library].result()
+
+
+def _sass_counts(library: str) -> dict:
     from tpugnn_torch.kernels._build import nvcc_path
 
     tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
@@ -1706,19 +1777,23 @@ def phase_roll_gather(graph, dg, dev, trained, info: dict) -> tuple[dict, dict]:
     info["padded_widths"] = {
         f"h{hw}_{dt}": rounds_vs_plain("k5", D, hw, dt, 100 + hw, dev, "roll_rounds")
         for hw in (64, 96) for dt in ("bfloat16", "float32")}
+    lib32 = load_library("roll_gather_tf32")
     info["smem_bytes"] = {
-        f"d{d}": {dt: lib.roll_rounds_smem_bytes(code, rg.plan_for_graph(
-            build_code("surface", d)).l_pad) for dt, code in (("float32", 0), ("bfloat16", 1))}
+        f"d{d}": {dt: lb.roll_rounds_smem_bytes(code, rg.plan_for_graph(
+            build_code("surface", d)).l_pad)
+            for dt, code, lb in (("float32", 0, lib32), ("bfloat16", 1, lib))}
         for d in (11, 13, 15)}
     info["gpanels_smem_bytes"] = {
-        f"d{d}": lib.roll_rounds_gpanels_smem_bytes(rg.plan_for_graph(
+        f"d{d}": lib32.roll_rounds_gpanels_smem_bytes(rg.plan_for_graph(
             build_code("surface", d)).l_pad) for d in (11, 13, 15)}
     # every K5 kernel runs its products on tensor cores: the bf16 ones and
     # both f32 (3xTF32) placements
-    mma = sass_mma_counts(build_libraries(["roll_gather"])["roll_gather"][0])
+    libs = build_libraries(["roll_gather", "roll_gather_tf32"])
+    mma = sass_mma_counts(libs["roll_gather"][0])
     info["sass_hmma"] = mma
-    tc = {k: v for k, v in mma.items() if "roll_rounds_tc_kernel" in k}
-    f32_mma = f32_hmma(mma)
+    tc = {k: v for k, v in mma.items()   # bf16: both panel placements
+          if "roll_rounds_tc_kernel" in k or "roll_rounds_tc_gpanels_kernel" in k}
+    f32_mma = f32_hmma(sass_mma_counts(libs["roll_gather_tf32"][0]))
     info["f32_sass_hmma"] = f32_mma
     if not tc or not all(tc.values()):
         raise RuntimeError(f"K5's bf16 kernels have no HMMA instruction: {mma}")
@@ -1787,26 +1862,30 @@ def phase_roll_gather(graph, dg, dev, trained, info: dict) -> tuple[dict, dict]:
         syn = sample_batch(gen, dg, 0.05, B).syndrome
         fwd_ms = time_ms(lambda: pd(dg, syn), warmup=1, iters=3)
         fused_ms = time_ms(lambda: trained(dg, syn), warmup=1, iters=3)
-        # a model wider than the kernels' 128 columns: refused by K5's and
-        # K1's wrappers, with the limit named, before any launch
-        w160 = fd.RoundWeights(*[torch.zeros((a.shape[0] if a.shape[0] == 1 else 160, 160),
-                                             device=dev) for a in wt])
-        z160 = torch.zeros((1, graph.n_checks_pad, 160), device=dev)
-        zq160 = torch.zeros((1, graph.n_qubits_pad, 160), device=dev)
-        before = counts()
-        refused = {}
-        for name, call in (
-                ("roll_rounds", lambda: rg._roll_rounds_cuda(rg.to_raster(
-                    z160, zq160, z160[..., :1], plan, w160, "float32"), rounds=1)),
-                ("fused_rounds", lambda: fd.decoder_rounds(z160, zq160, z160[..., :1], ops,
-                                                           w160, 1, "float32"))):
-            try:
-                call()
-            except ValueError as e:
-                refused[name] = str(e)
-        if (set(refused) != {"roll_rounds", "fused_rounds"} or counts() != before
-                or not all("at most 128" in m for m in refused.values())):
-            raise RuntimeError(f"a width-160 model was not refused before a launch: {refused}")
+        # a model wider than the 128-column kernels (H=160, MH=200: packs of
+        # 256 columns, the LayerNorm over 160): K1's and K5's wrappers, as
+        # the model calls them, each launch the wide kernel once and match
+        # their plain versions (B=D13_BATCH, R=D13_ROUNDS)
+        g160, _, ops160, w160, xc160, xq160, s160, _ = random_round_case(
+            D, D13_BATCH, D13_ROUNDS, "float32", 103, dev, h=160, mh=200)
+        plan160 = rg.plan_for_graph(g160)
+
+        def roll160_plain():
+            r_ops = rg.pad_raster(rg.to_raster(xc160, xq160, s160, plan160, w160), 200)
+            oc, oq = rg.roll_rounds_plain(r_ops, rounds=D13_ROUNDS, width=160)
+            return rg.from_raster(oc[..., :160], oq[..., :160], plan160)
+
+        routed = {
+            "fused_rounds_wide": held_to_plain(
+                lambda: fd.decoder_rounds(xc160, xq160, s160, ops160, w160, D13_ROUNDS,
+                                          "float32"),
+                lambda: fd.rounds_plain(xc160, xq160, s160, ops160, w160, rounds=D13_ROUNDS),
+                "fused_rounds_wide", "float32", "K1, H=160 MH=200"),
+            "roll_rounds_wide": held_to_plain(
+                lambda: rg.decoder_rounds_roll(xc160, xq160, s160, plan160, w160,
+                                               rounds=D13_ROUNDS),
+                roll160_plain, "roll_rounds_wide", "float32", "K5, H=160 MH=200")}
+        del g160, ops160, w160, xc160, xq160, s160
     info["trained"] = dict(
         rounds=r_t, kernel=f32_kernel, k5_vs_plain_f32_max=f32_max,
         k5_vs_plain_f32_mean=f32_mean, tol_f32=TOL_F32, kernel_vs_f64_max=f32_f64,
@@ -1819,7 +1898,7 @@ def phase_roll_gather(graph, dg, dev, trained, info: dict) -> tuple[dict, dict]:
         jax_f32=dict(shots=ref["shots"], ler_logical=ref["ler_logical"], ler_qubit=ref["ler"]),
         launches=launched, shot_agreement_with_fused=agree, min_shot_agreement=MIN_SHOT_AGREE,
         forward_ms=fwd_ms, fused_forward_ms=fused_ms,
-        edges_per_s=B * graph.n_edges * r_t / (fwd_ms / 1e3), width160_refused=refused)
+        edges_per_s=B * graph.n_edges * r_t / (fwd_ms / 1e3), width160_routed=routed)
     want = {"roll_rounds": chunks, "fused_rounds": 0, "ell_sum": 0, "ell_max": 0}
     if any(launched[k] != v for k, v in want.items()):
         raise RuntimeError(f"roll LER launches {launched}, expected {want}")
@@ -1953,7 +2032,7 @@ def k5_f32_kernel(d: int) -> str:
     from tpugnn_torch.tanner import build_code
 
     l_pad = rg.plan_for_graph(build_code("surface", d)).l_pad
-    smem = load_library("roll_gather").roll_rounds_smem_bytes(0, l_pad)
+    smem = load_library("roll_gather_tf32").roll_rounds_smem_bytes(0, l_pad)
     return "roll_rounds" if smem <= fd.SMEM_LIMIT else "roll_rounds_gpanels"
 
 
@@ -2062,8 +2141,9 @@ def rounds_kernel_times() -> dict:
             raise RuntimeError(f"{name} was not launched")
 
     t0 = time.perf_counter()
-    build_libraries([n for n in ("fused_rounds", "fused_backward", "fused_backward_tf32",
-                                 "roll_gather") if n in SOURCES])
+    build_libraries([n for n in ("fused_rounds", "fused_rounds_tf32", "fused_backward",
+                                 "fused_backward_tf32", "roll_gather", "roll_gather_tf32")
+                     if n in SOURCES])
     out = dict(build_seconds=round(time.perf_counter() - t0, 1))
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2080,11 +2160,11 @@ def rounds_kernel_times() -> dict:
         out["k1_f32"] = time_ms(k1, warmup=2, iters=7)
         out["k5_f32"] = time_ms(k5, warmup=2, iters=7)
         if "fused_rounds_gpanels" in fd.launch_counts():
-            need = gpanels_smem(load_library("fused_rounds"), 0, ops)
+            need = gpanels_smem(load_library(fd.forward_library(torch.float32)), 0, ops)
             with smem_limit(fd, need):
                 launched_once("fused_rounds_gpanels", k1)
                 out["k1_f32_gpanels"] = time_ms(k1, warmup=2, iters=7)
-            need = load_library("roll_gather").roll_rounds_gpanels_smem_bytes(
+            need = load_library(rg.roll_library(torch.float32)).roll_rounds_gpanels_smem_bytes(
                 r_ops.xc.shape[1])
             with smem_limit(rg, need):
                 launched_once("roll_rounds_gpanels", k5)
@@ -2104,7 +2184,8 @@ def rounds_kernel_times() -> dict:
             if dtype == "float32" and "force_gpanels" in inspect.signature(
                     fb._bwd_cuda).parameters:
                 k2a = lambda: fb._fwd_stash_cuda(xc, xq, s, ops, mats32, vecs32, r, dtype)
-                with smem_limit(fd, gpanels_smem(load_library("fused_rounds"), 0, ops)):
+                with smem_limit(fd, gpanels_smem(load_library(fd.forward_library(
+                        torch.float32)), 0, ops)):
                     launched_once("fused_rounds_fwd_stash_gpanels", k2a)
                     out["k2a_f32_gpanels"] = time_ms(k2a, warmup=2, iters=7)
                 k2b = lambda: fb._bwd_cuda(sc, sq, s, ops, mats32, vecs32, cot_c, cot_q, dtype,
@@ -3495,7 +3576,7 @@ def phase_circuit_d7_bfloat16(dev, info: dict) -> dict:
     g11, _, ops11, w11, xc, xq, s, _ = random_round_case(D, D7_GP_BATCH, D13_ROUNDS, dt, 73,
                                                          dev)
     mats32, vecs32 = fd.pack_weights_f32(w11)
-    need = gpanels_smem(load_library("fused_rounds"), 1, ops11)
+    need = gpanels_smem(load_library(fd.forward_library(torch.bfloat16)), 1, ops11)
     runs = {}
     with torch.no_grad():
         for where in ("shared", "global"):
@@ -3656,7 +3737,7 @@ def phase_f32_training_past_smem(dev, info: dict) -> dict:
     cot_c = torch.randn(xc.shape, generator=gen11, device=dev)
     cot_q = torch.randn(xq.shape, generator=gen11, device=dev)
     mats32, vecs32 = fd.pack_weights_f32(w11)
-    need = gpanels_smem(load_library("fused_rounds"), 0, ops11)
+    need = gpanels_smem(load_library(fd.forward_library(torch.float32)), 0, ops11)
     runs, stash = {}, None
     with torch.no_grad():
         for where in ("shared", "global"):
@@ -4077,6 +4158,395 @@ def dist_ranks(weights: str) -> dict:
     return out
 
 
+def wide_design_bytes(graph, batch: int, rounds: int, w: int, item: int, backward: bool) -> float:
+    """The state bytes the wide kernels' design moves through HBM (its own
+    traffic, against the function's least in ``rounds_bytes``): a forward
+    round reads each side's states twice (projection, update), writes and
+    reads its gather source once (each slot's read of it counted once: the
+    rest hit L2) and writes the new states; the backward's round the
+    forward's, and its residuals: eleven [rows, W] arrays a side written
+    once (five of them f32) and read once or twice by the later launches,
+    the stash and the cotangents, and the weight gradients' reads (each A
+    operand once, each G operand W / 64 times)."""
+    rows = batch * (graph.n_checks + graph.n_qubits)
+    fwd = rows * w * item * 5
+    if not backward:
+        return rounds * fwd
+    res = rows * w * (6 * item + 5 * 4) * 2
+    wgrad = rows * w * item * (3 + 7 * w // 64)
+    return rounds * (fwd + res + wgrad + 2 * rows * w * 4)
+
+
+def wide_timing(graph, dt: str, dev, batch: int, rounds: int) -> dict:
+    """One timed call of each wide kernel (K1, K2a, K2b, K5) at H = MH =
+    WIDE_H on ``graph`` (surface), B=``batch``, R=``rounds`` in state type
+    ``dt``, its plain version's (one call; where the card runs out of
+    memory, two half-batch calls), its bound (``rounds_flops`` at the bf16
+    or 3xTF32 peak, or the function's bytes) and the design's state bytes'
+    time beside, and the 128-column kernel at H=128 on inputs of the same
+    shapes."""
+    import torch
+
+    from tpugnn_torch.kernels import fused_backward as fb
+    from tpugnn_torch.kernels import fused_decoder as fd
+    from tpugnn_torch.kernels import roll_gather as rg
+
+    f32 = dt == "float32"
+    item = 4 if f32 else 2
+
+    def plain_ms(fn, *halves):
+        try:
+            return time_ms(fn, warmup=0, iters=1), 1
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            return sum(time_ms(h, warmup=0, iters=1) for h in halves), 2
+
+    out = dict(batch=batch, rounds=rounds, width=WIDE_H, state_dtype=dt)
+    for h in (WIDE_H, 128):
+        tag = "" if h == WIDE_H else "_h128"
+        _, dg, ops, w, xc, xq, s, gen = random_round_case(D, batch, rounds, dt, 95, dev, h=h)
+        mats32, vecs32 = fd.pack_weights_f32(w)
+        cot_c = torch.randn(xc.shape, generator=gen, device=dev)
+        cot_q = torch.randn(xq.shape, generator=gen, device=dev)
+        half = batch // 2
+        with torch.no_grad():
+            reset_counts()
+            k1 = lambda: fd.decoder_rounds(xc, xq, s, ops, w, rounds, dt)
+            out[f"k1{tag}_ms"] = time_ms(k1, warmup=1, iters=3)
+            k2a = lambda: fb._fwd_stash_cuda(xc, xq, s, ops, mats32, vecs32, rounds, dt)
+            out[f"k2a{tag}_ms"] = time_ms(k2a, warmup=1, iters=3)
+            _, _, sc, sq = k2a()
+            out[f"k2b{tag}_ms"] = time_ms(lambda: fb._bwd_cuda(
+                sc, sq, s, ops, mats32, vecs32, cot_c, cot_q, dt), warmup=1, iters=3)
+            r_ops = rg.to_raster(xc, xq, s, rg.plan_for_graph(graph), w, dt)
+            out[f"k5{tag}_ms"] = time_ms(lambda: rg._roll_rounds_cuda(r_ops, rounds=rounds),
+                                         warmup=1, iters=3)
+            out[f"launched{tag}"] = {k: v for k, v in counts().items() if v}
+            if h == WIDE_H:
+                sl = lambda t, i: t[i * half:(i + 1) * half]
+                out["k1_plain_ms"], out["k1_plain_calls"] = plain_ms(
+                    lambda: fd.rounds_plain(xc, xq, s, ops, w, rounds=rounds, state_dtype=dt),
+                    *(lambda i=i: fd.rounds_plain(sl(xc, i), sl(xq, i), sl(s, i), ops, w,
+                                                  rounds=rounds, state_dtype=dt)
+                      for i in range(2)))
+                out["k2a_plain_ms"], out["k2a_plain_calls"] = plain_ms(
+                    lambda: fb.rounds_fwd_stash_plain(xc, xq, s, ops, mats32, vecs32,
+                                                      rounds=rounds, state_dtype=dt),
+                    *(lambda i=i: fb.rounds_fwd_stash_plain(
+                        sl(xc, i), sl(xq, i), sl(s, i), ops, mats32, vecs32, rounds=rounds,
+                        state_dtype=dt) for i in range(2)))
+                out["k2b_plain_ms"], out["k2b_plain_calls"] = plain_ms(
+                    lambda: fb.rounds_vjp_plain(sc, sq, s, ops, mats32, vecs32, cot_c, cot_q,
+                                                state_dtype=dt),
+                    *(lambda i=i: fb.rounds_vjp_plain(
+                        sc[:, i * half:(i + 1) * half], sq[:, i * half:(i + 1) * half],
+                        sl(s, i), ops, mats32, vecs32, sl(cot_c, i), sl(cot_q, i),
+                        state_dtype=dt) for i in range(2)))
+                out["k5_plain_ms"], out["k5_plain_calls"] = plain_ms(
+                    lambda: rg.roll_rounds_plain(r_ops, rounds=rounds),
+                    *(lambda i=i: rg.roll_rounds_plain(r_ops._replace(
+                        xc=sl(r_ops.xc, i), xq=sl(r_ops.xq, i), syn=sl(r_ops.syn, i)),
+                        rounds=rounds) for i in range(2)))
+        del xc, xq, s, sc, sq, cot_c, cot_q, r_ops, mats32, vecs32
+        torch.cuda.empty_cache()
+    peak = H100_TF32_FLOPS / 3 if f32 else H100_BF16_FLOPS
+    flops = rounds_flops(graph, WIDE_H) * batch * rounds
+    fwd_bound = bound(rounds_bytes(graph, batch, WIDE_H, item), flops, peak)
+    tb = train_kernel_bounds(graph, batch, rounds, WIDE_H, out["k2a_ms"], out["k2b_ms"], dt)
+    for k, (bms, by) in (("k1", fwd_bound), ("k5", fwd_bound),
+                         ("k2a", (tb["k2a_bound_ms"], tb["k2a_bound_by"])),
+                         ("k2b", (tb["k2b_bound_ms"], tb["k2b_bound_by"]))):
+        out[f"{k}_bound_ms"], out[f"{k}_bound_by"] = bms, by
+        out[f"{k}_bound_share"] = bms / out[f"{k}_ms"]
+        out[f"{k}_design_bytes_ms"] = wide_design_bytes(
+            graph, batch, rounds, WIDE_H, item, k == "k2b") / H100_HBM_BPS * 1e3
+    return out
+
+
+def held_to_f32_states(errs: dict, what: str) -> list:
+    """The gate of bf16 training steps (``train_steps_vs_plain`` with its
+    witness): after each step, the kernels' worst-leaf and mean distance
+    from the same steps with f32 states within BF16_F64_RATIO of the plain
+    bf16 versions' (as bf16 K1 is held to the rounds in f64), and the
+    zero-weight-gradient fault past that ratio, else the gate could not see
+    it.  A bound on the kernels' distance from plain does not hold in bf16:
+    the plain versions with every f32 product formed in f64 land up to
+    2.8e-2 from plain on phase 6d's steps (scripts/wide_bf16_steps.py),
+    summation order alone.  Raises; returns each step's distances."""
+    def worst_mean(e):
+        return max(e.values()), sum(e.values()) / len(e)
+
+    out = []
+    vs = errs["vs_f32"]
+    for k, p, z in zip(vs["kernels"], vs["plain"], vs["zero_wgrads"]):
+        (kw, km), (pw, pm), (zw, zm) = worst_mean(k), worst_mean(p), worst_mean(z)
+        out.append(dict(kernels_worst=kw, kernels_mean=km, plain_worst=pw, plain_mean=pm,
+                        zero_wgrads_worst=zw, zero_wgrads_mean=zm, ratio_worst=kw / pw,
+                        ratio_mean=km / pm, zero_wgrads_ratio_worst=zw / pw,
+                        zero_wgrads_ratio_mean=zm / pm, bound=BF16_F64_RATIO))
+    if any(o["ratio_worst"] > BF16_F64_RATIO or o["ratio_mean"] > BF16_F64_RATIO for o in out):
+        raise RuntimeError(f"{what}: the kernels land further from the f32-state steps than "
+                           f"the plain bf16 versions: {out}")
+    if any(o["zero_wgrads_ratio_worst"] <= BF16_F64_RATIO
+           and o["zero_wgrads_ratio_mean"] <= BF16_F64_RATIO for o in out):
+        raise RuntimeError(f"{what}: the zero-weight-gradient fault passes the gate: {out}")
+    return out
+
+
+def wide_train_state(h: int, dt: str, seed: int, dev):
+    """Phase 6d's training config (surface WIDE_TRAIN_D, H = MH = ``h``,
+    R=D13_ROUNDS, B=256, the fused backend in state type ``dt``) after two
+    steps from init seed ``seed``: the state whose next steps the phase
+    holds to the plain versions, and the config."""
+    from tpugnn_torch.configs import CodeConfig, ExperimentConfig, ModelConfig, TrainConfig
+    from tpugnn_torch.train import train
+
+    cfg = ExperimentConfig(
+        code=CodeConfig(family="surface", distance=WIDE_TRAIN_D, p=0.05),
+        model=ModelConfig(hidden=h, msg_hidden=h, rounds=D13_ROUNDS, backend="fused",
+                          readout="both", qubit_head="pauli4", dtype=dt),
+        train=TrainConfig(batch=256, steps=2, lr=1e-3, warmup_steps=200, eval_every=1000,
+                          eval_shots=1024, seed=seed, p_mix=(0.01, 0.05)))
+    state, _, _, _ = train(cfg, device=dev, log=lambda msg: None)
+    return state, cfg
+
+
+def phase_wide_rounds(dev, info: dict) -> dict:
+    """Phase 6d: widths above 128 on the wide kernels (and bf16 K5 past
+    shared memory).  Gates, each raising:
+
+    a. wide K1 and K5 (f32 slots; bf16 also bf16 slots) at H = MH = WIDE_H
+       on d=11, and K1 on circuit d=5, against their plain versions in both
+       state types (B=D13_BATCH, R=D13_ROUNDS; TOL_F32, and in bf16
+       TOL_BF16_MAX / TOL_BF16_MEAN), each launching its wide kernel once
+       and nothing else;
+    b. wide K2a bit-equal to wide K1, within the state type's tolerances of
+       its plain version, and wide K2b leaf by leaf against
+       rounds_vjp_plain fed the same stash (TOL_GRAD_REL_F32 1e-4,
+       TOL_GRAD_REL_BF16 1e-2), two K2b calls bit-equal (d=11 and circuit
+       d=5, both state types; train_kernels_vs_plain);
+    c. a decode through the model's own wrappers: a GNNDecoder of width
+       WIDE_H on d=11 in bf16 (K1 wide once) and the same model's roll
+       schedule (PallasDecoder, K5 wide once), each against its plain
+       rounds as (a);
+    d. TRAIN_CHECK_STEPS training steps of a WIDE_H model (surface
+       WIDE_TRAIN_D, R=D13_ROUNDS) through K2a/K2b against the plain
+       versions (train_steps_vs_plain): f32 within TRAIN_STEP_REL; bf16,
+       on two seeds, held to the same steps with f32 states
+       (held_to_f32_states), and a width-128 model's steps beside;
+    e. the circuit d=5 training config through the CLI at --hidden and
+       --msg-hidden WIDE_H for WIDE_CLI_STEPS steps: every step one wide
+       K2a and one wide K2b and nothing else, the loss finite and falling
+       (gate_training);
+    f. bf16 K5 on surface K5_GP_D through its global panels against its
+       plain version (B=D13_BATCH, R=D13_ROUNDS), a roll decode of a bf16
+       model there (PallasDecoder), and on d=11 the two placements bit for
+       bit (the shared limit lowered, B=D7_GP_BATCH);
+    g. timings (wide_timing) in both state types, and bf16 K5's global
+       variant at K5_GP_D, B=WIDE_TIMING_BATCH, R=WIDE_TIMING_ROUNDS.
+    Returns the launches by path; ``info`` gets every number."""
+    import torch
+
+    from tpugnn_torch.configs import ModelConfig
+    from tpugnn_torch.kernels import roll_gather as rg
+    from tpugnn_torch.kernels._build import load_library
+    from tpugnn_torch.models import GNNDecoder, PallasDecoder
+    from tpugnn_torch.sampling import sample_batch
+    from tpugnn_torch.tanner import build_circuit_code, build_code
+
+    launches = {}
+    t0 = time.perf_counter()
+    part_s = {}
+
+    def lap(name):
+        part_s[name] = round(time.perf_counter() - t0 - sum(part_s.values()), 3)
+
+    # a. the wide forward kernels against their plain versions
+    checks = {}
+    circuit5 = build_circuit_code("surface", 5, 5)
+    for dt in ("float32", "bfloat16"):
+        checks[f"k1_d11_{dt}"] = rounds_vs_plain("k1", D, WIDE_H, dt, 90, dev, WIDE_NAMES[0])
+        checks[f"k5_d11_{dt}"] = rounds_vs_plain("k5", D, WIDE_H, dt, 91, dev,
+                                                 "roll_rounds_wide")
+        g, _, ops, w, xc, xq, s, _ = random_round_case(5, D13_BATCH, D13_ROUNDS, dt, 92, dev,
+                                                       h=WIDE_H, graph=circuit5)
+        run, plain = kernel_and_plain("k1", g, ops, w, xc, xq, s, D13_ROUNDS, dt)
+        checks[f"k1_circuit_d5_{dt}"] = held_to_plain(run, plain, WIDE_NAMES[0], dt,
+                                                      f"wide K1 circuit d=5 {dt}")
+    checks["k5_d11_bfloat16_slots"] = rounds_vs_plain("k5", D, WIDE_H, "bfloat16", 93, dev,
+                                                      "roll_rounds_wide",
+                                                      slot_dtype="bfloat16")
+    info["vs_plain"] = checks
+    lap("vs_plain")
+
+    # b. K2a and K2b, on d=11 and on circuit d=5 (M=64 check rows against
+    # N=304 qubit rows)
+    train_checks = {}
+    for dt in ("float32", "bfloat16"):
+        for tag, graph in (("", None), ("_circuit_d5", circuit5)):
+            g, dg, _, w, _, _, _, gen = random_round_case(D, D13_BATCH, D13_ROUNDS, dt, 94, dev,
+                                                          h=WIDE_H, graph=graph)
+            train_checks[dt + tag] = train_kernels_vs_plain(g, dg, w, gen, WIDE_NAMES, dt)
+    info["train_kernels"] = train_checks
+    lap("train_kernels")
+
+    # c. a decode through the model's wrappers: K1 and K5 wide
+    graph = build_code("surface", D)
+    dg = graph.to(dev)
+    model = GNNDecoder(ModelConfig(hidden=WIDE_H, msg_hidden=WIDE_H, rounds=D13_ROUNDS,
+                                   backend="fused", qubit_head="pauli4", dtype="bfloat16"), k=1)
+    model.init_random(torch.Generator().manual_seed(96), bias_std=0.1)
+    model = model.to(dev).eval()
+    syn = sample_batch(torch.Generator(device=dev).manual_seed(97), dg, 0.05,
+                       D13_BATCH).syndrome
+    decode = {}
+    for path, dec_model, want in (("wide_decode", model, WIDE_NAMES[0]),
+                                  ("wide_roll_decode", PallasDecoder(
+                                      model, schedule=("rollgather",)), "roll_rounds_wide")):
+        with torch.inference_mode():
+            reset_counts()
+            out = dec_model(dg, syn)
+            launches[path] = launched = counts()
+            torch.cuda.synchronize()
+        decode[path] = dict(launches=launched, finite=bool(torch.isfinite(out.qubit_logits).all()))
+        if launched[want] != 1 or sum(launched.values()) != 1 or not decode[path]["finite"]:
+            raise RuntimeError(f"{path}: launched {launched}, not one {want}, or non-finite")
+    info["decode"] = decode
+    del model
+    lap("decode")
+
+    # d. training steps through K2a/K2b against the plain versions: f32 at
+    # TRAIN_STEP_REL; bf16 against the same steps with f32 states
+    # (held_to_f32_states), on two seeds, and beside it a width-128 model's
+    steps = {}
+    for dt, h, seed in (("float32", WIDE_H, 0), ("bfloat16", WIDE_H, 0),
+                        ("bfloat16", WIDE_H, 1), ("bfloat16", 128, 0)):
+        state, cfg = wide_train_state(h, dt, seed, dev)
+        reset_counts()
+        step_errs = train_steps_vs_plain(state, cfg, build_code("surface", WIDE_TRAIN_D).to(dev),
+                                         dev, seed=77 + seed, witness=dt == "bfloat16")
+        path = (f"wide_train_steps_{dt}" if h == WIDE_H else f"train_steps_h128_{dt}") + (
+            f"_seed{seed}" if seed else "")
+        launches[path] = counts()
+        k_worst = [max(e.items(), key=lambda kv: kv[1]) for e in step_errs["kernels"]]
+        steps[path] = dict(
+            graph=f"surface d={WIDE_TRAIN_D}", width=h, rounds=D13_ROUNDS, batch=256,
+            state_dtype=dt, seed=seed, steps=TRAIN_CHECK_STEPS, launches=launches[path],
+            kernels_worst=[dict(leaf=n, rel=v) for n, v in k_worst],
+            zero_wgrads_least=[dict(leaf=n, rel=v) for n, v in (
+                min(((n, v) for n, v in e.items() if n.startswith("rounds.")),
+                    key=lambda kv: kv[1]) for e in step_errs["zero_wgrads"])])
+        if h == WIDE_H and not all(launches[path][n] for n in WIDE_NAMES[1:]):
+            raise RuntimeError(f"width {WIDE_H} {dt}: the training steps did not launch the "
+                               f"wide K2a and K2b: {launches[path]}")
+        if dt == "float32":
+            steps[path]["bound"] = TRAIN_STEP_REL
+            if any(v > TRAIN_STEP_REL for _, v in k_worst):
+                raise RuntimeError(f"width {WIDE_H}: steps through the wide K2a/K2b move the "
+                                   f"parameters otherwise than the plain versions: "
+                                   f"{steps[path]}")
+        else:
+            steps[path]["vs_f32_states"] = held_to_f32_states(
+                step_errs, f"width {h} bf16 training steps, seed {seed}")
+        del state
+        torch.cuda.empty_cache()
+    info["train_steps"] = steps
+    lap("train_steps")
+
+    # e. the circuit training config through the CLI at width WIDE_H
+    argv = [*WIDE_CLI_ARGS, "--steps", str(WIDE_CLI_STEPS), "--eval-every",
+            str(WIDE_CLI_STEPS)]
+    reset_counts()
+    with StepRecorder() as rec:
+        row = run_cli(argv)[-1]
+    launches["cli_train_wide"] = counts()
+    summary = rec.summary()
+    info["cli_train"] = dict(argv=argv, last_line=row, launches=launches["cli_train_wide"],
+                             **summary)
+    gate_training(f"cli train (circuit d=5, width {WIDE_H})", summary, WIDE_CLI_STEPS)
+    step_want = {WIDE_NAMES[1]: 1, WIDE_NAMES[2]: 1}
+    if any(c != {**dict.fromkeys(c, 0), **step_want} for c in rec.launches):
+        raise RuntimeError(f"cli train (width {WIDE_H}): a step did not launch the wide K2a "
+                           f"and K2b once each and nothing else: {rec.launches}")
+    del rec
+    torch.cuda.empty_cache()
+    lap("cli_train")
+
+    # f. bf16 K5 past shared memory (the d=17 graph built once: a large
+    # code takes seconds to build on the host)
+    g17 = build_code("surface", K5_GP_D)
+    dg17 = g17.to(dev)
+    g, _, ops, w, xc, xq, s, _ = random_round_case(K5_GP_D, D13_BATCH, D13_ROUNDS, "bfloat16",
+                                                   98, dev, graph=g17)
+    run, plain = kernel_and_plain("k5", g, ops, w, xc, xq, s, D13_ROUNDS, "bfloat16")
+    gp = {"vs_plain": dict(d=K5_GP_D, batch=D13_BATCH, rounds=D13_ROUNDS, **held_to_plain(
+        run, plain, "roll_rounds_tc_gpanels", "bfloat16", f"bf16 K5 d={K5_GP_D}"))}
+    m17 = GNNDecoder(ModelConfig(hidden=128, msg_hidden=128, rounds=D13_ROUNDS,
+                                 backend="fused", qubit_head="pauli4", dtype="bfloat16"), k=1)
+    m17.init_random(torch.Generator().manual_seed(99), bias_std=0.1)
+    roll17 = PallasDecoder(m17.to(dev).eval(), schedule=("rollgather",))
+    syn17 = sample_batch(torch.Generator(device=dev).manual_seed(100), dg17, 0.05,
+                         D13_BATCH).syndrome
+    with torch.inference_mode():
+        reset_counts()
+        out = roll17(dg17, syn17)
+        launches["roll_decode_d17"] = launched = counts()
+    if launched["roll_rounds_tc_gpanels"] != 1 or sum(launched.values()) != 1 or not bool(
+            torch.isfinite(out.qubit_logits).all()):
+        raise RuntimeError(f"bf16 roll decode at d={K5_GP_D}: launched {launched}")
+    gp["launches"] = launched["roll_rounds_tc_gpanels"]
+    g11, _, _, w11, xc, xq, s, _ = random_round_case(D, D7_GP_BATCH, D13_ROUNDS, "bfloat16",
+                                                     101, dev)
+    r_ops = rg.to_raster(xc, xq, s, rg.plan_for_graph(g11), w11, "bfloat16")
+    lib = load_library("roll_gather")
+    need = lib.roll_rounds_tc_gpanels_smem_bytes(r_ops.xc.shape[1])
+    with torch.inference_mode():
+        reset_counts()
+        shared = rg._roll_rounds_cuda(r_ops, rounds=D13_ROUNDS)
+        with smem_limit(rg, need):
+            glob = rg._roll_rounds_cuda(r_ops, rounds=D13_ROUNDS)
+        placed = counts()
+        torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for a, b in zip(shared, glob))
+    gp["d11_placements"] = dict(batch=D7_GP_BATCH, rounds=D13_ROUNDS, gpanels_smem_bytes=need,
+                                launched=placed, bit_equal=equal,
+                                shared_smem_bytes=lib.roll_rounds_smem_bytes(
+                                    1, r_ops.xc.shape[1]))
+    if not equal or placed["roll_rounds"] != 1 or placed["roll_rounds_tc_gpanels"] != 1:
+        raise RuntimeError(f"d=11 bf16 K5: the global-panel layout differs from the shared "
+                           f"one: {gp['d11_placements']}")
+    del r_ops, shared, glob, xc, xq, s
+    l_pads = {d: -(-(d + 1) ** 2 // 8) * 8 for d in (15, 17, 19)}   # raster_plan's l_pad
+    gp["smem_bytes"] = {f"d{d}": dict(shared=lib.roll_rounds_smem_bytes(1, lp),
+                                      gpanels=lib.roll_rounds_tc_gpanels_smem_bytes(lp))
+                        for d, lp in l_pads.items()}
+    # its time at K5_GP_D, bench-like shapes, beside the plain version and its bound
+    g, _, _, w, xc, xq, s, _ = random_round_case(K5_GP_D, WIDE_TIMING_BATCH, WIDE_TIMING_ROUNDS,
+                                                 "bfloat16", 102, dev, graph=g17)
+    r_ops = rg.to_raster(xc, xq, s, rg.plan_for_graph(g), w, "bfloat16")
+    with torch.inference_mode():
+        gp_ms = time_ms(lambda: rg._roll_rounds_cuda(r_ops, rounds=WIDE_TIMING_ROUNDS),
+                        warmup=1, iters=5)
+        gp_plain_ms = time_ms(lambda: rg.roll_rounds_plain(r_ops, rounds=WIDE_TIMING_ROUNDS),
+                              warmup=0, iters=1)
+    gp_bound, gp_by = bound(rounds_bytes(g, WIDE_TIMING_BATCH, 128, 2),
+                            rounds_flops(g, 128) * WIDE_TIMING_BATCH * WIDE_TIMING_ROUNDS,
+                            H100_BF16_FLOPS)
+    gp["timed"] = dict(d=K5_GP_D, batch=WIDE_TIMING_BATCH, rounds=WIDE_TIMING_ROUNDS,
+                       ms=gp_ms, plain_ms=gp_plain_ms, bound_ms=gp_bound, bound_by=gp_by)
+    info["k5_bfloat16_gpanels"] = gp
+    del r_ops, xc, xq, s, roll17, m17
+    torch.cuda.empty_cache()
+    lap("k5_gpanels")
+
+    # g. timings
+    info["timed"] = {dt: wide_timing(graph, dt, dev, WIDE_TIMING_BATCH, WIDE_TIMING_ROUNDS)
+                     for dt in ("bfloat16", "float32")}
+    lap("timed")
+    info["part_seconds"] = part_s
+    return launches
+
+
 def phase_dist(dev, info: dict, card: str) -> dict:
     """Phase 4f: the port's dist/ on one card.  (a) NCCL at world size 1 in
     this process; (b) the d=15 decode of the DIST_P gloo ranks sharing the
@@ -4337,9 +4807,13 @@ def main() -> int:
         # the f32 rounds kernels' registers and spills (K1, K2a and K2b in
         # both placements; their device functions apart)
         info["f32_ptxas"] = {
-            **ptxas_usage(built["fused_rounds"][2], "tf32x3_kernel"),
+            **ptxas_usage(built["fused_rounds_tf32"][2], "tf32x3_kernel"),
             **ptxas_usage(built["fused_backward_tf32"][2], "t3b")}
         info["host_library_seconds"] = host["seconds"]
+        # the phases' HMMA checks, disassembled while the phases run
+        prefetch_sass([built[n][0] for n in ("fused_rounds", "fused_rounds_tf32",
+                                              "fused_backward", "fused_backward_tf32", "sddmm",
+                                              "roll_gather", "roll_gather_tf32")])
         info["wall_seconds"] = round(time.perf_counter() - t0, 3)
 
     graph = build_code("surface", D)
@@ -4407,8 +4881,8 @@ def main() -> int:
         gp_checks, pw_checks = info["gpanels_float32"], info["padded_widths"]
         # every f32 instantiation of the library (K1's and K2a's two
         # placements) runs its products on tensor cores
-        f32_mma = f32_hmma(sass_mma_counts(build_libraries(["fused_rounds"])
-                                           ["fused_rounds"][0]))
+        f32_mma = f32_hmma(sass_mma_counts(build_libraries(["fused_rounds_tf32"])
+                                           ["fused_rounds_tf32"][0]))
         info["f32_sass_hmma"] = f32_mma
         if not all(f32_mma.get(k, 0) > 0
                    for k in ("shared", "gpanels", "stash", "stash_gpanels")):
@@ -4717,6 +5191,10 @@ def main() -> int:
     with Phase("fused_configs") as info:
         launches.update(phase_fused_configs(dev, info))
 
+    with Phase("wide_rounds") as info:
+        launches.update(phase_wide_rounds(dev, info))
+        wide = dict(info)
+
     with Phase("train") as info:
         import tempfile
 
@@ -4853,12 +5331,14 @@ def main() -> int:
         return {"name": name, "route": "cuda", "launches": sum(paths.values()),
                 "launches_by_path": paths, **kw}
 
-    def variant(name, checks: dict, timings: dict) -> dict:
-        """An f32 global-panel variant's fields: its launches, its max error
-        against the plain version (B=64, R=3 and at the timed shapes), and
-        per graph its time, the plain version's and its bound."""
+    def variant(name, source: str, checks: dict, timings: dict) -> dict:
+        """An f32 global-panel variant's fields: its source, its launches,
+        its max error against the plain version (B=64, R=3 and at the timed
+        shapes), and per graph its time, the plain version's and its
+        bound."""
         paths = by_path(name, bf16_d7=False)
-        return dict(name=name, launches=sum(paths.values()), launches_by_path=paths,
+        return dict(name=name, source=source, launches=sum(paths.values()),
+                    launches_by_path=paths,
                     max_abs_err=max(max(v["max_abs_err"] for v in checks.values()),
                                     max(v["max_abs_err"] for v in timings.values())),
                     **{d: {k: t[k] for k in ("batch", "rounds", "real_rows", "ms", "plain_ms",
@@ -4890,7 +5370,7 @@ def main() -> int:
         tag = ("k1", "k2a", "k2b")[k]
         paths = by_path(name, bf16_d7=False)
         return dict(name=name, route="cuda", source=(
-            "tpugnn_torch/kernels/csrc/fused_rounds.cu" if k == 1 else
+            "tpugnn_torch/kernels/csrc/fused_rounds_tf32.cu" if k == 1 else
             "tpugnn_torch/kernels/csrc/fused_backward_tf32.cu"),
             replaces=("tpugnn/kernels/fused_backward.py:575" if k == 1 else
                       "tpugnn/kernels/fused_backward.py:624"),
@@ -4919,9 +5399,50 @@ def main() -> int:
                       if k.startswith(f"{kernel}_")}
                for case, t in cases.items()})
 
+    def wide_rows() -> list:
+        """The wide kernels' rows (phase 6d): bf16 numbers at the top, f32
+        under ``f32``; times at d=11, H = MH = WIDE_H, B=WIDE_TIMING_BATCH,
+        R=WIDE_TIMING_ROUNDS beside the 128-column kernel's at H=128
+        (``h128_ms``) and the design's state bytes' time
+        (``design_bytes_ms``)."""
+        vs, tk, tm = wide["vs_plain"], wide["train_kernels"], wide["timed"]
+        err = lambda k, dt: max(v["max_abs_err"] for n, v in vs.items()
+                                if n.startswith(k) and dt in n)
+        out = []
+        for name, k, replaces in (
+                (WIDE_NAMES[0], "k1", "tpugnn/kernels/fused_decoder.py:637"),
+                (WIDE_NAMES[1], "k2a", "tpugnn/kernels/fused_backward.py:575"),
+                (WIDE_NAMES[2], "k2b", "tpugnn/kernels/fused_backward.py:624"),
+                ("roll_rounds_wide", "k5", "tpugnn/kernels/roll_gather.py:364")):
+            def numbers(dt):
+                t = tm[dt]
+                n = dict(ms=t[f"{k}_ms"], plain_ms=t[f"{k}_plain_ms"],
+                         plain_calls=t[f"{k}_plain_calls"], bound_ms=t[f"{k}_bound_ms"],
+                         bound_by=t[f"{k}_bound_by"], h128_ms=t[f"{k}_h128_ms"],
+                         design_bytes_ms=t[f"{k}_design_bytes_ms"])
+                if k in ("k1", "k5"):
+                    n["max_abs_err"] = err(k, dt)
+                elif k == "k2a":   # d=11 and circuit d=5
+                    cs = (tk[dt], tk[dt + "_circuit_d5"])
+                    n.update(max_abs_err=max(max(c["k2a_vs_plain_max"], c["stash_vs_plain_max"])
+                                             for c in cs),
+                             equals_k1=all(c["k2a_equals_k1"] for c in cs))
+                else:
+                    cs = (tk[dt], tk[dt + "_circuit_d5"])
+                    n.update(max_abs_err=max(c["k2b_max_abs_err"] for c in cs),
+                             max_rel_err=max(c["k2b_worst_rel"] for c in cs),
+                             repeatable=all(c["k2b_repeatable"] for c in cs))
+                return n
+            out.append(row(name, source="tpugnn_torch/kernels/csrc/wide_rounds.cu",
+                           replaces=replaces, width=WIDE_H, batch=WIDE_TIMING_BATCH,
+                           rounds=WIDE_TIMING_ROUNDS, library_ms=None, **numbers("bfloat16"),
+                           f32=numbers("float32")))
+        return out
+
     emit({"kernels": [row(
         "fused_rounds",
         source="tpugnn_torch/kernels/csrc/fused_rounds.cu",
+        source_float32="tpugnn_torch/kernels/csrc/fused_rounds_tf32.cu",
         replaces="tpugnn/kernels/fused_decoder.py:637",
         max_abs_err=errs["bfloat16"], max_abs_err_f32=errs["float32"],
         ms=timing["kernel_ms"], plain_ms=timing["plain_ms"],
@@ -4933,7 +5454,8 @@ def main() -> int:
                          tf32x3_floor_ms=timing["trained_tf32x3_floor_ms"],
                          **{k: k1_f32_check[k] for k in ("max_abs_err", "kernel_vs_f64_max",
                                                          "plain_vs_f64_max", "sass_hmma")}),
-        gpanels=variant("fused_rounds_gpanels", gp_checks, timing["fused_rounds_gpanels"]),
+        gpanels=variant("fused_rounds_gpanels", "tpugnn_torch/kernels/csrc/fused_rounds_tf32.cu",
+                        gp_checks, timing["fused_rounds_gpanels"]),
         padded_width=padded("k1", pw_checks),
         detector_graph=det_k1, circuit_graphs=circ_k1,
         circuit_d5_bfloat16={"graph": circ_k2["graph"], **circ_k2["k1_bfloat16"]},
@@ -4950,6 +5472,7 @@ def main() -> int:
     ), row(
         "fused_rounds_fwd_stash",
         source="tpugnn_torch/kernels/csrc/fused_rounds.cu",
+        source_float32="tpugnn_torch/kernels/csrc/fused_rounds_tf32.cu",
         replaces="tpugnn/kernels/fused_backward.py:575",
         max_abs_err=train_errs["bfloat16"]["k2a_vs_plain_max"],
         max_abs_err_f32=train_errs["float32"]["k2a_vs_plain_max"],
@@ -5023,15 +5546,27 @@ def main() -> int:
         **new_kernels["sddmm_edge_hidden"],
     ), row(
         "roll_rounds", source="tpugnn_torch/kernels/csrc/roll_gather.cu",
+        source_float32="tpugnn_torch/kernels/csrc/roll_gather_tf32.cu",
         replaces="tpugnn/kernels/roll_gather.py:364", **roll_row,
         f32_larger={d: {k: t[k] for k in (
             "kernel", "rounds", "ms", "plain_ms", "bound_ms", "bound_by", "tf32x3_floor_ms",
             "f32_core_ms", "max_abs_err")} for d, t in roll_info["larger_float32_timing"].items()},
-        gpanels=variant("roll_rounds_gpanels", *(
+        gpanels=variant("roll_rounds_gpanels", "tpugnn_torch/kernels/csrc/roll_gather_tf32.cu", *(
             {d: c for d, c in roll_info[key].items() if c["kernel"] == "roll_rounds_gpanels"}
             for key in ("larger_float32", "larger_float32_timing"))),
         padded_width=padded("k5", roll_info["padded_widths"]),
-    )]})
+        gpanels_bfloat16=dict(
+            name="roll_rounds_tc_gpanels", route="cuda",
+            source="tpugnn_torch/kernels/csrc/roll_gather.cu",
+            replaces="tpugnn/kernels/roll_gather.py:364",
+            launches=sum(by_path("roll_rounds_tc_gpanels").values()),
+            launches_by_path=by_path("roll_rounds_tc_gpanels"),
+            max_abs_err=wide["k5_bfloat16_gpanels"]["vs_plain"]["max_abs_err"],
+            d11_bit_equal_to_shared=wide["k5_bfloat16_gpanels"]["d11_placements"]["bit_equal"],
+            library_ms=None, sass_hmma={k: v for k, v in roll_info["sass_hmma"].items()
+                                        if "roll_rounds_tc_gpanels_kernel" in k},
+            **wide["k5_bfloat16_gpanels"]["timed"]),
+    ), *wide_rows()]})
     emit({"total_seconds": round(time.perf_counter() - t_start, 3)})
     print(run(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"]).splitlines()[0].strip(), flush=True)

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Where f32 K1's time and error go, on one NVIDIA card.
 
-    python3 scripts/k1_f32_probe.py [--parent OLD_fused_rounds.cu] [--other NAME=FILE.cu]
+    python3 scripts/k1_f32_probe.py [--parent OLD_fused_rounds_tf32.cu] [--other NAME=FILE.cu]
                                     [--no-graphs]
 
-K1 with f32 states (``tpugnn_torch/kernels/csrc/fused_rounds.cu``, 3xTF32 on
+K1 with f32 states (``tpugnn_torch/kernels/csrc/fused_rounds_tf32.cu``, 3xTF32 on
 ``mma.sync``) at the trained decode's shape (surface d=11, B=4096, R=14,
 H=128, seeded random weights and states), against copies of its source
 (and of ``rounds_mma.cuh``, inlined into the copy) that change one thing,
@@ -40,7 +40,7 @@ each printed as one JSON line:
   probe     one block's clock cycles per stage (A projection, B check rows,
             C qubit rows) from a copy with ``clock64()`` probes.
   parent    with ``--parent`` (and ``--other``, repeatable): as built
-            against other versions of ``fused_rounds.cu`` (say the parent
+            against other versions of ``fused_rounds_tf32.cu`` (say the parent
             commit's, from ``git show``; a version with other headers has
             them inlined in place of their includes), in turns (others,
             built, built, others).
@@ -63,9 +63,9 @@ from _probe_common import (CSRC, REPO, build_copies, kernel_resources, replaced,
 
 sys.path.insert(0, REPO)
 
-SOURCE = os.path.join(CSRC, "fused_rounds.cu")
+SOURCE = os.path.join(CSRC, "fused_rounds_tf32.cu")
 HEADER = os.path.join(CSRC, "rounds_mma.cuh")
-LIBRARY = "fused_rounds"
+LIBRARY = "fused_rounds_tf32"
 KERNEL = "fused_rounds_tf32x3_kernel"
 
 _THREE = ("          mma_tf32(c, al[kk], wh[0], wh[1]);\n"
@@ -247,9 +247,9 @@ def main() -> int:
     from tpugnn_torch.kernels import fused_decoder as fd
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", help="another version of fused_rounds.cu to time against")
+    ap.add_argument("--parent", help="another version of fused_rounds_tf32.cu to time against")
     ap.add_argument("--other", action="append", default=[], metavar="NAME=FILE",
-                    help="a further version of fused_rounds.cu to time against")
+                    help="a further version of fused_rounds_tf32.cu to time against")
     ap.add_argument("--no-graphs", action="store_true", help="skip the circuit and "
                     "detector graphs")
     args = ap.parse_args()

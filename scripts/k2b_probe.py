@@ -263,7 +263,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("k2b_probe.py runs on an NVIDIA card", file=sys.stderr)
         return 2
-    build_libraries(["fused_rounds", "fused_backward", "fused_backward_tf32"])
+    build_libraries(["fused_rounds", "fused_rounds_tf32", "fused_backward",
+                     "fused_backward_tf32"])
     card = cs.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     dtypes = (["float32"] if args.f32_only else ["bfloat16"] if args.bf16_only
               else ["float32", "bfloat16"])

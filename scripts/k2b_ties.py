@@ -194,7 +194,7 @@ def main() -> int:
         print("k2b_ties.py runs on an NVIDIA card", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    build_libraries(["fused_rounds", LIBRARY])
+    build_libraries(["fused_rounds_tf32", LIBRARY])
     card = cs.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     emit({"cublas": cublas_order(), "card": card})
 

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where K5's time goes, on one NVIDIA card.
 
-    python3 scripts/k5_probe.py [--parent OLD_roll_gather.cu] [--f32-only]
+    python3 scripts/k5_probe.py [--parent OLD_roll_gather.cu [--parent-f32 OLD.cu]]
+                                [--f32-only]
 
-K5 (``tpugnn_torch/kernels/csrc/roll_gather.cu``) against copies of its
-source that change one thing, each printed as one JSON line.  With f32
+K5 (``tpugnn_torch/kernels/csrc/roll_gather.cu``, bf16 states, and
+``roll_gather_tf32.cu``, f32 states) against copies of its sources that
+change one thing, each printed as one JSON line.  With f32
 states (the trained decode's shape: surface d=11, B=4096, R=14, H=128,
 seeded random weights and states; the 3xTF32 kernel):
 
@@ -38,7 +40,9 @@ f32 slots and with ``slot16``:
             kernel as built, from a copy with ``clock64()`` probes at the
             stage boundaries (thread 0 of block 0), and of ``warps8``.
   parent    with ``--parent``: K5 as built against another version of its
-            source (say the parent commit's, from ``git show``), in turns
+            source (say the parent commit's, from ``git show``; the f32
+            kernel from ``--parent-f32``, by default the same file, as
+            before the two state types built apart), in turns
             (parent, built, built, parent): bf16 at the bench config, and
             f32 on the trained d=11 weights (B=4096, R=14) with whether the
             two f32 results are bit-equal.
@@ -62,6 +66,8 @@ sys.path.insert(0, REPO)
 
 SOURCE = os.path.join(CSRC, "roll_gather.cu")
 LIBRARY = "roll_gather"
+SOURCE_F32 = os.path.join(CSRC, "roll_gather_tf32.cu")
+LIBRARY_F32 = "roll_gather_tf32"
 
 WARPS8 = [("constexpr int TC_WARPS = 9;", "constexpr int TC_WARPS = 8;")]
 NO_TAIL = [
@@ -121,17 +127,18 @@ def raster_operands(d: int):
         return graph, rg.to_raster(xc, xq, s, rg.plan_for_graph(graph), w, "bfloat16")
 
 
-def in_turns(libs: dict, order, call) -> dict:
+def in_turns(libs: dict, order, call, library: str = LIBRARY) -> dict:
     """call's ms on each library of `order`, then in the reverse order."""
     import chip_smoke as cs
 
     t = {k: [] for k in order}
     for name in (*order, *reversed(order)):
-        t[name].append(with_library(LIBRARY, libs[name], lambda: cs.time_ms(call)))
+        t[name].append(with_library(library, libs[name], lambda: cs.time_ms(call)))
     return t
 
 
-def versus_plain(libs: dict, names, ops, rounds: int, slot: str) -> dict:
+def versus_plain(libs: dict, names, ops, rounds: int, slot: str,
+                 library: str = LIBRARY) -> dict:
     """Max and mean abs difference from roll_rounds_plain of each library."""
     import torch
 
@@ -141,16 +148,16 @@ def versus_plain(libs: dict, names, ops, rounds: int, slot: str) -> dict:
     pc, pq = rg.roll_rounds_plain(ops, rounds=rounds, slot_dtype=slot)
     out = {}
     for name in names:
-        kc, kq = with_library(LIBRARY, libs[name], lambda: rg._roll_rounds_cuda(
+        kc, kq = with_library(library, libs[name], lambda: rg._roll_rounds_cuda(
             ops, rounds=rounds, slot_dtype=slot))
         torch.cuda.synchronize()
         out[name] = cs.raster_errors(kc, kq, pc, pq)
     return out
 
 
-def parent_comparison(libs: dict, ops, rounds: int, card: str) -> None:
-    """K5 as built against the ``parent`` library: bf16 at the bench config,
-    f32 on the trained d=11 weights; prints one JSON line."""
+def parent_comparison(libs: dict, libs32: dict, ops, rounds: int, card: str) -> None:
+    """K5 as built against the ``parent`` libraries: bf16 at the bench
+    config, f32 on the trained d=11 weights; prints one JSON line."""
     import torch
 
     import chip_smoke as cs
@@ -171,10 +178,10 @@ def parent_comparison(libs: dict, ops, rounds: int, card: str) -> None:
         f32 = rg.to_raster(xc, xq, s, rg.plan_for_graph(graph), w, "float32")
         r_t = model.cfg.rounds
         call = lambda: rg._roll_rounds_cuda(f32, rounds=r_t)
-        a, b = (with_library(LIBRARY, libs[n], call) for n in order)
+        a, b = (with_library(LIBRARY_F32, libs32[n], call) for n in order)
         torch.cuda.synchronize()
         out["f32_trained_bit_equal"] = bool(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))
-        out["f32_trained_ms"] = in_turns(libs, order, call)
+        out["f32_trained_ms"] = in_turns(libs32, order, call, LIBRARY_F32)
     emit({"parent": out, "card": card})
 
 
@@ -199,7 +206,8 @@ def f32_measurements(libs: dict, logs: dict, card: str) -> None:
     @contextlib.contextmanager
     def global_panel():
         old = rg.SMEM_LIMIT
-        rg.SMEM_LIMIT = load_library(LIBRARY).roll_rounds_gpanels_smem_bytes(ops.xc.shape[1])
+        rg.SMEM_LIMIT = load_library(LIBRARY_F32).roll_rounds_gpanels_smem_bytes(
+            ops.xc.shape[1])
         try:
             yield
         finally:
@@ -208,20 +216,21 @@ def f32_measurements(libs: dict, logs: dict, card: str) -> None:
     with torch.inference_mode():
         ops = rg.to_raster(xc, xq, s, rg.plan_for_graph(graph), w, "float32")
         call = lambda: rg._roll_rounds_cuda(ops, rounds=rounds)
-        errors = {k: v[0] for k, v in versus_plain(libs, names, ops, rounds, "float32").items()}
-        t = in_turns(libs, names, call)
+        errors = {k: v[0] for k, v in versus_plain(libs, names, ops, rounds, "float32",
+                                                   LIBRARY_F32).items()}
+        t = in_turns(libs, names, call, LIBRARY_F32)
         with global_panel():
             before = rg.launch_counts()["roll_rounds_gpanels"]
-            kc, kq = with_library(LIBRARY, libs["as_built"], call)
+            kc, kq = with_library(LIBRARY_F32, libs["as_built"], call)
             pc, pq = rg.roll_rounds_plain(ops, rounds=rounds)
             torch.cuda.synchronize()
             if rg.launch_counts()["roll_rounds_gpanels"] != before + 1:
                 raise RuntimeError("the global-panel kernel was not launched")
             errors["gpanels"] = cs.raster_errors(kc, kq, pc, pq)[0]
             del kc, kq, pc, pq
-            t["gpanels"] = in_turns(libs, ("as_built",), call)["as_built"]
+            t["gpanels"] = in_turns(libs, ("as_built",), call, LIBRARY_F32)["as_built"]
         cycles = stage_cycles(libs["f32_clock"], F32_PROBES,
-                              lambda: with_library(LIBRARY, libs["f32_clock"], call))
+                              lambda: with_library(LIBRARY_F32, libs["f32_clock"], call))
     emit({"f32": {k: dict(ms=v, tflops=[flops / (x * 1e-3) / 1e12 for x in v],
                           max_abs_err=errors[k]) for k, v in t.items()},
           "f32_resources": {name: kernel_resources(logs[name], "roll_rounds_tf32x3")
@@ -237,25 +246,31 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="another version of roll_gather.cu to time against")
+    ap.add_argument("--parent-f32", help="the f32 kernel's source of that version "
+                    "(default: the --parent file)")
     ap.add_argument("--f32-only", action="store_true", help="only the f32 kernel's copies")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("k5_probe.py runs on an NVIDIA card", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    src = open(SOURCE).read()
+    src, src32 = open(SOURCE).read(), open(SOURCE_F32).read()
     card = cs.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
-    texts = {"as_built": src,
-             **{name: replaced(src, pairs) for name, pairs in F32_VARIANTS.items()},
-             "f32_clock": with_probes(src, F32_PROBES, " " * 6)}
+    texts32 = {"as_built": src32,
+               **{name: replaced(src32, pairs) for name, pairs in F32_VARIANTS.items()},
+               "f32_clock": with_probes(src32, F32_PROBES, " " * 6)}
+    texts = {}
     if not args.f32_only:
-        texts.update({name: replaced(src, pairs) for name, pairs in VARIANTS.items()})
-        texts.update(clock=with_probes(src, PROBES, " " * 4),
-                     clock_warps8=with_probes(replaced(src, WARPS8), PROBES, " " * 4))
+        texts = {"as_built": src,
+                 **{name: replaced(src, pairs) for name, pairs in VARIANTS.items()},
+                 "clock": with_probes(src, PROBES, " " * 4),
+                 "clock_warps8": with_probes(replaced(src, WARPS8), PROBES, " " * 4)}
     if args.parent:
         texts["parent"] = open(args.parent).read()
-    libs, logs = build_copies(LIBRARY, texts)
-    f32_measurements(libs, logs, card)
+        texts32["parent"] = open(args.parent_f32 or args.parent).read()
+    libs32, logs32 = build_copies(LIBRARY_F32, texts32)
+    libs, logs = build_copies(LIBRARY, texts) if texts else ({}, {})
+    f32_measurements(libs32, logs32, card)
     if args.f32_only:
         print(card)
         return 0
@@ -301,7 +316,7 @@ def main() -> int:
                                         lambda: with_library(LIBRARY, libs[name], call))
     emit({"probe": probes, "card": card})
     if args.parent:
-        parent_comparison(libs, ops, rounds, card)
+        parent_comparison(libs, libs32, ops, rounds, card)
     print(card)
     return 0
 

@@ -352,7 +352,8 @@ class _StubLibrary:
     """The roll library as far as a launch: records the call and stops.
     ``smem`` is the block's shared memory, or a function of (dtype code,
     l_pad) giving it; ``gpanels_smem`` the same for the f32 variant with
-    its gather panels in global memory (dtype code "gp")."""
+    its gather panels in global memory (dtype code "gp"; "tcgp" for the
+    bf16 one)."""
 
     def __init__(self, smem=0):
         self.smem = smem
@@ -360,6 +361,7 @@ class _StubLibrary:
         self.calls = []
         self.gpanels_calls = []
         self.queries = []
+        self.loaded = []
 
     def roll_rounds_smem_bytes(self, code, l_pad):
         self.queries.append((code, l_pad))
@@ -370,8 +372,17 @@ class _StubLibrary:
         s = self.gpanels_smem
         return s("gp", l_pad) if callable(s) else s
 
+    def roll_rounds_tc_gpanels_smem_bytes(self, l_pad):
+        self.queries.append(("tcgp", l_pad))
+        s = self.gpanels_smem
+        return s("tcgp", l_pad) if callable(s) else s
+
     def roll_rounds_launch(self, *args):
         self.calls.append(args)
+        return 0
+
+    def roll_rounds_tc_gpanels_launch(self, *args):
+        self.gpanels_calls.append(args)
         return 0
 
     def roll_rounds_gpanels_launch(self, *args):
@@ -384,8 +395,14 @@ def stub_library(monkeypatch):
     from tpugnn_torch.kernels import _build
 
     lib = _StubLibrary()
-    monkeypatch.setattr(_build, "load_library", lambda name: lib if name == "roll_gather"
-                        else pytest.fail(f"loaded {name}"))
+
+    def load(name):
+        if name not in ("roll_gather", "roll_gather_tf32"):
+            pytest.fail(f"loaded {name}")
+        lib.loaded.append(name)
+        return lib
+
+    monkeypatch.setattr(_build, "load_library", load)
     monkeypatch.setattr(rg, "_cuda_stream", lambda dev: contextlib.nullcontext(0))
     # the persistent grid of the global-panel variant: one block per SM
     monkeypatch.setattr(torch.cuda, "get_device_properties",
@@ -418,7 +435,10 @@ def test_cuda_wrapper_launches_k5(state_dtype, slot_dtype, code, slot16, stub_li
     #  offs, B, l_pad, R, width, samples a block, scratch, grid, stream)
     assert args[:2] == (code, slot16) and args[12:16] == (2, plan.l_pad, 3, 128)
     assert list(args[11]) == list(plan.offs_c + plan.offs_q)
-    assert rg.launch_counts() == {"roll_rounds": 1, "roll_rounds_gpanels": 0}
+    # each state type has its library: f32 and bf16 build apart
+    assert stub_library.loaded == ["roll_gather_tf32" if code == 0 else "roll_gather"]
+    assert rg.launch_counts() == {"roll_rounds": 1, "roll_rounds_gpanels": 0,
+                                  "roll_rounds_tc_gpanels": 0, "roll_rounds_wide": 0}
 
 
 def test_cuda_wrapper_mask_bits():
@@ -432,15 +452,15 @@ def test_cuda_wrapper_mask_bits():
 
 
 def test_cuda_wrapper_checks_and_raises(stub_library, monkeypatch):
-    """No fallback: operands the kernel does not take (a width above its
-    128 columns), a raster too large for shared memory (in bf16, or in f32
-    even with the gather panels in global memory) and a failed build all
-    raise."""
+    """No fallback: operands the kernels do not take (a width above the
+    wide kernels' 512 columns), a raster too large for shared memory even
+    with the gather panels in global memory (in f32 and in bf16) and a
+    failed build all raise."""
     from tpugnn_torch.kernels import _build
 
-    _, ops160 = _ops(3, "float32", h=160)
-    with pytest.raises(ValueError, match="at most 128"):
-        rg._roll_rounds_cuda(ops160, rounds=1)
+    _, ops640 = _ops(3, "float32", h=640)
+    with pytest.raises(ValueError, match="at most 512"):
+        rg._roll_rounds_cuda(ops640, rounds=1)
     _, ops = _ops(3, "float32")
     with pytest.raises(ValueError, match="rounds"):
         rg._roll_rounds_cuda(ops, rounds=0)
@@ -448,10 +468,10 @@ def test_cuda_wrapper_checks_and_raises(stub_library, monkeypatch):
     stub_library.gpanels_smem = fd.SMEM_LIMIT + 1
     with pytest.raises(ValueError, match="shared memory.*global memory.*limit 232448"):
         rg._roll_rounds_cuda(ops, rounds=1)
-    stub_library.gpanels_smem = 0      # bf16 never takes the global panels
-    _, ops16 = _ops(3, "bfloat16")
-    with pytest.raises(ValueError, match="shared memory"):
+    _, ops16 = _ops(3, "bfloat16")     # bf16 takes its global panels as f32 does
+    with pytest.raises(ValueError, match="shared memory.*global memory.*limit 232448"):
         rg._roll_rounds_cuda(ops16, rounds=1)
+    assert ("tcgp", ops16.xc.shape[1]) in stub_library.queries
 
     def no_nvcc(name):
         raise RuntimeError("nvcc not found")
@@ -459,7 +479,8 @@ def test_cuda_wrapper_checks_and_raises(stub_library, monkeypatch):
     monkeypatch.setattr(_build, "load_library", no_nvcc)
     with pytest.raises(RuntimeError, match="nvcc"):
         rg._roll_rounds_cuda(ops, rounds=1)
-    assert rg.launch_counts() == {"roll_rounds": 0, "roll_rounds_gpanels": 0}
+    assert rg.launch_counts() == {"roll_rounds": 0, "roll_rounds_gpanels": 0,
+                                  "roll_rounds_tc_gpanels": 0, "roll_rounds_wide": 0}
     assert not stub_library.calls and not stub_library.gpanels_calls
 
 
@@ -500,7 +521,8 @@ def test_cuda_wrapper_sizes_the_block_by_state_dtype(d, state_dtype, slot_dtype,
         # (..., B, l_pad, R, width, samples a block, scratch, grid, stream)
         assert args[12:17] == (2, plan.l_pad, 2, 128, 1)
         assert args[18] == (2 if state_dtype == "float32" else 0)
-        assert rg.launch_counts() == {"roll_rounds": 1, "roll_rounds_gpanels": 0}
+        assert rg.launch_counts() == {"roll_rounds": 1, "roll_rounds_gpanels": 0,
+                                      "roll_rounds_tc_gpanels": 0, "roll_rounds_wide": 0}
         assert stub_library.queries == [(code, plan.l_pad)]
     else:
         (args,) = stub_library.gpanels_calls
@@ -508,7 +530,8 @@ def test_cuda_wrapper_sizes_the_block_by_state_dtype(d, state_dtype, slot_dtype,
         #  B, l_pad, R, width, grid, stream)
         assert args[11:16] == (2, plan.l_pad, 2, 128, 2)
         assert not stub_library.calls
-        assert rg.launch_counts() == {"roll_rounds": 0, "roll_rounds_gpanels": 1}
+        assert rg.launch_counts() == {"roll_rounds": 0, "roll_rounds_gpanels": 1,
+                                      "roll_rounds_tc_gpanels": 0, "roll_rounds_wide": 0}
         assert stub_library.queries == [(code, plan.l_pad), ("gp", plan.l_pad)]
 
 

@@ -284,7 +284,8 @@ def _align16(x):
 
 def _k1_smem(code, m, n, dc, dq, gpanels=False, stash=False):
     """fused_rounds_smem_bytes / fused_rounds_gpanels_smem_bytes /
-    fused_rounds_stash_smem_bytes as csrc/fused_rounds.cu computes them.
+    fused_rounds_stash_smem_bytes as csrc/fused_rounds_tf32.cu (f32) and
+    csrc/fused_rounds.cu (bf16) compute them.
     f32 K1 and K2a (one kernel, its stash flag aside): panels, one 128-row
     f32 chunk buffer (row stride 132) and 16-row slabs of split TF32
     weights (1 KB a row: two beside shared panels, three beside global
@@ -385,8 +386,8 @@ def k1_library(monkeypatch):
     from tpugnn_torch.kernels import _build
 
     lib = _K1Library()
-    monkeypatch.setattr(_build, "load_library", lambda name: lib if name == "fused_rounds"
-                        else pytest.fail(f"loaded {name}"))
+    monkeypatch.setattr(_build, "load_library", lambda name: lib if name in (
+        "fused_rounds", "fused_rounds_tf32") else pytest.fail(f"loaded {name}"))
     monkeypatch.setattr(fd, "_cuda_stream", lambda dev: contextlib.nullcontext(0))
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda dev: types.SimpleNamespace(multi_processor_count=132))
@@ -456,7 +457,8 @@ def k2b_f32_library(k1_library, monkeypatch):
     from tpugnn_torch.kernels import _build
 
     lib = _K2bF32Library()
-    libs = {"fused_rounds": k1_library, "fused_backward_tf32": lib}
+    libs = {"fused_rounds": k1_library, "fused_rounds_tf32": k1_library,
+            "fused_backward_tf32": lib}
     monkeypatch.setattr(_build, "load_library",
                         lambda name: libs[name] if name in libs else pytest.fail(f"loaded {name}"))
     return lib
@@ -468,7 +470,8 @@ def k2b_library(k1_library, monkeypatch):
     from tpugnn_torch.kernels import _build
 
     lib = _K2bLibrary()
-    libs = {"fused_rounds": k1_library, "fused_backward": lib}
+    libs = {"fused_rounds": k1_library, "fused_rounds_tf32": k1_library,
+            "fused_backward": lib}
     monkeypatch.setattr(_build, "load_library",
                         lambda name: libs[name] if name in libs else pytest.fail(f"loaded {name}"))
     return lib
@@ -481,7 +484,7 @@ def _slot_args(g):
 
 
 def test_stub_sizes_shared_memory_as_the_card():
-    """The stub's sizes are those csrc/fused_rounds.cu computes on the
+    """The stub's sizes are those csrc/fused_rounds{,_tf32}.cu compute on the
     card: f32 K1 231,424 B at d=11 (fits), 280,576 at d=13 and 337,920 at
     d=15 (over SMEM_LIMIT); f32 K2a the same (K1's kernel); bf16, and f32
     K1 without the panels, fit through d=15."""
@@ -842,11 +845,51 @@ def test_training_raises_before_k2a_where_k2b_does_not_fit(k1_library, k2b_libra
     assert not any(fd.launch_counts().values())
 
 
-@pytest.mark.parametrize("entry", ["k1", "k5", "k2"])
-def test_wrappers_refuse_widths_above_128(entry, k1_library, monkeypatch):
-    """H = 160 is refused by every rounds wrapper with a ValueError that
-    names the kernels' limit, before a library call."""
-    g, args = _k1_call(3, 160, "float32")
+class _WideLibrary:
+    """The wide rounds library as far as a launch (csrc/wide_rounds.cu's
+    entry points): records each launch."""
+
+    def __init__(self):
+        self.calls = []
+
+    def wide_rounds_bwd_scratch_bytes(self, code, b, m, n, dc, dq, w):
+        return 16
+
+    def wide_rounds_bwd_segments(self):
+        return 4
+
+    def __getattr__(self, entry):
+        def launch(*args):
+            self.calls.append((entry, args))
+            return 0
+        return launch
+
+
+@pytest.fixture
+def wide_library(k1_library, monkeypatch):
+    """The stub wide library beside the stub 128-column ones: K1/K2a's, and
+    K2b's and K5's that fail a test which reaches them."""
+    from tpugnn_torch.kernels import _build
+
+    lib = _WideLibrary()
+    libs = {"fused_rounds": k1_library, "fused_rounds_tf32": k1_library, "wide_rounds": lib}
+    monkeypatch.setattr(_build, "load_library",
+                        lambda name: libs[name] if name in libs else pytest.fail(f"loaded {name}"))
+    monkeypatch.setattr(rg, "_cuda_stream", lambda dev: contextlib.nullcontext(0))
+    rg.reset_launch_counts()
+    return lib
+
+
+@pytest.mark.parametrize("entry,h", [("k1", 160), ("k5", 160), ("k2", 160), ("k1", 640),
+                                     ("k5", 640), ("k2", 640)])
+def test_wrappers_route_widths_above_128(entry, h, wide_library):
+    """H = 160 reaches the wide kernels, padded to 256, from every rounds
+    wrapper (K1; K5; K2a and K2b under autograd), with the LayerNorm over
+    160 columns, and no 128-column kernel; past the wide kernels' 512 (H =
+    640) every wrapper raises a ValueError that names that limit, before
+    any library call."""
+    g, args = _k1_call(3, h, "float32")
+    m, n = g.n_checks_pad, g.n_qubits_pad
     if entry == "k1":
         call = lambda: fd._rounds_cuda(*args)
     elif entry == "k5":
@@ -854,10 +897,49 @@ def test_wrappers_refuse_widths_above_128(entry, k1_library, monkeypatch):
         call = lambda: rg._roll_rounds_cuda(rg.to_raster(*args[:3], plan, args[4], "float32"),
                                             rounds=1)
     else:
-        call = lambda: fb.trained_rounds(*args, kernels=True)
-    with pytest.raises(ValueError, match="at most 128"):
-        call()
-    assert not k1_library.calls
+        w = fd.RoundWeights(*[t.clone().requires_grad_(True) for t in args[4]])
+
+        def call():
+            out_c, out_q = fb.trained_rounds(*args[:4], w, 2, "float32", kernels=True)
+            (out_c.sum() + out_q.sum()).backward()
+            return out_c, out_q
+    if h > fd.WIDE_MAX:
+        with pytest.raises(ValueError, match="at most 512"):
+            call()
+        assert not wide_library.calls and not any(fd.launch_counts().values())
+        return
+    out_c, out_q = call()
+    assert out_c.shape[-1] == h and out_q.shape[-1] == h
+    names = [name for name, _ in wide_library.calls]
+    if entry == "k1":
+        ((name, a),) = wide_library.calls
+        # (dtype code, 13 pointers, B, M, N, Dc, Dq, R, W, width, stream)
+        assert name == "wide_rounds_launch" and a[0] == 0
+        assert a[14:17] == (2, m, n) and a[19:22] == (2, 256, 160)
+        assert a[10] is None and a[11] is None            # no stash
+        assert fd.launch_counts()["fused_rounds_wide"] == 1
+    elif entry == "k5":
+        ((name, a),) = wide_library.calls
+        # (dtype code, slot16, 12 pointers, B, L, R, W, width, stream)
+        assert name == "wide_roll_launch" and a[:2] == (0, 0)
+        assert a[14:19] == (2, plan.l_pad, 1, 256, 160)
+        assert rg.launch_counts()["roll_rounds_wide"] == 1
+    else:
+        assert names == ["wide_rounds_launch", "wide_rounds_bwd_launch"]
+        fwd, bwd = (a for _, a in wide_library.calls)
+        assert fwd[10] is not None and fwd[11] is not None   # K2a: the stash
+        # (dtype code, 28 pointers, B, M, N, Dc, Dq, R, W, width, msg_width,
+        #  chunks, stream)
+        assert bwd[29:32] == (2, m, n) and bwd[34:38] == (2, 256, 160, 160)
+        c = fd.launch_counts()
+        assert c["fused_rounds_fwd_stash_wide"] == 1 and c["fused_rounds_bwd_wide"] == 1
+    assert not k128_launches()
+
+
+def k128_launches():
+    """The launches of the 128-column rounds kernels recorded."""
+    c = {**fd.launch_counts(), **rg.launch_counts()}
+    return {k: v for k, v in c.items() if v and not k.endswith("_wide")}
 
 
 def _msg_weights(h, mh, seed=0):
@@ -878,21 +960,34 @@ def _msg_weights(h, mh, seed=0):
     return fd.RoundWeights(**out)
 
 
-def test_msg_hidden_other_than_hidden_is_refused(k1_library):
-    """msg_hidden may differ from hidden, packed at the larger width (K1's
-    wrapper launches a model of H=32, MH=96 with the LayerNorm over 32 and
-    returns width 32, and MH < H packs at H); past 128 it is refused with
-    the width refusal, before a library call."""
+@pytest.mark.parametrize("h,mh,route", [(32, 96, "128"), (32, 16, "128"), (32, 160, "wide"),
+                                        (200, 96, "wide"), (32, 1000, "refused")])
+def test_msg_hidden_other_than_hidden_routes_by_pack_width(h, mh, route, wide_library):
+    """msg_hidden may differ from hidden, packed at the larger width: a pack
+    of at most 128 columns reaches the 128-column K1 (H=32, MH=96 with the
+    LayerNorm over 32 and width 32 returned; MH < H packs at H), a wider one
+    the wide K1 at the next multiple of 128 (H=32 with MH=160, and H=200
+    with MH=96, at 256), and past 512 it is refused with the limit named,
+    before a library call."""
     g = build_code("surface", 5).to("cpu")
-    xc = torch.zeros((2, g.n_checks_pad, 32))
-    xq = torch.zeros((2, g.n_qubits_pad, 32))
-    call = lambda mh: fd._rounds_cuda(xc, xq, xc[..., :1], fd.make_operators(g),
-                                      _msg_weights(32, mh), 2, "float32")
-    out_c, out_q = call(96)
-    ((name, a),) = k1_library.calls
-    assert name == "fused_rounds_launch" and a[16] == 32 and out_c.shape[-1] == 32
-    assert fd.pack_weights_f32(_msg_weights(32, 16))[0].shape == (10, 32, 32)
-    k1_library.calls.clear()
-    with pytest.raises(ValueError, match="at most 128"):
-        call(160)
-    assert not k1_library.calls
+    xc = torch.zeros((2, g.n_checks_pad, h))
+    xq = torch.zeros((2, g.n_qubits_pad, h))
+    from tpugnn_torch.kernels import _build
+
+    k128 = _build.load_library("fused_rounds")
+    call = lambda: fd._rounds_cuda(xc, xq, xc[..., :1], fd.make_operators(g),
+                                   _msg_weights(h, mh), 2, "float32")
+    if route == "refused":
+        with pytest.raises(ValueError, match="at most 512"):
+            call()
+        assert not k128.calls and not wide_library.calls
+        return
+    out_c, out_q = call()
+    assert out_c.shape[-1] == h and out_q.shape[-1] == h
+    assert fd.pack_weights_f32(_msg_weights(h, mh))[0].shape[-1] == max(h, mh)
+    if route == "128":
+        ((name, a),) = k128.calls
+        assert name == "fused_rounds_launch" and a[16] == h and not wide_library.calls
+    else:
+        ((name, a),) = wide_library.calls
+        assert name == "wide_rounds_launch" and a[20:22] == (256, h) and not k128.calls

@@ -1,6 +1,6 @@
 """The precision scheme of the f32 rounds kernel on tensor cores (3xTF32).
 
-K1 (``csrc/fused_rounds.cu``) forms every f32 product of the rounds as
+K1 (``csrc/fused_rounds_tf32.cu``) forms every f32 product of the rounds as
 three TF32 products on ``mma.sync``: each operand ``x`` is split into
 ``hi = tf32(x)`` and ``lo = tf32(x - hi)`` (``cvt.rna``: 10 mantissa bits,
 ties away from zero) and ``a @ w`` accumulates ``a_lo w_hi + a_hi w_lo +

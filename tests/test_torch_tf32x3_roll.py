@@ -2,7 +2,7 @@
 cores (3xTF32).
 
 With f32 states K5 (``csrc/roll_gather.cu``) and K2a (K1's kernel in
-``csrc/fused_rounds.cu`` with its stash flag) form every product as three
+``csrc/fused_rounds_tf32.cu`` with its stash flag) form every product as three
 TF32 products of operands split into TF32 halves, as f32 K1 does
 (``tests/test_torch_tf32x3.py``).  These tests hold:
 
@@ -109,6 +109,7 @@ class _RollLibrary:
 
     def __init__(self):
         self.calls = []
+        self.loaded = []
 
     def roll_rounds_smem_bytes(self, code, l_pad):
         return _k5_smem(l_pad) if code == 0 else 0     # bf16 fits
@@ -142,8 +143,14 @@ def roll_library(monkeypatch):
     from tpugnn_torch.kernels import _build
 
     lib = _RollLibrary()
-    monkeypatch.setattr(_build, "load_library", lambda name: lib if name == "roll_gather"
-                        else pytest.fail(f"loaded {name}"))
+
+    def load(name):    # f32 and bf16 states build apart
+        if name not in ("roll_gather_tf32", "roll_gather"):
+            pytest.fail(f"loaded {name}")
+        lib.loaded.append(name)
+        return lib
+
+    monkeypatch.setattr(_build, "load_library", load)
     monkeypatch.setattr(rg, "_cuda_stream", lambda dev: contextlib.nullcontext(0))
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda dev: types.SimpleNamespace(multi_processor_count=SMS))
@@ -197,6 +204,7 @@ def test_bf16_k5_takes_its_matrices_unsplit(roll_library, monkeypatch):
     with _recorded_packs(monkeypatch, rg) as packs:
         rg._roll_rounds_cuda(ops, rounds=2)
     ((entry, args),) = roll_library.calls
+    assert roll_library.loaded == ["roll_gather"]
     assert not packs and entry == "roll_rounds_launch" and args[:2] == (1, 0)
     # (..., B, l_pad, R, width, samples a block, scratch, grid, stream)
     assert args[12:19] == (4, ops.xc.shape[1], 2, 128, 1, None, 0)
@@ -213,10 +221,11 @@ def test_k5_wrapper_stacks_small_rasters(d, batch, samples, roll_library):
     plan, ops = _raster(d, 128, batch)
     rg._roll_rounds_cuda(ops, rounds=3)
     ((entry, args),) = roll_library.calls
-    assert entry == "roll_rounds_launch"
+    assert entry == "roll_rounds_launch" and roll_library.loaded == ["roll_gather_tf32"]
     assert args[12:17] == (batch, plan.l_pad, 3, 128, samples)
     assert args[18] == min(batch // samples, SMS)
-    assert rg.launch_counts() == {"roll_rounds": 1, "roll_rounds_gpanels": 0}
+    assert rg.launch_counts() == {"roll_rounds": 1, "roll_rounds_gpanels": 0,
+                                  "roll_rounds_tc_gpanels": 0, "roll_rounds_wide": 0}
 
 
 @pytest.mark.parametrize("d,gpanels", [(3, False), (9, False), (11, False), (13, False),
@@ -234,10 +243,12 @@ def test_k5_wrapper_places_the_panel(d, gpanels, roll_library):
         #  B, l_pad, R, width, grid, stream)
         assert entry == "roll_rounds_gpanels_launch"
         assert args[11:16] == (200, plan.l_pad, 2, 128, min(200, SMS))
-        assert rg.launch_counts() == {"roll_rounds": 0, "roll_rounds_gpanels": 1}
+        assert rg.launch_counts() == {"roll_rounds": 0, "roll_rounds_gpanels": 1,
+                                      "roll_rounds_tc_gpanels": 0, "roll_rounds_wide": 0}
     else:
         assert entry == "roll_rounds_launch" and args[:2] == (0, 0)
-        assert rg.launch_counts() == {"roll_rounds": 1, "roll_rounds_gpanels": 0}
+        assert rg.launch_counts() == {"roll_rounds": 1, "roll_rounds_gpanels": 0,
+                                      "roll_rounds_tc_gpanels": 0, "roll_rounds_wide": 0}
 
 
 class _K1Library:
@@ -262,8 +273,8 @@ def k1_library(monkeypatch):
     from tpugnn_torch.kernels import _build
 
     lib = _K1Library()
-    monkeypatch.setattr(_build, "load_library", lambda name: lib if name == "fused_rounds"
-                        else pytest.fail(f"loaded {name}"))
+    monkeypatch.setattr(_build, "load_library", lambda name: lib if name in (
+        "fused_rounds", "fused_rounds_tf32") else pytest.fail(f"loaded {name}"))
     monkeypatch.setattr(fd, "_cuda_stream", lambda dev: contextlib.nullcontext(0))
     fd.reset_launch_counts()
     return lib

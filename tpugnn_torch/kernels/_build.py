@@ -26,11 +26,17 @@ __all__ = ["BUILD_DIR", "HEADERS", "NVCC_FLAGS", "SOURCES", "build_libraries", "
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-# library name -> source
-SOURCES = {"fused_rounds": "fused_rounds.cu", "fused_backward": "fused_backward.cu",
+# library name -> source: the 128-column K1 and K2a, K2b and K5 each build in
+# two libraries, bf16 and f32 states, so that their nvcc runs (the build's
+# longest) go in parallel; wide_rounds holds K1, K2a, K2b and K5 above 128
+# columns
+SOURCES = {"fused_rounds": "fused_rounds.cu", "fused_rounds_tf32": "fused_rounds_tf32.cu",
+           "fused_backward": "fused_backward.cu",
            "fused_backward_tf32": "fused_backward_tf32.cu", "spmm": "spmm.cu",
-           "sddmm": "sddmm.cu", "roll_gather": "roll_gather.cu"}
-HEADERS = ("rounds_common.cuh", "rounds_mma.cuh", "backward_common.cuh")
+           "sddmm": "sddmm.cu", "roll_gather": "roll_gather.cu",
+           "roll_gather_tf32": "roll_gather_tf32.cu", "wide_rounds": "wide_rounds.cu"}
+HEADERS = ("rounds_common.cuh", "rounds_mma.cuh", "backward_common.cuh",
+           "fused_rounds_api.cuh", "roll_gather_api.cuh", "wide_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-lineinfo", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,17 +50,27 @@ _BACKWARD = {
     "fused_rounds_bwd_gpanels": ([_I] * 4, _I),
 }
 _F32_BWD_LAUNCH = ([_P] * 22 + [_I] * 9 + [_P], _I)
+# K1's and K2a's two libraries (bf16 and f32 states) share their entry points
+# (csrc/fused_rounds_api.cuh)
+_FORWARD = {
+    "fused_rounds_smem_bytes": ([_I] * 5, ctypes.c_longlong),
+    "fused_rounds_gpanels_smem_bytes": ([_I] * 5, ctypes.c_longlong),
+    "fused_rounds_stash_smem_bytes": ([_I] * 5, ctypes.c_longlong),
+    "fused_rounds_launch": ([_I] + [_P] * 9 + [_I] * 7 + [_P], _I),
+    "fused_rounds_gpanels_launch": ([_I] + [_P] * 10 + [_I] * 8 + [_P], _I),
+    "fused_rounds_stash_launch": ([_I] + [_P] * 11 + [_I] * 7 + [_P], _I),
+    "fused_rounds_stash_gpanels_launch": ([_I] + [_P] * 12 + [_I] * 8 + [_P], _I),
+}
+# K5's two libraries (bf16 and f32 states) share these entry points
+# (csrc/roll_gather_api.cuh); each has its global-panel variant's own
+_ROLL = {
+    "roll_rounds_smem_bytes": ([_I] * 2, ctypes.c_longlong),
+    "roll_rounds_launch": ([_I] * 2 + [_P] * 10 + [_I] * 5 + [_P, _I, _P], _I),
+}
 # C entry points per library: name -> (argument types, result type)
 _SIGNATURES = {
-    "fused_rounds": {
-        "fused_rounds_smem_bytes": ([_I] * 5, ctypes.c_longlong),
-        "fused_rounds_gpanels_smem_bytes": ([_I] * 5, ctypes.c_longlong),
-        "fused_rounds_stash_smem_bytes": ([_I] * 5, ctypes.c_longlong),
-        "fused_rounds_launch": ([_I] + [_P] * 9 + [_I] * 7 + [_P], _I),
-        "fused_rounds_gpanels_launch": ([_I] + [_P] * 10 + [_I] * 8 + [_P], _I),
-        "fused_rounds_stash_launch": ([_I] + [_P] * 11 + [_I] * 7 + [_P], _I),
-        "fused_rounds_stash_gpanels_launch": ([_I] + [_P] * 12 + [_I] * 8 + [_P], _I),
-    },
+    "fused_rounds": _FORWARD,
+    "fused_rounds_tf32": _FORWARD,
     "fused_backward": {**_BACKWARD,
                        "fused_rounds_bwd_launch": ([_P] * 17 + [_I] * 8 + [_P], _I)},
     "fused_backward_tf32": {**_BACKWARD,
@@ -72,10 +88,21 @@ _SIGNATURES = {
         "sddmm_edge_hidden_tc_launch": ([_P] * 7 + [_I] * 6 + [_P], _I),
     },
     "roll_gather": {
-        "roll_rounds_smem_bytes": ([_I] * 2, ctypes.c_longlong),
+        **_ROLL,
+        "roll_rounds_tc_gpanels_smem_bytes": ([_I], ctypes.c_longlong),
+        "roll_rounds_tc_gpanels_launch": ([_I] + [_P] * 11 + [_I] * 5 + [_P], _I),
+    },
+    "roll_gather_tf32": {
+        **_ROLL,
         "roll_rounds_gpanels_smem_bytes": ([_I], ctypes.c_longlong),
-        "roll_rounds_launch": ([_I] * 2 + [_P] * 10 + [_I] * 5 + [_P, _I, _P], _I),
         "roll_rounds_gpanels_launch": ([_P] * 11 + [_I] * 5 + [_P], _I),
+    },
+    "wide_rounds": {
+        "wide_rounds_launch": ([_I] + [_P] * 13 + [_I] * 8 + [_P], _I),
+        "wide_roll_launch": ([_I] * 2 + [_P] * 12 + [_I] * 5 + [_P], _I),
+        "wide_rounds_bwd_scratch_bytes": ([_I] * 7, ctypes.c_longlong),
+        "wide_rounds_bwd_segments": ([], _I),
+        "wide_rounds_bwd_launch": ([_I] + [_P] * 28 + [_I] * 10 + [_P], _I),
     },
 }
 

@@ -24,7 +24,9 @@
 // every add, as the JAX kernel's bf16 slot type does (an f32 add then one
 // rounding to bf16 is the bf16 add: 24 >= 2 * 8 + 2 bits).
 //
-// Two instantiations, both on tensor cores:
+// Two instantiations, both on tensor cores, each a library of its own (this
+// source bf16, roll_gather_tf32.cu f32; roll_gather_api.cuh their shared
+// entry points), so that the two build in parallel:
 //   bf16 states (the bench config's pallas_roll and pallas_roll16): tcr::
 //     below, on K1's routine (rounds_mma.cuh, tc).  Every operand of every
 //     product is a bf16 value (states, the slot sum and the update hidden
@@ -73,24 +75,17 @@
 // CUDA-core peak.  One block per SM by shared memory (bf16 at d=11 187,168
 // B).
 
+
 #include "rounds_common.cuh"
 #include "rounds_mma.cuh"
 
 namespace {
+constexpr int kDtype = 1;   // the state type this library builds: bfloat16
+}  // namespace
 
-using namespace rounds;
+#include "roll_gather_api.cuh"
 
-constexpr int SLOTS = 4;
-
-struct Offsets {
-  int o[SLOTS];
-};
-
-// source cell of slot offset o from cell r, on a raster of L cells
-__device__ __forceinline__ int wrap(int r, int o, int L) {
-  const int src = r + o;
-  return src < 0 ? src + L : (src >= L ? src - L : src);
-}
+namespace {
 
 // ---------------------------------------------------------------------------
 // The bf16 path on tensor cores (rounds_mma.cuh), K1's tcp:: schedule on the
@@ -347,269 +342,73 @@ roll_rounds_tc_kernel(const bf16* xc_in, const bf16* xq_in, const float* __restr
   }
 }
 
-}  // namespace tcr
 
-// ---------------------------------------------------------------------------
-// The f32 path on tensor cores (3xTF32, rounds_mma.cuh, tf32): K1's t3p::
-// round on the raster, each product as three TF32 products of operands
-// split into hi and lo halves, a slab's products summed apart and added to
-// the f32 running sum; the slot sum, relu, biases, degree and syndrome
-// terms, residual and LayerNorm in f32 on the CUDA cores.  9 warps, chunks
-// of 144 rows (d=11's raster side in one), two 16-row slabs of split
-// weights.  One f32 chunk buffer holds each product's A operand in turn (x,
-// the slot sum hs, x again from the state, the update hidden hc); the
-// residual reads x from the state.  ONE gather panel, the source of the
-// side being updated:
-//   A   P = x_q @ ws_c
-//   B   check cells from x_c (cur) into the other state buffer (nxt), the
-//       slot sum over P: the old x_c stays readable
-//   A'  P = x_c (cur) @ ws_q
-//   C   qubit cells in place, the slot sum over P
-// x_c ping-pongs between the output and a per-block scratch, arranged so
-// that the last round writes the output.  P lives in shared memory (SP) or,
-// where it does not fit, in the per-block scratch too (GP); the arithmetic
-// is the same.  A persistent grid of blocks walks the samples; with SP a
-// small raster's samples run S to a block, as one raster of S L rows, each
-// sample's slot sources wrapping within its own L cells.
-namespace t3r {
-
-using namespace rounds::tf32;
-using tc::ld_vec2;
-using tc::mask_columns;
-using tc::quad_sum;
-
-// warps, weight slab rows, ring depth
-constexpr int NWARP = 9, SR = 16, NS = 2;
-constexpr int NTH = 32 * NWARP, CRN = 16 * NWARP;   // 144-row chunks
-constexpr size_t CHUNK = size_t(CRN) * LDX * sizeof(float);
-
-// rows: the block's raster rows (S samples of L cells)
-template <bool GP>
-__host__ __device__ inline size_t smem_bytes(int rows, int L) {
-  return (GP ? 0 : align16(size_t(rows) * H * sizeof(float))) + CHUNK + ring_bytes(SR, NS) +
-         align16(size_t(2) * L);
+// The global-panel variant (bf16 rasters past d=15: at d=17, l_pad = 328,
+// the shared layout needs 264,336 B even with 32-row slabs): both panels in
+// the block's slice of a per-block scratch [grid][2 L][H], swizzled as in
+// shared memory and read and written through the same generic loads and
+// stores, on a persistent grid of `grid` blocks that walk the samples; the
+// chunk buffers, the 64-row slab ring and the slot bits stay in shared
+// memory (113,152 B and 2 L bytes of slot bits).  Only where the panels live
+// changes, not an operation or its order, so where both layouts fit they
+// give the same bits (as bf16 K1's do).
+template <int SR, int NWARP>
+__host__ __device__ inline size_t gp_smem_bytes(int L) {
+  return 2 * chunk_bytes<NWARP>() + slab_bytes(SR) + align16(size_t(2) * L);
 }
 
-struct Smem {
-  float* panel;          // [rows][H] swizzled, the gather source
-  float* xs;             // [CRN][LDX] the chunk's A operand
-  float* ring;           // [NS][SR / 8][KSTEP] weight slabs
-  unsigned char* bits;   // [2][L] slot-mask bits: check cells, then qubit cells
-};
-
-// gp_panel: the block's global panel [rows][H] (GP), or nullptr
-template <bool GP>
-__device__ Smem carve(unsigned char* base, int rows, float* gp_panel) {
+template <int SR, int NWARP>
+__device__ Smem carve_gp(unsigned char* base, int L, bf16* panels) {
   Smem s;
   size_t o = 0;
-  if (GP) {
-    s.panel = gp_panel;
-  } else {
-    s.panel = reinterpret_cast<float*>(base + o);  o += align16(size_t(rows) * H * sizeof(float));
-  }
-  s.xs = reinterpret_cast<float*>(base + o);       o += CHUNK;
-  s.ring = reinterpret_cast<float*>(base + o);     o += ring_bytes(SR, NS);
+  s.ys_c = panels;
+  s.ys_q = panels + size_t(L) * H;
+  s.xs = reinterpret_cast<bf16*>(base + o);    o += chunk_bytes<NWARP>();
+  s.hs = reinterpret_cast<bf16*>(base + o);    o += chunk_bytes<NWARP>();
+  s.slab = reinterpret_cast<bf16*>(base + o);  o += slab_bytes(SR);
   s.bits = base + o;
   return s;
 }
 
-template <bool ACC = false>
-__device__ __forceinline__ void pass(const float* A, const float* __restrict__ W,
-                                     Ring<SR, NS>& rg, const float* next, float (&acc)[NT][4],
-                                     bool active) {
-  mma_pass<SR, NS, ACC, NTH>(A, W, rg, next, acc, active);
-}
-
-// Phases B (CHECK) and C: rows [0, rows) (S samples of L cells) of state
-// x_src updated into x_dst (which may alias it), the slot sum over the
-// panel ys; CHECK adds the syndrome term.  W is the side's five split
-// matrices (ws unused); `after` is the product that follows the last chunk.
-template <bool CHECK>
-__device__ void update_cells(const float* x_src, float* x_dst, int rows, int L, const float* ys,
-                             const unsigned char* bits, Offsets offs, const float* syn,
-                             const float* __restrict__ degbo, const float* __restrict__ W,
-                             const float* __restrict__ vec, float* xs, Ring<SR, NS>& rg,
-                             const float* after, int width) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  float* xa = xs + 16 * warp * LDX;
-  const float* wd = W + M_WD * MAT;
-  const float* ux = W + M_UX * MAT;
-  const float* wf = W + M_WF * MAT;
-  const float* w1 = W + M_W1 * MAT;
-
-  for (int row0 = 0; row0 < rows; row0 += CRN) {
-    const int r0 = row0 + 16 * warp;
-    const int n = max(0, min(16, rows - r0));
-    const bool active = n > 0;
-    load_rows_warp(xa, x_src + size_t(r0) * H, n);
-    float acc[NT][4];
-
-    // ydb = x @ wd + b0, then the four-slot sum over the panel in offs
-    // order (a masked slot adds exactly 0); hs replaces x in the chunk buffer
-    pass(xa, wd, rg, wf, acc, active);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const float2 b0 = ld_vec2(vec, V_B0, 8 * j + 2 * t);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        acc[j][2 * h] += b0.x;
-        acc[j][2 * h + 1] += b0.y;
-      }
-    }
-    int cell[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + g + 8 * h;
-      const int base = r < rows ? r / L * L : 0;   // the row's sample
-      cell[h] = r < rows ? r - base : L - 1;       // a row past the last reads the last cell
-      float hsum[NT][2];
-#pragma unroll
-      for (int j = 0; j < NT; ++j) hsum[j][0] = hsum[j][1] = 0.f;
-      if (r < rows) {
-        const unsigned m = bits[cell[h]];
-#pragma unroll
-        for (int k = 0; k < SLOTS; ++k) {
-          if (!((m >> k) & 1u)) continue;
-          const int src = base + wrap(cell[h], offs.o[k], L);
-#pragma unroll
-          for (int j = 0; j < NT; ++j) {
-            const float2 y = ld2(ys + swz(src, 8 * j + 2 * t));
-            hsum[j][0] += fmaxf(y.x + acc[j][2 * h], 0.f);
-            hsum[j][1] += fmaxf(y.y + acc[j][2 * h + 1], 0.f);
-          }
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-        st2(xa + (g + 8 * h) * LDX + 8 * j + 2 * t, hsum[j][0], hsum[j][1]);
-    }
-    __syncwarp();
-
-    // update-MLP pre-activation: hs @ (wo @ ua), then x again from the
-    // state and + x @ ux, + (deg * bo) @ ua + syn * uc_s + ub0
-    pass(xa, wf, rg, ux, acc, active);
-    load_rows_warp(xa, x_src + size_t(r0) * H, n);
-    pass<true>(xa, ux, rg, w1, acc, active);
-    float sv[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + g + 8 * h;
-      sv[h] = (CHECK && r < rows) ? syn[r] : 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int c = 8 * j + 2 * t;
-      const float2 ub0 = ld_vec2(vec, V_UB0, c);
-      float2 ucs = make_float2(0.f, 0.f);
-      if (CHECK) ucs = ld_vec2(vec, V_UCS, c);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float2 db = ld_vec2(degbo, cell[h], c);
-        float p0 = acc[j][2 * h] + db.x;
-        float p1 = acc[j][2 * h + 1] + db.y;
-        if (CHECK) {
-          p0 += __fmul_rn(sv[h], ucs.x);
-          p1 += __fmul_rn(sv[h], ucs.y);
-        }
-        st2(xa + (g + 8 * h) * LDX + c, fmaxf(p0 + ub0.x, 0.f), fmaxf(p1 + ub0.y, 0.f));
-      }
-    }
-    __syncwarp();
-
-    // update output, residual (x from the state: each thread reads the
-    // entries it writes), LayerNorm (two-pass, eps 1e-6, over the first
-    // `width` columns); the rows go straight to the state
-    pass(xa, w1, rg, row0 + CRN < rows ? wd : after, acc, active);
-    const float inv_w = 1.f / width;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + g + 8 * h;
-      const float* xrow = x_src + size_t(r < rows ? r : 0) * H + 2 * t;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const float2 ub1 = ld_vec2(vec, V_UB1, 8 * j + 2 * t);
-        const float2 x = r < rows ? ld2(xrow + 8 * j) : make_float2(0.f, 0.f);
-        acc[j][2 * h] += x.x + ub1.x;
-        acc[j][2 * h + 1] += x.y + ub1.y;
-        sum += acc[j][2 * h] + acc[j][2 * h + 1];
-      }
-      const float mu = quad_sum(sum) * inv_w;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        acc[j][2 * h] -= mu;
-        acc[j][2 * h + 1] -= mu;
-      }
-      if (width < H) mask_columns(acc, h, t, width);
-      float sq = 0.f;
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-        sq += acc[j][2 * h] * acc[j][2 * h] + acc[j][2 * h + 1] * acc[j][2 * h + 1];
-      const float rs = rsqrtf(quad_sum(sq) * inv_w + 1e-6f);
-      if (r < rows) {
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const int c = 8 * j + 2 * t;
-          const float2 lns = ld_vec2(vec, V_LNS, c), lnb = ld_vec2(vec, V_LNB, c);
-          st2(x_dst + size_t(r) * H + c, acc[j][2 * h] * rs * lns.x + lnb.x,
-              acc[j][2 * h + 1] * rs * lns.y + lnb.y);
-        }
-      }
-    }
-  }
-}
-
-// B stacked samples of S L rows (the states [B][S L][H], syn [B][S L]) on a
-// persistent grid; block i's scratch is scratch[i]: [rows][H] f32 for the
-// check states' other buffer, and with GP the panel [rows][H] after it.
-// mats is the split pack (fused_decoder.py::tf32_split_pack).
-template <bool GP>
-__global__ void __launch_bounds__(NTH, 1)
-roll_rounds_tf32x3_kernel(const float* xc_in, const float* xq_in, const float* __restrict__ syn,
-                          const int* __restrict__ maskbits, const float* __restrict__ degbo,
-                          const float* __restrict__ mats, const float* __restrict__ vecs,
-                          float* xc_out, float* xq_out, Offsets offs_c, Offsets offs_q, int L,
-                          int R, int width, float* scratch, int B, int S) {
+template <int SR, int NWARP, bool SLOT16, bool MASK>
+__global__ void __launch_bounds__(32 * NWARP, 1)
+roll_rounds_tc_gpanels_kernel(const bf16* xc_in, const bf16* xq_in, const float* __restrict__ syn,
+                              const int* __restrict__ maskbits, const float* __restrict__ degbo,
+                              const bf16* __restrict__ mats, const float* __restrict__ vecs,
+                              bf16* xc_out, bf16* xq_out, Offsets offs_c, Offsets offs_q, int L,
+                              int R, int width, bf16* panels, int B) {
+  constexpr int NTH = 32 * NWARP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int rows = S * L;
-  float* other = scratch + size_t(blockIdx.x) * (GP ? 2 : 1) * rows * H;
-  const Smem s = carve<GP>(smem_raw, rows, GP ? other + size_t(rows) * H : nullptr);
+  const Smem s = carve_gp<SR, NWARP>(smem_raw, L, panels + size_t(blockIdx.x) * 2 * L * H);
   for (int e = threadIdx.x; e < 2 * L; e += NTH)
     s.bits[e] = static_cast<unsigned char>(maskbits[e]);
-  const float* wc = mats;                         // check side's 5 matrices
-  const float* wq = mats + size_t(NMAT) * MAT;    // qubit side's 5 matrices
-  const float* proj_c = wq + size_t(M_WS) * MAT;  // P = x_q @ ws_c
-  const float* proj_q = wc + size_t(M_WS) * MAT;  // P = x_c @ ws_q
-  Ring<SR, NS> rg{s.ring, 0};
-  prime<SR, NS, NTH>(rg, proj_c);
-
+  const bf16* wc = mats;
+  const bf16* wq = mats + size_t(NMAT) * HH;
+  const bf16* proj = wq + size_t(M_WS) * HH;   // ys_c = rnd(x_q @ ws_c)
   for (size_t b = blockIdx.x; b < size_t(B); b += gridDim.x) {
-    const float* syn_b = syn + b * rows;
-    float* xc = xc_out + b * size_t(rows) * H;
-    float* xq = xq_out + b * size_t(rows) * H;
-    const float* cur = xc_in + b * size_t(rows) * H;   // the round's check states
+    const float* syn_b = syn + b * L;
+    bf16* xc = xc_out + b * size_t(L) * H;
+    bf16* xq = xq_out + b * size_t(L) * H;
+    Slabs<SR> sl{s.slab, 0};
+    prime<SR, NTH>(sl, proj);
     for (int round = 0; round < R; ++round) {
-      // round 0 reads the inputs; the qubit states are rewritten in place,
-      // the check states into the other buffer, the output in the last round
-      const float* xq_src = round == 0 ? xq_in + b * size_t(rows) * H : xq;
-      float* nxt = (R - 1 - round) % 2 == 0 ? xc : other;
-      project_rows<SR, NS, NTH>(xq_src, rows, proj_c, s.panel, s.xs, rg,
-                                wc + size_t(M_WD) * MAT);
-      update_cells<true>(cur, nxt, rows, L, s.panel, s.bits, offs_c, syn_b, degbo, wc, vecs,
-                         s.xs, rg, proj_q, width);
-      project_rows<SR, NS, NTH>(cur, rows, proj_q, s.panel, s.xs, rg, wq + size_t(M_WD) * MAT);
-      const bool more = round + 1 < R || b + gridDim.x < size_t(B);
-      update_cells<false>(xq_src, xq, rows, L, s.panel, s.bits + L, offs_q, nullptr,
-                          degbo + size_t(L) * H, wq, vecs + NVEC * H, s.xs, rg,
-                          more ? proj_c : nullptr, width);
-      __syncthreads();   // the round's state writes are visible to the next round
-      cur = nxt;
+      const bf16* xc_src = round == 0 ? xc_in + b * size_t(L) * H : xc;
+      const bf16* xq_src = round == 0 ? xq_in + b * size_t(L) * H : xq;
+      project_rows_tc<SR, NTH>(xq_src, L, proj, s.ys_c, s.xs, sl, wc + size_t(M_WS) * HH);
+      update_cells_tc<SR, NWARP, true, SLOT16, MASK>(xc_src, xc, L, s.ys_c, s.ys_q, s.bits,
+                                                     offs_c, syn_b, degbo, wc, vecs, s, sl,
+                                                     wq + size_t(M_WD) * HH, width);
+      update_cells_tc<SR, NWARP, false, SLOT16, MASK>(xq_src, xq, L, s.ys_q, nullptr,
+                                                      s.bits + L, offs_q, nullptr,
+                                                      degbo + size_t(L) * H, wq,
+                                                      vecs + NVEC * H, s, sl,
+                                                      round + 1 < R ? proj : nullptr, width);
+      __syncthreads();   // the round's state and panel writes are visible to the next
     }
   }
 }
 
-}  // namespace t3r
+}  // namespace tcr
 
 // Warps of the bf16 kernel: d=11's raster side (144 cells) is one chunk.
 constexpr int TC_WARPS = 9;
@@ -620,40 +419,20 @@ int tc_slab_rows(int L) {
   return tcr::smem_bytes<64, TC_WARPS>(L) <= tc::SMEM_LIMIT ? 64 : 32;
 }
 
-// one block's shared memory; f32: S samples of L cells (S L rows) a block
-size_t smem_for(int dtype, int L, int S = 1) {
-  if (dtype == 0) return t3r::smem_bytes<false>(S * L, L);
+size_t smem_for(int L, int) {
   return tc_slab_rows(L) == 64 ? tcr::smem_bytes<64, TC_WARPS>(L)
                                : tcr::smem_bytes<32, TC_WARPS>(L);
 }
 
-// The launch's arguments past the kernel's choice: one call of any of the
-// kernels, with `grid` blocks (B, or the persistent grid of the GP variant).
-struct Launch {
-  const void *xc_in, *xq_in;
-  const float* syn;
-  const int* bits;
-  const float* degbo;
-  const void* mats;
-  const float* vecs;
-  void *xc_out, *xq_out;
-  Offsets offs_c, offs_q;
-  int B, L, R, width, grid;
-  float* panels;
-  cudaStream_t stream;
-};
-
-// `extra`: the arguments past `width` (the f32 kernel's scratch, B and S).
-template <typename T, typename K, typename... Extra>
-int launch_kernel(K kernel, int threads, size_t smem, const Launch& a, Extra... extra) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(smem));
-  if (err != cudaSuccess) return int(err);
-  kernel<<<a.grid, threads, smem, a.stream>>>(
-      static_cast<const T*>(a.xc_in), static_cast<const T*>(a.xq_in), a.syn, a.bits, a.degbo,
-      static_cast<const T*>(a.mats), a.vecs, static_cast<T*>(a.xc_out),
-      static_cast<T*>(a.xq_out), a.offs_c, a.offs_q, a.L, a.R, a.width, extra...);
-  return int(cudaGetLastError());
+// The bf16 global-panel variant, built with the LayerNorm's column mask only:
+// at width 128 it masks nothing and takes 1/width = 1/128, so its arithmetic
+// is the unmasked kernel's (two instantiations fewer to build).
+template <bool SLOT16>
+int launch_tc_gp(const Launch& a) {
+  typedef __nv_bfloat16 bf;
+  return launch_kernel<bf>(tcr::roll_rounds_tc_gpanels_kernel<64, TC_WARPS, SLOT16, true>,
+                           32 * TC_WARPS, tcr::gp_smem_bytes<64, TC_WARPS>(a.L), a,
+                           reinterpret_cast<bf*>(a.panels), a.B);
 }
 
 template <bool SLOT16, bool MASK>
@@ -666,90 +445,38 @@ int launch_tc(size_t smem, const Launch& a) {
                            32 * TC_WARPS, smem, a);
 }
 
-// Checks the shapes and reads the offsets; returns 0 or an error.
-int prepare(Launch& a, const void* offs) {
-  if (a.B <= 0 || a.L <= 0 || a.R <= 0 || a.width <= 0 || a.width > H || offs == nullptr)
-    return int(cudaErrorInvalidValue);
-  const int* o = static_cast<const int*>(offs);
-  for (int k = 0; k < SLOTS; ++k) {
-    a.offs_c.o[k] = o[k];
-    a.offs_q.o[k] = o[SLOTS + k];
-    if (a.offs_c.o[k] <= -a.L || a.offs_c.o[k] >= a.L || a.offs_q.o[k] <= -a.L ||
-        a.offs_q.o[k] >= a.L)
-      return int(cudaErrorInvalidValue);
-  }
-  return 0;
+// one block a sample: grid B, no scratch (samples, grid and scratch unused)
+int launch_state(Launch& a, int slot16, int, int, void*) {
+  const size_t smem = smem_for(a.L, 1);
+  if (a.width < H)
+    return slot16 ? launch_tc<true, true>(smem, a) : launch_tc<false, true>(smem, a);
+  return slot16 ? launch_tc<true, false>(smem, a) : launch_tc<false, false>(smem, a);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory one block needs for one sample of L cells; dtype 0 =
-// float32 states, 1 = bfloat16.  f32 samples stacked S to a block (S L <=
-// 144) need no more than one sample of 144 cells, which fits.
-long long roll_rounds_smem_bytes(int dtype, int L) {
-  return (long long)smem_for(dtype, L);
+// Shared memory one block of the bf16 global-panel variant needs.
+long long roll_rounds_tc_gpanels_smem_bytes(int L) {
+  return (long long)tcr::gp_smem_bytes<64, TC_WARPS>(L);
 }
 
-// Shared memory one block of the f32 global-panel variant needs.
-long long roll_rounds_gpanels_smem_bytes(int L) {
-  return (long long)t3r::smem_bytes<true>(L, L);
-}
-
-// xc_in/xq_in/xc_out/xq_out: [B, L, 128] raster states in the state type;
-// syn [B, L] f32; maskbits [2, L] int32 (bit k: slot k of the cell is real;
-// check cells, then qubit cells); degbo [2, L, 128] f32; mats [10, 128, 128]
-// in bf16, or for f32 states the same matrices split into TF32 halves in
-// fragment order (fused_decoder.py::tf32_split_pack); vecs [14, 128] f32
-// (row 2 the unrounded uc_s); offs, a host array of 8 ints: the four
-// check-side offsets, then the four qubit-side ones.  slot16 (bf16 states
-// only) rounds the slot stage to bf16.  width (<= 128): the model's width,
-// the columns past it zero in every operand.  f32 only: `samples` samples
-// a block (dividing B, samples * L <= 144), a persistent grid of `grid`
-// blocks and their scratch [grid][samples L][128] f32 (bf16: 1, 0, null).
-// Returns cudaGetLastError() after the launch (0 on success).
-int roll_rounds_launch(int dtype, int slot16, const void* xc_in, const void* xq_in,
-                       const void* syn, const void* maskbits, const void* degbo,
-                       const void* mats, const void* vecs, void* xc_out, void* xq_out,
-                       const void* offs, int B, int L, int R, int width, int samples,
-                       void* scratch, int grid, void* stream) {
-  Launch a{xc_in, xq_in, static_cast<const float*>(syn), static_cast<const int*>(maskbits),
-           static_cast<const float*>(degbo), mats, static_cast<const float*>(vecs), xc_out,
-           xq_out, {}, {}, B, L, R, width, B, static_cast<float*>(scratch),
-           static_cast<cudaStream_t>(stream)};
-  if (int err = prepare(a, offs)) return err;
-  if (dtype == 0) {
-    if (samples < 1 || B % samples != 0 || (samples > 1 && samples * L > t3r::CRN) ||
-        grid <= 0 || scratch == nullptr)
-      return int(cudaErrorInvalidValue);
-    a.grid = grid;
-    return launch_kernel<float>(t3r::roll_rounds_tf32x3_kernel<false>, t3r::NTH,
-                                smem_for(0, L, samples), a, a.panels, B / samples, samples);
-  }
-  const size_t smem = smem_for(dtype, L);
-  const bool mask = width < H;
-  if (dtype != 1) return int(cudaErrorInvalidValue);
-  if (mask) return slot16 ? launch_tc<true, true>(smem, a) : launch_tc<false, true>(smem, a);
-  return slot16 ? launch_tc<true, false>(smem, a) : launch_tc<false, false>(smem, a);
-}
-
-// The f32 global-panel variant of roll_rounds_launch: `grid` blocks walk the
-// samples, block i with its scratch in panels[i] ([grid][2 L][128] f32: the
-// check states' other buffer, then the gather panel); mats the split pack.
-int roll_rounds_gpanels_launch(const void* xc_in, const void* xq_in, const void* syn,
-                               const void* maskbits, const void* degbo, const void* mats,
-                               const void* vecs, void* xc_out, void* xq_out, void* panels,
-                               const void* offs, int B, int L, int R, int width, int grid,
-                               void* stream) {
+// The bf16 global-panel variant of roll_rounds_launch: `grid` blocks walk the
+// samples, block i with its two panels in panels[i] ([grid][2 L][128] bf16:
+// ys_c, then ys_q); slot16 as there.
+int roll_rounds_tc_gpanels_launch(int slot16, const void* xc_in, const void* xq_in,
+                                  const void* syn, const void* maskbits, const void* degbo,
+                                  const void* mats, const void* vecs, void* xc_out,
+                                  void* xq_out, void* panels, const void* offs, int B, int L,
+                                  int R, int width, int grid, void* stream) {
   Launch a{xc_in, xq_in, static_cast<const float*>(syn), static_cast<const int*>(maskbits),
            static_cast<const float*>(degbo), mats, static_cast<const float*>(vecs), xc_out,
            xq_out, {}, {}, B, L, R, width, grid, static_cast<float*>(panels),
            static_cast<cudaStream_t>(stream)};
   if (int err = prepare(a, offs)) return err;
   if (grid <= 0 || panels == nullptr) return int(cudaErrorInvalidValue);
-  return launch_kernel<float>(t3r::roll_rounds_tf32x3_kernel<true>, t3r::NTH,
-                              t3r::smem_bytes<true>(L, L), a, a.panels, a.B, 1);
+  return slot16 ? launch_tc_gp<true>(a) : launch_tc_gp<false>(a);
 }
 
 }  // extern "C"

@@ -9,9 +9,11 @@ gradients of ``wo @ ua`` and ``bo @ ua`` into ``wo``, ``ua`` and ``bo``:
 
 * forward: every round's input states are written to a stash
   ``[R, B, rows, H]`` in the state type, besides the rounds' outputs.  On a
-  CUDA tensor this is the kernel ``csrc/fused_rounds.cu`` with its stash flag
-  (K2a, replacing ``_fwd``'s ``pl.pallas_call`` at
-  ``tpugnn/kernels/fused_backward.py:575``); on a CPU tensor,
+  CUDA tensor this is the kernel ``csrc/fused_rounds.cu`` (bf16 states;
+  ``fused_rounds_tf32.cu`` with f32 states) with its stash flag (K2a,
+  replacing ``_fwd``'s ``pl.pallas_call`` at
+  ``tpugnn/kernels/fused_backward.py:575``), above 128 columns the wide
+  forward of ``csrc/wide_rounds.cu`` with its stash; on a CPU tensor,
   :func:`rounds_fwd_stash_plain`;
 * backward: the rounds in reverse.  Each replays its forward from the stash
   and chains the adjoint through the LayerNorm, the residual MLP, the relu
@@ -20,14 +22,17 @@ gradients of ``wo @ ua`` and ``bo @ ua`` into ``wo``, ``ua`` and ``bo``:
   replacing ``_bwd``'s ``pl.pallas_call`` at ``:624``:
   ``csrc/fused_backward.cu`` with bf16 states, ``csrc/fused_backward_tf32.cu``
   with f32 states (every product as three TF32 products on the tensor
-  cores, as f32 K1, K2a and K5 form theirs); on a CPU tensor,
-  :func:`rounds_vjp_plain`.
+  cores, as f32 K1, K2a and K5 form theirs), above 128 columns the wide
+  backward of ``csrc/wide_rounds.cu`` in both state types; on a CPU
+  tensor, :func:`rounds_vjp_plain`.
 
-A model narrower than the kernels' 128 columns trains on states and packs
-zero-padded outside the autograd Function (:func:`padded_rounds`, with
-``F.pad``), so autograd slices every gradient back to the model's width;
-inside, the LayerNorm and its adjoint run over the model's ``width``
-columns, and no cotangent reaches a padded one.
+A model trains on states and packs zero-padded to the kernels' width
+(:func:`~tpugnn_torch.kernels.fused_decoder.kernel_width`: 128, or above 128
+the next multiple of 128, where ``csrc/wide_rounds.cu`` runs K2a and K2b)
+outside the autograd Function (:func:`padded_rounds`, with ``F.pad``), so
+autograd slices every gradient back to the model's width; inside, the
+LayerNorm and its adjoint run over the model's ``width`` columns, and no
+cotangent reaches a padded one.  The plain versions take any width.
 
 Cotangents are f32.  Where the JAX kernel rounds a cotangent to the state
 type before a product (``dpre``, ``dt``, each slot's ``dz`` before the
@@ -165,10 +170,12 @@ def rounds_vjp_plain(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq,
 
 
 def _fwd_stash_cuda(xc, xq, syn, operators, mats32, vecs32, rounds, state_dtype,
-                    width=fd.WIDTH):
+                    width=None):
     """K2a: the fused-rounds kernel with its stash flag, on operands padded
-    to ``fd.WIDTH`` columns; ``width`` is the model's.  With f32 states it
-    is K1's 3xTF32 kernel: the weights go in split into TF32 halves
+    to the kernels' width; ``width`` is the model's (None: the operands').
+    Above 128 columns it is the wide K1 with its stash
+    (``fused_rounds_fwd_stash_wide``).  With f32 states it is K1's 3xTF32
+    kernel: the weights go in split into TF32 halves
     (``fd.tf32_split_pack``) and, with the panels in shared memory, a small
     graph's samples stacked, as one graph of ``s`` times the rows
     (``fd.samples_per_block``), which leaves the stash's layout [R, B,
@@ -179,8 +186,14 @@ def _fwd_stash_cuda(xc, xq, syn, operators, mats32, vecs32, rounds, state_dtype,
     from tpugnn_torch.kernels._build import load_library
 
     dt = fd.STATE_DTYPES[state_dtype]
+    width = width or xc.shape[-1]
+    if mats32.shape[-1] > fd.WIDTH:
+        mats, vecs = fd.cast_packs(mats32, vecs32, dt)
+        out_c, out_q, stash_c, stash_q = fd._wide_forward(xc, xq, syn, operators, mats, vecs,
+                                                          rounds, dt, width, stash=True)
+        return out_c.float(), out_q.float(), stash_c, stash_q
     fd.check_width(width)
-    lib = load_library("fused_rounds")
+    lib = load_library(fd.forward_library(dt))
     a = fd._cuda_operands(lib, xc, xq, syn, operators, mats32, rounds, dt, stash=True)
     mats, vecs = fd.cast_packs(mats32, vecs32, dt)
     b, m, n, h = a.b, a.m, a.n, xc.shape[2]
@@ -237,10 +250,11 @@ def _bwd_library(dt: torch.dtype, operators):
 
 
 def _bwd_cuda(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq, state_dtype,
-              width=fd.WIDTH, msg_width: int | None = None, force_gpanels: bool = False):
+              width=None, msg_width: int | None = None, force_gpanels: bool = False):
     """K2b: the reverse round walk, then the fixed-order sum of the blocks'
     weight-gradient partials (two launches, counted as one call), on
-    operands padded to ``fd.WIDTH`` columns; ``width`` is the model's.  With
+    operands padded to ``fd.WIDTH`` columns; ``width`` is the model's (None:
+    the operands').  With
     f32 states the kernel forms every product as three TF32 products: the
     matrices and their transposes go in split into TF32 halves in fragment
     order (``fd.tf32_split_pack``).  It takes again, as this module's plain
@@ -253,7 +267,14 @@ def _bwd_cuda(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq, state_
     do not fit in shared memory runs the layout that keeps them in the
     scratch (``fused_rounds_bwd_gpanels``); with f32 states
     ``force_gpanels`` launches that layout on any graph (to compare the two
-    placements where both fit)."""
+    placements where both fit).  Above 128 columns it is the wide K2b
+    (``fused_rounds_bwd_wide``)."""
+    width = width or stash_c.shape[-1]
+    if stash_c.shape[-1] > fd.WIDTH:
+        if force_gpanels:
+            raise ValueError("the wide K2b has no panel placement to force")
+        return _bwd_wide_cuda(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq,
+                              state_dtype, width, msg_width)
     dt = fd.STATE_DTYPES[state_dtype]
     rounds, b, m, h = stash_c.shape
     n = stash_q.shape[2]
@@ -311,6 +332,101 @@ def _bwd_cuda(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq, state_
     return g_c, g_q, dsyn.reshape(syn.shape), dmats, dvecs
 
 
+def _readers(idx: torch.Tensor, n_src: int):
+    """The transposed slot lists of a slot table ``idx`` [rows, D] (-1
+    masked) onto ``n_src`` source rows: ``(off [n_src + 1], lst)`` int32,
+    the slots ``r * D + k`` that read source row ``s`` in ``lst[off[s] :
+    off[s + 1]]``, ascending."""
+    flat = idx.reshape(-1).long()
+    slots = torch.nonzero(flat >= 0).reshape(-1)
+    src = flat[slots]
+    order = torch.sort(src, stable=True).indices
+    counts = torch.bincount(src, minlength=n_src)
+    off = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    return off.to(torch.int32).contiguous(), slots[order].to(torch.int32).contiguous()
+
+
+# blocks of the wide K2b's weight-gradient launch: 10 matrices x W / 64 row
+# blocks x row chunks, about two per SM of an H100
+_WGRAD_BLOCKS = 320
+
+
+def _bwd_wide_cuda(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq, state_dtype,
+                   width, msg_width=None):
+    """The wide K2b (``csrc/wide_rounds.cu``) on K2a's stash padded to W >
+    128 columns: the rounds in reverse, a chain of launches a round, the
+    gathers' adjoints over the transposed slot lists and the weight and bias
+    gradients as partials summed in a fixed order, so two calls give the
+    same bits.  With f32 states it reads, for its ties, the matrices and
+    their transposes unpacked, the stash rows' norms and the matrices'
+    largest column norms, and takes the slot ties over ``msg_width``
+    columns, as the 128-column f32 K2b does."""
+    import ctypes
+
+    from tpugnn_torch.kernels._build import load_library
+
+    dt = fd.STATE_DTYPES[state_dtype]
+    rounds, b, m, wid = stash_c.shape
+    n = stash_q.shape[2]
+    dev = stash_c.device
+    fd.check_width(wid)
+    if (wid % fd.WIDTH or stash_c.dtype != dt or stash_q.shape[:2] != stash_c.shape[:2]
+            or stash_q.shape[3] != wid or tuple(mats32.shape) != (10, wid, wid)):
+        raise ValueError(f"the wide backward kernel takes the stash of the wide K2a, got "
+                         f"{tuple(stash_c.shape)} {stash_c.dtype}, {tuple(stash_q.shape)} and "
+                         f"packs {tuple(mats32.shape)}")
+    src_c, mask_c, deg_c, src_q, mask_q, deg_q = operators
+    if src_c.shape[0] != m or src_q.shape[0] != n or src_c.device != dev:
+        raise ValueError("operators do not match the stash's rows or device")
+    lib = load_library("wide_rounds")
+    code = fd._DTYPE_CODE[dt]
+    idx_c, idx_q = fd._slot_tables(src_c, mask_c, src_q, mask_q)
+    dc, dq = idx_c.shape[1], idx_q.shape[1]
+    off_c, lst_c = _readers(idx_c, n)   # the check gather's readers of each qubit row
+    off_q, lst_q = _readers(idx_q, m)
+    mats, vecs = fd.cast_packs(mats32, vecs32, dt)
+    mats_t = mats.transpose(1, 2).contiguous()
+    ties = [None] * 4
+    wn = None
+    if dt == torch.float32:
+        pack, pack_t = fd.tf32_split_pack(mats), fd.tf32_split_pack(mats_t)
+        ties = [mats.contiguous(), mats_t,
+                torch.linalg.vector_norm(stash_c, dim=-1).contiguous(),
+                torch.linalg.vector_norm(stash_q, dim=-1).contiguous()]
+        wn = (ctypes.c_float * 10)(*torch.linalg.vector_norm(mats, dim=1).amax(-1).tolist())
+    else:
+        pack, pack_t = fd.bf16_frag_pack(mats), fd.bf16_frag_pack(mats_t)
+    nch = max(1, _WGRAD_BLOCKS // (10 * wid // 64))
+    ucs32 = vecs32[2].detach().float().contiguous()
+    g_c = dxc.float().contiguous().clone()          # rewritten in place
+    g_q = dxq.float().contiguous().clone()
+    dsyn = torch.zeros((b, m), dtype=torch.float32, device=dev)
+    scratch = torch.empty(lib.wide_rounds_bwd_scratch_bytes(code, b, m, n, dc, dq, wid),
+                          dtype=torch.uint8, device=dev)
+    part_mats = torch.zeros((nch, 10, wid, wid), dtype=torch.float32, device=dev)
+    part_vecs = torch.zeros((2, lib.wide_rounds_bwd_segments(), 7, wid), dtype=torch.float32,
+                            device=dev)
+    dmats = torch.empty((10, wid, wid), dtype=torch.float32, device=dev)
+    dvecs = torch.empty((14, wid), dtype=torch.float32, device=dev)
+    syn2 = syn.reshape(b, m).float().contiguous()
+    degs = [d.float().contiguous() for d in (deg_c, deg_q)]
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with fd._cuda_stream(dev) as stream:
+        err = lib.wide_rounds_bwd_launch(
+            code, stash_c.contiguous().data_ptr(), stash_q.contiguous().data_ptr(),
+            syn2.data_ptr(), idx_c.data_ptr(), idx_q.data_ptr(), off_c.data_ptr(),
+            lst_c.data_ptr(), off_q.data_ptr(), lst_q.data_ptr(), degs[0].data_ptr(),
+            degs[1].data_ptr(), pack.data_ptr(), pack_t.data_ptr(), *(ptr(t) for t in ties),
+            wn, vecs.data_ptr(), ucs32.data_ptr(), g_c.data_ptr(), g_q.data_ptr(),
+            dsyn.data_ptr(), scratch.data_ptr(), part_mats.data_ptr(), part_vecs.data_ptr(),
+            dmats.data_ptr(), dvecs.data_ptr(), b, m, n, dc, dq, rounds, wid, width,
+            msg_width or width, nch, stream)
+    if err != 0:
+        raise RuntimeError(f"fused_rounds_bwd_wide kernel launch failed: CUDA error {err}")
+    fd._LAUNCHES["fused_rounds_bwd_wide"] += 1
+    return g_c, g_q, dsyn.reshape(syn.shape), dmats, dvecs
+
+
 class FusedRoundsFn(torch.autograd.Function):
     """The rounds with a hand-written backward (``jax.custom_vjp`` ``core``
     of ``make_kernel_vjp_rounds``).
@@ -326,8 +442,10 @@ class FusedRoundsFn(torch.autograd.Function):
     def forward(ctx, xc, xq, syn, mats32, vecs32, operators, rounds, state_dtype,
                 kernels, width, msg_width):
         if kernels:
-            # K2b must take the graph before K2a runs: a step launches both or neither
-            _bwd_library(fd.STATE_DTYPES[state_dtype], operators)
+            # K2b must take the graph before K2a runs: a step launches both or
+            # neither (the wide kernels take any graph)
+            if mats32.shape[-1] <= fd.WIDTH:
+                _bwd_library(fd.STATE_DTYPES[state_dtype], operators)
             outs = _fwd_stash_cuda(xc, xq, syn, operators, mats32, vecs32, rounds,
                                    state_dtype, width)
         else:
@@ -360,16 +478,21 @@ class FusedRoundsFn(torch.autograd.Function):
 
 
 def padded_rounds(xc, xq, syn, operators, mats32, vecs32, rounds: int,
-                  state_dtype: str = "float32", *, kernels: bool, width: int = fd.WIDTH,
+                  state_dtype: str = "float32", *, kernels: bool, width: int | None = None,
                   msg_width: int | None = None):
-    """:class:`FusedRoundsFn` on ``width`` columns (the kernels' ``fd.WIDTH``
-    by default): the states and f32 packs go in zero-padded (``F.pad``, so
-    autograd slices their gradients back to their own widths), the
-    LayerNorm runs over the states' width (the model's) and the outputs come
-    back sliced to it.  ``msg_width``: the model's message width (the
-    packs' by default)."""
+    """:class:`FusedRoundsFn` on ``width`` columns (by default the kernels'
+    width for the packs, :func:`~tpugnn_torch.kernels.fused_decoder.kernel_width`,
+    with ``kernels``; the packs' own without): the states and f32 packs go in
+    zero-padded (``F.pad``, so autograd slices their gradients back to their
+    own widths), the LayerNorm runs over the states' width (the model's) and
+    the outputs come back sliced to it.  Only the kernels have a widest pack
+    (:func:`~tpugnn_torch.kernels.fused_decoder.check_width`).  ``msg_width``:
+    the model's message width (the packs' by default)."""
     h = xc.shape[-1]
-    fd.check_width(mats32.shape[-1])
+    if kernels:
+        fd.check_width(mats32.shape[-1])
+    if width is None:
+        width = fd.kernel_width(mats32.shape[-1]) if kernels else mats32.shape[-1]
     msg_width = msg_width or mats32.shape[-1]
     mats32, vecs32 = fd.pad_packs(mats32, vecs32, width)
     xc, xq = fd.pad_states(xc, xq, width=width)

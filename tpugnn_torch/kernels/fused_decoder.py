@@ -7,7 +7,9 @@ LayerNorm) on node states in the batch layout ``[B, rows, H]``:
 * a tensor on the CPU goes to :func:`rounds_plain`, the plain PyTorch
   version, which defines the function;
 * a tensor on a CUDA device goes to the hand-written kernel
-  ``csrc/fused_rounds.cu`` (built by ``_build.py``), which replaces the TPU
+  ``csrc/fused_rounds.cu`` (``fused_rounds_tf32.cu`` with f32 states;
+  ``wide_rounds.cu`` above 128 columns; built by ``_build.py``), which
+  replaces the TPU
   kernel ``decoder_rounds_tiled`` (``pl.pallas_call`` at
   ``tpugnn/kernels/fused_decoder.py:637``).  It launches or raises; there is
   no fallback.  Its products run on tensor cores: bf16 states on bf16
@@ -35,22 +37,30 @@ reassociation, the TPU kernel's "fold" variant); the matrices are then stored
 in the state type and the vectors in f32.  The slot gather reads source rows
 by index, not through the TPU's one-hot incidence GEMM.
 
-The kernels are built for ``WIDTH`` = 128 columns.  A model of width
-``h < 128`` runs on states and packs zero-padded to 128 (:func:`pad_packs`,
+The kernels come in two families.  ``csrc/fused_rounds.cu`` (bf16 states)
+and ``csrc/fused_rounds_tf32.cu`` (f32 states), one library each, are built
+for ``WIDTH`` = 128 columns; ``csrc/wide_rounds.cu`` takes packs of 256, 384
+or 512 columns (``WIDE_MAX``).  A model runs at the kernel width
+:func:`kernel_width` of its packs, ``W = 128 ceil(max(hidden, msg_hidden) /
+128)``: at 128 the 128-column kernels, above it the wide ones
+(``fused_rounds_wide`` in :func:`launch_counts`), never one for the other.
+States and packs are zero-padded to ``W`` (:func:`pad_packs`,
 :func:`pad_states`), which keeps every padded column exactly 0 through a
-round, and the LayerNorm takes its mean and variance over the first ``h``
-columns (``width=h`` in the plain versions; 0 on the rest).  The padding is
-exact, as the JAX package's ``pad_msg_width`` is
-(``tpugnn/kernels/fused_decoder.py:127-142``).  A model whose ``msg_hidden``
-differs from its ``hidden`` packs at the larger of the two
+round, and the LayerNorm takes its mean and variance over the model's first
+``hidden`` columns (``width=h`` in the plain versions; 0 on the rest).  The
+padding is exact, as the JAX package's ``pad_msg_width`` is
+(``tpugnn/kernels/fused_decoder.py:127-142``).  A model whose
+``msg_hidden`` differs from its ``hidden`` packs at the larger of the two
 (:func:`pack_weights_f32`), its states padded to that width as well where
-``msg_hidden`` is the larger, the LayerNorm still over ``hidden``; both at
-most 128 (:func:`check_width`).  A graph whose two gather
-panels do not fit in a block's shared memory beside the chunk buffers and
-the weight ring runs K1's variant with the panels in global memory
-(``fused_rounds_gpanels`` in :func:`launch_counts`): with f32 states d=13,
-d=15 and the circuit d=5 and d=7 graphs, with bf16 states circuit d=7; K2a
-(``fused_backward.py``) likewise.
+``msg_hidden`` is the larger, the LayerNorm still over ``hidden``.  The
+plain versions take any width; the kernels refuse only a pack wider than
+``WIDE_MAX`` (:func:`check_width`).  A graph whose two gather panels do not
+fit in a block's shared memory beside the chunk buffers and the weight ring
+runs the 128-column K1's variant with the panels in global memory
+(``fused_rounds_gpanels``): with f32 states d=13, d=15 and the circuit d=5
+and d=7 graphs, with bf16 states circuit d=7; K2a (``fused_backward.py``)
+likewise.  The wide kernels keep no panels: their tiles of 32 rows gather
+from global memory, so they take any graph.
 """
 
 from __future__ import annotations
@@ -63,23 +73,26 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["RoundWeights", "make_operators", "pack_weights", "pack_weights_f32", "pack_width",
-           "cast_packs", "pad_packs", "pad_states", "check_width", "rounds_plain",
-           "decoder_rounds", "launch_counts", "reset_launch_counts", "tf32_round",
-           "tf32_split_pack", "samples_per_block", "stack_slot_tables",
-           "STATE_DTYPES", "SMEM_LIMIT", "WIDTH"]
+           "kernel_width", "cast_packs", "pad_packs", "pad_states", "check_width",
+           "rounds_plain", "decoder_rounds", "launch_counts", "reset_launch_counts",
+           "tf32_round", "tf32_split_pack", "bf16_frag_pack", "samples_per_block",
+           "stack_slot_tables", "forward_library", "STATE_DTYPES", "SMEM_LIMIT", "WIDTH",
+           "WIDE_MAX"]
 
 STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448  # dynamic shared memory one block may use on Hopper
-WIDTH = 128          # the columns the rounds kernels are built for
+WIDTH = 128          # the columns the 128-column rounds kernels are built for
+WIDE_MAX = 512       # the widest pack the wide rounds kernels take (csrc/wide_rounds.cu)
 CHUNK_ROWS = 128     # rows of one f32 K1 chunk (tc::CR in csrc/rounds_mma.cuh)
 
 # launches of the CUDA kernels in this process: K1 (decoder_rounds without
 # grad), K2a and K2b (kernels/fused_backward.py), each with its variant that
-# keeps the gather panels in global memory apart
-_LAUNCHES = {"fused_rounds": 0, "fused_rounds_gpanels": 0, "fused_rounds_fwd_stash": 0,
-             "fused_rounds_fwd_stash_gpanels": 0, "fused_rounds_bwd": 0,
-             "fused_rounds_bwd_gpanels": 0}
+# keeps the gather panels in global memory and its wide kernel apart
+_LAUNCHES = {"fused_rounds": 0, "fused_rounds_gpanels": 0, "fused_rounds_wide": 0,
+             "fused_rounds_fwd_stash": 0, "fused_rounds_fwd_stash_gpanels": 0,
+             "fused_rounds_fwd_stash_wide": 0, "fused_rounds_bwd": 0,
+             "fused_rounds_bwd_gpanels": 0, "fused_rounds_bwd_wide": 0}
 
 
 def launch_counts() -> dict:
@@ -218,10 +231,23 @@ def pad_states(*xs: torch.Tensor, width: int = WIDTH):
 
 def check_width(h: int) -> None:
     """Raises unless the kernels take packs of width ``h``
-    (:func:`pack_width`)."""
-    if not 1 <= h <= WIDTH:
+    (:func:`pack_width`): the wide kernels' ``WIDE_MAX`` is the limit."""
+    if not 1 <= h <= WIDE_MAX:
         raise ValueError(f"the rounds kernels take hidden and msg_hidden of at most "
-                         f"{WIDTH}, got {h}")
+                         f"{WIDE_MAX}, got {h}")
+
+
+def kernel_width(h: int) -> int:
+    """The columns the kernels run packs of width ``h`` at: ``WIDTH`` (the
+    128-column kernels) up to 128, else the next multiple of 128 (the wide
+    kernels, ``csrc/wide_rounds.cu``)."""
+    return WIDTH * -(-h // WIDTH)
+
+
+def forward_library(dt: torch.dtype) -> str:
+    """The library of the 128-column K1 and K2a for a state type: f32 and
+    bf16 states build apart (``fused_rounds_tf32.cu``, ``fused_rounds.cu``)."""
+    return "fused_rounds_tf32" if dt == torch.float32 else "fused_rounds"
 
 
 def pack_weights(w: RoundWeights, dtype: torch.dtype):
@@ -242,17 +268,29 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
 
 def tf32_split_pack(mats: torch.Tensor) -> torch.Tensor:
     """The f32 weight pack as the f32 rounds kernels read it: each matrix
-    ``w`` [128 (k), 128 (n)] split into ``hi = tf32_round(w)`` and ``lo =
+    ``w`` [W (k), W (n)] (W = 128, or the wide kernels' width) split into ``hi = tf32_round(w)`` and ``lo =
     tf32_round(w - hi)``, laid out in the B-fragment order of
     ``mma.m16n8k8`` so that a lane reads its four values of a k-step and
     n-tile with one 16-byte load: ``[10, k-step s, n-tile j, g, t, (hi,
     lo), (row 8s + t, row 8s + t + 4)]`` for column ``8j + g``, lane ``4g +
     t``.  ``hi + lo`` is ``w`` to within 2^-21 of ``|w|``."""
     m = mats.float()
+    wid = m.shape[-1]
     hi = tf32_round(m)
     lo = tf32_round(m - hi)
-    frag = lambda w: w.reshape(-1, WIDTH // 8, 2, 4, WIDTH // 8, 8).permute(0, 1, 4, 5, 3, 2)
+    frag = lambda w: w.reshape(-1, wid // 8, 2, 4, wid // 8, 8).permute(0, 1, 4, 5, 3, 2)
     return torch.stack([frag(hi), frag(lo)], -2).contiguous()
+
+
+def bf16_frag_pack(mats: torch.Tensor) -> torch.Tensor:
+    """The bf16 weight pack as the wide bf16 kernels read it: each matrix
+    ``w`` [W (k), W (n)] in the B-fragment order of ``mma.m16n8k16``, so
+    that a lane reads its four values of a k-step and n-tile with one 8-byte
+    load: ``[10, k-step s, n-tile j, g, t, (rows 16s + 2t, 16s + 2t + 1,
+    16s + 2t + 8, 16s + 2t + 9)]`` for column ``8j + g``, lane ``4g + t``."""
+    wid = mats.shape[-1]
+    w = mats.to(torch.bfloat16).reshape(-1, wid // 16, 2, 4, 2, wid // 8, 8)
+    return w.permute(0, 1, 5, 6, 3, 2, 4).contiguous()
 
 
 def samples_per_block(b: int, m: int, n: int, chunk_rows: int = CHUNK_ROWS) -> int:
@@ -471,6 +509,64 @@ def _gpanel_scratch(a: _CudaOperands, dt: torch.dtype, dev):
     return grid, torch.empty((grid, a.m + a.n, WIDTH), dtype=dt, device=dev)
 
 
+def _wide_forward(xc, xq, syn, operators, mats, vecs, rounds: int, dt: torch.dtype,
+                  width: int, *, stash: bool):
+    """The wide K1 (K2a with ``stash``) on states and packs padded to a
+    multiple of 128 above 128 (``csrc/wide_rounds.cu``); ``width`` is the
+    LayerNorm's columns.  Returns ``(out_c, out_q, stash_c, stash_q)`` in
+    the state type (the stash entries None without ``stash``).  K2a writes
+    round r's input states into entry r of the stash and reads them back for
+    the next round, K1 updates its outputs in place: the same arithmetic, so
+    the same bits.  Raises on what the kernels do not take."""
+    from tpugnn_torch.kernels._build import load_library
+
+    src_c, mask_c, _, src_q, mask_q, _ = operators
+    b, m, wid = xc.shape
+    n = xq.shape[1]
+    dc, dq = src_c.shape[1], src_q.shape[1]
+    check_width(wid)
+    if wid <= WIDTH or wid % WIDTH or tuple(mats.shape[-2:]) != (wid, wid):
+        raise ValueError(f"the wide rounds kernels take states and packs padded to a multiple "
+                         f"of {WIDTH} above {WIDTH}, got {wid} and {tuple(mats.shape[-2:])}")
+    if xq.shape[0] != b or xq.shape[2] != wid:
+        raise ValueError(f"state shapes disagree: {tuple(xc.shape)} vs {tuple(xq.shape)}")
+    if rounds < 1:
+        raise ValueError(f"rounds must be >= 1, got {rounds}")
+    if src_c.shape[0] != m or src_q.shape[0] != n:
+        raise ValueError("operators do not match the state rows")
+    dev = xc.device
+    for t in (xq, syn, src_c, src_q, mask_c, mask_q, mats, vecs):
+        if t.device != dev:
+            raise ValueError(f"all operands must be on {dev}, got {t.device}")
+    lib = load_library("wide_rounds")
+    code = _DTYPE_CODE[dt]
+    idx_c, idx_q = _slot_tables(src_c, mask_c, src_q, mask_q)
+    pack = tf32_split_pack(mats) if code == 0 else bf16_frag_pack(mats)
+    vecs = vecs.float().contiguous()
+    xc = xc.detach().to(dt).contiguous()
+    xq = xq.detach().to(dt).contiguous()
+    syn = syn.detach().reshape(b, m).to(torch.float32).contiguous()
+    out_c, out_q = torch.empty_like(xc), torch.empty_like(xq)
+    ys_c = torch.empty((b, n, wid), dtype=dt, device=dev)   # the gathers' sources
+    ys_q = torch.empty((b, m, wid), dtype=dt, device=dev)
+    st_c = st_q = None
+    if stash:
+        st_c = torch.empty((rounds, b, m, wid), dtype=dt, device=dev)
+        st_q = torch.empty((rounds, b, n, wid), dtype=dt, device=dev)
+    with _cuda_stream(dev) as stream:
+        err = lib.wide_rounds_launch(
+            code, xc.data_ptr(), xq.data_ptr(), syn.data_ptr(), idx_c.data_ptr(),
+            idx_q.data_ptr(), pack.data_ptr(), vecs.data_ptr(), out_c.data_ptr(),
+            out_q.data_ptr(), None if st_c is None else st_c.data_ptr(),
+            None if st_q is None else st_q.data_ptr(), ys_c.data_ptr(), ys_q.data_ptr(),
+            b, m, n, dc, dq, rounds, wid, width, stream)
+    name = "fused_rounds_fwd_stash_wide" if stash else "fused_rounds_wide"
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    _LAUNCHES[name] += 1
+    return out_c, out_q, st_c, st_q
+
+
 def _rounds_cuda(xc, xq, syn, operators, weights, rounds, state_dtype):
     from tpugnn_torch.kernels._build import load_library
 
@@ -485,9 +581,14 @@ def _rounds_cuda(xc, xq, syn, operators, weights, rounds, state_dtype):
     h = xc.shape[-1]   # the model's width, the LayerNorm's columns
     if h != weights.uc_x.shape[0]:
         raise ValueError(f"states of width {h}, weights of width {weights.uc_x.shape[0]}")
-    lib = load_library("fused_rounds")
-    mats, vecs = pad_packs(mats, vecs)
-    xc, xq = pad_states(xc, xq)
+    wid = kernel_width(mats.shape[-1])
+    mats, vecs = pad_packs(mats, vecs, wid)
+    xc, xq = pad_states(xc, xq, width=wid)
+    if wid > WIDTH:
+        out_c, out_q, _, _ = _wide_forward(xc, xq, syn, operators, mats, vecs, rounds, dt, h,
+                                           stash=False)
+        return out_c[..., :h].float(), out_q[..., :h].float()
+    lib = load_library(forward_library(dt))
     a = _cuda_operands(lib, xc, xq, syn, operators, mats, rounds, dt, stash=False)
     # f32: the weights split into TF32 halves; a small graph's samples
     # stacked, s to a block, as one graph of s times the rows

@@ -18,7 +18,8 @@ rounds there on every cell, empty cells included, and permutes back
 * a tensor on the CPU goes to :func:`roll_rounds_plain`, the plain PyTorch
   version, which defines the function;
 * a tensor on a CUDA device goes to the hand-written kernel
-  ``csrc/roll_gather.cu``, which replaces the TPU kernel
+  ``csrc/roll_gather.cu`` (bf16 states; f32 states build apart from
+  ``csrc/roll_gather_tf32.cu``), which replaces the TPU kernel
   ``decoder_rounds_roll`` (``pl.pallas_call`` at
   ``tpugnn/kernels/roll_gather.py:364``).  Its products run on the tensor
   cores (``mma.sync``, K1's routines in ``csrc/rounds_mma.cuh``): with bf16
@@ -37,9 +38,12 @@ As K1's, the kernel is built for 128 columns: a narrower model's raster
 operands are zero-padded to 128 (:func:`pad_raster`) and its LayerNorm runs
 over the model's ``width`` columns; a model with ``msg_hidden > hidden``
 runs on states padded to the packs' width first (:func:`decoder_rounds_roll`).
-With f32 states a raster whose gather
-panel does not fit in shared memory (d=15) runs the kernel's variant with
-the panel in global memory (``roll_rounds_gpanels``).
+Packs wider than 128 run, padded to the next multiple of 128, on the wide
+rounds kernel's raster mode (``csrc/wide_rounds.cu``, ``roll_rounds_wide``),
+up to ``WIDE_MAX`` columns.  A raster whose gather panels do not fit in
+shared memory runs the kernel's variant with them in global memory
+(f32 states at d=15, ``roll_rounds_gpanels``; bf16 states at d >= 17,
+``roll_rounds_tc_gpanels``).
 
 One round, per side (checks shown; qubits alike without the syndrome term),
 with ``rnd`` rounding to the state type ``cdt`` and ``sdt`` the slot type
@@ -77,7 +81,9 @@ from tpugnn_torch.kernels.fused_decoder import (
     RoundWeights,
     _cuda_stream,
     _needs_grad,
+    bf16_frag_pack,
     check_width,
+    kernel_width,
     layer_norm,
     pack_weights_f32,
     pad_packs,
@@ -88,14 +94,17 @@ from tpugnn_torch.kernels.fused_decoder import (
 
 __all__ = ["RollPlan", "RasterOperands", "raster_plan", "plan_for_graph", "rotate",
            "to_raster", "from_raster", "pad_raster", "roll_rounds_plain",
-           "decoder_rounds_roll", "launch_counts", "reset_launch_counts", "SLOT_DTYPES"]
+           "decoder_rounds_roll", "roll_library", "launch_counts", "reset_launch_counts",
+           "SLOT_DTYPES"]
 
 SLOT_DTYPES = ("float32", "bfloat16")
-F32_CHUNK_ROWS = 144   # rows of one f32 K5 chunk (9 warps; t3r::CRN in csrc/roll_gather.cu)
+F32_CHUNK_ROWS = 144   # rows of one f32 K5 chunk (9 warps; t3r::CRN in csrc/roll_gather_tf32.cu)
 
-# launches of the CUDA kernel in this process: K5, its f32 variant with the
-# gather panels in global memory apart
-_LAUNCHES = {"roll_rounds": 0, "roll_rounds_gpanels": 0}
+# launches of the CUDA kernel in this process: K5, its variants with the
+# gather panels in global memory (f32 and bf16, two kernels) and its wide
+# kernel apart
+_LAUNCHES = {"roll_rounds": 0, "roll_rounds_gpanels": 0, "roll_rounds_tc_gpanels": 0,
+             "roll_rounds_wide": 0}
 
 
 def launch_counts() -> dict:
@@ -396,6 +405,12 @@ def decoder_rounds_roll(xc, xq, syn, plan: RollPlan, weights: RoundWeights, *,
     return from_raster(out_c[..., :h], out_q[..., :h], plan)
 
 
+def roll_library(dt: torch.dtype) -> str:
+    """The library of K5 for a state type: f32 and bf16 states build apart
+    (``roll_gather_tf32.cu``, ``roll_gather.cu``)."""
+    return "roll_gather_tf32" if dt == torch.float32 else "roll_gather"
+
+
 def _mask_bits(masks: torch.Tensor) -> torch.Tensor:
     """int32 [2, l_pad] from the masks [2, 4, l_pad]: bit k of a cell's
     entry is set where slot k of that cell is an edge."""
@@ -407,14 +422,17 @@ def _roll_rounds_cuda(ops: RasterOperands, *, rounds: int, slot_dtype: str = "fl
                       width: int | None = None):
     """Launches K5 on raster operands on a card; returns ``(xc, xq)``
     [B, l_pad, H] in the state type.  A model narrower than 128 runs on
-    operands padded to 128 (:func:`pad_raster`); ``width``, the
+    operands padded to 128 (:func:`pad_raster`), a wider one on operands
+    padded to the next multiple of 128 on the wide kernel; ``width``, the
     LayerNorm's columns where the operands are already padded past the
     model's width (None: all ``H``).  With f32 states the
     weights go in split into TF32 halves (:func:`tf32_split_pack`), a
     persistent grid of one block per SM walks the samples with an f32
     scratch a block (the check states' second buffer; with global panels
     the panel too), and the shared-panel kernel takes ``samples_per_block``
-    samples a block.  Raises on what the kernel does not take."""
+    samples a block.  With bf16 states a raster whose panels do not fit in
+    shared memory runs on a persistent grid with both panels in a per-block
+    scratch in bf16.  Raises on what the kernel does not take."""
     from tpugnn_torch.kernels._build import load_library
 
     dt = ops.xc.dtype
@@ -437,49 +455,95 @@ def _roll_rounds_cuda(ops: RasterOperands, *, rounds: int, slot_dtype: str = "fl
     for t in (ops.xq, ops.syn, ops.masks, ops.degbo, ops.mats, ops.vecs):
         if t.device != dev:
             raise ValueError(f"all operands must be on {dev}, got {t.device}")
-    lib = load_library("roll_gather")
+    ln_width = h if width is None else width
     code = _DTYPE_CODE[dt]
+    offs = (ctypes.c_int * 8)(*ops.offs_c, *ops.offs_q)
+    wid = kernel_width(h)
+    if wid > WIDTH:
+        return _roll_rounds_wide(pad_raster(ops, wid), rounds, slot16, ln_width, h, offs)
+    lib = load_library(roll_library(dt))
     smem = lib.roll_rounds_smem_bytes(code, l_pad)
-    gpanels = smem > SMEM_LIMIT and code == 0
+    gpanels = smem > SMEM_LIMIT
     if gpanels:
-        smem = lib.roll_rounds_gpanels_smem_bytes(l_pad)
+        smem = (lib.roll_rounds_gpanels_smem_bytes(l_pad) if code == 0
+                else lib.roll_rounds_tc_gpanels_smem_bytes(l_pad))
     if smem > SMEM_LIMIT:
         raise ValueError(f"raster too large for the roll-rounds kernel: needs {smem} B "
                          f"of shared memory per block (l_pad={l_pad}, {dt} states"
                          f"{', gather panels in global memory' if gpanels else ''}), "
                          f"limit {SMEM_LIMIT}")
-    ln_width = h if width is None else width
     ops = pad_raster(ops)
     bits = _mask_bits(ops.masks)
-    offs = (ctypes.c_int * 8)(*ops.offs_c, *ops.offs_q)
     xc, xq = ops.xc.contiguous(), ops.xq.contiguous()
     syn = ops.syn.float().contiguous()
     degbo, mats = ops.degbo.float().contiguous(), ops.mats.contiguous()
     vecs = ops.vecs.float().contiguous()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     s, grid, scratch = 1, 0, None
     if code == 0:
         mats = tf32_split_pack(mats)
         if not gpanels:
             s = samples_per_block(b, l_pad, l_pad, F32_CHUNK_ROWS)
-        grid = min(b // s, torch.cuda.get_device_properties(dev).multi_processor_count)
+        grid = min(b // s, sms)
         # per block: the check states' second buffer, and the global panel
         scratch = torch.empty((grid, (2 if gpanels else 1) * s * l_pad, WIDTH),
                               dtype=torch.float32, device=dev)
+    elif gpanels:   # per block: both bf16 panels
+        grid = min(b, sms)
+        scratch = torch.empty((grid, 2 * l_pad, WIDTH), dtype=dt, device=dev)
     out_c, out_q = torch.empty_like(xc), torch.empty_like(xq)
     with _cuda_stream(dev) as stream:
         ptrs = (xc.data_ptr(), xq.data_ptr(), syn.data_ptr(), bits.data_ptr(),
                 degbo.data_ptr(), mats.data_ptr(), vecs.data_ptr(), out_c.data_ptr(),
                 out_q.data_ptr())
-        if gpanels:
+        if gpanels and code == 0:
             err = lib.roll_rounds_gpanels_launch(*ptrs, scratch.data_ptr(), offs, b, l_pad,
                                                  rounds, ln_width, grid, stream)
+        elif gpanels:
+            err = lib.roll_rounds_tc_gpanels_launch(int(slot16), *ptrs, scratch.data_ptr(),
+                                                    offs, b, l_pad, rounds, ln_width, grid,
+                                                    stream)
         else:
             err = lib.roll_rounds_launch(code, int(slot16), *ptrs, offs, b, l_pad, rounds,
                                          ln_width, s,
                                          scratch if scratch is None else scratch.data_ptr(),
                                          grid, stream)
-    name = "roll_rounds_gpanels" if gpanels else "roll_rounds"
+    name = ("roll_rounds" if not gpanels else "roll_rounds_gpanels" if code == 0
+            else "roll_rounds_tc_gpanels")
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     _LAUNCHES[name] += 1
+    return out_c[..., :h], out_q[..., :h]
+
+
+def _roll_rounds_wide(ops: RasterOperands, rounds: int, slot16: bool, ln_width: int, h: int,
+                      offs):
+    """K5 above 128 columns: the wide rounds kernel's raster mode on
+    operands padded to a multiple of 128 (``csrc/wide_rounds.cu``, the slot
+    sum in ``offs`` order under the mask bits, ``(deg bo) @ ua`` read per
+    cell); returns the first ``h`` columns of ``(xc, xq)``."""
+    from tpugnn_torch.kernels._build import load_library
+
+    dt = ops.xc.dtype
+    b, l_pad, wid = ops.xc.shape
+    dev = ops.xc.device
+    lib = load_library("wide_rounds")
+    code = _DTYPE_CODE[dt]
+    bits = _mask_bits(ops.masks)
+    xc, xq = ops.xc.contiguous(), ops.xq.contiguous()
+    syn = ops.syn.float().contiguous()
+    degbo = ops.degbo.float().contiguous()
+    pack = tf32_split_pack(ops.mats) if code == 0 else bf16_frag_pack(ops.mats)
+    vecs = ops.vecs.float().contiguous()
+    ys_c, ys_q = torch.empty_like(xc), torch.empty_like(xq)   # the gathers' sources
+    out_c, out_q = torch.empty_like(xc), torch.empty_like(xq)
+    with _cuda_stream(dev) as stream:
+        err = lib.wide_roll_launch(code, int(slot16), xc.data_ptr(), xq.data_ptr(),
+                                   syn.data_ptr(), bits.data_ptr(), degbo.data_ptr(),
+                                   pack.data_ptr(), vecs.data_ptr(), out_c.data_ptr(),
+                                   out_q.data_ptr(), ys_c.data_ptr(), ys_q.data_ptr(), offs, b,
+                                   l_pad, rounds, wid, ln_width, stream)
+    if err != 0:
+        raise RuntimeError(f"roll_rounds_wide kernel launch failed: CUDA error {err}")
+    _LAUNCHES["roll_rounds_wide"] += 1
     return out_c[..., :h], out_q[..., :h]
