@@ -596,7 +596,7 @@ CIRCUIT_F32_TRAIN_STEPS = 10
 # weights each; d=5, H=128, R=3)
 MH_WIDTH = 96
 UNTIED_D = 5
-# Phase 6d: widths above 128 on the wide kernels (csrc/wide_rounds.cu): K1,
+# Phase 6d: widths above 128 on the wide kernels (csrc/wide_rounds.cuh): K1,
 # K2a, K2b and K5 at H = MH = WIDE_H against their plain versions (d=11 and
 # circuit d=5, B=D13_BATCH, R=D13_ROUNDS; the bf16 states held as the
 # 128-column ones are), two training steps of a WIDE_H model on surface
@@ -613,6 +613,7 @@ WIDE_CLI_ARGS = (*CIRCUIT_TRAIN_ARGS, "--hidden", str(WIDE_H), "--msg-hidden", s
 WIDE_TIMING_BATCH = 4096
 WIDE_TIMING_ROUNDS = 8
 WIDE_NAMES = ("fused_rounds_wide", "fused_rounds_fwd_stash_wide", "fused_rounds_bwd_wide")
+WIDE_MORE_H = (384, 512)   # the wider packs, checked on surface WIDE_TRAIN_D
 K5_GP_D = 17
 
 # The dist phase (4f): graph- and data-parallel decoding and training on
@@ -1630,44 +1631,82 @@ def raster_errors(kc, kq, pc, pq) -> tuple[float, float]:
     return float(diff.max()), float(diff.mean())
 
 
-# cuobjdump's HMMA counts by library file: futures, started by prefetch_sass
+# the wide kernels' libraries: built after the rest, in the background
+# (start_wide_build), first needed by phase 6d (wide_build)
+WIDE_LIBRARIES = ("wide_rounds", "wide_rounds_tf32", "wide_backward", "wide_backward_tf32")
+_WIDE_BUILD: dict = {}
+
+
+def start_wide_build() -> None:
+    """Starts the wide libraries' build in a thread of its own, each nvcc at
+    the lowest priority, so that it overlaps the phases before 6d, and their
+    HGMMA counts (prefetch_sass) as soon as they are built."""
+    import concurrent.futures
+
+    from tpugnn_torch.kernels._build import build_libraries
+
+    def build():
+        built = build_libraries(list(WIDE_LIBRARIES), 19)
+        prefetch_sass([p for p, _, _ in built.values()], "HGMMA")
+        return built
+
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    _WIDE_BUILD["future"] = pool.submit(build)
+    pool.shutdown(wait=False)
+
+
+def wide_build() -> tuple[dict, float]:
+    """The wide libraries' build (``build_libraries``' result: the
+    background one start_wide_build began, or one now) and the seconds
+    spent waiting for it."""
+    from tpugnn_torch.kernels._build import build_libraries
+
+    t0 = time.perf_counter()
+    built = (_WIDE_BUILD["future"].result() if "future" in _WIDE_BUILD
+             else build_libraries(list(WIDE_LIBRARIES)))
+    return built, time.perf_counter() - t0
+
+
+# cuobjdump's HMMA (mma.sync) and HGMMA (wgmma) counts by library file and
+# instruction: futures, started by prefetch_sass
 _SASS: dict = {}
 
 
-def prefetch_sass(libraries) -> None:
-    """Starts the HMMA count of each library (cuobjdump -sass, seconds for
-    the larger ones) in a thread of its own, so that the phases that check
-    HMMA find the counts ready instead of waiting on the disassembly."""
+def prefetch_sass(libraries, op: str = "HMMA") -> None:
+    """Starts the count of instruction ``op`` (HMMA or HGMMA) in each library
+    (cuobjdump -sass, seconds for the larger ones) in a thread of its own, so
+    that the phases that check them find the counts ready instead of
+    waiting on the disassembly."""
     import concurrent.futures
 
     pool = concurrent.futures.ThreadPoolExecutor(max_workers=len(libraries))
     for library in libraries:
-        _SASS.setdefault(library, pool.submit(_sass_counts, library))
+        _SASS.setdefault((library, op), pool.submit(_sass_counts, library, op))
     pool.shutdown(wait=False)
 
 
-def sass_mma_counts(library: str) -> dict:
-    """HMMA instructions per kernel of a built library, from cuobjdump -sass
-    beside nvcc (once a library file; :func:`prefetch_sass` may have started
-    it)."""
-    if library not in _SASS:
-        prefetch_sass([library])
-    return _SASS[library].result()
+def sass_mma_counts(library: str, op: str = "HMMA") -> dict:
+    """Instructions ``op`` (HMMA: mma.sync; HGMMA: wgmma) per kernel of a
+    built library, from cuobjdump -sass beside nvcc (once a library file and
+    instruction; :func:`prefetch_sass` may have started it)."""
+    if (library, op) not in _SASS:
+        prefetch_sass([library], op)
+    return _SASS[(library, op)].result()
 
 
-def _sass_counts(library: str) -> dict:
+def _sass_counts(library: str, op: str) -> dict:
     from tpugnn_torch.kernels._build import nvcc_path
 
     tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
     if not os.path.exists(tool):
         raise RuntimeError(f"no cuobjdump beside nvcc ({tool}): cannot check that the "
-                           "bf16 kernels run on tensor cores")
+                           "kernels run on tensor cores")
     out, name = {}, None
     for line in run([tool, "-sass", library]).splitlines():
         if "Function : " in line:
             name = line.split("Function : ")[1].strip()
             out[name] = 0
-        elif name is not None and "HMMA" in line:
+        elif name is not None and op in line:   # neither name holds the other
             out[name] += 1
     return out
 
@@ -2123,7 +2162,11 @@ def rounds_kernel_times() -> dict:
     * ``k2a_f32_gpanels``, ``k2b_f32_gpanels`` (where the checkout has
       them): f32 K2a's global-panel variant (the same limit lowered) and
       K2b's scratch-panel layout (``force_gpanels``) on the inputs of
-      ``k2a_f32`` and ``k2b_f32``."""
+      ``k2a_f32`` and ``k2b_f32``;
+    * ``k1w_bf16``, ``k2aw_bf16``, ``k2bw_bf16``, ``k5w_bf16`` and the same
+      with ``_f32``: the wide family (phase 6d's ``wide_timing`` inputs: d=11,
+      H = MH = WIDE_H, B=WIDE_TIMING_BATCH, R=WIDE_TIMING_ROUNDS), each call
+      held to one launch of its wide kernel."""
     import inspect
 
     import torch
@@ -2142,7 +2185,9 @@ def rounds_kernel_times() -> dict:
 
     t0 = time.perf_counter()
     build_libraries([n for n in ("fused_rounds", "fused_rounds_tf32", "fused_backward",
-                                 "fused_backward_tf32", "roll_gather", "roll_gather_tf32")
+                                 "fused_backward_tf32", "roll_gather", "roll_gather_tf32",
+                                 "wide_rounds", "wide_rounds_tf32", "wide_backward",
+                                 "wide_backward_tf32")
                      if n in SOURCES])
     out = dict(build_seconds=round(time.perf_counter() - t0, 1))
     dev = torch.device("cuda", 0)
@@ -2193,6 +2238,30 @@ def rounds_kernel_times() -> dict:
                 launched_once("fused_rounds_bwd_gpanels", k2b)
                 out["k2b_f32_gpanels"] = time_ms(k2b, warmup=1, iters=3)
             del sc, sq
+        torch.cuda.empty_cache()
+    r = WIDE_TIMING_ROUNDS
+    for dtype, tag in (("bfloat16", "bf16"), ("float32", "f32")):
+        with torch.no_grad():
+            g, _, ops, w, xc, xq, s, gen = random_round_case(D, WIDE_TIMING_BATCH, r, dtype, 95,
+                                                             dev, h=WIDE_H)
+            mats32, vecs32 = fd.pack_weights_f32(w)
+            cot_c = torch.randn(xc.shape, generator=gen, device=dev)
+            cot_q = torch.randn(xq.shape, generator=gen, device=dev)
+            _, _, sc, sq = fb._fwd_stash_cuda(xc, xq, s, ops, mats32, vecs32, r, dtype)
+            r_ops = rg.to_raster(xc, xq, s, rg.plan_for_graph(g), w, dtype)
+            for key, name, fn, iters in (
+                    ("k1w", "fused_rounds_wide",
+                     lambda: fd.decoder_rounds(xc, xq, s, ops, w, r, dtype), 5),
+                    ("k2aw", "fused_rounds_fwd_stash_wide",
+                     lambda: fb._fwd_stash_cuda(xc, xq, s, ops, mats32, vecs32, r, dtype), 5),
+                    ("k2bw", "fused_rounds_bwd_wide",
+                     lambda: fb._bwd_cuda(sc, sq, s, ops, mats32, vecs32, cot_c, cot_q, dtype),
+                     3),
+                    ("k5w", "roll_rounds_wide", lambda: rg._roll_rounds_cuda(r_ops, rounds=r),
+                     5)):
+                launched_once(name, fn)
+                out[f"{key}_{tag}"] = time_ms(fn, warmup=1, iters=iters)
+            del sc, sq, r_ops, xc, xq, s, cot_c, cot_q
         torch.cuda.empty_cache()
     return out
 
@@ -3109,7 +3178,10 @@ def train_kernels_vs_plain(graph, dg, w, gen, want: tuple[str, str, str],
     (bf16: TOL_BF16_MAX and TOL_BF16_MEAN; f32: TOL_F32), K2b's gradients
     (every leaf) within TOL_GRAD_REL_BF16 (f32: TOL_GRAD_REL_F32) of
     rounds_vjp_plain fed the same stash, and a second K2b call equals the
-    first.  Raises otherwise; returns the errors."""
+    first.  Where K2b refuses the state type at this width
+    (``fb.F32_BWD_REFUSED``; ROADMAP.md, Queue 3) its call must raise
+    ValueError before any launch, and K1 and K2a are held as above.
+    Raises otherwise; returns the errors."""
     import torch
 
     from tpugnn_torch.kernels import fused_backward as fb
@@ -3124,6 +3196,7 @@ def train_kernels_vs_plain(graph, dg, w, gen, want: tuple[str, str, str],
     xc, xq, s = random_states(dg, D13_BATCH, h, gen)
     cot_c = torch.randn(xc.shape, generator=gen, device=dev)
     cot_q = torch.randn(xq.shape, generator=gen, device=dev)
+    refused = dt == "float32" and fd.kernel_width(h) in fb.F32_BWD_REFUSED
     launched = {}
     with torch.no_grad():
         calls = (("k1", lambda: fd.decoder_rounds(xc, xq, s, ops, w, r3, dt)),
@@ -3133,46 +3206,62 @@ def train_kernels_vs_plain(graph, dg, w, gen, want: tuple[str, str, str],
         outs = {}
         for (kernel, call), name in zip(calls, want):
             reset_counts()
-            outs[kernel] = call()
+            if kernel == "k2b" and refused:
+                try:
+                    call()
+                except ValueError as e:
+                    outs[kernel] = str(e)
+                else:
+                    raise RuntimeError(f"{graph.name}: f32 K2b at {fd.kernel_width(h)} "
+                                       f"columns ran; it refuses that width")
+            else:
+                outs[kernel] = call()
             launched[kernel] = counts()
             if kernel == "k2a":
                 sc, sq = outs[kernel][2:]
-        again = fb._bwd_cuda(sc, sq, s, ops, mats32, vecs32, cot_c, cot_q, dt)
         (k1c, k1q), (kc, kq, _, _), kg = outs["k1"], outs["k2a"], outs["k2b"]
+        again = kg if refused else fb._bwd_cuda(sc, sq, s, ops, mats32, vecs32, cot_c, cot_q,
+                                                dt)
         pc, pq, psc, psq = fb.rounds_fwd_stash_plain(xc, xq, s, ops, mats32, vecs32,
                                                      rounds=r3, state_dtype=dt)
-        pg = fb.rounds_vjp_plain(sc, sq, s, ops, mats32, vecs32, cot_c, cot_q, state_dtype=dt)
+        pg = None if refused else fb.rounds_vjp_plain(sc, sq, s, ops, mats32, vecs32, cot_c,
+                                                      cot_q, state_dtype=dt)
         torch.cuda.synchronize()
         same_as_k1 = bool(torch.equal(kc, k1c) and torch.equal(kq, k1q))
-        repeatable = all(torch.equal(a, b) for a, b in zip(kg, again))
+        repeatable = refused or all(torch.equal(a, b) for a, b in zip(kg, again))
         out_diff = torch.cat([(kc - pc).abs().flatten(), (kq - pq).abs().flatten()])
         st_diff = torch.cat([(sc.float() - psc.float()).abs().flatten(),
                              (sq.float() - psq.float()).abs().flatten()])
-        finite = all(bool(torch.isfinite(t).all()) for t in (kc, kq, *kg))
-    rels = grad_errors(w, kg, pg)
-    worst = max(rels, key=rels.get)
-    k_leaves, p_leaves = weight_leaves(w, kg[3], kg[4]), weight_leaves(w, pg[3], pg[4])
-    grad_max = max(float((a - b).abs().max()) for a, b in zip(
-        list(kg[:3]) + list(k_leaves.values()), list(pg[:3]) + list(p_leaves.values())))
+        finite = all(bool(torch.isfinite(t).all()) for t in (kc, kq, *([] if refused else kg)))
     res = dict(graph=graph.name, m_pad=graph.n_checks_pad, n_pad=graph.n_qubits_pad,
                dc=graph.deg_max_check, dq=graph.deg_max_qubit, batch=D13_BATCH, rounds=r3,
                kernels=dict(zip(("k1", "k2a", "k2b"), want)), launched=launched,
                k2a_equals_k1=same_as_k1, k2b_repeatable=repeatable,
                k2a_vs_plain_max=float(out_diff.max()), k2a_vs_plain_mean=float(out_diff.mean()),
                stash_vs_plain_max=float(st_diff.max()),
-               stash_vs_plain_mean=float(st_diff.mean()), k2b_max_abs_err=grad_max,
-               k2b_worst_rel=rels[worst], k2b_worst_leaf=worst, state_dtype=dt, tol_rel=tol_rel,
+               stash_vs_plain_mean=float(st_diff.mean()), state_dtype=dt, tol_rel=tol_rel,
                tol_max=tol_max, tol_mean=tol_mean)
+    if refused:
+        res["k2b_refused"] = kg
+    else:
+        rels = grad_errors(w, kg, pg)
+        worst = max(rels, key=rels.get)
+        k_leaves, p_leaves = weight_leaves(w, kg[3], kg[4]), weight_leaves(w, pg[3], pg[4])
+        res.update(k2b_max_abs_err=max(float((a - b).abs().max()) for a, b in zip(
+            list(kg[:3]) + list(k_leaves.values()), list(pg[:3]) + list(p_leaves.values()))),
+            k2b_worst_rel=rels[worst], k2b_worst_leaf=worst)
     for kernel, name in zip(("k1", "k2a", "k2b"), want):
-        if launched[kernel] != {**dict.fromkeys(launched[kernel], 0), name: 1}:
-            raise RuntimeError(f"{graph.name}: {kernel} launched {launched[kernel]}, not one "
+        one = {**dict.fromkeys(launched[kernel], 0), name: 1}
+        if launched[kernel] != (dict.fromkeys(one, 0) if kernel == "k2b" and refused else one):
+            raise RuntimeError(f"{graph.name}: {kernel} launched {launched[kernel]}, not "
+                               f"{'no kernel' if kernel == 'k2b' and refused else 'one'} "
                                f"{name}")
     if not finite or not same_as_k1 or not repeatable:
         raise RuntimeError(f"{graph.name} K2a/K2b non-finite, K2a differs from K1 or K2b "
                            f"from itself: {res}")
     if (res["k2a_vs_plain_max"] > tol_max or res["k2a_vs_plain_mean"] > tol_mean
-            or res["stash_vs_plain_max"] > tol_max
-            or res["stash_vs_plain_mean"] > tol_mean or rels[worst] > tol_rel):
+            or res["stash_vs_plain_max"] > tol_max or res["stash_vs_plain_mean"] > tol_mean
+            or res.get("k2b_worst_rel", 0.0) > tol_rel):
         raise RuntimeError(f"{graph.name}: K2a or K2b disagrees with its plain version: {res}")
     del outs, again, kc, kq, sc, sq, pc, pq, psc, psq, kg, pg, out_diff, st_diff
     torch.cuda.empty_cache()
@@ -4158,23 +4247,49 @@ def dist_ranks(weights: str) -> dict:
     return out
 
 
-def wide_design_bytes(graph, batch: int, rounds: int, w: int, item: int, backward: bool) -> float:
-    """The state bytes the wide kernels' design moves through HBM (its own
-    traffic, against the function's least in ``rounds_bytes``): a forward
-    round reads each side's states twice (projection, update), writes and
-    reads its gather source once (each slot's read of it counted once: the
-    rest hit L2) and writes the new states; the backward's round the
-    forward's, and its residuals: eleven [rows, W] arrays a side written
-    once (five of them f32) and read once or twice by the later launches,
-    the stash and the cotangents, and the weight gradients' reads (each A
-    operand once, each G operand W / 64 times)."""
+def wide_design_bytes(graph, batch: int, rounds: int, w: int, item: int,
+                      backward: bool) -> tuple[float, float]:
+    """``(hbm, l2_weights)``, a model, not a measurement: the bytes the wide
+    kernels' design moves through HBM (its own traffic, against the
+    function's least in ``rounds_bytes``) and the weight bytes it reads from
+    L2 into shared memory, over ``rounds`` rounds at pack width ``w`` in a
+    state type of ``item`` bytes (csrc/wide_rounds.cuh).
+
+    HBM: a forward round reads each side's states twice (projection,
+    update), writes and reads its gather source once (each slot's read of
+    it counted once: the rest hit L2) and writes the new states.  The
+    backward's round: the projection's; the replay's reads (stash, gather
+    source, cotangent) and its residuals written once (hs, hc, rnd(dt),
+    rnd(dydb), rnd(dhs), in bf16 rnd(dpre) too; dpre in f32); the gather
+    adjoint's (rnd(dhs) read, dys written); the cotangent launch's (rnd(dydb),
+    dys, rnd(dt) and dpre read, the cotangent read and written); and the
+    weight gradients' ten A and ten G operands, each read W / 128 times.
+    The bias gradients' column sums go to per-warp partials from the
+    replay's registers and cross no HBM a row.
+
+    L2 weights: every tile streams each of its products' [W, W] packs once
+    (bf16 2 bytes an entry, f32 8: the TF32 halves).  A tile is 128 rows
+    where one warpgroup holds a row's columns (bf16 W <= 256, f32 W = 128),
+    else 64 (csrc/wide_mma.cuh, Geo); the replay's tiles are 64 rows at
+    every width (Geo<T, W, true>: its two warpgroups split the columns).
+    Five products a forward round and tile (projection included); a
+    backward round's ten: the projection and the three cotangent products
+    on the forward's tiles, the six replay products on 64-row tiles."""
     rows = batch * (graph.n_checks + graph.n_qubits)
-    fwd = rows * w * item * 5
+    pack = w * w * (8 if item == 4 else 2)
+
+    def tiles(rt):
+        return -(-batch * graph.n_checks // rt) + -(-batch * graph.n_qubits // rt)
+
+    rt = 128 if w <= (128 if item == 4 else 256) else 64
     if not backward:
-        return rounds * fwd
-    res = rows * w * (6 * item + 5 * 4) * 2
-    wgrad = rows * w * item * (3 + 7 * w // 64)
-    return rounds * (fwd + res + wgrad + 2 * rows * w * 4)
+        return rounds * rows * w * item * 5, rounds * tiles(rt) * 5 * pack
+    t = rows * w * item
+    f = rows * w * 4
+    res = t * (5 + (item == 2)) + f
+    per_round = (2 * t + (2 * t + f + res) + 2 * t + (3 * t + 3 * f)
+                 + 10 * t * (w // 128))
+    return rounds * per_round, rounds * (tiles(rt) * 4 + tiles(64) * 6) * pack
 
 
 def wide_timing(graph, dt: str, dev, batch: int, rounds: int) -> dict:
@@ -4182,9 +4297,10 @@ def wide_timing(graph, dt: str, dev, batch: int, rounds: int) -> dict:
     WIDE_H on ``graph`` (surface), B=``batch``, R=``rounds`` in state type
     ``dt``, its plain version's (one call; where the card runs out of
     memory, two half-batch calls), its bound (``rounds_flops`` at the bf16
-    or 3xTF32 peak, or the function's bytes) and the design's state bytes'
-    time beside, and the 128-column kernel at H=128 on inputs of the same
-    shapes."""
+    or 3xTF32 peak, or the function's bytes), the design's modelled bytes
+    beside (``wide_design_bytes``: ``model_hbm_bytes``, their time at the
+    HBM rate, ``model_l2_weight_bytes``), and the 128-column kernel at H=128
+    on inputs of the same shapes."""
     import torch
 
     from tpugnn_torch.kernels import fused_backward as fb
@@ -4258,8 +4374,9 @@ def wide_timing(graph, dt: str, dev, batch: int, rounds: int) -> dict:
                          ("k2b", (tb["k2b_bound_ms"], tb["k2b_bound_by"]))):
         out[f"{k}_bound_ms"], out[f"{k}_bound_by"] = bms, by
         out[f"{k}_bound_share"] = bms / out[f"{k}_ms"]
-        out[f"{k}_design_bytes_ms"] = wide_design_bytes(
-            graph, batch, rounds, WIDE_H, item, k == "k2b") / H100_HBM_BPS * 1e3
+        hbm, l2w = wide_design_bytes(graph, batch, rounds, WIDE_H, item, k == "k2b")
+        out[f"{k}_model_hbm_bytes"], out[f"{k}_model_l2_weight_bytes"] = hbm, l2w
+        out[f"{k}_model_hbm_ms"] = hbm / H100_HBM_BPS * 1e3
     return out
 
 
@@ -4311,6 +4428,35 @@ def wide_train_state(h: int, dt: str, seed: int, dev):
     return state, cfg
 
 
+_WIDE_KERNEL = re.compile(r"wide_(fwd|replay|cotangent|wgrad)_kernelI(?:13__nv_bfloat16|f)"
+                          r"(?:Li(\d+)E(?:Lb([01])ELb([01])E(?:Lb([01])E)?)?)?")
+
+
+def wide_hgmma(counts: dict) -> dict:
+    """The HGMMA (wgmma) count of each wide kernel instantiation in
+    ``counts`` (:func:`sass_mma_counts` of a state type's two wide
+    libraries with op HGMMA, merged), by the row of the kernels line it
+    serves: K1 and K2a the table forward at each width, K5 the raster
+    forward (bf16 slots apart), K2b its projection, replay, cotangent and
+    weight-gradient kernels."""
+    out = {"k1": {}, "k2a": {}, "k2b": {}, "k5": {}}
+    for name, n in counts.items():
+        m = _WIDE_KERNEL.search(name)
+        if m is None:
+            continue
+        kind, w, roll, slot16, project = m.groups()
+        if kind == "fwd" and project == "1":
+            out["k2b"][f"project_w{w}"] = n
+        elif kind == "fwd":
+            tag = f"fwd_w{w}" + ("_roll" if roll == "1" else "") + ("_slot16" if slot16 == "1"
+                                                                    else "")
+            for k in (("k5",) if roll == "1" else ("k1", "k2a")):
+                out[k][tag] = n
+        else:
+            out["k2b"][f"{kind}_w{w}" if w else kind] = n
+    return out
+
+
 def phase_wide_rounds(dev, info: dict) -> dict:
     """Phase 6d: widths above 128 on the wide kernels (and bf16 K5 past
     shared memory).  Gates, each raising:
@@ -4343,11 +4489,19 @@ def phase_wide_rounds(dev, info: dict) -> dict:
        model there (PallasDecoder), and on d=11 the two placements bit for
        bit (the shared limit lowered, B=D7_GP_BATCH);
     g. timings (wide_timing) in both state types, and bf16 K5's global
-       variant at K5_GP_D, B=WIDE_TIMING_BATCH, R=WIDE_TIMING_ROUNDS.
+       variant at K5_GP_D, B=WIDE_TIMING_BATCH, R=WIDE_TIMING_ROUNDS;
+    h. the wider packs: K1, K5, K2a and K2b at H = MH = 384 and 512 on surface
+       d=5 (B=D13_BATCH, R=D13_ROUNDS), held as (a) and (b); f32 K2b at 384
+       columns must refuse before any launch (``fb.F32_BWD_REFUSED``;
+       ROADMAP.md, Queue 3: its slot ties there);
+    i. cuobjdump -sass: HGMMA (wgmma) in every instantiation of the wide
+       kernels (the forward in both modes, the replay, the cotangent and the
+       weight gradients) in both state types.
     Returns the launches by path; ``info`` gets every number."""
     import torch
 
     from tpugnn_torch.configs import ModelConfig
+    from tpugnn_torch.kernels import fused_decoder as fd
     from tpugnn_torch.kernels import roll_gather as rg
     from tpugnn_torch.kernels._build import load_library
     from tpugnn_torch.models import GNNDecoder, PallasDecoder
@@ -4360,6 +4514,17 @@ def phase_wide_rounds(dev, info: dict) -> dict:
 
     def lap(name):
         part_s[name] = round(time.perf_counter() - t0 - sum(part_s.values()), 3)
+
+    # the wide libraries (built in the background since the build phase):
+    # their nvcc seconds and the kernels' registers and spills (under
+    # setmaxnreg the consumers may use 240 registers; ptxas reports the
+    # launch's 168)
+    wide_built, waited = wide_build()
+    info["build"] = {n: dict(library=os.path.relpath(p, REPO), build_seconds=round(sec, 3),
+                             ptxas=ptxas_usage(blog, "wide_"))
+                     for n, (p, sec, blog) in wide_built.items()}
+    info["build_waited_seconds"] = round(waited, 3)
+    lap("build")
 
     # a. the wide forward kernels against their plain versions
     checks = {}
@@ -4543,6 +4708,37 @@ def phase_wide_rounds(dev, info: dict) -> dict:
     info["timed"] = {dt: wide_timing(graph, dt, dev, WIDE_TIMING_BATCH, WIDE_TIMING_ROUNDS)
                      for dt in ("bfloat16", "float32")}
     lap("timed")
+
+    # h. the wider packs on d=5
+    wider = {}
+    for dt in ("float32", "bfloat16"):
+        for h in WIDE_MORE_H:
+            wider[f"k1_w{h}_{dt}"] = rounds_vs_plain("k1", WIDE_TRAIN_D, h, dt, 103, dev,
+                                                     WIDE_NAMES[0])
+            wider[f"k5_w{h}_{dt}"] = rounds_vs_plain("k5", WIDE_TRAIN_D, h, dt, 104, dev,
+                                                     "roll_rounds_wide")
+            g, dg, _, w, _, _, _, gen = random_round_case(WIDE_TRAIN_D, D13_BATCH, D13_ROUNDS, dt,
+                                                          105, dev, h=h)
+            wider[f"train_w{h}_{dt}"] = train_kernels_vs_plain(g, dg, w, gen, WIDE_NAMES, dt)
+    info["wider"] = wider
+    lap("wider")
+
+    # i. HGMMA in every wide kernel
+    hg = {}
+    for dt in ("bfloat16", "float32"):
+        libs = [fd.wide_library(fd.STATE_DTYPES[dt], backward=b) for b in (False, True)]
+        hg[dt] = wide_hgmma({k: v for lib in libs
+                             for k, v in sass_mma_counts(wide_built[lib][0], "HGMMA").items()})
+    info["sass_hgmma"] = hg
+    widths = (WIDE_H, *WIDE_MORE_H)
+    want = {"k1": len(widths), "k2a": len(widths), "k5": 2 * len(widths),
+            "k2b": 3 * len(widths) + 1}
+    for dt, rows in hg.items():
+        for k, n in want.items():
+            n -= len(widths) if dt == "float32" and k == "k5" else 0   # f32 has no bf16 slots
+            if len(rows[k]) != n or not all(c > 0 for c in rows[k].values()):
+                raise RuntimeError(f"a wide {dt} kernel is missing or runs no wgmma: {hg}")
+    lap("sass_hgmma")
     info["part_seconds"] = part_s
     return launches
 
@@ -4761,7 +4957,7 @@ def main() -> int:
 
     from tpugnn_torch.eval import decode_corrections, ler_monte_carlo
     from tpugnn_torch.kernels import fused_decoder as fd
-    from tpugnn_torch.kernels._build import build_libraries, nvcc_path
+    from tpugnn_torch.kernels._build import SOURCES, build_libraries, nvcc_path
     from tpugnn_torch.models import GNNDecoder
     from tpugnn_torch.models.convert import read_meta
     from tpugnn_torch.configs import ModelConfig
@@ -4796,7 +4992,11 @@ def main() -> int:
 
         host_thread = threading.Thread(target=build_host)
         host_thread.start()
-        built = build_libraries()       # one nvcc per source, all at once
+        # one nvcc per source, all at once; the wide kernels' four after the
+        # rest, in the background at a lower priority: phase 6d is the first
+        # to run them, and their builds overlap the phases before it
+        built = build_libraries([n for n in SOURCES if n not in WIDE_LIBRARIES])
+        start_wide_build()
         host_thread.join()
         if "error" in host:
             raise host["error"]
@@ -5403,8 +5603,9 @@ def main() -> int:
         """The wide kernels' rows (phase 6d): bf16 numbers at the top, f32
         under ``f32``; times at d=11, H = MH = WIDE_H, B=WIDE_TIMING_BATCH,
         R=WIDE_TIMING_ROUNDS beside the 128-column kernel's at H=128
-        (``h128_ms``) and the design's state bytes' time
-        (``design_bytes_ms``)."""
+        (``h128_ms``), and the HGMMA count of each instantiation of the row's
+        kernels (``sass_hgmma``).  The design's modelled bytes stay in phase
+        6d's info (``timed``): nothing in this line is a model."""
         vs, tk, tm = wide["vs_plain"], wide["train_kernels"], wide["timed"]
         err = lambda k, dt: max(v["max_abs_err"] for n, v in vs.items()
                                 if n.startswith(k) and dt in n)
@@ -5419,7 +5620,7 @@ def main() -> int:
                 n = dict(ms=t[f"{k}_ms"], plain_ms=t[f"{k}_plain_ms"],
                          plain_calls=t[f"{k}_plain_calls"], bound_ms=t[f"{k}_bound_ms"],
                          bound_by=t[f"{k}_bound_by"], h128_ms=t[f"{k}_h128_ms"],
-                         design_bytes_ms=t[f"{k}_design_bytes_ms"])
+                         sass_hgmma=wide["sass_hgmma"][dt][k])
                 if k in ("k1", "k5"):
                     n["max_abs_err"] = err(k, dt)
                 elif k == "k2a":   # d=11 and circuit d=5
@@ -5433,7 +5634,7 @@ def main() -> int:
                              max_rel_err=max(c["k2b_worst_rel"] for c in cs),
                              repeatable=all(c["k2b_repeatable"] for c in cs))
                 return n
-            out.append(row(name, source="tpugnn_torch/kernels/csrc/wide_rounds.cu",
+            out.append(row(name, source="tpugnn_torch/kernels/csrc/wide_rounds.cuh",
                            replaces=replaces, width=WIDE_H, batch=WIDE_TIMING_BATCH,
                            rounds=WIDE_TIMING_ROUNDS, library_ms=None, **numbers("bfloat16"),
                            f32=numbers("float32")))
@@ -5567,7 +5768,8 @@ def main() -> int:
                                         if "roll_rounds_tc_gpanels_kernel" in k},
             **wide["k5_bfloat16_gpanels"]["timed"]),
     ), *wide_rows()]})
-    emit({"total_seconds": round(time.perf_counter() - t_start, 3)})
+    # no performance gain is claimed by this script's run
+    emit({"total_seconds": round(time.perf_counter() - t_start, 3), "claim": None})
     print(run(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"]).splitlines()[0].strip(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

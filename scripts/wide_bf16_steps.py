@@ -156,7 +156,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
-    build_libraries(["fused_rounds", "fused_backward", "wide_rounds"])
+    build_libraries(["fused_rounds", "fused_backward", "wide_rounds", "wide_backward"])
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     dg = build_code("surface", cs.WIDE_TRAIN_D).to(dev)

@@ -99,7 +99,8 @@ def test_build_is_lazy():
     assert _build.load_library.cache_info().currsize == 0
     assert set(_build.SOURCES) == {"fused_rounds", "fused_rounds_tf32", "fused_backward",
                                   "fused_backward_tf32", "spmm", "sddmm", "roll_gather",
-                                  "roll_gather_tf32", "wide_rounds"}
+                                  "roll_gather_tf32", "wide_rounds", "wide_rounds_tf32",
+                                  "wide_backward", "wide_backward_tf32"}
     assert "-gencode" in _build.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
@@ -107,7 +108,8 @@ def test_build_is_lazy():
                                     "k5_probe.py", "smoke_turns.py", "ler_rows_card.py",
                                     "dist_startup_probe.py", "k1_f32_probe.py", "k2b_ties.py",
                                     "k2b_gp_probe.py", "wide_bf16_steps.py",
-                                    "split_compile_probe.py"])
+                                    "split_compile_probe.py", "wide_probe.py",
+                                    "a10_probe.py", "k2b_wide_ties.py"])
 def test_kernel_probes_import_no_jax(script):
     """The kernel probes run on the card's machine, which has no JAX."""
     with open(os.path.join(REPO, "scripts", script)) as f:

@@ -872,7 +872,9 @@ def wide_library(k1_library, monkeypatch):
     from tpugnn_torch.kernels import _build
 
     lib = _WideLibrary()
-    libs = {"fused_rounds": k1_library, "fused_rounds_tf32": k1_library, "wide_rounds": lib}
+    libs = {"fused_rounds": k1_library, "fused_rounds_tf32": k1_library,
+            **dict.fromkeys(("wide_rounds", "wide_rounds_tf32", "wide_backward",
+                             "wide_backward_tf32"), lib)}
     monkeypatch.setattr(_build, "load_library",
                         lambda name: libs[name] if name in libs else pytest.fail(f"loaded {name}"))
     monkeypatch.setattr(rg, "_cuda_stream", lambda dev: contextlib.nullcontext(0))

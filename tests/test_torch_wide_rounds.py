@@ -3,7 +3,8 @@ and the wrappers' routing to the wide kernels.
 
 A model's packs run at the kernel width W = 128 ceil(max(hidden,
 msg_hidden) / 128): at 128 the 128-column kernels, above it the wide ones
-(``csrc/wide_rounds.cu``), up to 512.  The plain versions take any width:
+(``csrc/wide_rounds.cuh``: four libraries, forward and backward in each state
+type), up to 512.  The plain versions take any width:
 here they are held to the JAX package's Pallas kernels in interpret mode at
 W = 256 (H = 256; H = 160 with MH = 200) and W = 384 on surface and toric
 d=3, to JAX's fused model at hidden=160, msg_hidden=200 (forward and
@@ -210,14 +211,15 @@ def test_cpu_training_takes_msg_hidden_above_128():
 
 @pytest.mark.parametrize("wid", [128, 256, 384])
 def test_packs_in_fragment_order(wid):
-    """The split f32 pack and the bf16 pack at width W hold, for matrix i,
-    k-step s, n-tile j and lane 4 g + t, the entries the kernels' B
-    fragments read (csrc/wide_mma.cuh's header)."""
+    """The split f32 pack of the 128-column kernels at width W holds, for
+    matrix i, k-step s, n-tile j and lane 4 g + t, the entries their B
+    fragments read; the wide kernels' packs (``wgmma_pack``) hold, for
+    matrix i and slab s, element (k, n) at the no-swizzle K-major core-matrix
+    offset csrc/wide_mma.cuh's header gives, bf16 as it is and f32 as its
+    TF32 halves hi then lo."""
     mats = torch.randn((10, wid, wid), generator=torch.Generator().manual_seed(wid))
     split = fd.tf32_split_pack(mats)
-    frag = fd.bf16_frag_pack(mats)
     assert split.shape == (10, wid // 8, wid // 8, 8, 4, 2, 2)
-    assert frag.shape == (10, wid // 16, wid // 8, 8, 4, 2, 2)
     hi = fd.tf32_round(mats)
     lo = fd.tf32_round(mats - hi)
     rng = np.random.default_rng(wid)
@@ -228,11 +230,15 @@ def test_packs_in_fragment_order(wid):
         assert split[i, s, j, g, t, 0, 0] == hi[i, 8 * s + t, n]
         assert split[i, s, j, g, t, 0, 1] == hi[i, 8 * s + t + 4, n]
         assert split[i, s, j, g, t, 1, 1] == lo[i, 8 * s + t + 4, n]
-        s = rng.integers(wid // 16)
-        for kh in range(2):
-            for p in range(2):
-                assert frag[i, s, j, g, t, kh, p] == mats[i, 16 * s + 8 * kh + 2 * t + p,
-                                                          n].to(torch.bfloat16)
+    for dt, te, halves in ((torch.bfloat16, 8, (mats.to(torch.bfloat16),)),
+                           (torch.float32, 4, (hi, lo))):
+        ks = fd.wide_slab_rows(wid, dt)
+        flat = fd.wgmma_pack(mats, dt).reshape(10, wid // ks, -1)
+        for _ in range(50):
+            i, k, n = rng.integers(10), rng.integers(wid), rng.integers(wid)
+            off = ((n // 8) * (ks // te) + (k % ks) // te) * 8 * te + (n % 8) * te + k % te
+            for h, m in enumerate(halves):
+                assert flat[i, k // ks, h * ks * wid + off] == m[i, k, n]
 
 
 def test_readers_list_every_slot_once_in_order():
@@ -365,10 +371,20 @@ def test_wide_widths_reach_the_wide_kernels(h, mh, wid, entry, dtype, libraries)
     """Packs wider than 128 reach the wide kernels' entry points, and only
     those, with the width W (the next multiple of 128) and the LayerNorm's
     width H: K1, K5, and K2a then K2b (with the message width MH for its
-    ties), each counted under its wide name."""
-    g = _call(entry, 3, h, mh, dtype)
+    ties), each counted under its wide name.  f32 K2b at a width it refuses
+    (``fb.F32_BWD_REFUSED``) raises after K2a's launch, before its own."""
     code = 0 if dtype == "float32" else 1
-    assert {lib for lib, _, _ in libraries} == {"wide_rounds"}
+    tdt = fd.STATE_DTYPES[dtype]
+    if entry == "k2" and code == 0 and wid in fb.F32_BWD_REFUSED:
+        with pytest.raises(ValueError, match=f"refuses f32 states at {wid} columns"):
+            _call(entry, 3, h, mh, dtype)
+        assert [name for _, name, _ in libraries] == ["wide_rounds_launch"]
+        assert fd.launch_counts()["fused_rounds_fwd_stash_wide"] == 1
+        assert not fd.launch_counts()["fused_rounds_bwd_wide"]
+        return
+    g = _call(entry, 3, h, mh, dtype)
+    assert {lib for lib, _, _ in libraries} == {fd.wide_library(tdt)} | (
+        {fd.wide_library(tdt, backward=True)} if entry == "k2" else set())
     m, n = g.n_checks_pad, g.n_qubits_pad
     if entry == "k1":
         ((_, name, a),) = libraries

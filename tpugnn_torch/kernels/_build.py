@@ -28,15 +28,18 @@ _CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 # library name -> source: the 128-column K1 and K2a, K2b and K5 each build in
 # two libraries, bf16 and f32 states, so that their nvcc runs (the build's
-# longest) go in parallel; wide_rounds holds K1, K2a, K2b and K5 above 128
-# columns
+# longest) go in parallel; above 128 columns wide_rounds (bf16) and
+# wide_rounds_tf32 (f32) hold K1, K2a and K5, wide_backward and
+# wide_backward_tf32 K2b
 SOURCES = {"fused_rounds": "fused_rounds.cu", "fused_rounds_tf32": "fused_rounds_tf32.cu",
            "fused_backward": "fused_backward.cu",
            "fused_backward_tf32": "fused_backward_tf32.cu", "spmm": "spmm.cu",
            "sddmm": "sddmm.cu", "roll_gather": "roll_gather.cu",
-           "roll_gather_tf32": "roll_gather_tf32.cu", "wide_rounds": "wide_rounds.cu"}
+           "roll_gather_tf32": "roll_gather_tf32.cu", "wide_rounds": "wide_rounds.cu",
+           "wide_rounds_tf32": "wide_rounds_tf32.cu", "wide_backward": "wide_backward.cu",
+           "wide_backward_tf32": "wide_backward_tf32.cu"}
 HEADERS = ("rounds_common.cuh", "rounds_mma.cuh", "backward_common.cuh",
-           "fused_rounds_api.cuh", "roll_gather_api.cuh", "wide_mma.cuh")
+           "fused_rounds_api.cuh", "roll_gather_api.cuh", "wide_mma.cuh", "wide_rounds.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-lineinfo", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -66,6 +69,17 @@ _FORWARD = {
 _ROLL = {
     "roll_rounds_smem_bytes": ([_I] * 2, ctypes.c_longlong),
     "roll_rounds_launch": ([_I] * 2 + [_P] * 10 + [_I] * 5 + [_P, _I, _P], _I),
+}
+# the wide kernels' forward and backward libraries, each in both state types
+# (csrc/wide_rounds.cuh)
+_WIDE_FORWARD = {
+    "wide_rounds_launch": ([_I] + [_P] * 13 + [_I] * 8 + [_P], _I),
+    "wide_roll_launch": ([_I] * 2 + [_P] * 12 + [_I] * 5 + [_P], _I),
+}
+_WIDE_BACKWARD = {
+    "wide_rounds_bwd_scratch_bytes": ([_I] * 7, ctypes.c_longlong),
+    "wide_rounds_bwd_segments": ([], _I),
+    "wide_rounds_bwd_launch": ([_I] + [_P] * 28 + [_I] * 10 + [_P], _I),
 }
 # C entry points per library: name -> (argument types, result type)
 _SIGNATURES = {
@@ -97,13 +111,10 @@ _SIGNATURES = {
         "roll_rounds_gpanels_smem_bytes": ([_I], ctypes.c_longlong),
         "roll_rounds_gpanels_launch": ([_P] * 11 + [_I] * 5 + [_P], _I),
     },
-    "wide_rounds": {
-        "wide_rounds_launch": ([_I] + [_P] * 13 + [_I] * 8 + [_P], _I),
-        "wide_roll_launch": ([_I] * 2 + [_P] * 12 + [_I] * 5 + [_P], _I),
-        "wide_rounds_bwd_scratch_bytes": ([_I] * 7, ctypes.c_longlong),
-        "wide_rounds_bwd_segments": ([], _I),
-        "wide_rounds_bwd_launch": ([_I] + [_P] * 28 + [_I] * 10 + [_P], _I),
-    },
+    "wide_rounds": _WIDE_FORWARD,
+    "wide_rounds_tf32": _WIDE_FORWARD,
+    "wide_backward": _WIDE_BACKWARD,
+    "wide_backward_tf32": _WIDE_BACKWARD,
 }
 
 
@@ -124,9 +135,10 @@ def _library_path(name: str, version: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
-def build_libraries(names=None) -> dict:
+def build_libraries(names=None, nice: int = 0) -> dict:
     """Build the named libraries (all by default) that are not built yet,
-    one ``nvcc`` each, all started together.
+    one ``nvcc`` each, all started together (with ``nice`` > 0 at that
+    lower priority, so that a build in the background yields the cores).
 
     Returns ``{name: (path, seconds spent building, compiler log)}``;
     seconds is 0 and the log empty for a library that was already there.
@@ -152,7 +164,8 @@ def build_libraries(names=None) -> dict:
                 cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, SOURCES[n])]
                 log = open(f"{tmp}.log", "w+")   # a file: a full pipe would stall nvcc
                 procs[n] = (cmd, tmp, log, subprocess.Popen(
-                    cmd, stdout=log, stderr=subprocess.STDOUT, text=True))
+                    cmd, stdout=log, stderr=subprocess.STDOUT, text=True,
+                    preexec_fn=(lambda: os.nice(nice)) if nice > 0 else None))
             failed, running = [], dict(procs)
             while running:     # each library's own seconds, as its nvcc ends
                 for n, (cmd, tmp, log, proc) in list(running.items()):

@@ -13,7 +13,7 @@ gradients of ``wo @ ua`` and ``bo @ ua`` into ``wo``, ``ua`` and ``bo``:
   ``fused_rounds_tf32.cu`` with f32 states) with its stash flag (K2a,
   replacing ``_fwd``'s ``pl.pallas_call`` at
   ``tpugnn/kernels/fused_backward.py:575``), above 128 columns the wide
-  forward of ``csrc/wide_rounds.cu`` with its stash; on a CPU tensor,
+  forward (``csrc/wide_rounds.cuh``) with its stash; on a CPU tensor,
   :func:`rounds_fwd_stash_plain`;
 * backward: the rounds in reverse.  Each replays its forward from the stash
   and chains the adjoint through the LayerNorm, the residual MLP, the relu
@@ -23,12 +23,13 @@ gradients of ``wo @ ua`` and ``bo @ ua`` into ``wo``, ``ua`` and ``bo``:
   ``csrc/fused_backward.cu`` with bf16 states, ``csrc/fused_backward_tf32.cu``
   with f32 states (every product as three TF32 products on the tensor
   cores, as f32 K1, K2a and K5 form theirs), above 128 columns the wide
-  backward of ``csrc/wide_rounds.cu`` in both state types; on a CPU
-  tensor, :func:`rounds_vjp_plain`.
+  backward (``csrc/wide_rounds.cuh``; libraries ``wide_backward`` and
+  ``wide_backward_tf32``), which refuses f32 states at 384 columns
+  (``F32_BWD_REFUSED``); on a CPU tensor, :func:`rounds_vjp_plain`.
 
 A model trains on states and packs zero-padded to the kernels' width
 (:func:`~tpugnn_torch.kernels.fused_decoder.kernel_width`: 128, or above 128
-the next multiple of 128, where ``csrc/wide_rounds.cu`` runs K2a and K2b)
+the next multiple of 128, where ``csrc/wide_rounds.cuh`` runs K2a and K2b)
 outside the autograd Function (:func:`padded_rounds`, with ``F.pad``), so
 autograd slices every gradient back to the model's width; inside, the
 LayerNorm and its adjoint run over the model's ``width`` columns, and no
@@ -346,21 +347,40 @@ def _readers(idx: torch.Tensor, n_src: int):
     return off.to(torch.int32).contiguous(), slots[order].to(torch.int32).contiguous()
 
 
-# blocks of the wide K2b's weight-gradient launch: 10 matrices x W / 64 row
-# blocks x row chunks, about two per SM of an H100
+# Pack widths at which the wide K2b refuses f32 states: it takes the relu
+# ties of its replay again in the order of the plain version's f32 products,
+# one FMA per k ascending, and at K = 384 cuBLAS sums those products
+# otherwise (no split of k into equal slices reproduces them either), so its
+# masks miss the plain version's on some seeds (scripts/k2b_wide_ties.py;
+# ROADMAP.md, Queue 3).  bf16 states, and K1, K2a and K5, run there.
+F32_BWD_REFUSED = (384,)
+
+# blocks of the wide K2b's weight-gradient launch: 10 matrices x (W / 128)^2
+# output tiles x row chunks, about two per SM of an H100
 _WGRAD_BLOCKS = 320
+
+
+def wgrad_chunks(wid: int) -> int:
+    """The row chunks of the wide K2b's weight-gradient launch at pack width
+    ``wid``: its blocks are 10 matrices x ``(wid / 128)^2`` output tiles of
+    128 x 128 x the chunks, about ``_WGRAD_BLOCKS`` in all (at least one
+    chunk); each chunk's partial is summed in a fixed order."""
+    return max(1, _WGRAD_BLOCKS // (10 * (wid // 128) ** 2))
 
 
 def _bwd_wide_cuda(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq, state_dtype,
                    width, msg_width=None):
-    """The wide K2b (``csrc/wide_rounds.cu``) on K2a's stash padded to W >
-    128 columns: the rounds in reverse, a chain of launches a round, the
-    gathers' adjoints over the transposed slot lists and the weight and bias
-    gradients as partials summed in a fixed order, so two calls give the
-    same bits.  With f32 states it reads, for its ties, the matrices and
-    their transposes unpacked, the stash rows' norms and the matrices'
-    largest column norms, and takes the slot ties over ``msg_width``
-    columns, as the 128-column f32 K2b does."""
+    """The wide K2b (``csrc/wide_rounds.cuh``, its backward library by
+    state type) on K2a's stash padded to W > 128 columns: the rounds in
+    reverse, a chain of launches a round, the gathers' adjoints over the
+    transposed slot lists and the weight and bias gradients as partials
+    summed in a fixed order, so two calls give the same bits; the packs
+    (``fd.wgmma_pack``) of the matrices and of their transposes.  With f32
+    states it reads, for its ties, the matrices and their transposes
+    unpacked, the stash rows' norms and the matrices' largest column norms,
+    and takes the slot ties over ``msg_width``
+    columns, as the 128-column f32 K2b does.  It raises for f32 states at a
+    width of ``F32_BWD_REFUSED``, before any launch."""
     import ctypes
 
     from tpugnn_torch.kernels._build import load_library
@@ -370,6 +390,11 @@ def _bwd_wide_cuda(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq, s
     n = stash_q.shape[2]
     dev = stash_c.device
     fd.check_width(wid)
+    if dt == torch.float32 and wid in F32_BWD_REFUSED:
+        raise ValueError(f"the wide K2b refuses f32 states at {wid} columns: its relu-tie "
+                         f"re-decisions assume the plain version's f32 products sum one FMA "
+                         f"per k in order, which cuBLAS does not at K = {wid}; bf16 states "
+                         f"train at this width")
     if (wid % fd.WIDTH or stash_c.dtype != dt or stash_q.shape[:2] != stash_c.shape[:2]
             or stash_q.shape[3] != wid or tuple(mats32.shape) != (10, wid, wid)):
         raise ValueError(f"the wide backward kernel takes the stash of the wide K2a, got "
@@ -378,7 +403,7 @@ def _bwd_wide_cuda(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq, s
     src_c, mask_c, deg_c, src_q, mask_q, deg_q = operators
     if src_c.shape[0] != m or src_q.shape[0] != n or src_c.device != dev:
         raise ValueError("operators do not match the stash's rows or device")
-    lib = load_library("wide_rounds")
+    lib = load_library(fd.wide_library(dt, backward=True))
     code = fd._DTYPE_CODE[dt]
     idx_c, idx_q = fd._slot_tables(src_c, mask_c, src_q, mask_q)
     dc, dq = idx_c.shape[1], idx_q.shape[1]
@@ -388,15 +413,13 @@ def _bwd_wide_cuda(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq, s
     mats_t = mats.transpose(1, 2).contiguous()
     ties = [None] * 4
     wn = None
+    pack, pack_t = fd.wgmma_pack(mats, dt), fd.wgmma_pack(mats_t, dt)
     if dt == torch.float32:
-        pack, pack_t = fd.tf32_split_pack(mats), fd.tf32_split_pack(mats_t)
         ties = [mats.contiguous(), mats_t,
                 torch.linalg.vector_norm(stash_c, dim=-1).contiguous(),
                 torch.linalg.vector_norm(stash_q, dim=-1).contiguous()]
         wn = (ctypes.c_float * 10)(*torch.linalg.vector_norm(mats, dim=1).amax(-1).tolist())
-    else:
-        pack, pack_t = fd.bf16_frag_pack(mats), fd.bf16_frag_pack(mats_t)
-    nch = max(1, _WGRAD_BLOCKS // (10 * wid // 64))
+    nch = wgrad_chunks(wid)
     ucs32 = vecs32[2].detach().float().contiguous()
     g_c = dxc.float().contiguous().clone()          # rewritten in place
     g_q = dxq.float().contiguous().clone()

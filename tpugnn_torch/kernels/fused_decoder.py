@@ -8,7 +8,7 @@ LayerNorm) on node states in the batch layout ``[B, rows, H]``:
   version, which defines the function;
 * a tensor on a CUDA device goes to the hand-written kernel
   ``csrc/fused_rounds.cu`` (``fused_rounds_tf32.cu`` with f32 states;
-  ``wide_rounds.cu`` above 128 columns; built by ``_build.py``), which
+  ``wide_rounds.cuh`` above 128 columns; built by ``_build.py``), which
   replaces the TPU
   kernel ``decoder_rounds_tiled`` (``pl.pallas_call`` at
   ``tpugnn/kernels/fused_decoder.py:637``).  It launches or raises; there is
@@ -39,7 +39,7 @@ by index, not through the TPU's one-hot incidence GEMM.
 
 The kernels come in two families.  ``csrc/fused_rounds.cu`` (bf16 states)
 and ``csrc/fused_rounds_tf32.cu`` (f32 states), one library each, are built
-for ``WIDTH`` = 128 columns; ``csrc/wide_rounds.cu`` takes packs of 256, 384
+for ``WIDTH`` = 128 columns; ``csrc/wide_rounds.cuh`` takes packs of 256, 384
 or 512 columns (``WIDE_MAX``).  A model runs at the kernel width
 :func:`kernel_width` of its packs, ``W = 128 ceil(max(hidden, msg_hidden) /
 128)``: at 128 the 128-column kernels, above it the wide ones
@@ -59,8 +59,8 @@ fit in a block's shared memory beside the chunk buffers and the weight ring
 runs the 128-column K1's variant with the panels in global memory
 (``fused_rounds_gpanels``): with f32 states d=13, d=15 and the circuit d=5
 and d=7 graphs, with bf16 states circuit d=7; K2a (``fused_backward.py``)
-likewise.  The wide kernels keep no panels: their tiles of 32 rows gather
-from global memory, so they take any graph.
+likewise.  The wide kernels keep no panels: their tiles of 64 or 128 rows
+gather from global memory, so they take any graph.
 """
 
 from __future__ import annotations
@@ -75,7 +75,8 @@ import torch.nn.functional as F
 __all__ = ["RoundWeights", "make_operators", "pack_weights", "pack_weights_f32", "pack_width",
            "kernel_width", "cast_packs", "pad_packs", "pad_states", "check_width",
            "rounds_plain", "decoder_rounds", "launch_counts", "reset_launch_counts",
-           "tf32_round", "tf32_split_pack", "bf16_frag_pack", "samples_per_block",
+           "tf32_round", "tf32_split_pack", "wgmma_pack", "wide_slab_rows", "wide_library",
+           "samples_per_block",
            "stack_slot_tables", "forward_library", "STATE_DTYPES", "SMEM_LIMIT", "WIDTH",
            "WIDE_MAX"]
 
@@ -83,7 +84,7 @@ STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448  # dynamic shared memory one block may use on Hopper
 WIDTH = 128          # the columns the 128-column rounds kernels are built for
-WIDE_MAX = 512       # the widest pack the wide rounds kernels take (csrc/wide_rounds.cu)
+WIDE_MAX = 512       # the widest pack the wide rounds kernels take (csrc/wide_rounds.cuh)
 CHUNK_ROWS = 128     # rows of one f32 K1 chunk (tc::CR in csrc/rounds_mma.cuh)
 
 # launches of the CUDA kernels in this process: K1 (decoder_rounds without
@@ -240,7 +241,7 @@ def check_width(h: int) -> None:
 def kernel_width(h: int) -> int:
     """The columns the kernels run packs of width ``h`` at: ``WIDTH`` (the
     128-column kernels) up to 128, else the next multiple of 128 (the wide
-    kernels, ``csrc/wide_rounds.cu``)."""
+    kernels, ``csrc/wide_rounds.cuh``)."""
     return WIDTH * -(-h // WIDTH)
 
 
@@ -268,7 +269,7 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
 
 def tf32_split_pack(mats: torch.Tensor) -> torch.Tensor:
     """The f32 weight pack as the f32 rounds kernels read it: each matrix
-    ``w`` [W (k), W (n)] (W = 128, or the wide kernels' width) split into ``hi = tf32_round(w)`` and ``lo =
+    ``w`` [W (k), W (n)] (W = 128) split into ``hi = tf32_round(w)`` and ``lo =
     tf32_round(w - hi)``, laid out in the B-fragment order of
     ``mma.m16n8k8`` so that a lane reads its four values of a k-step and
     n-tile with one 16-byte load: ``[10, k-step s, n-tile j, g, t, (hi,
@@ -282,15 +283,44 @@ def tf32_split_pack(mats: torch.Tensor) -> torch.Tensor:
     return torch.stack([frag(hi), frag(lo)], -2).contiguous()
 
 
-def bf16_frag_pack(mats: torch.Tensor) -> torch.Tensor:
-    """The bf16 weight pack as the wide bf16 kernels read it: each matrix
-    ``w`` [W (k), W (n)] in the B-fragment order of ``mma.m16n8k16``, so
-    that a lane reads its four values of a k-step and n-tile with one 8-byte
-    load: ``[10, k-step s, n-tile j, g, t, (rows 16s + 2t, 16s + 2t + 1,
-    16s + 2t + 8, 16s + 2t + 9)]`` for column ``8j + g``, lane ``4g + t``."""
-    wid = mats.shape[-1]
-    w = mats.to(torch.bfloat16).reshape(-1, wid // 16, 2, 4, 2, wid // 8, 8)
-    return w.permute(0, 1, 5, 6, 3, 2, 4).contiguous()
+def wide_slab_rows(wid: int, dt: torch.dtype) -> int:
+    """The k rows of one weight slab of the wide kernels at pack width
+    ``wid`` (``Geo::KS`` in csrc/wide_mma.cuh): 32 in bf16; in f32 (TF32
+    halves) 16, or 8 at 512 columns, so that the ring's slabs (at most 48
+    KB each) fit in shared memory beside the f32 A tile."""
+    if dt == torch.float32:
+        return 16 if wid <= 384 else 8
+    return 32
+
+
+def wgmma_pack(mats: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """The weight pack of the wide kernels (``csrc/wide_mma.cuh``): each
+    matrix ``w`` [W (k), W (n)] cut into slabs of ``KS =``
+    :func:`wide_slab_rows` k rows, each slab contiguous (one bulk copy into
+    the kernels' ring) and laid out as wgmma reads a K-major operand without
+    swizzle, 16-byte core rows of ``T`` k values (8 bf16, 4 f32) for one n:
+    ``[10, slab s, n // 8, (k % KS) // T, n % 8, k % T]``.  bf16 states:
+    ``w`` in bf16.  f32 states: each slab holds ``hi = tf32_round(w)`` then
+    ``lo = tf32_round(w - hi)`` in that layout,
+    ``[10, s, (hi, lo), n // 8, (k % KS) // 4, n % 8, k % 4]``."""
+    m = mats.float()
+    wid = m.shape[-1]
+    ks = wide_slab_rows(wid, dt)
+    te = 4 if dt == torch.float32 else 8
+    lay = lambda w: w.reshape(-1, wid // ks, ks // te, te, wid // 8, 8).permute(0, 1, 4, 2, 5, 3)
+    if dt != torch.float32:
+        return lay(m.to(dt)).contiguous()
+    hi = tf32_round(m)
+    return torch.stack([lay(hi), lay(tf32_round(m - hi))], 2).contiguous()
+
+
+def wide_library(dt: torch.dtype, backward: bool = False) -> str:
+    """The library of the wide kernels for a state type, K1, K2a and K5 or
+    with ``backward`` K2b: f32 and bf16 states build apart, and the forward
+    apart from the backward (``wide_rounds.cu``, ``wide_rounds_tf32.cu``,
+    ``wide_backward.cu``, ``wide_backward_tf32.cu``)."""
+    name = "wide_backward" if backward else "wide_rounds"
+    return name + "_tf32" if dt == torch.float32 else name
 
 
 def samples_per_block(b: int, m: int, n: int, chunk_rows: int = CHUNK_ROWS) -> int:
@@ -512,7 +542,7 @@ def _gpanel_scratch(a: _CudaOperands, dt: torch.dtype, dev):
 def _wide_forward(xc, xq, syn, operators, mats, vecs, rounds: int, dt: torch.dtype,
                   width: int, *, stash: bool):
     """The wide K1 (K2a with ``stash``) on states and packs padded to a
-    multiple of 128 above 128 (``csrc/wide_rounds.cu``); ``width`` is the
+    multiple of 128 above 128 (``csrc/wide_rounds.cuh``); ``width`` is the
     LayerNorm's columns.  Returns ``(out_c, out_q, stash_c, stash_q)`` in
     the state type (the stash entries None without ``stash``).  K2a writes
     round r's input states into entry r of the stash and reads them back for
@@ -538,10 +568,10 @@ def _wide_forward(xc, xq, syn, operators, mats, vecs, rounds: int, dt: torch.dty
     for t in (xq, syn, src_c, src_q, mask_c, mask_q, mats, vecs):
         if t.device != dev:
             raise ValueError(f"all operands must be on {dev}, got {t.device}")
-    lib = load_library("wide_rounds")
+    lib = load_library(wide_library(dt))
     code = _DTYPE_CODE[dt]
     idx_c, idx_q = _slot_tables(src_c, mask_c, src_q, mask_q)
-    pack = tf32_split_pack(mats) if code == 0 else bf16_frag_pack(mats)
+    pack = wgmma_pack(mats, dt)
     vecs = vecs.float().contiguous()
     xc = xc.detach().to(dt).contiguous()
     xq = xq.detach().to(dt).contiguous()

@@ -39,7 +39,7 @@ operands are zero-padded to 128 (:func:`pad_raster`) and its LayerNorm runs
 over the model's ``width`` columns; a model with ``msg_hidden > hidden``
 runs on states padded to the packs' width first (:func:`decoder_rounds_roll`).
 Packs wider than 128 run, padded to the next multiple of 128, on the wide
-rounds kernel's raster mode (``csrc/wide_rounds.cu``, ``roll_rounds_wide``),
+rounds kernel's raster mode (``csrc/wide_rounds.cuh``, ``roll_rounds_wide``),
 up to ``WIDE_MAX`` columns.  A raster whose gather panels do not fit in
 shared memory runs the kernel's variant with them in global memory
 (f32 states at d=15, ``roll_rounds_gpanels``; bf16 states at d >= 17,
@@ -81,7 +81,6 @@ from tpugnn_torch.kernels.fused_decoder import (
     RoundWeights,
     _cuda_stream,
     _needs_grad,
-    bf16_frag_pack,
     check_width,
     kernel_width,
     layer_norm,
@@ -90,6 +89,8 @@ from tpugnn_torch.kernels.fused_decoder import (
     pad_states,
     samples_per_block,
     tf32_split_pack,
+    wgmma_pack,
+    wide_library,
 )
 
 __all__ = ["RollPlan", "RasterOperands", "raster_plan", "plan_for_graph", "rotate",
@@ -519,7 +520,7 @@ def _roll_rounds_cuda(ops: RasterOperands, *, rounds: int, slot_dtype: str = "fl
 def _roll_rounds_wide(ops: RasterOperands, rounds: int, slot16: bool, ln_width: int, h: int,
                       offs):
     """K5 above 128 columns: the wide rounds kernel's raster mode on
-    operands padded to a multiple of 128 (``csrc/wide_rounds.cu``, the slot
+    operands padded to a multiple of 128 (``csrc/wide_rounds.cuh``, the slot
     sum in ``offs`` order under the mask bits, ``(deg bo) @ ua`` read per
     cell); returns the first ``h`` columns of ``(xc, xq)``."""
     from tpugnn_torch.kernels._build import load_library
@@ -527,13 +528,13 @@ def _roll_rounds_wide(ops: RasterOperands, rounds: int, slot16: bool, ln_width: 
     dt = ops.xc.dtype
     b, l_pad, wid = ops.xc.shape
     dev = ops.xc.device
-    lib = load_library("wide_rounds")
+    lib = load_library(wide_library(dt))
     code = _DTYPE_CODE[dt]
     bits = _mask_bits(ops.masks)
     xc, xq = ops.xc.contiguous(), ops.xq.contiguous()
     syn = ops.syn.float().contiguous()
     degbo = ops.degbo.float().contiguous()
-    pack = tf32_split_pack(ops.mats) if code == 0 else bf16_frag_pack(ops.mats)
+    pack = wgmma_pack(ops.mats, dt)
     vecs = ops.vecs.float().contiguous()
     ys_c, ys_q = torch.empty_like(xc), torch.empty_like(xq)   # the gathers' sources
     out_c, out_q = torch.empty_like(xc), torch.empty_like(xq)
