@@ -8,22 +8,19 @@ print one JSON line with their wall time:
 
   0 environment: torch, nvcc and the card's name and power limit
   1 build: the CUDA kernels from the sources in the checkout (one nvcc per
-    source, all started together -> .so), and beside them the host
+    source, all eight started together -> .so), and beside them the host
     decoders' library from csrc/ (g++)
-  2 kernel vs plain: the fused-rounds kernel against rounds_plain on the card
-    at the main path's shapes, d=11, H=128, B=4096 (R=8 bf16 and R=14 f32),
-    and at d=13 in bf16 (B=64, R=3: its 176-row sides run a whole 128-row
-    chunk and a ragged one), with stated tolerances; at d=13 and d=15 in
-    f32 (B=64, R=3), where the gather panels do not fit in shared memory,
-    through K1's global-panel variant; models of width 64 and 96 (d=11,
-    B=64, R=3, both state types) on the kernel's 128 columns, zero-padded;
-    each case must launch the kernel its graph, width and type call for.
+  2 kernel vs plain: the fused-rounds kernel (K1 at W = 128) against
+    rounds_plain on the card at the main path's shapes, d=11, H=128, B=4096
+    (R=8 bf16 and R=14 f32), and at d=13 in bf16 (B=64, R=3: 176-row sides),
+    with stated tolerances; at d=13 and d=15 in f32 (B=64, R=3); models of
+    width 64 and 96 (d=11, B=64, R=3, both state types) on the kernel's 128
+    columns, zero-padded; each case must launch K1 once and nothing else.
     In f32 (d=11, R=14) the kernel and the plain version are also held to
     the same rounds in f64 (rounds_f64), the kernel's max error there gated
-    at TOL_F32; and cuobjdump -sass must find HMMA (TF32) instructions in
-    every f32 instantiation of the library (K1's and K2a's shared and global
-    panels, each taking every width): the f32 path runs on tensor cores
-    (3xTF32)
+    at TOL_F32; and cuobjdump -sass must find HGMMA (wgmma) instructions in
+    every f32 W = 128 instantiation (K1's and K2a's kernel, K2b's four): the
+    f32 path runs on tensor cores (3xTF32)
   3 serve: a DecodeEngine on the trained d=11 weights answers requests of
     1, 1000 and 5000 syndromes; outputs equal the model's direct decode;
     then an engine per cleanup mode (uf, mwpm, best_of with both cost
@@ -45,8 +42,8 @@ print one JSON line with their wall time:
     (d=3, 5, 7, 9, 11, 13, 15; tpugnn_torch/assets/) through
     DecodeEngine.from_npz and ler_monte_carlo at p=0.05 (32,768 shots,
     f32; d=11 is phase 4's run): each must launch K1 (at d=3 and d=5 on
-    padded widths, at d=13 and d=15 its global-panel variant) and nothing
-    else, both heads gated at |z| <= 4 against the JAX f32 rate in its
+    padded widths) and nothing else, both heads gated at |z| <= 4 against
+    the JAX f32 rate in its
     weights file; the logical, hybrid and per-qubit z against the table's
     p=0.05 row reported beside the 2-stderr criterion, not gated (the table
     was taken on a TPU at one bf16 pass); the decode ms of one 4096-shot
@@ -87,8 +84,8 @@ print one JSON line with their wall time:
     R=8, bits) decoded in f32 at p=0.01 on 32,768 shots each, on the graph
     their record names (d=3: M=16, N=56, Dc=10 in z and 11 in x; d=5:
     64, 304, 14; d=7: 176, 920, 14): both heads within |z| <= 4 of the JAX
-    f32 rate in the weights file, the K1 variant the graph calls for (the global-panel one
-    at d=5 and d=7) once a chunk and nothing else, every head's z against
+    f32 rate in the weights file, K1 once a chunk and nothing else, every
+    head's z against
     the table's row reported; d=5 z through ler_all_columns with the NLL
     rule, every GNN column within |z| <= 4 of its sidecar's JAX f32
     columns, raw union-find and MWPM of LER_DETECTOR.md:35, no syndrome
@@ -96,40 +93,41 @@ print one JSON line with their wall time:
     timed beside its bound.  Then `python -m tpugnn_torch.cli train` through
     its main: the circuit d=5 training config (bf16, B=4096, p-mix
     0.004..0.015, K2a/K2b) for 20 steps, a finite, falling loss and one K2a
-    and one K2b launch a step; K1, K2a and K2b in bf16 on that graph (their
-    shared-panel kernels) against their plain versions (B=64, R=3) and
-    timed (B=4096, R=8); one step through them against their plain
-    versions; the CLI's default training (generic 'segment', d=5,
+    and one K2b launch a step; K1, K2a and K2b in bf16 on that graph against
+    their plain versions (B=64, R=3) and timed (B=4096, R=8); f32 K1, K2a
+    and K2b on the trained circuit d=5 and d=7 checkpoints against their
+    plain versions (B=64, R=3: K2b's every leaf within TOL_GRAD_REL_F32, the
+    graphs where its tie re-decisions sum a row's 10 to 14 slots); one step
+    through them against their plain versions; the CLI's default training
+    (generic 'segment', d=5,
     H=128, B=256) for 20 steps, a falling loss, one step's gradients on the
     card against the CPU's; `cli eval` and `cli serve` on the d=5 weights
     file with --cleanup mwpm
   4g circuit_d7_bfloat16: the circuit d=7 checkpoint in bf16, the state
-    type it was trained in; its bf16 gather panels do not fit in shared
-    memory, so K1, K2a and K2b run their global-panel variants.  On the
-    trained weights (B=64, R=3) each variant against its plain version (K2a
-    equal to K1, K2b every leaf and twice bit-equal); the global-panel K1
-    and K2a forced on the d=11 graph (B=300, more samples than SMs) bit-equal
-    to the shared-panel kernels; K1, K2a and K2b timed at B=4096, R=8 beside
+    type it was trained in.  On the trained weights (B=64, R=3) K1, K2a and
+    K2b against their plain versions (K2a equal to K1, K2b every leaf and
+    twice bit-equal); K1, K2a and K2b timed at B=4096, R=8 beside
     their bounds and plain versions; `cli eval --dtype bfloat16` on the
     weights file at p=0.01 on 32,768 shots, both heads within |z| <= 4 of
     the JAX f32 rate in the file, its z against LER_DETECTOR.md:43
-    reported, the global-panel K1 once a chunk and nothing else;
+    reported, K1 once a chunk and nothing else;
     DecodeEngine.from_npz(dtype='bfloat16') serving a request; `cli train`
     at the checkpoint's settings (scripts/tpu_queue_r5a.sh:104-108: bf16,
     B=4096, p-mix 0.004..0.015, lr 1e-3, EMA 0.999) for 10 steps, a finite,
-    falling loss and one global-panel K2a and K2b launch a step; HMMA in
-    every bf16 global-panel instantiation
+    falling loss and one K2a and K2b launch a step; HGMMA in every bf16
+    W = 128 instantiation
   4f dist: graph- and data-parallel decoding and training on
     torch.distributed (tpugnn_torch/dist/) on the one card, each part in
     turn, so that nothing else runs on the card beside it.  (a) NCCL at
     world size 1 in this process: the d=15 weights' sharded apply at P=1
-    against the unsharded generic forward (1e-4).  (b) The d=15 checkpoint
+    against the unsharded generic forward (1e-4, index_add_ deterministic
+    in both).  (b) The d=15 checkpoint
     (surface_d15_h128_r14_ema8000.npz, generic 'segment' rounds, f32)
     sharded over P=4 gloo ranks that time-share the card, their exchanges
     staged through the host: ler_monte_carlo of make_sharded_apply at
     p=0.05 on 8,192 shots (chunks of 1024), both heads within |z| <= 4 of the
     JAX f32 rate in the weights file, >= 99.9% of the shots decided as the
-    unsharded generic path and as K1 (global panels) on the same shots, the
+    unsharded generic path and as K1 on the same shots, the
     logits within 1e-3 of the generic path's; the ring and gather exchanges
     against alltoall (a chunk's exchange buffers bit for bit, the logits of
     the first 128 shots within 1e-4, index_add_ deterministic) and the bf16
@@ -150,7 +148,7 @@ print one JSON line with their wall time:
     events: the kernel's step and its TFLOP/s beside its bound and the f32
     CUDA-core floor, rounds_plain, and an index_select + index_add_ round
     loop as the yardstick; the trained config's f32 K1 (B=4096, R=14) and
-    K1's global-panel variant at d=13 and d=15 (B=4096, R=14, f32) against
+    K1 at d=13 and d=15 (B=4096, R=14, f32) against
     its plain version, with its time, the plain version's and its bound;
     K1 and K5 at d=3 with H=64 and at d=5 with H=96 (padded) beside a
     128-wide model on the same graph.  Every f32 K1 and K5 time (here and
@@ -172,18 +170,15 @@ print one JSON line with their wall time:
     relu that K2a's rounding flips decides a whole autograd path; and two
     train steps from a 10-step run through K2a/K2b against the plain
     versions
-  6b f32_training_past_smem: f32 training where the f32 gather panels do
-    not fit in shared memory.  At d=13 (B=64, R=3) K1's, K2a's and K2b's
-    global-panel variants each once: K2a equal to K1, its outputs and stash
+  6b f32_training_past_smem: f32 training on the larger graphs (surface
+    d=13, circuit d=5).  At d=13 (B=64,
+    R=3) K1, K2a and K2b each once: K2a equal to K1, its outputs and stash
     within TOL_F32 of rounds_fwd_stash_plain, K2b's every leaf within
     TOL_GRAD_REL_F32 of rounds_vjp_plain on the same stash and twice
-    bit-equal; on d=11 (B=1060: 133 tiles of 8 on 132 SMs, the last
-    ragged) K2a with its panels forced into global memory and K2b in its
-    scratch-panel layout (force_gpanels) bit-equal to the shared-panel
-    kernels; K2a and K2b timed at d=13, B=4096, R=14 beside their 3xTF32
+    bit-equal; K2a and K2b timed at d=13, B=4096, R=14 beside their 3xTF32
     bounds and plain versions; `cli train` on the circuit d=5 graph in f32
-    (B=512, 10 steps): a finite, falling loss, one global-panel K2a and K2b
-    launch a step, one step against the plain versions (TRAIN_STEP_REL)
+    (B=512, 10 steps): a finite, falling loss, one K2a and K2b launch a
+    step, one step against the plain versions (TRAIN_STEP_REL)
   6c fused_configs: the fused backend at H=64, MH=96 (K1 against
     rounds_plain in both state types; K2a/K2b and two train steps against
     the plain versions in f32; the model's decode, one K1 launch, against
@@ -422,8 +417,8 @@ CHECKPOINTS = (
 # shots of d=13 and d=15 that the roll path (K5's global-panel variant)
 # decodes beside the fused path in the checkpoints phase
 ROLL_CHECK_SHOTS = 8192
-# R of the trained checkpoints from d=11 on: the shapes at which the
-# global-panel variants are timed (B=4096, f32)
+# R of the trained checkpoints from d=11 on: the shapes at which K1 at d=13
+# and d=15 and K5 are timed (B=4096, f32)
 TRAINED_ROUNDS = 14
 # steps of the width-64 training run whose state the two-step check of
 # K2a/K2b at H=64 starts from (phase 6): AdamW's moments then hold that many
@@ -484,11 +479,10 @@ DETECTOR_Z = 4
 # The circuit_and_cli phase.  The circuit-level checkpoints behind
 # benchmarks/LER_DETECTOR.md's [nll] rows (H = MH = 128, R=8, bits, trained
 # in bf16 through the fused kernels; tpugnn_torch/assets/), each decoded in
-# f32 at p=0.01: (weights file, d = d_t, sector, the K1 variant its graph
-# calls for in f32, the line of the table's p=0.01 row, that row's GNN
+# f32 at p=0.01: (weights file, d = d_t, sector, the kernel counter its
+# decode must move, the line of the table's p=0.01 row, that row's GNN
 # hybrid, GNN+UF, GNN+MWPM, best-of, logical, per-qubit, union-find and MWPM
-# rates, 1e6 shots each, taken on a TPU).  The f32 gather panels of d=5
-# (304 + 64 rows) and d=7 (920 + 176) do not fit in shared memory.
+# rates, 1e6 shots each, taken on a TPU).
 CIRCUIT_P = 0.01
 CIRCUIT_SHOTS = 32768
 CIRCUIT_ROW_SHOTS = 1_000_000
@@ -496,13 +490,13 @@ _ROW = ("ler_hybrid", "gnn_uf", "gnn_mwpm", "gnn_best_of", "ler_logical", "ler",
 CIRCUIT_CHECKPOINTS = (
     ("circuit_surface_d3_t3_h128_r8_ema24000.npz", 3, "z", "fused_rounds", 17,
      dict(zip(_ROW, (0.02973, 0.03207, 0.03013, 0.03022, 0.02974, 0.1187, 0.03958, 0.02998)))),
-    ("circuit_surface_d5_t5_h128_r8_ema24000.npz", 5, "z", "fused_rounds_gpanels", 35,
+    ("circuit_surface_d5_t5_h128_r8_ema24000.npz", 5, "z", "fused_rounds", 35,
      dict(zip(_ROW, (0.0578, 0.07201, 0.06551, 0.05753, 0.05781, 0.6043, 0.1215, 0.05593)))),
     ("circuit_surface_d3_t3_x_h128_r8_ema6000.npz", 3, "x", "fused_rounds", 7,
      dict(zip(_ROW, (0.02912, 0.03089, 0.03022, 0.03025, 0.02909, 0.09584, 0.03875, 0.03014)))),
-    ("circuit_surface_d5_t5_x_h128_r8_ema8000.npz", 5, "x", "fused_rounds_gpanels", 25,
+    ("circuit_surface_d5_t5_x_h128_r8_ema8000.npz", 5, "x", "fused_rounds", 25,
      dict(zip(_ROW, (0.05938, 0.07549, 0.0703, 0.05799, 0.05941, 0.6394, 0.1169, 0.05613)))),
-    ("circuit_surface_d7_t7_h128_r8_ema2000.npz", 7, "z", "fused_rounds_gpanels", 43,
+    ("circuit_surface_d7_t7_h128_r8_ema2000.npz", 7, "z", "fused_rounds", 43,
      dict(zip(_ROW, (0.4253, 0.1584, 0.1435, 0.09086, 0.4253, 0.9624, 0.2235, 0.08001)))),
 )
 # the checkpoint whose every column runs (ler_all_columns, select_cost='nll',
@@ -554,17 +548,17 @@ CLI_WEIGHTS_ARGS = ("--noise", "circuit", "--dt", "5", "-d", "5", "--backend", "
 
 # Phase 4g: the circuit d=7 checkpoint (LER_DETECTOR.md:43's row) in bf16,
 # the state type scripts/tpu_queue_r5a.sh:104-108 trained it in through the
-# Pallas kernels.  Its bf16 gather panels (920 + 176 rows, 280,576 B) do not
-# fit in a block's shared memory, so K1, K2a and K2b run their global-panel
-# variants.  `cli eval` decodes it at CIRCUIT_P on CIRCUIT_SHOTS shots (both
+# Pallas kernels (M=176, N=920 rows: the largest graph the smoke trains).
+# `cli eval` decodes it at CIRCUIT_P on CIRCUIT_SHOTS shots (both
 # heads gated at |z| <= CIRCUIT_Z against the JAX f32 rate in the weights
 # file); `cli train` runs the checkpoint's training settings (bf16, B=4096,
 # H=128, R=8, p-mix 0.004..0.015, lr 1e-3, EMA 0.999) from a seeded random
 # init for D7_TRAIN_STEPS steps: a finite loss whose mean over the last 5
 # steps is below CLI_LOSS_FALL of the first 5's (the circuit d=5 run fell to
-# 0.68 of it by step 10 on an H100).  D7_GP_BATCH: the d=11 comparison of
-# the two panel placements runs more samples than the card has SMs, so the
-# global-panel variant's persistent blocks walk several samples each.
+# 0.68 of it by step 10 on an H100).  D7_GP_BATCH: phase 6d's d=11
+# comparison of bf16 K5's two panel placements runs more samples than the
+# card has SMs, so the global-panel variant's persistent blocks walk several
+# samples each.
 D7_WEIGHTS = "circuit_surface_d7_t7_h128_r8_ema2000.npz"
 D7_ROW_LINE = 43
 D7_ARGS = ("--noise", "circuit", "--dt", "7", "-d", "7", "--backend", "pallas", "--dtype",
@@ -575,19 +569,18 @@ D7_TRAIN_ARGS = ("train", *D7_ARGS, "--batch", "4096", "--p-mix", "0.004", "0.01
                  "0.001", "--ema", "0.999")
 D7_TRAIN_STEPS = 10
 D7_GP_BATCH = 300
-D7_GPANELS = ("fused_rounds_gpanels", "fused_rounds_fwd_stash_gpanels",
-              "fused_rounds_bwd_gpanels")
+# the launch counters of K1, K2a and K2b at W = 128 (above it: WIDE_NAMES)
+ROUNDS_NAMES = ("fused_rounds", "fused_rounds_fwd_stash", "fused_rounds_bwd")
+# K2b with f32 states against rounds_vjp_plain on the trained circuit
+# checkpoints (phase 4e): the graphs with 10 to 14 slots a check row, where
+# K2b's re-decided t ties must sum a row's hs as torch's reduction does
+CIRCUIT_F32_K2B = ("circuit_surface_d5_t5_h128_r8_ema24000.npz",
+                   "circuit_surface_d7_t7_h128_r8_ema2000.npz")
 
-# Phase 6b: f32 training where the f32 gather panels do not fit in shared
-# memory (surface d=13, circuit d=5 and d=7), on K2a's global-panel variant
-# and K2b's layout with its panels in the scratch (the same counters as the
-# bf16 variants').  F32_GP_BATCH: the two placements are compared on d=11 at
-# more tiles of 8 samples than the card has SMs (133 on 132 SMs, the last
-# one ragged), so K2b's persistent blocks walk two tiles and K2a's global
-# variant eight samples a block.  The circuit d=5 training config of
-# CIRCUIT_TRAIN_ARGS in f32 at batch 512 for CIRCUIT_F32_TRAIN_STEPS steps
+# Phase 6b: f32 training on the larger graphs (surface d=13, circuit d=5:
+# 168 + 169 and 64 + 304 rows).  The circuit d=5 training config
+# of CIRCUIT_TRAIN_ARGS in f32 at batch 512 for CIRCUIT_F32_TRAIN_STEPS steps
 # through the CLI, gated as the bf16 run is (gate_training).
-F32_GP_BATCH = 1060
 CIRCUIT_F32_TRAIN_ARGS = (*CIRCUIT_TRAIN_ARGS, "--dtype", "float32", "--batch", "512")
 CIRCUIT_F32_TRAIN_STEPS = 10
 # Phase 6c: the fused backend's msg_hidden != hidden (H=64, MH=96: the packs
@@ -598,14 +591,14 @@ MH_WIDTH = 96
 UNTIED_D = 5
 # Phase 6d: widths above 128 on the wide kernels (csrc/wide_rounds.cuh): K1,
 # K2a, K2b and K5 at H = MH = WIDE_H against their plain versions (d=11 and
-# circuit d=5, B=D13_BATCH, R=D13_ROUNDS; the bf16 states held as the
-# 128-column ones are), two training steps of a WIDE_H model on surface
+# circuit d=5, B=D13_BATCH, R=D13_ROUNDS; the bf16 states held as at
+# W = 128), two training steps of a WIDE_H model on surface
 # WIDE_TRAIN_D through the kernels against the plain versions, the circuit
 # training config through the CLI at WIDE_H for WIDE_CLI_STEPS steps, bf16
 # K5 past shared memory (surface K5_GP_D, global panels; its placement
 # check on d=11 at D7_GP_BATCH), and one timed call of each wide kernel at
 # d=11, B=WIDE_TIMING_BATCH, R=WIDE_TIMING_ROUNDS beside its plain version,
-# its bound and the 128-column kernel at H=128 on the same inputs.
+# its bound and the same kernels at H=128 (W = 128) on the same inputs.
 WIDE_H = 256
 WIDE_TRAIN_D = 5
 WIDE_CLI_STEPS = 10
@@ -648,7 +641,9 @@ DIST_MODE_TOL = 1e-4
 # bf16 and int8 wires against the f32 wire: per-qubit decisions (argmax of
 # the pauli4 head over real qubits)
 DIST_WIRE_AGREE = 0.995
-# NCCL at world size 1: the sharded apply of one shard against the model
+# NCCL at world size 1: the sharded apply of one shard against the model,
+# both with index_add_ deterministic (with atomics the two forwards' summation
+# orders differ from call to call: 3.5e-5 to 1.0e-4 apart over 1024 shots)
 DIST_NCCL_TOL = 1e-4
 # the sharded train step: mesh data=2 x graph=2, the CLI's generic defaults
 # (surface d=5, H=128, R=8, B=256, segment, f32); gradients of its first step
@@ -993,23 +988,18 @@ def tf32x3_floor_ms(flops: float) -> float:
     return 3 * flops / H100_TF32_FLOPS * 1e3
 
 
-_TF32X3_KERNEL = re.compile(r"(?:fused|roll)_rounds_tf32x3_kernelILb([01])E(?:Lb([01])E)?")
+_TF32X3_KERNEL = re.compile(r"roll_rounds_tf32x3_kernelILb([01])E")
 
 
 def f32_hmma(mma: dict) -> dict:
-    """The HMMA count of each f32 (3xTF32) kernel in ``mma``
-    (:func:`sass_mma_counts` of the fused_rounds_tf32 or the roll_gather
-    library), by instantiation: ``shared`` or ``gpanels`` by its panels (K1,
-    K5), ``stash`` and ``stash_gpanels`` for K1's with the stash flag
-    (K2a)."""
+    """The HMMA count of each f32 (3xTF32) K5 kernel in ``mma``
+    (:func:`sass_mma_counts` of the roll_gather_tf32 library), by
+    instantiation: ``shared`` or ``gpanels`` by its panel."""
     out = {}
     for name, count in mma.items():
         m = _TF32X3_KERNEL.search(name)
         if m:
-            out[("stash_" if m.group(2) == "1" else "") + ("gpanels" if m.group(1) == "1"
-                                                           else "shared")] = count
-    if "stash_shared" in out:
-        out["stash"] = out.pop("stash_shared")
+            out["gpanels" if m.group(1) == "1" else "shared"] = count
     return out
 
 
@@ -1030,21 +1020,6 @@ def ptxas_usage(build_log: str, pattern: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out.setdefault(name, {})["registers"] = int(m[1])
-    return out
-
-
-_K2B_TF32X3_KERNEL = re.compile(r"fused_rounds_bwd_tf32x3_kernelILb([01])E")
-
-
-def k2b_f32_hmma(mma: dict) -> dict:
-    """The HMMA count of the f32 K2b kernel (its device functions included)
-    in ``mma`` (:func:`sass_mma_counts` of the fused_backward_tf32 library)
-    by layout: ``shared`` or ``gpanels`` by where its panels are."""
-    out = {}
-    for name, count in mma.items():
-        m = _K2B_TF32X3_KERNEL.search(name)
-        if m:
-            out["gpanels" if m.group(1) == "1" else "shared"] = count
     return out
 
 
@@ -1631,40 +1606,32 @@ def raster_errors(kc, kq, pc, pq) -> tuple[float, float]:
     return float(diff.max()), float(diff.mean())
 
 
-# the wide kernels' libraries: built after the rest, in the background
-# (start_wide_build), first needed by phase 6d (wide_build)
+# the rounds kernels' libraries (K1, K2a and K2b at every width, K5 above
+# 128 columns), and the build phase's result (build_libraries'), which
+# phase 6d reports
 WIDE_LIBRARIES = ("wide_rounds", "wide_rounds_tf32", "wide_backward", "wide_backward_tf32")
-_WIDE_BUILD: dict = {}
+_BUILT: dict = {}
 
 
-def start_wide_build() -> None:
-    """Starts the wide libraries' build in a thread of its own, each nvcc at
-    the lowest priority, so that it overlaps the phases before 6d, and their
-    HGMMA counts (prefetch_sass) as soon as they are built."""
-    import concurrent.futures
-
+def hgmma_w128(dt: str) -> dict:
+    """HGMMA (wgmma) instructions of K1's, K2a's and K2b's W = 128
+    instantiations in state type ``dt`` (:func:`wide_hgmma` of its two
+    libraries, the width-generic weight-gradient kernel with K2b's); raises
+    where one is missing or runs no wgmma."""
+    from tpugnn_torch.kernels import fused_decoder as fd
     from tpugnn_torch.kernels._build import build_libraries
 
-    def build():
-        built = build_libraries(list(WIDE_LIBRARIES), 19)
-        prefetch_sass([p for p, _, _ in built.values()], "HGMMA")
-        return built
-
-    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
-    _WIDE_BUILD["future"] = pool.submit(build)
-    pool.shutdown(wait=False)
-
-
-def wide_build() -> tuple[dict, float]:
-    """The wide libraries' build (``build_libraries``' result: the
-    background one start_wide_build began, or one now) and the seconds
-    spent waiting for it."""
-    from tpugnn_torch.kernels._build import build_libraries
-
-    t0 = time.perf_counter()
-    built = (_WIDE_BUILD["future"].result() if "future" in _WIDE_BUILD
-             else build_libraries(list(WIDE_LIBRARIES)))
-    return built, time.perf_counter() - t0
+    libs = [fd.wide_library(fd.STATE_DTYPES[dt], backward=b) for b in (False, True)]
+    built = build_libraries(libs)
+    rows = wide_hgmma({k: v for lib in libs
+                       for k, v in sass_mma_counts(built[lib][0], "HGMMA").items()})
+    out = {k: {t: n for t, n in rows[k].items() if t.endswith("_w128") or t == "wgrad"}
+           for k in ("k1", "k2a", "k2b")}
+    want = {"k1": {"fwd_w128"}, "k2a": {"fwd_w128"},
+            "k2b": {"project_w128", "replay_w128", "cotangent_w128", "wgrad"}}
+    if any(set(out[k]) != want[k] or not all(n > 0 for n in out[k].values()) for k in want):
+        raise RuntimeError(f"a {dt} W = 128 rounds kernel is missing or runs no wgmma: {out}")
+    return out
 
 
 # cuobjdump's HMMA (mma.sync) and HGMMA (wgmma) counts by library file and
@@ -1901,8 +1868,8 @@ def phase_roll_gather(graph, dg, dev, trained, info: dict) -> tuple[dict, dict]:
         syn = sample_batch(gen, dg, 0.05, B).syndrome
         fwd_ms = time_ms(lambda: pd(dg, syn), warmup=1, iters=3)
         fused_ms = time_ms(lambda: trained(dg, syn), warmup=1, iters=3)
-        # a model wider than the 128-column kernels (H=160, MH=200: packs of
-        # 256 columns, the LayerNorm over 160): K1's and K5's wrappers, as
+        # a model wider than 128 columns (H=160, MH=200: packs of 256
+        # columns, the LayerNorm over 160): K1's and K5's wrappers, as
         # the model calls them, each launch the wide kernel once and match
         # their plain versions (B=D13_BATCH, R=D13_ROUNDS)
         g160, _, ops160, w160, xc160, xq160, s160, _ = random_round_case(
@@ -2051,8 +2018,7 @@ def rounds_vs_plain(kernel: str, d: int, h: int, dtype: str, seed: int, dev, wan
                     slot_dtype: str = "float32", mh: int | None = None) -> dict:
     """K1 ('k1') or K5 ('k5') on a random case of width ``h`` and message
     width ``mh`` (h by default; d, B=64, R=3) held to its plain version at
-    that width (:func:`held_to_plain`): it must launch ``want`` (the
-    shared-panel kernel or its global-panel variant)."""
+    that width (:func:`held_to_plain`): it must launch ``want``."""
     g, _, ops, w, xc, xq, s, _ = random_round_case(d, D13_BATCH, D13_ROUNDS, dtype, seed, dev,
                                                    h=h, mh=mh)
     run, plain = kernel_and_plain(kernel, g, ops, w, xc, xq, s, D13_ROUNDS, dtype, slot_dtype)
@@ -2077,9 +2043,9 @@ def k5_f32_kernel(d: int) -> str:
 
 def f32_rounds_timing(kernel: str, d: int, dev, seed: int) -> dict:
     """An f32 rounds kernel at the trained configs' shapes (B=4096,
-    R=TRAINED_ROUNDS, random full-width weights): K1's global-panel
-    variant ('fused_rounds_gpanels'), or K5 ('roll_rounds' or
-    'roll_rounds_gpanels', whichever the raster calls for).  One call held
+    R=TRAINED_ROUNDS, random full-width weights): K1 ('fused_rounds'), or
+    K5 ('roll_rounds' or 'roll_rounds_gpanels', whichever the raster calls
+    for).  One call held
     to the plain version (:func:`held_to_plain`), its time, the plain
     version's, and the bound on the graph's real rows: its products at
     three TF32 products each on the tensor cores (``f32_core_ms`` beside
@@ -2088,7 +2054,7 @@ def f32_rounds_timing(kernel: str, d: int, dev, seed: int) -> dict:
 
     r, h = TRAINED_ROUNDS, 128
     g, _, ops, w, xc, xq, s, _ = random_round_case(d, B, r, "float32", seed, dev)
-    run, plain = kernel_and_plain("k1" if kernel == "fused_rounds_gpanels" else "k5",
+    run, plain = kernel_and_plain("k1" if kernel == "fused_rounds" else "k5",
                                   g, ops, w, xc, xq, s, r, "float32")
     res = held_to_plain(run, plain, kernel, "float32", f"{kernel} at d={d}, B={B}, R={r}")
     with torch.inference_mode():
@@ -2144,37 +2110,32 @@ def padded_width_timing(d: int, h: int, dev, seed: int) -> dict:
 
 def rounds_kernel_times() -> dict:
     """The rounds kernels' times on one card, by CUDA events, each one call
-    of the wrapper the main path calls, at d=11, B=4096, on seeded random
-    full-width weights (``scripts/smoke_turns.py --kernels`` runs this in
-    turns on two checkouts; it needs only the checkout's ``tpugnn_torch``
-    on ``sys.path``):
+    of the wrapper the main path calls, on seeded random full-width weights
+    (``scripts/smoke_turns.py --kernels`` runs this in turns on two
+    checkouts; it needs only the checkout's ``tpugnn_torch`` on
+    ``sys.path``), at B=4096:
 
-    * ``k1_bf16``, ``k5_bf16``: K1 and K5 at the bench config (R=8, bf16);
-    * ``k1_f32``, ``k5_f32``: K1 and K5 at the trained decode's shape (R=14,
-      f32 states);
+    * ``k1_bf16``, ``k5_bf16``: K1 and K5 at the bench config (d=11, R=8,
+      bf16);
+    * ``k1_f32``, ``k5_f32``: K1 and K5 at the trained decode's shape (d=11,
+      R=14, f32 states);
     * ``k2a_bf16``, ``k2b_bf16``, ``k2a_f32``, ``k2b_f32``: K2a and K2b at
-      the training shape (R=14) with bf16 and with f32 states;
-    * ``k1_f32_gpanels``, ``k5_f32_gpanels`` (where the checkout has them):
-      the f32 global-panel variants on the same inputs as ``k1_f32`` and
-      ``k5_f32``, taken by lowering the shared-memory limit the wrappers
-      compare against to the variant's need at d=11, so that the call runs
-      the main path's wrapper code and launches the variant once;
-    * ``k2a_f32_gpanels``, ``k2b_f32_gpanels`` (where the checkout has
-      them): f32 K2a's global-panel variant (the same limit lowered) and
-      K2b's scratch-panel layout (``force_gpanels``) on the inputs of
-      ``k2a_f32`` and ``k2b_f32``;
+      the training shape (d=11, R=14) with bf16 and with f32 states;
+    * ``k1_d7c_bf16``, ``k2a_d7c_bf16``, ``k2b_d7c_bf16``: K1, K2a and K2b
+      on circuit d=7 (bf16, R=8, the checkpoint's training shape), and
+      ``k1_d13_f32``, ``k2a_d13_f32``, ``k2b_d13_f32`` on surface d=13
+      (f32, R=14): the largest graphs of the training and decode paths;
     * ``k1w_bf16``, ``k2aw_bf16``, ``k2bw_bf16``, ``k5w_bf16`` and the same
-      with ``_f32``: the wide family (phase 6d's ``wide_timing`` inputs: d=11,
-      H = MH = WIDE_H, B=WIDE_TIMING_BATCH, R=WIDE_TIMING_ROUNDS), each call
-      held to one launch of its wide kernel."""
-    import inspect
-
+      with ``_f32``: the wide widths (phase 6d's ``wide_timing`` inputs:
+      d=11, H = MH = WIDE_H, B=WIDE_TIMING_BATCH, R=WIDE_TIMING_ROUNDS), each
+      call held to one launch of its wide kernel."""
     import torch
 
     from tpugnn_torch.kernels import fused_backward as fb
     from tpugnn_torch.kernels import fused_decoder as fd
     from tpugnn_torch.kernels import roll_gather as rg
-    from tpugnn_torch.kernels._build import SOURCES, build_libraries, load_library
+    from tpugnn_torch.kernels._build import SOURCES, build_libraries
+    from tpugnn_torch.tanner import build_circuit_code
 
     def launched_once(name, fn):
         before = counts()[name]
@@ -2184,11 +2145,7 @@ def rounds_kernel_times() -> dict:
             raise RuntimeError(f"{name} was not launched")
 
     t0 = time.perf_counter()
-    build_libraries([n for n in ("fused_rounds", "fused_rounds_tf32", "fused_backward",
-                                 "fused_backward_tf32", "roll_gather", "roll_gather_tf32",
-                                 "wide_rounds", "wide_rounds_tf32", "wide_backward",
-                                 "wide_backward_tf32")
-                     if n in SOURCES])
+    build_libraries([n for n in SOURCES if n not in ("spmm", "sddmm")])
     out = dict(build_seconds=round(time.perf_counter() - t0, 1))
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2200,44 +2157,30 @@ def rounds_kernel_times() -> dict:
         r = TRAINED_ROUNDS
         g, _, ops, w, xc, xq, s, _ = random_round_case(D, B, r, "float32", 6, dev)
         r_ops = rg.to_raster(xc, xq, s, rg.plan_for_graph(g), w, "float32")
-        k1 = lambda: fd.decoder_rounds(xc, xq, s, ops, w, r, "float32")
-        k5 = lambda: rg._roll_rounds_cuda(r_ops, rounds=r)
-        out["k1_f32"] = time_ms(k1, warmup=2, iters=7)
-        out["k5_f32"] = time_ms(k5, warmup=2, iters=7)
-        if "fused_rounds_gpanels" in fd.launch_counts():
-            need = gpanels_smem(load_library(fd.forward_library(torch.float32)), 0, ops)
-            with smem_limit(fd, need):
-                launched_once("fused_rounds_gpanels", k1)
-                out["k1_f32_gpanels"] = time_ms(k1, warmup=2, iters=7)
-            need = load_library(rg.roll_library(torch.float32)).roll_rounds_gpanels_smem_bytes(
-                r_ops.xc.shape[1])
-            with smem_limit(rg, need):
-                launched_once("roll_rounds_gpanels", k5)
-                out["k5_f32_gpanels"] = time_ms(k5, warmup=2, iters=7)
-        del r_ops
-    for dtype, tag in (("bfloat16", "bf16"), ("float32", "f32")):
+        out["k1_f32"] = time_ms(lambda: fd.decoder_rounds(xc, xq, s, ops, w, r, "float32"),
+                                warmup=2, iters=7)
+        out["k5_f32"] = time_ms(lambda: rg._roll_rounds_cuda(r_ops, rounds=r), warmup=2,
+                                iters=7)
+        del r_ops, xc, xq, s
+    cases = (("", D, None, "bfloat16", "bf16", TRAINED_ROUNDS, False),
+             ("", D, None, "float32", "f32", TRAINED_ROUNDS, False),
+             ("_d7c", 7, build_circuit_code("surface", 7, 7), "bfloat16", "bf16", 8, True),
+             ("_d13", 13, None, "float32", "f32", TRAINED_ROUNDS, True))
+    for tag, d, graph, dtype, ttag, r, with_k1 in cases:
         with torch.no_grad():
-            _, _, ops, w, xc, xq, s, gen = random_round_case(D, B, r, dtype, 10, dev)
+            _, _, ops, w, xc, xq, s, gen = random_round_case(d, B, r, dtype, 10, dev, graph=graph)
+            if with_k1:
+                out[f"k1{tag}_{ttag}"] = time_ms(
+                    lambda: fd.decoder_rounds(xc, xq, s, ops, w, r, dtype), warmup=1, iters=5)
             mats32, vecs32 = fd.pack_weights_f32(w)
             cot_c = torch.randn(xc.shape, generator=gen, device=dev)
             cot_q = torch.randn(xq.shape, generator=gen, device=dev)
-            out[f"k2a_{tag}"] = time_ms(lambda: fb._fwd_stash_cuda(
+            out[f"k2a{tag}_{ttag}"] = time_ms(lambda: fb._fwd_stash_cuda(
                 xc, xq, s, ops, mats32, vecs32, r, dtype), warmup=2, iters=7)
             _, _, sc, sq = fb._fwd_stash_cuda(xc, xq, s, ops, mats32, vecs32, r, dtype)
-            out[f"k2b_{tag}"] = time_ms(lambda: fb._bwd_cuda(
+            out[f"k2b{tag}_{ttag}"] = time_ms(lambda: fb._bwd_cuda(
                 sc, sq, s, ops, mats32, vecs32, cot_c, cot_q, dtype), warmup=1, iters=3)
-            if dtype == "float32" and "force_gpanels" in inspect.signature(
-                    fb._bwd_cuda).parameters:
-                k2a = lambda: fb._fwd_stash_cuda(xc, xq, s, ops, mats32, vecs32, r, dtype)
-                with smem_limit(fd, gpanels_smem(load_library(fd.forward_library(
-                        torch.float32)), 0, ops)):
-                    launched_once("fused_rounds_fwd_stash_gpanels", k2a)
-                    out["k2a_f32_gpanels"] = time_ms(k2a, warmup=2, iters=7)
-                k2b = lambda: fb._bwd_cuda(sc, sq, s, ops, mats32, vecs32, cot_c, cot_q, dtype,
-                                           force_gpanels=True)
-                launched_once("fused_rounds_bwd_gpanels", k2b)
-                out["k2b_f32_gpanels"] = time_ms(k2b, warmup=1, iters=3)
-            del sc, sq
+            del sc, sq, xc, xq, s, cot_c, cot_q
         torch.cuda.empty_cache()
     r = WIDE_TIMING_ROUNDS
     for dtype, tag in (("bfloat16", "bf16"), ("float32", "f32")):
@@ -2675,9 +2618,8 @@ def phase_checkpoints(dev, d11: dict, info: dict) -> dict:
     benchmarks/LER_TABLE.md (CHECKPOINTS) through DecodeEngine.from_npz on
     the card and ler_monte_carlo at p=0.05 (SWEEP_SHOTS shots, B=4096, f32);
     d=11 takes phase 4's run of LER_SHOTS (``d11``: its LER and launches).  Gates: each
-    run launched the kernel its graph and dtype call for (K1, its
-    global-panel variant at d=13 and d=15; narrower models on padded
-    widths) and nothing else; both heads within |z| <= 4 of the JAX f32
+    run launched K1 (at W = 128; narrower models on padded widths) once a
+    chunk and nothing else; both heads within |z| <= 4 of the JAX f32
     rate in the weights file.  Reported: the logical, hybrid and per-qubit
     z against the table's row beside the 2-stderr criterion (not gated: the
     table was taken on a TPU at one bf16 pass), and the decode ms of one
@@ -2708,7 +2650,7 @@ def phase_checkpoints(dev, d11: dict, info: dict) -> dict:
         eng = DecodeEngine.from_npz(path, device="cuda", max_batch=B)
         graph, model = eng.graph, eng.model
         dgc = graph.to(dev)
-        want = "fused_rounds_gpanels" if d >= 13 else "fused_rounds"
+        want = "fused_rounds"
         seed = 3000 + d
         if d == D:     # phase 4's run of the same weights
             ev, launched, seed = d11["ev"], d11["launches"], 2025
@@ -2782,8 +2724,8 @@ def detector_k1_check(model, graph, dev, p: float = DETECTOR_P,
     """K1 on a detector graph (phase 4d's: M=64, N=176, Dc=6, Dq=2, width 96
     padded to 128, f32, R=8) at the monolithic decode's shapes (B=4096): the
     trained model's embedded states of shots sampled at ``p``, one call held
-    to the plain version (:func:`held_to_plain`: ``want``, the shared-panel
-    kernel or its global-panel variant, once), its time, the plain
+    to the plain version (:func:`held_to_plain`: ``want`` once), its time,
+    the plain
     version's and its bound (the f32 CUDA-core floor on the real rows at the
     model's width).  With ``f64``, both also against the same rounds in f64
     (:func:`rounds_f64`): K1's max error there within K1_F64_RATIO times the
@@ -3375,25 +3317,45 @@ def train_kernels_timed(graph, dg, w, gen, rounds: int, k1: str | None, f64: boo
 
 def circuit_train_kernels(model, dg, dev) -> dict:
     """K2a and K2b on the circuit d=5 graph (M=64, N=304, Dc=14, Dq=2) in
-    bf16, on the trained weights: their shared-panel kernels against the
-    plain versions (:func:`train_kernels_vs_plain`, B=64, R=3) and timed at
-    the training shapes (:func:`train_kernels_timed`, B=4096, R=8), K1 in
-    bf16 beside them, and K2b's shared memory.  ``dg`` is the graph on the
-    card."""
+    bf16, on the trained weights: against the plain versions
+    (:func:`train_kernels_vs_plain`, B=64, R=3) and timed at the training
+    shapes (:func:`train_kernels_timed`, B=4096, R=8), K1 in bf16 beside
+    them.  ``dg`` is the graph on the card."""
     import torch
 
     from tpugnn_torch.kernels import fused_decoder as fd
-    from tpugnn_torch.kernels._build import load_library
 
     w = fd.RoundWeights(*[t.detach() for t in model.rounds.round_weights()])
     gen = torch.Generator(device=dev).manual_seed(16)
-    res = train_kernels_vs_plain(dg, dg, w, gen, ("fused_rounds", "fused_rounds_fwd_stash",
-                                                 "fused_rounds_bwd"))
-    ops = fd.make_operators(dg)
-    res["k2b_smem_bytes"] = load_library("fused_backward").fused_rounds_bwd_smem_bytes(
-        dg.n_checks_pad, dg.n_qubits_pad, ops[0].shape[1], ops[3].shape[1])
-    res.update(train_kernels_timed(dg, dg, w, gen, model.cfg.rounds, "fused_rounds"))
+    res = train_kernels_vs_plain(dg, dg, w, gen, ROUNDS_NAMES)
+    res.update(train_kernels_timed(dg, dg, w, gen, model.cfg.rounds, ROUNDS_NAMES[0]))
     return res
+
+
+def circuit_f32_k2b(dev) -> dict:
+    """f32 K1, K2a and K2b on the trained circuit checkpoints of
+    CIRCUIT_F32_K2B (circuit d=5 and d=7, their own weights; B=D13_BATCH,
+    R=D13_ROUNDS), each held to its plain version as
+    :func:`train_kernels_vs_plain` holds it: K2b's every leaf within
+    TOL_GRAD_REL_F32 of rounds_vjp_plain.  On these graphs (10 to 14 slots a
+    check row) a t-relu tie K2b takes again must sum the row's hs over its
+    slots as torch's reduction behind the plain version does."""
+    import torch
+
+    from tpugnn_torch.kernels import fused_decoder as fd
+    from tpugnn_torch.models.convert import load_decoder
+
+    out = {}
+    for i, fname in enumerate(CIRCUIT_F32_K2B):
+        _, model, graph = load_decoder(os.path.join(REPO, "tpugnn_torch", "assets", fname),
+                                       device=dev)
+        w = fd.RoundWeights(*[t.detach() for t in model.rounds.round_weights()])
+        gen = torch.Generator(device=dev).manual_seed(18 + i)
+        out[graph.name] = train_kernels_vs_plain(graph, graph.to(dev), w, gen, ROUNDS_NAMES,
+                                                 "float32")
+        del model
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_circuit_and_cli(dev, info: dict) -> tuple[dict, dict, dict]:
@@ -3406,7 +3368,9 @@ def phase_circuit_and_cli(dev, info: dict) -> tuple[dict, dict, dict]:
        (CIRCUIT_TRAIN_ARGS) for CLI_TRAIN_STEPS steps through the CLI's
        ``main``: a finite, falling loss, one K2a and one K2b launch and no
        K1 a step, the median step ms; then :func:`circuit_train_kernels`
-       on the trained weights (the shared-panel K1, K2a and K2b), and one
+       on the trained weights, f32 K1, K2a and K2b on the trained circuit d=5
+       and d=7 checkpoints against their plain versions
+       (:func:`circuit_f32_k2b`: K2b within TOL_GRAD_REL_F32), and one
        train step from the run's last state
        through K2a/K2b and through their plain versions on the same CUDA
        tensors (:func:`train_steps_vs_plain`), each parameter leaf's change
@@ -3420,7 +3384,7 @@ def phase_circuit_and_cli(dev, info: dict) -> tuple[dict, dict, dict]:
     d. cli eval (CLI_EVAL_SHOTS shots) and cli serve (a 4096-shot demo
        request) on the d=5 circuit weights file with --cleanup mwpm: their
        JSON lines; the logical head and GNN+MWPM within |z| <= CIRCUIT_Z of
-       the JAX f32 references; only the global-panel K1 launched.
+       the JAX f32 references; only K1 launched.
     Returns ``(launches by path, K1's check by circuit graph, K2a/K2b on
     the circuit graph)``."""
     import copy
@@ -3450,6 +3414,7 @@ def phase_circuit_and_cli(dev, info: dict) -> tuple[dict, dict, dict]:
         raise RuntimeError(f"cli train (circuit): a step did not launch K2a and K2b once "
                            f"each and nothing else: {per_step}")
     k2 = circuit_train_kernels(model, dg, dev)
+    k2["f32_k2b_trained"] = circuit_f32_k2b(dev)
     state = types.SimpleNamespace(model=model, optimizer=optimizer)
     errs = train_steps_vs_plain(state, cfg, dg, dev, steps=1)
     worst = max(errs["kernels"][0].items(), key=lambda kv: kv[1])
@@ -3560,8 +3525,8 @@ def phase_circuit_and_cli(dev, info: dict) -> tuple[dict, dict, dict]:
         raise RuntimeError(f"cli eval/serve on the circuit weights: {info['cli_weights']}")
     for path_name in ("cli_eval", "cli_serve"):
         c = launches[path_name]
-        if c["fused_rounds_gpanels"] < 1 or sum(c.values()) != c["fused_rounds_gpanels"]:
-            raise RuntimeError(f"{path_name}: launched {c}, not the global-panel K1 alone")
+        if c["fused_rounds"] < 1 or sum(c.values()) != c["fused_rounds"]:
+            raise RuntimeError(f"{path_name}: launched {c}, not K1 alone")
     part_s["eval_serve"] = time.perf_counter() - t0 - sum(part_s.values())
     info["part_seconds"] = part_s
     return launches, k1, k2
@@ -3579,70 +3544,32 @@ def smem_limit(module, limit):
         module.SMEM_LIMIT = old
 
 
-def gpanels_smem(lib, code: int, ops) -> int:
-    """The global-panel K1's shared memory on the graph of ``ops``, state
-    type ``code`` (a library whose entry point takes no type is f32's)."""
-    from tpugnn_torch.kernels import _build
-
-    typed = len(_build._SIGNATURES["fused_rounds"]["fused_rounds_gpanels_smem_bytes"][0]) == 5
-    args = (ops[0].shape[0], ops[3].shape[0], ops[0].shape[1], ops[3].shape[1])
-    return lib.fused_rounds_gpanels_smem_bytes(*((code,) if typed else ()), *args)
-
-
-def bf16_gpanel_hmma(lib_fwd: str, lib_bwd: str) -> dict:
-    """HMMA instructions (cuobjdump -sass) of the bf16 global-panel kernels
-    by instantiation: K1 and K2a (fused_rounds.cu,
-    tcp::fused_rounds_tc_kernel<STASH, SR, MASK, true>) and K2b
-    (fused_backward.cu, tcb::fused_rounds_bwd_tc_kernel<SR, MASK, true>)."""
-    fwd, bwd = sass_mma_counts(lib_fwd), sass_mma_counts(lib_bwd)
-    k1 = re.compile(r"fused_rounds_tc_kernelILb([01])ELi(\d+)ELb([01])ELb1E")
-    k2b = re.compile(r"fused_rounds_bwd_tc_kernelILi(\d+)ELb([01])ELb1E")
-    out = {"k1": {}, "k2a": {}, "k2b": {}}
-    for name, c in fwd.items():
-        m = k1.search(name)
-        if m:
-            out["k2a" if m.group(1) == "1" else "k1"][f"sr{m.group(2)}_mask{m.group(3)}"] = c
-    for name, c in bwd.items():
-        m = k2b.search(name)
-        if m:
-            out["k2b"][f"sr{m.group(1)}_mask{m.group(2)}"] = c
-    return out
-
-
 def phase_circuit_d7_bfloat16(dev, info: dict) -> dict:
-    """Phase 4g: the circuit d=7 checkpoint in bf16 on K1's, K2a's and K2b's
-    global-panel variants.
+    """Phase 4g: the circuit d=7 checkpoint in bf16 on K1, K2a and K2b at
+    W = 128 (176 + 920 rows, the largest graph the smoke trains).
 
     a. On the trained weights (M=176, N=920, Dc=14, Dq=2; B=64, R=3): each
-       variant launched once and nothing else, K2a equal to K1, both and
+       kernel launched once and nothing else, K2a equal to K1, both and
        K2a's stash within the bf16 tolerances of the plain versions, K2b's
        gradients (every leaf) within TOL_GRAD_REL_BF16 and equal across two
        calls (:func:`train_kernels_vs_plain`).
-    b. The d=11 graph (random weights, B=D7_GP_BATCH, R=3): K1 and K2a with
-       their panels in global memory, forced by lowering the wrappers'
-       shared-memory limit to the variant's need, against the shared-panel
-       kernels on the same inputs: outputs and stash bit for bit (the same
-       arithmetic in the same order), on a persistent grid of 132 blocks
-       that walk 300 samples.
-    c. K1, K2a and K2b timed at B=4096, R=8 on the trained weights beside
+    b. K1, K2a and K2b timed at B=4096, R=8 on the trained weights beside
        their bounds and their plain versions (:func:`train_kernels_timed`).
-    d. ``cli eval`` in bf16 on the weights file at CIRCUIT_P on
+    c. ``cli eval`` in bf16 on the weights file at CIRCUIT_P on
        CIRCUIT_SHOTS shots: both heads within |z| <= CIRCUIT_Z of the JAX
-       f32 rate in the file, the z against LER_DETECTOR.md:43 reported, the
-       global-panel K1 launched once a chunk and nothing else; and
+       f32 rate in the file, the z against LER_DETECTOR.md:43 reported, K1
+       launched once a chunk and nothing else; and
        ``DecodeEngine.from_npz(dtype='bfloat16')`` serving a 4096-syndrome
        request with one such launch.
-    e. ``cli train`` at the checkpoint's settings (D7_TRAIN_ARGS) for
-       D7_TRAIN_STEPS steps: a finite, falling loss, one global-panel K2a
-       and one K2b launch a step and nothing else, the median step ms.
-    f. cuobjdump -sass: HMMA in every bf16 global-panel instantiation.
+    d. ``cli train`` at the checkpoint's settings (D7_TRAIN_ARGS) for
+       D7_TRAIN_STEPS steps: a finite, falling loss, one K2a and one K2b
+       launch a step and nothing else, the median step ms.
+    e. cuobjdump -sass: HGMMA in every bf16 W = 128 instantiation.
     Returns the launches by path; ``info`` gets every number."""
     import numpy as np
     import torch
 
-    from tpugnn_torch.kernels import fused_backward as fb
     from tpugnn_torch.kernels import fused_decoder as fd
-    from tpugnn_torch.kernels._build import build_libraries, load_library
     from tpugnn_torch.models.convert import load_decoder, read_meta
     from tpugnn_torch.sampling import sample_batch
     from tpugnn_torch.serve import DecodeEngine
@@ -3658,52 +3585,17 @@ def phase_circuit_d7_bfloat16(dev, info: dict) -> dict:
     dg = graph.to(dev)
     w = fd.RoundWeights(*[t.detach() for t in model.rounds.round_weights()])
     gen = torch.Generator(device=dev).manual_seed(72)
-    info["checks"] = train_kernels_vs_plain(graph, dg, w, gen, D7_GPANELS)
+    info["checks"] = train_kernels_vs_plain(graph, dg, w, gen, ROUNDS_NAMES)
     lap("checks")
 
-    # b. the two panel placements on the d=11 graph, the same inputs
-    g11, _, ops11, w11, xc, xq, s, _ = random_round_case(D, D7_GP_BATCH, D13_ROUNDS, dt, 73,
-                                                         dev)
-    mats32, vecs32 = fd.pack_weights_f32(w11)
-    need = gpanels_smem(load_library(fd.forward_library(torch.bfloat16)), 1, ops11)
-    runs = {}
-    with torch.no_grad():
-        for where in ("shared", "global"):
-            with contextlib.ExitStack() as stack:
-                if where == "global":
-                    stack.enter_context(smem_limit(fd, need))
-                reset_counts()
-                k1 = fd.decoder_rounds(xc, xq, s, ops11, w11, D13_ROUNDS, dt)
-                k2a = fb._fwd_stash_cuda(xc, xq, s, ops11, mats32, vecs32, D13_ROUNDS, dt)
-                runs[where] = (k1, k2a, counts())
-        torch.cuda.synchronize()
-    (k1s, k2as, cs), (k1g, k2ag, cg) = runs["shared"], runs["global"]
-    want = {"shared": ("fused_rounds", "fused_rounds_fwd_stash"),
-            "global": ("fused_rounds_gpanels", "fused_rounds_fwd_stash_gpanels")}
-    for where, (_, _, c) in runs.items():
-        if c != {**dict.fromkeys(c, 0), **dict.fromkeys(want[where], 1)}:
-            raise RuntimeError(f"d=11 bf16 {where} panels: launched {c}, not {want[where]}")
-    equal = dict(k1=all(torch.equal(a, b) for a, b in zip(k1s, k1g)),
-                 k2a=all(torch.equal(a, b) for a, b in zip(k2as, k2ag)))
-    info["d11_placements"] = dict(
-        batch=D7_GP_BATCH, rounds=D13_ROUNDS, gpanels_smem_bytes=need, bit_equal=equal,
-        k1_max_abs_diff=raster_errors(*k1s, *k1g)[0],
-        grid=min(D7_GP_BATCH, torch.cuda.get_device_properties(dev).multi_processor_count))
-    if not all(equal.values()):
-        raise RuntimeError(f"d=11 bf16: the global-panel kernels differ from the shared-panel "
-                           f"ones: {info['d11_placements']}")
-    del runs, k1s, k2as, k1g, k2ag, xc, xq, s
-    torch.cuda.empty_cache()
-    lap("placements")
-
-    # c. the training shapes
-    info["timed"] = train_kernels_timed(graph, dg, w, gen, model.cfg.rounds, D7_GPANELS[0],
+    # b. the training shapes
+    info["timed"] = train_kernels_timed(graph, dg, w, gen, model.cfg.rounds, ROUNDS_NAMES[0],
                                         f64=True, plain_calls=2)
     del model
     torch.cuda.empty_cache()
     lap("timed")
 
-    # d. cli eval and DecodeEngine on the weights file in bf16
+    # c. cli eval and DecodeEngine on the weights file in bf16
     meta = read_meta(path)
     ref = meta["ler_reference"]
     reset_counts()
@@ -3723,9 +3615,9 @@ def phase_circuit_d7_bfloat16(dev, info: dict) -> dict:
     if any(abs(v) > CIRCUIT_Z for v in z_jax.values()):
         raise RuntimeError(f"cli eval bf16 on circuit d=7: a head is off its JAX f32 rate: "
                            f"{info['cli_eval']}")
-    if launched != {**dict.fromkeys(launched, 0), D7_GPANELS[0]: chunks}:
+    if launched != {**dict.fromkeys(launched, 0), ROUNDS_NAMES[0]: chunks}:
         raise RuntimeError(f"cli eval bf16 on circuit d=7: launched {launched}, not {chunks} "
-                           f"{D7_GPANELS[0]} and nothing else")
+                           f"{ROUNDS_NAMES[0]} and nothing else")
     with DecodeEngine.from_npz(path, device="cuda", dtype=dt, max_batch=B) as eng:
         syn = sample_batch(torch.Generator(device=dev).manual_seed(74), dg, CIRCUIT_P,
                            B).syndrome[:, :graph.n_checks].to(torch.uint8).cpu().numpy()
@@ -3738,13 +3630,13 @@ def phase_circuit_d7_bfloat16(dev, info: dict) -> dict:
     info["serve"] = dict(shots=B, request_ms=serve_ms, model_dtype=dtype_served,
                          launches=launched)
     if (corr.shape != (B, graph.n_qubits, 2) or corr.dtype != np.uint8 or dtype_served != dt
-            or launched != {**dict.fromkeys(launched, 0), D7_GPANELS[0]: 1}):
+            or launched != {**dict.fromkeys(launched, 0), ROUNDS_NAMES[0]: 1}):
         raise RuntimeError(f"DecodeEngine bf16 on circuit d=7: {corr.shape} {corr.dtype} "
                            f"{info['serve']}")
     torch.cuda.empty_cache()
     lap("eval_serve")
 
-    # e. cli train at the checkpoint's settings
+    # d. cli train at the checkpoint's settings
     argv = [*D7_TRAIN_ARGS, "--steps", str(D7_TRAIN_STEPS), "--eval-every",
             str(D7_TRAIN_STEPS)]
     reset_counts()
@@ -3758,47 +3650,34 @@ def phase_circuit_d7_bfloat16(dev, info: dict) -> dict:
     del rec
     torch.cuda.empty_cache()
     gate_training("cli train (circuit d=7, bf16)", summary, D7_TRAIN_STEPS)
-    step_want = {D7_GPANELS[1]: 1, D7_GPANELS[2]: 1}
+    step_want = {ROUNDS_NAMES[1]: 1, ROUNDS_NAMES[2]: 1}
     if any(c != {**dict.fromkeys(c, 0), **step_want} for c in per_step):
-        raise RuntimeError(f"cli train (circuit d=7): a step did not launch the global-panel "
-                           f"K2a and K2b once each and nothing else: {per_step}")
+        raise RuntimeError(f"cli train (circuit d=7): a step did not launch K2a and K2b once "
+                           f"each and nothing else: {per_step}")
     lap("train")
 
-    # f. the new instantiations on the tensor cores
-    built = build_libraries(["fused_rounds", "fused_backward"])
-    hmma = bf16_gpanel_hmma(built["fused_rounds"][0], built["fused_backward"][0])
-    info["sass_hmma"] = hmma
-    if not (len(hmma["k1"]) == len(hmma["k2a"]) == 2 and len(hmma["k2b"]) == 4) or not all(
-            c > 0 for k in ("k1", "k2a", "k2b") for c in hmma[k].values()):
-        raise RuntimeError(f"a bf16 global-panel kernel is missing or has no HMMA: {hmma}")
+    # e. the W = 128 instantiations on the tensor cores
+    info["sass_hgmma"] = hgmma_w128(dt)
     lap("sass")
     info["part_seconds"] = part_s
     return launches
 
 
 def phase_f32_training_past_smem(dev, info: dict) -> dict:
-    """Phase 6b: f32 training where the gather panels do not fit in shared
-    memory, through K2a's global-panel variant and K2b's layout with its
-    panels in the scratch.
+    """Phase 6b: f32 training on the larger graphs, on K2a and K2b at
+    W = 128.
 
-    a. d=13 (random weights, B=64, R=3): K1's, K2a's and K2b's global-panel
-       variants each launched once and nothing else, K2a equal to K1, its
-       outputs and stash within TOL_F32 of rounds_fwd_stash_plain, K2b's
-       gradients (every leaf) within TOL_GRAD_REL_F32 of rounds_vjp_plain
-       fed the same stash, and a second K2b call equal to the first
-       (:func:`train_kernels_vs_plain`).
-    b. The d=11 graph (random weights, B=F32_GP_BATCH, R=3), where both
-       placements fit: K2a with its panels forced into global memory (the
-       wrappers' shared-memory limit lowered to the variant's need) and K2b
-       in its scratch-panel layout (``force_gpanels``), each against the
-       shared-panel kernel on the same inputs, bit for bit: only where the
-       panels live differs, not an operation or its order.
-    c. K2a and K2b timed at d=13, B=4096, R=TRAINED_ROUNDS beside their
+    a. d=13 (random weights, B=64, R=3): K1, K2a and K2b each launched once
+       and nothing else, K2a equal to K1, its outputs and stash within
+       TOL_F32 of rounds_fwd_stash_plain, K2b's gradients (every leaf)
+       within TOL_GRAD_REL_F32 of rounds_vjp_plain fed the same stash, and a
+       second K2b call equal to the first (:func:`train_kernels_vs_plain`).
+    b. K2a and K2b timed at d=13, B=4096, R=TRAINED_ROUNDS beside their
        3xTF32 bounds and their plain versions (two half-batch calls each).
-    d. ``cli train`` on the circuit d=5 graph in f32
+    c. ``cli train`` on the circuit d=5 graph in f32
        (CIRCUIT_F32_TRAIN_ARGS) for CIRCUIT_F32_TRAIN_STEPS steps: a finite,
-       falling loss, one global-panel K2a and one K2b launch a step and
-       nothing else; one step from its last state through the kernels and
+       falling loss, one K2a and one K2b launch a step and nothing else; one
+       step from its last state through the kernels and
        through their plain versions (:func:`train_steps_vs_plain`), every
        parameter leaf's change within TRAIN_STEP_REL.
     Returns the launches by path; ``info`` gets every number."""
@@ -3806,68 +3685,23 @@ def phase_f32_training_past_smem(dev, info: dict) -> dict:
 
     import torch
 
-    from tpugnn_torch.kernels import fused_backward as fb
-    from tpugnn_torch.kernels import fused_decoder as fd
-    from tpugnn_torch.kernels._build import load_library
-
     dt, t0, part_s, launches = "float32", time.perf_counter(), {}, {}
 
     def lap(name):
         part_s[name] = time.perf_counter() - t0 - sum(part_s.values())
 
-    # a. d=13 on the three global-panel variants
+    # a. d=13
     g13, dg13, _, w13, _, _, _, gen = random_round_case(13, D13_BATCH, D13_ROUNDS, dt, 17, dev)
-    info["d13"] = train_kernels_vs_plain(g13, dg13, w13, gen, D7_GPANELS, dt)
+    info["d13"] = train_kernels_vs_plain(g13, dg13, w13, gen, ROUNDS_NAMES, dt)
     lap("d13_checks")
 
-    # b. the two placements on the d=11 graph, the same inputs
-    _, _, ops11, w11, xc, xq, s, gen11 = random_round_case(D, F32_GP_BATCH, D13_ROUNDS, dt,
-                                                           18, dev)
-    cot_c = torch.randn(xc.shape, generator=gen11, device=dev)
-    cot_q = torch.randn(xq.shape, generator=gen11, device=dev)
-    mats32, vecs32 = fd.pack_weights_f32(w11)
-    need = gpanels_smem(load_library(fd.forward_library(torch.float32)), 0, ops11)
-    runs, stash = {}, None
-    with torch.no_grad():
-        for where in ("shared", "global"):
-            reset_counts()
-            with smem_limit(fd, need) if where == "global" else contextlib.nullcontext():
-                k2a = fb._fwd_stash_cuda(xc, xq, s, ops11, mats32, vecs32, D13_ROUNDS, dt)
-            if stash is None:   # both K2b layouts read the shared-panel K2a's stash
-                stash = k2a[2:]
-            k2b = fb._bwd_cuda(*stash, s, ops11, mats32, vecs32, cot_c, cot_q, dt,
-                               force_gpanels=where == "global")
-            runs[where] = (k2a, k2b, counts())
-        torch.cuda.synchronize()
-    want = {"shared": ("fused_rounds_fwd_stash", "fused_rounds_bwd"),
-            "global": ("fused_rounds_fwd_stash_gpanels", "fused_rounds_bwd_gpanels")}
-    for where, (_, _, c) in runs.items():
-        if c != {**dict.fromkeys(c, 0), **dict.fromkeys(want[where], 1)}:
-            raise RuntimeError(f"d=11 f32 {where} panels: launched {c}, not {want[where]}")
-    (k2as, k2bs, _), (k2ag, k2bg, _) = runs["shared"], runs["global"]
-    equal = dict(k2a=all(torch.equal(a, b) for a, b in zip(k2as, k2ag)),
-                 k2b=all(torch.equal(a, b) for a, b in zip(k2bs, k2bg)))
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    info["d11_placements"] = dict(
-        batch=F32_GP_BATCH, rounds=D13_ROUNDS, k2a_gpanels_smem_bytes=need, bit_equal=equal,
-        k2a_max_abs_diff=raster_errors(*k2as[:2], *k2ag[:2])[0],
-        k2b_max_abs_diff=max(float((a - b).abs().max()) for a, b in zip(k2bs, k2bg)),
-        k2a_grid=min(F32_GP_BATCH, sms), k2b_tiles=-(-F32_GP_BATCH // 8),
-        k2b_grid=min(-(-F32_GP_BATCH // 8), sms))
-    if not all(equal.values()):
-        raise RuntimeError(f"d=11 f32: the global-panel kernels differ from the shared-panel "
-                           f"ones: {info['d11_placements']}")
-    del runs, stash, k2as, k2bs, k2ag, k2bg, xc, xq, s, cot_c, cot_q
-    torch.cuda.empty_cache()
-    lap("placements")
-
-    # c. the training shapes at d=13
+    # b. the training shapes at d=13
     info["timed"] = train_kernels_timed(g13, dg13, w13, gen, TRAINED_ROUNDS, None,
                                         plain_calls=2, dt=dt)
     torch.cuda.empty_cache()
     lap("timed")
 
-    # d. circuit d=5 training in f32 through the CLI
+    # c. circuit d=5 training in f32 through the CLI
     argv = [*CIRCUIT_F32_TRAIN_ARGS, "--steps", str(CIRCUIT_F32_TRAIN_STEPS), "--eval-every",
             str(CIRCUIT_F32_TRAIN_STEPS)]
     reset_counts()
@@ -3879,11 +3713,10 @@ def phase_f32_training_past_smem(dev, info: dict) -> dict:
     info["cli_train_circuit"] = dict(argv=argv, last_line=row,
                                      launches=launches["cli_train_circuit_f32"], **summary)
     gate_training("cli train (circuit d=5, f32)", summary, CIRCUIT_F32_TRAIN_STEPS)
-    step_want = {D7_GPANELS[1]: 1, D7_GPANELS[2]: 1}
+    step_want = {ROUNDS_NAMES[1]: 1, ROUNDS_NAMES[2]: 1}
     if any(c != {**dict.fromkeys(c, 0), **step_want} for c in rec.launches):
-        raise RuntimeError(f"cli train (circuit d=5, f32): a step did not launch the "
-                           f"global-panel K2a and K2b once each and nothing else: "
-                           f"{rec.launches}")
+        raise RuntimeError(f"cli train (circuit d=5, f32): a step did not launch K2a and K2b "
+                           f"once each and nothing else: {rec.launches}")
     errs = train_steps_vs_plain(types.SimpleNamespace(model=model, optimizer=optimizer), cfg,
                                 dg, dev, steps=1)
     worst = max(errs["kernels"][0].items(), key=lambda kv: kv[1])
@@ -4270,11 +4103,12 @@ def wide_design_bytes(graph, batch: int, rounds: int, w: int, item: int,
     L2 weights: every tile streams each of its products' [W, W] packs once
     (bf16 2 bytes an entry, f32 8: the TF32 halves).  A tile is 128 rows
     where one warpgroup holds a row's columns (bf16 W <= 256, f32 W = 128),
-    else 64 (csrc/wide_mma.cuh, Geo); the replay's tiles are 64 rows at
-    every width (Geo<T, W, true>: its two warpgroups split the columns).
-    Five products a forward round and tile (projection included); a
-    backward round's ten: the projection and the three cotangent products
-    on the forward's tiles, the six replay products on 64-row tiles."""
+    else 64 (csrc/wide_mma.cuh, Geo); the replay's tiles are 64 rows (its
+    two warpgroups split the columns) but f32 at W = 128, 128 rows
+    (csrc/wide_rounds.cuh, ReplayGeo).  Five products a forward round and
+    tile (projection included); a backward round's ten: the projection and
+    the three cotangent products on the forward's tiles, the six replay
+    products on the replay's."""
     rows = batch * (graph.n_checks + graph.n_qubits)
     pack = w * w * (8 if item == 4 else 2)
 
@@ -4289,7 +4123,8 @@ def wide_design_bytes(graph, batch: int, rounds: int, w: int, item: int,
     res = t * (5 + (item == 2)) + f
     per_round = (2 * t + (2 * t + f + res) + 2 * t + (3 * t + 3 * f)
                  + 10 * t * (w // 128))
-    return rounds * per_round, rounds * (tiles(rt) * 4 + tiles(64) * 6) * pack
+    rt_replay = 128 if item == 4 and w == 128 else 64
+    return rounds * per_round, rounds * (tiles(rt) * 4 + tiles(rt_replay) * 6) * pack
 
 
 def wide_timing(graph, dt: str, dev, batch: int, rounds: int) -> dict:
@@ -4299,8 +4134,8 @@ def wide_timing(graph, dt: str, dev, batch: int, rounds: int) -> dict:
     memory, two half-batch calls), its bound (``rounds_flops`` at the bf16
     or 3xTF32 peak, or the function's bytes), the design's modelled bytes
     beside (``wide_design_bytes``: ``model_hbm_bytes``, their time at the
-    HBM rate, ``model_l2_weight_bytes``), and the 128-column kernel at H=128
-    on inputs of the same shapes."""
+    HBM rate, ``model_l2_weight_bytes``), and the same kernels at H=128
+    (W = 128; K5 there is roll_gather.cu's) on inputs of the same shapes."""
     import torch
 
     from tpugnn_torch.kernels import fused_backward as fb
@@ -4494,9 +4329,9 @@ def phase_wide_rounds(dev, info: dict) -> dict:
        d=5 (B=D13_BATCH, R=D13_ROUNDS), held as (a) and (b); f32 K2b at 384
        columns must refuse before any launch (``fb.F32_BWD_REFUSED``;
        ROADMAP.md, Queue 3: its slot ties there);
-    i. cuobjdump -sass: HGMMA (wgmma) in every instantiation of the wide
-       kernels (the forward in both modes, the replay, the cotangent and the
-       weight gradients) in both state types.
+    i. cuobjdump -sass: HGMMA (wgmma) in every instantiation of the rounds
+       kernels, W = 128 included (the forward in both modes, the replay, the
+       cotangent and the weight gradients) in both state types.
     Returns the launches by path; ``info`` gets every number."""
     import torch
 
@@ -4515,15 +4350,13 @@ def phase_wide_rounds(dev, info: dict) -> dict:
     def lap(name):
         part_s[name] = round(time.perf_counter() - t0 - sum(part_s.values()), 3)
 
-    # the wide libraries (built in the background since the build phase):
-    # their nvcc seconds and the kernels' registers and spills (under
-    # setmaxnreg the consumers may use 240 registers; ptxas reports the
-    # launch's 168)
-    wide_built, waited = wide_build()
+    # the rounds libraries (the build phase's): their nvcc seconds and the
+    # kernels' registers and spills (under setmaxnreg the consumers may use
+    # 240 registers; ptxas reports the launch's 168)
+    wide_built = {n: _BUILT[n] for n in WIDE_LIBRARIES}
     info["build"] = {n: dict(library=os.path.relpath(p, REPO), build_seconds=round(sec, 3),
                              ptxas=ptxas_usage(blog, "wide_"))
                      for n, (p, sec, blog) in wide_built.items()}
-    info["build_waited_seconds"] = round(waited, 3)
     lap("build")
 
     # a. the wide forward kernels against their plain versions
@@ -4730,12 +4563,12 @@ def phase_wide_rounds(dev, info: dict) -> dict:
         hg[dt] = wide_hgmma({k: v for lib in libs
                              for k, v in sass_mma_counts(wide_built[lib][0], "HGMMA").items()})
     info["sass_hgmma"] = hg
-    widths = (WIDE_H, *WIDE_MORE_H)
-    want = {"k1": len(widths), "k2a": len(widths), "k5": 2 * len(widths),
+    widths = (128, WIDE_H, *WIDE_MORE_H)   # K5's raster mode from WIDE_H on
+    want = {"k1": len(widths), "k2a": len(widths), "k5": 2 * (len(widths) - 1),
             "k2b": 3 * len(widths) + 1}
     for dt, rows in hg.items():
         for k, n in want.items():
-            n -= len(widths) if dt == "float32" and k == "k5" else 0   # f32 has no bf16 slots
+            n -= len(widths) - 1 if dt == "float32" and k == "k5" else 0   # f32: no bf16 slots
             if len(rows[k]) != n or not all(c > 0 for c in rows[k].values()):
                 raise RuntimeError(f"a wide {dt} kernel is missing or runs no wgmma: {hg}")
     lap("sass_hgmma")
@@ -4786,10 +4619,14 @@ def phase_dist(dev, info: dict, card: str) -> dict:
                                    partition_graph(graph, 1), device=dev)
         syn = sample_batch(torch.Generator(device=dev).manual_seed(DIST_SEED), dg, 0.05,
                            DIST_CHUNK).syndrome
-        with torch.inference_mode():
-            got, want = apply(None, syn), model(dg, syn)
-            err = max(float((got.qubit_logits - want.qubit_logits).abs().max()),
-                      float((got.logical_logits - want.logical_logits).abs().max()))
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with torch.inference_mode():
+                got, want = apply(None, syn), model(dg, syn)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        err = max(float((got.qubit_logits - want.qubit_logits).abs().max()),
+                  float((got.logical_logits - want.logical_logits).abs().max()))
     finally:
         dist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
@@ -4889,7 +4726,7 @@ def phase_dist(dev, info: dict, card: str) -> dict:
             or not all(r0["buffers_equal"].values())
             or min(r0["wire_agree"].values()) < DIST_WIRE_AGREE):
         raise RuntimeError(f"dist (b): halo modes or wire types disagree: {info['decode']}")
-    if launched["fused_rounds_gpanels"] != chunks or sum(launched.values()) != chunks:
+    if launched["fused_rounds"] != chunks or sum(launched.values()) != chunks:
         raise RuntimeError(f"dist (b): the K1 reference launched {launched}")
     bytes_of = {k: v["halo_bytes"] for k, v in r0["per_round"].items()}
     if not (bytes_of["alltoall_float32"] == bytes_of["ring_float32"]
@@ -4992,11 +4829,9 @@ def main() -> int:
 
         host_thread = threading.Thread(target=build_host)
         host_thread.start()
-        # one nvcc per source, all at once; the wide kernels' four after the
-        # rest, in the background at a lower priority: phase 6d is the first
-        # to run them, and their builds overlap the phases before it
-        built = build_libraries([n for n in SOURCES if n not in WIDE_LIBRARIES])
-        start_wide_build()
+        # one nvcc per source, all at once
+        built = build_libraries(list(SOURCES))
+        _BUILT.update(built)
         host_thread.join()
         if "error" in host:
             raise host["error"]
@@ -5004,16 +4839,14 @@ def main() -> int:
             log(build_log)
             info[name] = dict(library=os.path.relpath(path, REPO), cold=seconds > 0,
                               build_seconds=round(seconds, 3))
-        # the f32 rounds kernels' registers and spills (K1, K2a and K2b in
-        # both placements; their device functions apart)
-        info["f32_ptxas"] = {
-            **ptxas_usage(built["fused_rounds_tf32"][2], "tf32x3_kernel"),
-            **ptxas_usage(built["fused_backward_tf32"][2], "t3b")}
+        # the W = 128 rounds kernels' registers and spills (under setmaxnreg
+        # the consumers may use 240 registers; ptxas reports the launch's 168)
+        info["w128_ptxas"] = {n: ptxas_usage(built[n][2], "Li128E|wgrad")
+                              for n in WIDE_LIBRARIES}
         info["host_library_seconds"] = host["seconds"]
-        # the phases' HMMA checks, disassembled while the phases run
-        prefetch_sass([built[n][0] for n in ("fused_rounds", "fused_rounds_tf32",
-                                              "fused_backward", "fused_backward_tf32", "sddmm",
-                                              "roll_gather", "roll_gather_tf32")])
+        # the phases' HMMA and HGMMA checks, disassembled while the phases run
+        prefetch_sass([built[n][0] for n in ("sddmm", "roll_gather", "roll_gather_tf32")])
+        prefetch_sass([built[n][0] for n in WIDE_LIBRARIES], "HGMMA")
         info["wall_seconds"] = round(time.perf_counter() - t0, 3)
 
     graph = build_code("surface", D)
@@ -5066,30 +4899,22 @@ def main() -> int:
             yc, yq = yardstick_rounds(xc, xq, s, dg, w, 14, torch.float32)
             info["yardstick_vs_plain_f32"] = float(torch.maximum(
                 (yc - pc).abs().max(), (yq - pq).abs().max()))
-        # d=13 in bf16: 176-row sides, a whole 128-row chunk and a ragged one
+        # d=13 in bf16: 176-row sides
         info["d13_bfloat16"] = rounds_vs_plain("k1", 13, h, "bfloat16", 12, dev,
                                                "fused_rounds")
-        # f32 at d=13 and d=15: the two gather panels do not fit in shared
-        # memory, so K1 runs its variant with the panels in global memory
-        info["gpanels_float32"] = {
-            f"d{d}": rounds_vs_plain("k1", d, h, "float32", 20 + d, dev, "fused_rounds_gpanels")
+        # f32 at d=13 and d=15, the largest surface codes
+        info["d13_d15_float32"] = {
+            f"d{d}": rounds_vs_plain("k1", d, h, "float32", 20 + d, dev, "fused_rounds")
             for d in (13, 15)}
         # narrower models on the kernel's 128 columns, zero-padded (d=11)
         info["padded_widths"] = {
             f"h{hw}_{dt}": rounds_vs_plain("k1", D, hw, dt, 40 + hw, dev, "fused_rounds")
             for hw in (64, 96) for dt in ("bfloat16", "float32")}
-        gp_checks, pw_checks = info["gpanels_float32"], info["padded_widths"]
-        # every f32 instantiation of the library (K1's and K2a's two
-        # placements) runs its products on tensor cores
-        f32_mma = f32_hmma(sass_mma_counts(build_libraries(["fused_rounds_tf32"])
-                                           ["fused_rounds_tf32"][0]))
-        info["f32_sass_hmma"] = f32_mma
-        if not all(f32_mma.get(k, 0) > 0
-                   for k in ("shared", "gpanels", "stash", "stash_gpanels")):
-            raise RuntimeError(f"an f32 K1 or K2a kernel has no HMMA instruction: {f32_mma}")
-        k1_f32_check = dict(info["float32"], sass_hmma={k: f32_mma[k]
-                                                       for k in ("shared", "gpanels")})
-        f32_mma_k1 = f32_mma
+        gp_checks, pw_checks = info["d13_d15_float32"], info["padded_widths"]
+        # K1's and K2a's f32 kernel at W = 128 runs its products on wgmma
+        f32_hgmma = hgmma_w128("float32")
+        info["f32_sass_hgmma"] = f32_hgmma
+        k1_f32_check = dict(info["float32"], sass_hgmma=f32_hgmma["k1"])
 
     launches = {}
     with Phase("serve") as info:
@@ -5230,10 +5055,10 @@ def main() -> int:
                     trained_tf32x3_floor_ms=tf32x3_floor_ms(flops_t),
                     trained_kernel_share=rk_ms / fwd_ms,
                     trained_edges_per_s=b * graph.n_edges * r_t / (fwd_ms / 1e3))
-        # K1's global-panel variant at the trained checkpoints' shapes, and
-        # K1 and K5 on the padded widths of the d=3 and d=5 checkpoints
-        info["fused_rounds_gpanels"] = {
-            f"d{d}": f32_rounds_timing("fused_rounds_gpanels", d, dev, 50 + d) for d in (13, 15)}
+        # K1 at the d=13 and d=15 checkpoints' shapes, and K1 and K5 on the
+        # padded widths of the d=3 and d=5 checkpoints
+        info["d13_d15_float32"] = {
+            f"d{d}": f32_rounds_timing("fused_rounds", d, dev, 50 + d) for d in (13, 15)}
         info["padded_width"] = {f"d{d}_h{hw}": padded_width_timing(d, hw, dev, 60 + d)
                                 for d, hw in ((3, 64), (5, 96))}
         timing = dict(info)
@@ -5326,19 +5151,14 @@ def main() -> int:
                         sc, sq, s, ops, mats32, vecs32, cot_c, cot_q, state_dtype=dtype),
                         warmup=0, iters=1)
                 del sc, sq
-                # every product of the f32 K2b kernel on the tensor cores
-                k2b_mma = sass_mma_counts(build_libraries(["fused_backward_tf32"])
-                                          ["fused_backward_tf32"][0])
+                # every product of the f32 K2b kernels on wgmma
                 info[dtype].update(
                     k2a_ms=k2a_ms, k2b_ms=k2b_ms, plain_fwd_stash_ms=plain_fwd_ms,
-                    plain_vjp_ms=plain_bwd_ms, k2b_sass_hmma=k2b_f32_hmma(k2b_mma),
+                    plain_vjp_ms=plain_bwd_ms, k2b_sass_hgmma=f32_hgmma["k2b"],
                     stash_gb=stash_bytes(graph, B, rounds, h, 4) / 1e9,
                     **train_kernel_bounds(graph, B, rounds, h, k2a_ms, k2b_ms, dtype),
                     **yardstick_training_times(xc, xq, s, dg, w, cot_c, cot_q, rounds,
                                                torch.float32))
-                if not all(info[dtype]["k2b_sass_hmma"].get(k, 0) > 0
-                           for k in ("shared", "gpanels")):
-                    raise RuntimeError(f"an f32 K2b kernel has no HMMA instruction: {k2b_mma}")
             else:
                 del sc, sq
             torch.cuda.empty_cache()
@@ -5532,55 +5352,49 @@ def main() -> int:
                 "launches_by_path": paths, **kw}
 
     def variant(name, source: str, checks: dict, timings: dict) -> dict:
-        """An f32 global-panel variant's fields: its source, its launches,
-        its max error against the plain version (B=64, R=3 and at the timed
-        shapes), and per graph its time, the plain version's and its
-        bound."""
+        """An f32 variant's fields (K5's global panels): its source, its
+        launches, its max error against the plain version (B=64, R=3 and at
+        the timed shapes), and per graph its time, the plain version's and
+        its bound."""
         paths = by_path(name, bf16_d7=False)
         return dict(name=name, source=source, launches=sum(paths.values()),
-                    launches_by_path=paths,
-                    max_abs_err=max(max(v["max_abs_err"] for v in checks.values()),
+                    launches_by_path=paths, **larger_graphs(checks, timings))
+
+    def larger_graphs(checks: dict, timings: dict) -> dict:
+        """The max error against the plain version of the cases in
+        ``checks`` (B=64, R=3) and ``timings`` (the timed shapes), and per
+        graph the time, the plain version's and the bound."""
+        return dict(max_abs_err=max(max(v["max_abs_err"] for v in checks.values()),
                                     max(v["max_abs_err"] for v in timings.values())),
                     **{d: {k: t[k] for k in ("batch", "rounds", "real_rows", "ms", "plain_ms",
                                              "bound_ms", "bound_by", "tflops",
                                              "tf32x3_floor_ms", "f32_core_ms") if k in t}
                        for d, t in timings.items()})
 
-    def gpanels_bf16(k: int, source: str, replaces: str, **kw) -> dict:
-        """The bf16 global-panel variant of K1 (k=0), K2a (1) or K2b (2) on
-        the circuit d=7 checkpoint (phase 4g): its launches there, its
-        error against the plain version (B=64, R=3; K1 also at B=4096),
-        its time at B=4096, R=8 beside its plain version's and its bound,
-        and its HMMA count."""
-        name, t, c = D7_GPANELS[k], d7["timed"], d7["checks"]
-        paths = by_path(name, bf16_d7=True)
+    def circuit_d7(k: int, **kw) -> dict:
+        """K1 (k=0), K2a (1) or K2b (2) on the circuit d=7 checkpoint in bf16
+        (phase 4g): its launches there, its time at B=4096, R=8 beside its
+        plain version's and its bound, and its HGMMA count."""
+        t, c = d7["timed"], d7["checks"]
         tag = ("k1", "k2a", "k2b")[k]
-        return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=sum(paths.values()), launches_by_path=paths,
-                    graph=c["graph"], batch=t["timed_batch"], rounds=t["timed_rounds"],
-                    library_ms=None, sass_hmma=d7["sass_hmma"][tag], **kw)
+        paths = by_path(ROUNDS_NAMES[k], bf16_d7=True)
+        return dict(launches=sum(paths.values()), launches_by_path=paths, graph=c["graph"],
+                    batch=t["timed_batch"], rounds=t["timed_rounds"],
+                    sass_hgmma=d7["sass_hgmma"][tag], **kw)
 
-    def gpanels_f32(k: int, **kw) -> dict:
-        """The f32 global-panel variant of K2a (k=1) or K2b (2): its
-        launches outside the bf16 circuit d=7 paths, its error against the
-        plain version (d=13, B=64, R=3), its time at d=13, B=4096,
-        R=TRAINED_ROUNDS beside its plain version's and its 3xTF32 bound,
-        and its placement check on d=11."""
-        name, t = D7_GPANELS[k], f32gp["timed"]
+    def surface_d13(k: int, **kw) -> dict:
+        """K2a (k=1) or K2b (2) with f32 states on surface d=13 (phase 6b):
+        its error against the plain version (B=64, R=3), its time at
+        B=4096, R=TRAINED_ROUNDS beside its plain version's and its 3xTF32
+        bound."""
+        t = f32gp["timed"]
         tag = ("k1", "k2a", "k2b")[k]
-        paths = by_path(name, bf16_d7=False)
-        return dict(name=name, route="cuda", source=(
-            "tpugnn_torch/kernels/csrc/fused_rounds_tf32.cu" if k == 1 else
-            "tpugnn_torch/kernels/csrc/fused_backward_tf32.cu"),
-            replaces=("tpugnn/kernels/fused_backward.py:575" if k == 1 else
-                      "tpugnn/kernels/fused_backward.py:624"),
-            launches=sum(paths.values()), launches_by_path=paths, graph="surface d=13",
-            batch=t["timed_batch"], rounds=t["timed_rounds"], ms=t[f"{tag}_ms"],
-            plain_ms=t["plain_fwd_stash_ms" if k == 1 else "plain_vjp_ms"],
-            plain_calls=t["plain_calls"], bound_ms=t[f"{tag}_bound_ms"],
-            bound_by=t[f"{tag}_bound_by"], f32_core_ms=t[f"{tag}_f32_core_ms"],
-            tflops=t[f"{tag}_tflops"], library_ms=None,
-            d11_bit_equal_to_shared=f32gp["d11_placements"]["bit_equal"][tag], **kw)
+        return dict(graph="surface d=13", batch=t["timed_batch"], rounds=t["timed_rounds"],
+                    ms=t[f"{tag}_ms"],
+                    plain_ms=t["plain_fwd_stash_ms" if k == 1 else "plain_vjp_ms"],
+                    plain_calls=t["plain_calls"], bound_ms=t[f"{tag}_bound_ms"],
+                    bound_by=t[f"{tag}_bound_by"], f32_core_ms=t[f"{tag}_f32_core_ms"],
+                    tflops=t[f"{tag}_tflops"], **kw)
 
     def padded(kernel: str, checks: dict) -> dict:
         """The padded widths' fields: max errors against the plain version by
@@ -5602,7 +5416,7 @@ def main() -> int:
     def wide_rows() -> list:
         """The wide kernels' rows (phase 6d): bf16 numbers at the top, f32
         under ``f32``; times at d=11, H = MH = WIDE_H, B=WIDE_TIMING_BATCH,
-        R=WIDE_TIMING_ROUNDS beside the 128-column kernel's at H=128
+        R=WIDE_TIMING_ROUNDS beside the same kernel's at H=128 (W = 128)
         (``h128_ms``), and the HGMMA count of each instantiation of the row's
         kernels (``sass_hgmma``).  The design's modelled bytes stay in phase
         6d's info (``timed``): nothing in this line is a model."""
@@ -5640,10 +5454,9 @@ def main() -> int:
                            f32=numbers("float32")))
         return out
 
+    src = "tpugnn_torch/kernels/csrc/wide_rounds.cuh"
     emit({"kernels": [row(
-        "fused_rounds",
-        source="tpugnn_torch/kernels/csrc/fused_rounds.cu",
-        source_float32="tpugnn_torch/kernels/csrc/fused_rounds_tf32.cu",
+        "fused_rounds", source=src, libraries=list(WIDE_LIBRARIES[:2]), width=128,
         replaces="tpugnn/kernels/fused_decoder.py:637",
         max_abs_err=errs["bfloat16"], max_abs_err_f32=errs["float32"],
         ms=timing["kernel_ms"], plain_ms=timing["plain_ms"],
@@ -5654,34 +5467,29 @@ def main() -> int:
                          f32_core_ms=timing["trained_f32_core_ms"],
                          tf32x3_floor_ms=timing["trained_tf32x3_floor_ms"],
                          **{k: k1_f32_check[k] for k in ("max_abs_err", "kernel_vs_f64_max",
-                                                         "plain_vs_f64_max", "sass_hmma")}),
-        gpanels=variant("fused_rounds_gpanels", "tpugnn_torch/kernels/csrc/fused_rounds_tf32.cu",
-                        gp_checks, timing["fused_rounds_gpanels"]),
+                                                         "plain_vs_f64_max", "sass_hgmma")}),
+        d13_d15_float32=larger_graphs(gp_checks, timing["d13_d15_float32"]),
         padded_width=padded("k1", pw_checks),
         detector_graph=det_k1, circuit_graphs=circ_k1,
         circuit_d5_bfloat16={"graph": circ_k2["graph"], **circ_k2["k1_bfloat16"]},
-        gpanels_bfloat16=gpanels_bf16(
-            0, "tpugnn_torch/kernels/csrc/fused_rounds.cu", "tpugnn/kernels/fused_decoder.py:637",
-            max_abs_err=d7["checks"]["k2a_vs_plain_max"],   # B=64: K2a's, bit-equal to K1
+        circuit_d7_bfloat16=circuit_d7(
+            0, max_abs_err=d7["checks"]["k2a_vs_plain_max"],   # B=64: K2a's, bit-equal to K1
             b4096={k: d7["timed"]["k1_bfloat16"][k] for k in (
                 "max_abs_err", "mean_abs_err", "vs_f64_max", "vs_f64_mean", "plain_vs_f64_max",
                 "plain_vs_f64_mean", "f64_ratio_bound")},
             ms=d7["timed"]["k1_bfloat16"]["ms"], plain_ms=d7["timed"]["k1_bfloat16"]["plain_ms"],
             bound_ms=d7["timed"]["k1_bfloat16"]["bound_ms"],
-            bound_by=d7["timed"]["k1_bfloat16"]["bound_by"],
-            d11_bit_equal_to_shared=d7["d11_placements"]["bit_equal"]["k1"]),
+            bound_by=d7["timed"]["k1_bfloat16"]["bound_by"]),
     ), row(
-        "fused_rounds_fwd_stash",
-        source="tpugnn_torch/kernels/csrc/fused_rounds.cu",
-        source_float32="tpugnn_torch/kernels/csrc/fused_rounds_tf32.cu",
+        "fused_rounds_fwd_stash", source=src, libraries=list(WIDE_LIBRARIES[:2]), width=128,
         replaces="tpugnn/kernels/fused_backward.py:575",
         max_abs_err=train_errs["bfloat16"]["k2a_vs_plain_max"],
         max_abs_err_f32=train_errs["float32"]["k2a_vs_plain_max"],
         ms=train_timing["k2a_ms"], plain_ms=train_timing["plain_fwd_stash_ms"],
         bound_ms=train_timing["k2a_bound_ms"], bound_by=train_timing["k2a_bound_by"],
         library_ms=None, yardstick_ms=train_timing["yardstick_fwd_ms"],
-        f32=dict(batch=B, rounds=train_errs["float32"]["rounds"], sass_hmma=f32_mma_k1["stash"],
-                 equals_k1=train_errs["float32"]["k2a_equals_k1"],
+        f32=dict(batch=B, rounds=train_errs["float32"]["rounds"],
+                 sass_hgmma=f32_hgmma["k2a"], equals_k1=train_errs["float32"]["k2a_equals_k1"],
                  plain_ms=train_errs["float32"]["plain_fwd_stash_ms"],
                  yardstick_ms=train_errs["float32"]["yardstick_fwd_ms"],
                  **{k: train_errs["float32"][k] for k in (
@@ -5690,20 +5498,17 @@ def main() -> int:
         circuit_d5={k: circ_k2[k] for k in (
             "graph", "k2a_ms", "plain_fwd_stash_ms", "k2a_bound_ms", "k2a_bound_by",
             "k2a_vs_plain_max", "stash_vs_plain_max", "timed_batch", "timed_rounds")},
-        gpanels_bfloat16=gpanels_bf16(
-            1, "tpugnn_torch/kernels/csrc/fused_rounds.cu", "tpugnn/kernels/fused_backward.py:575",
-            max_abs_err=max(d7["checks"]["k2a_vs_plain_max"], d7["checks"]["stash_vs_plain_max"]),
+        circuit_d7_bfloat16=circuit_d7(
+            1, max_abs_err=max(d7["checks"]["k2a_vs_plain_max"], d7["checks"]["stash_vs_plain_max"]),
             ms=d7["timed"]["k2a_ms"], plain_ms=d7["timed"]["plain_fwd_stash_ms"],
             bound_ms=d7["timed"]["k2a_bound_ms"], bound_by=d7["timed"]["k2a_bound_by"],
-            equals_k1=d7["checks"]["k2a_equals_k1"],
-            d11_bit_equal_to_shared=d7["d11_placements"]["bit_equal"]["k2a"]),
-        gpanels_float32=gpanels_f32(
+            equals_k1=d7["checks"]["k2a_equals_k1"]),
+        d13_float32=surface_d13(
             1, max_abs_err=max(f32gp["d13"]["k2a_vs_plain_max"],
                                f32gp["d13"]["stash_vs_plain_max"]),
-            sass_hmma=f32_mma_k1["stash_gpanels"], equals_k1=f32gp["d13"]["k2a_equals_k1"]),
+            equals_k1=f32gp["d13"]["k2a_equals_k1"]),
     ), row(
-        "fused_rounds_bwd",
-        source="tpugnn_torch/kernels/csrc/fused_backward.cu",
+        "fused_rounds_bwd", source=src, libraries=list(WIDE_LIBRARIES[2:]), width=128,
         replaces="tpugnn/kernels/fused_backward.py:624",
         max_abs_err=train_errs["bfloat16"]["k2b_max_abs_err"],
         max_rel_err=train_errs["bfloat16"]["k2b_worst_rel"],
@@ -5711,9 +5516,8 @@ def main() -> int:
         ms=train_timing["k2b_ms"], plain_ms=train_timing["plain_vjp_ms"],
         bound_ms=train_timing["k2b_bound_ms"], bound_by=train_timing["k2b_bound_by"],
         library_ms=None, yardstick_ms=train_timing["yardstick_bwd_ms"],
-        f32=dict(source="tpugnn_torch/kernels/csrc/fused_backward_tf32.cu",
-                 batch=B, rounds=train_errs["float32"]["rounds"],
-                 sass_hmma=train_errs["float32"]["k2b_sass_hmma"]["shared"],
+        f32=dict(batch=B, rounds=train_errs["float32"]["rounds"],
+                 sass_hgmma=train_errs["float32"]["k2b_sass_hgmma"],
                  f32_core_ms=train_errs["float32"]["k2b_f32_core_ms"],
                  plain_ms=train_errs["float32"]["plain_vjp_ms"],
                  yardstick_ms=train_errs["float32"]["yardstick_bwd_ms"],
@@ -5722,18 +5526,18 @@ def main() -> int:
                      "k2b_repeatable", "yardstick_rounds")}),
         circuit_d5={k: circ_k2[k] for k in (
             "graph", "k2b_ms", "plain_vjp_ms", "k2b_bound_ms", "k2b_bound_by",
-            "k2b_max_abs_err", "k2b_worst_rel", "k2b_smem_bytes", "timed_batch",
-            "timed_rounds")},
-        gpanels_bfloat16=gpanels_bf16(
-            2, "tpugnn_torch/kernels/csrc/fused_backward.cu",
-            "tpugnn/kernels/fused_backward.py:624", max_abs_err=d7["checks"]["k2b_max_abs_err"],
+            "k2b_max_abs_err", "k2b_worst_rel", "timed_batch", "timed_rounds")},
+        circuit_f32_trained={g: {k: c[k] for k in ("k2b_worst_rel", "k2b_worst_leaf",
+                                                   "k2b_repeatable", "tol_rel")}
+                             for g, c in circ_k2["f32_k2b_trained"].items()},
+        circuit_d7_bfloat16=circuit_d7(
+            2, max_abs_err=d7["checks"]["k2b_max_abs_err"],
             max_rel_err=d7["checks"]["k2b_worst_rel"], ms=d7["timed"]["k2b_ms"],
             plain_ms=d7["timed"]["plain_vjp_ms"], bound_ms=d7["timed"]["k2b_bound_ms"],
             bound_by=d7["timed"]["k2b_bound_by"], repeatable=d7["checks"]["k2b_repeatable"]),
-        gpanels_float32=gpanels_f32(
+        d13_float32=surface_d13(
             2, max_abs_err=f32gp["d13"]["k2b_max_abs_err"],
             max_rel_err=f32gp["d13"]["k2b_worst_rel"],
-            sass_hmma=train_errs["float32"]["k2b_sass_hmma"]["gpanels"],
             repeatable=f32gp["d13"]["k2b_repeatable"]),
     ), row(
         "ell_sum", source="tpugnn_torch/kernels/csrc/spmm.cu",

@@ -1,4 +1,4 @@
-"""What the kernel probes (``k2b_probe.py``, ``k5_probe.py``) share: copies
+"""What the kernel probes (``k4_probe.py``, ``k5_probe.py``, ``wide_probe.py``) share: copies
 of a kernel's source with text replaced, built with the flags of
 ``tpugnn_torch/kernels/_build.py`` into ``tpugnn_torch/_build/`` and loaded
 in place of its library, and ``clock64()`` probes at stage boundaries.

@@ -76,7 +76,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
-    build_libraries(["fused_rounds_tf32", "fused_backward_tf32"])
+    build_libraries(["wide_rounds_tf32", "wide_backward_tf32"])
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     for k in range(args.seeds):

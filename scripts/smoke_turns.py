@@ -73,14 +73,6 @@ def kernels_mode() -> dict:
                                                   os.path.join(REPO, "chip_smoke.py"))
     chip_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip_smoke)
-    from tpugnn_torch.kernels import fused_decoder as fd
-    from tpugnn_torch.kernels import roll_gather as rg
-
-    # an older checkout builds K1's and K5's two state types in one library each
-    if not hasattr(fd, "forward_library"):
-        fd.forward_library = lambda dt: "fused_rounds"
-    if not hasattr(rg, "roll_library"):
-        rg.roll_library = lambda dt: "roll_gather"
     return chip_smoke.rounds_kernel_times()
 
 

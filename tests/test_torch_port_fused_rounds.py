@@ -220,20 +220,20 @@ class _Launched(Exception):
 
 
 class _StubLibrary:
+    """Stops a call at the rounds library's launch, naming it by what it
+    launches: K2a (``wide_rounds_launch`` with a stash) as
+    ``fused_rounds_stash_launch``, K1 (without) as ``fused_rounds_launch``."""
+
     def __init__(self, name):
         self.name = name
 
-    def fused_rounds_smem_bytes(self, *args):
-        return 0
-
-    def fused_rounds_stash_smem_bytes(self, *args):
-        return 0
-
-    def fused_rounds_bwd_smem_bytes(self, *args):    # K2b's, asked before K2a launches
-        return 0
-
     def __getattr__(self, entry):
         def launch(*args):
+            if entry == "wide_rounds_launch":
+                # (dtype code, xc, xq, syn, idx_c, idx_q, pack, vecs, out_c,
+                #  out_q, stash_c, ...)
+                raise _Launched("fused_rounds_stash_launch" if args[10] is not None
+                                else "fused_rounds_launch")
             raise _Launched(entry)
         return launch
 
@@ -246,10 +246,10 @@ class _StubLibrary:
 ])
 def test_kernel_path_routes_autograd(case, entry, monkeypatch):
     """With grad enabled and an operand that requires grad, the CUDA path
-    goes through the autograd Function, whose forward is K2a; under no_grad
-    or inference_mode it launches K1.  The library loader is stubbed, so the
-    call stops at the C entry point it reaches (with CPU tensors standing in
-    for the card's, and no stream)."""
+    goes through the autograd Function, whose forward is K2a (the rounds
+    kernel with its stash); under no_grad or inference_mode it launches K1.
+    The library loader is stubbed, so the call stops at the launch it
+    reaches (with CPU tensors standing in for the card's, and no stream)."""
     from tpugnn_torch.kernels import _build
 
     monkeypatch.setattr(_build, "load_library", _StubLibrary)

@@ -1,9 +1,10 @@
 """The premise of the bf16 tensor-core kernels: every matrix product of the
 plain versions reads bf16 values.
 
-K1/K2a (``csrc/fused_rounds.cu``), K2b (``csrc/fused_backward.cu``), K4
-(``csrc/sddmm.cu``, bf16 at width 128) and K5 (``csrc/roll_gather.cu``) form
-their bf16 products on ``mma.sync`` with bf16 operands and f32 accumulation.
+K1/K2a and K2b (``csrc/wide_rounds.cuh``, on ``wgmma``), K4
+(``csrc/sddmm.cu``, bf16 at width 128) and K5 (``csrc/roll_gather.cu``, on
+``mma.sync``) form their bf16 products with bf16 operands and f32
+accumulation.
 That computes the plain versions' function only if each operand of each
 product the plain versions form in bf16 is already a bf16 value (states and
 hiddens rounded, packed matrices stored in bf16, cotangents rounded where the

@@ -1,12 +1,14 @@
 """The precision scheme of the f32 rounds kernel on tensor cores (3xTF32).
 
-K1 (``csrc/fused_rounds_tf32.cu``) forms every f32 product of the rounds as
-three TF32 products on ``mma.sync``: each operand ``x`` is split into
+K1 (``csrc/wide_rounds.cuh``, on ``wgmma``) and K5
+(``csrc/roll_gather_tf32.cu``, on ``mma.sync``) form every f32 product of
+the rounds as three TF32 products: each operand ``x`` is split into
 ``hi = tf32(x)`` and ``lo = tf32(x - hi)`` (``cvt.rna``: 10 mantissa bits,
 ties away from zero) and ``a @ w`` accumulates ``a_lo w_hi + a_hi w_lo +
-a_hi w_hi`` in f32.  The wrapper splits the weights once a call, in the
-kernel's fragment order (``fused_decoder.tf32_split_pack``); the kernel
-splits the states as it loads them.  These tests hold (a) the rounding, bit
+a_hi w_hi`` in f32.  The wrappers split the weights once a call (K5 in its
+fragment order, ``fused_decoder.tf32_split_pack``; K1 in its slab order,
+``fused_decoder.wgmma_pack``); the kernels split the states as they load
+them.  These tests hold (a) the rounding, bit
 for bit, and the wrapper's split pack, exactly and in its fragment layout,
 and (b) the rounds of ``rounds_plain`` with every f32 product computed as
 that three-term split product (a ``TorchFunctionMode``) against the JAX
@@ -69,7 +71,7 @@ def test_tf32_round_is_cvt_rna():
 
 
 def test_split_pack_as_the_wrapper_makes_it():
-    """The pack f32 K1 reads holds hi = tf32(w) and lo = tf32(w - hi) of
+    """The pack f32 K5 reads holds hi = tf32(w) and lo = tf32(w - hi) of
     every entry of every matrix, and read in the
     kernel's fragment order (lane 4g + t of n-tile j and k-step s: rows
     8s + t and 8s + t + 4 of column 8j + g), with the states split as the

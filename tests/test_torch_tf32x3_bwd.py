@@ -1,9 +1,10 @@
 """The f32 rounds' adjoint (K2b) on tensor cores (3xTF32).
 
-With f32 states K2b (``csrc/fused_backward_tf32.cu``) forms every product of
-the replay, the adjoint and the weight gradients as three TF32 products of
-operands split into TF32 halves, as f32 K1, K2a and K5 do
-(``tests/test_torch_tf32x3.py``).  These tests hold:
+With f32 states K2b (``csrc/wide_rounds.cuh``, the library
+``wide_backward_tf32``) forms every product of the replay, the adjoint and
+the weight gradients as three TF32 products of operands split into TF32
+halves, as f32 K1, K2a and K5 do (``tests/test_torch_tf32x3.py``).  These
+tests hold:
 
 * ``rounds_vjp_plain`` fed the stash of ``rounds_fwd_stash_plain``, both
   with every f32 product split three ways (the emulation of
@@ -13,10 +14,11 @@ operands split into TF32 halves, as f32 K1, K2a and K5 do
   file's tolerances; the same adjoint with one TF32 product lands farther
   from JAX;
 * the K2b wrapper: with f32 states it loads the f32 library and hands the
-  kernel the forward pack and the transposed one, each split in fragment
-  order; with bf16 states the bf16 library and both packs unsplit;
-* the f32 kernel's shared memory as the card computes it: every surface
-  graph through d=11 fits one block, d=13 is refused before a launch.
+  kernel the forward pack and the transposed one, each split into TF32
+  halves in the wgmma slab order, and both unsplit for its ties; with
+  bf16 states the bf16 library and both packs in bf16, no ties;
+* every surface graph launches: the kernel keeps no gather panels, so its
+  shared memory does not grow with the graph.
 
 The wrappers run on CPU tensors standing in for the card's, against a stub
 library that records each launch.
@@ -31,7 +33,7 @@ import torch
 
 from tests.test_torch_port_backward import (ATOL, RTOL, W_ATOL, W_RTOL, _compare, _inputs,
                                             _jax_grads)
-from tests.tf32x3_emulation import Tf32x3Products, round_weights, split_matrices
+from tests.tf32x3_emulation import Tf32x3Products, round_weights, wgmma_matrices
 from tpugnn.kernels import fused_decoder as jfd
 from tpugnn.tanner import build_code as jax_build_code
 from tpugnn_torch.kernels import fused_backward as fb
@@ -102,43 +104,19 @@ def test_split_adjoint_matches_jax_kernel_vjp(d, h, rounds, batch):
     assert worst3 <= 1.0 < worst1, (worst3, worst1)
 
 
-def _k2b_f32_smem(m, n, gpanels=False):
-    """Shared memory of the f32 library's layouts as
-    csrc/fused_backward_tf32.cu computes it: the two f32 panels (none with
-    ``gpanels``: they are in the scratch) and a 128-row f32 chunk buffer
-    (row stride 132), or S5's staging (three arrays x three 32-row chunks,
-    row stride 136) where that is more, and two 16-row slabs of split
-    weights (1 KB a row).  fused_rounds_bwd_smem_bytes is the shared-panel
-    layout's where that fits, else the other's."""
-    panels = 0 if gpanels else n * 512 + m * 512
-    work = max(panels + 128 * 132 * 4, 3 * 3 * 32 * 136 * 4)
-    return work + 2 * 16 * 1024
-
-
-class _K2bLibrary:
-    """K2b's library as far as a launch, sizing shared memory as the card
-    does: records each entry point reached with its arguments."""
+class _Library:
+    """A rounds library as far as a launch: records each entry point
+    reached with its arguments."""
 
     def __init__(self, name):
         self.name = name
         self.calls = []
 
-    def _gp(self, m, n):
-        return self.name == "fused_backward_tf32" and _k2b_f32_smem(m, n) > fd.SMEM_LIMIT
-
-    def fused_rounds_bwd_smem_bytes(self, m, n, dc, dq):
-        if self.name != "fused_backward_tf32":
-            return 0
-        return _k2b_f32_smem(m, n, self._gp(m, n))
-
-    def fused_rounds_bwd_tile(self):
-        return 8
-
-    def fused_rounds_bwd_scratch_bytes(self, m, n, dc, dq):
+    def wide_rounds_bwd_scratch_bytes(self, code, b, m, n, dc, dq, w):
         return 16
 
-    def fused_rounds_bwd_gpanels(self, m, n, dc, dq):
-        return int(self._gp(m, n))
+    def wide_rounds_bwd_segments(self):
+        return 4
 
     def __getattr__(self, entry):
         def launch(*args):
@@ -149,31 +127,33 @@ class _K2bLibrary:
 
 @pytest.fixture
 def k2b_library(monkeypatch):
-    """The stub libraries by name; the wrapper's packs as it casts them
-    (``cast``) and splits them (``split``)."""
+    """The stub backward libraries by name (any other library fails the
+    test); the wrapper's packs as it casts them (``cast``) and packs them
+    for wgmma (``packed``, with the matrices each came from in
+    ``unpacked``)."""
     from tpugnn_torch.kernels import _build
 
-    libs = {n: _K2bLibrary(n) for n in ("fused_backward", "fused_backward_tf32")}
+    libs = {n: _Library(n) for n in ("wide_backward", "wide_backward_tf32")}
     monkeypatch.setattr(_build, "load_library", lambda name: libs.get(name) or
                         pytest.fail(f"loaded {name}"))
     monkeypatch.setattr(fd, "_cuda_stream", lambda dev: contextlib.nullcontext(0))
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda dev: types.SimpleNamespace(multi_processor_count=SMS))
-    packs = types.SimpleNamespace(cast=[], split=[], unsplit=[])
-    cast, split = fd.cast_packs, fd.tf32_split_pack
+    packs = types.SimpleNamespace(cast=[], packed=[], unpacked=[])
+    cast, pack = fd.cast_packs, fd.wgmma_pack
 
     def record_cast(*args):
         mats, vecs = cast(*args)
         packs.cast.append(mats)
         return mats, vecs
 
-    def record_split(mats):
-        packs.unsplit.append(mats)
-        packs.split.append(split(mats))
-        return packs.split[-1]
+    def record_pack(mats, dt):
+        packs.unpacked.append(mats)
+        packs.packed.append(pack(mats, dt))
+        return packs.packed[-1]
 
     monkeypatch.setattr(fd, "cast_packs", record_cast)
-    monkeypatch.setattr(fd, "tf32_split_pack", record_split)
+    monkeypatch.setattr(fd, "wgmma_pack", record_pack)
     fd.reset_launch_counts()
     return libs, packs
 
@@ -196,77 +176,58 @@ def _bwd(d, batch, rounds, dtype):
 @pytest.mark.parametrize("d,batch", [(11, 20), (3, 8)])
 def test_f32_k2b_wrapper_passes_both_split_packs(d, batch, k2b_library):
     """f32 K2b loads the f32 library and hands its kernel the matrices and
-    their transposes, each split into TF32 halves in the B-fragment order
-    the kernel's lanes read, and both unsplit (for its ties), on a
-    persistent grid of tiles of 8 samples."""
+    their transposes, each split into TF32 halves in the slab order its
+    ring and wgmma read, and both unsplit (for its ties) with the stash
+    rows' norms and the matrices' largest column norms."""
     libs, packs = k2b_library
     m, n, ops, mats32 = _bwd(d, batch, 3, "float32")
-    assert not libs["fused_backward"].calls
-    ((entry, args),) = libs["fused_backward_tf32"].calls
-    # (stash_c, stash_q, syn, idx_c, idx_q, mats, mats_t, mats32, mats32_t, xn_c,
-    #  xn_q, wn, vecs, ucs32, dxc, dxq, dsyn, scratch, part_mats, part_vecs,
-    #  dmats, dvecs, B, M, N, Dc, Dq, R, width, msg_width, grid, stream)
-    assert entry == "fused_rounds_bwd_launch" and len(args) == 32
-    pack, pack_t = packs.split
-    assert (args[5], args[6]) == (pack.data_ptr(), pack_t.data_ptr())
+    assert not libs["wide_backward"].calls
+    ((entry, args),) = libs["wide_backward_tf32"].calls
+    # (dtype code, stash_c, stash_q, syn, idx_c, idx_q, off_c, lst_c, off_q,
+    #  lst_q, deg_c, deg_q, pack, pack_t, mats32, mats32_t, xn_c, xn_q, wn,
+    #  vecs, ucs32, dxc, dxq, dsyn, scratch, part_mats, part_vecs, dmats,
+    #  dvecs, B, M, N, Dc, Dq, R, W, width, msg_width, chunks, stream)
+    assert entry == "wide_rounds_bwd_launch" and len(args) == 40 and args[0] == 0
+    pack, pack_t = packs.packed
+    assert (args[12], args[13]) == (pack.data_ptr(), pack_t.data_ptr())
     (mats,) = packs.cast
-    assert mats.dtype == torch.float32 and packs.unsplit[0] is mats
-    assert torch.equal(packs.unsplit[1], mats.transpose(1, 2))
-    assert (args[7], args[8]) == (mats.data_ptr(), packs.unsplit[1].data_ptr())
+    assert mats.dtype == torch.float32 and packs.unpacked[0] is mats
+    assert torch.equal(packs.unpacked[1], mats.transpose(1, 2))
+    assert (args[14], args[15]) == (mats.data_ptr(), packs.unpacked[1].data_ptr())
+    assert args[16] is not None and args[17] is not None and len(args[18]) == 10
     for p, want in ((pack, mats), (pack_t, mats.transpose(1, 2))):
-        hi, lo = split_matrices(p)
+        hi, lo = wgmma_matrices(p, 128, torch.float32)
         assert torch.equal(hi, fd.tf32_round(want))
         assert torch.equal(lo, fd.tf32_round(want - hi))
-    assert args[22:31] == (batch, m, n, ops[0].shape[1], ops[3].shape[1], 3, 128, 128,
-                           min(-(-batch // 8), SMS))
+    assert args[29:39] == (batch, m, n, ops[0].shape[1], ops[3].shape[1], 3, 128, 128, 128,
+                           fb.wgrad_chunks(128))
     assert fd.launch_counts()["fused_rounds_bwd"] == 1
 
 
 def test_bf16_k2b_takes_its_packs_unsplit(k2b_library):
     """bf16 K2b loads the bf16 library and hands its kernel the bf16
-    matrices and their transposes as they are."""
+    matrices and their transposes as they are, and no tie operands."""
     libs, packs = k2b_library
     _bwd(5, 8, 2, "bfloat16")
-    assert not libs["fused_backward_tf32"].calls and not packs.split
-    ((entry, args),) = libs["fused_backward"].calls
+    assert not libs["wide_backward_tf32"].calls
+    ((entry, args),) = libs["wide_backward"].calls
     (mats,) = packs.cast
-    # (stash_c, stash_q, syn, idx_c, idx_q, mats, mats_t, vecs, ucs32, dxc, dxq,
-    #  dsyn, scratch, part_mats, part_vecs, dmats, dvecs, B, M, N, Dc, Dq, R,
-    #  width, grid, stream)
-    assert entry == "fused_rounds_bwd_launch" and len(args) == 26
-    assert mats.dtype == torch.bfloat16 and args[5] == mats.data_ptr()
-    assert args[17:19] == (8, 32)
+    assert entry == "wide_rounds_bwd_launch" and args[0] == 1
+    assert mats.dtype == torch.bfloat16 and packs.unpacked[0] is mats
+    (got,) = wgmma_matrices(packs.packed[0], 128, torch.bfloat16)
+    assert torch.equal(got, mats)
+    assert args[14:19] == (None,) * 5
+    assert args[29] == 8 and args[34:36] == (2, 128)
 
 
 @pytest.mark.parametrize("d", [3, 5, 7, 9, 11])
-def test_f32_k2b_fits_every_surface_graph_through_d11(d):
-    """The f32 kernel's block fits the 232,448 B a Hopper block may use on
-    every surface graph through d=11 (the models of widths 64, 96 and 128
-    run on the same padded rows): 231,424 B at d=11, the panels, one chunk
-    buffer and the two slabs, K1's f32 figure."""
-    g = build_code("surface", d)
-    smem = _k2b_f32_smem(g.n_checks_pad, g.n_qubits_pad)
-    assert smem <= fd.SMEM_LIMIT
-    if d == 11:
-        assert smem == 231424
-
-
-def test_f32_k2b_refuses_d13_before_a_launch(k2b_library, monkeypatch):
-    """d=13's f32 panels do not fit beside the chunk buffer (280,576 B), so
-    K2b takes its layout with the panels in the scratch (189,440 B) and
-    launches; where even that does not fit (here: a limit of 150,000 B) the
-    wrapper raises before any launch."""
+def test_f32_k2b_fits_every_surface_graph_through_d11(d, k2b_library):
+    """The f32 kernel keeps no gather panels (its row tiles gather from
+    global memory), so its block's shared memory does not grow with the
+    graph: every surface graph through d=11 (the models of widths 64, 96
+    and 128 run on the same padded rows) launches it once, with its rows."""
     libs, _ = k2b_library
-    g = build_code("surface", 13)
-    assert _k2b_f32_smem(g.n_checks_pad, g.n_qubits_pad) == 280576 > fd.SMEM_LIMIT
-    assert _k2b_f32_smem(g.n_checks_pad, g.n_qubits_pad, gpanels=True) == 189440
-    _bwd(13, 2, 2, "float32")
-    ((entry, args),) = libs["fused_backward_tf32"].calls
-    assert entry == "fused_rounds_bwd_launch"
-    assert fd.launch_counts()["fused_rounds_bwd_gpanels"] == 1
-    libs["fused_backward_tf32"].calls.clear()
-    monkeypatch.setattr(fd, "SMEM_LIMIT", 150000)
-    with pytest.raises(ValueError, match="graph too large for the fused backward kernel"):
-        _bwd(13, 2, 2, "float32")
-    assert not libs["fused_backward_tf32"].calls
-    assert fd.launch_counts()["fused_rounds_bwd"] == 0
+    m, n, ops, _ = _bwd(d, 2, 2, "float32")
+    ((entry, args),) = libs["wide_backward_tf32"].calls
+    assert entry == "wide_rounds_bwd_launch" and args[29:32] == (2, m, n)
+    assert fd.launch_counts()["fused_rounds_bwd"] == 1

@@ -1,10 +1,10 @@
 """The f32 raster rounds (K5) and the f32 forward-with-stash (K2a) on tensor
 cores (3xTF32).
 
-With f32 states K5 (``csrc/roll_gather.cu``) and K2a (K1's kernel in
-``csrc/fused_rounds_tf32.cu`` with its stash flag) form every product as three
-TF32 products of operands split into TF32 halves, as f32 K1 does
-(``tests/test_torch_tf32x3.py``).  These tests hold:
+With f32 states K5 (``csrc/roll_gather_tf32.cu``) and K2a (K1's kernel in
+``csrc/wide_rounds.cuh``, the library ``wide_rounds_tf32``, with its stash)
+form every product as three TF32 products of operands split into TF32
+halves, as f32 K1 does (``tests/test_torch_tf32x3.py``).  These tests hold:
 
 * ``roll_rounds_plain`` with every f32 product split three ways (the
   emulation of ``tests/tf32x3_emulation.py``) against the JAX package's
@@ -15,9 +15,9 @@ TF32 products of operands split into TF32 halves, as f32 K1 does
   the samples it stacks in a block; its placement of the gather panel (in
   shared memory where the block fits, else global) at the shared memory
   the card's kernels need;
-* the K2a wrapper: the split pack for f32 stash launches, a small graph's
-  samples stacked with the stash's layout unchanged, and bf16 left as it
-  was.
+* the K2a wrapper: the split pack (TF32 halves in the wgmma slab order)
+  for f32 stash launches, one sample's rows after another with the stash's
+  layout [R, B, rows, 128], and bf16 matrices packed as they are.
 
 The wrappers run on CPU tensors standing in for the card's, against a stub
 library that records each launch.
@@ -31,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.tf32x3_emulation import Tf32x3Products, round_weights, split_matrices
+from tests.tf32x3_emulation import Tf32x3Products, round_weights, split_matrices, wgmma_matrices
 from tpugnn.kernels import fused_decoder as jfd
 from tpugnn.tanner import build_code as jax_build_code
 from tpugnn_torch.kernels import fused_backward as fb
@@ -252,14 +252,12 @@ def test_k5_wrapper_places_the_panel(d, gpanels, roll_library):
 
 
 class _K1Library:
-    """The fused-rounds library as far as a launch: K1 and K2a share one
-    f32 kernel and its shared memory (231,424 B at d=11)."""
+    """The forward rounds library as far as a launch (K1 and K2a share one
+    kernel): records each entry point reached with its arguments."""
 
     def __init__(self):
         self.calls = []
-
-    def fused_rounds_stash_smem_bytes(self, code, m, n, dc, dq):
-        return 0
+        self.loaded = []
 
     def __getattr__(self, entry):
         def launch(*args):
@@ -273,51 +271,81 @@ def k1_library(monkeypatch):
     from tpugnn_torch.kernels import _build
 
     lib = _K1Library()
-    monkeypatch.setattr(_build, "load_library", lambda name: lib if name in (
-        "fused_rounds", "fused_rounds_tf32") else pytest.fail(f"loaded {name}"))
+
+    def load(name):    # f32 and bf16 states build apart
+        if name not in ("wide_rounds", "wide_rounds_tf32"):
+            pytest.fail(f"loaded {name}")
+        lib.loaded.append(name)
+        return lib
+
+    monkeypatch.setattr(_build, "load_library", load)
     monkeypatch.setattr(fd, "_cuda_stream", lambda dev: contextlib.nullcontext(0))
     fd.reset_launch_counts()
     return lib
 
 
+@contextlib.contextmanager
+def _recorded_wgmma_packs(monkeypatch):
+    """Every pack ``fd.wgmma_pack`` makes, in a list, with its state type."""
+    packs = []
+    real = fd.wgmma_pack
+
+    def record(mats, dt):
+        packs.append((real(mats, dt), dt))
+        return packs[-1][0]
+
+    monkeypatch.setattr(fd, "wgmma_pack", record)
+    yield packs
+
+
 @pytest.mark.parametrize("d,batch,samples", [(11, 4, 1), (3, 8, 8), (5, 8, 4)])
 def test_k2a_wrapper_passes_the_split_pack(d, batch, samples, k1_library, monkeypatch):
-    """f32 K2a launches K1's 3xTF32 kernel with its stash flag: the split
-    pack of its padded matrices, a small graph's samples stacked as one
-    graph of `samples` times the rows (the slot tables stacked), and the
-    stash it returns [R, B, rows, 128] as K2b reads it."""
+    """f32 K2a launches K1's 3xTF32 kernel with its stash: the split pack of
+    its padded matrices (TF32 halves in the slab order its ring and wgmma
+    read), the batch's rows one sample after another whatever the graph's
+    size (its row tiles span samples; ``samples`` is what f32 K5 stacks in
+    a block on the same graph), and the stash it returns [R, B, rows, 128]
+    as K2b reads it."""
     g = build_code("surface", d).to("cpu")
     m, n = g.n_checks_pad, g.n_qubits_pad
     w = fd.RoundWeights(**{k: torch.from_numpy(v) for k, v in round_weights(128, 5).items()})
     mats32, vecs32 = fd.pack_weights_f32(w)
     xc, xq = torch.zeros((batch, m, 128)), torch.zeros((batch, n, 128))
-    with _recorded_packs(monkeypatch, fd) as packs:
+    with _recorded_wgmma_packs(monkeypatch) as packs:
         out_c, out_q, sc, sq = fb._fwd_stash_cuda(xc, xq, xc[..., :1], fd.make_operators(g),
                                                   mats32, vecs32, 3, "float32")
     ((entry, args),) = k1_library.calls
-    (pack,) = packs
-    assert entry == "fused_rounds_stash_launch" and args[0] == 0
-    # (dtype code, xc, xq, syn, idx_c, idx_q, mats, vecs, out_c, out_q,
-    #  stash_c, stash_q, B, M, N, Dc, Dq, R, width, stream)
-    assert args[6] == pack.data_ptr()
-    assert torch.equal(pack, fd.tf32_split_pack(fd.cast_packs(mats32, vecs32,
-                                                              torch.float32)[0]))
-    assert args[12:15] == (batch // samples, m * samples, n * samples)
+    ((pack, dt),) = packs
+    assert k1_library.loaded == ["wide_rounds_tf32"] and dt == torch.float32
+    assert rg.samples_per_block(batch, m, n) == samples
+    # (dtype code, xc, xq, syn, idx_c, idx_q, pack, vecs, out_c, out_q,
+    #  stash_c, stash_q, ys_c, ys_q, B, M, N, Dc, Dq, R, W, width, stream)
+    assert entry == "wide_rounds_launch" and args[0] == 0 and args[6] == pack.data_ptr()
+    hi, lo = wgmma_matrices(pack, 128, torch.float32)
+    mats = fd.cast_packs(mats32, vecs32, torch.float32)[0]
+    assert torch.equal(hi, fd.tf32_round(mats)) and torch.equal(lo, fd.tf32_round(mats - hi))
+    assert args[10] == sc.data_ptr() and args[11] == sq.data_ptr()
+    assert args[14:17] == (batch, m, n) and args[19:22] == (3, 128, 128)
     assert tuple(sc.shape) == (3, batch, m, 128) and tuple(sq.shape) == (3, batch, n, 128)
     assert sc.dtype == torch.float32 and out_c.shape == (batch, m, 128)
     assert fd.launch_counts()["fused_rounds_fwd_stash"] == 1
 
 
 def test_bf16_k2a_is_left_as_it_was(k1_library, monkeypatch):
-    """bf16 K2a keeps its bf16 matrices, unsplit, and one sample a block."""
+    """bf16 K2a packs its bf16 matrices as they are, and takes the batch's
+    rows as they come."""
     g = build_code("surface", 3).to("cpu")
     m, n = g.n_checks_pad, g.n_qubits_pad
     w = fd.RoundWeights(**{k: torch.from_numpy(v) for k, v in round_weights(128, 5).items()})
     mats32, vecs32 = fd.pack_weights_f32(w)
     xc, xq = torch.zeros((8, m, 128)), torch.zeros((8, n, 128))
-    with _recorded_packs(monkeypatch, fd) as packs:
+    with _recorded_wgmma_packs(monkeypatch) as packs:
         _, _, sc, _ = fb._fwd_stash_cuda(xc, xq, xc[..., :1], fd.make_operators(g), mats32,
                                          vecs32, 2, "bfloat16")
     ((entry, args),) = k1_library.calls
-    assert not packs and args[0] == 1 and args[12:15] == (8, m, n)
+    ((pack, dt),) = packs
+    assert k1_library.loaded == ["wide_rounds"] and dt == torch.bfloat16
+    (got,) = wgmma_matrices(pack, 128, torch.bfloat16)
+    assert torch.equal(got, fd.cast_packs(mats32, vecs32, torch.bfloat16)[0])
+    assert args[0] == 1 and args[14:17] == (8, m, n)
     assert sc.dtype == torch.bfloat16 and tuple(sc.shape) == (2, 8, m, 128)

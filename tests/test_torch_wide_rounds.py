@@ -2,9 +2,9 @@
 and the wrappers' routing to the wide kernels.
 
 A model's packs run at the kernel width W = 128 ceil(max(hidden,
-msg_hidden) / 128): at 128 the 128-column kernels, above it the wide ones
-(``csrc/wide_rounds.cuh``: four libraries, forward and backward in each state
-type), up to 512.  The plain versions take any width:
+msg_hidden) / 128), up to 512, on the rounds kernels of
+``csrc/wide_rounds.cuh`` (four libraries, forward and backward in each state
+type); K5 at 128 keeps its own kernel (``csrc/roll_gather.cu``).  The plain versions take any width:
 here they are held to the JAX package's Pallas kernels in interpret mode at
 W = 256 (H = 256; H = 160 with MH = 200) and W = 384 on surface and toric
 d=3, to JAX's fused model at hidden=160, msg_hidden=200 (forward and
@@ -343,23 +343,18 @@ def _call(entry, d, h, mh, dtype, batch=2):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("entry", ["k1", "k5"])
+@pytest.mark.parametrize("entry", ["k5"])
 def test_width_128_keeps_the_128_column_kernels(entry, dtype, libraries):
-    """A model of width 128 reaches today's 128-column entry points with
-    today's arguments (width 128; K1's library by state type, f32 and bf16
+    """K5 on a model of width 128 reaches its 128-column entry point with
+    its arguments (width 128; its library by state type, f32 and bf16
     building apart), and no wide one."""
     g = _call(entry, 5, 128, 128, dtype)
     ((lib, name, a),) = libraries
     code = 0 if dtype == "float32" else 1
-    if entry == "k1":
-        assert lib == ("fused_rounds_tf32" if code == 0 else "fused_rounds")
-        assert name == "fused_rounds_launch" and a[0] == code and a[16] == 128
-        assert fd.launch_counts()["fused_rounds"] == 1
-    else:
-        assert lib == ("roll_gather_tf32" if code == 0 else "roll_gather")
-        assert name == "roll_rounds_launch" and a[0] == code
-        assert a[12:16] == (2, rg.plan_for_graph(g).l_pad, 2, 128)
-        assert rg.launch_counts()["roll_rounds"] == 1
+    assert lib == ("roll_gather_tf32" if code == 0 else "roll_gather")
+    assert name == "roll_rounds_launch" and a[0] == code
+    assert a[12:16] == (2, rg.plan_for_graph(g).l_pad, 2, 128)
+    assert rg.launch_counts()["roll_rounds"] == 1
     assert not fd.launch_counts()["fused_rounds_wide"] and not rg.launch_counts()[
         "roll_rounds_wide"]
 

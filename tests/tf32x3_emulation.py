@@ -53,6 +53,18 @@ def split_matrices(pack: torch.Tensor) -> torch.Tensor:
     return p.permute(5, 0, 1, 6, 4, 2, 3).reshape(2, 10, 128, 128)
 
 
+def wgmma_matrices(pack: torch.Tensor, wid: int, dt: torch.dtype) -> list:
+    """The matrices [10, W (k), W (n)] back out of ``fd.wgmma_pack``'s
+    layout [10, slab, (half,) n // 8, k % KS // T, n % 8, k % T]: one in
+    bf16, (hi, lo) in f32."""
+    from tpugnn_torch.kernels import fused_decoder as fd
+
+    ks, te = fd.wide_slab_rows(wid, dt), 4 if dt == torch.float32 else 8
+    halves = [pack] if dt != torch.float32 else [pack[:, :, 0], pack[:, :, 1]]
+    return [h.reshape(10, wid // ks, wid // 8, ks // te, 8, te).permute(0, 1, 3, 5, 2, 4)
+            .reshape(10, wid, wid) for h in halves]
+
+
 def round_weights(h: int, seed: int) -> dict:
     """Seeded f32 round weights of width h as numpy arrays: matrices of
     scale 1/sqrt(h), vectors of scale 0.2 (LayerNorm scales about 1)."""

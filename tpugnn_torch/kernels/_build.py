@@ -26,51 +26,27 @@ __all__ = ["BUILD_DIR", "HEADERS", "NVCC_FLAGS", "SOURCES", "build_libraries", "
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-# library name -> source: the 128-column K1 and K2a, K2b and K5 each build in
-# two libraries, bf16 and f32 states, so that their nvcc runs (the build's
-# longest) go in parallel; above 128 columns wide_rounds (bf16) and
-# wide_rounds_tf32 (f32) hold K1, K2a and K5, wide_backward and
-# wide_backward_tf32 K2b
-SOURCES = {"fused_rounds": "fused_rounds.cu", "fused_rounds_tf32": "fused_rounds_tf32.cu",
-           "fused_backward": "fused_backward.cu",
-           "fused_backward_tf32": "fused_backward_tf32.cu", "spmm": "spmm.cu",
-           "sddmm": "sddmm.cu", "roll_gather": "roll_gather.cu",
+# library name -> source: wide_rounds (bf16 states) and wide_rounds_tf32 (f32)
+# hold K1, K2a and, above 128 columns, K5; wide_backward and
+# wide_backward_tf32 K2b; the 128-column K5 builds in two libraries, bf16
+# and f32 states; each its own nvcc run, all in parallel
+SOURCES = {"spmm": "spmm.cu", "sddmm": "sddmm.cu", "roll_gather": "roll_gather.cu",
            "roll_gather_tf32": "roll_gather_tf32.cu", "wide_rounds": "wide_rounds.cu",
            "wide_rounds_tf32": "wide_rounds_tf32.cu", "wide_backward": "wide_backward.cu",
            "wide_backward_tf32": "wide_backward_tf32.cu"}
-HEADERS = ("rounds_common.cuh", "rounds_mma.cuh", "backward_common.cuh",
-           "fused_rounds_api.cuh", "roll_gather_api.cuh", "wide_mma.cuh", "wide_rounds.cuh")
+HEADERS = ("rounds_common.cuh", "rounds_mma.cuh", "roll_gather_api.cuh", "wide_mma.cuh",
+           "wide_rounds.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-lineinfo", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# K2b's two libraries (bf16 and f32 states) share their C entry points' names;
-# the f32 launches take five more pointers and the message width
-_BACKWARD = {
-    "fused_rounds_bwd_smem_bytes": ([_I] * 4, ctypes.c_longlong),
-    "fused_rounds_bwd_tile": ([], _I),
-    "fused_rounds_bwd_scratch_bytes": ([_I] * 4, ctypes.c_longlong),
-    "fused_rounds_bwd_gpanels": ([_I] * 4, _I),
-}
-_F32_BWD_LAUNCH = ([_P] * 22 + [_I] * 9 + [_P], _I)
-# K1's and K2a's two libraries (bf16 and f32 states) share their entry points
-# (csrc/fused_rounds_api.cuh)
-_FORWARD = {
-    "fused_rounds_smem_bytes": ([_I] * 5, ctypes.c_longlong),
-    "fused_rounds_gpanels_smem_bytes": ([_I] * 5, ctypes.c_longlong),
-    "fused_rounds_stash_smem_bytes": ([_I] * 5, ctypes.c_longlong),
-    "fused_rounds_launch": ([_I] + [_P] * 9 + [_I] * 7 + [_P], _I),
-    "fused_rounds_gpanels_launch": ([_I] + [_P] * 10 + [_I] * 8 + [_P], _I),
-    "fused_rounds_stash_launch": ([_I] + [_P] * 11 + [_I] * 7 + [_P], _I),
-    "fused_rounds_stash_gpanels_launch": ([_I] + [_P] * 12 + [_I] * 8 + [_P], _I),
-}
 # K5's two libraries (bf16 and f32 states) share these entry points
 # (csrc/roll_gather_api.cuh); each has its global-panel variant's own
 _ROLL = {
     "roll_rounds_smem_bytes": ([_I] * 2, ctypes.c_longlong),
     "roll_rounds_launch": ([_I] * 2 + [_P] * 10 + [_I] * 5 + [_P, _I, _P], _I),
 }
-# the wide kernels' forward and backward libraries, each in both state types
+# the rounds kernels' forward and backward libraries, each in both state types
 # (csrc/wide_rounds.cuh)
 _WIDE_FORWARD = {
     "wide_rounds_launch": ([_I] + [_P] * 13 + [_I] * 8 + [_P], _I),
@@ -83,15 +59,6 @@ _WIDE_BACKWARD = {
 }
 # C entry points per library: name -> (argument types, result type)
 _SIGNATURES = {
-    "fused_rounds": _FORWARD,
-    "fused_rounds_tf32": _FORWARD,
-    "fused_backward": {**_BACKWARD,
-                       "fused_rounds_bwd_launch": ([_P] * 17 + [_I] * 8 + [_P], _I)},
-    "fused_backward_tf32": {**_BACKWARD,
-                            "fused_rounds_bwd_gpanels_scratch_bytes": ([_I] * 4,
-                                                                       ctypes.c_longlong),
-                            "fused_rounds_bwd_launch": _F32_BWD_LAUNCH,
-                            "fused_rounds_bwd_gpanels_launch": _F32_BWD_LAUNCH},
     "spmm": {
         "ell_aggregate_launch": ([_I, _I] + [_P] * 3 + [_I] * 5 + [_P], _I),
     },

@@ -1,5 +1,6 @@
-// The tile engine of the wide rounds kernels (wide_rounds.cuh: K1, K2a, K2b
-// and K5 at W = 256 to 512 columns) on Hopper's warpgroup MMA (wgmma).
+// The tile engine of the rounds kernels (wide_rounds.cuh: K1, K2a and K2b
+// at W = 128 to 512 columns, K5 at 256 to 512) on Hopper's warpgroup MMA
+// (wgmma).
 //
 // A block is two consumer warpgroups and one producer warpgroup (384
 // threads; setmaxnreg moves the producer's registers to the consumers, 240
@@ -30,7 +31,8 @@
 // then lo (fused_decoder.py::wgmma_pack).  Every slab that reaches shared
 // memory serves the whole tile, so a row reads 5 W^2 item / RT weight
 // bytes from L2 a forward round: at W = 256 5 KB in bf16 (RT 128) and 40 KB
-// in f32 (RT 64), against 20 KB and 80 KB from tiles of 32 rows.
+// in f32 (RT 64), against 20 KB and 80 KB from tiles of 32 rows; at W = 128
+// 1.25 KB in bf16 and 5 KB in f32 (both RT 128).
 //
 // bf16: A from shared memory too (the tile's states, or hs/hc, in the same
 // core-matrix layout, K = W: coff), wgmma.m64n64k16 with f32 accumulation,
@@ -45,10 +47,12 @@
 // Shared memory a block (Geo::SMEM, bytes): ring, X (the states' tile), H
 // (hs, hc, rnd(dpre), rnd(dt)), the statistics, tie flags, a tied row's hs,
 // K2b's live-slot counts (4 bits an entry):
-//   bf16 W=256: 65,536 + 65,536 + 65,536 + 4,096 + ... + 16,384 = 219,712
+//   bf16 W=128: 32,768 + 32,768 + 32,768 + 4,096 + ... +  8,192 = 112,192
+//        W=256: 65,536 + 65,536 + 65,536 + 4,096 + ... + 16,384 = 219,712
 //        W=384: 98,304 + 49,152 + 49,152 + 2,048 + ... + 12,288 = 212,800
 //        W=512: 65,536 + 65,536 + 65,536 + 2,048 + ... + 16,384 = 217,376
-//   f32  W=256: 65,536 + 66,560 + 66,560 + 2,048 + ... +  8,192 = 210,208
+//   f32  W=128: 65,536 + 67,584 + 67,584 + 4,096 + ... +  8,192 = 214,592
+//        W=256: 65,536 + 66,560 + 66,560 + 2,048 + ... +  8,192 = 210,208
 //        W=384: 98,304 +      0 + 99,328 + 2,048 + ... + 12,288 = 213,792
 //        W=512: 65,536 +      0 + 132,096 + 2,048 + ... + 16,384 = 218,400
 // (f32 past 256 reads its states from L2: their tile does not fit.)

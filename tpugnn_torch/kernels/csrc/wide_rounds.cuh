@@ -1,19 +1,19 @@
-// The rounds kernels at widths above 128 (Hopper): K1, K2a, K2b and K5 on
-// packs of W = 256, 384 or 512 columns (and 128 in a build with WIDE_W128,
-// scripts/a10_probe.py's), for the state type WIDE_STATE (code WIDE_CODE)
-// of the including source, its forward (WIDE_FORWARD: K1, K2a, K5) or
-// backward (WIDE_BACKWARD: K2b) entry points: wide_rounds.cu (bf16) and
-// wide_rounds_tf32.cu (f32) the forward, wide_backward.cu and
-// wide_backward_tf32.cu the backward, four libraries built in parallel.
+// The rounds kernels (Hopper): K1, K2a and K2b on packs of W = 128, 256,
+// 384 or 512 columns, and K5 on 256 to 512 (K5 at 128 is roll_gather.cu),
+// for the state type WIDE_STATE (code WIDE_CODE) of the including source,
+// its forward (WIDE_FORWARD: K1, K2a, K5) or backward (WIDE_BACKWARD: K2b)
+// entry points: wide_rounds.cu (bf16) and wide_rounds_tf32.cu (f32) the
+// forward, wide_backward.cu and wide_backward_tf32.cu the backward, four
+// libraries built in parallel, each width a set of template instantiations.
 //
-// They replace, at those widths, the same TPU kernels as the 128-column
-// family: tpugnn/kernels/fused_decoder.py::decoder_rounds_tiled
-// (pl.pallas_call at :637; K1), fused_backward.py::make_kernel_vjp_rounds
-// _fwd and _bwd (:575, :624; K2a, K2b) and roll_gather.py::decoder_rounds_roll
-// (:364; K5).  The reference pads a message width up to a multiple of 128
+// They replace the TPU kernels tpugnn/kernels/fused_decoder.py::
+// decoder_rounds_tiled (pl.pallas_call at :637; K1),
+// fused_backward.py::make_kernel_vjp_rounds _fwd and _bwd (:575, :624; K2a,
+// K2b) and, above 128 columns, roll_gather.py::decoder_rounds_roll (:364;
+// K5).  The reference pads a message width up to a multiple of 128
 // (fused_decoder.py:610-613) and takes any hidden width; the wrappers here
-// pad both to W = 128 ceil(max(hidden, msg_hidden) / 128) and send W >= 256
-// to this family (fused_decoder.py::kernel_width).  The functions are the
+// pad both to W = 128 ceil(max(hidden, msg_hidden) / 128)
+// (fused_decoder.py::kernel_width).  The functions are the
 // plain versions': rounds_packed (K1, K2a: its stash), rounds_vjp_plain
 // (K2b) and roll_rounds_plain (K5); read those docstrings for the math and
 // the rounding points.  The LayerNorm runs over the model's `width` columns,
@@ -32,7 +32,9 @@
 //   update   per tile: ydb = x @ wd + b0 on the tensor cores; in the
 //            epilogue, from the accumulators, the slot gather-sum hs from ys
 //            by slot table (K1, K2a) or by raster offset and mask bits (K5,
-//            in its slot type) into the A tile H; t = hs @ wf + x @ ux + the
+//            in its slot type) into the A tile H, the loads of several
+//            slots of both of a thread's rows in flight together before the
+//            first add; t = hs @ wf + x @ ux + the
 //            degree, syndrome and bias terms; hc = rnd(relu(t)) into H; v =
 //            x + hc @ w1 + ub1 and the LayerNorm from the accumulators (each
 //            row's sum and sum of squared deviations reduced over the quad,
@@ -77,20 +79,41 @@
 // each slot, t > 0) are discontinuities: a decision the tensor cores' sums
 // take otherwise than the plain version's f32 products (on the card
 // cuBLAS's, one FMA per k ascending) moves a whole cotangent entry
-// (scripts/k2b_ties.py: 5.5e-4 against the 1e-4 gate at 128 columns).  So,
-// as the 128-column f32 K2b does, a decision within TAU of the bound |x|
-// |w_c| on its product's terms is taken again in the plain version's order:
+// (5.5e-4 against the 1e-4 gate at 128 columns, measured on the earlier
+// 128-column kernel).  So a decision within TAU of the bound |x| |w_c| on
+// its product's terms is taken again in the plain version's order:
 // z from two sequential dot products, t from hs of the row summed as the
 // plain version sums it (the row group computes that row together, a
 // thread a column; over the slots in the order of torch's CUDA reduction,
 // four interleaved partials, which past four slots is not the sequential
-// sum: the circuit graphs' 10 to 14) and two more.  The bands are wider than the 128-column
-// kernel's (2^-18 against 2^-20): the rounding of a sum grows with its
-// length.  Only the masks change; the values stay the tensor cores'.  At
+// sum: the circuit graphs' 10 to 14) and two more.  The bands are 2^-18 of
+// the bound: the rounding of a sum grows with its length.  Only the masks
+// change; the values stay the tensor cores'.  At
 // K = 384 cuBLAS does not sum its f32 products one FMA per k (nor in equal
 // slices of k), so z's re-decisions miss the plain version's masks on some
 // seeds, with the re-decision or without it (scripts/k2b_wide_ties.py): the
 // wrapper refuses f32 states at 384 columns (fused_backward.F32_BWD_REFUSED).
+//
+// At W = 128 (d=11, B=4096; every model the repo ships) the products are
+// small: the forward's five [241, 128] x [128, 128] products a sample and
+// round are 39.5 MFLOP, so bf16 K1 at R=8 is 1.3 ms of tensor-core work
+// and f32 K1 at R=14 (3xTF32) 13.8 ms.  What bounds the kernel there is its
+// epilogues' latency: the slot gather's loads from L2 (ys, 256 B a source
+// row in bf16), the LayerNorm's row sums and the stores of each round's
+// states (a round reads and writes every state row once through HBM, 0.5
+// GB in bf16 at this size).  The design's answers: tiles of 128 rows in
+// both state types (one warpgroup holds a row's 128 columns: 64
+// accumulators a thread, and f32's fresh sums 64 more), so every weight
+// slab serves 128 rows and the weights' L2 reads are 1.25 KB a row and
+// round in bf16, 5 KB in f32; the forward gather's loads in flight four
+// slots (f32: two) of both rows (at d=11, R=8, one slot instead: bf16 K1
+// 11.68 against 11.41-11.52 ms, f32 22.91 against 21.86-22.19;
+// scripts/w128_levers.py, PERF.md); a ring of four 32-row slabs
+// (sixteen slabs, or 64-row ones, were no faster); the f32 replay on
+// 128-row tiles, the bf16 one on 64-row tiles with split columns (128 rows
+// ran 17% slower); the replay's gather loads four slots (bf16) or one (f32)
+// of both rows ahead of their sums.  No gather panels: every graph takes
+// the same kernel.
 //
 // Bounds and traffic on an H100 (d=11, W=256, per sample and round): the
 // forward's five [241, 256] x [256, 256] products per direction, 158 MFLOP;
@@ -153,6 +176,31 @@ __device__ __forceinline__ float2 ldg2(const bf16* p) {
 __device__ __forceinline__ float2 ld2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
+
+// a column pair of a state-type row as loaded (the read-only path), and as
+// two floats
+template <typename T>
+struct Raw;
+template <>
+struct Raw<bf16> {
+  typedef uint32_t type;
+  __device__ static __forceinline__ type load(const bf16* p) {
+    return __ldg(reinterpret_cast<const unsigned int*>(p));
+  }
+  __device__ static __forceinline__ type zero() { return 0u; }
+  __device__ static __forceinline__ float2 f2(type v) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+  }
+};
+template <>
+struct Raw<float> {
+  typedef float2 type;
+  __device__ static __forceinline__ type load(const float* p) {
+    return __ldg(reinterpret_cast<const float2*>(p));
+  }
+  __device__ static __forceinline__ type zero() { return make_float2(0.f, 0.f); }
+  __device__ static __forceinline__ float2 f2(type v) { return v; }
+};
 
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
@@ -506,30 +554,52 @@ __global__ void __launch_bounds__(BLOCK, 1) wide_fwd_kernel(const __grid_constan
               acc[j][4 * qq + 2 * h + 1] =
                   srnd<ROLL && SLOT16>(acc[j][4 * qq + 2 * h + 1] + __ldg(vec + V_B0 * W + c + 1));
             }
-          for (int k = 0; k < d.D; ++k) {
+          // KB slots of both rows a step, all their loads in flight before
+          // the first add (each row's slots still added in slot order): four
+          // (f32: two) where a thread holds at most two column blocks, one
+          // past that (bf16 K1 at W = 256 ran 39% slower with four:
+          // scripts/w128_levers.py)
+          constexpr int KB = NJ > 2 ? 1 : F32 ? 2 : 4;
+          for (int k0 = 0; k0 < d.D; k0 += KB) {
+            const T* yp[2][KB];
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              if (rr[h] < 0) continue;
-              const int src = ROLL ? ((mb[h] >> k) & 1u ? wrap(rr[h], d.offs.o[k], d.rows) : -1)
-                                   : __ldg(d.idx + rr[h] * d.D + k);
-              if (src < 0) continue;   // a masked slot adds exactly 0
-              const T* y = d.ys + (size_t(bb[h]) * d.src_rows + src) * W;
-              float2 yv[8];
+            for (int h = 0; h < 2; ++h)
 #pragma unroll
-              for (int qq = 0; qq < 8; ++qq) yv[qq] = ldg2(y + w.col(j, qq));
+              for (int kk = 0; kk < KB; ++kk) {
+                const int k = k0 + kk;
+                int src = -1;   // a masked slot adds exactly 0
+                if (rr[h] >= 0 && k < d.D)
+                  src = ROLL ? ((mb[h] >> k) & 1u ? wrap(rr[h], d.offs.o[k], d.rows) : -1)
+                             : __ldg(d.idx + rr[h] * d.D + k);
+                yp[h][kk] = src < 0 ? nullptr : d.ys + (size_t(bb[h]) * d.src_rows + src) * W;
+              }
+            typename Raw<T>::type yr[2][KB][8];
 #pragma unroll
-              for (int qq = 0; qq < 8; ++qq) {
-                const float y0 = yv[qq].x, y1 = yv[qq].y;
-                const float z0 = acc[j][4 * qq + 2 * h], z1 = acc[j][4 * qq + 2 * h + 1];
-                if (ROLL) {
-                  hv[h][qq][0] = srnd<SLOT16>(hv[h][qq][0] + fmaxf(srnd<SLOT16>(y0 + z0), 0.f));
-                  hv[h][qq][1] = srnd<SLOT16>(hv[h][qq][1] + fmaxf(srnd<SLOT16>(y1 + z1), 0.f));
-                } else {
-                  hv[h][qq][0] += fmaxf(y0 + z0, 0.f);
-                  hv[h][qq][1] += fmaxf(y1 + z1, 0.f);
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int kk = 0; kk < KB; ++kk)
+#pragma unroll
+                for (int qq = 0; qq < 8; ++qq)
+                  yr[h][kk][qq] = yp[h][kk] != nullptr ? Raw<T>::load(yp[h][kk] + w.col(j, qq))
+                                                       : Raw<T>::zero();
+#pragma unroll
+            for (int kk = 0; kk < KB; ++kk)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                if (yp[h][kk] == nullptr) continue;
+#pragma unroll
+                for (int qq = 0; qq < 8; ++qq) {
+                  const float2 yv = Raw<T>::f2(yr[h][kk][qq]);
+                  const float z0 = acc[j][4 * qq + 2 * h], z1 = acc[j][4 * qq + 2 * h + 1];
+                  if (ROLL) {
+                    hv[h][qq][0] = srnd<SLOT16>(hv[h][qq][0] + fmaxf(srnd<SLOT16>(yv.x + z0), 0.f));
+                    hv[h][qq][1] = srnd<SLOT16>(hv[h][qq][1] + fmaxf(srnd<SLOT16>(yv.y + z1), 0.f));
+                  } else {
+                    hv[h][qq][0] += fmaxf(yv.x + z0, 0.f);
+                    hv[h][qq][1] += fmaxf(yv.y + z1, 0.f);
+                  }
                 }
               }
-            }
           }
 #pragma unroll
           for (int h = 0; h < 2; ++h)
@@ -707,9 +777,16 @@ __device__ __forceinline__ void colsum(float* part, int v, int c0, const float (
   atomicAdd(p + 1, r[1]);
 }
 
+// the replay's geometry: its warpgroups split the columns (tiles of 64
+// rows), but f32 at W = 128, where one warpgroup holds a row's 128 columns
+// in 64 registers and tiles of 128 rows halve the weight reads (the bf16
+// replay's epilogues at 128 rows ran 17% slower: PERF.md)
+template <typename T, int W>
+using ReplayGeo = Geo<T, W, (W > 128 || sizeof(T) == 2)>;
+
 template <typename T, int W>
 __global__ void __launch_bounds__(BLOCK, 1) wide_replay_kernel(const __grid_constant__ BJob<T> job) {
-  using G = Geo<T, W, true>;
+  using G = ReplayGeo<T, W>;
   constexpr bool F32 = G::F32, TIES = F32;
   constexpr int NJ = G::NJ, WORDS = W / 32;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -792,67 +869,157 @@ __global__ void __launch_bounds__(BLOCK, 1) wide_replay_kernel(const __grid_cons
           acc[j][4 * qq + 2 * h] += __ldg(vec + V_B0 * W + c);
           acc[j][4 * qq + 2 * h + 1] += __ldg(vec + V_B0 * W + c + 1);
         }
-      for (int k = 0; k < d.D; ++k) {
+      if constexpr (W == 128) {
+        // the slots' sources and values loaded ahead of their sums, KB slots
+        // of both rows in flight where a thread holds one column block (at
+        // 256 columns the same loop ran 3% slower: PERF.md)
+        constexpr int KB = NJ > 1 ? 1 : F32 ? 2 : 4;
+        for (int k0 = 0; k0 < d.D; k0 += KB) {
+          int srcs[2][KB];
+          typename Raw<T>::type yr[2][KB][8];
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          uint32_t bits[2] = {0u, 0u};
-          const int src = live_row(h) ? __ldg(d.idx + rr[h] * d.D + k) : -1;
-          if (src >= 0) {
-            const size_t fs = size_t(bb[h]) * d.src_rows + src;
-            const T* y = d.ys + fs * W;
-            float2 yv[8];
+          for (int h = 0; h < 2; ++h)
 #pragma unroll
-            for (int qq = 0; qq < 8; ++qq) yv[qq] = ldg2(y + w.col(j, qq));
-            const float band = TIES ? TAU_Z * (d.xn_src[fs] * d.wn_src + xn(h) * d.wn_wd) : 0.f;
-            uint32_t tie = 0u;   // entries 2 qq + e whose |z| falls in the band (f32)
+            for (int kk = 0; kk < KB; ++kk)
+              srcs[h][kk] = live_row(h) && k0 + kk < d.D ? __ldg(d.idx + rr[h] * d.D + k0 + kk) : -1;
 #pragma unroll
-            for (int qq = 0; qq < 8; ++qq)
+          for (int h = 0; h < 2; ++h)
 #pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const float z = (e ? yv[qq].y : yv[qq].x) + acc[j][4 * qq + 2 * h + e];
-                hv[h][qq][e] += fmaxf(z, 0.f);
-                const bool lv = z > 0.f;
-                if (TIES && w.col(j, qq) + e < job.msg_width && fabsf(z) < band)
-                  tie |= 1u << (2 * qq + e);
-                bits[qq >> 2] |= (lv ? 1u : 0u) << ((8 * qq + 2 * w.t() + e) & 31);
-                nl[h][qq >> 2] += (lv ? 1u : 0u) << (4 * (2 * (qq & 3) + e));
+            for (int kk = 0; kk < KB; ++kk)
+#pragma unroll
+              for (int qq = 0; qq < 8; ++qq)
+                yr[h][kk][qq] = srcs[h][kk] >= 0 ? Raw<T>::load(d.ys + (size_t(bb[h]) * d.src_rows +
+                                                                        srcs[h][kk]) * W + w.col(j, qq))
+                                                 : Raw<T>::zero();
+#pragma unroll
+          for (int kk = 0; kk < KB; ++kk) {
+            if (k0 + kk >= d.D) break;
+            const int k = k0 + kk;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              uint32_t bits[2] = {0u, 0u};
+              const int src = srcs[h][kk];
+              if (src >= 0) {
+                const size_t fs = size_t(bb[h]) * d.src_rows + src;
+                float2 yv[8];
+#pragma unroll
+                for (int qq = 0; qq < 8; ++qq) yv[qq] = Raw<T>::f2(yr[h][kk][qq]);
+                const float band = TIES ? TAU_Z * (d.xn_src[fs] * d.wn_src + xn(h) * d.wn_wd) : 0.f;
+                uint32_t tie = 0u;   // entries 2 qq + e whose |z| falls in the band (f32)
+#pragma unroll
+                for (int qq = 0; qq < 8; ++qq)
+#pragma unroll
+                  for (int e = 0; e < 2; ++e) {
+                    const float z = (e ? yv[qq].y : yv[qq].x) + acc[j][4 * qq + 2 * h + e];
+                    hv[h][qq][e] += fmaxf(z, 0.f);
+                    const bool lv = z > 0.f;
+                    if (TIES && w.col(j, qq) + e < job.msg_width && fabsf(z) < band)
+                      tie |= 1u << (2 * qq + e);
+                    bits[qq >> 2] |= (lv ? 1u : 0u) << ((8 * qq + 2 * w.t() + e) & 31);
+                    nl[h][qq >> 2] += (lv ? 1u : 0u) << (4 * (2 * (qq & 3) + e));
+                  }
+                // the tied masks taken again as the plain version computes z, one
+                // entry at a time (rare: not unrolled)
+                for (; TIES && tie != 0u; tie &= tie - 1u) {
+                  const int i = __ffs(tie) - 1, qq = i >> 1, e = i & 1;
+                  const int c = w.col(j, qq) + e;
+                  const float* xs = reinterpret_cast<const float*>(d.xsrc) + fs * W;
+                  const float* xr = reinterpret_cast<const float*>(d.x) + size_t(fr(h)) * W;
+                  const float ex = __fadd_rn(
+                      seq_dot(xs, d.wsrc32t + size_t(c) * W, W),
+                      __fadd_rn(seq_dot(xr, d.w32t + size_t(M_WD) * W * W + size_t(c) * W, W),
+                                __ldg(vec + V_B0 * W + c)));
+                  const uint32_t bit = 1u << ((8 * qq + 2 * w.t() + e) & 31);
+                  const uint32_t one = 1u << (4 * (2 * (qq & 3) + e));
+                  const int word = qq >> 2;
+                  const bool was = ((word ? bits[1] : bits[0]) & bit) != 0u;
+                  if ((ex > 0.f) != was) {   // flip the mask and the count
+                    if (word) {
+                      bits[1] ^= bit;
+                      nl[h][1] = was ? nl[h][1] - one : nl[h][1] + one;
+                    } else {
+                      bits[0] ^= bit;
+                      nl[h][0] = was ? nl[h][0] - one : nl[h][0] + one;
+                    }
+                  }
+                }
               }
-            // the tied masks taken again as the plain version computes z, one
-            // entry at a time (rare: not unrolled)
-            for (; TIES && tie != 0u; tie &= tie - 1u) {
-              const int i = __ffs(tie) - 1, qq = i >> 1, e = i & 1;
-              const int c = w.col(j, qq) + e;
-              const float* xs = reinterpret_cast<const float*>(d.xsrc) + fs * W;
-              const float* xr = reinterpret_cast<const float*>(d.x) + size_t(fr(h)) * W;
-              const float ex = __fadd_rn(
-                  seq_dot(xs, d.wsrc32t + size_t(c) * W, W),
-                  __fadd_rn(seq_dot(xr, d.w32t + size_t(M_WD) * W * W + size_t(c) * W, W),
-                            __ldg(vec + V_B0 * W + c)));
-              const uint32_t bit = 1u << ((8 * qq + 2 * w.t() + e) & 31);
-              const uint32_t one = 1u << (4 * (2 * (qq & 3) + e));
-              const int word = qq >> 2;
-              const bool was = ((word ? bits[1] : bits[0]) & bit) != 0u;
-              if ((ex > 0.f) != was) {   // flip the mask and the count
-                if (word) {
-                  bits[1] ^= bit;
-                  nl[h][1] = was ? nl[h][1] - one : nl[h][1] + one;
-                } else {
-                  bits[0] ^= bit;
-                  nl[h][0] = was ? nl[h][0] - one : nl[h][0] + one;
+              // the quad's bits make the row's words for columns 64 j .. 64 j + 63
+#pragma unroll
+              for (int i = 0; i < 2; ++i) {
+                bits[i] |= __shfl_xor_sync(0xffffffffu, bits[i], 1);
+                bits[i] |= __shfl_xor_sync(0xffffffffu, bits[i], 2);
+              }
+              if (live_row(h) && w.t() == 0)
+#pragma unroll
+                for (int i = 0; i < 2; ++i)
+                  d.live[(size_t(fr(h)) * d.D + k) * WORDS + (w.n0() + 64 * j) / 32 + i] = bits[i];
+            }
+          }
+        }
+      } else {
+        for (int k = 0; k < d.D; ++k) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            uint32_t bits[2] = {0u, 0u};
+            const int src = live_row(h) ? __ldg(d.idx + rr[h] * d.D + k) : -1;
+            if (src >= 0) {
+              const size_t fs = size_t(bb[h]) * d.src_rows + src;
+              const T* y = d.ys + fs * W;
+              float2 yv[8];
+#pragma unroll
+              for (int qq = 0; qq < 8; ++qq) yv[qq] = ldg2(y + w.col(j, qq));
+              const float band = TIES ? TAU_Z * (d.xn_src[fs] * d.wn_src + xn(h) * d.wn_wd) : 0.f;
+              uint32_t tie = 0u;   // entries 2 qq + e whose |z| falls in the band (f32)
+#pragma unroll
+              for (int qq = 0; qq < 8; ++qq)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const float z = (e ? yv[qq].y : yv[qq].x) + acc[j][4 * qq + 2 * h + e];
+                  hv[h][qq][e] += fmaxf(z, 0.f);
+                  const bool lv = z > 0.f;
+                  if (TIES && w.col(j, qq) + e < job.msg_width && fabsf(z) < band)
+                    tie |= 1u << (2 * qq + e);
+                  bits[qq >> 2] |= (lv ? 1u : 0u) << ((8 * qq + 2 * w.t() + e) & 31);
+                  nl[h][qq >> 2] += (lv ? 1u : 0u) << (4 * (2 * (qq & 3) + e));
+                }
+              // the tied masks taken again as the plain version computes z, one
+              // entry at a time (rare: not unrolled)
+              for (; TIES && tie != 0u; tie &= tie - 1u) {
+                const int i = __ffs(tie) - 1, qq = i >> 1, e = i & 1;
+                const int c = w.col(j, qq) + e;
+                const float* xs = reinterpret_cast<const float*>(d.xsrc) + fs * W;
+                const float* xr = reinterpret_cast<const float*>(d.x) + size_t(fr(h)) * W;
+                const float ex = __fadd_rn(
+                    seq_dot(xs, d.wsrc32t + size_t(c) * W, W),
+                    __fadd_rn(seq_dot(xr, d.w32t + size_t(M_WD) * W * W + size_t(c) * W, W),
+                              __ldg(vec + V_B0 * W + c)));
+                const uint32_t bit = 1u << ((8 * qq + 2 * w.t() + e) & 31);
+                const uint32_t one = 1u << (4 * (2 * (qq & 3) + e));
+                const int word = qq >> 2;
+                const bool was = ((word ? bits[1] : bits[0]) & bit) != 0u;
+                if ((ex > 0.f) != was) {   // flip the mask and the count
+                  if (word) {
+                    bits[1] ^= bit;
+                    nl[h][1] = was ? nl[h][1] - one : nl[h][1] + one;
+                  } else {
+                    bits[0] ^= bit;
+                    nl[h][0] = was ? nl[h][0] - one : nl[h][0] + one;
+                  }
                 }
               }
             }
-          }
-          // the quad's bits make the row's words for columns 64 j .. 64 j + 63
+            // the quad's bits make the row's words for columns 64 j .. 64 j + 63
 #pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            bits[i] |= __shfl_xor_sync(0xffffffffu, bits[i], 1);
-            bits[i] |= __shfl_xor_sync(0xffffffffu, bits[i], 2);
-          }
-          if (live_row(h) && w.t() == 0)
+            for (int i = 0; i < 2; ++i) {
+              bits[i] |= __shfl_xor_sync(0xffffffffu, bits[i], 1);
+              bits[i] |= __shfl_xor_sync(0xffffffffu, bits[i], 2);
+            }
+            if (live_row(h) && w.t() == 0)
 #pragma unroll
-            for (int i = 0; i < 2; ++i)
-              d.live[(size_t(fr(h)) * d.D + k) * WORDS + (w.n0() + 64 * j) / 32 + i] = bits[i];
+              for (int i = 0; i < 2; ++i)
+                d.live[(size_t(fr(h)) * d.D + k) * WORDS + (w.n0() + 64 * j) / 32 + i] = bits[i];
+          }
         }
       }
 #pragma unroll
@@ -1537,14 +1704,9 @@ int sm_count() {
   return n > 0 ? n : 1;
 }
 
-// W = 128 only in a build with WIDE_W128 defined (scripts/a10_probe.py's
-// copies): nothing routes 128 columns here, and each width is a set of
-// instantiations the build compiles
+// each width is a set of instantiations the build compiles
 bool bad_width(int W, int width) {
-#ifdef WIDE_W128
-  if (W == 128) return width <= 0 || width > W;
-#endif
-  return (W != 256 && W != 384 && W != 512) || width <= 0 || width > W;
+  return (W != 128 && W != 256 && W != 384 && W != 512) || width <= 0 || width > W;
 }
 
 template <typename G>
@@ -1625,9 +1787,9 @@ int run_forward_w(const Fwd& a) {
 template <typename T, bool ROLL, bool SLOT16>
 int run_forward(const Fwd& a) {
   switch (a.W) {
-#ifdef WIDE_W128
-    case 128: return run_forward_w<T, 128, ROLL, SLOT16>(a);
-#endif
+    case 128:   // K5 at 128 columns is roll_gather.cu's: no raster mode here
+      if constexpr (!ROLL) return run_forward_w<T, 128, false, false>(a);
+      break;
     case 256: return run_forward_w<T, 256, ROLL, SLOT16>(a);
     case 384: return run_forward_w<T, 384, ROLL, SLOT16>(a);
     case 512: return run_forward_w<T, 512, ROLL, SLOT16>(a);
@@ -1711,7 +1873,7 @@ int run_backward_w(const Bwd& a) {
   auto cot = wide_cotangent_kernel<T, W>;
   auto wgr = wide_wgrad_kernel<T>;
   if (int e = prepare(fwd, G::SMEM)) return e;
-  using GR = Geo<T, W, true>;   // the replay's tiles: 64 rows, the columns split
+  using GR = ReplayGeo<T, W>;
   if (int e = prepare(rep, GR::SMEM)) return e;
   if (int e = prepare(cot, G::SMEM)) return e;
   if (int e = prepare(wgr, WgGeo<T>::SMEM)) return e;
@@ -1805,9 +1967,7 @@ int run_backward_w(const Bwd& a) {
 template <typename T>
 int run_backward(const Bwd& a) {
   switch (a.W) {
-#ifdef WIDE_W128
     case 128: return run_backward_w<T, 128>(a);
-#endif
     case 256: return run_backward_w<T, 256>(a);
     case 384: return run_backward_w<T, 384>(a);
     case 512: return run_backward_w<T, 512>(a);

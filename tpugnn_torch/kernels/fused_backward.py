@@ -9,28 +9,24 @@ gradients of ``wo @ ua`` and ``bo @ ua`` into ``wo``, ``ua`` and ``bo``:
 
 * forward: every round's input states are written to a stash
   ``[R, B, rows, H]`` in the state type, besides the rounds' outputs.  On a
-  CUDA tensor this is the kernel ``csrc/fused_rounds.cu`` (bf16 states;
-  ``fused_rounds_tf32.cu`` with f32 states) with its stash flag (K2a,
-  replacing ``_fwd``'s ``pl.pallas_call`` at
-  ``tpugnn/kernels/fused_backward.py:575``), above 128 columns the wide
-  forward (``csrc/wide_rounds.cuh``) with its stash; on a CPU tensor,
+  CUDA tensor this is K1's kernel (``csrc/wide_rounds.cuh``) with its stash
+  (K2a, replacing ``_fwd``'s ``pl.pallas_call`` at
+  ``tpugnn/kernels/fused_backward.py:575``); on a CPU tensor,
   :func:`rounds_fwd_stash_plain`;
 * backward: the rounds in reverse.  Each replays its forward from the stash
   and chains the adjoint through the LayerNorm, the residual MLP, the relu
   masks, the folded aggregation, the slot gather and the wide projections.
   Weight gradients are summed over the batch.  On a CUDA tensor this is K2b,
-  replacing ``_bwd``'s ``pl.pallas_call`` at ``:624``:
-  ``csrc/fused_backward.cu`` with bf16 states, ``csrc/fused_backward_tf32.cu``
-  with f32 states (every product as three TF32 products on the tensor
-  cores, as f32 K1, K2a and K5 form theirs), above 128 columns the wide
-  backward (``csrc/wide_rounds.cuh``; libraries ``wide_backward`` and
-  ``wide_backward_tf32``), which refuses f32 states at 384 columns
-  (``F32_BWD_REFUSED``); on a CPU tensor, :func:`rounds_vjp_plain`.
+  replacing ``_bwd``'s ``pl.pallas_call`` at ``:624``: the backward of
+  ``csrc/wide_rounds.cuh`` (libraries ``wide_backward``, bf16 states, and
+  ``wide_backward_tf32``, f32 states, every product as three TF32 products
+  on the tensor cores, as f32 K1 and K2a form theirs), which refuses f32
+  states at 384 columns (``F32_BWD_REFUSED``); on a CPU tensor,
+  :func:`rounds_vjp_plain`.
 
 A model trains on states and packs zero-padded to the kernels' width
-(:func:`~tpugnn_torch.kernels.fused_decoder.kernel_width`: 128, or above 128
-the next multiple of 128, where ``csrc/wide_rounds.cuh`` runs K2a and K2b)
-outside the autograd Function (:func:`padded_rounds`, with ``F.pad``), so
+(:func:`~tpugnn_torch.kernels.fused_decoder.kernel_width`: the next multiple
+of 128) outside the autograd Function (:func:`padded_rounds`, with ``F.pad``), so
 autograd slices every gradient back to the model's width; inside, the
 LayerNorm and its adjoint run over the model's ``width`` columns, and no
 cotangent reaches a padded one.  The plain versions take any width.
@@ -172,165 +168,15 @@ def rounds_vjp_plain(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq,
 
 def _fwd_stash_cuda(xc, xq, syn, operators, mats32, vecs32, rounds, state_dtype,
                     width=None):
-    """K2a: the fused-rounds kernel with its stash flag, on operands padded
-    to the kernels' width; ``width`` is the model's (None: the operands').
-    Above 128 columns it is the wide K1 with its stash
-    (``fused_rounds_fwd_stash_wide``).  With f32 states it is K1's 3xTF32
-    kernel: the weights go in split into TF32 halves
-    (``fd.tf32_split_pack``) and, with the panels in shared memory, a small
-    graph's samples stacked, as one graph of ``s`` times the rows
-    (``fd.samples_per_block``), which leaves the stash's layout [R, B,
-    rows, H] as it is.  In both state types a graph whose gather panels do
-    not fit in shared memory runs the global-panel variant
-    (``fused_rounds_fwd_stash_gpanels``) on a persistent grid, one sample
-    at a time; its stash is laid out as the shared-panel kernel's."""
-    from tpugnn_torch.kernels._build import load_library
-
+    """K2a: K1's kernel with its stash (``fused_rounds_fwd_stash``; above
+    128 columns ``fused_rounds_fwd_stash_wide``) on operands padded to a
+    multiple of 128; ``width`` is the model's (None: the operands')."""
     dt = fd.STATE_DTYPES[state_dtype]
     width = width or xc.shape[-1]
-    if mats32.shape[-1] > fd.WIDTH:
-        mats, vecs = fd.cast_packs(mats32, vecs32, dt)
-        out_c, out_q, stash_c, stash_q = fd._wide_forward(xc, xq, syn, operators, mats, vecs,
-                                                          rounds, dt, width, stash=True)
-        return out_c.float(), out_q.float(), stash_c, stash_q
-    fd.check_width(width)
-    lib = load_library(fd.forward_library(dt))
-    a = fd._cuda_operands(lib, xc, xq, syn, operators, mats32, rounds, dt, stash=True)
     mats, vecs = fd.cast_packs(mats32, vecs32, dt)
-    b, m, n, h = a.b, a.m, a.n, xc.shape[2]
-    s, idx_c, idx_q = 1, a.idx_c, a.idx_q
-    if a.code == 0:
-        mats = fd.tf32_split_pack(mats)
-        if not a.gpanels:
-            s = fd.samples_per_block(b, m, n)
-            idx_c = fd.stack_slot_tables(idx_c, n, s)
-            idx_q = fd.stack_slot_tables(idx_q, m, s)
-    stash_c = torch.empty((rounds, b, m, h), dtype=dt, device=xc.device)
-    stash_q = torch.empty((rounds, b, n, h), dtype=dt, device=xc.device)
-    out_c = torch.empty((b, m, h), dtype=dt, device=xc.device)
-    out_q = torch.empty((b, n, h), dtype=dt, device=xc.device)
-    ptrs = (a.xc.data_ptr(), a.xq.data_ptr(), a.syn.data_ptr(), idx_c.data_ptr(),
-            idx_q.data_ptr(), mats.data_ptr(), vecs.data_ptr(), out_c.data_ptr(),
-            out_q.data_ptr(), stash_c.data_ptr(), stash_q.data_ptr())
-    with fd._cuda_stream(xc.device) as stream:
-        if a.gpanels:
-            grid, panels = fd._gpanel_scratch(a, dt, xc.device)
-            err = lib.fused_rounds_stash_gpanels_launch(a.code, *ptrs, panels.data_ptr(), b, m,
-                                                        n, a.dc, a.dq, rounds, width, grid,
-                                                        stream)
-        else:
-            err = lib.fused_rounds_stash_launch(a.code, *ptrs, b // s, m * s, n * s, a.dc,
-                                                a.dq, rounds, width, stream)
-    name = "fused_rounds_fwd_stash_gpanels" if a.gpanels else "fused_rounds_fwd_stash"
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    fd._LAUNCHES[name] += 1
+    out_c, out_q, stash_c, stash_q = fd._forward_launch(xc, xq, syn, operators, mats, vecs,
+                                                        rounds, dt, width, stash=True)
     return out_c.float(), out_q.float(), stash_c, stash_q
-
-
-# K2b's library by state type: bf16 and f32 (3xTF32) states build apart
-_BWD_LIBRARY = {torch.bfloat16: "fused_backward", torch.float32: "fused_backward_tf32"}
-
-
-def _bwd_library(dt: torch.dtype, operators):
-    """K2b's library for the state type, after checking that a block of the
-    layout it takes on the graph of ``operators`` fits in shared memory:
-    ``(library, idx_c, idx_q)``, the slot tables."""
-    from tpugnn_torch.kernels._build import load_library
-
-    lib = load_library(_BWD_LIBRARY[dt])
-    src_c, mask_c, _, src_q, mask_q, _ = operators
-    idx_c, idx_q = fd._slot_tables(src_c, mask_c, src_q, mask_q)
-    m, n, dc, dq = idx_c.shape[0], idx_q.shape[0], idx_c.shape[1], idx_q.shape[1]
-    smem = lib.fused_rounds_bwd_smem_bytes(m, n, dc, dq)
-    if smem > fd.SMEM_LIMIT:
-        raise ValueError(f"graph too large for the fused backward kernel: needs "
-                         f"{smem} B of shared memory per block (M={m}, N={n}), "
-                         f"limit {fd.SMEM_LIMIT}")
-    return lib, idx_c, idx_q
-
-
-def _bwd_cuda(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq, state_dtype,
-              width=None, msg_width: int | None = None, force_gpanels: bool = False):
-    """K2b: the reverse round walk, then the fixed-order sum of the blocks'
-    weight-gradient partials (two launches, counted as one call), on
-    operands padded to ``fd.WIDTH`` columns; ``width`` is the model's (None:
-    the operands').  With
-    f32 states the kernel forms every product as three TF32 products: the
-    matrices and their transposes go in split into TF32 halves in fragment
-    order (``fd.tf32_split_pack``).  It takes again, as this module's plain
-    version computes them, the relu decisions of its replay that fall within
-    the rounding of its products: for that it reads the matrices and their
-    transposes in f32, the L2 norm of each stash row and the largest column
-    norm of each matrix, and ``msg_width``, the model's message width
-    (``width`` by default): the slot relus past it are 0 on both sides and
-    hold no tie.  In both state types a graph whose gather panels
-    do not fit in shared memory runs the layout that keeps them in the
-    scratch (``fused_rounds_bwd_gpanels``); with f32 states
-    ``force_gpanels`` launches that layout on any graph (to compare the two
-    placements where both fit).  Above 128 columns it is the wide K2b
-    (``fused_rounds_bwd_wide``)."""
-    width = width or stash_c.shape[-1]
-    if stash_c.shape[-1] > fd.WIDTH:
-        if force_gpanels:
-            raise ValueError("the wide K2b has no panel placement to force")
-        return _bwd_wide_cuda(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq,
-                              state_dtype, width, msg_width)
-    dt = fd.STATE_DTYPES[state_dtype]
-    rounds, b, m, h = stash_c.shape
-    n = stash_q.shape[2]
-    dev = stash_c.device
-    src_c, src_q = operators[0], operators[3]
-    fd.check_width(width)
-    if h != fd.WIDTH or stash_c.dtype != dt or stash_q.shape[:2] != stash_c.shape[:2]:
-        raise ValueError(f"the backward kernel takes the stash of K2a, padded to "
-                         f"{fd.WIDTH} columns, got {tuple(stash_c.shape)} {stash_c.dtype} "
-                         f"and {tuple(stash_q.shape)}")
-    if src_c.shape[0] != m or src_q.shape[0] != n or src_c.device != dev:
-        raise ValueError("operators do not match the stash's rows or device")
-    if force_gpanels and dt != torch.float32:
-        raise ValueError("only the f32 K2b library launches its global layout on request")
-    lib, idx_c, idx_q = _bwd_library(dt, operators)
-    dc, dq = idx_c.shape[1], idx_q.shape[1]
-    if force_gpanels:
-        gpanels, launch = True, lib.fused_rounds_bwd_gpanels_launch
-        scratch_bytes = lib.fused_rounds_bwd_gpanels_scratch_bytes
-    else:
-        gpanels = lib.fused_rounds_bwd_gpanels(m, n, dc, dq) == 1
-        launch, scratch_bytes = lib.fused_rounds_bwd_launch, lib.fused_rounds_bwd_scratch_bytes
-    mats, vecs = fd.cast_packs(mats32, vecs32, dt)
-    mats_t = mats.transpose(1, 2).contiguous()
-    ties, widths = (), (width,)
-    if dt == torch.float32:
-        widths = (width, msg_width or width)
-        norms = [torch.linalg.vector_norm(x, dim=-1) for x in (stash_c, stash_q)]
-        ties = (mats, mats_t, *norms, torch.linalg.vector_norm(mats, dim=1).amax(-1))
-        mats, mats_t = fd.tf32_split_pack(mats), fd.tf32_split_pack(mats_t)
-    ucs32 = vecs32[2].detach().float().contiguous()
-    tiles = -(-b // lib.fused_rounds_bwd_tile())   # a block takes a tile of samples
-    grid = min(tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
-    g_c = dxc.float().contiguous().clone()          # rewritten in place
-    g_q = dxq.float().contiguous().clone()
-    dsyn = torch.zeros((b, m), dtype=torch.float32, device=dev)
-    scratch = torch.empty(grid * scratch_bytes(m, n, dc, dq), dtype=torch.uint8, device=dev)
-    part_mats = torch.zeros((grid, 10, h, h), dtype=torch.float32, device=dev)
-    part_vecs = torch.zeros((grid, 8, 14, h), dtype=torch.float32, device=dev)
-    dmats = torch.empty((10, h, h), dtype=torch.float32, device=dev)
-    dvecs = torch.empty((14, h), dtype=torch.float32, device=dev)
-    syn2 = syn.reshape(b, m).float().contiguous()
-    with fd._cuda_stream(dev) as stream:
-        err = launch(
-            stash_c.data_ptr(), stash_q.data_ptr(), syn2.data_ptr(),
-            idx_c.data_ptr(), idx_q.data_ptr(), mats.data_ptr(), mats_t.data_ptr(),
-            *(t.data_ptr() for t in ties), vecs.data_ptr(), ucs32.data_ptr(),
-            g_c.data_ptr(), g_q.data_ptr(), dsyn.data_ptr(), scratch.data_ptr(),
-            part_mats.data_ptr(), part_vecs.data_ptr(), dmats.data_ptr(),
-            dvecs.data_ptr(), b, m, n, dc, dq, rounds, *widths, grid, stream)
-    name = "fused_rounds_bwd_gpanels" if gpanels else "fused_rounds_bwd"
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    fd._LAUNCHES[name] += 1
-    return g_c, g_q, dsyn.reshape(syn.shape), dmats, dvecs
 
 
 def _readers(idx: torch.Tensor, n_src: int):
@@ -347,7 +193,7 @@ def _readers(idx: torch.Tensor, n_src: int):
     return off.to(torch.int32).contiguous(), slots[order].to(torch.int32).contiguous()
 
 
-# Pack widths at which the wide K2b refuses f32 states: it takes the relu
+# Pack widths at which K2b refuses f32 states: it takes the relu
 # ties of its replay again in the order of the plain version's f32 products,
 # one FMA per k ascending, and at K = 384 cuBLAS sums those products
 # otherwise (no split of k into equal slices reproduces them either), so its
@@ -355,31 +201,32 @@ def _readers(idx: torch.Tensor, n_src: int):
 # ROADMAP.md, Queue 3).  bf16 states, and K1, K2a and K5, run there.
 F32_BWD_REFUSED = (384,)
 
-# blocks of the wide K2b's weight-gradient launch: 10 matrices x (W / 128)^2
+# blocks of K2b's weight-gradient launch: 10 matrices x (W / 128)^2
 # output tiles x row chunks, about two per SM of an H100
 _WGRAD_BLOCKS = 320
 
 
 def wgrad_chunks(wid: int) -> int:
-    """The row chunks of the wide K2b's weight-gradient launch at pack width
+    """The row chunks of K2b's weight-gradient launch at pack width
     ``wid``: its blocks are 10 matrices x ``(wid / 128)^2`` output tiles of
     128 x 128 x the chunks, about ``_WGRAD_BLOCKS`` in all (at least one
     chunk); each chunk's partial is summed in a fixed order."""
     return max(1, _WGRAD_BLOCKS // (10 * (wid // 128) ** 2))
 
 
-def _bwd_wide_cuda(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq, state_dtype,
-                   width, msg_width=None):
-    """The wide K2b (``csrc/wide_rounds.cuh``, its backward library by
-    state type) on K2a's stash padded to W > 128 columns: the rounds in
-    reverse, a chain of launches a round, the gathers' adjoints over the
-    transposed slot lists and the weight and bias gradients as partials
-    summed in a fixed order, so two calls give the same bits; the packs
-    (``fd.wgmma_pack``) of the matrices and of their transposes.  With f32
-    states it reads, for its ties, the matrices and their transposes
-    unpacked, the stash rows' norms and the matrices' largest column norms,
-    and takes the slot ties over ``msg_width``
-    columns, as the 128-column f32 K2b does.  It raises for f32 states at a
+def _bwd_cuda(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq, state_dtype,
+              width=None, msg_width=None):
+    """K2b (``csrc/wide_rounds.cuh``, its backward library by state type) on
+    K2a's stash padded to a multiple of 128 columns; ``width`` is the
+    model's (None: the stash's): the rounds in reverse, a chain of launches
+    a round, the gathers' adjoints over the transposed slot lists and the
+    weight and bias gradients as partials summed in a fixed order, so two
+    calls give the same bits; the packs (``fd.wgmma_pack``) of the matrices
+    and of their transposes.  With f32 states it reads, for its ties, the
+    matrices and their transposes unpacked, the stash rows' norms and the
+    matrices' largest column norms, and takes the slot ties over
+    ``msg_width`` columns (``width`` by default): the slot relus past it
+    are 0 on both sides and hold no tie.  It raises for f32 states at a
     width of ``F32_BWD_REFUSED``, before any launch."""
     import ctypes
 
@@ -387,17 +234,18 @@ def _bwd_wide_cuda(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq, s
 
     dt = fd.STATE_DTYPES[state_dtype]
     rounds, b, m, wid = stash_c.shape
+    width = width or wid
     n = stash_q.shape[2]
     dev = stash_c.device
     fd.check_width(wid)
     if dt == torch.float32 and wid in F32_BWD_REFUSED:
-        raise ValueError(f"the wide K2b refuses f32 states at {wid} columns: its relu-tie "
+        raise ValueError(f"K2b refuses f32 states at {wid} columns: its relu-tie "
                          f"re-decisions assume the plain version's f32 products sum one FMA "
                          f"per k in order, which cuBLAS does not at K = {wid}; bf16 states "
                          f"train at this width")
     if (wid % fd.WIDTH or stash_c.dtype != dt or stash_q.shape[:2] != stash_c.shape[:2]
             or stash_q.shape[3] != wid or tuple(mats32.shape) != (10, wid, wid)):
-        raise ValueError(f"the wide backward kernel takes the stash of the wide K2a, got "
+        raise ValueError(f"the backward kernel takes the stash of K2a, got "
                          f"{tuple(stash_c.shape)} {stash_c.dtype}, {tuple(stash_q.shape)} and "
                          f"packs {tuple(mats32.shape)}")
     src_c, mask_c, deg_c, src_q, mask_q, deg_q = operators
@@ -444,9 +292,10 @@ def _bwd_wide_cuda(stash_c, stash_q, syn, operators, mats32, vecs32, dxc, dxq, s
             dsyn.data_ptr(), scratch.data_ptr(), part_mats.data_ptr(), part_vecs.data_ptr(),
             dmats.data_ptr(), dvecs.data_ptr(), b, m, n, dc, dq, rounds, wid, width,
             msg_width or width, nch, stream)
+    name = "fused_rounds_bwd" + ("_wide" if wid > fd.WIDTH else "")
     if err != 0:
-        raise RuntimeError(f"fused_rounds_bwd_wide kernel launch failed: CUDA error {err}")
-    fd._LAUNCHES["fused_rounds_bwd_wide"] += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    fd._LAUNCHES[name] += 1
     return g_c, g_q, dsyn.reshape(syn.shape), dmats, dvecs
 
 
@@ -465,10 +314,6 @@ class FusedRoundsFn(torch.autograd.Function):
     def forward(ctx, xc, xq, syn, mats32, vecs32, operators, rounds, state_dtype,
                 kernels, width, msg_width):
         if kernels:
-            # K2b must take the graph before K2a runs: a step launches both or
-            # neither (the wide kernels take any graph)
-            if mats32.shape[-1] <= fd.WIDTH:
-                _bwd_library(fd.STATE_DTYPES[state_dtype], operators)
             outs = _fwd_stash_cuda(xc, xq, syn, operators, mats32, vecs32, rounds,
                                    state_dtype, width)
         else:

@@ -7,16 +7,14 @@ LayerNorm) on node states in the batch layout ``[B, rows, H]``:
 * a tensor on the CPU goes to :func:`rounds_plain`, the plain PyTorch
   version, which defines the function;
 * a tensor on a CUDA device goes to the hand-written kernel
-  ``csrc/fused_rounds.cu`` (``fused_rounds_tf32.cu`` with f32 states;
-  ``wide_rounds.cuh`` above 128 columns; built by ``_build.py``), which
-  replaces the TPU
-  kernel ``decoder_rounds_tiled`` (``pl.pallas_call`` at
+  ``csrc/wide_rounds.cuh`` (the library ``wide_rounds``, bf16 states, or
+  ``wide_rounds_tf32``, f32 states; built by ``_build.py``), which replaces
+  the TPU kernel ``decoder_rounds_tiled`` (``pl.pallas_call`` at
   ``tpugnn/kernels/fused_decoder.py:637``).  It launches or raises; there is
-  no fallback.  Its products run on tensor cores: bf16 states on bf16
-  ``mma.sync``, f32 states as three TF32 products of operands split into
-  TF32 halves ("3xTF32", near f32 accuracy; the wrapper splits the weights,
-  :func:`tf32_split_pack`, and stacks a small graph's samples into one
-  block, :func:`samples_per_block`);
+  no fallback.  Its products run on Hopper's warpgroup MMA (``wgmma``):
+  bf16 states in bf16, f32 states as three TF32 products of operands split
+  into TF32 halves ("3xTF32", near f32 accuracy; the wrapper packs the
+  weights once a call, :func:`wgmma_pack`);
 * a call that autograd must differentiate goes to
   :class:`~tpugnn_torch.kernels.fused_backward.FusedRoundsFn` instead (the
   kernels K2a and K2b on a card, their plain versions on the CPU).
@@ -37,13 +35,11 @@ reassociation, the TPU kernel's "fold" variant); the matrices are then stored
 in the state type and the vectors in f32.  The slot gather reads source rows
 by index, not through the TPU's one-hot incidence GEMM.
 
-The kernels come in two families.  ``csrc/fused_rounds.cu`` (bf16 states)
-and ``csrc/fused_rounds_tf32.cu`` (f32 states), one library each, are built
-for ``WIDTH`` = 128 columns; ``csrc/wide_rounds.cuh`` takes packs of 256, 384
-or 512 columns (``WIDE_MAX``).  A model runs at the kernel width
-:func:`kernel_width` of its packs, ``W = 128 ceil(max(hidden, msg_hidden) /
-128)``: at 128 the 128-column kernels, above it the wide ones
-(``fused_rounds_wide`` in :func:`launch_counts`), never one for the other.
+The kernel takes packs of 128, 256, 384 or 512 columns (``WIDE_MAX``), each
+width an instantiation of the same templates.  A model runs at the kernel
+width :func:`kernel_width` of its packs, ``W = 128 ceil(max(hidden,
+msg_hidden) / 128)``, counted in :func:`launch_counts` as ``fused_rounds`` at
+128 and ``fused_rounds_wide`` above it.
 States and packs are zero-padded to ``W`` (:func:`pad_packs`,
 :func:`pad_states`), which keeps every padded column exactly 0 through a
 round, and the LayerNorm takes its mean and variance over the model's first
@@ -54,13 +50,8 @@ padding is exact, as the JAX package's ``pad_msg_width`` is
 (:func:`pack_weights_f32`), its states padded to that width as well where
 ``msg_hidden`` is the larger, the LayerNorm still over ``hidden``.  The
 plain versions take any width; the kernels refuse only a pack wider than
-``WIDE_MAX`` (:func:`check_width`).  A graph whose two gather panels do not
-fit in a block's shared memory beside the chunk buffers and the weight ring
-runs the 128-column K1's variant with the panels in global memory
-(``fused_rounds_gpanels``): with f32 states d=13, d=15 and the circuit d=5
-and d=7 graphs, with bf16 states circuit d=7; K2a (``fused_backward.py``)
-likewise.  The wide kernels keep no panels: their tiles of 64 or 128 rows
-gather from global memory, so they take any graph.
+``WIDE_MAX`` (:func:`check_width`).  The kernel keeps no gather panels: its
+tiles of 64 or 128 rows gather from global memory, so it takes any graph.
 """
 
 from __future__ import annotations
@@ -76,24 +67,20 @@ __all__ = ["RoundWeights", "make_operators", "pack_weights", "pack_weights_f32",
            "kernel_width", "cast_packs", "pad_packs", "pad_states", "check_width",
            "rounds_plain", "decoder_rounds", "launch_counts", "reset_launch_counts",
            "tf32_round", "tf32_split_pack", "wgmma_pack", "wide_slab_rows", "wide_library",
-           "samples_per_block",
-           "stack_slot_tables", "forward_library", "STATE_DTYPES", "SMEM_LIMIT", "WIDTH",
-           "WIDE_MAX"]
+           "STATE_DTYPES", "SMEM_LIMIT", "WIDTH", "WIDE_MAX"]
 
 STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448  # dynamic shared memory one block may use on Hopper
-WIDTH = 128          # the columns the 128-column rounds kernels are built for
-WIDE_MAX = 512       # the widest pack the wide rounds kernels take (csrc/wide_rounds.cuh)
-CHUNK_ROWS = 128     # rows of one f32 K1 chunk (tc::CR in csrc/rounds_mma.cuh)
+WIDTH = 128          # the narrowest pack of the rounds kernels: narrower models pad to it
+WIDE_MAX = 512       # the widest pack the rounds kernels take (csrc/wide_rounds.cuh)
 
 # launches of the CUDA kernels in this process: K1 (decoder_rounds without
-# grad), K2a and K2b (kernels/fused_backward.py), each with its variant that
-# keeps the gather panels in global memory and its wide kernel apart
-_LAUNCHES = {"fused_rounds": 0, "fused_rounds_gpanels": 0, "fused_rounds_wide": 0,
-             "fused_rounds_fwd_stash": 0, "fused_rounds_fwd_stash_gpanels": 0,
+# grad), K2a and K2b (kernels/fused_backward.py), at 128 columns and, apart
+# (``_wide``), above
+_LAUNCHES = {"fused_rounds": 0, "fused_rounds_wide": 0, "fused_rounds_fwd_stash": 0,
              "fused_rounds_fwd_stash_wide": 0, "fused_rounds_bwd": 0,
-             "fused_rounds_bwd_gpanels": 0, "fused_rounds_bwd_wide": 0}
+             "fused_rounds_bwd_wide": 0}
 
 
 def launch_counts() -> dict:
@@ -232,23 +219,16 @@ def pad_states(*xs: torch.Tensor, width: int = WIDTH):
 
 def check_width(h: int) -> None:
     """Raises unless the kernels take packs of width ``h``
-    (:func:`pack_width`): the wide kernels' ``WIDE_MAX`` is the limit."""
+    (:func:`pack_width`): ``WIDE_MAX`` is the limit."""
     if not 1 <= h <= WIDE_MAX:
         raise ValueError(f"the rounds kernels take hidden and msg_hidden of at most "
                          f"{WIDE_MAX}, got {h}")
 
 
 def kernel_width(h: int) -> int:
-    """The columns the kernels run packs of width ``h`` at: ``WIDTH`` (the
-    128-column kernels) up to 128, else the next multiple of 128 (the wide
-    kernels, ``csrc/wide_rounds.cuh``)."""
+    """The columns the kernels run packs of width ``h`` at: the next
+    multiple of 128 (``WIDTH``)."""
     return WIDTH * -(-h // WIDTH)
-
-
-def forward_library(dt: torch.dtype) -> str:
-    """The library of the 128-column K1 and K2a for a state type: f32 and
-    bf16 states build apart (``fused_rounds_tf32.cu``, ``fused_rounds.cu``)."""
-    return "fused_rounds_tf32" if dt == torch.float32 else "fused_rounds"
 
 
 def pack_weights(w: RoundWeights, dtype: torch.dtype):
@@ -268,7 +248,7 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
 
 
 def tf32_split_pack(mats: torch.Tensor) -> torch.Tensor:
-    """The f32 weight pack as the f32 rounds kernels read it: each matrix
+    """The f32 weight pack as f32 K5 (``csrc/roll_gather_tf32.cu``) reads it: each matrix
     ``w`` [W (k), W (n)] (W = 128) split into ``hi = tf32_round(w)`` and ``lo =
     tf32_round(w - hi)``, laid out in the B-fragment order of
     ``mma.m16n8k8`` so that a lane reads its four values of a k-step and
@@ -284,7 +264,7 @@ def tf32_split_pack(mats: torch.Tensor) -> torch.Tensor:
 
 
 def wide_slab_rows(wid: int, dt: torch.dtype) -> int:
-    """The k rows of one weight slab of the wide kernels at pack width
+    """The k rows of one weight slab of the rounds kernels at pack width
     ``wid`` (``Geo::KS`` in csrc/wide_mma.cuh): 32 in bf16; in f32 (TF32
     halves) 16, or 8 at 512 columns, so that the ring's slabs (at most 48
     KB each) fit in shared memory beside the f32 A tile."""
@@ -294,7 +274,7 @@ def wide_slab_rows(wid: int, dt: torch.dtype) -> int:
 
 
 def wgmma_pack(mats: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-    """The weight pack of the wide kernels (``csrc/wide_mma.cuh``): each
+    """The weight pack of the rounds kernels (``csrc/wide_mma.cuh``): each
     matrix ``w`` [W (k), W (n)] cut into slabs of ``KS =``
     :func:`wide_slab_rows` k rows, each slab contiguous (one bulk copy into
     the kernels' ring) and laid out as wgmma reads a K-major operand without
@@ -315,31 +295,12 @@ def wgmma_pack(mats: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
 
 
 def wide_library(dt: torch.dtype, backward: bool = False) -> str:
-    """The library of the wide kernels for a state type, K1, K2a and K5 or
-    with ``backward`` K2b: f32 and bf16 states build apart, and the forward
-    apart from the backward (``wide_rounds.cu``, ``wide_rounds_tf32.cu``,
-    ``wide_backward.cu``, ``wide_backward_tf32.cu``)."""
+    """The library of the rounds kernels for a state type, K1, K2a and (above
+    128 columns) K5, or with ``backward`` K2b: f32 and bf16 states build
+    apart, and the forward apart from the backward (``wide_rounds.cu``,
+    ``wide_rounds_tf32.cu``, ``wide_backward.cu``, ``wide_backward_tf32.cu``)."""
     name = "wide_backward" if backward else "wide_rounds"
     return name + "_tf32" if dt == torch.float32 else name
-
-
-def samples_per_block(b: int, m: int, n: int, chunk_rows: int = CHUNK_ROWS) -> int:
-    """How many samples one block of the f32 shared-panel kernels takes: the
-    largest power of two ``s`` dividing ``b`` whose ``s`` samples' check and
-    qubit rows each fit in one chunk of ``chunk_rows`` rows (K1 and K2a:
-    128; K5: 144).  A small graph's side (d=3: 16 rows) would otherwise
-    keep one warp of eight busy while every weight streams."""
-    s = 1
-    while b % (2 * s) == 0 and 2 * s * max(m, n) <= chunk_rows:
-        s *= 2
-    return s
-
-
-def stack_slot_tables(idx: torch.Tensor, src_rows: int, s: int) -> torch.Tensor:
-    """The slot table [rows, D] of ``s`` samples laid end to end as one
-    graph [s * rows, D]: sample ``i``'s sources shifted by ``i * src_rows``,
-    masked slots (-1) kept."""
-    return torch.cat([torch.where(idx >= 0, idx + i * src_rows, idx) for i in range(s)])
 
 
 def ln_mean(t: torch.Tensor, width: int | None) -> torch.Tensor:
@@ -475,79 +436,15 @@ def _slot_tables(src_c, mask_c, src_q, mask_q):
     return idx_c, idx_q
 
 
-class _CudaOperands(NamedTuple):
-    code: int
-    gpanels: bool         # the variant with the gather panels in global memory
-    b: int
-    m: int
-    n: int
-    dc: int
-    dq: int
-    xc: torch.Tensor      # [B, M, H] in the state type, contiguous
-    xq: torch.Tensor
-    syn: torch.Tensor     # [B, M] f32
-    idx_c: torch.Tensor
-    idx_q: torch.Tensor
-
-
-def _cuda_operands(lib, xc, xq, syn, operators, mats, rounds, dt, *,
-                   stash: bool) -> _CudaOperands:
-    """Checks a call of the forward kernels (K1, or K2a with ``stash``) on
-    states and packs padded to ``WIDTH`` and prepares its operands; raises
-    on anything the kernels do not take.  A graph whose gather panels do not
-    fit in shared memory takes the global-panel variant, K1's and K2a's, in
-    both state types."""
-    src_c, mask_c, _, src_q, mask_q, _ = operators
-    b, m, h = xc.shape
-    n = xq.shape[1]
-    dc, dq = src_c.shape[1], src_q.shape[1]
-    if xq.shape[0] != b or xq.shape[2] != h:
-        raise ValueError(f"state shapes disagree: {tuple(xc.shape)} vs {tuple(xq.shape)}")
-    if h != WIDTH or tuple(mats.shape[-2:]) != (WIDTH, WIDTH):
-        raise ValueError(f"the fused-rounds kernels take states and packs padded to "
-                         f"{WIDTH} columns, got {h} and {tuple(mats.shape[-2:])}")
-    if rounds < 1:
-        raise ValueError(f"rounds must be >= 1, got {rounds}")
-    if src_c.shape[0] != m or src_q.shape[0] != n:
-        raise ValueError("operators do not match the state rows")
-    dev = xc.device
-    for t in (xq, syn, src_c, src_q, mask_c, mask_q):
-        if t.device != dev:
-            raise ValueError(f"all operands must be on {dev}, got {t.device}")
-    code = _DTYPE_CODE[dt]
-    smem = (lib.fused_rounds_stash_smem_bytes if stash else lib.fused_rounds_smem_bytes)(
-        code, m, n, dc, dq)
-    gpanels = smem > SMEM_LIMIT
-    if gpanels:
-        smem = lib.fused_rounds_gpanels_smem_bytes(code, m, n, dc, dq)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"graph too large for the fused-rounds kernel: needs "
-                         f"{smem} B of shared memory per block (M={m}, N={n}"
-                         f"{', gather panels in global memory' if gpanels else ''}), "
-                         f"limit {SMEM_LIMIT}")
-    idx_c, idx_q = _slot_tables(src_c, mask_c, src_q, mask_q)
-    return _CudaOperands(code, gpanels, b, m, n, dc, dq, xc.detach().to(dt).contiguous(),
-                         xq.detach().to(dt).contiguous(),
-                         syn.detach().reshape(b, m).to(torch.float32).contiguous(),
-                         idx_c, idx_q)
-
-
-def _gpanel_scratch(a: _CudaOperands, dt: torch.dtype, dev):
-    """The global-panel variant's grid, a persistent one of one block per SM
-    (at most B), and its panels: each block's [N + M, WIDTH] in ``dt``."""
-    grid = min(a.b, torch.cuda.get_device_properties(dev).multi_processor_count)
-    return grid, torch.empty((grid, a.m + a.n, WIDTH), dtype=dt, device=dev)
-
-
-def _wide_forward(xc, xq, syn, operators, mats, vecs, rounds: int, dt: torch.dtype,
-                  width: int, *, stash: bool):
-    """The wide K1 (K2a with ``stash``) on states and packs padded to a
-    multiple of 128 above 128 (``csrc/wide_rounds.cuh``); ``width`` is the
-    LayerNorm's columns.  Returns ``(out_c, out_q, stash_c, stash_q)`` in
-    the state type (the stash entries None without ``stash``).  K2a writes
-    round r's input states into entry r of the stash and reads them back for
-    the next round, K1 updates its outputs in place: the same arithmetic, so
-    the same bits.  Raises on what the kernels do not take."""
+def _forward_launch(xc, xq, syn, operators, mats, vecs, rounds: int, dt: torch.dtype,
+                   width: int, *, stash: bool):
+    """K1 (K2a with ``stash``) on states and packs padded to a multiple of
+    128 (``csrc/wide_rounds.cuh``); ``width`` is the LayerNorm's columns.
+    Returns ``(out_c, out_q, stash_c, stash_q)`` in the state type (the
+    stash entries None without ``stash``).  K2a writes round r's input
+    states into entry r of the stash and reads them back for the next round,
+    K1 updates its outputs in place: the same arithmetic, so the same bits.
+    Raises on what the kernel does not take."""
     from tpugnn_torch.kernels._build import load_library
 
     src_c, mask_c, _, src_q, mask_q, _ = operators
@@ -555,9 +452,9 @@ def _wide_forward(xc, xq, syn, operators, mats, vecs, rounds: int, dt: torch.dty
     n = xq.shape[1]
     dc, dq = src_c.shape[1], src_q.shape[1]
     check_width(wid)
-    if wid <= WIDTH or wid % WIDTH or tuple(mats.shape[-2:]) != (wid, wid):
-        raise ValueError(f"the wide rounds kernels take states and packs padded to a multiple "
-                         f"of {WIDTH} above {WIDTH}, got {wid} and {tuple(mats.shape[-2:])}")
+    if wid % WIDTH or tuple(mats.shape[-2:]) != (wid, wid):
+        raise ValueError(f"the rounds kernels take states and packs padded to a multiple "
+                         f"of {WIDTH}, got {wid} and {tuple(mats.shape[-2:])}")
     if xq.shape[0] != b or xq.shape[2] != wid:
         raise ValueError(f"state shapes disagree: {tuple(xc.shape)} vs {tuple(xq.shape)}")
     if rounds < 1:
@@ -590,7 +487,8 @@ def _wide_forward(xc, xq, syn, operators, mats, vecs, rounds: int, dt: torch.dty
             out_q.data_ptr(), None if st_c is None else st_c.data_ptr(),
             None if st_q is None else st_q.data_ptr(), ys_c.data_ptr(), ys_q.data_ptr(),
             b, m, n, dc, dq, rounds, wid, width, stream)
-    name = "fused_rounds_fwd_stash_wide" if stash else "fused_rounds_wide"
+    name = ("fused_rounds_fwd_stash" if stash else "fused_rounds") + (
+        "_wide" if wid > WIDTH else "")
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     _LAUNCHES[name] += 1
@@ -598,8 +496,6 @@ def _wide_forward(xc, xq, syn, operators, mats, vecs, rounds: int, dt: torch.dty
 
 
 def _rounds_cuda(xc, xq, syn, operators, weights, rounds, state_dtype):
-    from tpugnn_torch.kernels._build import load_library
-
     if _needs_grad(xc, xq, syn, weights):
         from tpugnn_torch.kernels.fused_backward import trained_rounds
 
@@ -614,37 +510,6 @@ def _rounds_cuda(xc, xq, syn, operators, weights, rounds, state_dtype):
     wid = kernel_width(mats.shape[-1])
     mats, vecs = pad_packs(mats, vecs, wid)
     xc, xq = pad_states(xc, xq, width=wid)
-    if wid > WIDTH:
-        out_c, out_q, _, _ = _wide_forward(xc, xq, syn, operators, mats, vecs, rounds, dt, h,
-                                           stash=False)
-        return out_c[..., :h].float(), out_q[..., :h].float()
-    lib = load_library(forward_library(dt))
-    a = _cuda_operands(lib, xc, xq, syn, operators, mats, rounds, dt, stash=False)
-    # f32: the weights split into TF32 halves; a small graph's samples
-    # stacked, s to a block, as one graph of s times the rows
-    s = 1
-    idx_c, idx_q = a.idx_c, a.idx_q
-    if a.code == 0:
-        mats = tf32_split_pack(mats)
-        if not a.gpanels:
-            s = samples_per_block(a.b, a.m, a.n)
-            idx_c = stack_slot_tables(idx_c, a.n, s)
-            idx_q = stack_slot_tables(idx_q, a.m, s)
-    out_c = torch.empty_like(a.xc)
-    out_q = torch.empty_like(a.xq)
-    with _cuda_stream(xc.device) as stream:
-        ptrs = (a.xc.data_ptr(), a.xq.data_ptr(), a.syn.data_ptr(), idx_c.data_ptr(),
-                idx_q.data_ptr(), mats.data_ptr(), vecs.data_ptr(), out_c.data_ptr(),
-                out_q.data_ptr())
-        if a.gpanels:
-            grid, panels = _gpanel_scratch(a, dt, xc.device)
-            err = lib.fused_rounds_gpanels_launch(a.code, *ptrs, panels.data_ptr(), a.b, a.m,
-                                                  a.n, a.dc, a.dq, rounds, h, grid, stream)
-        else:
-            err = lib.fused_rounds_launch(a.code, *ptrs, a.b // s, a.m * s, a.n * s, a.dc,
-                                          a.dq, rounds, h, stream)
-    name = "fused_rounds_gpanels" if a.gpanels else "fused_rounds"
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    _LAUNCHES[name] += 1
+    out_c, out_q, _, _ = _forward_launch(xc, xq, syn, operators, mats, vecs, rounds, dt, h,
+                                        stash=False)
     return out_c[..., :h].float(), out_q[..., :h].float()

@@ -26,8 +26,7 @@ rounds there on every cell, empty cells included, and permutes back
   states in bf16, with f32 states as three TF32 products of operands split
   into TF32 halves ("3xTF32", near f32 accuracy; the wrapper splits the
   weights, :func:`~tpugnn_torch.kernels.fused_decoder.tf32_split_pack`, and
-  stacks a small raster's samples into one block,
-  :func:`~tpugnn_torch.kernels.fused_decoder.samples_per_block`).  It
+  stacks a small raster's samples into one block, :func:`samples_per_block`).  It
   launches or raises; there is no fallback to the plain version, to the
   other instantiation or to K1.
 
@@ -87,7 +86,6 @@ from tpugnn_torch.kernels.fused_decoder import (
     pack_weights_f32,
     pad_packs,
     pad_states,
-    samples_per_block,
     tf32_split_pack,
     wgmma_pack,
     wide_library,
@@ -96,10 +94,22 @@ from tpugnn_torch.kernels.fused_decoder import (
 __all__ = ["RollPlan", "RasterOperands", "raster_plan", "plan_for_graph", "rotate",
            "to_raster", "from_raster", "pad_raster", "roll_rounds_plain",
            "decoder_rounds_roll", "roll_library", "launch_counts", "reset_launch_counts",
-           "SLOT_DTYPES"]
+           "samples_per_block", "SLOT_DTYPES"]
 
 SLOT_DTYPES = ("float32", "bfloat16")
 F32_CHUNK_ROWS = 144   # rows of one f32 K5 chunk (9 warps; t3r::CRN in csrc/roll_gather_tf32.cu)
+
+def samples_per_block(b: int, m: int, n: int) -> int:
+    """How many samples one block of f32 K5's shared-panel kernel takes: the
+    largest power of two ``s`` dividing ``b`` whose ``s`` samples' check and
+    qubit rows each fit in one chunk of ``F32_CHUNK_ROWS`` rows.  A small
+    raster (d=3: 16 cells) would otherwise keep one warp of nine busy while
+    every weight streams."""
+    s = 1
+    while b % (2 * s) == 0 and 2 * s * max(m, n) <= F32_CHUNK_ROWS:
+        s *= 2
+    return s
+
 
 # launches of the CUDA kernel in this process: K5, its variants with the
 # gather panels in global memory (f32 and bf16, two kernels) and its wide
@@ -484,7 +494,7 @@ def _roll_rounds_cuda(ops: RasterOperands, *, rounds: int, slot_dtype: str = "fl
     if code == 0:
         mats = tf32_split_pack(mats)
         if not gpanels:
-            s = samples_per_block(b, l_pad, l_pad, F32_CHUNK_ROWS)
+            s = samples_per_block(b, l_pad, l_pad)
         grid = min(b // s, sms)
         # per block: the check states' second buffer, and the global panel
         scratch = torch.empty((grid, (2 if gpanels else 1) * s * l_pad, WIDTH),
